@@ -1,0 +1,164 @@
+"""Hard capacity goals, move path (counterpart of
+``cruise_control_tpu/analyzer/goals/capacity.py``).
+
+Reference: analyzer/goals/CapacityGoal.java:479 (+ DiskCapacityGoal,
+NetworkInboundCapacityGoal) and ReplicaCapacityGoal.java:345: every alive
+broker's utilization of the goal's resource stays under ``capacity_threshold
+* capacity``; replica counts under ``max.replicas.per.broker``. Dead brokers
+must end up empty.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from cruise_control_tpu_torch.analyzer.env import ClusterEnv
+from cruise_control_tpu_torch.analyzer.goals.base import (
+    NEG_INF, WAVE_COUNT, WAVE_DIMS, GoalKernel, candidate_load, row_sum4,
+)
+from cruise_control_tpu_torch.analyzer.state import EngineState
+from cruise_control_tpu_torch.common.resources import EPSILON_ABS, RESOURCES
+from cruise_control_tpu_torch.kernels.move_score import (
+    GOAL_CAPACITY, GOAL_REPLICA_CAPACITY,
+)
+
+# absolute violation tolerances per resource column, as f32 (Resource.java)
+RESOURCE_EPS = torch.tensor([EPSILON_ABS[r] for r in RESOURCES], dtype=torch.float32)
+
+
+def _inf_slack(B: int, device) -> torch.Tensor:
+    return torch.full((B, WAVE_DIMS), torch.inf, dtype=torch.float32, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityGoal(GoalKernel):
+    """Base of the per-resource capacity goals. ``resource`` is the column."""
+    resource: int = 3  # DISK
+
+    def __post_init__(self):
+        object.__setattr__(self, "is_hard", True)
+        object.__setattr__(self, "uses_leadership_moves", True)
+
+    def _eps(self, env: ClusterEnv) -> torch.Tensor:
+        return RESOURCE_EPS[self.resource].to(env.device)
+
+    def _limit(self, env: ClusterEnv) -> torch.Tensor:
+        """f32[B]: allowed utilization; 0 for dead brokers."""
+        thresh = self.constraint.capacity_threshold[self.resource]
+        cap = env.broker_capacity[:, self.resource]
+        return torch.where(env.broker_alive, thresh * cap, torch.zeros_like(cap))
+
+    def broker_severity(self, env: ClusterEnv, st: EngineState):
+        return st.util[:, self.resource] - self._limit(env) - self._eps(env)
+
+    def replica_key(self, env: ClusterEnv, st: EngineState, severity):
+        on_bad = severity[st.replica_broker] > 0
+        load = st.effective_load(env)[:, self.resource]
+        offline = st.replica_offline & env.replica_valid
+        movable = env.replica_valid & on_bad & ((load > 0) | offline)
+        key = torch.where(movable, load, torch.full_like(load, NEG_INF))
+        return torch.where(offline, key + 1e12, key)
+
+    def move_tables(self, env: ClusterEnv, st: EngineState, cand):
+        """Feasible iff util + load <= limit; score = load + 0.01 * headroom
+        / capacity (offline healing: 1 + headroom / capacity)."""
+        l = candidate_load(env, st, cand)[:, self.resource]
+        limit = self._limit(env)
+        util = st.util[:, self.resource]
+        headroom = torch.clamp(limit - util, min=0.0)
+        cap = torch.clamp(env.broker_capacity[:, self.resource], min=1e-6)
+        row_f = torch.zeros((cand.shape[0], 4), dtype=torch.float32, device=cand.device)
+        row_f[:, 0] = l
+        row_f[:, 1] = st.replica_offline[cand].to(torch.float32)
+        col_f = torch.stack([util, limit, 0.01 * headroom / cap,
+                             1.0 + headroom / cap])
+        return GOAL_CAPACITY, row_f, col_f
+
+    def accept_move_rooms(self, env: ClusterEnv, st: EngineState):
+        limit = self._limit(env) + self._eps(env)
+        return {int(self.resource): (None, limit - st.util[:, self.resource])}
+
+    def wave_budgets(self, env: ClusterEnv, st: EngineState):
+        util = st.util[:, self.resource]
+        limit = self._limit(env) + self._eps(env)
+        src = _inf_slack(env.num_brokers, env.device)
+        dst = _inf_slack(env.num_brokers, env.device)
+        dst[:, self.resource] = limit - util
+        return src, dst
+
+    def wave_gain_budgets(self, env: ClusterEnv, st: EngineState):
+        excess = torch.clamp(st.util[:, self.resource] - self._limit(env), min=0.0)
+        return excess, torch.zeros_like(excess), self.resource
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkInboundCapacityGoal(CapacityGoal):
+    resource: int = 1
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "name", "NetworkInboundCapacityGoal")
+        object.__setattr__(self, "uses_leadership_moves", False)  # NW_IN leadership-invariant
+
+
+@dataclasses.dataclass(frozen=True)
+class DiskCapacityGoal(CapacityGoal):
+    resource: int = 3
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "name", "DiskCapacityGoal")
+        object.__setattr__(self, "uses_leadership_moves", False)  # DISK leadership-invariant
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaCapacityGoal(GoalKernel):
+    """Max replicas per broker (ReplicaCapacityGoal.java:345)."""
+
+    def __post_init__(self):
+        object.__setattr__(self, "name", "ReplicaCapacityGoal")
+        object.__setattr__(self, "is_hard", True)
+
+    def _max(self) -> int:
+        return self.constraint.max_replicas_per_broker
+
+    def broker_severity(self, env: ClusterEnv, st: EngineState):
+        limit = torch.where(env.broker_alive, self._max(), 0)
+        return (st.replica_count - limit).to(torch.float32)
+
+    def replica_key(self, env: ClusterEnv, st: EngineState, severity):
+        on_bad = severity[st.replica_broker] > 0
+        load = row_sum4(st.effective_load(env))
+        offline = st.replica_offline & env.replica_valid
+        key = torch.where(env.replica_valid & on_bad, -load,
+                          torch.full_like(load, NEG_INF))
+        return torch.where(offline, key + 1e12, key)
+
+    def move_tables(self, env: ClusterEnv, st: EngineState, cand):
+        """Feasible iff the destination stays within the cap; score prefers
+        the most headroom."""
+        feasible = (st.replica_count + 1) <= self._max()
+        headroom = torch.clamp(self._max() - st.replica_count, min=0).to(torch.float32)
+        score = 1.0 + 0.001 * headroom / max(self._max(), 1)
+        col_f = torch.zeros((4, env.num_brokers), dtype=torch.float32, device=cand.device)
+        col_f[0] = feasible.to(torch.float32)
+        col_f[1] = score
+        row_f = torch.zeros((cand.shape[0], 4), dtype=torch.float32, device=cand.device)
+        return GOAL_REPLICA_CAPACITY, row_f, col_f
+
+    def accept_move_rooms(self, env: ClusterEnv, st: EngineState):
+        c = st.replica_count.to(torch.float32)
+        return {WAVE_COUNT: (None, float(self._max()) - c)}
+
+    def wave_budgets(self, env: ClusterEnv, st: EngineState):
+        c = st.replica_count.to(torch.float32)
+        src = _inf_slack(env.num_brokers, env.device)
+        dst = _inf_slack(env.num_brokers, env.device)
+        dst[:, WAVE_COUNT] = float(self._max()) - c
+        return src, dst
+
+    def wave_gain_budgets(self, env: ClusterEnv, st: EngineState):
+        c = st.replica_count.to(torch.float32)
+        excess = torch.clamp(c - float(self._max()), min=0.0)
+        return excess, torch.zeros_like(excess), WAVE_COUNT

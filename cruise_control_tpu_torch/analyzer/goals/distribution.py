@@ -1,0 +1,111 @@
+"""ReplicaDistributionGoal (counterpart of
+``cruise_control_tpu/analyzer/goals/distribution.py``, count distribution).
+
+Reference: ReplicaDistributionAbstractGoal.java (limit math :70-90) with
+ReplicaDistributionGoal.java:356. Limits are ceil/floor of
+avg * (1 +- (pct - 1) * 0.9), in f32 like the reference. Scores are
+violation-measure gains; a move may not create a NEW violation at either
+endpoint.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from cruise_control_tpu_torch.analyzer.env import BALANCE_MARGIN, ClusterEnv
+from cruise_control_tpu_torch.analyzer.goals.base import (
+    NEG_INF, WAVE_COUNT, WAVE_DIMS, GoalKernel, broker_lookup, row_sum4,
+    spread_jitter,
+)
+from cruise_control_tpu_torch.analyzer.state import EngineState
+from cruise_control_tpu_torch.kernels.move_score import GOAL_REPLICA_DIST
+
+
+def _count_limits(counts_total, n_alive, balance_pct, triggered, multiplier):
+    """(lower, upper) f32 integer limits (ReplicaDistributionAbstractGoal.java:70-90)."""
+    f32 = torch.float32
+    avg = counts_total / torch.clamp(n_alive, min=1)
+    pct = torch.tensor(balance_pct * multiplier if triggered else balance_pct,
+                       dtype=f32, device=avg.device)
+    adj = (pct - 1.0) * BALANCE_MARGIN
+    upper = torch.ceil(avg * (1.0 + adj))
+    lower = torch.floor(avg * torch.clamp(1.0 - adj, min=0.0))
+    return lower.to(f32), upper.to(f32)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaDistributionGoal(GoalKernel):
+    """Even replica counts (ReplicaDistributionGoal.java:356)."""
+
+    def __post_init__(self):
+        object.__setattr__(self, "name", "ReplicaDistributionGoal")
+
+    def _limits(self, env: ClusterEnv, st: EngineState):
+        n_alive = env.broker_alive.sum().to(torch.float32)
+        # all replicas count toward the average: replicas on dead brokers
+        # must land on alive ones
+        total = st.replica_count.sum().to(torch.float32)
+        lower, upper = _count_limits(
+            total, n_alive, self.constraint.replica_balance_percentage,
+            self.options.triggered_by_goal_violation,
+            self.constraint.goal_violation_distribution_threshold_multiplier)
+        zero = torch.zeros(env.num_brokers, dtype=torch.float32, device=env.device)
+        return (torch.where(env.broker_alive, lower, zero),
+                torch.where(env.broker_alive, upper, zero))
+
+    def broker_severity(self, env: ClusterEnv, st: EngineState):
+        lower, upper = self._limits(env, st)
+        c = st.replica_count.to(torch.float32)
+        return torch.maximum(c - upper, lower - c)
+
+    def replica_key(self, env: ClusterEnv, st: EngineState, severity):
+        lower, upper = self._limits(env, st)
+        c = st.replica_count.to(torch.float32)
+        per = broker_lookup(st.replica_broker, c - upper, c - 1.0 - lower,
+                            row_sum4(st.util))
+        over = per[:, 0] > 0
+        any_deficit = (lower - c > 0).any()
+        donor = per[:, 1] >= 0
+        load = row_sum4(st.effective_load(env))
+        movable = env.replica_valid & (over | (any_deficit & donor))
+        offline = st.replica_offline & env.replica_valid
+        # light replicas first; the hash jitter spreads the pool across brokers
+        tiebreak = ((1.0 - load / torch.clamp(per[:, 2], min=1e-9))
+                    * spread_jitter(env.num_replicas, env.device))
+        key = torch.where(movable | offline, tiebreak, torch.full_like(load, NEG_INF))
+        return torch.where(offline, key + 1e12, key)
+
+    def move_tables(self, env: ClusterEnv, st: EngineState, cand):
+        """The count gain of ``_gain(c[src], c[dst], 1.0, ...)`` (kernel side);
+        offline healing scores 1 + room / (upper + 1)."""
+        lower, upper = self._limits(env, st)
+        c = st.replica_count.to(torch.float32)
+        src = st.replica_broker[cand]
+        row_f = torch.stack([c[src], lower[src], upper[src],
+                             st.replica_offline[cand].to(torch.float32)], dim=1)
+        heal = 1.0 + torch.clamp(upper - c - 1.0, min=0.0) / (upper + 1.0)
+        col_f = torch.stack([c, lower, upper, heal])
+        return GOAL_REPLICA_DIST, row_f, col_f
+
+    def accept_move_rooms(self, env: ClusterEnv, st: EngineState):
+        lower, upper = self._limits(env, st)
+        c = st.replica_count.to(torch.float32)
+        src = torch.where(c > upper, torch.full_like(c, torch.inf), c - lower)
+        return {WAVE_COUNT: (src, upper - c)}
+
+    def wave_budgets(self, env: ClusterEnv, st: EngineState):
+        lower, upper = self._limits(env, st)
+        c = st.replica_count.to(torch.float32)
+        B = env.num_brokers
+        src = torch.full((B, WAVE_DIMS), torch.inf, dtype=torch.float32, device=env.device)
+        dst = torch.full((B, WAVE_DIMS), torch.inf, dtype=torch.float32, device=env.device)
+        src[:, WAVE_COUNT] = c - lower
+        dst[:, WAVE_COUNT] = upper - c
+        return src, dst
+
+    def wave_gain_budgets(self, env: ClusterEnv, st: EngineState):
+        lower, upper = self._limits(env, st)
+        c = st.replica_count.to(torch.float32)
+        return (torch.clamp(c - upper, min=0.0), torch.clamp(lower - c, min=0.0),
+                WAVE_COUNT)

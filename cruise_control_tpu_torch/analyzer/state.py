@@ -1,0 +1,224 @@
+"""Mutable engine state + incremental maintenance (counterpart of
+``cruise_control_tpu/analyzer/state.py``, the move path).
+
+The pass loop carries this dataclass of device tensors and applies the
+reference's bookkeeping as batched segment updates per wave; ``refresh``
+recomputes everything from the assignment (the ground truth the tests hold
+the incremental path against). Every segment sum goes through the K4/K5
+kernels (``kernels.segment``): float sums in the oracle's row order, integer
+tallies by atomics — deterministic run to run.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from cruise_control_tpu_torch.analyzer.env import ClusterEnv
+from cruise_control_tpu_torch.common.resources import Resource
+from cruise_control_tpu_torch.kernels import segment_count, segment_sum
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineState:
+    replica_broker: torch.Tensor      # i64[R]
+    replica_is_leader: torch.Tensor   # bool[R]
+    replica_offline: torch.Tensor     # bool[R]
+    replica_disk: torch.Tensor        # i64[R]
+    util: torch.Tensor                # f32[B, M] total hosted load
+    leader_util: torch.Tensor         # f32[B, M] leader-replica load only
+    potential_nw_out: torch.Tensor    # f32[B] leader-mode NW_OUT of hosted replicas
+    replica_count: torch.Tensor       # i32[B]
+    leader_count: torch.Tensor        # i32[B]
+    part_rack_count: torch.Tensor     # i32[P, K]
+    topic_broker_count: torch.Tensor  # i32[T, B]
+    topic_leader_count: torch.Tensor  # i32[T, B]
+    disk_util: torch.Tensor           # f32[B, D]
+    moved: torch.Tensor               # bool[R] relocated during this optimization
+    leadership_moved: torch.Tensor    # bool[R]
+    # Neumaier residuals of the incremental util / leader_util updates
+    # (``util + util_residual`` is the compensated sum); refresh zeroes them
+    util_residual: torch.Tensor       # f32[B, M]
+    leader_util_residual: torch.Tensor  # f32[B, M]
+
+    def effective_load(self, env: ClusterEnv) -> torch.Tensor:
+        load = torch.where(self.replica_is_leader[:, None], env.leader_load,
+                           env.follower_load)
+        return torch.where(env.replica_valid[:, None], load, torch.zeros_like(load))
+
+
+def init_state(env: ClusterEnv, replica_broker, replica_is_leader,
+               replica_offline, replica_disk) -> EngineState:
+    """Engine state of the given (host) assignment, derived tables refreshed."""
+    dev = env.device
+
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a), device=dev).to(dtype)
+
+    B, P, T, R = env.num_brokers, env.num_partitions, env.num_topics, env.num_replicas
+    f32, i32 = torch.float32, torch.int32
+    st = EngineState(
+        replica_broker=t(replica_broker, torch.int64),
+        replica_is_leader=t(replica_is_leader, torch.bool),
+        replica_offline=t(replica_offline, torch.bool),
+        replica_disk=t(replica_disk, torch.int64),
+        util=torch.zeros_like(env.broker_capacity),
+        leader_util=torch.zeros_like(env.broker_capacity),
+        potential_nw_out=torch.zeros(B, dtype=f32, device=dev),
+        replica_count=torch.zeros(B, dtype=i32, device=dev),
+        leader_count=torch.zeros(B, dtype=i32, device=dev),
+        part_rack_count=torch.zeros((P, env.num_racks), dtype=i32, device=dev),
+        topic_broker_count=torch.zeros((T, B), dtype=i32, device=dev),
+        topic_leader_count=torch.zeros((T, B), dtype=i32, device=dev),
+        disk_util=torch.zeros_like(env.broker_disk_capacity),
+        moved=torch.zeros(R, dtype=torch.bool, device=dev),
+        leadership_moved=torch.zeros(R, dtype=torch.bool, device=dev),
+        util_residual=torch.zeros_like(env.broker_capacity),
+        leader_util_residual=torch.zeros_like(env.broker_capacity),
+    )
+    return refresh(env, st)
+
+
+def refresh_sum_inputs(env: ClusterEnv, st: EngineState):
+    """(values f32[R, 9], seg i64[R]) of refresh's per-broker float sums:
+    columns util[4], leader_util[4], potential NW_OUT."""
+    valid = env.replica_valid
+    lead = st.replica_is_leader & valid
+    zero = torch.zeros_like(env.leader_load)
+    vals = torch.cat([
+        st.effective_load(env),
+        torch.where(lead[:, None], env.leader_load, zero),
+        torch.where(valid, env.leader_load[:, Resource.NW_OUT],
+                    torch.zeros_like(valid, dtype=torch.float32))[:, None],
+    ], dim=1)
+    return vals.contiguous(), st.replica_broker
+
+
+def refresh(env: ClusterEnv, st: EngineState) -> EngineState:
+    """Recompute all derived state from the assignment (ground truth)."""
+    B, P, T = env.num_brokers, env.num_partitions, env.num_topics
+    Kr = env.num_racks
+    D = env.broker_disk_capacity.shape[1]
+    rb = st.replica_broker
+    valid = env.replica_valid
+    lead = st.replica_is_leader & valid
+    load = st.effective_load(env)
+    sums = segment_sum(*refresh_sum_inputs(env, st), B)
+    vw = valid.to(torch.int32)
+    lw = lead.to(torch.int32)
+    flat = env.replica_partition * Kr + env.broker_rack[rb]
+    tflat = env.replica_topic * B + rb
+    du = segment_sum(load[:, Resource.DISK:Resource.DISK + 1].contiguous(),
+                     rb * D + st.replica_disk, B * D)
+    util = sums[:, 0:4].contiguous()
+    return dataclasses.replace(
+        st, util=util, leader_util=sums[:, 4:8].contiguous(),
+        potential_nw_out=sums[:, 8].contiguous(),
+        replica_count=segment_count(rb, B, vw),
+        leader_count=segment_count(rb, B, lw),
+        part_rack_count=segment_count(flat, P * Kr, vw).view(P, Kr),
+        topic_broker_count=segment_count(tflat, T * B, vw).view(T, B),
+        topic_leader_count=segment_count(tflat, T * B, lw).view(T, B),
+        disk_util=du.view(B, D),
+        util_residual=torch.zeros_like(util),
+        leader_util_residual=torch.zeros_like(util))
+
+
+def apply_sum_inputs(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
+                     dsts: torch.Tensor, mask: torch.Tensor):
+    """(values f32[2W, 17], seg i64[2W], init f32[B, 17]) of one wave's
+    chained per-broker float update: every source row (negated, in row
+    order), then every destination row; columns util[4], leader_util[4],
+    potential NW_OUT, and the util / leader_util deltas again for the
+    Neumaier residual. Masked rows get segment -1 (they add nothing)."""
+    B = env.num_brokers
+    is_leader = st.replica_is_leader[replicas]
+    src = st.replica_broker[replicas]
+    zero = torch.zeros((replicas.shape[0], 4), dtype=torch.float32,
+                       device=replicas.device)
+    load = torch.where(is_leader[:, None], env.leader_load[replicas],
+                       env.follower_load[replicas])
+    load = torch.where(mask[:, None], load, zero)
+    lead_load = torch.where((mask & is_leader)[:, None], env.leader_load[replicas],
+                            zero)
+    pot = torch.where(mask, env.leader_load[replicas, Resource.NW_OUT],
+                      zero[:, 0])
+    row = torch.cat([load, lead_load, pot[:, None]], dim=1)          # [W, 9]
+    row = torch.cat([row, row[:, :8]], dim=1)                         # + agg cols
+    vals = torch.cat([-row, row]).contiguous()                        # src, then dst
+    none = torch.full_like(src, -1)
+    seg = torch.cat([torch.where(mask, src, none), torch.where(mask, dsts, none)])
+    init = torch.cat([st.util, st.leader_util, st.potential_nw_out[:, None],
+                      torch.zeros((B, 8), dtype=torch.float32,
+                                  device=replicas.device)], dim=1).contiguous()
+    return vals, seg, init
+
+
+def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
+                        dsts: torch.Tensor, mask: torch.Tensor) -> EngineState:
+    """Apply a WAVE of moves: ``replicas[W]`` relocate to ``dsts[W]`` where
+    ``mask[W]``. Masked rows add zero and never write the assignment;
+    enabled rows must be unique. Float tallies follow the reference's
+    chained ``.at[src].add(-x).at[dst].add(x)`` order, with the Neumaier
+    residual ``res + ((acc - new) + agg)`` of ``_kahan_scatter2``."""
+    B, P, T = env.num_brokers, env.num_partitions, env.num_topics
+    Kr = env.num_racks
+    D = env.broker_disk_capacity.shape[1]
+    is_leader = st.replica_is_leader[replicas]
+    src = st.replica_broker[replicas]
+    vals, seg, init = apply_sum_inputs(env, st, replicas, dsts, mask)
+    out = segment_sum(vals, seg, B, init)
+    util, leader_util = out[:, 0:4], out[:, 4:8]
+    util_res = st.util_residual + ((st.util - util) + out[:, 9:13])
+    lead_res = st.leader_util_residual + ((st.leader_util - leader_util)
+                                          + out[:, 13:17])
+
+    one = mask.to(torch.int32)
+    lone = (mask & is_leader).to(torch.int32)
+    w1 = torch.cat([-one, one])
+    wl = torch.cat([-lone, lone])
+    both = torch.cat([src, dsts])
+    pidx = env.replica_partition[replicas]
+    tidx = env.replica_topic[replicas]
+    prc_seg = torch.cat([pidx * Kr + env.broker_rack[src],
+                         pidx * Kr + env.broker_rack[dsts]])
+    t_seg = torch.cat([tidx * B + src, tidx * B + dsts])
+    rc = segment_count(both, B, w1, st.replica_count)
+    lc = segment_count(both, B, wl, st.leader_count)
+    prc = segment_count(prc_seg, P * Kr, w1, st.part_rack_count.reshape(-1))
+    tbc = segment_count(t_seg, T * B, w1, st.topic_broker_count.reshape(-1))
+    tlc = segment_count(t_seg, T * B, wl, st.topic_leader_count.reshape(-1))
+
+    # destination logdir: most-free alive disk on dst at pre-wave state
+    free = torch.where(env.broker_disk_alive[dsts],
+                       env.broker_disk_capacity[dsts] - st.disk_util[dsts],
+                       torch.full((dsts.shape[0], D), -torch.inf,
+                                  device=dsts.device))
+    dst_disk = torch.argmax(free, dim=1)
+    dl = vals[replicas.shape[0]:, Resource.DISK]
+    none = torch.full_like(src, -1)
+    d_seg = torch.cat([torch.where(mask, src * D + st.replica_disk[replicas], none),
+                       torch.where(mask, dsts * D + dst_disk, none)])
+    du = segment_sum(torch.cat([-dl, dl])[:, None].contiguous(), d_seg, B * D,
+                     st.disk_util.reshape(B * D, 1).contiguous())
+
+    en = torch.nonzero(mask).flatten()
+    r_en = replicas[en]
+    replica_broker = st.replica_broker.clone()
+    replica_broker[r_en] = dsts[en]
+    replica_disk = st.replica_disk.clone()
+    replica_disk[r_en] = dst_disk[en]
+    offline = st.replica_offline.clone()
+    offline[r_en] = False
+    moved = st.moved.clone()
+    moved[r_en] = True
+    return dataclasses.replace(
+        st, replica_broker=replica_broker, replica_disk=replica_disk,
+        replica_offline=offline, util=util.contiguous(),
+        leader_util=leader_util.contiguous(),
+        potential_nw_out=out[:, 8].contiguous(), replica_count=rc,
+        leader_count=lc, part_rack_count=prc.view(P, Kr),
+        topic_broker_count=tbc.view(T, B), topic_leader_count=tlc.view(T, B),
+        disk_util=du.view(B, D), util_residual=util_res,
+        leader_util_residual=lead_res, moved=moved)

@@ -1,0 +1,27 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch twin.
+
+Every wrapper dispatches on the device of the tensors it is given: a CUDA
+tensor launches the kernel (or raises), a CPU tensor runs the plain twin.
+There is no fallback from one to the other. ``KERNELS`` holds each
+kernel's source, the reference function it replaces and its launch count.
+"""
+from cruise_control_tpu_torch.kernels.admission import wave_admission
+from cruise_control_tpu_torch.kernels.build import KERNELS, build_all
+from cruise_control_tpu_torch.kernels.move_score import move_score_classes
+from cruise_control_tpu_torch.kernels.segment import segment_count, segment_sum
+from cruise_control_tpu_torch.kernels.select import select_candidates
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launches() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+__all__ = [
+    "KERNELS", "build_all", "launches", "move_score_classes", "reset_launches",
+    "segment_count", "segment_sum", "select_candidates", "wave_admission",
+]

@@ -1,0 +1,141 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+alone into ``_build/lib<name>-<hash>.so`` (no PyTorch headers, so a build
+takes seconds), then loaded with ``ctypes``. The hash covers the source and
+the flags, so a stale library is never loaded. Nothing is built when this
+module is imported: the first launch of a kernel builds it, and
+``build_all`` builds every kernel at once, one ``nvcc`` per source, all
+started together.
+
+``--fmad=false`` keeps ``a*b+c`` as two rounded operations, so the float
+bits match the plain PyTorch twins and the reference. ``-Xptxas=-v`` puts
+each kernel's registers and shared memory into the build log.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("select_candidates", "move_score", "wave_admission", "segment_sum")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _target(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> str:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(names=SOURCES) -> dict:
+    """Build every named kernel library that is not built yet, in parallel.
+    Returns {"seconds": wall, "built": [...], "log": {name: nvcc output}}."""
+    t0 = time.monotonic()
+    started = {n: _start(n) for n in names if not _target(n).exists()}
+    logs = {}
+    try:
+        for n, (proc, tmp, out) in started.items():
+            logs[n] = _finish(n, proc, tmp, out)
+    finally:
+        for proc, _tmp, _out in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"seconds": time.monotonic() - t0, "built": list(started),
+            "log": logs}
+
+
+P, I = ctypes.c_void_p, ctypes.c_int    # pointer / int argument types
+
+
+def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built on first use.
+    ``signatures`` maps each C entry point to its argument types; every
+    entry point returns its launch's ``cudaError_t`` as an int."""
+    lib = _loaded.get(name)
+    if lib is None:
+        if not _target(name).exists():
+            build_all((name,))
+        lib = ctypes.CDLL(str(_target(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = I
+        _loaded[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {err}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """Device pointer of a tensor (``None`` -> NULL)."""
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def stream_ptr() -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+class Kernel:
+    """One hand-written kernel: where it lives, which reference function it
+    replaces, and how often its wrapper launched it (``launches`` counts
+    CUDA launches only; the plain twin on the CPU counts nothing)."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+
+KERNELS: dict[str, Kernel] = {}
+
+
+def register(name: str, source: str, replaces: str) -> Kernel:
+    k = Kernel(name, source, replaces)
+    KERNELS[name] = k
+    return k

@@ -1,0 +1,148 @@
+// K2 move_score_classes: [K, B] move legitimacy + chain rooms + rack veto +
+// active-goal score, reduced to the best (value, lowest q) per destination
+// class b % T.
+//
+// Replaces cruise_control_tpu/analyzer/engine.py _score_class_rows
+// (:767-792) with _rooms_move_mask (:693), goals/base.py legit_move_mask
+// (:369), RackAwareGoal.accept_move (goals/rack.py:72) and the move_score of
+// RackAwareGoal, CapacityGoal, ReplicaCapacityGoal and
+// ReplicaDistributionGoal. The goal's [B]-level columns (col_f) and per-row
+// values (row_f) arrive precomputed with the reference's arithmetic; every
+// float operation here is one IEEE add/sub/compare (built with --fmad=false).
+//
+// Design: one CTA per candidate row; threads stride over B; the row's
+// sibling brokers sit in shared memory; scores are staged in shared memory
+// (Bp = ceil(B/T)*T floats, -inf padded) and one thread per class walks its
+// B/T strided values with a strict '>' so the lowest q wins ties. Bound:
+// bytes — the [B]-level tables stream from L2 for every row.
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kGoalRack = 0;
+constexpr int kGoalCapacity = 1;
+constexpr int kGoalReplicaCapacity = 2;
+constexpr int kGoalReplicaDist = 3;
+constexpr int kMaxF = 64;
+constexpr int kDims = 8;
+
+__device__ __forceinline__ float violation(float u, float lo, float up) {
+  return fmaxf(u - up, 0.0f) + fmaxf(lo - u, 0.0f);
+}
+
+__global__ void move_score_kernel(
+    int B, int T, int F, int Kr, int goal_kind, int room_mask, int exempt_mask,
+    int rack_accept, const long long* __restrict__ cur_b,
+    const long long* __restrict__ orig_b, const long long* __restrict__ sib_b,
+    const unsigned char* __restrict__ row_ok, const float* __restrict__ d_rows,
+    const float* __restrict__ dst_room, const long long* __restrict__ prow,
+    const float* __restrict__ row_f, const float* __restrict__ col_f,
+    const unsigned char* __restrict__ dst_ok,
+    const unsigned char* __restrict__ new_ok,
+    const long long* __restrict__ broker_rack, float* __restrict__ cls_val,
+    long long* __restrict__ cls_q) {
+  extern __shared__ float sc[];
+  __shared__ long long sib[kMaxF];
+  const int k = blockIdx.x;
+  const int Bq = (B + T - 1) / T;
+  const int Bp = Bq * T;
+  for (int f = threadIdx.x; f < F; f += blockDim.x) sib[f] = sib_b[(long long)k * F + f];
+  __syncthreads();
+
+  const bool rok = row_ok[k] != 0;
+  const long long cb = cur_b[k];
+  const long long ob = orig_b[k];
+  const bool need_rack = (goal_kind == kGoalRack) || rack_accept;
+  const long long crack = need_rack ? broker_rack[cb] : 0;
+  float d[kDims];
+#pragma unroll
+  for (int c = 0; c < kDims; ++c) d[c] = d_rows[(long long)k * kDims + c];
+  const float r0 = row_f[k * 4 + 0];
+  const float r1 = row_f[k * 4 + 1];
+  const float r2 = row_f[k * 4 + 2];
+  const float r3 = row_f[k * 4 + 3];
+  // per-row halves of ReplicaDistributionGoal's _gain (src side)
+  const float vso = violation(r0, r1, r2);
+  const float vsn = violation(r0 - 1.0f, r1, r2);
+
+  for (int b = threadIdx.x; b < Bp; b += blockDim.x) {
+    float s = -INFINITY;
+    if (rok && b < B) {
+      bool ok = dst_ok[b] && (new_ok[b] || b == ob) && (b != cb);
+      for (int f = 0; f < F && ok; ++f) ok = sib[f] != b;
+#pragma unroll
+      for (int c = 0; c < kDims; ++c) {
+        if ((room_mask >> c) & 1) {
+          bool okc = d[c] <= dst_room[(long long)c * B + b];
+          if ((exempt_mask >> c) & 1) okc = okc || (d[c] == 0.0f);
+          ok = ok && okc;
+        }
+      }
+      long long others = 1;
+      if (ok && need_rack) {
+        const long long rb = broker_rack[b];
+        others = prow[(long long)k * Kr + rb] - (rb == crack ? 1 : 0);
+        if (rack_accept) ok = others == 0;
+      }
+      if (ok) {
+        const float c0 = col_f[b];
+        const float c1 = col_f[B + b];
+        const float c2 = col_f[2 * B + b];
+        const float c3 = col_f[3 * B + b];
+        if (goal_kind == kGoalRack) {
+          s = (others == 0 && r0 != 0.0f) ? c0 : -INFINITY;
+        } else if (goal_kind == kGoalCapacity) {
+          const bool feasible = (c0 + r0) <= c1;
+          const float v = (r1 != 0.0f) ? c3 : (r0 + c2);
+          s = feasible ? v : -INFINITY;
+        } else if (goal_kind == kGoalReplicaCapacity) {
+          s = (c0 != 0.0f) ? c1 : -INFINITY;
+        } else if (goal_kind == kGoalReplicaDist) {
+          const float vdo = violation(c0, c1, c2);
+          const float vdn = violation(c0 + 1.0f, c1, c2);
+          const float gain = (vso - vsn) + (vdo - vdn);
+          const bool feasible = (vsn <= vso) && (vdn <= vdo);
+          s = (r3 != 0.0f) ? c3 : ((feasible && gain > 0.0f) ? gain : -INFINITY);
+        }
+      }
+    }
+    sc[b] = s;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < T; c += blockDim.x) {
+    float best = sc[c];
+    int bq = 0;
+    for (int q = 1; q < Bq; ++q) {
+      const float v = sc[q * T + c];
+      if (v > best) {
+        best = v;
+        bq = q;
+      }
+    }
+    cls_val[(long long)k * T + c] = best;
+    cls_q[(long long)k * T + c] = bq;
+  }
+}
+
+}  // namespace
+
+extern "C" int cc_move_score_classes(
+    int K, int B, int T, int F, int Kr, int goal_kind, int room_mask,
+    int exempt_mask, int rack_accept, const long long* cur_b,
+    const long long* orig_b, const long long* sib_b, const unsigned char* row_ok,
+    const float* d_rows, const float* dst_room, const long long* prow,
+    const float* row_f, const float* col_f, const unsigned char* dst_ok,
+    const unsigned char* new_ok, const long long* broker_rack, float* cls_val,
+    long long* cls_q, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (K <= 0 || B <= 0 || T <= 0 || F > kMaxF) return (int)cudaErrorInvalidValue;
+  const int Bp = ((B + T - 1) / T) * T;
+  const size_t smem = (size_t)Bp * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  move_score_kernel<<<K, 256, smem, stream>>>(
+      B, T, F, Kr, goal_kind, room_mask, exempt_mask, rack_accept, cur_b,
+      orig_b, sib_b, row_ok, d_rows, dst_room, prow, row_f, col_f, dst_ok,
+      new_ok, broker_rack, cls_val, cls_q);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,168 @@
+// K1 select_candidates: stall-salted exact top-k with lowest-index ties.
+//
+// Replaces cruise_control_tpu/analyzer/engine.py _stall_explore (:123),
+// _top_candidates (:166) and _select_candidates (:179). The CPU oracle's
+// lax.top_k orders by value in total order (-0.0 < +0.0) and breaks ties
+// toward the lowest index; the 64-bit composite below sorts exactly so.
+//
+// Design: one pass salts each key and packs
+//   comp[i] = (sortable_bits(key) << 32) | ~i
+// (unique per row, larger composite = earlier in the output). An 8-pass,
+// 8-bit radix select finds the k-th largest composite T (histogram kernel +
+// one-thread bucket choice per pass, all on the stream: no host sync). The k
+// rows with comp >= T are gathered and ordered by a single-CTA bitonic sort
+// in shared memory (k <= 8192, 64 KB). Bound: bytes — the keys are read
+// once, but the radix passes re-read the 8-byte composites eight times.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef unsigned long long u64;
+
+__device__ __forceinline__ uint32_t sortable_bits(float v) {
+  uint32_t u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_sortable(uint32_t s) {
+  uint32_t u = (s & 0x80000000u) ? (s & 0x7FFFFFFFu) : ~s;
+  return __uint_as_float(u);
+}
+
+__global__ void salt_pack(const float* __restrict__ key, int n, int stall,
+                          int salt, int exact, u64* __restrict__ comp) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float v = key[i];
+  if (stall > 0) {
+    uint32_t h = (uint32_t)i * 2246822519u
+                 + ((uint32_t)stall + (uint32_t)salt) * 3266489917u;
+    h = (h ^ (h >> 15)) * 2654435761u;
+    float r01 = __fdiv_rn((float)(h >> 8), 16777216.0f);
+    v = (v > -INFINITY) ? __fadd_rn(r01, (v >= 5e11f) ? 2.0f : 0.0f)
+                        : -INFINITY;
+  }
+  if (!exact) v = __fadd_rn(v, 0.0f);  // IEEE compare: -0.0 ties +0.0
+  comp[i] = ((u64)sortable_bits(v) << 32) | (u64)(~(uint32_t)i);
+}
+
+// state[0] = prefix of the k-th composite found so far, state[1] = rank of
+// the k-th within the current prefix, state[2] = gather counter.
+__global__ void init_state(u64* state, unsigned int* hist, int k) {
+  if (threadIdx.x == 0) {
+    state[0] = 0ull;
+    state[1] = (u64)k;
+    state[2] = 0ull;
+  }
+  for (int b = threadIdx.x; b < 256; b += blockDim.x) hist[b] = 0u;
+}
+
+__global__ void radix_hist(const u64* __restrict__ comp, int n,
+                           const u64* __restrict__ state, int shift,
+                           unsigned int* __restrict__ hist) {
+  __shared__ unsigned int sh[256];
+  for (int b = threadIdx.x; b < 256; b += blockDim.x) sh[b] = 0u;
+  __syncthreads();
+  const u64 prefix = state[0];
+  const u64 mask = (shift >= 56) ? 0ull : ~((1ull << (shift + 8)) - 1ull);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    u64 c = comp[i];
+    if ((c & mask) == (prefix & mask)) {
+      atomicAdd(&sh[(unsigned)((c >> shift) & 255ull)], 1u);
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < 256; b += blockDim.x) {
+    if (sh[b]) atomicAdd(&hist[b], sh[b]);
+  }
+}
+
+__global__ void radix_choose(u64* state, unsigned int* hist, int shift) {
+  if (threadIdx.x == 0) {
+    const u64 k_rem = state[1];
+    u64 cum = 0ull;
+    for (int b = 255; b >= 0; --b) {
+      const u64 h = (u64)hist[b];
+      if (cum + h >= k_rem) {
+        state[0] |= ((u64)b << shift);
+        state[1] = k_rem - cum;
+        break;
+      }
+      cum += h;
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < 256; b += blockDim.x) hist[b] = 0u;
+}
+
+__global__ void gather_top(const u64* __restrict__ comp, int n, u64* state,
+                           u64* __restrict__ sel) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const u64 c = comp[i];
+  if (c >= state[0]) {
+    const u64 p = atomicAdd(&state[2], 1ull);
+    sel[p] = c;
+  }
+}
+
+__global__ void bitonic_top(const u64* __restrict__ sel, int k, int kpad,
+                            float* __restrict__ out_kv,
+                            long long* __restrict__ out_idx) {
+  extern __shared__ u64 s[];
+  for (int i = threadIdx.x; i < kpad; i += blockDim.x) {
+    s[i] = (i < k) ? sel[i] : 0ull;   // pads sort below every real row
+  }
+  __syncthreads();
+  for (int size = 2; size <= kpad; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < kpad; i += blockDim.x) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const bool desc = (i & size) == 0;
+          const u64 a = s[i], b = s[j];
+          if (desc ? (a < b) : (a > b)) {
+            s[i] = b;
+            s[j] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < k; i += blockDim.x) {
+    const u64 c = s[i];
+    out_kv[i] = from_sortable((uint32_t)(c >> 32));
+    out_idx[i] = (long long)(~(uint32_t)(c & 0xFFFFFFFFull));
+  }
+}
+
+}  // namespace
+
+extern "C" int cc_select_candidates(const float* key, int n, int k, int stall,
+                                    int salt, int exact, u64* comp, u64* sel,
+                                    u64* state, unsigned int* hist,
+                                    float* out_kv, long long* out_idx,
+                                    void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (n <= 0 || k <= 0 || k > n || k > 8192) return (int)cudaErrorInvalidValue;
+  int kpad = 1;
+  while (kpad < k) kpad <<= 1;
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads;
+  const int hist_blocks = blocks < 1024 ? blocks : 1024;
+  init_state<<<1, 256, 0, stream>>>(state, hist, k);
+  salt_pack<<<blocks, threads, 0, stream>>>(key, n, stall, salt, exact, comp);
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    radix_hist<<<hist_blocks, threads, 0, stream>>>(comp, n, state, shift, hist);
+    radix_choose<<<1, 256, 0, stream>>>(state, hist, shift);
+  }
+  gather_top<<<blocks, threads, 0, stream>>>(comp, n, state, sel);
+  const int smem = kpad * (int)sizeof(u64);
+  cudaFuncSetAttribute(bitonic_top, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  bitonic_top<<<1, 1024, smem, stream>>>(sel, k, kpad, out_kv, out_idx);
+  return (int)cudaGetLastError();
+}

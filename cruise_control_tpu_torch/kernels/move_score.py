@@ -1,0 +1,160 @@
+"""K2 ``move_score_classes``: the [K, B] move-wave score fusion with its
+per-destination-class best.
+
+Replaces ``cruise_control_tpu/analyzer/engine.py`` ``_move_wave`` /
+``_score_class_rows`` (:767-792) with ``_rooms_move_mask`` (:693),
+``goals/base.py`` ``legit_move_mask`` (:369), ``RackAwareGoal.accept_move``
+(rack.py:72) and the active goal's ``move_score``. For every (candidate k,
+destination b) it evaluates legitimacy (allowed destination, new-broker
+rule, not self, no sibling replica on b), the chain's combined destination
+rooms, the Rack veto when RackAwareGoal is a previous goal, and the active
+goal's score; then it reduces each row to the best value and its lowest
+strided index ``q`` in every class ``b % T`` (``jnp.argmax``'s first-max
+rule).
+
+Goal families (``GOAL_*``): the goal precomputes its [B]-level columns
+(``col_f`` f32[4, B]) and per-row values (``row_f`` f32[K, 4]) with the
+reference's own arithmetic; the kernel does only the [K, B] part.
+
+CUDA kernel (``csrc/move_score.cu``): one CTA per candidate row, threads
+over B, scores staged in shared memory, one thread per class for the
+reduction. Bound: bytes (the [B]-level tables are read once per row from
+L2; the work is a few dozen operations per (k, b)).
+"""
+from __future__ import annotations
+
+import torch
+
+from cruise_control_tpu_torch.kernels.build import (
+    I, P, check, library, ptr, register, stream_ptr,
+)
+
+KERNEL = register("move_score_classes",
+                  "cruise_control_tpu_torch/kernels/csrc/move_score.cu",
+                  "cruise_control_tpu/analyzer/engine.py:767")
+
+GOAL_RACK = 0              # RackAwareGoal
+GOAL_CAPACITY = 1          # CapacityGoal (Disk / NetworkInbound / ...)
+GOAL_REPLICA_CAPACITY = 2  # ReplicaCapacityGoal
+GOAL_REPLICA_DIST = 3      # ReplicaDistributionGoal
+WAVE_DIMS = 8
+EXEMPT_MASK = 1 << 5       # WAVE_LEADER_COUNT: zero-delta rows pass its rooms
+MAX_F = 64
+MAX_SMEM = 48 * 1024
+
+
+def _violation(u, lower, upper):
+    return torch.clamp(u - upper, min=0.0) + torch.clamp(lower - u, min=0.0)
+
+
+def _goal_score(goal_kind, others, row_f, col_f, K, B):
+    neg = torch.full((K, B), -torch.inf, dtype=torch.float32, device=row_f.device)
+    if goal_kind == GOAL_RACK:
+        ok = (others == 0) & (row_f[:, 0] != 0)[:, None]
+        return torch.where(ok, col_f[0][None, :].expand(K, B), neg)
+    if goal_kind == GOAL_CAPACITY:
+        l = row_f[:, 0:1]
+        feasible = (col_f[0][None, :] + l) <= col_f[1][None, :]
+        s = torch.where((row_f[:, 1] != 0)[:, None], col_f[3][None, :].expand(K, B),
+                        l + col_f[2][None, :])
+        return torch.where(feasible, s, neg)
+    if goal_kind == GOAL_REPLICA_CAPACITY:
+        return torch.where((col_f[0] != 0)[None, :], col_f[1][None, :].expand(K, B),
+                           neg)
+    if goal_kind == GOAL_REPLICA_DIST:
+        c_s, lo_s, up_s = row_f[:, 0], row_f[:, 1], row_f[:, 2]
+        c_d, lo_d, up_d = col_f[0], col_f[1], col_f[2]
+        vso = _violation(c_s, lo_s, up_s)
+        vsn = _violation(c_s - 1.0, lo_s, up_s)
+        vdo = _violation(c_d, lo_d, up_d)
+        vdn = _violation(c_d + 1.0, lo_d, up_d)
+        gain = (vso - vsn)[:, None] + (vdo - vdn)[None, :]
+        feasible = (vsn <= vso)[:, None] & (vdn <= vdo)[None, :]
+        s = torch.where(feasible & (gain > 0), gain, neg)
+        return torch.where((row_f[:, 3] != 0)[:, None], col_f[3][None, :].expand(K, B), s)
+    raise ValueError(f"unknown goal kind {goal_kind}")
+
+
+def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
+                             dst_room, room_mask, prow, rack_accept, row_f, col_f,
+                             dst_ok, new_ok, broker_rack):
+    K, B = cur_b.shape[0], dst_ok.shape[0]
+    bidx = torch.arange(B, device=cur_b.device)
+    ok = (dst_ok[None, :] & (new_ok[None, :] | (bidx[None, :] == orig_b[:, None]))
+          & (bidx[None, :] != cur_b[:, None]))
+    ok = ok & ~(sib_b[:, :, None] == bidx[None, None, :]).any(dim=1)
+    for c in range(WAVE_DIMS):
+        if room_mask >> c & 1:
+            okc = d_rows[:, c:c + 1] <= dst_room[c][None, :]
+            if EXEMPT_MASK >> c & 1:
+                okc = okc | (d_rows[:, c] == 0)[:, None]
+            ok = ok & okc
+    others = None
+    if prow is not None:
+        cur_rack = broker_rack[cur_b]
+        others = (prow.gather(1, broker_rack[None, :].expand(K, B))
+                  - (broker_rack[None, :] == cur_rack[:, None]).to(prow.dtype))
+        if rack_accept:
+            ok = ok & (others == 0)
+    score = _goal_score(goal_kind, others, row_f, col_f, K, B)
+    sc = torch.where(ok & row_ok[:, None], score,
+                     torch.full_like(score, -torch.inf))
+    Bq = -(-B // T)
+    if Bq * T > B:
+        sc = torch.cat([sc, torch.full((K, Bq * T - B), -torch.inf,
+                                       device=sc.device)], dim=1)
+    sv = sc.view(K, Bq, T)
+    best = sv.max(dim=1).values
+    qs = torch.arange(Bq, device=sc.device)[None, :, None]
+    q = torch.where(sv == best[:, None, :], qs, Bq).min(dim=1).values
+    return best, q
+
+
+_SIGNATURES = {"cc_move_score_classes": [I] * 9 + [P] * 15}
+
+
+def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
+                       d_rows, dst_room, room_mask: int, prow, rack_accept: bool,
+                       row_f, col_f, dst_ok, new_ok, broker_rack):
+    """(cls_val f32[K, T], cls_q i64[K, T]): per row, the best score and its
+    lowest strided index q over each destination class ``b % T``.
+
+    Row inputs [K]: ``cur_b``/``orig_b`` i64 (current / original broker),
+    ``sib_b`` i64[K, F] (brokers of the other replicas of the row's
+    partition, -1 padded), ``row_ok`` bool (replica-level legitimacy, kv >
+    -inf and the source-side rooms), ``d_rows`` f32[K, 8] (wave deltas),
+    ``prow`` i64[K, racks] (the row partition's per-rack replica counts; for
+    the rack goal or veto, else None), ``row_f`` f32[K, 4]. Broker inputs [B]:
+    ``dst_room`` f32[8, B] (combined destination rooms; dims in
+    ``room_mask``), ``col_f`` f32[4, B], ``dst_ok``/``new_ok`` bool,
+    ``broker_rack`` i64."""
+    if not cur_b.is_cuda:
+        return move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok,
+                                        d_rows, dst_room, room_mask, prow,
+                                        rack_accept, row_f, col_f, dst_ok, new_ok,
+                                        broker_rack)
+    K, F = sib_b.shape
+    B = dst_ok.shape[0]
+    Bq = -(-B // T)
+    if F > MAX_F or Bq * T * 4 > MAX_SMEM or not 0 < T <= 1024:
+        raise ValueError(f"move_score_classes: unsupported F={F}, B={B}, T={T}")
+    if (goal_kind == GOAL_RACK or rack_accept) and prow is None:
+        raise ValueError("the rack goal and rack veto need prow")
+    tensors = [cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, prow, row_f, col_f,
+               dst_ok, new_ok, broker_rack]
+    for t, dt in zip(tensors, (torch.int64, torch.int64, torch.int64, torch.bool,
+                               torch.float32, torch.float32, torch.int64,
+                               torch.float32, torch.float32, torch.bool,
+                               torch.bool, torch.int64)):
+        if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
+            raise ValueError("move_score_classes: wrong dtype, layout or device")
+    Kr = prow.shape[1] if prow is not None else 0
+    cls_val = torch.empty((K, T), dtype=torch.float32, device=cur_b.device)
+    cls_q = torch.empty((K, T), dtype=torch.int64, device=cur_b.device)
+    err = library("move_score", _SIGNATURES).cc_move_score_classes(
+        K, B, T, F, Kr, int(goal_kind), int(room_mask), EXEMPT_MASK,
+        int(bool(rack_accept)),
+        *(ptr(t) for t in tensors), ptr(cls_val), ptr(cls_q), stream_ptr())
+    check(err, "move_score_classes")
+    KERNEL.launches += 1
+    return cls_val, cls_q

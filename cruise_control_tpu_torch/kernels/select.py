@@ -1,0 +1,98 @@
+"""K1 ``select_candidates``: stall-salted exact top-k candidate selection.
+
+Replaces ``cruise_control_tpu/analyzer/engine.py`` ``_stall_explore`` (:123),
+``_top_candidates`` (:166) and ``_select_candidates`` (:179) on the full-R
+path (``compact_keying`` off). Order: descending key, lowest replica index
+first among ties — ``lax.top_k``'s order on the CPU oracle, which compares
+in total order (-0.0 < +0.0). Soft goals use ``approx_max_k`` in the
+reference; on the CPU oracle it is an exact, stable top-k that compares
+IEEE values (-0.0 == +0.0), so ``exact=False`` canonicalizes -0.0 first.
+
+CUDA kernel (``csrc/select_candidates.cu``): one pass salts the keys (the
+uint32 hash of engine.py:143-149) and packs the order-preserving 64-bit
+composite ``(sortable(key) << 32) | ~idx``; an 8-pass radix select finds the
+k-th largest composite; the k survivors are gathered and ordered by a
+single-CTA bitonic sort in shared memory. Bound: bytes (it reads the f32[R]
+keys once and writes k results; the radix passes re-read the composites).
+
+The plain twin sorts the same order-preserving integers with a stable
+``torch.sort``; the hash runs in int64 masked to 32 bits.
+"""
+from __future__ import annotations
+
+import torch
+
+from cruise_control_tpu_torch.kernels.build import (
+    I, P, check, library, ptr, register, stream_ptr,
+)
+
+KERNEL = register("select_candidates",
+                  "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
+                  "cruise_control_tpu/analyzer/engine.py:179")
+MAX_K = 8192
+_M32 = 0xFFFFFFFF
+
+
+def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32) without int64 overflow."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
+
+
+def stall_salt_plain(key: torch.Tensor, stall: int, salt: int = 0) -> torch.Tensor:
+    """``_stall_explore``: on a stalled pass (``stall > 0``) re-key eligible
+    rows by a (replica, stall, salt) hash in [0, 1), +2.0 for offline-healing
+    keys (>= 5e11); ineligible rows stay -inf."""
+    if stall <= 0:
+        return key
+    idx = torch.arange(key.shape[0], dtype=torch.int64, device=key.device)
+    h = (mul32(idx, 2246822519)
+         + ((((stall + salt) & _M32) * 3266489917) & _M32)) & _M32
+    h = mul32(h ^ (h >> 15), 2654435761)
+    r01 = (h >> 8).to(torch.float32) / 16777216.0
+    bump = torch.where(key >= 5e11, 2.0, 0.0)
+    return torch.where(key > -torch.inf, r01 + bump,
+                       torch.full_like(key, -torch.inf))
+
+
+def sortable_key(v: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) ordered like the f32 values in total order."""
+    u = v.contiguous().view(torch.int32).to(torch.int64) & _M32
+    return torch.where(u >= 0x80000000, (~u) & _M32, u | 0x80000000)
+
+
+def select_candidates_plain(key, k, stall, salt=0, exact=True):
+    salted = stall_salt_plain(key, stall, salt)
+    if not exact:
+        salted = salted + 0.0
+    order = torch.sort(sortable_key(salted), descending=True, stable=True)[1][:k]
+    return salted[order], order
+
+
+_SIGNATURES = {"cc_select_candidates": [P, I, I, I, I, I, P, P, P, P, P, P, P]}
+
+
+def select_candidates(key: torch.Tensor, k: int, stall: int, salt: int = 0,
+                      exact: bool = True):
+    """(kv f32[k], cand i64[k]) of the stall-salted key, k = min(k, R)."""
+    k = min(int(k), key.shape[0])
+    if not key.is_cuda:
+        return select_candidates_plain(key, k, stall, salt, exact)
+    if key.dtype != torch.float32 or not key.is_contiguous() or key.dim() != 1:
+        raise ValueError("select_candidates takes a contiguous f32[R] key")
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"select_candidates supports 0 < k <= {MAX_K}, got {k}")
+    n = key.shape[0]
+    dev = key.device
+    comp = torch.empty(n, dtype=torch.int64, device=dev)
+    sel = torch.empty(k, dtype=torch.int64, device=dev)
+    state = torch.empty(4, dtype=torch.int64, device=dev)
+    hist = torch.empty(256, dtype=torch.int32, device=dev)
+    kv = torch.empty(k, dtype=torch.float32, device=dev)
+    idx = torch.empty(k, dtype=torch.int64, device=dev)
+    err = library("select_candidates", _SIGNATURES).cc_select_candidates(
+        ptr(key), n, k, int(stall), int(salt), int(bool(exact)), ptr(comp),
+        ptr(sel), ptr(state), ptr(hist), ptr(kv), ptr(idx), stream_ptr())
+    check(err, "select_candidates")
+    KERNEL.launches += 1
+    return kv, idx

@@ -1,0 +1,87 @@
+"""The PyTorch port stands alone: it imports with JAX blocked, no source of
+it imports JAX or the JAX package, and it never falls back to the CPU on its
+own."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from cruise_control_tpu_torch import kernels as K
+from cruise_control_tpu_torch.analyzer.env import make_env, resolve_device
+from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+from cruise_control_tpu_torch.model.random_cluster import RandomClusterSpec, generate
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "cruise_control_tpu_torch"
+SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")) + [
+    "chip_smoke.py"]
+MODULES = sorted(
+    ".".join(Path(s).with_suffix("").parts).removesuffix(".__init__")
+    for s in SOURCES if s.startswith("cruise_control_tpu_torch/"))
+# `import jax`, `from jax...`, or any import of the JAX package (the port's
+# own name, cruise_control_tpu_torch, must not match)
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+cruise_control_tpu(?!_torch)\b"
+    r"|from\s+cruise_control_tpu(?!_torch)\b)", re.MULTILINE)
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "leaked = [m for m in sys.modules if m == 'cruise_control_tpu' "
+        "or m.startswith('cruise_control_tpu.')]\n"
+        "assert not leaked, leaked\n"
+        "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_imports_nothing_of_jax(source):
+    text = (ROOT / source).read_text()
+    assert not FORBIDDEN.findall(text), f"{source} imports JAX or the JAX package"
+
+
+def test_forbidden_pattern_tells_the_packages_apart():
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("from cruise_control_tpu.analyzer import engine")
+    assert FORBIDDEN.search("    import cruise_control_tpu")
+    assert not FORBIDDEN.search("from cruise_control_tpu_torch.analyzer import engine")
+    assert not FORBIDDEN.search("import cruise_control_tpu_torch")
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        GoalOptimizer()
+    ct, meta = generate(RandomClusterSpec(num_brokers=4, num_racks=2, num_topics=2,
+                                          num_partitions=8, seed=1))
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_env(ct, meta)
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    assert GoalOptimizer(device="cpu").device == torch.device("cpu")
+
+
+def test_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
+    K.reset_launches()
+    key = torch.arange(64, dtype=torch.float32)
+    kv, idx = K.select_candidates(key, 8, 0)
+    assert idx.tolist() == list(range(63, 55, -1))
+    seg = torch.tensor([0, 1, 1, -1, 2])
+    out = K.segment_sum(torch.ones((5, 2)), seg, 3)
+    assert out[:, 0].tolist() == [1.0, 2.0, 1.0]
+    assert K.segment_count(seg, 3).tolist() == [1, 2, 1]
+    assert all(n == 0 for n in K.launches().values())
+    assert set(K.launches()) == {"select_candidates", "move_score_classes",
+                                 "wave_admission", "segment_sum", "segment_count"}
