@@ -11,26 +11,37 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``cruise_control_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, all
    started together) and prints the build seconds;
 3. kernel checks: every kernel against its plain PyTorch twin on the card,
-   at the slice's shapes, on inputs taken from the slice cluster's state and
-   on adversarial inputs made from ``--seed`` (planted ties, -inf rows,
-   signed zeros). Ints, indices and bools must match exactly; floats must
-   match bit for bit (stated tolerance 0 for every kernel). Each kernel,
-   its twin and the nearest single PyTorch call are timed with CUDA events
-   (median of 20);
-4. small parity: the 32-broker spec of the tier-1 parity test runs on the
-   card and on the CPU (plain twins) and must give the same bits and the
-   JAX reference's outcome counts;
-5. slice: the move-branch chain on the 1,000-broker / 98,326-replica
-   ``generate_scale`` cluster, run twice through ``GoalOptimizer``. The
-   kernel launch counts are zeroed just before the first run and read just
-   after it; every kernel must have launched. The runs must be bit
-   identical, violate {RackAwareGoal, ReplicaDistributionGoal} before and
-   nothing after, keep refresh-consistent tallies, and leave no partition
-   with two replicas on one broker. ``--profile`` adds a third run under
-   ``torch.profiler`` and prints device time by kernel.
+   at the slices' shapes (the move-branch passes, the leadership branch
+   with its selection, admission and transfer apply, the exhaustive scans
+   and the segment-parallel finisher waves), on inputs
+   taken from the slice cluster's state and on adversarial inputs made from
+   ``--seed`` (planted ties, -inf rows, signed zeros). Ints, indices and
+   bools must match exactly; floats must match bit for bit (stated
+   tolerance 0 for every kernel). Each kernel, its twin and the nearest
+   single PyTorch call are timed with CUDA events (median of 20);
+4. small parity: the five-goal chain on the 32-broker spec, and the
+   eleven-goal chain (the default goals minus the swap goals) on the
+   32-broker spec and the 64-broker, padded-R 12,288 spec (chunked
+   dispatch and finisher) run on the card and on the CPU (plain twins) and
+   must give the same bits and the JAX reference's outcome counts;
+5. slices on the 1,000-broker / 98,326-replica ``generate_scale`` cluster,
+   each run twice through ``GoalOptimizer`` with the kernel launch counts
+   zeroed just before its first run and read just after it:
+   a. the five move-branch goals (every kernel of that path must launch;
+      the first slice's outcome);
+   b. the eleven-goal chain: the fused prefix of nine goals, then the two
+      leader goals chunked with the finisher (every kernel must launch; the
+      JAX reference's outcome row, both leader goals proven fixpoints).
+   The runs must be bit identical, keep refresh-consistent tallies, and
+   leave no partition with two replicas on one broker. ``--profile`` adds
+   a third run of the eleven-goal chain under ``torch.profiler`` and prints
+   device time by kernel.
 
-The line before the last is the ``kernels`` JSON object; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The line before the last is the ``kernels`` JSON object: each kernel's
+times are those of the shape it launched most often in the counted
+eleven-goal run, with every timed shape and its launches listed beside
+them. The last line is ``{"ok": true, "device": {...}}``. Imports nothing
+of JAX.
 """
 from __future__ import annotations
 
@@ -46,11 +57,18 @@ ROOT = Path(__file__).resolve().parent
 
 GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
          "NetworkInboundCapacityGoal", "ReplicaDistributionGoal"]
+CHAIN = ["RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
+         "DiskCapacityGoal", "NetworkInboundCapacityGoal",
+         "NetworkOutboundCapacityGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+         "PotentialNwOutGoal", "LeaderReplicaDistributionGoal",
+         "LeaderBytesInDistributionGoal"]
 SLICE_SPEC = dict(num_brokers=1000, num_racks=20, num_topics=200,
                   num_partitions=50000, max_replication=3, skew=1.5, seed=3141,
                   target_cpu_util=0.45)
 SMALL_SPEC = dict(num_brokers=32, num_partitions=1000, num_racks=4, num_topics=8,
                   max_replication=3, skew=1.5, seed=3141, target_cpu_util=0.45)
+MID_SPEC = dict(num_brokers=64, num_racks=4, num_topics=8, num_partitions=8000,
+                max_replication=3, seed=3)
 # Outcomes of the JAX reference (JAX_PLATFORMS=cpu) on these specs; the
 # tier-1 test tests/test_torch_slice.py holds the port to the live reference.
 ORACLE = {
@@ -60,12 +78,38 @@ ORACLE = {
     "small": dict(before={"RackAwareGoal", "ReplicaDistributionGoal"},
                   actions=[60, 0, 0, 0, 207], passes=[6, 3, 3, 3, 15],
                   moves=245, leads=170),
+    "chain_slice": dict(
+        before={"RackAwareGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+                "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"},
+        after={"ReplicaDistributionGoal", "LeaderReplicaDistributionGoal",
+               "LeaderBytesInDistributionGoal"},
+        actions=[3051, 0, 0, 0, 0, 0, 557, 18136, 0, 1393, 1680],
+        passes=[7, 3, 3, 3, 3, 3, 6, 132, 3, 64, 160], moves=18469, leads=10751,
+        proven=[False] * 9 + [True, True], rounds=[0] * 9 + [1, 2]),
+    "chain_small": dict(
+        before={"RackAwareGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+                "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"},
+        after={"LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"},
+        actions=[60, 0, 0, 0, 0, 0, 19, 178, 0, 19, 23],
+        passes=[6, 3, 3, 3, 3, 3, 4, 12, 3, 35, 59], moves=258, leads=204,
+        proven=[False] * 11, rounds=[0] * 11),
+    "chain_mid": dict(
+        before={"RackAwareGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+                "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"},
+        after={"CpuCapacityGoal", "ReplicaDistributionGoal",
+               "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"},
+        actions=[1186] + [0] * 10, passes=[14, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8],
+        moves=1186, leads=0, proven=[False] * 6 + [True, True, False, True, True],
+        rounds=[0] * 6 + [1, 1, 0, 1, 1]),
 }
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor
 # cores (the kernels do f32 and integer arithmetic only)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 REPS = 20
+# the kernels of the first slice's path (the five move-branch goals)
+FIVE_GOAL_KERNELS = ("select_candidates", "move_score_classes", "wave_admission",
+                     "segment_sum", "segment_count")
 
 
 class SmokeFailure(Exception):
@@ -113,7 +157,14 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+    """Bytes of every tensor in ``ts``, walking nested tuples and lists."""
+    total = 0
+    for t in ts:
+        if isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif hasattr(t, "element_size"):
+            total += t.numel() * t.element_size()
+    return total
 
 
 def compare(torch, got, want) -> float:
@@ -135,11 +186,14 @@ def compare(torch, got, want) -> float:
 
 
 class Entry:
+    """One kernel's checks and its timings, one per launch shape timed (the
+    shape key is the one its wrapper counts launches under)."""
+
     def __init__(self, name):
         self.name = name
         self.checks = 0
         self.max_abs_err = 0.0
-        self.timing = None
+        self.timings = []
 
 
 def check(torch, entry: Entry, kernel_fn, plain_fn, what: str) -> None:
@@ -156,15 +210,44 @@ def check(torch, entry: Entry, kernel_fn, plain_fn, what: str) -> None:
 
 def timing(torch, entry: Entry, kernel_fn, plain_fn, library_fn, nb, nops,
            shape: str) -> None:
+    """Time the kernel, its twin and the library call at one shape; one
+    counted launch first tells the shape key the wrapper counts it under."""
+    from cruise_control_tpu_torch import kernels as K
+    K.reset_launches()
+    kernel_fn()
+    keys = K.launch_shapes()[entry.name]
+    require(list(keys.values()) == [1],
+            f"{entry.name} at {shape}: one timed call launched {keys}")
     ms = time_ms(torch, kernel_fn)
     plain_ms = time_ms(torch, plain_fn)
     lib_ms = time_ms(torch, library_fn) if library_fn is not None else None
     b_ms, by = bound(nb, nops)
-    entry.timing = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=b_ms, bound_by=by)
+    entry.timings.append(dict(shape=next(iter(keys)), at=shape, ms=ms,
+                              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                              bound_by=by))
     log(f"  {entry.name} time at {shape}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
         f"library {'-' if lib_ms is None else f'{lib_ms:.6f} ms'}, "
         f"bound {b_ms:.6f} ms ({by})")
+
+
+def kernel_entry(name: str, k, e: Entry, launches: int, ran: dict) -> dict:
+    """The kernels-line object of one kernel. Its times are those of the
+    shape it launched most often on the counted main path (``ran``:
+    {shape: launches}); every timed shape is listed beside it with its own
+    launches, and the launched shapes that were not timed with theirs."""
+    by_shape = [dict(t, launches=ran.get(t["shape"], 0)) for t in e.timings]
+    top = max(by_shape, key=lambda t: t["launches"])
+    most = max(ran.values(), default=0)
+    require(top["launches"] == most,
+            f"{name}: its most-launched shape {max(ran, key=ran.get)} ({most} "
+            f"launches) was not timed (timed: {[t['shape'] for t in by_shape]})")
+    timed = {t["shape"] for t in by_shape}
+    return dict(name=name, route="cuda", source=k.source, replaces=k.replaces,
+                launches=launches, max_abs_err=e.max_abs_err,
+                **{key: top[key] for key in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")},
+                shape=top["shape"], shape_launches=top["launches"], shapes=by_shape,
+                untimed_shapes={s: n for s, n in ran.items() if s not in timed})
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +257,7 @@ def kernel_checks(torch, ctx, seed: int) -> dict:
     from cruise_control_tpu_torch import kernels as K
     from cruise_control_tpu_torch.analyzer import engine
     from cruise_control_tpu_torch.analyzer.state import (
-        apply_sum_inputs, refresh_sum_inputs,
+        apply_move_count_inputs, apply_sum_inputs, refresh_sum_inputs,
     )
     from cruise_control_tpu_torch.kernels import admission, move_score, segment, select
 
@@ -204,21 +287,19 @@ def kernel_checks(torch, ctx, seed: int) -> dict:
     keys["adversarial"] = adv.to(dev)
     for name, key in keys.items():
         for stall in (0, 3):
-            for exact in (True, False):
-                check(torch, e,
-                      lambda: K.select_candidates(key, k_all, stall, 0, exact),
-                      lambda: select.select_candidates_plain(key, k_all, stall, 0, exact),
-                      f"{name} stall={stall} exact={exact}")
+            check(torch, e, lambda: K.select_candidates(key, k_all, stall, 0),
+                  lambda: select.select_candidates_plain(key, k_all, stall, 0),
+                  f"{name} stall={stall}")
     key = keys["ReplicaDistributionGoal"]
-    timing(torch, e, lambda: K.select_candidates(key, k_all, 0, 0, False),
-           lambda: select.select_candidates_plain(key, k_all, 0, 0, False),
+    timing(torch, e, lambda: K.select_candidates(key, k_all, 0, 0),
+           lambda: select.select_candidates_plain(key, k_all, 0, 0),
            lambda: torch.topk(key, k_all),
            nbytes(key) + k_all * (4 + 8), 4 * R, f"R={R} k={k_all}")
 
     # candidates of the two goals with work, as the first wave sees them
     cands = {}
     for goal in (goals[0], goals[4]):
-        kv, cand = K.select_candidates(keys[goal.name], k_all, 0, 0, goal.is_hard)
+        kv, cand = K.select_candidates(keys[goal.name], k_all, 0, 0)
         cands[goal.name] = (cand[:Kc].contiguous(), kv[:Kc].contiguous())
 
     # --- K2 move_score_classes --------------------------------------------
@@ -339,9 +420,13 @@ def kernel_checks(torch, ctx, seed: int) -> dict:
            lambda: torch.index_add(lib_init, 0, lib_seg, vals_a),
            nbytes(vals_a, seg_a, init_a) + B * vals_a.shape[1] * 4,
            vals_a.numel(), f"apply N={vals_a.shape[0]} C={vals_a.shape[1]} nseg={B}")
-    e.refresh_ms = time_ms(torch, lambda: K.segment_sum(vals_r, seg_r, B))
-    log(f"  segment_sum time at refresh N={R} C={vals_r.shape[1]} nseg={B}: "
-        f"kernel {e.refresh_ms:.6f} ms")
+    lib_seg_r = torch.where(seg_r >= 0, seg_r, torch.full_like(seg_r, B))
+    zeros_r = torch.zeros((B + 1, vals_r.shape[1]), dtype=torch.float32, device=dev)
+    timing(torch, e, lambda: K.segment_sum(vals_r, seg_r, B),
+           lambda: segment.segment_sum_plain(vals_r, seg_r, B),
+           lambda: torch.index_add(zeros_r, 0, lib_seg_r, vals_r),
+           nbytes(vals_r, seg_r) + B * vals_r.shape[1] * 4, vals_r.numel(),
+           f"refresh N={R} C={vals_r.shape[1]} nseg={B}")
 
     # --- K4/K5 segment_count ----------------------------------------------
     e = entries["segment_count"]
@@ -360,16 +445,327 @@ def kernel_checks(torch, ctx, seed: int) -> dict:
            lambda: segment.segment_count_plain(rb, B, viol),
            lambda: torch.index_add(zeros_b, 0, rb, viol),
            nbytes(rb, viol) + B * 4, R, f"N={R} nseg={B}")
-    for en in entries.values():
-        require(en.checks > 0 and en.timing is not None, f"{en.name} was not checked")
+    counts = apply_move_count_inputs(env, st, r_sorted, dst_s, win)
+    for what, a in zip(("replica", "leader", "partition x rack", "topic x broker",
+                        "topic leader"), counts):
+        check(torch, e, lambda: K.segment_count(*a),
+              lambda: segment.segment_count_plain(*a),
+              f"apply wave {what} counts N={a[0].shape[0]} nseg={a[1]}")
+    for a in counts[0], counts[3]:
+        seg_c, nseg_c, w_c, init_c = a
+        timing(torch, e, lambda: K.segment_count(*a),
+               lambda: segment.segment_count_plain(*a),
+               lambda: torch.index_add(init_c, 0, seg_c, w_c),
+               nbytes(*a) + nseg_c * 4, seg_c.shape[0],
+               f"apply N={seg_c.shape[0]} nseg={nseg_c}")
     return entries
+
+
+def chain_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
+    """Phase 3, second part: the kernels of the eleven-goal chain at its
+    shapes on the slice state — K6 (leadership branch [KL, F], lead scan
+    [chunk, F], segment lead wave [K, F] x S colors), K1's compaction and
+    the finisher's top-(K * W), K2 with T = 1 (move scan) and with the
+    room-ordered columns (segment move wave), K3 with N = K * S rows,
+    per-(topic, broker) budgets and leadership deltas."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import engine
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    from cruise_control_tpu_torch.analyzer.state import (
+        apply_lead_count_inputs, apply_lead_sum_inputs,
+    )
+    from cruise_control_tpu_torch.kernels import (
+        admission, leadership, move_score, segment, select,
+    )
+
+    env, st, params = ctx["env"], ctx["st"], ctx["params"]
+    dev = env.device
+    g = torch.Generator().manual_seed(seed + 1)
+    goals = make_goals(CHAIN)
+    R, B = env.num_replicas, env.num_brokers
+    chunk = min(params.scan_chunk, R)
+    pad = -(-R // chunk) * chunk
+    Kf = min(params.finisher_candidates, R)
+    W = max(1, min(params.finisher_waves, R // max(Kf, 1)))
+    KL = min(params.num_leader_candidates, R)
+    S, active = engine._segments(params, env)
+    F = env.max_rf
+    log(f"chain kernel checks: R={R} B={B} F={F} KL={KL} chunk={chunk} "
+        f"K={Kf} K*W={Kf * W} S={S} K*S={Kf * S}")
+    i_rd, i_lrd, i_lbi = (CHAIN.index(n) for n in (
+        "ReplicaDistributionGoal", "LeaderReplicaDistributionGoal",
+        "LeaderBytesInDistributionGoal"))
+
+    # --- K1 compact_eligible ------------------------------------------------
+    e = entries["compact_eligible"]
+    elig = {}
+    for i in (i_rd, i_lrd):
+        gl = goals[i]
+        elig[gl.name] = gl.replica_key(env, st, gl.broker_severity(env, st)) > -torch.inf
+    gl = goals[i_lbi]
+    elig["LBI leaders"] = gl.leader_key(env, st, gl.broker_severity(env, st)) > -torch.inf
+    for frac in (0.0, 0.3, 1.0):
+        elig[f"adversarial {frac}"] = (torch.rand(R, generator=g) < frac).to(dev)
+    for name, el in elig.items():
+        check(torch, e, lambda: K.compact_eligible(el, pad),
+              lambda: select.compact_eligible_plain(el, pad), f"{name} R={R}")
+    el = elig["ReplicaDistributionGoal"]
+    n_el = int(el.sum())
+    timing(torch, e, lambda: K.compact_eligible(el, pad),
+           lambda: select.compact_eligible_plain(el, pad),
+           lambda: torch.nonzero(el).flatten(), R + pad * 8, R,
+           f"R={R} eligible={n_el}")
+
+    # the scans the finisher runs first (their gains feed the waves below)
+    scans = {}
+    for i in (i_rd, i_lrd):
+        scans[goals[i].name] = engine._exhaustive_move_scan(
+            env, st, goals[i], tuple(goals[:i]), chunk)[0]
+    scans["LBI leaders"] = engine._exhaustive_lead_scan(
+        env, st, goals[i_lbi], tuple(goals[:i_lbi]), chunk)[0]
+
+    # --- K1 select_candidates at the finisher's k ---------------------------
+    e = entries["select_candidates"]
+    adv = torch.randn(R, generator=g)
+    adv[::3] = -torch.inf
+    adv[::7] = 0.25
+    adv[3::11] = -0.0
+    adv[4::11] = 0.0
+    keys = dict(scans, adversarial=adv.to(dev))
+    kw = Kf * W
+    for name, key in keys.items():
+        check(torch, e, lambda: K.select_candidates(key, kw, 0, 0),
+              lambda: select.select_candidates_plain(key, kw, 0, 0),
+              f"finisher top-k {name} k={kw}")
+    key = scans["ReplicaDistributionGoal"]
+    timing(torch, e, lambda: K.select_candidates(key, kw, 0, 0),
+           lambda: select.select_candidates_plain(key, kw, 0, 0),
+           lambda: torch.topk(key, kw), nbytes(key) + kw * (4 + 8), 4 * R,
+           f"R={R} k={kw}")
+    tops = {n: K.select_candidates(v, kw, 0, 0) for n, v in scans.items()}
+
+    def band(name):
+        kv, cand = tops[name]
+        kv = kv[:Kf]
+        return cand[:Kf].contiguous(), torch.where(
+            kv > params.min_gain, kv, torch.full_like(kv, -torch.inf)).contiguous()
+
+    # --- the leadership branch's pass: K1 at k = KL on the leader keys, K6
+    # [KL, F], K3 in leadership form, K4/K5 on the transfer apply ----------
+    e = entries["leadership_rows"]
+    lead_pass = {}
+    for i in (CHAIN.index("CpuCapacityGoal"), i_lrd, i_lbi):
+        gl, prev = goals[i], tuple(goals[:i])
+        lkey = gl.leader_key(env, st, gl.broker_severity(env, st)).contiguous()
+        check(torch, entries["select_candidates"],
+              lambda: K.select_candidates(lkey, KL, 0, 0),
+              lambda: select.select_candidates_plain(lkey, KL, 0, 0),
+              f"{gl.name} leader keys k={KL}")
+        lkv, lcand = K.select_candidates(lkey, KL, 0, 0)
+        args = engine._lead_args(env, st, gl, prev, lcand, lkv > -torch.inf)
+        check(torch, e, lambda: K.leadership_rows(*args),
+              lambda: leadership.leadership_rows_plain(*args),
+              f"{gl.name} branch [{KL}, {F}], {i} previous goals")
+        r_sorted, dst_rep, adm_args = engine._lead_admission_args(
+            env, st, gl, prev, params, lcand, lkv)
+        check(torch, entries["wave_admission"], lambda: K.wave_admission(*adm_args),
+              lambda: admission.wave_admission_plain(*adm_args),
+              f"{gl.name} leadership branch N={KL}")
+        win = K.wave_admission(*adm_args)
+        vals_l, seg_l, init_l = apply_lead_sum_inputs(env, st, r_sorted, dst_rep, win)
+        sum_args = (vals_l, seg_l, B, init_l)
+        check(torch, entries["segment_sum"], lambda: K.segment_sum(*sum_args),
+              lambda: segment.segment_sum_plain(*sum_args),
+              f"{gl.name} transfer apply of {int(win.sum())} winners "
+              f"N={sum_args[0].shape[0]} C={sum_args[0].shape[1]}")
+        counts = apply_lead_count_inputs(env, st, r_sorted, dst_rep, win)
+        for what, a in zip(("leader", "topic leader"), counts):
+            check(torch, entries["segment_count"], lambda: K.segment_count(*a),
+                  lambda: segment.segment_count_plain(*a),
+                  f"{gl.name} transfer apply {what} counts nseg={a[1]}")
+        lead_pass[gl.name] = (lkey, adm_args, sum_args, counts)
+    order, _n = K.compact_eligible(elig["LBI leaders"], pad)
+    idx = order[:chunk]
+    cand = torch.clamp(idx, max=R - 1)
+    scan_args = engine._lead_args(env, st, goals[i_lbi], tuple(goals[:i_lbi]), cand,
+                                  idx < R)
+    check(torch, e, lambda: K.leadership_rows(*scan_args),
+          lambda: leadership.leadership_rows_plain(*scan_args),
+          f"LeaderBytesInDistributionGoal lead scan [{chunk}, {F}]")
+    cand, kv = band("LBI leaders")
+    gl = goals[i_lbi]
+    ob = engine._segment_broker_order(env, st, gl, tuple(goals[:i_lbi]), S)
+    colrank = torch.empty_like(ob)
+    colrank[ob] = torch.arange(ob.shape[0], device=dev)
+    color = (colrank % S).contiguous()
+    seg_args = engine._lead_args(env, st, gl, tuple(goals[:i_lbi]), cand, kv > -torch.inf)
+    check(torch, e, lambda: K.leadership_rows(*seg_args, color=color, S=S, active=active),
+          lambda: leadership.leadership_rows_plain(*seg_args, color, S, active),
+          f"LeaderBytesInDistributionGoal segment wave [{Kf}, {F}] x {S} colors")
+    # adversarial: random tables for every family, two vetoes, planted ties
+    n_adv, Ra = 1024, 5000
+    a_cand = torch.randint(0, Ra, (n_adv,), generator=g)
+    a_mem = torch.randint(-1, Ra, (n_adv, 4), generator=g)
+    a_mem[:, 0] = a_cand
+    fr = torch.randint(-2, 3, (Ra,), generator=g).float()
+    base = [a_cand, a_mem, torch.rand(n_adv, generator=g) > 0.1,
+            torch.rand(B, generator=g) > 0.05, torch.randint(0, B, (Ra,), generator=g),
+            torch.rand(Ra, generator=g) < 0.05]
+    base = [t.to(dev).contiguous() for t in base]
+    vetoes = [leadership.Veto(torch.randint(0, 5, (B,), generator=g).float().to(dev),
+                              torch.randint(0, 7, (B,), generator=g).float().to(dev),
+                              x_rep=fr.to(dev)),
+              leadership.Veto(torch.randint(0, 5, (B,), generator=g).float().to(dev),
+                              torch.randint(0, 7, (B,), generator=g).float().to(dev),
+                              x_row=torch.ones(n_adv, device=dev))]
+    fb = torch.randint(0, 6, (3, B), generator=g).float()
+    fb[2] += 3
+    a_color = torch.randint(0, S, (B,), generator=g).to(dev)
+    for fam in range(4):
+        tb = leadership.LeadTables(
+            fam, fb.to(dev), torch.randint(0, 4, (2, n_adv), generator=g).float().to(dev),
+            fr=fr.to(dev), row_t=torch.randint(0, 16, (n_adv,), generator=g).to(dev),
+            tab=torch.randint(0, 3, (16, B), generator=g).int().to(dev))
+        a = (*base, tb, vetoes)
+        check(torch, e, lambda: K.leadership_rows(*a, color=a_color, S=S, active=S - 2),
+              lambda: leadership.leadership_rows_plain(*a, a_color, S, S - 2),
+              f"adversarial family {fam}")
+    lkv, lcand = K.select_candidates(goals[i_lrd].leader_key(
+        env, st, goals[i_lrd].broker_severity(env, st)).contiguous(), KL, 0, 0)
+    br_args = engine._lead_args(env, st, goals[i_lrd], tuple(goals[:i_lrd]), lcand,
+                                lkv > -torch.inf)
+
+    def lead_bytes(n):
+        """Per (k, f): the member id, its broker, offline flag, broker flag
+        and eight f32 table / veto reads; per row: candidate, flag, two
+        values; outputs: value + index."""
+        return n * F * (8 + 8 + 1 + 1 + 4 * 8) + n * (8 + 1 + 4 * 2) + n * (4 + 8)
+
+    timing(torch, e, lambda: K.leadership_rows(*br_args),
+           lambda: leadership.leadership_rows_plain(*br_args), None,
+           lead_bytes(KL), KL * F * 30, f"branch [{KL}, {F}]")
+    timing(torch, e, lambda: K.leadership_rows(*scan_args),
+           lambda: leadership.leadership_rows_plain(*scan_args), None,
+           lead_bytes(chunk), chunk * F * 30, f"lead scan [{chunk}, {F}]")
+    timing(torch, e, lambda: K.leadership_rows(*seg_args, color=color, S=S, active=active),
+           lambda: leadership.leadership_rows_plain(*seg_args, color, S, active), None,
+           lead_bytes(Kf) + Kf * S * 12, Kf * F * (30 + S),
+           f"segment wave [{Kf}, {F}] x {S}")
+    lkey, adm_args, sum_args, counts = lead_pass["LeaderReplicaDistributionGoal"]
+    timing(torch, entries["select_candidates"], lambda: K.select_candidates(lkey, KL, 0, 0),
+           lambda: select.select_candidates_plain(lkey, KL, 0, 0),
+           lambda: torch.topk(lkey, KL), nbytes(lkey) + KL * (4 + 8), 4 * R,
+           f"leader keys R={R} k={KL}")
+    timing(torch, entries["wave_admission"], lambda: K.wave_admission(*adm_args),
+           lambda: admission.wave_admission_plain(*adm_args), None,
+           nbytes(*adm_args) + KL, KL * (8 + 1) * 4 * 4, f"leadership branch N={KL}")
+    vals_l, seg_l, _B, init_l = sum_args
+    lib_seg_l = torch.where(seg_l >= 0, seg_l, torch.full_like(seg_l, B))
+    lib_init_l = torch.cat([init_l, torch.zeros_like(init_l[:1])])
+    timing(torch, entries["segment_sum"], lambda: K.segment_sum(*sum_args),
+           lambda: segment.segment_sum_plain(*sum_args),
+           lambda: torch.index_add(lib_init_l, 0, lib_seg_l, vals_l),
+           nbytes(vals_l, seg_l, init_l) + init_l.numel() * 4, vals_l.numel(),
+           f"transfer apply N={vals_l.shape[0]} C={vals_l.shape[1]} nseg={B}")
+    for a in counts:
+        timing(torch, entries["segment_count"], lambda: K.segment_count(*a),
+               lambda: segment.segment_count_plain(*a),
+               lambda: torch.index_add(a[3], 0, a[0], a[2]),
+               nbytes(*a) + a[1] * 4, a[0].shape[0],
+               f"transfer apply N={a[0].shape[0]} nseg={a[1]}")
+
+    # --- K2 move_score_classes: T = 1 and the room-ordered columns -----------
+    e = entries["move_score_classes"]
+    t1 = {}
+    for i in (i_rd, i_lrd):
+        gl, prev = goals[i], tuple(goals[:i])
+        order, _n = K.compact_eligible(elig[gl.name], pad)
+        idx = order[:chunk]
+        cand = torch.clamp(idx, max=R - 1)
+        rooms, custom = engine._combined_move_rooms(prev, env, st)
+        d_rows = engine._move_delta_rows(env, st, cand)
+        args = engine._score_args(env, st, gl, rooms, custom, cand, None, d_rows, 1,
+                                  row_ok=idx < R)
+        t1[gl.name] = args
+        check(torch, e, lambda: K.move_score_classes(*args),
+              lambda: move_score.move_score_classes_plain(*args),
+              f"{gl.name} move scan T=1 [{chunk}, {B}]")
+    seg2 = {}
+    for i, name in ((i_rd, "ReplicaDistributionGoal"),
+                    (i_lrd, "LeaderReplicaDistributionGoal")):
+        gl, prev = goals[i], tuple(goals[:i])
+        cand, kv = band(name)
+        rooms, custom = engine._combined_move_rooms(prev, env, st)
+        d_rows = engine._move_delta_rows(env, st, cand)
+        ob = engine._segment_broker_order(env, st, gl, prev, S)
+        args = engine._score_args(env, st, gl, rooms, custom, cand, kv, d_rows, S,
+                                  order_b=ob)
+        seg2[name] = args
+        check(torch, e, lambda: K.move_score_classes(*args),
+              lambda: move_score.move_score_classes_plain(*args),
+              f"{name} segment wave [{Kf}, {ob.shape[0]}] ordered, {S} classes")
+    args = seg2["ReplicaDistributionGoal"]
+    Bp = args[16].shape[0]
+    timing(torch, e, lambda: K.move_score_classes(*args),
+           lambda: move_score.move_score_classes_plain(*args), None,
+           nbytes(*(t for t in args if isinstance(t, torch.Tensor))) + Kf * S * 12,
+           Kf * Bp * 16, f"K={Kf} Bp={Bp} S={S} ordered")
+    args = t1["ReplicaDistributionGoal"]
+    timing(torch, e, lambda: K.move_score_classes(*args),
+           lambda: move_score.move_score_classes_plain(*args), None,
+           nbytes(*(t for t in args if isinstance(t, torch.Tensor))) + chunk * 12,
+           chunk * B * 16, f"K={chunk} B={B} T=1")
+
+    # --- K3 wave_admission: K * S rows, topic budgets, leadership deltas -----
+    e = entries["wave_admission"]
+    adm = {}
+    for i, name in ((i_rd, "ReplicaDistributionGoal"),
+                    (i_lrd, "LeaderReplicaDistributionGoal")):
+        cand, kv = band(name)
+        adm[name] = engine._segment_move_args(env, st, goals[i], tuple(goals[:i]),
+                                              params, cand, kv)[3]
+    cand, kv = band("LBI leaders")
+    adm["LBI leaders"] = engine._segment_lead_args(
+        env, st, goals[i_lbi], tuple(goals[:i_lbi]), params, cand, kv)[4]
+    for name, args in adm.items():
+        check(torch, e, lambda: K.wave_admission(*args),
+              lambda: admission.wave_admission_plain(*args),
+              f"{name} segment wave N={args[0].shape[0]} "
+              f"topic budgets={'yes' if args[11] is not None else 'no'}")
+    N = Kf * S
+    d = torch.rand((N, 8), generator=g) * 100
+    d[::9] = 0.0
+    a = [d, torch.randint(0, max(2, B // 16), (N,), generator=g),
+         torch.randint(0, max(2, B // 4), (N,), generator=g),
+         torch.rand(N, generator=g) > 0.2, torch.randint(0, 3000, (N,), generator=g),
+         torch.rand((B, 8), generator=g) * 2000, torch.rand((B, 8), generator=g) * 2000]
+    a = [t.to(dev) for t in a]
+    gain = ((torch.rand(B, generator=g) * 500).to(dev),
+            (torch.rand(B, generator=g) * 500).to(dev), 2)
+    topic = (torch.randint(0, 200, (N,), generator=g).to(dev), 224,
+             (torch.rand((N, 1), generator=g) > 0.5).float().to(dev),
+             torch.randint(0, 3, (N, 1), generator=g).float().to(dev),
+             torch.full((N, 1), torch.inf, device=dev))
+    kg = (torch.randint(0, Kf, (N,), generator=g).to(dev), Kf)
+    esc = (torch.rand(N, generator=g) > 0.97).to(dev)
+    d_dst = (torch.rand((N, 8), generator=g) * 100).to(dev)
+    args = (*a, gain, esc, d_dst, kg, topic, 3000)
+    check(torch, e, lambda: K.wave_admission(*args),
+          lambda: admission.wave_admission_plain(*args),
+          f"adversarial N={N} crowded, candidate and partition first-touch, topics")
+    args = adm["ReplicaDistributionGoal"]
+    n = args[0].shape[0]
+    timing(torch, e, lambda: K.wave_admission(*args),
+           lambda: admission.wave_admission_plain(*args), None,
+           nbytes(*args[:4], args[4], args[8], args[10][0], *args[11][2:])
+           + 2 * B * 8 * 4 + n, n * (8 + 1) * 4 * 4, f"N={n} (K*S) with topic budgets")
 
 
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the optimizer
 # ---------------------------------------------------------------------------
-def run_chain(opt, ct, meta):
-    return opt.optimizations(ct, meta, goal_names=GOALS, skip_hard_goal_check=True,
+def run_chain(opt, ct, meta, goals=GOALS):
+    return opt.optimizations(ct, meta, goal_names=goals, skip_hard_goal_check=True,
                              raise_on_failure=False)
 
 
@@ -379,7 +775,9 @@ def outcome(res) -> dict:
                 actions=[g.iterations for g in res.goal_results],
                 passes=[g.passes for g in res.goal_results],
                 moves=res.num_replica_movements,
-                leads=res.num_leadership_movements)
+                leads=res.num_leadership_movements,
+                proven=[g.fixpoint_proven for g in res.goal_results],
+                rounds=[g.finisher_rounds for g in res.goal_results])
 
 
 def print_outcome(tag: str, out: dict, oracle: dict) -> None:
@@ -388,39 +786,60 @@ def print_outcome(tag: str, out: dict, oracle: dict) -> None:
     log(f"{tag}: per-goal passes  {out['passes']} (JAX reference {oracle['passes']})")
     log(f"{tag}: replica movements {out['moves']} (JAX reference {oracle['moves']}), "
         f"leadership movements {out['leads']} (JAX reference {oracle['leads']})")
+    if "proven" in oracle:
+        log(f"{tag}: fixpoint proven {out['proven']}, finisher rounds {out['rounds']}")
+
+
+def require_oracle(tag: str, out: dict, oracle: dict) -> None:
+    for key in ("before", "after", "actions", "passes", "moves", "leads", "proven",
+                "rounds"):
+        if key in oracle:
+            require(out[key] == oracle[key],
+                    f"{tag}: {key} {out[key]} != JAX reference {oracle[key]}")
+    if "after" not in oracle:
+        require(not out["after"], f"{tag}: goals still violated {out['after']}")
 
 
 def same_bits(torch, a, b) -> bool:
     return all(torch.equal(x, y) for x, y in (
         (a.replica_broker, b.replica_broker), (a.replica_is_leader, b.replica_is_leader),
         (a.util.view(torch.int32), b.util.view(torch.int32)),
-        (a.replica_count, b.replica_count)))
+        (a.leader_util.view(torch.int32), b.leader_util.view(torch.int32)),
+        (a.replica_count, b.replica_count), (a.leader_count, b.leader_count)))
 
 
-def small_parity(torch) -> None:
+def parity(torch, goals, spec: dict, key: str, tag: str) -> dict:
+    """One chain on a small spec, on the card and on the CPU (the twins):
+    the same bits and the JAX reference's outcome."""
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
     from cruise_control_tpu_torch.model.random_cluster import (
         RandomClusterSpec, generate_scale,
     )
-    ct, meta = generate_scale(RandomClusterSpec(**SMALL_SPEC))
-    on_card = run_chain(GoalOptimizer(device="cuda"), ct, meta)
-    on_cpu = run_chain(GoalOptimizer(device="cpu"), ct, meta)
+    from cruise_control_tpu_torch import kernels as K
+    ct, meta = generate_scale(RandomClusterSpec(**spec))
+    K.reset_launches()
+    t0 = time.perf_counter()
+    on_card = run_chain(GoalOptimizer(device="cuda"), ct, meta, goals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shapes = K.launch_shapes()
+    on_cpu = run_chain(GoalOptimizer(device="cpu"), ct, meta, goals)
     out = outcome(on_card)
-    print_outcome("small (32 brokers)", out, ORACLE["small"])
-    require(outcome(on_cpu) == out, "small spec: card and CPU outcomes differ")
+    print_outcome(tag, out, ORACLE[key])
+    require(outcome(on_cpu) == out, f"{tag}: card and CPU outcomes differ")
     a, b = on_card.final_state, on_cpu.final_state
     require(torch.equal(a.replica_broker.cpu(), b.replica_broker)
             and torch.equal(a.replica_is_leader.cpu(), b.replica_is_leader)
             and torch.equal(a.util.cpu().view(torch.int32), b.util.view(torch.int32)),
-            "small spec: card and CPU final states differ")
-    for key in ("before", "actions", "passes", "moves", "leads"):
-        require(out[key] == ORACLE["small"][key],
-                f"small spec: {key} {out[key]} != JAX reference {ORACLE['small'][key]}")
-    require(not out["after"], "small spec: goals still violated")
-    log("small (32 brokers): card == CPU bit for bit, == JAX reference counts")
+            f"{tag}: card and CPU final states differ")
+    require_oracle(tag, out, ORACLE[key])
+    log(f"{tag}: card == CPU bit for bit, == JAX reference counts "
+        f"(card wall {wall:.6f} s, first run in this process)")
+    log(f"{tag}: launches by shape on the card {json.dumps(shapes)}")
+    return shapes
 
 
-def slice_checks(torch, res) -> None:
+def slice_checks(torch, res, tag: str) -> None:
     from cruise_control_tpu_torch.analyzer.state import refresh
     env, st = res.env, res.final_state
     ref = refresh(env, st)
@@ -440,19 +859,57 @@ def slice_checks(torch, res) -> None:
     srt = brokers.sort(dim=1).values
     require(not bool((srt[:, 1:] == srt[:, :-1]).any()),
             "a partition has two replicas on one broker")
-    log(f"slice: refresh(final) tallies == incremental; util max rel err {worst:.3e}; "
+    log(f"{tag}: refresh(final) tallies == incremental; util max rel err {worst:.3e}; "
         f"no partition has two replicas on one broker")
 
 
+# device function names of the hand kernels, as the profiler lists them
+HAND_KERNEL_NAMES = (
+    "salt_pack", "radix_hist", "radix_choose", "gather_top", "bitonic_top",
+    "init_state", "tile_counts", "scan_counts", "tile_write", "pad_tail",
+    "move_score_kernel", "ft_init", "ft_cand", "ft_part", "side_scan", "finish(",
+    "segment_sum_kernel", "segment_count_kernel", "leadership_rows_kernel")
+
+
+def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict) -> dict:
+    """A main path at the 1,000-broker size, run twice: the launch counts
+    are zeroed just before run 1 and read just after it; the runs must be
+    bit-identical and match the reference's outcome."""
+    from cruise_control_tpu_torch import kernels as K
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res1 = run_chain(opt, ct, meta, goals)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    launches = K.launches()
+    shapes = K.launch_shapes()
+    t0 = time.perf_counter()
+    res2 = run_chain(opt, ct, meta, goals)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    log(f"{tag}: run 1 wall {wall1:.6f} s, run 2 wall {wall2:.6f} s")
+    log(f"{tag}: kernel launches in run 1 {launches}")
+    log(f"{tag}: launches by shape in run 1 {json.dumps(shapes)}")
+    out = outcome(res1)
+    print_outcome(tag, out, oracle)
+    require_oracle(tag, out, oracle)
+    require(same_bits(torch, res1.final_state, res2.final_state)
+            and outcome(res2) == out, f"{tag}: the two runs differ")
+    log(f"{tag}: run 1 and run 2 bit-identical (assignment, leadership, util, "
+        f"leader util, counts)")
+    slice_checks(torch, res1, tag)
+    return dict(launches=launches, shapes=shapes, walls=(wall1, wall2))
+
+
 def profile_run(torch, opt, ct, meta) -> None:
-    """One more slice run under torch.profiler: device busy share of the
-    wall and device time by kernel (device-side events only, so an op's
-    kernels are not counted twice)."""
+    """One more run of the eleven-goal slice under torch.profiler: device
+    busy share of the wall and device time by kernel (device-side events
+    only, so an op's kernels are not counted twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_chain(opt, ct, meta)
+        run_chain(opt, ct, meta, CHAIN)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -465,11 +922,7 @@ def profile_run(torch, opt, ct, meta) -> None:
         rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    ours = [r for r in rows if any(n in r[2] for n in
-                                   ("select_candidates", "salt_pack", "radix_",
-                                    "gather_top", "bitonic_top", "init_state",
-                                    "move_score_kernel", "wave_admission_kernel",
-                                    "segment_sum_kernel", "segment_count_kernel"))]
+    ours = [r for r in rows if any(n in r[2] for n in HAND_KERNEL_NAMES)]
     own = sum(r[0] for r in ours) / 1e6
     launches = sum(r[1] for r in rows)
     log(f"profile: wall {wall:.6f} s under the profiler, device busy {busy:.6f} s "
@@ -484,7 +937,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the adversarial kernel-check inputs")
     ap.add_argument("--profile", action="store_true",
-                    help="add a third slice run under torch.profiler")
+                    help="add a third eleven-goal slice run under torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -539,46 +992,54 @@ def main() -> int:
 
     # 3. kernels against their twins
     entries = kernel_checks(torch, ctx, args.seed)
+    chain_kernel_checks(torch, ctx, entries, args.seed)
+    for en in entries.values():
+        require(en.checks > 0 and en.timings, f"{en.name} was not checked")
 
     # 4. small parity against the CPU run and the JAX reference's counts
-    small_parity(torch)
+    parity(torch, GOALS, SMALL_SPEC, "small", "small (32 brokers, 5 goals)")
+    parity(torch, CHAIN, SMALL_SPEC, "chain_small", "small (32 brokers, 11 goals)")
+    mid_shapes = parity(torch, CHAIN, MID_SPEC, "chain_mid", "mid (64 brokers, 11 goals)")
+    require(mid_shapes["move_score_classes"].get("T=1", 0) > 0,
+            "the 64-broker chain never ran the move scan (K2 at T=1)")
 
-    # 5. the slice: main path, counted
-    K.reset_launches()
-    t0 = time.perf_counter()
-    res1 = run_chain(opt, ct, meta)
-    torch.cuda.synchronize()
-    wall1 = time.perf_counter() - t0
-    launches = K.launches()
-    t0 = time.perf_counter()
-    res2 = run_chain(opt, ct, meta)
-    torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t0
+    # 5. the slices: each main path counted on its first run
     log(f"slice: R={pct.num_replicas} B={pct.num_brokers} K={params.num_candidates} "
-        f"T={params.num_dst_choices} pass_waves={params.pass_waves} "
+        f"KL={params.num_leader_candidates} T={params.num_dst_choices} "
+        f"pass_waves={params.pass_waves} pass_chunk={params.pass_chunk} "
         f"compute_dtype={params.compute_dtype}")
-    log(f"slice: run 1 wall {wall1:.6f} s, run 2 wall {wall2:.6f} s")
-    log(f"slice: kernel launches in run 1 {launches}")
-    out = outcome(res1)
-    print_outcome("slice", out, ORACLE["slice"])
+    five = run_slice(torch, opt, ct, meta, GOALS, "slice (5 goals)", ORACLE["slice"])
+    require(all(five["launches"][n] > 0 for n in FIVE_GOAL_KERNELS),
+            f"a kernel of the five-goal path never launched: {five['launches']}")
+    chain = run_slice(torch, opt, ct, meta, CHAIN, "slice (11 goals)",
+                      ORACLE["chain_slice"])
+    launches = chain["launches"]
     require(all(n > 0 for n in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
-    require(out["before"] == ORACLE["slice"]["before"],
-            f"violated before {out['before']}")
-    require(not out["after"], f"violated after {out['after']}")
-    require(same_bits(torch, res1.final_state, res2.final_state)
-            and outcome(res2) == out, "the two slice runs differ")
-    log("slice: run 1 and run 2 bit-identical (assignment, leadership, util, counts)")
-    slice_checks(torch, res1)
+            f"a kernel of the eleven-goal path never launched: {launches}")
+    Kf = min(params.finisher_candidates, pct.num_replicas)
+    W = max(1, min(params.finisher_waves, pct.num_replicas // max(Kf, 1)))
+    S = max(2, min(params.max_finisher_segments, pct.num_brokers))
+    want = {"select_candidates": f"k={Kf * W}", "move_score_classes": "ordered",
+            "wave_admission": f"N={Kf * S}", "leadership_rows": f"segments S={S}"}
+    shapes = chain["shapes"]
+    for name, shape in want.items():
+        require(shapes[name].get(shape, 0) > 0,
+                f"the eleven-goal path never launched {name} at {shape}: "
+                f"{shapes[name]}")
+    log(f"slice (11 goals): the finisher's launch shapes all ran: {want}; its "
+        f"move scan finds no eligible row (LeaderReplicaDistributionGoal's "
+        f"finisher proves 0 moves left, as in the reference), so K2 at T=1 "
+        f"launched {shapes['move_score_classes'].get('T=1', 0)} times here and "
+        f"{mid_shapes['move_score_classes'].get('T=1', 0)} times in the 64-broker "
+        f"run")
     if args.profile:
         profile_run(torch, opt, ct, meta)
+    for name, e in entries.items():
+        for t in e.timings:
+            log(f"timing {name} at {t['at']}: {json.dumps(t)}")
 
-    kernels = []
-    for name, k in K.KERNELS.items():
-        e = entries[name]
-        kernels.append(dict(name=name, route="cuda", source=k.source,
-                            replaces=k.replaces, launches=launches[name],
-                            max_abs_err=e.max_abs_err, **e.timing))
+    kernels = [kernel_entry(name, k, entries[name], launches[name], shapes[name])
+               for name, k in K.KERNELS.items()]
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

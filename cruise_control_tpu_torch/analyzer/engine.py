@@ -1,42 +1,60 @@
-"""The greedy optimization engine, move branch (counterpart of
-``cruise_control_tpu/analyzer/engine.py``).
+"""The greedy optimization engine (counterpart of
+``cruise_control_tpu/analyzer/engine.py``): the move and leadership
+branches, the exhaustive finisher and the chunked early-exit dispatch.
 
 One goal runs as a budgeted loop of PASSES; a pass is
 
     1. severity = goal.broker_severity(state)                    f32[B]
-    2. cand     = K1 top-(K*W) of goal.replica_key(state), stall-salted
-    3. per wave: K2 [K, B] legitimacy + chain rooms + rack veto + score ->
-                 per-class best; destination spread (plain torch);
-                 K3 budgeted admission; K4 batched apply.
+    2. leadership-primary goals: the leadership branch first
+         (K1 top-KL of goal.leader_key, K6 [KL, F] score, K3 admission,
+         batched transfer apply on K4/K5); replica moves only when it
+         landed nothing
+    3. the move branch: K1 top-(K*W) of goal.replica_key, stall-salted;
+         per wave K2 [K, B] score, destination spread, K3 admission, K4
+         batched apply
+    4. other leadership goals: the leadership branch when no move landed.
+
+A goal still violated when its loop exits gets the exhaustive FINISHER:
+rounds of full-R scans (K1 compaction of the eligible rows, K2 with T = 1
+over [chunk, B], K6 over [chunk, F]) whose top true-gain actions apply in
+segment-parallel waves (K2 with the room-ranked column order, K6 per broker
+color, K3 with N = K * S rows). A round whose scans find nothing proves a
+single-action fixpoint.
 
 The reference runs the loop as one ``lax.while_loop`` program; here it is a
-host loop over device tensors with ONE small device->host read per pass
-(the applied count, the verdict and the stat that the loop's exit
-conditions need). Capturing a pass as a CUDA graph is later work (K11).
+host loop over device tensors with one small device->host read per pass
+(plus one per branch gate for leadership goals), per finisher wave and per
+scan. Capturing a pass as a CUDA graph is later work (K11).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
-from cruise_control_tpu_torch.analyzer.env import ClusterEnv
+from cruise_control_tpu_torch.analyzer.env import ClusterEnv, capacity_stripe_key
 from cruise_control_tpu_torch.analyzer.goals.base import (
-    NEG_INF, WAVE_DIMS, WAVE_ZERO_EXEMPT_DIMS, GoalKernel, legit_move_rows,
+    NEG_INF, WAVE_DIMS, WAVE_ZERO_EXEMPT_DIMS, GoalKernel, lead_member_rows,
+    legit_lead_rows, legit_move_rows,
 )
-from cruise_control_tpu_torch.analyzer.state import EngineState, apply_moves_batched
+from cruise_control_tpu_torch.analyzer.state import (
+    EngineState, apply_leaderships_batched, apply_moves_batched,
+)
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.kernels import (
-    move_score_classes, select_candidates, wave_admission,
+    compact_eligible, leadership_rows, move_score_classes, select_candidates,
+    wave_admission,
 )
+from cruise_control_tpu_torch.kernels.move_score import GOAL_MIN_TOPIC
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineParams:
     """Engine knobs, every field and default as in the reference (see its
-    docstrings). The port reads the budgeted-loop fields; options of paths
-    it has not ported raise in ``check_supported``."""
+    docstrings). Options of paths the port has not ported raise in
+    ``check_supported``."""
     max_iters: int = 4096
     num_candidates: int = 64          # K: replica-move candidates per iteration
     num_leader_candidates: int = 32   # KL: leadership candidates per iteration
@@ -75,8 +93,9 @@ def check_supported(params: EngineParams) -> None:
         raise NotImplementedError("bf16 score sweeps are not ported yet "
                                   "(ROADMAP.md Queue 1 item 5, precision policy)")
     if params.compact_keying:
-        raise NotImplementedError("compact_keying is not ported yet "
-                                  "(ROADMAP.md Queue 2 K1, _compact_eligible)")
+        raise NotImplementedError("compact_keying (the pooled candidate "
+                                  "selection) is not ported yet (ROADMAP.md "
+                                  "Queue 2 K1)")
     if not params.chain_cache:
         raise NotImplementedError("chain_cache=False (per-goal accept masks) is "
                                   "not ported yet (ROADMAP.md Queue 1 item 5)")
@@ -86,10 +105,46 @@ def check_supported(params: EngineParams) -> None:
 
 
 def check_goal_supported(goal: GoalKernel) -> None:
-    if goal.uses_leadership_moves or goal.uses_swaps or goal.uses_disk_moves:
+    if goal.uses_swaps:
         raise NotImplementedError(
-            f"{goal.name}: the leadership / swap / disk branches are not ported "
-            f"yet (ROADMAP.md Queue 1 item 5)")
+            f"{goal.name}: the swap branch is not ported yet (ROADMAP.md Queue 2 "
+            f"K7, the next slice)")
+    if goal.uses_disk_moves:
+        raise NotImplementedError(
+            f"{goal.name}: the intra-broker disk branch is not ported yet "
+            f"(ROADMAP.md Queue 2 K8)")
+
+
+def _overrides(g: GoalKernel, name: str) -> bool:
+    return getattr(type(g), name) is not getattr(GoalKernel, name)
+
+
+def _vetoes_moves(g: GoalKernel) -> bool:
+    return (g.rack_veto or _overrides(g, "accept_move_rooms")
+            or _overrides(g, "move_row_veto"))
+
+
+def _wave_budget_capable(g: GoalKernel, leadership: bool = False) -> bool:
+    """engine.py:538: can multi-action waves preserve this goal's
+    acceptance? Yes with cumulative budgets (per broker or per (topic,
+    broker)), the first-touch rule (wave_safe), or no veto of the action
+    kind in question."""
+    if _overrides(g, "wave_budgets") or g.wave_safe:
+        return True
+    if _overrides(g, "wave_topic_budgets"):
+        return True
+    if leadership:
+        return not _overrides(g, "lead_vetoes")
+    return not _vetoes_moves(g)
+
+
+def _require_capable(goals, leadership: bool) -> None:
+    bad = [g.name for g in goals if not _wave_budget_capable(g, leadership)]
+    if bad:
+        what = ("the sequential leadership fallback (seq_body)" if leadership
+                else "the one-move-per-broker wave")
+        raise NotImplementedError(
+            f"{bad}: {what} is not ported yet (ROADMAP.md Queue 1 item 5)")
 
 
 def _move_delta_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor) -> torch.Tensor:
@@ -105,36 +160,63 @@ def _move_delta_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor) -> to
     ], dim=1).contiguous()
 
 
+def _lead_delta_rows(env: ClusterEnv, rep: torch.Tensor) -> torch.Tensor:
+    """f32[K, WAVE_DIMS] per-broker deltas of gaining / losing leadership of
+    ``rep`` (engine.py:1057-1067): the leader - follower shift, no count,
+    one leader, no potential NW_OUT, the leader's bytes-in."""
+    delta = env.leader_load[rep] - env.follower_load[rep]
+    K = rep.shape[0]
+    zero = torch.zeros((K, 1), dtype=delta.dtype, device=delta.device)
+    one = torch.ones((K, 1), dtype=delta.dtype, device=delta.device)
+    return torch.cat([delta, zero, one, zero,
+                      env.leader_load[rep, Resource.NW_IN][:, None]], dim=1).contiguous()
+
+
+def _desc_order(x: torch.Tensor) -> torch.Tensor:
+    """Stable descending order of f32 ``x`` with -0.0 tied to +0.0, as the
+    reference's sort compares them (CUDA's radix sort would put -0.0 after
+    +0.0; adding +0.0 makes every zero +0.0 first)."""
+    return torch.argsort(-x + 0.0, stable=True)
+
+
 def _combined_move_rooms(prev_goals: tuple, env: ClusterEnv, st: EngineState):
-    """({dim: (src_room | None, dst_room | None)}, rack_veto): the chain's
-    interval-form vetoes folded into per-dim MIN room tables, and whether a
-    previous goal vetoes by rack (the one custom veto ported so far)."""
+    """({dim: (src_room | None, dst_room | None)}, custom): the chain's
+    interval-form vetoes folded into per-dim MIN room tables, and the goals
+    whose veto has no interval form (RackAwareGoal's rack veto, the
+    MinTopicLeadersPerBrokerGoal row veto), which the K2 kernel folds."""
     rooms: dict = {}
-    rack_veto = False
+    custom = []
     for g in prev_goals:
-        if g.rack_veto:
-            rack_veto = True
-            continue
         rm = g.accept_move_rooms(env, st)
         if rm is None:
+            if g.rack_veto or _overrides(g, "move_row_veto"):
+                custom.append(g)
             continue
         for dim, (s, d) in rm.items():
             cs, cd = rooms.get(dim, (None, None))
             rooms[dim] = (
                 s if cs is None else cs if s is None else torch.minimum(cs, s),
                 d if cd is None else cd if d is None else torch.minimum(cd, d))
-    return rooms, rack_veto
+    return rooms, tuple(custom)
 
 
 def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
-                rack_veto: bool, cand, kv, d_rows, T: int) -> tuple:
-    """Arguments of the K2 launch (``kernels.move_score_classes``) for the
-    [K, B] stage of a wave: the per-row legitimacy, source rooms and goal
-    rows, the per-broker destination rooms and goal columns."""
+                custom, cand, kv, d_rows, T: int, order_b=None,
+                row_ok=None) -> tuple:
+    """Positional arguments of the K2 launch (``kernels.move_score_classes``)
+    for the [K, B] stage: the per-row legitimacy (``kv > -inf``, or
+    ``row_ok`` when given), source rooms, row vetoes and goal rows, the
+    per-broker destination rooms and goal columns."""
     B = env.num_brokers
     src_b = st.replica_broker[cand]
     sib_b, replica_ok, dst_ok, new_ok = legit_move_rows(env, st, cand, goal.options)
-    row_ok = replica_ok & (kv > NEG_INF)
+    row_ok = replica_ok & ((kv > NEG_INF) if row_ok is None else row_ok)
+    rack_veto = False
+    for g in custom:
+        if g.rack_veto:
+            rack_veto = True
+        else:
+            row_ok = row_ok & g.move_row_veto(env, st, cand)
     dst_room = torch.full((WAVE_DIMS, B), torch.inf, dtype=torch.float32,
                           device=env.device)
     room_mask = 0
@@ -153,10 +235,12 @@ def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
     prow = None
     if goal.rack_veto or rack_veto:
         prow = st.part_rack_count[env.replica_partition[cand]].to(torch.int64)
+    topic = goal.move_topic_table(env, st, cand) if family == GOAL_MIN_TOPIC else None
     return (family, T, src_b.contiguous(),
             env.replica_original_broker[cand].contiguous(), sib_b,
             row_ok.contiguous(), d_rows, dst_room, room_mask, prow, rack_veto,
-            row_f.contiguous(), col_f.contiguous(), dst_ok, new_ok, env.broker_rack)
+            row_f.contiguous(), col_f.contiguous(), dst_ok, new_ok, env.broker_rack,
+            order_b, topic)
 
 
 def chain_slack(env: ClusterEnv, st: EngineState, goals: tuple):
@@ -169,14 +253,63 @@ def chain_slack(env: ClusterEnv, st: EngineState, goals: tuple):
     for g in goals:
         bud = g.wave_budgets(env, st)
         if bud is None:
-            if not g.wave_safe:
-                raise NotImplementedError(
-                    f"{g.name}: the one-move-per-broker wave is not ported yet "
-                    f"(ROADMAP.md Queue 1 item 5)")
             continue
         src_slack = torch.minimum(src_slack, bud[0])
         dst_slack = torch.minimum(dst_slack, bud[1])
     return src_slack.contiguous(), dst_slack.contiguous()
+
+
+def topic_budget_args(env: ClusterEnv, st: EngineState, goals: tuple, topics,
+                      src_b, dst_b, d_count, d_leader):
+    """K3's ``topic`` argument: every chain goal's ``wave_topic_budgets``
+    as columns, or None when no goal has one."""
+    cols = [g.wave_topic_budgets(env, st, topics, src_b, dst_b, d_count, d_leader)
+            for g in goals]
+    cols = [c for c in cols if c is not None]
+    if not cols:
+        return None
+    return (topics.contiguous(), env.num_topics,
+            torch.stack([c[0].to(torch.float32) for c in cols], 1).contiguous(),
+            torch.stack([c[1] for c in cols], 1).contiguous(),
+            torch.stack([c[2] for c in cols], 1).contiguous())
+
+
+def _admit_moves(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                 prev_goals: tuple, r_sorted, src_s, dst_s, d, wave_ok,
+                 kgroup=None) -> tuple:
+    """Positional K3 arguments of a score-sorted MOVE wave (partition
+    first-touch, budgets with d_count = 1 and d_leader = is_leader)."""
+    chain = (goal, *prev_goals)
+    _require_capable(chain, leadership=False)
+    src_slack, dst_slack = chain_slack(env, st, chain)
+    lead = st.replica_is_leader[r_sorted].to(torch.float32)
+    topics = env.replica_topic[r_sorted]
+    topic = topic_budget_args(env, st, chain, topics, src_s, dst_s,
+                              torch.ones_like(lead), lead)
+    return (d, src_s, dst_s, wave_ok.contiguous(),
+            env.replica_partition[r_sorted].contiguous(), src_slack, dst_slack,
+            goal.wave_gain_budgets(env, st),
+            st.replica_offline[r_sorted].contiguous(), None, kgroup, topic,
+            env.num_partitions)
+
+
+def _admit_leads(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                 prev_goals: tuple, r_sorted, dst_rep, src_b, dst_b, wave_ok,
+                 kgroup=None) -> tuple:
+    """Positional K3 arguments of a score-sorted LEADERSHIP wave (own
+    source / destination deltas, d_count = 0, d_leader = 1, no gain
+    escape, no partition first-touch)."""
+    chain = (goal, *prev_goals)
+    _require_capable(chain, leadership=True)
+    src_slack, dst_slack = chain_slack(env, st, chain)
+    n = r_sorted.shape[0]
+    zeros = torch.zeros(n, dtype=torch.float32, device=env.device)
+    topic = topic_budget_args(env, st, chain, env.replica_topic[r_sorted], src_b,
+                              dst_b, zeros, torch.ones_like(zeros))
+    return (_lead_delta_rows(env, r_sorted), src_b.contiguous(), dst_b.contiguous(),
+            wave_ok.contiguous(), None, src_slack, dst_slack,
+            goal.wave_gain_budgets(env, st), None, _lead_delta_rows(env, dst_rep),
+            kgroup, topic, None)
 
 
 def _admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
@@ -186,12 +319,11 @@ def _admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     K = cand.shape[0]
     B = env.num_brokers
     d_rows = _move_delta_rows(env, st, cand)
-    src_b = st.replica_broker[cand]
-    rooms, rack_veto = _combined_move_rooms(prev_goals, env, st)
+    rooms, custom = _combined_move_rooms(prev_goals, env, st)
     T = min(params.num_dst_choices, B)
     Bp = -(-B // T) * T
     cls_val, cls_q = move_score_classes(
-        *_score_args(env, st, goal, rooms, rack_veto, cand, kv, d_rows, T))
+        *_score_args(env, st, goal, rooms, custom, cand, kv, d_rows, T))
     # destination spread: the row at sorted position j prefers its best
     # destination in class (j mod T) when that class scores, else its
     # global best (lowest column among the max-achieving classes)
@@ -199,7 +331,7 @@ def _admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     cols = cls_q * T + torch.arange(T, device=env.device)[None, :]
     best_val = cls_val.max(dim=1).values
     glob_dst = torch.where(cls_val == best_val[:, None], cols, Bp).min(dim=1).values
-    order = torch.argsort(-best_val, stable=True)
+    order = _desc_order(best_val)
     rank = torch.empty_like(posn)
     rank[order] = posn
     cls = rank % T
@@ -210,14 +342,11 @@ def _admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     val_u = torch.where(use_aff, aff_val, best_val)
 
     r_sorted = cand[order]
-    src_s = src_b[order].contiguous()
+    src_s = st.replica_broker[r_sorted].contiguous()
     dst_s = dst_u[order].contiguous()
-    wave_ok = (val_u[order] > params.min_gain).contiguous()
-    src_slack, dst_slack = chain_slack(env, st, (goal, *prev_goals))
-    args = (d_rows[order].contiguous(), src_s, dst_s, wave_ok,
-            env.replica_partition[r_sorted].contiguous(), src_slack, dst_slack,
-            goal.wave_gain_budgets(env, st),
-            st.replica_offline[r_sorted].contiguous())
+    wave_ok = val_u[order] > params.min_gain
+    args = _admit_moves(env, st, goal, prev_goals, r_sorted, src_s, dst_s,
+                        d_rows[order].contiguous(), wave_ok)
     return r_sorted, dst_s, args
 
 
@@ -236,17 +365,20 @@ def _move_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 
 def _move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                          prev_goals: tuple, params: EngineParams,
-                         severity: torch.Tensor, stall: int):
+                         severity: torch.Tensor, stall: int, cand=None, kv=None):
     """Key once (K1), then up to ``pass_waves`` rank-banded waves; a wave
-    that admits nothing ends the pass. Returns (state, n_applied device
-    scalar, waves run)."""
+    that admits nothing ends the pass. ``cand``/``kv`` override the
+    selection (the finisher's non-segmented waves). Returns (state,
+    n_applied device scalar, waves run)."""
+    if cand is not None:
+        st, n = _move_wave(env, st, goal, prev_goals, params, cand, kv)
+        return st, n, 1
     R = env.num_replicas
     K = min(params.num_candidates, R)
     W = max(1, min(params.max_pass_waves, R // max(K, 1)))
     key = goal.replica_key(env, st, severity)
     k_all = min(K * W, R)
-    kv_all, cand_all = select_candidates(key.contiguous(), k_all, stall,
-                                         exact=goal.is_hard or k_all >= R)
+    kv_all, cand_all = select_candidates(key.contiguous(), k_all, stall)
     waves = min(max(int(params.pass_waves), 1), W)
     total = torch.zeros((), dtype=torch.int64, device=env.device)
     run = 0
@@ -260,12 +392,371 @@ def _move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     return st, total, run
 
 
+def _lead_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+               prev_goals: tuple, cand, row_extra) -> tuple:
+    """Positional arguments of the K6 launch (``kernels.leadership_rows``):
+    legitimacy inputs, the chain's folded ``accept_leadership`` vetoes and
+    the active goal's ``leadership_score`` tables."""
+    members = lead_member_rows(env, cand)
+    row_ok, broker_ok = legit_lead_rows(env, st, cand)
+    row_ok = row_ok & row_extra
+    vetoes = []
+    for g in prev_goals:
+        r, v = g.lead_vetoes(env, st, cand)
+        if r is not None:
+            row_ok = row_ok & r
+        vetoes.extend(v)
+    return (cand.contiguous(), members, row_ok.contiguous(), broker_ok,
+            st.replica_broker, st.replica_offline,
+            goal.lead_tables(env, st, cand), vetoes)
+
+
+def _lead_admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                         prev_goals: tuple, params: EngineParams, lcand, lkv):
+    """Score a leadership wave over ``lcand`` (K6) and sort it by gain;
+    returns (rows in score order, their destination replicas, the K3
+    arguments)."""
+    KL = lcand.shape[0]
+    best_val, f_all = leadership_rows(*_lead_args(env, st, goal, prev_goals, lcand,
+                                                  lkv > NEG_INF))
+    order = _desc_order(best_val)
+    posn = torch.arange(KL, device=env.device)
+    r_sorted = lcand[order]
+    members = env.partition_replicas[env.replica_partition[r_sorted]]
+    dst_rep = torch.clamp(members[posn, f_all[order]], min=0)
+    wave_ok = best_val[order] > params.min_gain
+    src_b = st.replica_broker[r_sorted]
+    dst_b = st.replica_broker[dst_rep]
+    args = _admit_leads(env, st, goal, prev_goals, r_sorted, dst_rep, src_b, dst_b,
+                        wave_ok)
+    return r_sorted, dst_rep, args
+
+
+def _leadership_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                               prev_goals: tuple, params: EngineParams,
+                               severity: torch.Tensor, stall: int, cand=None,
+                               kv=None):
+    """engine.py:968: one [KL, F] scoring pass (K6), then budgeted wave
+    admission (K3; each candidate leads a distinct partition) and one
+    batched transfer apply. Returns (state, n_applied device scalar)."""
+    if cand is None:
+        kl = min(params.num_leader_candidates, env.num_replicas)
+        lkey = goal.leader_key(env, st, severity)
+        lkv, lcand = select_candidates(lkey.contiguous(), kl, stall)
+    else:
+        lkv, lcand = kv, cand
+    r_sorted, dst_rep, args = _lead_admission_args(env, st, goal, prev_goals, params,
+                                                   lcand, lkv)
+    win = wave_admission(*args)
+    st = apply_leaderships_batched(env, st, r_sorted, dst_rep, win)
+    return st, win.sum()
+
+
+# ---------------------------------------------------------------------------
+# The exhaustive finisher
+# ---------------------------------------------------------------------------
+def _compact_eligible(eligible: torch.Tensor, pad_len: int):
+    """(order i64[pad_len], n int): engine.py:1257 on the K1 compaction."""
+    order, n = compact_eligible(eligible.contiguous(), pad_len)
+    return order, int(n)
+
+
+def _scatter_rows(R: int, idx, v, d, gain, dst):
+    """gain[idx] = v, dst[idx] = d for real rows (sentinel R dropped)."""
+    gain_x = torch.cat([gain, gain[:1]])
+    dst_x = torch.cat([dst, dst[:1]])
+    gain_x[idx] = v
+    dst_x[idx] = d
+    return gain_x[:R], dst_x[:R]
+
+
+def _exhaustive_move_scan(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                          prev_goals: tuple, chunk: int):
+    """(gain f32[R], dst i64[R]) — engine.py:1270: every eligible replica's
+    best single-move gain over ALL destinations under legitimacy and chain
+    acceptance (-inf where none exists), swept over the compacted eligible
+    rows in [chunk, B] launches of K2 with T = 1."""
+    R = env.num_replicas
+    chunk = min(chunk, R)
+    eligible = goal.replica_key(env, st, goal.broker_severity(env, st)) > NEG_INF
+    order, n = _compact_eligible(eligible, -(-R // chunk) * chunk)
+    rooms, custom = _combined_move_rooms(prev_goals, env, st)
+    gain = torch.full((R,), NEG_INF, dtype=torch.float32, device=env.device)
+    dst = torch.zeros(R, dtype=torch.int64, device=env.device)
+    for i in range(-(-n // chunk)):
+        idx = order[i * chunk:(i + 1) * chunk]
+        cand = torch.clamp(idx, max=R - 1)
+        d_rows = _move_delta_rows(env, st, cand)
+        cls_val, cls_q = move_score_classes(*_score_args(
+            env, st, goal, rooms, custom, cand, None, d_rows, 1, row_ok=idx < R))
+        gain, dst = _scatter_rows(R, idx, cls_val[:, 0], cls_q[:, 0], gain, dst)
+    return gain, dst
+
+
+def _exhaustive_lead_scan(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                          prev_goals: tuple, chunk: int):
+    """(gain f32[R], dst_rep i64[R]) — engine.py:1341: every eligible
+    leader's best transfer over all its followers, in [chunk, F] launches
+    of K6 over the compacted eligible rows."""
+    R = env.num_replicas
+    chunk = min(chunk, R)
+    eligible = goal.leader_key(env, st, goal.broker_severity(env, st)) > NEG_INF
+    order, n = _compact_eligible(eligible, -(-R // chunk) * chunk)
+    gain = torch.full((R,), NEG_INF, dtype=torch.float32, device=env.device)
+    dst = torch.zeros(R, dtype=torch.int64, device=env.device)
+    for i in range(-(-n // chunk)):
+        idx = order[i * chunk:(i + 1) * chunk]
+        cand = torch.clamp(idx, max=R - 1)
+        v, f = leadership_rows(*_lead_args(env, st, goal, prev_goals, cand, idx < R))
+        members = lead_member_rows(env, cand)
+        d = torch.clamp(members[torch.arange(cand.shape[0], device=env.device), f],
+                        min=0)
+        gain, dst = _scatter_rows(R, idx, v, d, gain, dst)
+    return gain, dst
+
+
+def _segment_broker_order(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                          prev_goals: tuple, S: int) -> torch.Tensor:
+    """i64[Bp] (Bp = ceil(B/S)*S) — engine.py:1430: brokers ranked by
+    remaining destination room (the goal's ``segment_room_key``, else the
+    chain's combined destination rooms, else the static capacity stripe),
+    dealt round-robin: ordered column j belongs to segment j % S."""
+    B = env.num_brokers
+    key = goal.segment_room_key(env, st)
+    if key is None:
+        rooms, _custom = _combined_move_rooms((goal, *prev_goals), env, st)
+        dst_rooms = [d for (_s, d) in rooms.values() if d is not None]
+        if dst_rooms:
+            key = dst_rooms[0]
+            for d in dst_rooms[1:]:
+                key = torch.minimum(key, d)
+        else:
+            key = capacity_stripe_key(env)
+    key = torch.where(env.dst_candidate, key.to(torch.float32),
+                      torch.full((B,), NEG_INF, device=env.device))
+    order = _desc_order(key)
+    Bp = -(-B // S) * S
+    if Bp > B:
+        order = torch.cat([order, torch.arange(B, Bp, device=env.device)])
+    return order.contiguous()
+
+
+def _boundary_count(B: int, win, src_b, dst_b) -> torch.Tensor:
+    """Admitted rows sharing a broker (either role) with an EARLIER admitted
+    row: the cross-segment actions the budgets re-validated."""
+    N = win.shape[0]
+    posn = torch.arange(N, device=win.device)
+    wposn = torch.where(win, posn, N + 1)
+    first_b = torch.full((B,), N + 1, dtype=torch.int64, device=win.device)
+    first_b = first_b.scatter_reduce(0, src_b, wposn, reduce="amin")
+    first_b = first_b.scatter_reduce(0, dst_b, wposn, reduce="amin")
+    return (win & ((first_b[src_b] != posn) | (first_b[dst_b] != posn))).sum()
+
+
+def _segments(params: EngineParams, env: ClusterEnv) -> tuple[int, int]:
+    S = max(2, min(params.max_finisher_segments, env.num_brokers))
+    return S, min(max(int(params.finisher_segments), 1), S)
+
+
+def _segment_move_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                       prev_goals: tuple, params: EngineParams, cand, kv):
+    """The K2 and K3 stages of a segment move wave: (rows in score order,
+    their sources, their destinations, the K3 arguments)."""
+    K = cand.shape[0]
+    S, active = _segments(params, env)
+    d_rows = _move_delta_rows(env, st, cand)
+    src_b = st.replica_broker[cand]
+    rooms, custom = _combined_move_rooms(prev_goals, env, st)
+    order_b = _segment_broker_order(env, st, goal, prev_goals, S)
+    vals, q_best = move_score_classes(*_score_args(
+        env, st, goal, rooms, custom, cand, kv, d_rows, S, order_b=order_b))
+    seg = torch.arange(S, device=env.device)
+    dsts = order_b[q_best * S + seg[None, :]]
+    vals = torch.where(seg[None, :] < active, vals, torch.full_like(vals, NEG_INF))
+    KS = K * S
+    k_of = torch.repeat_interleave(torch.arange(K, device=env.device), S)
+    val_f = vals.reshape(KS)
+    order_r = _desc_order(val_f)
+    k_s = k_of[order_r]
+    r_sorted = cand[k_s]
+    src_s = src_b[k_s].contiguous()
+    dst_s = dsts.reshape(KS)[order_r].contiguous()
+    wave_ok = val_f[order_r] > params.min_gain
+    args = _admit_moves(env, st, goal, prev_goals, r_sorted, src_s, dst_s,
+                        d_rows[k_s].contiguous(), wave_ok,
+                        kgroup=(k_s.contiguous(), K))
+    return r_sorted, src_s, dst_s, args
+
+
+def _segment_move_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                       prev_goals: tuple, params: EngineParams, cand, kv):
+    """engine.py:1469: ONE segment-parallel finisher wave. The [K, B] exact
+    re-score runs once (K2 over the room-ordered columns), every candidate
+    contributes its best destination in each of the S broker segments, and
+    the K*S rows are admitted together in score order (K3: one row per
+    candidate, partition first-touch, cumulative budgets) and applied in
+    one batch. Returns (state, n_applied, n_boundary) as device scalars."""
+    r_sorted, src_s, dst_s, args = _segment_move_args(env, st, goal, prev_goals,
+                                                      params, cand, kv)
+    win = wave_admission(*args)
+    st = apply_moves_batched(env, st, r_sorted, dst_s, win)
+    return st, win.sum(), _boundary_count(env.num_brokers, win, src_s, dst_s)
+
+
+def _segment_lead_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                       prev_goals: tuple, params: EngineParams, cand, kv):
+    """The K6 and K3 stages of a segment leadership wave: (rows in score
+    order, their new leaders, sources, destinations, the K3 arguments)."""
+    KL = cand.shape[0]
+    S, active = _segments(params, env)
+    order_b = _segment_broker_order(env, st, goal, prev_goals, S)
+    Bp = order_b.shape[0]
+    colrank = torch.empty(Bp, dtype=torch.int64, device=env.device)
+    colrank[order_b] = torch.arange(Bp, device=env.device)
+    _best, _f, vals, fbest = leadership_rows(
+        *_lead_args(env, st, goal, prev_goals, cand, kv > NEG_INF),
+        color=(colrank % S).contiguous(), S=S, active=active)
+    dst_rep_all = torch.clamp(lead_member_rows(env, cand), min=0)
+    KS = KL * S
+    k_of = torch.repeat_interleave(torch.arange(KL, device=env.device), S)
+    val_f = vals.reshape(KS)
+    order_r = _desc_order(val_f)
+    k_s = k_of[order_r]
+    r_sorted = cand[k_s]
+    dst_rep = dst_rep_all[k_s, fbest.reshape(KS)[order_r]]
+    wave_ok = val_f[order_r] > params.min_gain
+    src_b = st.replica_broker[r_sorted]
+    dst_b = st.replica_broker[dst_rep]
+    args = _admit_leads(env, st, goal, prev_goals, r_sorted, dst_rep, src_b, dst_b,
+                        wave_ok, kgroup=(k_s.contiguous(), KL))
+    return r_sorted, dst_rep, src_b, dst_b, args
+
+
+def _segment_lead_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                       prev_goals: tuple, params: EngineParams, cand, kv):
+    """engine.py:1578: each candidate leader contributes its best follower
+    per destination-broker color (K6 with the coloring); the KL*S transfer
+    rows are admitted together (K3, one transfer per candidate) and applied
+    in one batch. Returns (state, n_applied, n_boundary)."""
+    r_sorted, dst_rep, src_b, dst_b, args = _segment_lead_args(
+        env, st, goal, prev_goals, params, cand, kv)
+    win = wave_admission(*args)
+    st = apply_leaderships_batched(env, st, r_sorted, dst_rep, win)
+    return st, win.sum(), _boundary_count(env.num_brokers, win, src_b, dst_b)
+
+
+def _finisher_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                   prev_goals: tuple, params: EngineParams, gain: torch.Tensor,
+                   leadership: bool):
+    """engine.py:1669: up to ``finisher_waves`` rank-banded waves of the
+    highest true-gain candidates of one scan (exact top-(K*W) by K1), each
+    re-scored against the live state; waves stop once one admits nothing.
+    Returns (state, applied, boundary) as host ints."""
+    R = env.num_replicas
+    K = min(params.finisher_candidates, R)
+    W = max(1, min(params.finisher_waves, R // max(K, 1)))
+    kv_all, cand_all = select_candidates(gain[:R].contiguous(), K * W, 0)
+    severity = goal.broker_severity(env, st)
+    chain = (goal, *prev_goals)
+    use_seg = (params.max_finisher_segments >= 2
+               and all(_wave_budget_capable(g, leadership) for g in chain))
+    total = boundary = 0
+    for w in range(W):
+        cand = cand_all[w * K:(w + 1) * K]
+        kv = kv_all[w * K:(w + 1) * K]
+        kv = torch.where(kv > params.min_gain, kv, torch.full_like(kv, NEG_INF))
+        nb = 0
+        if leadership:
+            if use_seg:
+                st, n, nb = _segment_lead_wave(env, st, goal, prev_goals, params,
+                                               cand, kv)
+            else:
+                st, n = _leadership_branch_batched(env, st, goal, prev_goals,
+                                                   params, severity, 0,
+                                                   cand=cand, kv=kv)
+        else:
+            if use_seg:
+                st, n, nb = _segment_move_wave(env, st, goal, prev_goals, params,
+                                               cand, kv)
+            else:
+                st, n, _w = _move_branch_batched(env, st, goal, prev_goals,
+                                                 params, severity, 0,
+                                                 cand=cand, kv=kv)
+        n, nb = (int(x) for x in torch.stack([torch.as_tensor(n, device=env.device),
+                                              torch.as_tensor(nb, device=env.device)
+                                              ]).tolist())
+        total += n
+        boundary += nb
+        if n == 0:
+            break
+    return st, total, boundary
+
+
+def _finisher(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+              prev_goals: tuple, params: EngineParams, run: bool):
+    """engine.py:1743 without the swap tail: while ``run`` (the goal was
+    still violated when its budgeted loop exited) and a round applies
+    anything, scan and wave-apply moves, then transfers. A round that
+    applies nothing ends the loop with a certificate when its scans found
+    zero positive actions. Returns (st, proven, moves_left, leads_left,
+    swaps_left, rounds, applied, boundary, segments)."""
+    use_moves = goal.uses_replica_moves
+    use_leads = goal.uses_leadership_moves
+    if params.max_finisher_rounds <= 0 or not (use_moves or use_leads):
+        return st, False, -1, -1, -1, 0, 0, 0, 0
+    big = 2 ** 27
+    rounds, prev_m, prev_l, total, bnd = 0, big, big, 0, 0
+    mleft = lleft = big
+    done = clean = False
+    while run and not done and rounds < params.finisher_rounds:
+        st_entry = st
+        mleft = lleft = applied = 0
+        if use_moves:
+            gain, _ = _exhaustive_move_scan(env, st, goal, prev_goals,
+                                            params.scan_chunk)
+            mleft = int((gain > params.min_gain).sum())
+            st, n, nb = _finisher_wave(env, st, goal, prev_goals, params, gain,
+                                       leadership=False)
+            applied += n
+            bnd += nb
+        if use_leads:
+            scan_st = st_entry if (params.finisher_overlap and use_moves) else st
+            gain, _ = _exhaustive_lead_scan(env, scan_st, goal, prev_goals,
+                                            params.scan_chunk)
+            lleft = int((gain > params.min_gain).sum())
+            st, n, nb = _finisher_wave(env, st, goal, prev_goals, params, gain,
+                                       leadership=True)
+            applied += n
+            bnd += nb
+        done = (applied == 0 or not bool(goal.violated(env, st))
+                or (mleft + lleft > 0
+                    and mleft + lleft > (prev_m + prev_l) * 7 // 8))
+        clean = applied == 0
+        prev_m, prev_l = mleft, lleft
+        rounds += 1
+        total += applied
+    ran = run and rounds > 0
+    if not ran:
+        mleft = lleft = -1
+    proven = (run and clean and (mleft == 0 or not use_moves)
+              and (lleft == 0 or not use_leads))
+    chain = (goal, *prev_goals)
+    seg_capable = params.max_finisher_segments >= 2 and (
+        (use_moves and all(_wave_budget_capable(g) for g in chain))
+        or (use_leads and all(_wave_budget_capable(g, True) for g in chain)))
+    segments = _segments(params, env)[1] if (seg_capable and ran) else 0
+    return st, proven, mleft, lleft, -1, rounds, total, bnd, segments
+
+
+# ---------------------------------------------------------------------------
+# The budgeted pass loop
+# ---------------------------------------------------------------------------
 def _loop_scalar_init():
     """The budgeted loop's scalar carries: (it, n_applied, stall, dribble,
-    sat, win_stat, win_dribble, plateau, tailp, b_moves, b_waves)."""
+    sat, win_stat, win_dribble, plateau, tailp, b_moves, b_leads, b_waves)."""
     return dict(it=0, n_applied=0, stall=0, dribble=0, sat=False,
                 win_stat=np.float32(np.inf), win_dribble=0, plateau=False,
-                tailp=0, b_moves=0, b_waves=0)
+                tailp=0, b_moves=0, b_leads=0, b_waves=0)
 
 
 def _cond(c: dict, params: EngineParams) -> bool:
@@ -279,19 +770,39 @@ def _cond(c: dict, params: EngineParams) -> bool:
 
 
 def _step(env, st, goal, prev_goals, params, c: dict):
-    """One pass (the reference's ``step`` with the move branch only)."""
+    """One pass (the reference's ``step``, engine.py:1953-2074, without the
+    swap and disk branches). The gated branches reuse the pass-start
+    severity, as the reference does: a branch that applied nothing left
+    the state untouched."""
     severity = goal.broker_severity(env, st)
     c["tailp"] += int((c["stall"] + c["dribble"]) > 0)
     explore = c["stall"] + c["dribble"]
-    st, n_moves, n_waves = _move_branch_batched(env, st, goal, prev_goals, params,
-                                                severity, explore)
-    # the pass's one device->host read
-    applied, viol, stat_now = torch.stack([
-        n_moves.to(torch.float32), goal.violated(env, st).to(torch.float32),
+    lead_first = goal.uses_leadership_moves and goal.leadership_primary
+    zero = torch.zeros((), dtype=torch.int64, device=env.device)
+    n_leads = n_moves = zero
+    n_waves = 0
+    leads_now = 0
+    if lead_first:
+        st, n_leads = _leadership_branch_batched(env, st, goal, prev_goals, params,
+                                                 severity, explore)
+        leads_now = int(n_leads)
+    if goal.uses_replica_moves and leads_now == 0:
+        st, n_moves, n_waves = _move_branch_batched(env, st, goal, prev_goals,
+                                                    params, severity, explore)
+    if goal.uses_leadership_moves and not lead_first:
+        if int(n_moves) == 0:
+            st, n_leads = _leadership_branch_batched(env, st, goal, prev_goals,
+                                                     params, severity, explore)
+    # the pass's closing device->host read
+    moves, leads, viol, stat_now = torch.stack([
+        n_moves.to(torch.float32), n_leads.to(torch.float32),
+        goal.violated(env, st).to(torch.float32),
         goal.stat(env, st).to(torch.float32)]).tolist()
-    applied = int(applied)
+    moves, leads = int(moves), int(leads)
+    applied = moves + leads
     stat_now = np.float32(stat_now)
-    c["b_moves"] += applied
+    c["b_moves"] += moves
+    c["b_leads"] += leads
     c["b_waves"] += n_waves
     c["stall"] = 0 if applied > 0 else c["stall"] + 1
     is_dribble = applied < max(1, params.num_candidates // 128)
@@ -309,51 +820,115 @@ def _step(env, st, goal, prev_goals, params, c: dict):
     return st
 
 
-def _goal_loop(env: ClusterEnv, st: EngineState, goal: GoalKernel,
-               prev_goals: tuple, params: EngineParams, finisher: bool = True):
-    """One goal's budgeted loop. ``finisher=True`` stands for the reference's
-    per-goal program, whose exhaustive finisher compiles out only when
-    ``max_finisher_rounds <= 0``; the finisher is not ported yet, so the port
-    requires that (or ``finisher=False``, the fused-prefix form)."""
-    check_supported(params)
-    check_goal_supported(goal)
-    if finisher and params.max_finisher_rounds > 0:
-        raise NotImplementedError("the exhaustive finisher is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 6); pass "
-                                  "max_finisher_rounds=0")
-    stat_before = float(goal.stat(env, st))
-    c = _loop_scalar_init()
-    while _cond(c, params):
-        st = _step(env, st, goal, prev_goals, params, c)
-    violated = bool(goal.violated(env, st))
+def _info(goal, params, c: dict, stat_before: float, violated: bool, fin: dict,
+          stat_after: float) -> dict:
+    """The reference's per-goal info dict (engine.py:2151-2183)."""
     budget_exit = (c["it"] >= params.max_iters
                    or c["dribble"] > params.tail_pass_budget
                    or c["tailp"] > params.tail_total_budget
                    or c["plateau"])
     hit_max_iters = (c["stall"] <= params.stall_retries and budget_exit
-                     and violated)
-    return st, {"iterations": c["n_applied"], "passes": c["it"],
-                "violated_after": violated,
-                "hit_max_iters": hit_max_iters,
-                "plateau_exit": c["plateau"],
-                "fixpoint_proven": False,
-                "finisher_rounds": 0,
-                "moves_remaining": -1,
-                "leads_remaining": -1,
-                "swap_window_remaining": -1,
-                "stat_before": stat_before,
-                "move_actions": c["b_moves"],
-                "lead_actions": 0,
-                "swap_actions": 0,
-                "disk_actions": 0,
-                "move_waves": c["b_waves"],
-                "finisher_actions": 0,
-                "finisher_segments": 0,
-                "finisher_boundary": 0,
-                "stat": float(goal.stat(env, st))}
+                     and violated and not fin["fixpoint_proven"])
+    return {"iterations": c["n_applied"] + fin["finisher_actions"],
+            "passes": c["it"],
+            "violated_after": violated,
+            "hit_max_iters": hit_max_iters,
+            "plateau_exit": c["plateau"],
+            "fixpoint_proven": fin["fixpoint_proven"],
+            "finisher_rounds": fin["finisher_rounds"],
+            "moves_remaining": fin["moves_remaining"],
+            "leads_remaining": fin["leads_remaining"],
+            "swap_window_remaining": fin["swap_window_remaining"],
+            "stat_before": stat_before,
+            "move_actions": c["b_moves"],
+            "lead_actions": c["b_leads"],
+            "swap_actions": 0,
+            "disk_actions": 0,
+            "move_waves": c["b_waves"],
+            "finisher_actions": fin["finisher_actions"],
+            "finisher_segments": fin["finisher_segments"],
+            "finisher_boundary": fin["finisher_boundary"],
+            "stat": stat_after}
+
+
+_NO_FINISHER = {"fixpoint_proven": False, "moves_remaining": -1,
+                "leads_remaining": -1, "swap_window_remaining": -1,
+                "finisher_rounds": 0, "finisher_actions": 0,
+                "finisher_boundary": 0, "finisher_segments": 0}
+
+
+def _goal_finish(env, st, goal, prev_goals, params, run: bool):
+    """The finisher gated on ``run``, as a dict of its counts."""
+    (st, proven, mleft, lleft, swleft, rounds, applied, bnd,
+     segments) = _finisher(env, st, goal, prev_goals, params, run)
+    return st, {"fixpoint_proven": bool(proven), "moves_remaining": mleft,
+                "leads_remaining": lleft, "swap_window_remaining": swleft,
+                "finisher_rounds": rounds, "finisher_actions": applied,
+                "finisher_boundary": bnd, "finisher_segments": segments}
+
+
+def _goal_loop(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+               prev_goals: tuple, params: EngineParams, finisher: bool = True,
+               chunk: int = 0):
+    """One goal's budgeted loop (engine.py:2110). ``finisher=False`` is the
+    fused-prefix form; with ``finisher=True`` the exhaustive finisher runs
+    when the goal exits violated (it compiles out, as in the reference,
+    when ``max_finisher_rounds <= 0``).
+
+    ``chunk > 0`` is the chunked dispatch (engine.py:2452): the host stops
+    at a chunk boundary of ``chunk`` passes as soon as the loop's own
+    condition exits OR a whole chunk admitted zero actions (QUIESCE: zero
+    admissions leave the state bit-unchanged, so every later budgeted pass
+    would re-rank the same starved pools); the info then adds
+    ``passes_skipped``, ``quiesce_chunk``, ``chunks`` and
+    ``finisher_skipped``."""
+    check_supported(params)
+    check_goal_supported(goal)
+    stat_before = float(goal.stat(env, st))
+    c = _loop_scalar_init()
+    quiesce_chunk, chunks, applied_prev = -1, 0, 0
+    while True:
+        lim = c["it"] + chunk if chunk > 0 else math.inf
+        while _cond(c, params) and c["it"] < lim:
+            st = _step(env, st, goal, prev_goals, params, c)
+        chunks += 1
+        if chunk <= 0 or not _cond(c, params):
+            break
+        if c["n_applied"] == applied_prev:
+            quiesce_chunk = chunks - 1
+            break
+        applied_prev = c["n_applied"]
+    fin = dict(_NO_FINISHER)
+    if finisher:
+        st, fin = _goal_finish(env, st, goal, prev_goals, params,
+                               bool(goal.violated(env, st)))
+    violated, stat_after = torch.stack([goal.violated(env, st).to(torch.float32),
+                                        goal.stat(env, st).to(torch.float32)]).tolist()
+    info = _info(goal, params, c, stat_before, bool(violated), fin, stat_after)
+    if chunk > 0:
+        passes_skipped = 0
+        if quiesce_chunk >= 0:
+            stall_cap = (min(params.stall_retries, params.sat_stall_retries)
+                         if c["sat"] else params.stall_retries)
+            passes_skipped = max(0, min(params.max_iters - c["it"],
+                                        params.tail_total_budget + 1 - c["tailp"],
+                                        stall_cap + 1 - c["stall"]))
+        info.update(passes_skipped=passes_skipped, quiesce_chunk=quiesce_chunk,
+                    chunks=chunks, finisher_skipped=False)
+    return st, info
 
 
 def optimize_goal(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                   prev_goals: tuple = (), params: EngineParams = EngineParams()):
-    """Run one goal to completion. Returns (state, info dict)."""
+    """Run one goal to completion (the per-goal program). Returns (state,
+    info dict)."""
     return _goal_loop(env, st, goal, tuple(prev_goals), params, finisher=True)
+
+
+def optimize_goal_chunked(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                          prev_goals: tuple = (),
+                          params: EngineParams = EngineParams()):
+    """engine.py:2452: the budgeted loop in chunks of ``pass_chunk`` passes
+    with the quiesce exit, then the finisher (see ``_goal_loop``)."""
+    return _goal_loop(env, st, goal, tuple(prev_goals), params, finisher=True,
+                      chunk=max(params.pass_chunk, 1))

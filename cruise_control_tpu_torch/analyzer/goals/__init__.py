@@ -1,44 +1,66 @@
 """Goal registry of the port. Names match the reference's class names.
 
-The port so far carries the move-branch goals of its first slice; every
-other goal of the reference raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+The port carries the default goal chain without its swap goals (the five
+move-branch goals of its first slice plus MinTopicLeadersPerBroker,
+NetworkOutboundCapacity, CpuCapacity, PotentialNwOut, LeaderReplica-
+Distribution and LeaderBytesInDistribution); every other goal of the
+reference raises ``NotImplementedError`` naming the ROADMAP item that ports
+it.
 """
 from __future__ import annotations
 
 from cruise_control_tpu_torch.analyzer.env import BalancingConstraint, OptimizationOptions
 from cruise_control_tpu_torch.analyzer.goals.base import GoalKernel
 from cruise_control_tpu_torch.analyzer.goals.capacity import (
-    CapacityGoal, DiskCapacityGoal, NetworkInboundCapacityGoal, ReplicaCapacityGoal,
+    CapacityGoal, CpuCapacityGoal, DiskCapacityGoal, NetworkInboundCapacityGoal,
+    NetworkOutboundCapacityGoal, ReplicaCapacityGoal,
 )
-from cruise_control_tpu_torch.analyzer.goals.distribution import ReplicaDistributionGoal
+from cruise_control_tpu_torch.analyzer.goals.distribution import (
+    LeaderReplicaDistributionGoal, ReplicaDistributionGoal,
+)
+from cruise_control_tpu_torch.analyzer.goals.network import (
+    LeaderBytesInDistributionGoal, PotentialNwOutGoal,
+)
 from cruise_control_tpu_torch.analyzer.goals.rack import RackAwareGoal
+from cruise_control_tpu_torch.analyzer.goals.topic import MinTopicLeadersPerBrokerGoal
 
 GOAL_CLASSES: dict[str, type] = {
     "RackAwareGoal": RackAwareGoal,
+    "MinTopicLeadersPerBrokerGoal": MinTopicLeadersPerBrokerGoal,
     "ReplicaCapacityGoal": ReplicaCapacityGoal,
     "DiskCapacityGoal": DiskCapacityGoal,
     "NetworkInboundCapacityGoal": NetworkInboundCapacityGoal,
+    "NetworkOutboundCapacityGoal": NetworkOutboundCapacityGoal,
+    "CpuCapacityGoal": CpuCapacityGoal,
     "ReplicaDistributionGoal": ReplicaDistributionGoal,
+    "PotentialNwOutGoal": PotentialNwOutGoal,
+    "LeaderReplicaDistributionGoal": LeaderReplicaDistributionGoal,
+    "LeaderBytesInDistributionGoal": LeaderBytesInDistributionGoal,
 }
 
 # the reference's other goals (cruise_control_tpu/analyzer/goals/__init__.py)
 NOT_PORTED_GOALS = (
-    "RackAwareDistributionGoal", "NetworkOutboundCapacityGoal", "CpuCapacityGoal",
-    "DiskUsageDistributionGoal", "NetworkInboundUsageDistributionGoal",
-    "NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal",
-    "LeaderReplicaDistributionGoal", "PotentialNwOutGoal",
-    "LeaderBytesInDistributionGoal", "TopicReplicaDistributionGoal",
-    "MinTopicLeadersPerBrokerGoal", "PreferredLeaderElectionGoal",
-    "IntraBrokerDiskCapacityGoal", "IntraBrokerDiskUsageDistributionGoal",
-    "KafkaAssignerEvenRackAwareGoal", "KafkaAssignerDiskUsageDistributionGoal",
+    "RackAwareDistributionGoal", "DiskUsageDistributionGoal",
+    "NetworkInboundUsageDistributionGoal", "NetworkOutboundUsageDistributionGoal",
+    "CpuUsageDistributionGoal", "TopicReplicaDistributionGoal",
+    "PreferredLeaderElectionGoal", "IntraBrokerDiskCapacityGoal",
+    "IntraBrokerDiskUsageDistributionGoal", "KafkaAssignerEvenRackAwareGoal",
+    "KafkaAssignerDiskUsageDistributionGoal",
 )
+# the not-ported goals that need the swap branch (K7)
+SWAP_GOALS = ("DiskUsageDistributionGoal", "NetworkInboundUsageDistributionGoal",
+              "NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal",
+              "TopicReplicaDistributionGoal", "KafkaAssignerDiskUsageDistributionGoal")
 
 
 def make_goal(name: str, constraint: BalancingConstraint | None = None,
               options: OptimizationOptions | None = None) -> GoalKernel:
     cls = GOAL_CLASSES.get(name)
     if cls is None:
+        if name in SWAP_GOALS:
+            raise NotImplementedError(
+                f"goal {name!r} needs the swap branch, not ported yet (ROADMAP.md "
+                f"Queue 2 K7, the next slice); ported: {sorted(GOAL_CLASSES)}")
         if name in NOT_PORTED_GOALS:
             raise NotImplementedError(
                 f"goal {name!r} is not ported yet (ROADMAP.md Queue 1 item 4, "
@@ -55,6 +77,9 @@ def make_goals(names, constraint=None, options=None) -> list[GoalKernel]:
 
 __all__ = [
     "GOAL_CLASSES", "GoalKernel", "make_goal", "make_goals", "CapacityGoal",
-    "DiskCapacityGoal", "NetworkInboundCapacityGoal", "ReplicaCapacityGoal",
-    "ReplicaDistributionGoal", "RackAwareGoal",
+    "CpuCapacityGoal", "DiskCapacityGoal", "LeaderBytesInDistributionGoal",
+    "LeaderReplicaDistributionGoal", "MinTopicLeadersPerBrokerGoal",
+    "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
+    "PotentialNwOutGoal", "RackAwareGoal", "ReplicaCapacityGoal",
+    "ReplicaDistributionGoal",
 ]

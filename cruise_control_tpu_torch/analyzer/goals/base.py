@@ -12,10 +12,21 @@ EngineState):
   computed with the reference's own arithmetic (``kernels.move_score``);
 - ``accept_move_rooms`` / ``wave_budgets`` / ``wave_gain_budgets``: the
   interval forms of acceptance and the cumulative wave budgets;
+- ``leader_key`` / ``lead_tables`` / ``lead_vetoes``: the leadership
+  counterparts (``leader_key`` f32[R] feeds K1; ``lead_tables`` is the
+  goal's ``leadership_score`` in the K6 kernel's family form and
+  ``lead_vetoes`` its ``accept_leadership`` as a previously optimized goal,
+  see ``kernels.leadership``);
+- ``wave_topic_budgets`` / ``segment_room_key``: per-(topic, broker) wave
+  budgets and the finisher's broker-coloring key;
 - ``violated`` / ``stat``.
 
-The reference's [K, B] ``legit_move_mask`` is evaluated inside the K2
-kernel; ``legit_move_rows`` prepares its per-row and per-broker inputs.
+The reference's [K, B] ``legit_move_mask`` and [K, F]
+``legit_leadership_mask`` are evaluated inside the K2 / K6 kernels;
+``legit_move_rows`` / ``legit_lead_rows`` prepare their inputs.
+``move_score`` / ``leadership_score`` / ``accept_leadership`` give the
+plain [K, B] / [K, F] values of the same tables (the kernels' twins), for
+tests and for the reader.
 """
 from __future__ import annotations
 
@@ -27,6 +38,8 @@ from cruise_control_tpu_torch.analyzer.env import (
     BalancingConstraint, ClusterEnv, OptimizationOptions,
 )
 from cruise_control_tpu_torch.analyzer.state import EngineState
+from cruise_control_tpu_torch.kernels import leadership as lead_k
+from cruise_control_tpu_torch.kernels import move_score as move_k
 from cruise_control_tpu_torch.kernels.select import mul32
 
 NEG_INF = -torch.inf
@@ -43,6 +56,32 @@ WAVE_POT_NW_OUT = 6
 WAVE_LEADER_NW_IN = 7
 # zero-delta rows of these dims pass their rooms outright
 WAVE_ZERO_EXEMPT_DIMS = (WAVE_LEADER_COUNT,)
+
+
+XLA_SUM_WINDOW = 32
+
+
+def _seq_sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Left-to-right f32 sum over dim 1 of [m, w], starting from +0.0."""
+    acc = torch.zeros_like(x[:, 0])
+    for j in range(x.shape[1]):
+        acc = acc + x[:, j]
+    return acc
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """f32 sum of a 1-D tensor in the CPU oracle's order. XLA rewrites a
+    long reduce into windows of 32 (the input padded with zeros evenly on
+    both sides), each window summed left to right from +0.0, recursively,
+    and sums the last <= 32 values left to right."""
+    while x.shape[0] > XLA_SUM_WINDOW:
+        n = x.shape[0]
+        m = -(-n // XLA_SUM_WINDOW)
+        lo = (m * XLA_SUM_WINDOW - n) // 2
+        xp = torch.zeros(m * XLA_SUM_WINDOW, dtype=x.dtype, device=x.device)
+        xp[lo:lo + n] = x
+        x = _seq_sum_rows(xp.view(m, XLA_SUM_WINDOW))
+    return _seq_sum_rows(x[None, :])[0]
 
 
 def row_sum4(x: torch.Tensor) -> torch.Tensor:
@@ -82,6 +121,24 @@ class GoalKernel:
         """(family, row_f f32[K, 4], col_f f32[4, B]) of ``move_score``."""
         raise NotImplementedError
 
+    def move_row_veto(self, env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+        """Optional bool[K]: a custom ``accept_move`` veto that depends on
+        the row only (it is folded into the K2 kernel's row legitimacy)."""
+        return None
+
+    def move_score(self, env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+        """f32[K, B] score of moving candidate k to broker b (no legitimacy):
+        the K2 twin's arithmetic on this goal's tables."""
+        family, row_f, col_f = self.move_tables(env, st, cand)
+        tab = self.move_topic_table(env, st, cand) if family == move_k.GOAL_MIN_TOPIC else None
+        return move_k.goal_score_plain(family, None, row_f, col_f, cand.shape[0],
+                                       env.num_brokers, tab)
+
+    def move_topic_table(self, env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+        """(row_t i64[K], i32[T, B] table) of a family that reads a
+        per-(topic, broker) count (MinTopicLeadersPerBrokerGoal)."""
+        return None
+
     def accept_move_rooms(self, env: ClusterEnv, st: EngineState):
         """Optional ``{dim: (src_room[B] | None, dst_room[B] | None)}``."""
         return None
@@ -94,12 +151,53 @@ class GoalKernel:
         """Optional ``(src_gain[B], dst_gain[B], dim)`` of the ACTIVE goal."""
         return None
 
+    def wave_topic_budgets(self, env: ClusterEnv, st: EngineState, topics,
+                           src_b, dst_b, d_count, d_leader):
+        """Optional ``(delta f32[N], src_slack f32[N], dst_slack f32[N])``:
+        the goal's per-(topic, broker) count constraint in wave form."""
+        return None
+
+    def segment_room_key(self, env: ClusterEnv, st: EngineState):
+        """Optional f32[B] destination-room key of the finisher's broker
+        coloring (None: the chain's combined rooms decide)."""
+        return None
+
+    # --- leadership -------------------------------------------------------
+    def leader_key(self, env: ClusterEnv, st: EngineState, severity):
+        return torch.full((env.num_replicas,), NEG_INF, dtype=torch.float32,
+                          device=env.device)
+
+    def lead_tables(self, env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+        """``kernels.leadership.LeadTables`` of ``leadership_score``."""
+        raise NotImplementedError(f"{self.name} has no leadership score")
+
+    def lead_vetoes(self, env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+        """(row_ok bool[K] | None, [Veto, ...]): this goal's
+        ``accept_leadership`` as a previously optimized goal. Default:
+        accept everything."""
+        return None, []
+
+    def leadership_score(self, env: ClusterEnv, st: EngineState, cand):
+        """f32[K, F] (no legitimacy): the K6 twin's score on the tables."""
+        members = lead_member_rows(env, cand)
+        return lead_k.family_score_plain(self.lead_tables(env, st, cand),
+                                         members, st.replica_broker)
+
+    def accept_leadership(self, env: ClusterEnv, st: EngineState, cand):
+        """bool[K, F] veto as a previously optimized goal."""
+        members = lead_member_rows(env, cand)
+        row_ok, vetoes = self.lead_vetoes(env, st, cand)
+        ok = lead_k.vetoes_plain(vetoes, members, st.replica_broker)
+        if row_ok is not None:
+            ok = ok & row_ok[:, None]
+        return ok
+
     def violated(self, env: ClusterEnv, st: EngineState) -> torch.Tensor:
         return (self.broker_severity(env, st) > 0).any()
 
     def stat(self, env: ClusterEnv, st: EngineState) -> torch.Tensor:
-        """Scalar the goal tries to reduce."""
-        return torch.clamp(self.broker_severity(env, st), min=0.0).sum()
+        """Scalar the goal tries to reduce (summed in the oracle's order)."""
+        return xla_sum(torch.clamp(self.broker_severity(env, st), min=0.0))
 
 
 def broker_lookup(rb: torch.Tensor, *cols: torch.Tensor) -> torch.Tensor:
@@ -141,3 +239,29 @@ def legit_move_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor,
         replica_ok = replica_ok & offline
     new_ok = env.broker_new | ~env.broker_new.any()
     return sib_b.contiguous(), replica_ok, env.dst_candidate, new_ok
+
+
+def lead_member_rows(env: ClusterEnv, cand: torch.Tensor) -> torch.Tensor:
+    """i64[K, F]: replicas of each candidate's partition (-1 padded)."""
+    return env.partition_replicas[env.replica_partition[cand]].contiguous()
+
+
+def legit_lead_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+    """Inputs of the [K, F] ``legit_leadership_mask`` (base.py:471-487)
+    that the K6 kernel expands: the row part (the candidate leads its
+    partition and its topic is not excluded) and the broker part (alive,
+    not demoted, not excluded for leadership)."""
+    row_ok = (st.replica_is_leader[cand] & env.replica_valid[cand]
+              & ~env.topic_excluded[env.replica_topic[cand]])
+    broker_ok = (env.broker_alive & ~env.broker_demoted
+                 & ~env.broker_excluded_for_leadership)
+    return row_ok, broker_ok
+
+
+def legit_leadership_mask(env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+    """bool[K, F] legit leadership-transfer targets (the plain form of what
+    the K6 kernel evaluates)."""
+    members = lead_member_rows(env, cand)
+    row_ok, broker_ok = legit_lead_rows(env, st, cand)
+    return lead_k.legit_plain(cand, members, row_ok, broker_ok,
+                              st.replica_broker, st.replica_offline)

@@ -2,7 +2,8 @@
 ``cruise_control_tpu/analyzer/goals/capacity.py``).
 
 Reference: analyzer/goals/CapacityGoal.java:479 (+ DiskCapacityGoal,
-NetworkInboundCapacityGoal) and ReplicaCapacityGoal.java:345: every alive
+NetworkInbound/OutboundCapacityGoal, CpuCapacityGoal) and
+ReplicaCapacityGoal.java:345: every alive
 broker's utilization of the goal's resource stays under ``capacity_threshold
 * capacity``; replica counts under ``max.replicas.per.broker``. Dead brokers
 must end up empty.
@@ -19,6 +20,7 @@ from cruise_control_tpu_torch.analyzer.goals.base import (
 )
 from cruise_control_tpu_torch.analyzer.state import EngineState
 from cruise_control_tpu_torch.common.resources import EPSILON_ABS, RESOURCES
+from cruise_control_tpu_torch.kernels.leadership import LEAD_CAPACITY, LeadTables, Veto
 from cruise_control_tpu_torch.kernels.move_score import (
     GOAL_CAPACITY, GOAL_REPLICA_CAPACITY,
 )
@@ -91,6 +93,55 @@ class CapacityGoal(GoalKernel):
         excess = torch.clamp(st.util[:, self.resource] - self._limit(env), min=0.0)
         return excess, torch.zeros_like(excess), self.resource
 
+    def segment_room_key(self, env: ClusterEnv, st: EngineState):
+        return self._limit(env) - st.util[:, self.resource]
+
+    # -- leadership (CPU / NW_OUT shift with leadership) --
+    def _lead_delta(self, env: ClusterEnv) -> torch.Tensor:
+        """f32[R] what gaining leadership adds to a replica's broker."""
+        return env.leader_load[:, self.resource] - env.follower_load[:, self.resource]
+
+    def leader_key(self, env: ClusterEnv, st: EngineState, severity):
+        on_bad = severity[st.replica_broker] > 0
+        delta = self._lead_delta(env)
+        ok = (env.replica_valid & st.replica_is_leader & on_bad & (delta > 0)
+              & ~st.replica_offline)
+        return torch.where(ok, delta, torch.full_like(delta, NEG_INF))
+
+    def lead_tables(self, env: ClusterEnv, st: EngineState, cand):
+        """Feasible iff the member's broker stays under the limit after
+        gaining the member's leader - follower delta; score 0.99 x the
+        candidate's own delta (a slight preference for replica moves)."""
+        delta = self._lead_delta(env)
+        util = st.util[:, self.resource]
+        fb = torch.stack([util, self._limit(env), torch.zeros_like(util)])
+        fk = torch.stack([delta[cand] * 0.99 + 0.0, torch.zeros_like(delta[cand])])
+        return LeadTables(LEAD_CAPACITY, fb.contiguous(), fk.contiguous(),
+                          fr=delta.contiguous())
+
+    def lead_vetoes(self, env: ClusterEnv, st: EngineState, cand):
+        limit = self._limit(env) + self._eps(env)
+        return None, [Veto(st.util[:, self.resource].contiguous(), limit,
+                           x_rep=self._lead_delta(env).contiguous())]
+
+
+@dataclasses.dataclass(frozen=True)
+class CpuCapacityGoal(CapacityGoal):
+    resource: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "name", "CpuCapacityGoal")
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkOutboundCapacityGoal(CapacityGoal):
+    resource: int = 2
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "name", "NetworkOutboundCapacityGoal")
+
 
 @dataclasses.dataclass(frozen=True)
 class NetworkInboundCapacityGoal(CapacityGoal):
@@ -162,3 +213,6 @@ class ReplicaCapacityGoal(GoalKernel):
         c = st.replica_count.to(torch.float32)
         excess = torch.clamp(c - float(self._max()), min=0.0)
         return excess, torch.zeros_like(excess), WAVE_COUNT
+
+    def segment_room_key(self, env: ClusterEnv, st: EngineState):
+        return float(self._max()) - st.replica_count.to(torch.float32)

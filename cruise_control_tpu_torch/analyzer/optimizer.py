@@ -6,17 +6,20 @@ goal in priority order run the goal with the previously optimized goals'
 acceptance in force, then diff the initial vs final assignment into
 proposals.
 
-The port serves the two configurations in which the reference runs exactly
-``_goal_loop(finisher=False)`` per goal:
+The port serves the reference's three shapes of the chain:
 
 - padded R < ``analyzer.finisher.min.replicas`` (8,192): the unfused
   per-goal chain, finisher compiled out;
-- padded R >= ``analyzer.fused.chain.min.replicas`` (65,536) with no
-  deep-tail goal: the fused prefix chain.
+- 8,192 <= padded R < ``analyzer.fused.chain.min.replicas`` (65,536): the
+  unfused chain, every goal through the chunked dispatch and the finisher;
+- padded R >= 65,536: the fused prefix (every goal up to the first
+  deep-tail goal, no finisher), then each deep-tail goal through the
+  chunked dispatch and the finisher.
 
-Everything else (the chunked dispatch and finisher between the two, deep
-tails, sessions, the preferred-leader pass, bf16, other goals) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+After the chain, certificate-driven escalation re-enters the finisher of a
+goal that exited violated and unproven with few actions left. Sessions,
+the preferred-leader pass, bf16 and the swap / disk goals raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 
 from cruise_control_tpu_torch.analyzer.engine import (
     EngineParams, _goal_loop, check_goal_supported, check_supported,
-    optimize_goal,
+    optimize_goal, optimize_goal_chunked,
 )
 from cruise_control_tpu_torch.analyzer.env import (
     BalancingConstraint, ClusterEnv, OptimizationOptions, make_env,
@@ -49,6 +52,8 @@ BF16_AUTO_MIN_REPLICAS = 262_144
 FUSED_MIN_REPLICAS = 65_536      # analyzer.fused.chain.min.replicas default
 FINISHER_MIN_REPLICAS = 8192     # analyzer.finisher.min.replicas default
 CHUNK_MIN_REPLICAS = 8192        # analyzer.pass.chunk.min.replicas default
+ESCALATION_MAX_REMAINING = 2048  # analyzer.finisher.escalation.max.remaining
+ESCALATION_FACTOR = 4            # analyzer.finisher.escalation.factor
 
 # reference config/defaults.py DEFAULT_GOALS / DEFAULT_HARD_GOALS
 DEFAULT_GOALS = [
@@ -300,6 +305,56 @@ class GoalOptimizer:
             max_finisher_rounds=0 if small else p.max_finisher_rounds,
             compute_dtype=_resolve_compute_dtype(p.compute_dtype, num_replicas))
 
+    def _escalate_unproven(self, env: ClusterEnv, st: EngineState, goals,
+                           goal_results, params: EngineParams):
+        """optimizer.py:1553: a goal whose finisher exited violated, unproven
+        and with at most ESCALATION_MAX_REMAINING actions left re-enters its
+        finisher once at the end of the chain, with finisher_rounds x
+        ESCALATION_FACTOR, the budgeted loop skipped and every other chain
+        goal's veto in force; then every verdict is refreshed. Returns the
+        escalated state, or None when nothing escalated."""
+        if params.finisher_rounds <= 0:
+            return None
+        by_name = {g.name: g for g in goals}
+        candidates = []
+        for r in goal_results:
+            g = by_name.get(r.name)
+            if g is None or not r.violated_after or r.fixpoint_proven:
+                continue
+            if r.moves_remaining < 0 and r.leads_remaining < 0:
+                continue
+            remaining = (max(r.moves_remaining, 0) + max(r.leads_remaining, 0)
+                         + max(r.swap_window_remaining, 0))
+            if remaining <= ESCALATION_MAX_REMAINING:
+                candidates.append((r, g))
+        if not candidates:
+            return None
+        esc = dataclasses.replace(
+            params, max_iters=0, stall_retries=0, tail_pass_budget=0,
+            tail_total_budget=0, sat_stall_retries=0, sat_tail_passes=0,
+            finisher_rounds=params.finisher_rounds * ESCALATION_FACTOR,
+            finisher_swap_passes=params.finisher_swap_passes * ESCALATION_FACTOR)
+        for r, g in candidates:
+            prev = tuple(x for x in goals if x.name != r.name)
+            st, info = optimize_goal(env, st, g, prev, esc)
+            r.escalations += 1
+            r.violated_after = bool(info["violated_after"])
+            r.fixpoint_proven = bool(info["fixpoint_proven"])
+            r.hit_max_iters = r.violated_after and not r.fixpoint_proven
+            r.moves_remaining = int(info["moves_remaining"])
+            r.leads_remaining = int(info["leads_remaining"])
+            r.swap_window_remaining = int(info["swap_window_remaining"])
+            r.iterations += int(info["iterations"])
+            r.finisher_rounds += int(info["finisher_rounds"])
+            r.finisher_actions += int(info["finisher_actions"])
+            r.stat_after = float(info["stat"])
+        fresh = dict(zip((g.name for g in goals), violations(goals, env, st)))
+        for r in goal_results:
+            if r.name in fresh and r.violated_after and not fresh[r.name]:
+                r.violated_after = False
+                r.hit_max_iters = False
+        return st
+
     def optimizations(self, ct: ClusterTensor | None, meta: ClusterMeta | None = None,
                       goal_names: list[str] | None = None,
                       options: OptimizationOptions = OptimizationOptions(),
@@ -335,14 +390,6 @@ class GoalOptimizer:
         check_supported(params)
         use_fused = num_replicas >= FUSED_MIN_REPLICAS
         use_chunked = params.pass_chunk > 0 and num_replicas >= CHUNK_MIN_REPLICAS
-        # no ported goal is deep-tail (those run their own finisher programs
-        # in the reference): make_goals already refused them
-        if not use_fused and (use_chunked or params.max_finisher_rounds > 0):
-            raise NotImplementedError(
-                f"padded R={num_replicas} runs the chunked dispatch and the "
-                f"finisher in the reference, not ported yet (ROADMAP.md Queue 1 "
-                f"items 6 and 10); the port serves R < {FINISHER_MIN_REPLICAS} "
-                f"and R >= {FUSED_MIN_REPLICAS}")
 
         tml = None
         if min_leader_topic_pattern:
@@ -364,10 +411,17 @@ class GoalOptimizer:
                                    violations(goals, env, st)))
         infos, durations = [], []
         prev: tuple = ()
-        for g in goals:
+        # fused: the prefix up to the first deep-tail goal runs without the
+        # finisher; each later goal (and, unfused, every goal) runs as its
+        # own program with the finisher at its chain position
+        split = (next((i for i, g in enumerate(goals) if g.deep_tail), len(goals))
+                 if use_fused else 0)
+        for gi, g in enumerate(goals):
             t0 = time.monotonic()
-            if use_fused:
+            if gi < split:
                 st, info = _goal_loop(env, st, g, prev, params, finisher=False)
+            elif use_chunked:
+                st, info = optimize_goal_chunked(env, st, g, prev, params)
             else:
                 st, info = optimize_goal(env, st, g, prev, params)
             durations.append(0.0 if use_fused else time.monotonic() - t0)
@@ -393,11 +447,14 @@ class GoalOptimizer:
                 move_waves=info["move_waves"],
                 finisher_actions=info["finisher_actions"],
                 finisher_segments=info["finisher_segments"],
-                finisher_boundary=info["finisher_boundary"])
+                finisher_boundary=info["finisher_boundary"],
+                passes_skipped=info.get("passes_skipped", 0),
+                quiesce_chunk=info.get("quiesce_chunk", -1),
+                finisher_skipped=info.get("finisher_skipped", False))
             for g, info, dur in zip(goals, infos, durations)]
-        # certificate-driven escalation re-enters a goal's finisher only when
-        # the finisher measured a remaining-action count; the finisher never
-        # runs on the served paths, so escalation has nothing to re-enter
+        st_esc = self._escalate_unproven(env, st, goals, goal_results, params)
+        if st_esc is not None:
+            st = st_esc
         stats_after = cluster_stats_state(env, st)
         pb, plead, pdisk, data_mb = _pack_final(env, st)
         R = env.num_replicas
@@ -419,6 +476,8 @@ class GoalOptimizer:
             num_leadership_movements=proposals.num_leadership_changes,
             data_to_move_mb=data_mb,
             passes_dispatched=sum(r.passes for r in goal_results),
+            passes_skipped=sum(r.passes_skipped for r in goal_results),
+            early_exit_goals=sum(1 for r in goal_results if r.quiesce_chunk >= 0),
             final_state=st, env=env, meta=meta)
         if raise_on_failure:
             failed = [r.name + (" (iteration budget exhausted)" if r.hit_max_iters else "")

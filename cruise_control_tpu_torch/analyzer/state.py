@@ -1,5 +1,6 @@
 """Mutable engine state + incremental maintenance (counterpart of
-``cruise_control_tpu/analyzer/state.py``, the move path).
+``cruise_control_tpu/analyzer/state.py``: batched moves and batched
+leadership transfers).
 
 The pass loop carries this dataclass of device tensors and applies the
 reference's bookkeeping as batched segment updates per wave; ``refresh``
@@ -155,25 +156,15 @@ def apply_sum_inputs(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
     return vals, seg, init
 
 
-def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
-                        dsts: torch.Tensor, mask: torch.Tensor) -> EngineState:
-    """Apply a WAVE of moves: ``replicas[W]`` relocate to ``dsts[W]`` where
-    ``mask[W]``. Masked rows add zero and never write the assignment;
-    enabled rows must be unique. Float tallies follow the reference's
-    chained ``.at[src].add(-x).at[dst].add(x)`` order, with the Neumaier
-    residual ``res + ((acc - new) + agg)`` of ``_kahan_scatter2``."""
-    B, P, T = env.num_brokers, env.num_partitions, env.num_topics
-    Kr = env.num_racks
-    D = env.broker_disk_capacity.shape[1]
+def apply_move_count_inputs(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
+                            dsts: torch.Tensor, mask: torch.Tensor):
+    """The ``segment_count`` arguments (seg, nseg, weights, init) of one
+    wave's replica_count, leader_count, part_rack_count, topic_broker_count
+    and topic_leader_count updates: -1 at every enabled row's source, +1 at
+    its destination."""
+    B, P, T, Kr = env.num_brokers, env.num_partitions, env.num_topics, env.num_racks
     is_leader = st.replica_is_leader[replicas]
     src = st.replica_broker[replicas]
-    vals, seg, init = apply_sum_inputs(env, st, replicas, dsts, mask)
-    out = segment_sum(vals, seg, B, init)
-    util, leader_util = out[:, 0:4], out[:, 4:8]
-    util_res = st.util_residual + ((st.util - util) + out[:, 9:13])
-    lead_res = st.leader_util_residual + ((st.leader_util - leader_util)
-                                          + out[:, 13:17])
-
     one = mask.to(torch.int32)
     lone = (mask & is_leader).to(torch.int32)
     w1 = torch.cat([-one, one])
@@ -184,11 +175,32 @@ def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor
     prc_seg = torch.cat([pidx * Kr + env.broker_rack[src],
                          pidx * Kr + env.broker_rack[dsts]])
     t_seg = torch.cat([tidx * B + src, tidx * B + dsts])
-    rc = segment_count(both, B, w1, st.replica_count)
-    lc = segment_count(both, B, wl, st.leader_count)
-    prc = segment_count(prc_seg, P * Kr, w1, st.part_rack_count.reshape(-1))
-    tbc = segment_count(t_seg, T * B, w1, st.topic_broker_count.reshape(-1))
-    tlc = segment_count(t_seg, T * B, wl, st.topic_leader_count.reshape(-1))
+    return ((both, B, w1, st.replica_count), (both, B, wl, st.leader_count),
+            (prc_seg, P * Kr, w1, st.part_rack_count.reshape(-1)),
+            (t_seg, T * B, w1, st.topic_broker_count.reshape(-1)),
+            (t_seg, T * B, wl, st.topic_leader_count.reshape(-1)))
+
+
+def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
+                        dsts: torch.Tensor, mask: torch.Tensor) -> EngineState:
+    """Apply a WAVE of moves: ``replicas[W]`` relocate to ``dsts[W]`` where
+    ``mask[W]``. Masked rows add zero and never write the assignment;
+    enabled rows must be unique. Float tallies follow the reference's
+    chained ``.at[src].add(-x).at[dst].add(x)`` order, with the Neumaier
+    residual ``res + ((acc - new) + agg)`` of ``_kahan_scatter2``."""
+    B, P, T = env.num_brokers, env.num_partitions, env.num_topics
+    Kr = env.num_racks
+    D = env.broker_disk_capacity.shape[1]
+    src = st.replica_broker[replicas]
+    vals, seg, init = apply_sum_inputs(env, st, replicas, dsts, mask)
+    out = segment_sum(vals, seg, B, init)
+    util, leader_util = out[:, 0:4], out[:, 4:8]
+    util_res = st.util_residual + ((st.util - util) + out[:, 9:13])
+    lead_res = st.leader_util_residual + ((st.leader_util - leader_util)
+                                          + out[:, 13:17])
+
+    rc, lc, prc, tbc, tlc = (segment_count(*a) for a in
+                             apply_move_count_inputs(env, st, replicas, dsts, mask))
 
     # destination logdir: most-free alive disk on dst at pre-wave state
     free = torch.where(env.broker_disk_alive[dsts],
@@ -222,3 +234,73 @@ def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor
         topic_broker_count=tbc.view(T, B), topic_leader_count=tlc.view(T, B),
         disk_util=du.view(B, D), util_residual=util_res,
         leader_util_residual=lead_res, moved=moved)
+
+
+def apply_lead_sum_inputs(env: ClusterEnv, st: EngineState, src: torch.Tensor,
+                          dst: torch.Tensor, mask: torch.Tensor):
+    """(values f32[2W, 16], seg i64[2W], init f32[B, 16]) of one leadership
+    wave's chained per-broker float update: every source row (in row order),
+    then every destination row; columns util[4] (the leader - follower
+    shift), leader_util[4], and both again for the Neumaier residual."""
+    B = env.num_brokers
+    bs = st.replica_broker[src]
+    bd = st.replica_broker[dst]
+    delta_s = env.leader_load[src] - env.follower_load[src]
+    delta_d = env.leader_load[dst] - env.follower_load[dst]
+    rows_s = torch.cat([-delta_s, -env.leader_load[src]], dim=1)
+    rows_d = torch.cat([delta_d, env.leader_load[dst]], dim=1)
+    vals = torch.cat([torch.cat([rows_s, rows_s], dim=1),
+                      torch.cat([rows_d, rows_d], dim=1)]).contiguous()
+    none = torch.full_like(bs, -1)
+    seg = torch.cat([torch.where(mask, bs, none), torch.where(mask, bd, none)])
+    init = torch.cat([st.util, st.leader_util,
+                      torch.zeros((B, 8), dtype=torch.float32, device=src.device)],
+                     dim=1).contiguous()
+    return vals, seg, init
+
+
+def apply_lead_count_inputs(env: ClusterEnv, st: EngineState, src: torch.Tensor,
+                            dst: torch.Tensor, mask: torch.Tensor):
+    """The ``segment_count`` arguments (seg, nseg, weights, init) of one
+    leadership wave's leader_count and topic_leader_count updates: -1 at
+    every enabled source row's broker, +1 at its destination's."""
+    B, T = env.num_brokers, env.num_topics
+    bs = st.replica_broker[src]
+    bd = st.replica_broker[dst]
+    one = mask.to(torch.int32)
+    w = torch.cat([-one, one])
+    t = env.replica_topic[src]
+    return ((torch.cat([bs, bd]), B, w, st.leader_count),
+            (torch.cat([t * B + bs, t * B + bd]), T * B, w,
+             st.topic_leader_count.reshape(-1)))
+
+
+def apply_leaderships_batched(env: ClusterEnv, st: EngineState, src: torch.Tensor,
+                              dst: torch.Tensor, mask: torch.Tensor) -> EngineState:
+    """Apply a WAVE of leadership transfers ``src[W] -> dst[W]`` (same
+    partition per row, distinct partitions across enabled rows) where
+    ``mask[W]``. Float tallies follow the reference's chained
+    ``.at[src].add(-x).at[dst].add(y)`` order with the Neumaier residual of
+    ``_kahan_scatter2``; masked rows add nothing (segment -1); the leader
+    flags clear at the sources and set at the destinations (OR-style, so a
+    masked row never writes)."""
+    B, T, R = env.num_brokers, env.num_topics, env.num_replicas
+    vals, seg, init = apply_lead_sum_inputs(env, st, src, dst, mask)
+    out = segment_sum(vals, seg, B, init)
+    util, leader_util = out[:, 0:4], out[:, 4:8]
+    util_res = st.util_residual + ((st.util - util) + out[:, 8:12])
+    lead_res = st.leader_util_residual + ((st.leader_util - leader_util)
+                                          + out[:, 12:16])
+    lc_args, tlc_args = apply_lead_count_inputs(env, st, src, dst, mask)
+    lc = segment_count(*lc_args)
+    tlc = segment_count(*tlc_args)
+    one = mask.to(torch.int32)
+    zeros = torch.zeros(R, dtype=torch.int32, device=src.device)
+    cleared = zeros.index_add(0, src, one) > 0
+    granted = zeros.index_add(0, dst, one) > 0
+    return dataclasses.replace(
+        st, replica_is_leader=(st.replica_is_leader & ~cleared) | granted,
+        util=util.contiguous(), leader_util=leader_util.contiguous(),
+        leader_count=lc, topic_leader_count=tlc.view(T, B),
+        leadership_moved=st.leadership_moved | cleared | granted,
+        util_residual=util_res, leader_util_residual=lead_res)

@@ -7,21 +7,30 @@ kernel's source, the reference function it replaces and its launch count.
 """
 from cruise_control_tpu_torch.kernels.admission import wave_admission
 from cruise_control_tpu_torch.kernels.build import KERNELS, build_all
+from cruise_control_tpu_torch.kernels.leadership import leadership_rows
 from cruise_control_tpu_torch.kernels.move_score import move_score_classes
 from cruise_control_tpu_torch.kernels.segment import segment_count, segment_sum
-from cruise_control_tpu_torch.kernels.select import select_candidates
+from cruise_control_tpu_torch.kernels.select import compact_eligible, select_candidates
 
 
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.shapes = {}
 
 
 def launches() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def launch_shapes() -> dict:
+    """{kernel: {launch shape: launches}} since the last reset."""
+    return {name: dict(k.shapes) for name, k in KERNELS.items()}
+
+
 __all__ = [
-    "KERNELS", "build_all", "launches", "move_score_classes", "reset_launches",
-    "segment_count", "segment_sum", "select_candidates", "wave_admission",
+    "KERNELS", "build_all", "compact_eligible", "launch_shapes", "launches",
+    "leadership_rows",
+    "move_score_classes", "reset_launches", "segment_count", "segment_sum",
+    "select_candidates", "wave_admission",
 ]

@@ -1,12 +1,18 @@
-"""K3 ``wave_admission``: budgeted wave admission of one sorted move wave.
+"""K3 ``wave_admission``: budgeted admission of one score-sorted wave of
+moves or leadership transfers.
 
 Replaces ``cruise_control_tpu/analyzer/engine.py`` ``_wave_admission``
-(:555), ``_group_cumsum`` (:648) and the partition first-touch of
-``_move_wave`` (:846-851). In score order a row is admitted iff it is the
-first wave row of its partition, its per-source and per-destination
-cumulative deltas (rank-0 rows exempt) stay within the chain's combined
-slack (+1e-4), and the active goal still has gain budget at one endpoint
-(or the row escapes the cap, e.g. offline healing).
+(:555), ``_group_cumsum`` (:648), the partition first-touch of
+``_move_wave`` (:846-851) and the one-row-per-candidate and partition
+first-touch of the segment waves (:1552-1557, :1639-1640). In score order
+a row is admitted iff it is the first wave row of its candidate (segment
+waves) and of its partition (move waves), its per-(topic, broker)
+cumulative count deltas stay within every chain goal's per-topic slack, its
+per-source and per-destination cumulative deltas (rank-0 rows exempt) stay
+within the chain's combined slack (+1e-4), and the active goal still has
+gain budget at one endpoint (or the row escapes the cap, e.g. offline
+healing). Leadership waves pass their own source and destination deltas
+(``d_dst``): the destination gains the other replica's loads.
 
 ``_group_cumsum`` takes a GLOBAL inclusive cumsum in stable group order and
 subtracts the prefix before each group start. The CPU oracle's XLA lowers
@@ -15,10 +21,11 @@ each block scanned left to right, the block totals scanned the same way
 (recursively), and the exclusive block prefix added back. ``xla_cumsum``
 reproduces that order exactly, so the sums match the oracle bit for bit.
 
-CUDA kernel (``csrc/wave_admission.cu``): one CTA for the whole wave
-(K <= 2048): bitonic sort of (group, row) keys in shared memory, the XLA-order
-scan, ranks by walking back to the group start, O(K^2/2) partition
-first-touch. Bound: operations are trivial; it is latency-bound (one CTA).
+CUDA kernel (``csrc/wave_admission.cu``): first-touch tables by integer
+atomicMin; one CTA per side sorts (group, row) keys in shared memory (N <=
+16,384), scans in the XLA order and finds group starts with a block-wide
+prefix max (no walk back, so the cost does not grow with N^2); one thread
+per row decides. Bound: latency (one CTA per side).
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from cruise_control_tpu_torch.kernels.build import (
 KERNEL = register("wave_admission",
                   "cruise_control_tpu_torch/kernels/csrc/wave_admission.cu",
                   "cruise_control_tpu/analyzer/engine.py:555")
-MAX_K = 2048
+MAX_K = 16384
 SCAN_BASE = 16
 
 
@@ -90,73 +97,130 @@ def group_cumsum(groups: torch.Tensor, d: torch.Tensor):
     return cum, rank
 
 
+def _first_touch(groups, ok, n_groups):
+    """bool[N]: row i is the first ``ok`` row of its group."""
+    N = groups.shape[0]
+    posn = torch.arange(N, device=groups.device)
+    inf = N + 1
+    guarded = torch.where(ok, posn, inf)
+    first = torch.full((n_groups,), inf, dtype=torch.int64, device=groups.device)
+    first = first.scatter_reduce(0, groups, guarded, reduce="amin")
+    return first[groups] == posn
+
+
 def wave_admission_plain(d, src_b, dst_b, wave_ok, part, src_slack, dst_slack,
-                         gain, gain_escape):
+                         gain, gain_escape, d_dst=None, kgroup=None, topic=None,
+                         num_parts=None):
     K = d.shape[0]
     B = src_slack.shape[0]
     posn = torch.arange(K, device=d.device)
-    # partition first-touch: the first wave row of each partition
-    inf = K + 1
-    guarded = torch.where(wave_ok, posn, inf)
-    P = int(part.max()) + 1 if K else 1
-    first = torch.full((P,), inf, dtype=torch.int64, device=d.device)
-    first = first.scatter_reduce(0, part, guarded, reduce="amin")
-    part_ok = first[part] == posn
-    dd = torch.where(wave_ok[:, None], d, torch.zeros_like(d))
-    cum_src, rank_src = group_cumsum(torch.where(wave_ok, src_b, B + posn), dd)
-    cum_dst, rank_dst = group_cumsum(torch.where(wave_ok, dst_b, B + posn), dd)
+    ok = wave_ok
+    if kgroup is not None:
+        ok = ok & _first_touch(kgroup[0], ok, kgroup[1])
+    part_ok = None
+    if part is not None:
+        n_parts = num_parts if num_parts is not None else int(part.max()) + 1
+        part_ok = _first_touch(part, ok, n_parts)
+    d_dst = d if d_dst is None else d_dst
+    ds = torch.where(ok[:, None], d, torch.zeros_like(d))
+    dd = torch.where(ok[:, None], d_dst, torch.zeros_like(d_dst))
+    win = ok
+    if topic is not None:
+        topics, nT, tdelta, ts_slack, td_slack = topic
+        tdel = torch.where(ok[:, None], tdelta, torch.zeros_like(tdelta))
+        cum_s, rank_s = group_cumsum(torch.where(ok, topics * B + src_b, nT * B + posn),
+                                     tdel)
+        cum_d, rank_d = group_cumsum(torch.where(ok, topics * B + dst_b, nT * B + posn),
+                                     tdel)
+        free = tdel == 0
+        win = win & ((free | (rank_s == 0)[:, None] | (cum_s <= ts_slack + 1e-4))
+                     & (free | (rank_d == 0)[:, None] | (cum_d <= td_slack + 1e-4))
+                     ).all(dim=1)
+    cum_src, rank_src = group_cumsum(torch.where(ok, src_b, B + posn), ds)
+    cum_dst, rank_dst = group_cumsum(torch.where(ok, dst_b, B + posn), dd)
     src_fit = (rank_src == 0) | (cum_src <= src_slack[src_b] + 1e-4).all(dim=1)
     dst_fit = (rank_dst == 0) | (cum_dst <= dst_slack[dst_b] + 1e-4).all(dim=1)
-    win = part_ok & wave_ok & src_fit & dst_fit
+    win = win & src_fit & dst_fit
     if gain is not None:
         src_gain, dst_gain, dim = gain
-        excl_src = cum_src[:, dim] - dd[:, dim]
+        excl_src = cum_src[:, dim] - ds[:, dim]
         excl_dst = cum_dst[:, dim] - dd[:, dim]
         sg, dg = src_gain[src_b], dst_gain[dst_b]
-        gain_ok = (((sg > 0) & (excl_src < sg)) | ((dg > 0) & (excl_dst < dg))
-                   | gain_escape)
+        gain_ok = ((sg > 0) & (excl_src < sg)) | ((dg > 0) & (excl_dst < dg))
+        if gain_escape is not None:
+            gain_ok = gain_ok | gain_escape
         win = win & gain_ok
+    if part_ok is not None:
+        win = win & part_ok
     return win
 
 
-_SIGNATURES = {"cc_wave_admission": [I] * 4 + [P] * 14}
+_SIGNATURES = {"cc_wave_admission": [I] * 7 + [P] * 23}
 
 
 def wave_admission(d, src_b, dst_b, wave_ok, part, src_slack, dst_slack,
-                   gain, gain_escape):
-    """bool[K] admitted rows of a score-sorted move wave (partition
-    first-touch included). ``d`` f32[K, 8] deltas; ``src_b``/``dst_b``/
-    ``part`` i64[K]; ``wave_ok``/``gain_escape`` bool[K]; ``*_slack``
-    f32[B, 8] combined chain slack; ``gain`` = (src_gain f32[B], dst_gain
-    f32[B], dim) of the active goal, or None."""
+                   gain, gain_escape, d_dst=None, kgroup=None, topic=None,
+                   num_parts=None):
+    """bool[N] admitted rows of a score-sorted wave. ``d`` f32[N, 8] source
+    deltas (``d_dst`` the destination deltas when they differ); ``src_b`` /
+    ``dst_b`` i64[N]; ``wave_ok`` bool[N]; ``part`` i64[N] partitions for the
+    partition first-touch (None: none; ``num_parts`` their count);
+    ``kgroup`` = (i64[N] candidate of each row, count) for the
+    one-row-per-candidate rule; ``topic`` = (topics i64[N], num_topics,
+    delta f32[N, G], src_slack f32[N, G], dst_slack f32[N, G]) the chain's
+    per-(topic, broker) budgets; ``*_slack`` f32[B, 8] the combined chain
+    slack; ``gain`` = (src_gain f32[B], dst_gain f32[B], dim) of the active
+    goal, or None; ``gain_escape`` bool[N] or None."""
     if not d.is_cuda:
         return wave_admission_plain(d, src_b, dst_b, wave_ok, part, src_slack,
-                                    dst_slack, gain, gain_escape)
-    K = d.shape[0]
+                                    dst_slack, gain, gain_escape, d_dst, kgroup,
+                                    topic, num_parts)
+    N = d.shape[0]
     B = src_slack.shape[0]
-    if not 0 < K <= MAX_K or d.shape[1] != 8:
-        raise ValueError(f"wave_admission supports 0 < K <= {MAX_K} rows of 8 dims")
-    for t, dt in ((d, torch.float32), (src_b, torch.int64), (dst_b, torch.int64),
-                  (wave_ok, torch.bool), (part, torch.int64),
-                  (src_slack, torch.float32), (dst_slack, torch.float32),
-                  (gain_escape, torch.bool)):
-        if t.dtype != dt or not t.is_contiguous() or not t.is_cuda:
-            raise ValueError("wave_admission: wrong dtype, layout or device")
+    if not 0 < N <= MAX_K or d.shape[1] != 8:
+        raise ValueError(f"wave_admission supports 0 < N <= {MAX_K} rows of 8 dims")
+    d_dst = d if d_dst is None else d_dst
+    if topic is not None:
+        topics, nT, tdelta, ts_slack, td_slack = topic
+        G = tdelta.shape[1]
+    else:
+        topics = tdelta = ts_slack = td_slack = None
+        nT, G = 0, 0
     if gain is not None:
         src_gain, dst_gain, dim = gain
-        src_gain, dst_gain = src_gain.contiguous(), dst_gain.contiguous()
     else:
         src_gain = dst_gain = None
         dim = -1
-    m16 = -(-K // SCAN_BASE) * SCAN_BASE
-    fscratch = torch.empty(m16 * 8 + 2 * K * 8, dtype=torch.float32, device=d.device)
-    iscratch = torch.empty(2 * K, dtype=torch.int32, device=d.device)
-    win = torch.empty(K, dtype=torch.bool, device=d.device)
+    kg, nk = kgroup if kgroup is not None else (None, 0)
+    np_ = 0
+    if part is not None:
+        np_ = num_parts if num_parts is not None else int(part.max()) + 1
+    checks = ((d, torch.float32), (d_dst, torch.float32), (src_b, torch.int64),
+              (dst_b, torch.int64), (wave_ok, torch.bool), (kg, torch.int64),
+              (part, torch.int64), (topics, torch.int64), (tdelta, torch.float32),
+              (ts_slack, torch.float32), (td_slack, torch.float32),
+              (src_slack, torch.float32), (dst_slack, torch.float32),
+              (src_gain, torch.float32), (dst_gain, torch.float32),
+              (gain_escape, torch.bool))
+    for t, dt in checks:
+        if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
+            raise ValueError("wave_admission: wrong dtype, layout or device")
+    dev = d.device
+    n16 = -(-N // SCAN_BASE) * SCAN_BASE
+    sides = 4 if G else 2
+    fscratch = torch.empty(sides * (2 * n16 * 8 + 64 * 8), dtype=torch.float32,
+                           device=dev)
+    cum = torch.empty(sides * N * 8, dtype=torch.float32, device=dev)
+    rank = torch.empty(sides * N, dtype=torch.int32, device=dev)
+    first = torch.empty(max(1, nk + np_), dtype=torch.int32, device=dev)
+    ok = torch.empty(N, dtype=torch.bool, device=dev)
+    win = torch.empty(N, dtype=torch.bool, device=dev)
     err = library("wave_admission", _SIGNATURES).cc_wave_admission(
-        K, B, int(dim), int(gain is not None), ptr(d), ptr(src_b), ptr(dst_b),
-        ptr(wave_ok), ptr(part), ptr(src_slack), ptr(dst_slack), ptr(src_gain),
-        ptr(dst_gain), ptr(gain_escape), ptr(fscratch), ptr(iscratch), ptr(win),
-        stream_ptr())
+        N, B, int(nT), int(G), int(dim), int(nk), int(np_), ptr(d), ptr(d_dst),
+        ptr(src_b), ptr(dst_b), ptr(wave_ok), ptr(kg), ptr(part), ptr(topics),
+        ptr(tdelta), ptr(ts_slack), ptr(td_slack), ptr(src_slack), ptr(dst_slack),
+        ptr(src_gain), ptr(dst_gain), ptr(gain_escape), ptr(first), ptr(ok),
+        ptr(fscratch), ptr(cum), ptr(rank), ptr(win), stream_ptr())
     check(err, "wave_admission")
-    KERNEL.launches += 1
+    KERNEL.count(f"N={N}")
     return win

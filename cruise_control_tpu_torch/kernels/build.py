@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("select_candidates", "move_score", "wave_admission", "segment_sum")
+SOURCES = ("select_candidates", "move_score", "wave_admission", "segment_sum",
+           "leadership_score")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -123,13 +124,20 @@ def stream_ptr() -> ctypes.c_void_p:
 class Kernel:
     """One hand-written kernel: where it lives, which reference function it
     replaces, and how often its wrapper launched it (``launches`` counts
-    CUDA launches only; the plain twin on the CPU counts nothing)."""
+    CUDA launches only, ``shapes`` splits them by launch shape; the plain
+    twin on the CPU counts nothing)."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.shapes: dict[str, int] = {}
+
+    def count(self, shape: str = "") -> None:
+        """Record one launch of the kernel (called right after it)."""
+        self.launches += 1
+        self.shapes[shape] = self.shapes.get(shape, 0) + 1
 
 
 KERNELS: dict[str, Kernel] = {}

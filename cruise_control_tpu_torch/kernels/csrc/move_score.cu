@@ -5,12 +5,16 @@
 // Replaces cruise_control_tpu/analyzer/engine.py _score_class_rows
 // (:767-792) with _rooms_move_mask (:693), goals/base.py legit_move_mask
 // (:369), RackAwareGoal.accept_move (goals/rack.py:72) and the move_score of
-// RackAwareGoal, CapacityGoal, ReplicaCapacityGoal and
-// ReplicaDistributionGoal. The goal's [B]-level columns (col_f) and per-row
+// RackAwareGoal, CapacityGoal (and PotentialNwOutGoal, the same family on
+// potential NW_OUT), ReplicaCapacityGoal, ReplicaDistributionGoal,
+// MinTopicLeadersPerBrokerGoal and LeaderReplicaDistributionGoal. With a
+// column order (order_b, the finisher's broker coloring of
+// _segment_move_wave :1504-1522) ordered column j holds broker order_b[j];
+// T = 1 is the exhaustive move scan's row argmax (:1302-1317). The goal's [B]-level columns (col_f) and per-row
 // values (row_f) arrive precomputed with the reference's arithmetic; every
 // float operation here is one IEEE add/sub/compare (built with --fmad=false).
 //
-// Design: one CTA per candidate row; threads stride over B; the row's
+// Design: one CTA per candidate row; threads stride over the Bp columns; the row's
 // sibling brokers sit in shared memory; scores are staged in shared memory
 // (Bp = ceil(B/T)*T floats, -inf padded) and one thread per class walks its
 // B/T strided values with a strict '>' so the lowest q wins ties. Bound:
@@ -24,6 +28,8 @@ constexpr int kGoalRack = 0;
 constexpr int kGoalCapacity = 1;
 constexpr int kGoalReplicaCapacity = 2;
 constexpr int kGoalReplicaDist = 3;
+constexpr int kGoalMinTopic = 4;
+constexpr int kGoalLeaderDist = 5;
 constexpr int kMaxF = 64;
 constexpr int kDims = 8;
 
@@ -33,20 +39,21 @@ __device__ __forceinline__ float violation(float u, float lo, float up) {
 
 __global__ void move_score_kernel(
     int B, int T, int F, int Kr, int goal_kind, int room_mask, int exempt_mask,
-    int rack_accept, const long long* __restrict__ cur_b,
+    int rack_accept, int Bp, const long long* __restrict__ cur_b,
     const long long* __restrict__ orig_b, const long long* __restrict__ sib_b,
     const unsigned char* __restrict__ row_ok, const float* __restrict__ d_rows,
     const float* __restrict__ dst_room, const long long* __restrict__ prow,
     const float* __restrict__ row_f, const float* __restrict__ col_f,
     const unsigned char* __restrict__ dst_ok,
     const unsigned char* __restrict__ new_ok,
-    const long long* __restrict__ broker_rack, float* __restrict__ cls_val,
+    const long long* __restrict__ broker_rack,
+    const long long* __restrict__ order_b, const long long* __restrict__ row_t,
+    const int* __restrict__ tab, float* __restrict__ cls_val,
     long long* __restrict__ cls_q) {
   extern __shared__ float sc[];
   __shared__ long long sib[kMaxF];
   const int k = blockIdx.x;
-  const int Bq = (B + T - 1) / T;
-  const int Bp = Bq * T;
+  const int Bq = Bp / T;
   for (int f = threadIdx.x; f < F; f += blockDim.x) sib[f] = sib_b[(long long)k * F + f];
   __syncthreads();
 
@@ -62,11 +69,13 @@ __global__ void move_score_kernel(
   const float r1 = row_f[k * 4 + 1];
   const float r2 = row_f[k * 4 + 2];
   const float r3 = row_f[k * 4 + 3];
-  // per-row halves of ReplicaDistributionGoal's _gain (src side)
+  // per-row halves of the count goals' _gain (src side)
   const float vso = violation(r0, r1, r2);
   const float vsn = violation(r0 - 1.0f, r1, r2);
+  const long long trow = goal_kind == kGoalMinTopic ? row_t[k] * B : 0;
 
-  for (int b = threadIdx.x; b < Bp; b += blockDim.x) {
+  for (int j = threadIdx.x; j < Bp; j += blockDim.x) {
+    const long long b = order_b != nullptr ? order_b[j] : (long long)j;
     float s = -INFINITY;
     if (rok && b < B) {
       bool ok = dst_ok[b] && (new_ok[b] || b == ob) && (b != cb);
@@ -104,10 +113,21 @@ __global__ void move_score_kernel(
           const float gain = (vso - vsn) + (vdo - vdn);
           const bool feasible = (vsn <= vso) && (vdn <= vdo);
           s = (r3 != 0.0f) ? c3 : ((feasible && gain > 0.0f) ? gain : -INFINITY);
+        } else if (goal_kind == kGoalMinTopic) {
+          const float c = (float)tab[trow + b];
+          const float need = (r1 != 0.0f) ? c0 : 0.0f;
+          const float gain = fminf(fmaxf(need - c, 0.0f), 1.0f);
+          s = (r0 != 0.0f) ? 1.0f : (gain > 0.0f ? gain : -INFINITY);
+        } else if (goal_kind == kGoalLeaderDist) {
+          const float vdo = violation(c0, c1, c2);
+          const float vdn = violation(c0 + 1.0f, c1, c2);
+          const float gain = (vso - vsn) + (vdo - vdn);
+          const bool feasible = (vsn <= vso) && (vdn <= vdo);
+          s = (feasible && gain > 0.0f) ? gain * 0.9f : -INFINITY;
         }
       }
     }
-    sc[b] = s;
+    sc[j] = s;
   }
   __syncthreads();
   for (int c = threadIdx.x; c < T; c += blockDim.x) {
@@ -129,20 +149,24 @@ __global__ void move_score_kernel(
 
 extern "C" int cc_move_score_classes(
     int K, int B, int T, int F, int Kr, int goal_kind, int room_mask,
-    int exempt_mask, int rack_accept, const long long* cur_b,
+    int exempt_mask, int rack_accept, int Bp, const long long* cur_b,
     const long long* orig_b, const long long* sib_b, const unsigned char* row_ok,
     const float* d_rows, const float* dst_room, const long long* prow,
     const float* row_f, const float* col_f, const unsigned char* dst_ok,
-    const unsigned char* new_ok, const long long* broker_rack, float* cls_val,
-    long long* cls_q, void* stream_ptr) {
+    const unsigned char* new_ok, const long long* broker_rack,
+    const long long* order_b, const long long* row_t, const int* tab,
+    float* cls_val, long long* cls_q, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (K <= 0 || B <= 0 || T <= 0 || F > kMaxF) return (int)cudaErrorInvalidValue;
-  const int Bp = ((B + T - 1) / T) * T;
+  if (K <= 0 || B <= 0 || T <= 0 || F > kMaxF || Bp < B || Bp % T != 0)
+    return (int)cudaErrorInvalidValue;
+  if (order_b == nullptr && Bp != ((B + T - 1) / T) * T) return (int)cudaErrorInvalidValue;
+  if (goal_kind == kGoalMinTopic && (row_t == nullptr || tab == nullptr))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)Bp * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   move_score_kernel<<<K, 256, smem, stream>>>(
-      B, T, F, Kr, goal_kind, room_mask, exempt_mask, rack_accept, cur_b,
+      B, T, F, Kr, goal_kind, room_mask, exempt_mask, rack_accept, Bp, cur_b,
       orig_b, sib_b, row_ok, d_rows, dst_room, prow, row_f, col_f, dst_ok,
-      new_ok, broker_rack, cls_val, cls_q);
+      new_ok, broker_rack, order_b, row_t, tab, cls_val, cls_q);
   return (int)cudaGetLastError();
 }

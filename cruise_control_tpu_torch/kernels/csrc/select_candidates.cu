@@ -2,8 +2,9 @@
 //
 // Replaces cruise_control_tpu/analyzer/engine.py _stall_explore (:123),
 // _top_candidates (:166) and _select_candidates (:179). The CPU oracle's
-// lax.top_k orders by value in total order (-0.0 < +0.0) and breaks ties
-// toward the lowest index; the 64-bit composite below sorts exactly so.
+// lax.top_k (and approx_max_k, which falls back to it) orders by value in
+// total order (-0.0 < +0.0) and breaks ties toward the lowest index; the
+// 64-bit composite below sorts exactly so.
 //
 // Design: one pass salts each key and packs
 //   comp[i] = (sortable_bits(key) << 32) | ~i
@@ -11,8 +12,17 @@
 // 8-bit radix select finds the k-th largest composite T (histogram kernel +
 // one-thread bucket choice per pass, all on the stream: no host sync). The k
 // rows with comp >= T are gathered and ordered by a single-CTA bitonic sort
-// in shared memory (k <= 8192, 64 KB). Bound: bytes — the keys are read
-// once, but the radix passes re-read the 8-byte composites eight times.
+// in shared memory (k <= 16384: 128 KB of dynamic shared memory, opted into
+// with cudaFuncSetAttribute; the finisher's top-k takes k = K * W = 10,560).
+// Bound: bytes — the keys are read once, but the radix passes re-read the
+// 8-byte composites eight times.
+//
+// compact_eligible replaces engine.py _compact_eligible (:1257): the indices
+// of the true entries of bool[n] in index order, the tail padded with the
+// sentinel n, and their count. Three launches: per-tile counts, one scan of
+// the tile counts, then each tile writes its rows at its offset plus the
+// row's rank among the tile's true rows (warp ballots + a block scan of the
+// warp counts). No atomics: the order is the index order by construction.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,7 +41,7 @@ __device__ __forceinline__ float from_sortable(uint32_t s) {
 }
 
 __global__ void salt_pack(const float* __restrict__ key, int n, int stall,
-                          int salt, int exact, u64* __restrict__ comp) {
+                          int salt, u64* __restrict__ comp) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float v = key[i];
@@ -43,7 +53,6 @@ __global__ void salt_pack(const float* __restrict__ key, int n, int stall,
     v = (v > -INFINITY) ? __fadd_rn(r01, (v >= 5e11f) ? 2.0f : 0.0f)
                         : -INFINITY;
   }
-  if (!exact) v = __fadd_rn(v, 0.0f);  // IEEE compare: -0.0 ties +0.0
   comp[i] = ((u64)sortable_bits(v) << 32) | (u64)(~(uint32_t)i);
 }
 
@@ -139,22 +148,88 @@ __global__ void bitonic_top(const u64* __restrict__ sel, int k, int kpad,
   }
 }
 
+constexpr int kTile = 1024;
+
+__global__ void tile_counts(const unsigned char* __restrict__ elig, int n,
+                            int* __restrict__ counts) {
+  __shared__ int wc[kTile / 32];
+  const int i = blockIdx.x * kTile + threadIdx.x;
+  const bool hit = i < n && elig[i] != 0;
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, hit);
+  if ((threadIdx.x & 31) == 0) wc[threadIdx.x >> 5] = __popc(ballot);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int w = 0; w < kTile / 32; ++w) t += wc[w];
+    counts[blockIdx.x] = t;
+  }
+}
+
+__global__ void scan_counts(int* __restrict__ counts, int nb,
+                            long long* __restrict__ total) {
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int b = 0; b < nb; ++b) {
+      const int c = counts[b];
+      counts[b] = acc;
+      acc += c;
+    }
+    *total = acc;
+  }
+}
+
+__global__ void tile_write(const unsigned char* __restrict__ elig, int n,
+                           const int* __restrict__ offsets,
+                           long long* __restrict__ order) {
+  __shared__ int wc[kTile / 32];
+  const int i = blockIdx.x * kTile + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool hit = i < n && elig[i] != 0;
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, hit);
+  if (lane == 0) wc[warp] = __popc(ballot);
+  __syncthreads();
+  if (hit) {
+    int off = offsets[blockIdx.x];
+    for (int w = 0; w < warp; ++w) off += wc[w];
+    order[off + __popc(ballot & ((1u << lane) - 1u))] = (long long)i;
+  }
+}
+
+__global__ void pad_tail(long long* __restrict__ order, int pad_len, int n,
+                         const long long* __restrict__ total) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p < pad_len && p >= *total) order[p] = (long long)n;
+}
+
 }  // namespace
 
+extern "C" int cc_compact_eligible(const unsigned char* elig, int n, int pad_len,
+                                   int* counts, long long* order,
+                                   long long* total, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (n <= 0 || pad_len < n) return (int)cudaErrorInvalidValue;
+  const int nb = (n + kTile - 1) / kTile;
+  tile_counts<<<nb, kTile, 0, stream>>>(elig, n, counts);
+  scan_counts<<<1, 32, 0, stream>>>(counts, nb, total);
+  tile_write<<<nb, kTile, 0, stream>>>(elig, n, counts, order);
+  pad_tail<<<(pad_len + 255) / 256, 256, 0, stream>>>(order, pad_len, n, total);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int cc_select_candidates(const float* key, int n, int k, int stall,
-                                    int salt, int exact, u64* comp, u64* sel,
+                                    int salt, u64* comp, u64* sel,
                                     u64* state, unsigned int* hist,
                                     float* out_kv, long long* out_idx,
                                     void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (n <= 0 || k <= 0 || k > n || k > 8192) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || k <= 0 || k > n || k > 16384) return (int)cudaErrorInvalidValue;
   int kpad = 1;
   while (kpad < k) kpad <<= 1;
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   const int hist_blocks = blocks < 1024 ? blocks : 1024;
   init_state<<<1, 256, 0, stream>>>(state, hist, k);
-  salt_pack<<<blocks, threads, 0, stream>>>(key, n, stall, salt, exact, comp);
+  salt_pack<<<blocks, threads, 0, stream>>>(key, n, stall, salt, comp);
   for (int shift = 56; shift >= 0; shift -= 8) {
     radix_hist<<<hist_blocks, threads, 0, stream>>>(comp, n, state, shift, hist);
     radix_choose<<<1, 256, 0, stream>>>(state, hist, shift);

@@ -1,234 +1,317 @@
-// K3 wave_admission: budgeted admission of one score-sorted move wave.
+// K3 wave_admission: budgeted admission of one score-sorted wave of moves or
+// leadership transfers.
 //
 // Replaces cruise_control_tpu/analyzer/engine.py _wave_admission (:555),
-// _group_cumsum (:648) and the partition first-touch of _move_wave
-// (:846-851). For each side (source, destination): rows group by broker
-// (rows outside the wave are singletons B + row), a stable sort orders the
-// groups, ONE global inclusive cumsum runs in sorted order and the prefix
-// before each group start is subtracted (the reference's arithmetic, not a
-// per-group restart). The cumsum follows the CPU oracle's XLA order: blocks
-// of 16 scanned left to right, block totals scanned the same way, the
-// exclusive block prefix added back.
+// _group_cumsum (:648), the partition first-touch of _move_wave (:846-851)
+// and the one-row-per-candidate / partition first-touch of the segment
+// waves (_segment_move_wave :1552-1557, _segment_lead_wave :1639-1640).
 //
-// Design: one CTA (1024 threads) for the whole wave, K <= 2048. Stable
-// group order = bitonic sort of unique (group << 32 | row) keys in shared
-// memory. Ranks walk back to the group start; partition first-touch is an
-// O(K^2/2) scan over earlier rows. Bound: latency (a single CTA; the work
-// is a few hundred thousand operations).
+// For each side (source, destination, and with per-(topic, broker) budgets
+// the topic-source and topic-destination pairs) rows group by their key
+// (rows outside the wave are singletons), a stable sort orders the groups,
+// ONE global inclusive cumsum runs in sorted order and the prefix before
+// each group start is subtracted (the reference's arithmetic, not a
+// per-group restart). The cumsum follows the CPU oracle's XLA order: blocks
+// of 16 scanned left to right, the block totals scanned the same way
+// (recursively, as many levels as the row count needs), the exclusive block
+// prefix added back.
+//
+// Design, five launches on the stream:
+//   ft_init / ft_cand / ft_part: first-touch tables by integer atomicMin
+//     (the minimum row position per candidate and per partition: exact in
+//     any order), giving the wave rows `ok` and the partition winners;
+//   side_scan: one CTA (1024 threads) per side: bitonic sort of unique
+//     (group << 32 | row) keys in dynamic shared memory (N <= 16384: 128 KB),
+//     the XLA-order scan in global scratch, group starts by a block-wide
+//     prefix max (O(N), no walk back), per-row in-group cumsum and rank;
+//   finish: one thread per row: budget compares, gain caps, the verdict.
+// Bound: latency; the sorts are O(N log^2 N) on one CTA per side.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 typedef unsigned long long u64;
-constexpr int kMaxK = 2048;
+constexpr int kMaxN = 16384;
 constexpr int kDims = 8;
 constexpr int kBase = 16;
-constexpr int kMaxM1 = kMaxK / kBase;   // 128 level-1 blocks
-constexpr int kMaxM2 = kMaxM1 / kBase;  // 8 level-2 blocks
+constexpr int kThreads = 1024;
+constexpr int kInf = 0x7FFFFFFF;
 
-// In-place inclusive scan over rows of W[n16][8] (rows >= n are zero) in
-// the XLA reduce-window rewriter's order.
-__device__ void xla_scan(float* W, int n, float* lvl2, float* excl1,
-                         float* excl2) {
-  const int tid = threadIdx.x;
-  if (n <= kBase) {
-    if (tid < kDims) {
-      float acc = 0.0f;
-      for (int r = 0; r < n; ++r) {
-        acc = acc + W[r * kDims + tid];
-        W[r * kDims + tid] = acc;
-      }
-    }
-    __syncthreads();
-    return;
-  }
-  const int m1 = (n + kBase - 1) / kBase;
-  for (int task = tid; task < m1 * kDims; task += blockDim.x) {
-    const int blk = task / kDims, c = task % kDims;
-    float acc = 0.0f;
-    for (int j = 0; j < kBase; ++j) {
-      const int r = blk * kBase + j;
-      acc = acc + W[r * kDims + c];
-      W[r * kDims + c] = acc;
-    }
-  }
-  __syncthreads();
-  if (m1 <= kBase) {
-    if (tid < kDims) {
-      float acc = 0.0f;
-      for (int blk = 0; blk < m1; ++blk) {
-        excl1[blk * kDims + tid] = acc;
-        acc = acc + W[(blk * kBase + kBase - 1) * kDims + tid];
-      }
-    }
-  } else {
-    const int m2 = (m1 + kBase - 1) / kBase;
-    for (int task = tid; task < m2 * kDims; task += blockDim.x) {
-      const int b2 = task / kDims, c = task % kDims;
-      float acc = 0.0f;
-      for (int j = 0; j < kBase; ++j) {
-        const int blk = b2 * kBase + j;
-        const float t = blk < m1 ? W[(blk * kBase + kBase - 1) * kDims + c] : 0.0f;
-        acc = acc + t;
-        lvl2[blk * kDims + c] = acc;
-      }
-    }
-    __syncthreads();
-    if (tid < kDims) {
-      float acc = 0.0f;
-      for (int b2 = 0; b2 < m2; ++b2) {
-        excl2[b2 * kDims + tid] = acc;
-        acc = acc + lvl2[(b2 * kBase + kBase - 1) * kDims + tid];
-      }
-    }
-    __syncthreads();
-    for (int task = tid; task < m1 * kDims; task += blockDim.x) {
-      const int j = task / kDims, c = task % kDims;
-      excl1[j * kDims + c] =
-          j == 0 ? 0.0f
-                 : lvl2[(j - 1) * kDims + c] + excl2[((j - 1) / kBase) * kDims + c];
-    }
-  }
-  __syncthreads();
-  for (int task = tid; task < n * kDims; task += blockDim.x) {
-    const int r = task / kDims, c = task % kDims;
-    W[task] = W[task] + excl1[(r / kBase) * kDims + c];
-  }
-  __syncthreads();
+__global__ void ft_init(int* __restrict__ first, int n) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < n) first[j] = kInf;
 }
 
-__global__ void wave_admission_kernel(
-    int K, int B, int gain_dim, int has_gain, const float* __restrict__ d,
-    const long long* __restrict__ src_b, const long long* __restrict__ dst_b,
-    const unsigned char* __restrict__ wave_ok, const long long* __restrict__ part,
-    const float* __restrict__ src_slack, const float* __restrict__ dst_slack,
-    const float* __restrict__ src_gain, const float* __restrict__ dst_gain,
-    const unsigned char* __restrict__ gain_escape, float* __restrict__ fscratch,
-    int* __restrict__ iscratch, unsigned char* __restrict__ win) {
-  __shared__ u64 keys[kMaxK];
-  __shared__ int order[kMaxK];
-  __shared__ int spart[kMaxK];
-  __shared__ unsigned char sok[kMaxK];
-  __shared__ float lvl2[kMaxM1 * kDims];
-  __shared__ float excl1[kMaxM1 * kDims];
-  __shared__ float excl2[kMaxM2 * kDims];
-  const int tid = threadIdx.x;
-  int kpad = 1;
-  while (kpad < K) kpad <<= 1;
-  const int n16 = ((K + kBase - 1) / kBase) * kBase;
-  float* W = fscratch;                       // [n16][8] sorted-order scan
-  float* cum[2] = {fscratch + n16 * kDims, fscratch + n16 * kDims + K * kDims};
-  int* rank[2] = {iscratch, iscratch + K};
+__global__ void ft_cand(int N, const unsigned char* __restrict__ wave_ok,
+                        const long long* __restrict__ kgroup,
+                        int* __restrict__ first_k) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < N && wave_ok[i]) atomicMin(&first_k[kgroup[i]], i);
+}
 
-  for (int i = tid; i < K; i += blockDim.x) {
-    spart[i] = (int)part[i];
-    sok[i] = wave_ok[i];
+__global__ void ft_part(int N, const unsigned char* __restrict__ wave_ok,
+                        const long long* __restrict__ kgroup,
+                        const int* __restrict__ first_k,
+                        const long long* __restrict__ part,
+                        int* __restrict__ first_p, unsigned char* __restrict__ ok) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  bool o = wave_ok[i] != 0;
+  if (kgroup != nullptr) o = o && first_k[kgroup[i]] == i;
+  ok[i] = o ? 1 : 0;
+  if (part != nullptr && o) atomicMin(&first_p[part[i]], i);
+}
+
+// Inclusive scan over the rows of X[rows][C] in the XLA reduce-window
+// rewriter's order. `scratch` holds the levels of block totals.
+__device__ void xla_scan(float* X, int n, int C, float* scratch) {
+  const int tid = threadIdx.x;
+  float* lvl[8];
+  int len[8];
+  lvl[0] = X;
+  len[0] = n;
+  int depth = 0;
+  float* next = scratch;
+  while (len[depth] > kBase) {
+    float* a = lvl[depth];
+    const int m = (len[depth] + kBase - 1) / kBase;
+    for (int task = tid; task < m * C; task += blockDim.x) {
+      const int blk = task / C, c = task % C;
+      float acc = 0.0f;
+      for (int j = 0; j < kBase; ++j) {
+        const int r = blk * kBase + j;
+        acc = acc + a[r * C + c];
+        a[r * C + c] = acc;
+      }
+    }
+    __syncthreads();
+    const int mpad = ((m + kBase - 1) / kBase) * kBase;
+    for (int task = tid; task < mpad * C; task += blockDim.x) {
+      const int blk = task / C, c = task % C;
+      next[task] = blk < m ? a[(blk * kBase + kBase - 1) * C + c] : 0.0f;
+    }
+    __syncthreads();
+    ++depth;
+    lvl[depth] = next;
+    len[depth] = m;
+    next += mpad * C;
+  }
+  {
+    float* a = lvl[depth];
+    if (tid < C) {
+      float acc = 0.0f;
+      for (int r = 0; r < len[depth]; ++r) {
+        acc = acc + a[r * C + tid];
+        a[r * C + tid] = acc;
+      }
+    }
+    __syncthreads();
+  }
+  for (int d = depth - 1; d >= 0; --d) {
+    float* a = lvl[d];
+    const float* g = lvl[d + 1];
+    for (int task = tid; task < len[d] * C; task += blockDim.x) {
+      const int r = task / C, c = task % C;
+      const int blk = r / kBase;
+      const float e = blk == 0 ? 0.0f : g[(blk - 1) * C + c];
+      a[task] = a[task] + e;
+    }
+    __syncthreads();
+  }
+}
+
+// sides: 0 source, 1 destination, 2 topic-source, 3 topic-destination
+__global__ void side_scan(int N, int B, int nT, int G,
+                          const unsigned char* __restrict__ ok,
+                          const long long* __restrict__ src_b,
+                          const long long* __restrict__ dst_b,
+                          const long long* __restrict__ topics,
+                          const float* __restrict__ d_src,
+                          const float* __restrict__ d_dst,
+                          const float* __restrict__ tdelta, float* __restrict__ fscratch,
+                          int fstride, float* __restrict__ cum, int* __restrict__ rank) {
+  extern __shared__ u64 keys[];
+  __shared__ int chunk_max[kThreads];
+  const int side = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int C = side < 2 ? kDims : G;
+  int kpad = 1;
+  while (kpad < N) kpad <<= 1;
+  const long long* bro = (side == 0 || side == 2) ? src_b : dst_b;
+  for (int i = tid; i < kpad; i += blockDim.x) {
+    if (i < N) {
+      uint32_t g;
+      if (side < 2) {
+        g = ok[i] ? (uint32_t)bro[i] : (uint32_t)(B + i);
+      } else {
+        g = ok[i] ? (uint32_t)(topics[i] * B + bro[i]) : (uint32_t)(nT * B + i);
+      }
+      keys[i] = ((u64)g << 32) | (u64)(uint32_t)i;
+    } else {
+      keys[i] = ~0ull;
+    }
   }
   __syncthreads();
-
-  for (int side = 0; side < 2; ++side) {
-    const long long* bro = side == 0 ? src_b : dst_b;
-    for (int i = tid; i < kpad; i += blockDim.x) {
-      if (i < K) {
-        const uint32_t g = sok[i] ? (uint32_t)bro[i] : (uint32_t)(B + i);
-        keys[i] = ((u64)g << 32) | (u64)(uint32_t)i;
-      } else {
-        keys[i] = ~0ull;
-      }
-    }
-    __syncthreads();
-    for (int size = 2; size <= kpad; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int i = tid; i < kpad; i += blockDim.x) {
-          const int j = i ^ stride;
-          if (j > i) {
-            const bool asc = (i & size) == 0;
-            const u64 a = keys[i], b = keys[j];
-            if (asc ? (a > b) : (a < b)) {
-              keys[i] = b;
-              keys[j] = a;
-            }
+  for (int size = 2; size <= kpad; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < kpad; i += blockDim.x) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const bool asc = (i & size) == 0;
+          const u64 a = keys[i], b = keys[j];
+          if (asc ? (a > b) : (a < b)) {
+            keys[i] = b;
+            keys[j] = a;
           }
         }
-        __syncthreads();
       }
+      __syncthreads();
     }
-    for (int s = tid; s < K; s += blockDim.x) {
-      order[s] = (int)(keys[s] & 0xFFFFFFFFull);
-    }
-    __syncthreads();
-    for (int task = tid; task < n16 * kDims; task += blockDim.x) {
-      const int s = task / kDims, c = task % kDims;
-      float v = 0.0f;
-      if (s < K) {
-        const int r = order[s];
-        v = sok[r] ? d[r * kDims + c] : 0.0f;
-      }
-      W[task] = v;
-    }
-    __syncthreads();
-    xla_scan(W, K, lvl2, excl1, excl2);
-    for (int s = tid; s < K; s += blockDim.x) {
-      const u64 g = keys[s] >> 32;
-      int start = s;
-      while (start > 0 && (keys[start - 1] >> 32) == g) --start;
-      const int r = order[s];
-      rank[side][r] = s - start;
-      for (int c = 0; c < kDims; ++c) {
-        const float base = start > 0 ? W[(start - 1) * kDims + c] : 0.0f;
-        cum[side][r * kDims + c] = W[s * kDims + c] - base;
-      }
-    }
-    __syncthreads();
   }
+  const int n16 = ((N + kBase - 1) / kBase) * kBase;
+  float* W = fscratch + (long long)side * fstride;
+  float* lv = W + n16 * kDims;
+  for (int task = tid; task < n16 * C; task += blockDim.x) {
+    const int s = task / C, c = task % C;
+    float v = 0.0f;
+    if (s < N) {
+      const int r = (int)(keys[s] & 0xFFFFFFFFull);
+      if (ok[r]) {
+        v = side == 0 ? d_src[r * kDims + c]
+            : side == 1 ? d_dst[r * kDims + c] : tdelta[r * G + c];
+      }
+    }
+    W[task] = v;
+  }
+  __syncthreads();
+  xla_scan(W, N, C, lv);
+  // group starts: start(s) = max over s' <= s of (is_start(s') ? s' : 0)
+  const int per = (N + kThreads - 1) / kThreads;
+  const int lo = tid * per, hi = min(N, lo + per);
+  int run = 0;
+  for (int s = lo; s < hi; ++s) {
+    if (s == 0 || (keys[s] >> 32) != (keys[s - 1] >> 32)) run = s;
+  }
+  chunk_max[tid] = run;
+  __syncthreads();
+  if (tid == 0) {
+    int acc = 0;
+    for (int t = 0; t < kThreads; ++t) {
+      const int v = chunk_max[t];
+      chunk_max[t] = acc;
+      acc = v > acc ? v : acc;
+    }
+  }
+  __syncthreads();
+  run = chunk_max[tid];
+  float* cum_side = cum + (long long)side * N * kDims;
+  int* rank_side = rank + (long long)side * N;
+  for (int s = lo; s < hi; ++s) {
+    if (s == 0 || (keys[s] >> 32) != (keys[s - 1] >> 32)) run = s;
+    const int r = (int)(keys[s] & 0xFFFFFFFFull);
+    rank_side[r] = s - run;
+    for (int c = 0; c < C; ++c) {
+      const float base = run > 0 ? W[(run - 1) * C + c] : 0.0f;
+      cum_side[r * kDims + c] = W[s * C + c] - base;
+    }
+  }
+}
 
-  for (int i = tid; i < K; i += blockDim.x) {
-    const bool ok = sok[i] != 0;
-    bool admit = ok;
-    for (int j = 0; j < i && admit; ++j) {
-      if (sok[j] && spart[j] == spart[i]) admit = false;   // partition first-touch
-    }
-    const long long sb = src_b[i], db = dst_b[i];
-    if (admit && rank[0][i] != 0) {
-      for (int c = 0; c < kDims; ++c) {
-        admit = admit && cum[0][i * kDims + c] <= src_slack[sb * kDims + c] + 1e-4f;
-      }
-    }
-    if (admit && rank[1][i] != 0) {
-      for (int c = 0; c < kDims; ++c) {
-        admit = admit && cum[1][i * kDims + c] <= dst_slack[db * kDims + c] + 1e-4f;
-      }
-    }
-    if (admit && has_gain) {
-      const float dd = ok ? d[i * kDims + gain_dim] : 0.0f;
-      const float excl_src = cum[0][i * kDims + gain_dim] - dd;
-      const float excl_dst = cum[1][i * kDims + gain_dim] - dd;
-      const float sg = src_gain[sb], dg = dst_gain[db];
-      admit = (sg > 0.0f && excl_src < sg) || (dg > 0.0f && excl_dst < dg)
-              || gain_escape[i] != 0;
-    }
-    win[i] = admit ? 1 : 0;
+__global__ void finish(int N, int G, int gain_dim, const unsigned char* __restrict__ ok,
+                       const long long* __restrict__ part,
+                       const int* __restrict__ first_p,
+                       const long long* __restrict__ src_b,
+                       const long long* __restrict__ dst_b,
+                       const float* __restrict__ d_src, const float* __restrict__ d_dst,
+                       const float* __restrict__ src_slack,
+                       const float* __restrict__ dst_slack,
+                       const float* __restrict__ tdelta,
+                       const float* __restrict__ ts_slack,
+                       const float* __restrict__ td_slack,
+                       const float* __restrict__ src_gain,
+                       const float* __restrict__ dst_gain,
+                       const unsigned char* __restrict__ gain_escape,
+                       const float* __restrict__ cum, const int* __restrict__ rank,
+                       unsigned char* __restrict__ win) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  const bool o = ok[i] != 0;
+  bool admit = o;
+  const float* cum0 = cum;
+  const float* cum1 = cum + (long long)N * kDims;
+  for (int g = 0; g < G && admit; ++g) {
+    const float delta = o ? tdelta[i * G + g] : 0.0f;
+    const bool freed = delta == 0.0f;
+    const float* cum2 = cum + 2ll * N * kDims;
+    const float* cum3 = cum + 3ll * N * kDims;
+    const bool a = freed || rank[2 * N + i] == 0
+                   || cum2[i * kDims + g] <= ts_slack[i * G + g] + 1e-4f;
+    const bool b = freed || rank[3 * N + i] == 0
+                   || cum3[i * kDims + g] <= td_slack[i * G + g] + 1e-4f;
+    admit = a && b;
   }
+  const long long sb = src_b[i], db = dst_b[i];
+  if (admit && rank[i] != 0) {
+    for (int c = 0; c < kDims; ++c) {
+      admit = admit && cum0[i * kDims + c] <= src_slack[sb * kDims + c] + 1e-4f;
+    }
+  }
+  if (admit && rank[N + i] != 0) {
+    for (int c = 0; c < kDims; ++c) {
+      admit = admit && cum1[i * kDims + c] <= dst_slack[db * kDims + c] + 1e-4f;
+    }
+  }
+  if (admit && gain_dim >= 0) {
+    const float ds = o ? d_src[i * kDims + gain_dim] : 0.0f;
+    const float dd = o ? d_dst[i * kDims + gain_dim] : 0.0f;
+    const float excl_src = cum0[i * kDims + gain_dim] - ds;
+    const float excl_dst = cum1[i * kDims + gain_dim] - dd;
+    const float sg = src_gain[sb], dg = dst_gain[db];
+    admit = (sg > 0.0f && excl_src < sg) || (dg > 0.0f && excl_dst < dg)
+            || (gain_escape != nullptr && gain_escape[i] != 0);
+  }
+  if (admit && part != nullptr) admit = first_p[part[i]] == i;
+  win[i] = admit ? 1 : 0;
 }
 
 }  // namespace
 
-extern "C" int cc_wave_admission(int K, int B, int gain_dim, int has_gain,
-                                 const float* d, const long long* src_b,
-                                 const long long* dst_b,
-                                 const unsigned char* wave_ok,
-                                 const long long* part, const float* src_slack,
-                                 const float* dst_slack, const float* src_gain,
-                                 const float* dst_gain,
-                                 const unsigned char* gain_escape,
-                                 float* fscratch, int* iscratch,
-                                 unsigned char* win, void* stream_ptr) {
+extern "C" int cc_wave_admission(
+    int N, int B, int nT, int G, int gain_dim, int nk, int np,
+    const float* d_src, const float* d_dst, const long long* src_b,
+    const long long* dst_b, const unsigned char* wave_ok, const long long* kgroup,
+    const long long* part, const long long* topics, const float* tdelta,
+    const float* ts_slack, const float* td_slack, const float* src_slack,
+    const float* dst_slack, const float* src_gain, const float* dst_gain,
+    const unsigned char* gain_escape, int* first, unsigned char* ok,
+    float* fscratch, float* cum, int* rank, unsigned char* win, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (K <= 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  if (has_gain && (gain_dim < 0 || gain_dim >= kDims)) return (int)cudaErrorInvalidValue;
-  wave_admission_kernel<<<1, 1024, 0, stream>>>(
-      K, B, gain_dim, has_gain, d, src_b, dst_b, wave_ok, part, src_slack,
-      dst_slack, src_gain, dst_gain, gain_escape, fscratch, iscratch, win);
+  if (N <= 0 || N > kMaxN || G < 0 || G > kDims || gain_dim >= kDims)
+    return (int)cudaErrorInvalidValue;
+  if ((kgroup != nullptr && nk <= 0) || (part != nullptr && np <= 0))
+    return (int)cudaErrorInvalidValue;
+  if (G > 0 && (topics == nullptr || tdelta == nullptr)) return (int)cudaErrorInvalidValue;
+  const int tpb = 256;
+  const int nb = (N + tpb - 1) / tpb;
+  int* first_k = first;
+  int* first_p = first + (nk > 0 ? nk : 0);
+  const int nfirst = (nk > 0 ? nk : 0) + (np > 0 ? np : 0);
+  if (nfirst > 0) ft_init<<<(nfirst + tpb - 1) / tpb, tpb, 0, stream>>>(first, nfirst);
+  if (kgroup != nullptr) ft_cand<<<nb, tpb, 0, stream>>>(N, wave_ok, kgroup, first_k);
+  ft_part<<<nb, tpb, 0, stream>>>(N, wave_ok, kgroup, first_k, part, first_p, ok);
+  int kpad = 1;
+  while (kpad < N) kpad <<= 1;
+  const int smem = kpad * (int)sizeof(u64);
+  cudaFuncSetAttribute(side_scan, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int n16 = ((N + kBase - 1) / kBase) * kBase;
+  const int fstride = 2 * n16 * kDims + 64 * kDims;
+  side_scan<<<G > 0 ? 4 : 2, kThreads, smem, stream>>>(
+      N, B, nT, G, ok, src_b, dst_b, topics, d_src, d_dst, tdelta, fscratch,
+      fstride, cum, rank);
+  finish<<<nb, tpb, 0, stream>>>(N, G, gain_dim, ok, part, first_p, src_b, dst_b,
+                                 d_src, d_dst, src_slack, dst_slack, tdelta,
+                                 ts_slack, td_slack, src_gain, dst_gain,
+                                 gain_escape, cum, rank, win);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,199 @@
+"""K6 ``leadership_rows``: the [K, F] leadership-transfer score fusion with
+its per-row best and per-segment bests.
+
+Replaces ``cruise_control_tpu/analyzer/engine.py``
+``_leadership_branch_batched`` / ``_lead_rows`` (:1003-1013), the rows of
+``_exhaustive_lead_scan`` (:1354-1365) and ``_segment_lead_wave``'s
+``_seg_lead_rows`` (:1597-1613), with ``goals/base.py``
+``legit_leadership_mask`` (:471), every previous goal's
+``accept_leadership`` and the active goal's ``leadership_score``. For every
+(candidate leader k, partition member f) it evaluates legitimacy (the member
+exists, is not the candidate, is online, its broker is alive, not demoted and
+not excluded for leadership), the folded vetoes and the score; then it
+reduces each row to the best value and its first argmax f, and, given a
+broker coloring, to the best per color ``s < active`` (``jnp.argmax``'s
+first-max rule; an all ``-inf`` row gives f = 0).
+
+Goal families (``LEAD_*``): the goal precomputes its [B]-level columns
+(``fb`` f32[3, B]), one per-replica column (``fr`` f32[R], read at the
+member) and per-row values (``fk`` f32[2, K]) with the reference's own
+arithmetic; the kernel does only the per-(k, f) gathers, compares and
+selects. A veto (``Veto``) is ``a[db] + x <= c[db]`` with ``db`` the
+member's broker and ``x`` a per-member-replica or per-row value: every
+``accept_leadership`` of the reference's chain has that form once its
+row-only part is folded into ``row_ok``.
+
+CUDA kernel (``csrc/leadership_score.cu``): one thread per candidate row
+(F is 3 or 4, so a CTA of 128 threads holds 128 rows and no lane idles on a
+short F loop); the member scores live in registers. Bound: bytes (a few
+gathers per (k, f)).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from cruise_control_tpu_torch.kernels.build import (
+    I, P, check, library, ptr, register, stream_ptr,
+)
+
+KERNEL = register("leadership_rows",
+                  "cruise_control_tpu_torch/kernels/csrc/leadership_score.cu",
+                  "cruise_control_tpu/analyzer/engine.py:1003")
+
+LEAD_CAPACITY = 0      # CapacityGoal (Cpu / NetworkOutbound)
+LEAD_MIN_TOPIC = 1     # MinTopicLeadersPerBrokerGoal
+LEAD_BYTES_IN = 2      # LeaderBytesInDistributionGoal
+LEAD_LEADER_DIST = 3   # LeaderReplicaDistributionGoal
+MAX_F = 32
+MAX_S = 64
+
+
+@dataclasses.dataclass
+class LeadTables:
+    """A goal's ``leadership_score`` in family form."""
+    family: int
+    fb: torch.Tensor                    # f32[3, B] broker columns
+    fk: torch.Tensor                    # f32[2, K] row columns
+    fr: torch.Tensor | None = None      # f32[R] member-replica column
+    row_t: torch.Tensor | None = None   # i64[K] row topic (LEAD_MIN_TOPIC)
+    tab: torch.Tensor | None = None     # i32[T, B] (LEAD_MIN_TOPIC)
+
+
+@dataclasses.dataclass
+class Veto:
+    """``a[db] + x <= c[db]``; ``x`` is ``x_rep[member]`` or ``x_row[k]``."""
+    a: torch.Tensor                      # f32[B]
+    c: torch.Tensor                      # f32[B]
+    x_rep: torch.Tensor | None = None    # f32[R]
+    x_row: torch.Tensor | None = None    # f32[K]
+
+
+def _violation(u, lower, upper):
+    return torch.clamp(u - upper, min=0.0) + torch.clamp(lower - u, min=0.0)
+
+
+def legit_plain(cand, members, row_ok, broker_ok, rb, roff):
+    m = torch.clamp(members, min=0)
+    db = rb[m]
+    return ((members >= 0) & (members != cand[:, None]) & broker_ok[db] & ~roff[m]
+            & row_ok[:, None])
+
+
+def vetoes_plain(vetoes, members, rb):
+    m = torch.clamp(members, min=0)
+    db = rb[m]
+    ok = torch.ones(members.shape, dtype=torch.bool, device=members.device)
+    for v in vetoes:
+        x = v.x_rep[m] if v.x_rep is not None else v.x_row[:, None]
+        ok = ok & ((v.a[db] + x) <= v.c[db])
+    return ok
+
+
+def family_score_plain(t: LeadTables, members, rb):
+    m = torch.clamp(members, min=0)
+    db = rb[m]
+    neg = torch.full(members.shape, -torch.inf, dtype=torch.float32,
+                     device=members.device)
+    if t.family == LEAD_CAPACITY:
+        feasible = (t.fb[0][db] + t.fr[m]) <= t.fb[1][db]
+        return torch.where(feasible, t.fk[0][:, None].expand_as(neg), neg)
+    if t.family == LEAD_MIN_TOPIC:
+        B = t.fb.shape[1]
+        c = t.tab.reshape(-1)[t.row_t[:, None] * B + db].to(torch.float32)
+        need = torch.where((t.fk[0] != 0)[:, None], t.fb[0][db],
+                           torch.zeros_like(c))
+        gain = torch.clamp(torch.clamp(need - c, min=0.0), max=1.0)
+        return torch.where(gain > 0, gain, neg)
+    if t.family == LEAD_BYTES_IN:
+        new_excess = torch.clamp((t.fb[0][db] + t.fk[0][:, None]) - t.fb[1][db],
+                                 min=0.0)
+        ok = (new_excess <= 0.0) & (t.fk[1] > 0)[:, None]
+        return torch.where(ok, t.fk[1][:, None].expand_as(neg), neg)
+    if t.family == LEAD_LEADER_DIST:
+        vso, vsn = t.fk[0][:, None], t.fk[1][:, None]
+        c_d, lo_d, up_d = t.fb[0][db], t.fb[1][db], t.fb[2][db]
+        vdo = _violation(c_d, lo_d, up_d)
+        vdn = _violation(c_d + 1.0, lo_d, up_d)
+        gain = (vso - vsn) + (vdo - vdn)
+        ok = (vsn <= vso) & (vdn <= vdo) & (gain > 0)
+        return torch.where(ok, gain, neg)
+    raise ValueError(f"unknown leadership family {t.family}")
+
+
+def leadership_rows_plain(cand, members, row_ok, broker_ok, rb, roff, tables,
+                          vetoes, color=None, S=0, active=0):
+    ok = legit_plain(cand, members, row_ok, broker_ok, rb, roff)
+    ok = ok & vetoes_plain(vetoes, members, rb)
+    score = family_score_plain(tables, members, rb)
+    sc = torch.where(ok, score, torch.full_like(score, -torch.inf))
+    best, f = sc.max(dim=1).values, torch.argmax(sc, dim=1)
+    if not S:
+        return best, f
+    K = sc.shape[0]
+    seg_of = color[rb[torch.clamp(members, min=0)]]
+    posn = torch.arange(K, device=sc.device)
+    vals, fs = [], []
+    for s in range(S):
+        ms = torch.where(seg_of == s, sc, torch.full_like(sc, -torch.inf))
+        fsel = torch.argmax(ms, dim=1)
+        v = ms[posn, fsel]
+        vals.append(v if s < active else torch.full_like(v, -torch.inf))
+        fs.append(fsel)
+    return best, f, torch.stack(vals, 1), torch.stack(fs, 1)
+
+
+_SIGNATURES = {"cc_leadership_rows": [I] * 9 + [P] * 22}
+
+
+def leadership_rows(cand, members, row_ok, broker_ok, rb, roff, tables: LeadTables,
+                    vetoes: list, color=None, S: int = 0, active: int = 0):
+    """(best f32[K], f i64[K]) and, with ``S > 0``, (seg_val f32[K, S],
+    seg_f i64[K, S]) of the masked leadership scores. ``cand`` i64[K],
+    ``members`` i64[K, F] (-1 padded), ``row_ok`` bool[K] (candidate-level
+    legitimacy and vetoes), ``broker_ok`` bool[B], ``rb`` i64[R] /
+    ``roff`` bool[R] the assignment, ``color`` i64[B] the broker coloring."""
+    if not cand.is_cuda:
+        return leadership_rows_plain(cand, members, row_ok, broker_ok, rb, roff,
+                                     tables, vetoes, color, S, active)
+    K, F = members.shape
+    B = broker_ok.shape[0]
+    R = rb.shape[0]
+    V = len(vetoes)
+    if F > MAX_F or S > MAX_S or K <= 0:
+        raise ValueError(f"leadership_rows: unsupported K={K} F={F} S={S}")
+    dev = cand.device
+    f32 = torch.float32
+    va = vc = kind = vxr = vxk = None
+    if V:
+        va = torch.stack([v.a for v in vetoes]).contiguous()
+        vc = torch.stack([v.c for v in vetoes]).contiguous()
+        kind = torch.tensor([0 if v.x_rep is not None else 1 for v in vetoes],
+                            dtype=torch.int32, device=dev)
+        zr = torch.zeros(R, dtype=f32, device=dev)
+        zk = torch.zeros(K, dtype=f32, device=dev)
+        vxr = torch.stack([zr if v.x_rep is None else v.x_rep for v in vetoes])
+        vxk = torch.stack([zk if v.x_row is None else v.x_row for v in vetoes])
+    tensors = [cand, members, row_ok, rb, roff, broker_ok, tables.fb, tables.fr,
+               tables.fk, tables.row_t, tables.tab, kind, va, vc, vxr, vxk, color]
+    dts = [torch.int64, torch.int64, torch.bool, torch.int64, torch.bool, torch.bool,
+           f32, f32, f32, torch.int64, torch.int32, torch.int32, f32, f32, f32, f32,
+           torch.int64]
+    for t, dt in zip(tensors, dts):
+        if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
+            raise ValueError("leadership_rows: wrong dtype, layout or device")
+    best = torch.empty(K, dtype=f32, device=dev)
+    fbest = torch.empty(K, dtype=torch.int64, device=dev)
+    seg_val = torch.empty((K, S), dtype=f32, device=dev) if S else None
+    seg_f = torch.empty((K, S), dtype=torch.int64, device=dev) if S else None
+    err = library("leadership_score", _SIGNATURES).cc_leadership_rows(
+        K, F, B, R, int(tables.family), V, int(S), int(active),
+        int(tables.fb.shape[0]),
+        *(ptr(t) for t in tensors), ptr(best), ptr(fbest), ptr(seg_val),
+        ptr(seg_f), stream_ptr())
+    check(err, "leadership_rows")
+    KERNEL.count(f"segments S={S}" if S else f"K={K}")
+    if not S:
+        return best, fbest
+    return best, fbest, seg_val, seg_f

@@ -10,7 +10,11 @@ rule, not self, no sibling replica on b), the chain's combined destination
 rooms, the Rack veto when RackAwareGoal is a previous goal, and the active
 goal's score; then it reduces each row to the best value and its lowest
 strided index ``q`` in every class ``b % T`` (``jnp.argmax``'s first-max
-rule).
+rule). With a column order ``order_b`` (the segment-parallel finisher's
+broker coloring, ``_segment_move_wave`` :1504-1522) ordered column j holds
+broker ``order_b[j]`` (pad columns ``>= B`` score ``-inf``) and the classes
+are ``j % T`` over the ordered columns; ``T = 1`` is the exhaustive move
+scan's plain row argmax (``_exhaustive_move_scan`` :1302-1317).
 
 Goal families (``GOAL_*``): the goal precomputes its [B]-level columns
 (``col_f`` f32[4, B]) and per-row values (``row_f`` f32[K, 4]) with the
@@ -37,6 +41,8 @@ GOAL_RACK = 0              # RackAwareGoal
 GOAL_CAPACITY = 1          # CapacityGoal (Disk / NetworkInbound / ...)
 GOAL_REPLICA_CAPACITY = 2  # ReplicaCapacityGoal
 GOAL_REPLICA_DIST = 3      # ReplicaDistributionGoal
+GOAL_MIN_TOPIC = 4         # MinTopicLeadersPerBrokerGoal
+GOAL_LEADER_DIST = 5       # LeaderReplicaDistributionGoal
 WAVE_DIMS = 8
 EXEMPT_MASK = 1 << 5       # WAVE_LEADER_COUNT: zero-delta rows pass its rooms
 MAX_F = 64
@@ -47,7 +53,8 @@ def _violation(u, lower, upper):
     return torch.clamp(u - upper, min=0.0) + torch.clamp(lower - u, min=0.0)
 
 
-def _goal_score(goal_kind, others, row_f, col_f, K, B):
+def goal_score_plain(goal_kind, others, row_f, col_f, K, B, topic=None):
+    """f32[K, B] the family's score from its tables (no legitimacy)."""
     neg = torch.full((K, B), -torch.inf, dtype=torch.float32, device=row_f.device)
     if goal_kind == GOAL_RACK:
         ok = (others == 0) & (row_f[:, 0] != 0)[:, None]
@@ -72,12 +79,30 @@ def _goal_score(goal_kind, others, row_f, col_f, K, B):
         feasible = (vsn <= vso)[:, None] & (vdn <= vdo)[None, :]
         s = torch.where(feasible & (gain > 0), gain, neg)
         return torch.where((row_f[:, 3] != 0)[:, None], col_f[3][None, :].expand(K, B), s)
+    if goal_kind == GOAL_MIN_TOPIC:
+        row_t, tab = topic
+        c = tab.reshape(-1, B)[row_t].to(torch.float32)
+        need = torch.where((row_f[:, 1] != 0)[:, None], col_f[0][None, :].expand(K, B),
+                           torch.zeros_like(c))
+        gain = torch.clamp(torch.clamp(need - c, min=0.0), max=1.0)
+        s = torch.where(gain > 0, gain, neg)
+        return torch.where((row_f[:, 0] != 0)[:, None], torch.ones_like(s), s)
+    if goal_kind == GOAL_LEADER_DIST:
+        c_s, lo_s, up_s = row_f[:, 0], row_f[:, 1], row_f[:, 2]
+        c_d, lo_d, up_d = col_f[0], col_f[1], col_f[2]
+        vso = _violation(c_s, lo_s, up_s)
+        vsn = _violation(c_s - 1.0, lo_s, up_s)
+        vdo = _violation(c_d, lo_d, up_d)
+        vdn = _violation(c_d + 1.0, lo_d, up_d)
+        gain = (vso - vsn)[:, None] + (vdo - vdn)[None, :]
+        feasible = (vsn <= vso)[:, None] & (vdn <= vdo)[None, :]
+        return torch.where(feasible & (gain > 0), gain * 0.9, neg)
     raise ValueError(f"unknown goal kind {goal_kind}")
 
 
 def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
                              dst_room, room_mask, prow, rack_accept, row_f, col_f,
-                             dst_ok, new_ok, broker_rack):
+                             dst_ok, new_ok, broker_rack, order_b=None, topic=None):
     K, B = cur_b.shape[0], dst_ok.shape[0]
     bidx = torch.arange(B, device=cur_b.device)
     ok = (dst_ok[None, :] & (new_ok[None, :] | (bidx[None, :] == orig_b[:, None]))
@@ -96,28 +121,33 @@ def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
                   - (broker_rack[None, :] == cur_rack[:, None]).to(prow.dtype))
         if rack_accept:
             ok = ok & (others == 0)
-    score = _goal_score(goal_kind, others, row_f, col_f, K, B)
+    score = goal_score_plain(goal_kind, others, row_f, col_f, K, B, topic)
     sc = torch.where(ok & row_ok[:, None], score,
                      torch.full_like(score, -torch.inf))
-    Bq = -(-B // T)
+    Bq = -(-B // T) if order_b is None else order_b.shape[0] // T
     if Bq * T > B:
         sc = torch.cat([sc, torch.full((K, Bq * T - B), -torch.inf,
                                        device=sc.device)], dim=1)
-    sv = sc.view(K, Bq, T)
+    if order_b is not None:
+        sc = sc[:, order_b]
+    sv = sc.reshape(K, Bq, T)
     best = sv.max(dim=1).values
     qs = torch.arange(Bq, device=sc.device)[None, :, None]
     q = torch.where(sv == best[:, None, :], qs, Bq).min(dim=1).values
     return best, q
 
 
-_SIGNATURES = {"cc_move_score_classes": [I] * 9 + [P] * 15}
+_SIGNATURES = {"cc_move_score_classes": [I] * 10 + [P] * 18}
 
 
 def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
                        d_rows, dst_room, room_mask: int, prow, rack_accept: bool,
-                       row_f, col_f, dst_ok, new_ok, broker_rack):
+                       row_f, col_f, dst_ok, new_ok, broker_rack, order_b=None,
+                       topic=None):
     """(cls_val f32[K, T], cls_q i64[K, T]): per row, the best score and its
-    lowest strided index q over each destination class ``b % T``.
+    lowest strided index q over each destination class ``b % T`` (or, with
+    ``order_b`` i64[Bp], over each class ``j % T`` of the ordered columns).
+    ``topic`` = (row_t i64[K], table i32[T, B]) for GOAL_MIN_TOPIC.
 
     Row inputs [K]: ``cur_b``/``orig_b`` i64 (current / original broker),
     ``sib_b`` i64[K, F] (brokers of the other replicas of the row's
@@ -132,20 +162,26 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
         return move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok,
                                         d_rows, dst_room, room_mask, prow,
                                         rack_accept, row_f, col_f, dst_ok, new_ok,
-                                        broker_rack)
+                                        broker_rack, order_b, topic)
     K, F = sib_b.shape
     B = dst_ok.shape[0]
-    Bq = -(-B // T)
-    if F > MAX_F or Bq * T * 4 > MAX_SMEM or not 0 < T <= 1024:
-        raise ValueError(f"move_score_classes: unsupported F={F}, B={B}, T={T}")
+    Bp = -(-B // T) * T if order_b is None else order_b.shape[0]
+    if (F > MAX_F or Bp * 4 > MAX_SMEM or not 0 < T <= 1024 or Bp % T
+            or Bp < B):
+        raise ValueError(f"move_score_classes: unsupported F={F}, B={B}, T={T}, "
+                         f"Bp={Bp}")
     if (goal_kind == GOAL_RACK or rack_accept) and prow is None:
         raise ValueError("the rack goal and rack veto need prow")
+    if goal_kind == GOAL_MIN_TOPIC and topic is None:
+        raise ValueError("GOAL_MIN_TOPIC needs its topic table")
+    row_t, tab = topic if topic is not None else (None, None)
     tensors = [cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, prow, row_f, col_f,
-               dst_ok, new_ok, broker_rack]
+               dst_ok, new_ok, broker_rack, order_b, row_t, tab]
     for t, dt in zip(tensors, (torch.int64, torch.int64, torch.int64, torch.bool,
                                torch.float32, torch.float32, torch.int64,
                                torch.float32, torch.float32, torch.bool,
-                               torch.bool, torch.int64)):
+                               torch.bool, torch.int64, torch.int64, torch.int64,
+                               torch.int32)):
         if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
             raise ValueError("move_score_classes: wrong dtype, layout or device")
     Kr = prow.shape[1] if prow is not None else 0
@@ -153,8 +189,8 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
     cls_q = torch.empty((K, T), dtype=torch.int64, device=cur_b.device)
     err = library("move_score", _SIGNATURES).cc_move_score_classes(
         K, B, T, F, Kr, int(goal_kind), int(room_mask), EXEMPT_MASK,
-        int(bool(rack_accept)),
+        int(bool(rack_accept)), Bp,
         *(ptr(t) for t in tensors), ptr(cls_val), ptr(cls_q), stream_ptr())
     check(err, "move_score_classes")
-    KERNEL.launches += 1
+    KERNEL.count("ordered" if order_b is not None else f"T={T}")
     return cls_val, cls_q

@@ -92,7 +92,7 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor, nseg: int,
     err = library("segment_sum", _SIGNATURES).cc_segment_sum(
         ptr(values), ptr(seg), N, C, nseg, ptr(init), ptr(out), stream_ptr())
     check(err, "segment_sum")
-    KERNEL_SUM.launches += 1
+    KERNEL_SUM.count(f"N={N} C={C} nseg={nseg}")
     return out
 
 
@@ -110,5 +110,5 @@ def segment_count(seg: torch.Tensor, nseg: int, weights: torch.Tensor | None = N
     err = library("segment_sum", _SIGNATURES).cc_segment_count(
         ptr(seg), ptr(weights), seg.shape[0], nseg, ptr(out), stream_ptr())
     check(err, "segment_count")
-    KERNEL_COUNT.launches += 1
+    KERNEL_COUNT.count(f"N={seg.shape[0]} nseg={nseg}")
     return out

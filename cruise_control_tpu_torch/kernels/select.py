@@ -5,8 +5,9 @@ Replaces ``cruise_control_tpu/analyzer/engine.py`` ``_stall_explore`` (:123),
 path (``compact_keying`` off). Order: descending key, lowest replica index
 first among ties — ``lax.top_k``'s order on the CPU oracle, which compares
 in total order (-0.0 < +0.0). Soft goals use ``approx_max_k`` in the
-reference; on the CPU oracle it is an exact, stable top-k that compares
-IEEE values (-0.0 == +0.0), so ``exact=False`` canonicalizes -0.0 first.
+reference; on the CPU oracle it falls back to the same exact order (total
+order included, checked with planted signed-zero ties at k > 8,192), so
+hard and soft goals select alike.
 
 CUDA kernel (``csrc/select_candidates.cu``): one pass salts the keys (the
 uint32 hash of engine.py:143-149) and packs the order-preserving 64-bit
@@ -17,6 +18,10 @@ keys once and writes k results; the radix passes re-read the composites).
 
 The plain twin sorts the same order-preserving integers with a stable
 ``torch.sort``; the hash runs in int64 masked to 32 bits.
+
+``compact_eligible`` (engine.py ``_compact_eligible`` :1257) compacts the
+true entries of a bool[R] into index order for the exhaustive scans, in
+the same library (``csrc/select_candidates.cu``).
 """
 from __future__ import annotations
 
@@ -29,7 +34,10 @@ from cruise_control_tpu_torch.kernels.build import (
 KERNEL = register("select_candidates",
                   "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
                   "cruise_control_tpu/analyzer/engine.py:179")
-MAX_K = 8192
+KERNEL_COMPACT = register("compact_eligible",
+                          "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
+                          "cruise_control_tpu/analyzer/engine.py:1257")
+MAX_K = 16384
 _M32 = 0xFFFFFFFF
 
 
@@ -61,23 +69,21 @@ def sortable_key(v: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 0x80000000, (~u) & _M32, u | 0x80000000)
 
 
-def select_candidates_plain(key, k, stall, salt=0, exact=True):
+def select_candidates_plain(key, k, stall, salt=0):
     salted = stall_salt_plain(key, stall, salt)
-    if not exact:
-        salted = salted + 0.0
     order = torch.sort(sortable_key(salted), descending=True, stable=True)[1][:k]
     return salted[order], order
 
 
-_SIGNATURES = {"cc_select_candidates": [P, I, I, I, I, I, P, P, P, P, P, P, P]}
+_SIGNATURES = {"cc_select_candidates": [P, I, I, I, I, P, P, P, P, P, P, P],
+               "cc_compact_eligible": [P, I, I, P, P, P, P]}
 
 
-def select_candidates(key: torch.Tensor, k: int, stall: int, salt: int = 0,
-                      exact: bool = True):
+def select_candidates(key: torch.Tensor, k: int, stall: int, salt: int = 0):
     """(kv f32[k], cand i64[k]) of the stall-salted key, k = min(k, R)."""
     k = min(int(k), key.shape[0])
     if not key.is_cuda:
-        return select_candidates_plain(key, k, stall, salt, exact)
+        return select_candidates_plain(key, k, stall, salt)
     if key.dtype != torch.float32 or not key.is_contiguous() or key.dim() != 1:
         raise ValueError("select_candidates takes a contiguous f32[R] key")
     if not 0 < k <= MAX_K:
@@ -91,8 +97,37 @@ def select_candidates(key: torch.Tensor, k: int, stall: int, salt: int = 0,
     kv = torch.empty(k, dtype=torch.float32, device=dev)
     idx = torch.empty(k, dtype=torch.int64, device=dev)
     err = library("select_candidates", _SIGNATURES).cc_select_candidates(
-        ptr(key), n, k, int(stall), int(salt), int(bool(exact)), ptr(comp),
+        ptr(key), n, k, int(stall), int(salt), ptr(comp),
         ptr(sel), ptr(state), ptr(hist), ptr(kv), ptr(idx), stream_ptr())
     check(err, "select_candidates")
-    KERNEL.launches += 1
+    KERNEL.count(f"k={k}")
     return kv, idx
+
+
+def compact_eligible_plain(eligible: torch.Tensor, pad_len: int):
+    n = eligible.shape[0]
+    idx = torch.nonzero(eligible).flatten()
+    order = torch.full((pad_len,), n, dtype=torch.int64, device=eligible.device)
+    order[:idx.shape[0]] = idx
+    return order, eligible.sum()
+
+
+def compact_eligible(eligible: torch.Tensor, pad_len: int):
+    """(order i64[pad_len], count i64 0-d): indices of the true entries of
+    ``eligible`` bool[n] in index order, padded with the sentinel n."""
+    if not eligible.is_cuda:
+        return compact_eligible_plain(eligible, pad_len)
+    n = eligible.shape[0]
+    if (eligible.dtype != torch.bool or not eligible.is_contiguous()
+            or not 0 < n <= pad_len):
+        raise ValueError("compact_eligible takes a contiguous bool[n], n <= pad_len")
+    dev = eligible.device
+    counts = torch.empty(-(-n // 1024), dtype=torch.int32, device=dev)
+    order = torch.empty(pad_len, dtype=torch.int64, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    err = library("select_candidates", _SIGNATURES).cc_compact_eligible(
+        ptr(eligible), n, int(pad_len), ptr(counts), ptr(order), ptr(total),
+        stream_ptr())
+    check(err, "compact_eligible")
+    KERNEL_COMPACT.count(f"n={n}")
+    return order, total

@@ -56,6 +56,50 @@ def _sample(rng: np.random.Generator, dist: str, mean: float, n: int) -> np.ndar
     raise ValueError(f"unknown distribution {dist!r}")
 
 
+PAIRWISE_BLOCK = 128     # numpy's PW_BLOCKSIZE
+REDUCE_BUFFER = 8192     # numpy's reduction buffer (elements per inner call)
+
+
+def _pairwise_f32(a: np.ndarray) -> np.float32:
+    """numpy's float32 pairwise sum of one inner-loop call, step by step:
+    below 8 a left-to-right sum from 0; up to 128 eight strided partial
+    sums combined as ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)) plus the tail;
+    above, split at half rounded down to a multiple of 8."""
+    f32 = np.float32
+    n = a.shape[0]
+    if n < 8:
+        res = f32(0.0)
+        for x in a:
+            res = f32(res + x)
+        return res
+    if n <= PAIRWISE_BLOCK:
+        m = n - n % 8
+        r = a[:8].copy()
+        for i in range(8, m, 8):
+            r = r + a[i:i + 8]
+        res = f32(f32(f32(r[0] + r[1]) + f32(r[2] + r[3]))
+                  + f32(f32(r[4] + r[5]) + f32(r[6] + r[7])))
+        for x in a[m:]:
+            res = f32(res + x)
+        return res
+    n2 = n // 2
+    n2 -= n2 % 8
+    return f32(_pairwise_f32(a[:n2]) + _pairwise_f32(a[n2:]))
+
+
+def f32_sum(a: np.ndarray) -> np.float32:
+    """``np.sum`` of a contiguous float32 vector in the order numpy's classic
+    reduction loop takes (buffers of 8,192, each summed pairwise), written
+    out so that every machine gets the same bits: a numpy built with wider
+    SIMD reductions sums in another order, which moves the calibrated CPU
+    loads by an ulp and, with them, the optimizer's outcome."""
+    a = np.ascontiguousarray(a, np.float32)
+    acc = np.float32(0.0)
+    for i in range(0, a.shape[0], REDUCE_BUFFER):
+        acc = np.float32(acc + _pairwise_f32(a[i:i + REDUCE_BUFFER]))
+    return acc
+
+
 def _calibrate_cpu(ct: ClusterTensor, target_util: float) -> ClusterTensor:
     """Rescale CPU loads so mean CPU utilization over alive brokers hits
     ``target_util`` (shape and skew preserved; only the scale changes)."""
@@ -64,7 +108,7 @@ def _calibrate_cpu(ct: ClusterTensor, target_util: float) -> ClusterTensor:
     is_lead = np.asarray(ct.replica_is_leader)
     valid = np.asarray(ct.replica_valid)
     eff = np.where(is_lead, lead[:, Resource.CPU], fol[:, Resource.CPU])
-    total = float(eff[valid].sum())
+    total = float(f32_sum(eff[valid]))
     cap = np.asarray(ct.broker_capacity)[np.asarray(ct.broker_alive),
                                          Resource.CPU].sum()
     if total <= 0.0 or cap <= 0.0:

@@ -1,0 +1,242 @@
+"""The port's exhaustive finisher and chunked dispatch against the JAX
+package on one state of the 32-broker skewed cluster (the slice test's
+spec, four topics flagged for MinTopicLeadersPerBrokerGoal). The finisher
+is forced on in both packages through ``EngineParams(finisher_rounds=12,
+max_finisher_rounds=12)``: at this size the optimizer would compile it out.
+
+- ``_compact_eligible``, both exhaustive scans, ``_segment_broker_order``,
+  ``_segment_move_wave`` and ``_segment_lead_wave``;
+- ``optimize_goal_chunked`` for LeaderReplicaDistributionGoal with the
+  chain's prefix as previous goals: the same info dict, passes, quiesce
+  chunk and final state;
+- the end-of-chain escalation (``GoalOptimizer._escalate_unproven``) with
+  one finisher round: the same escalations, verdicts, counts and final
+  state.
+
+Every comparison is exact (tolerance 0); the whole-run comparison leaves
+out the two Neumaier residual leaves (see RESIDUALS for why)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cruise_control_tpu.analyzer import engine as ref_engine
+from cruise_control_tpu.analyzer import env as ref_env_mod
+from cruise_control_tpu.analyzer import state as ref_state_mod
+from cruise_control_tpu.analyzer.goals import make_goals as ref_make_goals
+from cruise_control_tpu.analyzer import optimizer as ref_optimizer
+from cruise_control_tpu.analyzer.optimizer import GoalOptimizer as RefOptimizer
+from cruise_control_tpu.model import cluster_tensor as ref_ct_mod
+from cruise_control_tpu.model import random_cluster as ref_rc
+from cruise_control_tpu_torch import convert
+from cruise_control_tpu_torch.analyzer import engine
+from cruise_control_tpu_torch.analyzer import optimizer
+from cruise_control_tpu_torch.analyzer.goals import make_goals
+from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+
+CHAIN = ["RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
+         "DiskCapacityGoal", "NetworkInboundCapacityGoal",
+         "NetworkOutboundCapacityGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+         "PotentialNwOutGoal", "LeaderReplicaDistributionGoal",
+         "LeaderBytesInDistributionGoal"]
+SPEC = dict(num_brokers=32, num_partitions=1000, num_racks=4, num_topics=8,
+            max_replication=3, skew=1.5, seed=3141, target_cpu_util=0.45)
+CHUNK = 256
+FORCE = dict(finisher_rounds=12, max_finisher_rounds=12)
+MOVE_GOALS = [6, 7, 9]
+LEAD_GOALS = [6, 9, 10]
+
+
+@pytest.fixture(scope="module")
+def ctx():
+    ct, meta = ref_ct_mod.pad_cluster(*ref_rc.generate_scale(ref_rc.RandomClusterSpec(**SPEC)))
+    tml = np.zeros(ct.num_topics, bool)
+    tml[:4] = True
+    renv = ref_env_mod.make_env(ct, meta, topic_min_leaders_mask=tml)
+    rst = ref_state_mod.init_state(renv, ct.replica_broker, ct.replica_is_leader,
+                                   ct.replica_offline, ct.replica_disk)
+    R, B = ct.num_replicas, ct.num_brokers
+    rparams = dataclasses.replace(RefOptimizer().scaled_params(R, B), **FORCE)
+    pparams = dataclasses.replace(GoalOptimizer(device="cpu").scaled_params(R, B),
+                                  **FORCE)
+    return dict(renv=renv, rst=rst,
+                penv=convert.env_from_arrays(convert.leaves(renv), "cpu"),
+                pst=convert.state_from_arrays(convert.leaves(rst), "cpu"),
+                rgoals=ref_make_goals(CHAIN), pgoals=make_goals(CHAIN),
+                rparams=rparams, pparams=pparams)
+
+
+def bits(a) -> np.ndarray:
+    a = np.asarray(a.numpy() if isinstance(a, torch.Tensor) else a, np.float32)
+    return a.view(np.int32)
+
+
+def same(a, b) -> bool:
+    a = np.asarray(a)
+    b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    if a.dtype.kind == "f" or b.dtype.kind == "f":
+        return np.array_equal(bits(a), bits(b))
+    return np.array_equal(a.astype(np.int64), b.astype(np.int64))
+
+
+# The Neumaier residuals of util / leader_util feed only the bf16 sweep
+# policy (not ported: bf16 raises). Inside a jitted program XLA computes
+# their aggregate in another order than the eager functions do (the
+# reference's jitted and eager apply_leaderships_batched already disagree
+# there), so the comparisons of whole jitted runs leave them out; the eager
+# single-wave comparisons hold them bit for bit.
+RESIDUALS = ("util_residual", "leader_util_residual")
+
+
+def same_state(rst, pst, skip=()) -> None:
+    pl = convert.leaves(pst)
+    for name, a in convert.leaves(rst).items():
+        if name not in skip:
+            assert same(a, pl[name]), name
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.01, 0.5, 1.0])
+def test_compact_eligible(frac):
+    rng = np.random.default_rng(7)
+    el = rng.random(3000) < frac
+    order_r, n_r = ref_engine._compact_eligible(jnp.asarray(el), 3072)
+    order_p, n_p = engine._compact_eligible(torch.as_tensor(el), 3072)
+    assert same(order_r, order_p)
+    assert int(n_r) == n_p == int(el.sum())
+
+
+@pytest.mark.parametrize("i", MOVE_GOALS, ids=[CHAIN[i] for i in MOVE_GOALS])
+def test_exhaustive_move_scan(ctx, i):
+    gain_r, dst_r = ref_engine._exhaustive_move_scan(
+        ctx["renv"], ctx["rst"], ctx["rgoals"][i], tuple(ctx["rgoals"][:i]), CHUNK)
+    gain_p, dst_p = engine._exhaustive_move_scan(
+        ctx["penv"], ctx["pst"], ctx["pgoals"][i], tuple(ctx["pgoals"][:i]), CHUNK)
+    assert same(gain_r, gain_p)
+    assert same(dst_r, dst_p)
+    assert (np.asarray(gain_r) > -np.inf).any()
+
+
+@pytest.mark.parametrize("i", LEAD_GOALS, ids=[CHAIN[i] for i in LEAD_GOALS])
+def test_exhaustive_lead_scan(ctx, i):
+    gain_r, dst_r = ref_engine._exhaustive_lead_scan(
+        ctx["renv"], ctx["rst"], ctx["rgoals"][i], tuple(ctx["rgoals"][:i]), CHUNK)
+    gain_p, dst_p = engine._exhaustive_lead_scan(
+        ctx["penv"], ctx["pst"], ctx["pgoals"][i], tuple(ctx["pgoals"][:i]), CHUNK)
+    assert same(gain_r, gain_p)
+    assert same(dst_r, dst_p)
+
+
+@pytest.mark.parametrize("i", [0, 1, 7, 9, 10], ids=[CHAIN[i] for i in (0, 1, 7, 9, 10)])
+def test_segment_broker_order(ctx, i):
+    ref = ref_engine._segment_broker_order(ctx["renv"], ctx["rst"], ctx["rgoals"][i],
+                                           tuple(ctx["rgoals"][:i]), ctx["rparams"], 8)
+    port = engine._segment_broker_order(ctx["penv"], ctx["pst"], ctx["pgoals"][i],
+                                        tuple(ctx["pgoals"][:i]), 8)
+    assert same(ref, port)
+
+
+def _top(gain, k, min_gain):
+    kv, cand = jax.lax.top_k(gain, k)
+    kv = jnp.where(kv > min_gain, kv, -jnp.inf)
+    return kv, cand
+
+
+@pytest.mark.parametrize("i", MOVE_GOALS, ids=[CHAIN[i] for i in MOVE_GOALS])
+def test_segment_move_wave(ctx, i):
+    renv, rst, rp = ctx["renv"], ctx["rst"], ctx["rparams"]
+    rg, prev_r = ctx["rgoals"][i], tuple(ctx["rgoals"][:i])
+    gain, _ = ref_engine._exhaustive_move_scan(renv, rst, rg, prev_r, CHUNK)
+    kv, cand = _top(gain, 256, rp.min_gain)
+    st_r, n_r, nb_r = ref_engine._segment_move_wave(renv, rst, rg, prev_r, rp, cand, kv)
+    st_p, n_p, nb_p = engine._segment_move_wave(
+        ctx["penv"], ctx["pst"], ctx["pgoals"][i], tuple(ctx["pgoals"][:i]),
+        ctx["pparams"], torch.as_tensor(np.array(cand)).long(),
+        torch.as_tensor(np.array(kv)))
+    assert (int(n_r), int(nb_r)) == (int(n_p), int(nb_p))
+    assert int(n_r) > 0
+    same_state(st_r, st_p)
+
+
+@pytest.mark.parametrize("i", LEAD_GOALS, ids=[CHAIN[i] for i in LEAD_GOALS])
+def test_segment_lead_wave(ctx, i):
+    renv, rst, rp = ctx["renv"], ctx["rst"], ctx["rparams"]
+    rg, prev_r = ctx["rgoals"][i], tuple(ctx["rgoals"][:i])
+    gain, _ = ref_engine._exhaustive_lead_scan(renv, rst, rg, prev_r, CHUNK)
+    kv, cand = _top(gain, 128, rp.min_gain)
+    st_r, n_r, nb_r = ref_engine._segment_lead_wave(renv, rst, rg, prev_r, rp, cand, kv)
+    st_p, n_p, nb_p = engine._segment_lead_wave(
+        ctx["penv"], ctx["pst"], ctx["pgoals"][i], tuple(ctx["pgoals"][:i]),
+        ctx["pparams"], torch.as_tensor(np.array(cand)).long(),
+        torch.as_tensor(np.array(kv)))
+    assert (int(n_r), int(nb_r)) == (int(n_p), int(nb_p))
+    same_state(st_r, st_p)
+
+
+def test_optimize_goal_chunked_leader_distribution(ctx):
+    i = CHAIN.index("LeaderReplicaDistributionGoal")
+    st_r, info_r = ref_engine.optimize_goal_chunked(
+        ctx["renv"], ctx["rst"], ctx["rgoals"][i], tuple(ctx["rgoals"][:i]),
+        ctx["rparams"])
+    st_p, info_p = engine.optimize_goal_chunked(
+        ctx["penv"], ctx["pst"], ctx["pgoals"][i], tuple(ctx["pgoals"][:i]),
+        ctx["pparams"])
+    assert set(info_p) == set(info_r)
+    for key, v in info_r.items():
+        if isinstance(v, float):
+            assert same(np.float32(v), np.float32(info_p[key])), key
+        else:
+            assert v == info_p[key], key
+    assert info_r["finisher_rounds"] > 0 and info_r["lead_actions"] > 0
+    same_state(st_r, st_p, skip=RESIDUALS)
+
+
+# the finisher's remaining counts (moves, leads) each goal reports to the
+# escalation; -1 = its finisher never ran, so nothing was measured
+REMAINING = {"LeaderReplicaDistributionGoal": (0, 5),       # escalates
+             "LeaderBytesInDistributionGoal": (-1, 3000)}   # too many left
+
+
+def _unproven_results(mod, goals):
+    """One GoalResult of ``mod`` per chain goal: every goal exited violated
+    and unproven, with the remaining counts of REMAINING."""
+    return [mod.GoalResult(name=g.name, violated_before=True, violated_after=True,
+                           iterations=0, duration_s=0.0, stat_after=0.0,
+                           hit_max_iters=True,
+                           moves_remaining=REMAINING.get(g.name, (-1, -1))[0],
+                           leads_remaining=REMAINING.get(g.name, (-1, -1))[1])
+            for g in goals]
+
+
+ESCALATION_FIELDS = ("escalations", "violated_after", "fixpoint_proven",
+                     "hit_max_iters", "moves_remaining", "leads_remaining",
+                     "swap_window_remaining", "iterations", "finisher_rounds",
+                     "finisher_actions")
+
+
+def test_escalate_unproven(ctx):
+    """A goal that left its finisher unproven with few actions remaining
+    re-enters the finisher at the end of the chain (rounds x 4, no budgeted
+    pass, every other goal's veto); then every verdict is refreshed."""
+    one = dict(finisher_rounds=1)
+    res_r = _unproven_results(ref_optimizer, ctx["rgoals"])
+    res_p = _unproven_results(optimizer, ctx["pgoals"])
+    st_r = RefOptimizer()._escalate_unproven(
+        ctx["renv"], ctx["rst"], ctx["rgoals"], res_r,
+        dataclasses.replace(ctx["rparams"], **one))
+    st_p = GoalOptimizer(device="cpu")._escalate_unproven(
+        ctx["penv"], ctx["pst"], ctx["pgoals"], res_p,
+        dataclasses.replace(ctx["pparams"], **one))
+    assert st_r is not None and st_p is not None
+    for r, p in zip(res_r, res_p):
+        for key in ESCALATION_FIELDS:
+            assert getattr(r, key) == getattr(p, key), (r.name, key)
+        assert same(np.float32(r.stat_after), np.float32(p.stat_after)), r.name
+    assert [r.escalations for r in res_p] == [0] * 9 + [1, 0]
+    lrd = res_p[CHAIN.index("LeaderReplicaDistributionGoal")]
+    assert lrd.finisher_actions > 0 and lrd.finisher_rounds > 0
+    # the refresh clears the verdicts the state does not bear out
+    assert not all(r.violated_after for r in res_p)
+    same_state(st_r, st_p, skip=RESIDUALS)

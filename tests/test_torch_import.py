@@ -83,5 +83,9 @@ def test_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
     assert out[:, 0].tolist() == [1.0, 2.0, 1.0]
     assert K.segment_count(seg, 3).tolist() == [1, 2, 1]
     assert all(n == 0 for n in K.launches().values())
-    assert set(K.launches()) == {"select_candidates", "move_score_classes",
-                                 "wave_admission", "segment_sum", "segment_count"}
+    order, n = K.compact_eligible(torch.tensor([False, True, True, False]), 6)
+    assert order.tolist() == [1, 2, 4, 4, 4, 4] and int(n) == 2
+    assert all(n == 0 for n in K.launches().values())
+    assert set(K.launches()) == {"select_candidates", "compact_eligible",
+                                 "move_score_classes", "wave_admission",
+                                 "leadership_rows", "segment_sum", "segment_count"}

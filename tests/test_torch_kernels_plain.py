@@ -86,7 +86,7 @@ def test_select_candidates_twin(ctx, kind, stall, exact):
     key = _key(ctx, kind)
     kv_r, cand_r = ref_engine._select_candidates(
         jnp.asarray(key), K_ALL, jnp.int32(stall), exact, ref_engine.EngineParams())
-    kv_p, cand_p = select_candidates(torch.tensor(key), K_ALL, stall, 0, exact)
+    kv_p, cand_p = select_candidates(torch.tensor(key), K_ALL, stall, 0)
     assert np.array_equal(np.asarray(cand_r), cand_p.numpy())
     assert np.array_equal(bits(kv_r), bits(kv_p))
 
@@ -214,3 +214,129 @@ def test_segment_twins_skip_masked_rows_and_keep_row_order():
     assert out[:, 0].tolist() == [0.0, 5.0, 7.0]
     w = torch.tensor([2, -1, 3, 9, 1], dtype=torch.int32)
     assert segment_count(seg, 3, w).tolist() == [4, 1, 0]
+
+
+# --- the second slice's launch shapes -------------------------------------
+CHAIN = ["RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
+         "DiskCapacityGoal", "NetworkInboundCapacityGoal",
+         "NetworkOutboundCapacityGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+         "PotentialNwOutGoal", "LeaderReplicaDistributionGoal",
+         "LeaderBytesInDistributionGoal"]
+
+
+@pytest.fixture(scope="module")
+def chain_ctx():
+    """The spec's state with four topics flagged for MinTopicLeadersPerBroker
+    (its per-(topic, broker) budgets enter every later goal's admission)."""
+    ct, meta = ref_ct_mod.pad_cluster(*ref_rc.generate_scale(ref_rc.RandomClusterSpec(**SPEC)))
+    tml = np.zeros(ct.num_topics, bool)
+    tml[:4] = True
+    renv = ref_env_mod.make_env(ct, meta, topic_min_leaders_mask=tml)
+    rst = ref_state_mod.init_state(renv, ct.replica_broker, ct.replica_is_leader,
+                                   ct.replica_offline, ct.replica_disk)
+    return dict(renv=renv, rst=rst,
+                penv=convert.env_from_arrays(convert.leaves(renv), "cpu"),
+                pst=convert.state_from_arrays(convert.leaves(rst), "cpu"),
+                rgoals=ref_make_goals(CHAIN), pgoals=make_goals(CHAIN))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_select_candidates_k_above_8192(exact):
+    """k = 10,560 (the finisher's K * W) with planted ties and signed zeros
+    inside the top k: the soft path (approx_max_k) orders them exactly as
+    the exact one (total order, lowest index first)."""
+    rng = np.random.default_rng(11)
+    key = rng.standard_normal(16384).astype(np.float32)
+    key[::5] = -np.inf
+    key[::7] = 0.25
+    key[3::11] = -0.0
+    key[4::11] = 0.0
+    k = 10560
+    kv_r, cand_r = ref_engine._select_candidates(
+        jnp.asarray(key), k, jnp.int32(0), exact, ref_engine.EngineParams())
+    kv_p, cand_p = select_candidates(torch.tensor(key), k, 0, 0)
+    assert np.array_equal(np.asarray(cand_r), cand_p.numpy())
+    assert np.array_equal(bits(kv_r), bits(kv_p))
+    if exact:
+        kv_t, cand_t = jax.lax.top_k(jnp.asarray(key), k)
+        assert np.array_equal(np.asarray(cand_t), cand_p.numpy())
+
+
+def test_wave_admission_segment_rows_with_topic_budgets(chain_ctx):
+    """N = 14,080 rows (K * S of a segment wave: every candidate 11 times),
+    one row per candidate, partition first-touch, the chain's topic budgets,
+    crowded brokers; against engine.py:1546-1564."""
+    renv, rst, penv, pst = (chain_ctx[k] for k in ("renv", "rst", "penv", "pst"))
+    i = CHAIN.index("LeaderReplicaDistributionGoal")
+    rg, pg = chain_ctx["rgoals"], chain_ctx["pgoals"]
+    R, S = renv.num_replicas, 11
+    N = R * S
+    assert N == 14080
+    rng = np.random.default_rng(5)
+    k_s = rng.permutation(np.repeat(np.arange(R), S)).astype(np.int32)
+    r_sorted = k_s                               # candidate k is replica k
+    dst = rng.integers(0, 6, N).astype(np.int32)   # crowded destinations
+    wave_ok = (rng.random(N) < 0.7) & np.asarray(renv.replica_valid)[r_sorted]
+    posn = np.arange(N, dtype=np.int32)
+    rs = jnp.asarray(r_sorted)
+    d = ref_engine._move_delta_rows(renv, rst, rs)
+    guarded = jnp.where(jnp.asarray(wave_ok), posn, N + 1)
+    first_k = jnp.full(R, N + 1, jnp.int32).at[jnp.asarray(k_s)].min(guarded)
+    k_ok = first_k[jnp.asarray(k_s)] == posn
+    p_s = renv.replica_partition[rs]
+    first_part = (jnp.full(renv.num_partitions, N + 1, jnp.int32)
+                  .at[p_s].min(jnp.where(k_ok, guarded, N + 1)))
+    src_s = rst.replica_broker[rs].astype(jnp.int32)
+    win_r = (first_part[p_s] == posn) & ref_engine._wave_admission(
+        renv, rst, rg[i], tuple(rg[:i]), d, d, src_s, jnp.asarray(dst),
+        jnp.asarray(wave_ok) & k_ok, renv.replica_topic[rs], jnp.asarray(posn),
+        d_count=jnp.ones(N, d.dtype),
+        d_leader=rst.replica_is_leader[rs].astype(d.dtype),
+        gain_escape=rst.replica_offline[rs])
+    rt = torch.as_tensor(r_sorted).long()
+    args = engine._admit_moves(
+        penv, pst, pg[i], tuple(pg[:i]), rt, pst.replica_broker[rt],
+        torch.as_tensor(dst).long(), engine._move_delta_rows(penv, pst, rt),
+        torch.as_tensor(wave_ok), kgroup=(torch.as_tensor(k_s).long(), R))
+    assert args[11] is not None                   # the topic budgets are in
+    win_p = wave_admission(*args)
+    assert np.array_equal(np.asarray(win_r), win_p.numpy())
+    assert 0 < int(win_p.sum()) < int(np.asarray(k_ok).sum())
+
+
+@pytest.mark.parametrize("i", [7, 9], ids=[CHAIN[7], CHAIN[9]])
+def test_move_score_scan_and_column_order(chain_ctx, i):
+    """T = 1 (the exhaustive scan's row argmax) and the room-ordered
+    column view of _segment_move_wave (engine.py:1504-1520)."""
+    renv, rst, penv, pst = (chain_ctx[k] for k in ("renv", "rst", "penv", "pst"))
+    rg, pg = chain_ctx["rgoals"], chain_ctx["pgoals"]
+    valid = np.flatnonzero(np.asarray(renv.replica_valid))
+    cand = np.random.default_rng(i).choice(valid, 512, replace=False).astype(np.int32)
+    c = jnp.asarray(cand)
+    B, S = renv.num_brokers, 8
+    mask = legit_move_mask(renv, rst, c, rg[i].options)
+    rooms, custom = ref_engine._combined_move_rooms(tuple(rg[:i]), renv, rst)
+    mask = mask & ref_engine._rooms_move_mask(
+        rooms, ref_engine._move_delta_rows(renv, rst, c), rst.replica_broker[c])
+    for g in custom:
+        mask = mask & g.accept_move(renv, rst, c)
+    sc = jnp.where(mask, rg[i].move_score(renv, rst, c), -jnp.inf)
+    order_b = ref_engine._segment_broker_order(renv, rst, rg[i], tuple(rg[:i]),
+                                               ref_engine.EngineParams(), S)
+    seg = sc[:, order_b].reshape(512, -1, S)
+    ct_ = torch.as_tensor(cand).long()
+    prooms, pcustom = engine._combined_move_rooms(tuple(pg[:i]), penv, pst)
+    d_rows = engine._move_delta_rows(penv, pst, ct_)
+    ones = torch.ones(512, dtype=torch.bool)
+    v1, q1 = move_score_classes(*engine._score_args(
+        penv, pst, pg[i], prooms, pcustom, ct_, None, d_rows, 1, row_ok=ones))
+    assert np.array_equal(bits(jnp.max(sc, axis=1)), bits(v1[:, 0]))
+    assert np.array_equal(np.asarray(jnp.argmax(sc, axis=1)), q1[:, 0].numpy())
+    ob = engine._segment_broker_order(penv, pst, pg[i], tuple(pg[:i]), S)
+    assert np.array_equal(np.asarray(order_b), ob.numpy())
+    vs, qs = move_score_classes(*engine._score_args(
+        penv, pst, pg[i], prooms, pcustom, ct_, None, d_rows, S, order_b=ob,
+        row_ok=ones))
+    assert np.array_equal(bits(jnp.max(seg, axis=1)), bits(vs))
+    assert np.array_equal(np.asarray(jnp.argmax(seg, axis=1)), qs.numpy())
+    assert np.isfinite(np.asarray(sc)).any()

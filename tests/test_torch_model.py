@@ -189,3 +189,13 @@ def test_env_threshold_helpers_match_reference(triggered):
 def bits32(a):
     a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
     return a.astype(np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("n", [5, 100, 129, 8193, 98326])
+def test_f32_sum_follows_numpys_reduction_order(n):
+    """The generator's CPU calibration sums in numpy's classic float32
+    order, written out (buffers of 8,192, pairwise inside), so the
+    generated loads do not depend on how a numpy build vectorizes sums."""
+    a = np.random.default_rng(n).exponential(0.5, n).astype(np.float32)
+    assert port_rc.f32_sum(a) == np.sum(a)
+    assert port_rc.f32_sum(a).dtype == np.float32

@@ -1,5 +1,7 @@
-"""The port's move-branch slice end to end: ``GoalOptimizer.optimizations``
-against the JAX package, both run live in the test on the same cluster.
+"""The port's chains end to end: ``GoalOptimizer.optimizations`` against the
+JAX package, both run live in the test on the same cluster.
+
+The five move-branch goals of the first slice (``GOALS``):
 
 - The 16-broker integer-load fixture (``__graft_entry__._fixture_cluster``)
   is bit-exact: per-goal counts, violation sets, final assignment and
@@ -10,6 +12,15 @@ against the JAX package, both run live in the test on the same cluster.
   equal as well.
 - Requests the slice cannot serve raise ``NotImplementedError``.
 - The full 1,000-broker slice (``slow``) compares outcomes at size.
+
+The default chain minus its swap goals (``CHAIN``, eleven goals with the
+leadership branch, the finisher and the chunked dispatch; the reference's
+outcome comes from a fresh interpreter, see torch_reference.py):
+- fixture16 bit for bit (counts, assignment, proposals); spec-32b counts and
+  assignment; mid-64b (padded R 12,288: every goal chunked, finisher on)
+  counts, ``fixpoint_proven`` and ``finisher_rounds`` per goal;
+- the full 1,000-broker slice (``slow``: fused prefix of nine goals, two
+  chunked deep-tail goals with the finisher).
 """
 import dataclasses
 
@@ -21,8 +32,13 @@ from cruise_control_tpu.analyzer.optimizer import GoalOptimizer as RefOptimizer
 from cruise_control_tpu.model import random_cluster as ref_rc
 from cruise_control_tpu_torch import convert
 from cruise_control_tpu_torch.analyzer.engine import EngineParams
+from cruise_control_tpu_torch.analyzer.goals import GOAL_CLASSES, GoalKernel
+from cruise_control_tpu_torch.analyzer.goals.distribution import (
+    LeaderReplicaDistributionGoal,
+)
 from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
 from cruise_control_tpu_torch.model import random_cluster as port_rc
+from torch_reference import reference_chain
 
 GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
          "NetworkInboundCapacityGoal", "ReplicaDistributionGoal"]
@@ -31,12 +47,20 @@ SMALL = dict(num_brokers=32, num_partitions=1000, num_racks=4, num_topics=8,
 FULL = dict(num_brokers=1000, num_racks=20, num_topics=200, num_partitions=50000,
             max_replication=3, skew=1.5, seed=3141, target_cpu_util=0.45)
 KW = dict(goal_names=GOALS, skip_hard_goal_check=True, raise_on_failure=False)
+CHAIN = ["RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
+         "DiskCapacityGoal", "NetworkInboundCapacityGoal",
+         "NetworkOutboundCapacityGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+         "PotentialNwOutGoal", "LeaderReplicaDistributionGoal",
+         "LeaderBytesInDistributionGoal"]
+MID = dict(num_brokers=64, num_racks=4, num_topics=8, num_partitions=8000,
+           max_replication=3, seed=3)
 
 
-def _run_both(ct, meta):
-    ref = RefOptimizer().optimizations(ct, meta, **KW)
+def _run_both(ct, meta, goals=GOALS):
+    kw = {**KW, "goal_names": goals}
+    ref = RefOptimizer().optimizations(ct, meta, **kw)
     pct, pmeta = convert.cluster_from_arrays(convert.leaves(ct), meta)
-    port = GoalOptimizer(device="cpu").optimizations(pct, pmeta, **KW)
+    port = GoalOptimizer(device="cpu").optimizations(pct, pmeta, **kw)
     return ref, port
 
 
@@ -104,34 +128,38 @@ def test_port_generator_feeds_the_same_run(spec32):
                           port.final_state.replica_broker.numpy())
 
 
-def _mid_cluster():
-    # padded R of 12,288: the reference runs the chunked dispatch + finisher
-    return port_rc.generate_scale(port_rc.RandomClusterSpec(
-        num_brokers=64, num_racks=4, num_topics=8, num_partitions=8000,
-        max_replication=3, seed=3))
+@dataclasses.dataclass(frozen=True)
+class _NoLeaderBudgetGoal(LeaderReplicaDistributionGoal):
+    """A leadership goal whose acceptance has no cumulative (wave) form:
+    its chain needs the reference's sequential leadership fallback."""
+    wave_budgets = GoalKernel.wave_budgets
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "name", "NoLeaderBudgetGoal")
 
 
 UNSUPPORTED = {
-    "goal outside the slice": (dict(goal_names=["CpuCapacityGoal"]), None),
+    "swap goal": (dict(goal_names=["TopicReplicaDistributionGoal"]), None),
     "deep-tail goal": (dict(goal_names=["DiskUsageDistributionGoal"]), None),
     "preferred leader election": (
         dict(goal_names=GOALS + ["PreferredLeaderElectionGoal"]), None),
     "session": (dict(session=object()), None),
     "measured goal durations": (dict(measure_goal_durations=True), None),
-    "chunked / finisher size": ({}, _mid_cluster),
+    "sequential leadership fallback": (
+        dict(goal_names=["NoLeaderBudgetGoal"]), "seq_body"),
     "bf16": ({}, "bf16"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
-def test_unsupported_requests_raise(case):
+def test_unsupported_requests_raise(case, monkeypatch):
     extra, special = UNSUPPORTED[case]
     kw = {**KW, **extra}
-    if special is _mid_cluster:
-        ct, meta = _mid_cluster()
-    else:
-        ct, meta = _fixture_cluster()
-        ct, meta = convert.cluster_from_arrays(convert.leaves(ct), meta)
+    ct, meta = _fixture_cluster()
+    ct, meta = convert.cluster_from_arrays(convert.leaves(ct), meta)
+    if special == "seq_body":
+        monkeypatch.setitem(GOAL_CLASSES, "NoLeaderBudgetGoal", _NoLeaderBudgetGoal)
     params = EngineParams(compute_dtype="bfloat16") if special == "bf16" else None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GoalOptimizer(engine_params=params, device="cpu").optimizations(ct, meta, **kw)
@@ -150,3 +178,79 @@ def test_full_slice_matches_reference():
     assert _counts(port)["before"] == ["RackAwareGoal", "ReplicaDistributionGoal"]
     assert _counts(port)["after"] == []
     assert _counts(port) == _counts(ref)
+
+
+# --- the default chain minus its swap goals ---------------------------------
+def _run_chain(tmp_path, spec, goals=CHAIN):
+    """The JAX reference's outcome (computed in a fresh interpreter, see
+    torch_reference.py) and the port's run on the same cluster."""
+    ref = reference_chain(tmp_path, spec, goals)
+    ct, meta = (_fixture_cluster() if spec is None
+                else ref_rc.generate_scale(ref_rc.RandomClusterSpec(**spec)))
+    pct, pmeta = convert.cluster_from_arrays(convert.leaves(ct), meta)
+    port = GoalOptimizer(device="cpu").optimizations(
+        pct, pmeta, **{**KW, "goal_names": goals})
+    return ref, port
+
+
+def _finisher_fields(res):
+    return dict(proven=[g.fixpoint_proven for g in res.goal_results],
+                rounds=[g.finisher_rounds for g in res.goal_results],
+                quiesce=[g.quiesce_chunk for g in res.goal_results])
+
+
+def _same_final(ref, port, names):
+    for name in names:
+        assert np.array_equal(ref["final"][name],
+                              getattr(port.final_state, name).numpy()), name
+
+
+def test_chain_fixture16_bit_exact(tmp_path):
+    ref, port = _run_chain(tmp_path, None)
+    assert _counts(port) == ref["counts"]
+    assert _counts(port) == dict(
+        before=["ReplicaDistributionGoal", "LeaderReplicaDistributionGoal",
+                "LeaderBytesInDistributionGoal"],
+        after=["LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"],
+        actions=[0, 0, 0, 0, 0, 0, 0, 81, 0, 5, 2],
+        passes=[3, 3, 3, 3, 3, 3, 3, 9, 3, 35, 36], moves=74, leads=63)
+    _same_final(ref, port, ("replica_broker", "replica_is_leader", "replica_disk"))
+    assert _proposals(port) == ref["proposals"]
+    assert port.balancedness_after == ref["balancedness_after"]
+
+
+def test_chain_spec32_matches_reference(tmp_path):
+    ref, port = _run_chain(tmp_path, SMALL)
+    assert _counts(port) == ref["counts"]
+    assert _counts(port) == dict(
+        before=["RackAwareGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+                "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"],
+        after=["LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"],
+        actions=[60, 0, 0, 0, 0, 0, 19, 178, 0, 19, 23],
+        passes=[6, 3, 3, 3, 3, 3, 4, 12, 3, 35, 59], moves=258, leads=204)
+    _same_final(ref, port, ("replica_broker", "replica_is_leader"))
+
+
+def test_chain_mid64_matches_reference(tmp_path):
+    """Padded R 12,288: the unfused chain, every goal through the chunked
+    dispatch and the finisher (four goals end as proven fixpoints)."""
+    ref, port = _run_chain(tmp_path, MID)
+    assert _counts(port) == ref["counts"]
+    assert _finisher_fields(port) == ref["finisher"]
+    assert _finisher_fields(port)["proven"] == [False] * 6 + [True, True, False,
+                                                              True, True]
+    assert _counts(port)["passes"] == [14, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8]
+    _same_final(ref, port, ("replica_broker",))
+
+
+@pytest.mark.slow
+def test_chain_full_slice_matches_reference(tmp_path):
+    """The chain at its real size (1,000 brokers, padded R = 114,688): the
+    fused prefix of nine goals, then the two deep-tail goals chunked with
+    the finisher."""
+    ref, port = _run_chain(tmp_path, FULL)
+    assert _counts(port) == ref["counts"]
+    assert _counts(port)["actions"] == [3051, 0, 0, 0, 0, 0, 557, 18136, 0, 1393, 1680]
+    assert (_counts(port)["moves"], _counts(port)["leads"]) == (18469, 10751)
+    assert _finisher_fields(port) == ref["finisher"]
+    _same_final(ref, port, ("replica_broker",))
