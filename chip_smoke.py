@@ -13,39 +13,50 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. kernel checks: every kernel against its plain PyTorch twin on the card,
    at the slices' shapes (the move-branch passes, the leadership branch
    with its selection, admission and transfer apply, the exhaustive scans
-   and the segment-parallel finisher waves), on inputs
+   and the segment-parallel finisher waves, the swap passes of the five
+   swap goals with their admission and two-leg apply, the usage and
+   topic-replica score families and vetoes), on inputs
    taken from the slice cluster's state and on adversarial inputs made from
    ``--seed`` (planted ties, -inf rows, signed zeros). Ints, indices and
    bools must match exactly; floats must match bit for bit (stated
    tolerance 0 for every kernel). Each kernel, its twin and the nearest
    single PyTorch call are timed with CUDA events (median of 20);
-4. small parity: the five-goal chain on the 32-broker spec, and the
-   eleven-goal chain (the default goals minus the swap goals) on the
-   32-broker spec and the 64-broker, padded-R 12,288 spec (chunked
-   dispatch and finisher) run on the card and on the CPU (plain twins) and
-   must give the same bits and the JAX reference's outcome counts;
+4. small parity: the five-goal chain on the 32-broker spec, the
+   eleven-goal chain (the default goals minus the swap goals) and the
+   sixteen default goals on the 32-broker spec and the 64-broker,
+   padded-R 12,288 spec (chunked dispatch and finisher; the sixteen
+   goals' swap windows) run on the card and on the CPU (plain twins) and
+   must give the same bits and the JAX reference's outcome counts; and
+   ``__graft_entry__.entry()``'s run (DiskUsageDistributionGoal,
+   ``EngineParams(max_iters=64)``, the 16-broker fixture) on the card;
 5. slices on the 1,000-broker / 98,326-replica ``generate_scale`` cluster,
-   each run twice through ``GoalOptimizer`` with the kernel launch counts
-   zeroed just before its first run and read just after it:
+   each run through ``GoalOptimizer`` with the kernel launch counts zeroed
+   just before its first run and read just after it:
    a. the five move-branch goals (every kernel of that path must launch;
-      the first slice's outcome);
+      the first slice's outcome), once;
    b. the eleven-goal chain: the fused prefix of nine goals, then the two
-      leader goals chunked with the finisher (every kernel must launch; the
-      JAX reference's outcome row, both leader goals proven fixpoints).
-   The runs must be bit identical, keep refresh-consistent tallies, and
-   leave no partition with two replicas on one broker. ``--profile`` adds
-   a third run of the eleven-goal chain under ``torch.profiler`` and prints
-   device time by kernel.
+      leader goals chunked with the finisher (the JAX reference's outcome
+      row, both leader goals proven fixpoints, the finisher's shapes), once;
+   c. the sixteen default goals (the main path): the fused prefix of nine
+      goals, then seven goals chunked with the finisher, the five swap
+      goals with the swap branch (every kernel must launch, K7 at
+      [32, 32]; the JAX reference's outcome row).
+   c. runs twice and the two runs must be bit identical; every run must
+   keep refresh-consistent tallies and leave no partition with two
+   replicas on one broker. ``--profile`` adds
+   a third run of the sixteen-goal chain under ``torch.profiler`` and
+   prints device time by kernel.
 
 The line before the last is the ``kernels`` JSON object: each kernel's
 times are those of the shape it launched most often in the counted
-eleven-goal run, with every timed shape and its launches listed beside
+sixteen-goal run, with every timed shape and its launches listed beside
 them. The last line is ``{"ok": true, "device": {...}}``. Imports nothing
 of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -62,6 +73,10 @@ CHAIN = ["RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
          "NetworkOutboundCapacityGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
          "PotentialNwOutGoal", "LeaderReplicaDistributionGoal",
          "LeaderBytesInDistributionGoal"]
+SWAP_GOALS = ["DiskUsageDistributionGoal", "NetworkInboundUsageDistributionGoal",
+              "NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal",
+              "TopicReplicaDistributionGoal"]
+DEFAULT = CHAIN[:9] + SWAP_GOALS + CHAIN[9:]       # the reference's DEFAULT_GOALS
 SLICE_SPEC = dict(num_brokers=1000, num_racks=20, num_topics=200,
                   num_partitions=50000, max_replication=3, skew=1.5, seed=3141,
                   target_cpu_util=0.45)
@@ -102,6 +117,43 @@ ORACLE = {
         moves=1186, leads=0, proven=[False] * 6 + [True, True, False, True, True],
         rounds=[0] * 6 + [1, 1, 0, 1, 1]),
 }
+_USAGE = {"DiskUsageDistributionGoal", "NetworkInboundUsageDistributionGoal",
+          "NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal"}
+ORACLE.update({
+    "default_slice": dict(
+        before={"RackAwareGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+                "TopicReplicaDistributionGoal", "LeaderReplicaDistributionGoal",
+                "LeaderBytesInDistributionGoal"} | _USAGE,
+        after={"ReplicaDistributionGoal", "LeaderReplicaDistributionGoal",
+               "LeaderBytesInDistributionGoal"},
+        actions=[3051, 0, 0, 0, 0, 0, 557, 18136, 0, 1247, 1082, 1248, 1585, 617, 808,
+                 1125],
+        passes=[7, 3, 3, 3, 3, 3, 6, 132, 3, 104, 88, 99, 109, 22, 48, 152],
+        moves=22642, leads=12778, proven=[False] * 14 + [True, True],
+        rounds=[0] * 14 + [1, 3], swaps=[0] * 9 + [154, 166, 109, 110, 76, 0, 0]),
+    "default_small": dict(
+        before={"RackAwareGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+                "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"} | _USAGE,
+        after={"LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"},
+        actions=[60, 0, 0, 0, 0, 0, 19, 178, 0, 19, 20, 26, 18, 0, 0, 8],
+        passes=[6, 3, 3, 3, 3, 3, 4, 12, 3, 8, 7, 13, 10, 3, 33, 64], moves=307,
+        leads=242, proven=[False] * 16, rounds=[0] * 16,
+        swaps=[0] * 9 + [1, 1, 4, 1, 0, 0, 0]),
+    "default_mid": dict(
+        before={"RackAwareGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+                "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"} | _USAGE,
+        after={"CpuCapacityGoal", "ReplicaDistributionGoal",
+               "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"} | _USAGE,
+        actions=[1186] + [0] * 15,
+        passes=[14, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8], moves=1186, leads=0,
+        proven=[False] * 6 + [True, True, False] + [True] * 4 + [False, True, True],
+        rounds=[0] * 6 + [1, 1, 0] + [1] * 4 + [0, 1, 1], swaps=[0] * 16,
+        swleft=[-1] * 9 + [0, 0, 0, 0] + [-1] * 3),
+})
+# __graft_entry__.entry(): the reference's util disk column and total
+ENTRY_DISK = [5630, 5660, 5670, 5660, 5660, 5680, 5660, 5660, 5010, 4950, 4860, 4950,
+              4920, 4910, 4910, 4940]
+ENTRY_UTIL_SUM = 105674.0
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor
 # cores (the kernels do f32 and integer arithmetic only)
 PEAK_BYTES_PER_S = 3.35e12
@@ -123,6 +175,13 @@ def require(cond: bool, what: str) -> None:
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def phase(name: str) -> None:
+    log(f"== {name} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def nvidia_smi() -> str:
@@ -165,6 +224,24 @@ def nbytes(*ts) -> int:
         elif hasattr(t, "element_size"):
             total += t.numel() * t.element_size()
     return total
+
+
+def fields_of(obj) -> list:
+    """The tensors of a dataclass of kernel inputs, nested lists of
+    dataclasses walked (the K7 inputs)."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        for x in (v if isinstance(v, list) else [v]):
+            out.extend(fields_of(x) if dataclasses.is_dataclass(x) else [x])
+    return out
+
+
+def to_device(obj, dev):
+    """A copy of a dataclass of CPU tensors with every tensor on ``dev``."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(dev).contiguous()
+        for f in dataclasses.fields(obj) if hasattr(getattr(obj, f.name), "to")})
 
 
 def compare(torch, got, want) -> float:
@@ -761,6 +838,237 @@ def chain_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
            + 2 * B * 8 * 4 + n, n * (8 + 1) * 4 * 4, f"N={n} (K*S) with topic budgets")
 
 
+def swap_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
+    """Phase 3, third part: the kernels the sixteen default goals add, on the
+    slice state — K7 ``swap_rows`` and ``swap_admission`` at [K1, K2] =
+    [32, 32] for each swap goal with its default-chain prefix (and with the
+    prefix minus CpuCapacityGoal, which is violated here and vetoes every
+    swap), K4/K5 on the swap apply's two legs, K2's resource-distribution
+    and topic-replica families and topic veto, K6's capacity family for
+    the usage goals and their vetoes; then K7 at [128, 128] on adversarial
+    ``--seed`` inputs (planted ties, all -inf rows, every row picking one
+    in-candidate, shared partitions and brokers, every veto kind)."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import engine
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    from cruise_control_tpu_torch.analyzer.state import (
+        apply_move_count_inputs, apply_moves_batched, apply_sum_inputs,
+    )
+    from cruise_control_tpu_torch.kernels import (
+        leadership, move_score, segment, select, swap,
+    )
+
+    env, st, params = ctx["env"], ctx["st"], ctx["params"]
+    dev = env.device
+    g = torch.Generator().manual_seed(seed + 2)
+    goals = make_goals(DEFAULT)
+    R, B = env.num_replicas, env.num_brokers
+    k = min(params.num_swap_candidates, R, 128)
+    mg = params.min_gain
+    log(f"swap kernel checks: R={R} B={B} K1=K2={k} min_gain={mg}")
+
+    def open_prefix(i):
+        return tuple(x for x in goals[:i] if x.name != "CpuCapacityGoal")
+
+    def swap_pass(i, prev, stall):
+        gl = goals[i]
+        okv, co, ikv, ci = engine._swap_pools(env, st, gl, params,
+                                              gl.broker_severity(env, st), stall)
+        pairs, tables = engine._swap_args(env, st, gl, prev, co, okv, ci, ikv)
+        return co, ci, pairs, tables
+
+    def admission_args(co, ci, pairs, rows):
+        best, best_j, _n = rows
+        order = engine._desc_order(best)
+        j_s = best_j[order].contiguous()
+        r_out, r_in = co[order], ci[j_s]
+        return (r_out, r_in), (best[order].contiguous(), pairs.b_out[order].contiguous(),
+                               pairs.b_in[j_s].contiguous(), j_s,
+                               env.replica_partition[r_out].contiguous(),
+                               env.replica_partition[r_in].contiguous(), mg)
+
+    e_rows, e_adm = entries["swap_rows"], entries["swap_admission"]
+    swap_i = [DEFAULT.index(n) for n in SWAP_GOALS]
+    timed = {}
+    for i in swap_i:
+        for which, prev in (("default", tuple(goals[:i])), ("open", open_prefix(i))):
+            for stall in ((0, 3) if which == "open" else (0,)):
+                co, ci, pairs, tables = swap_pass(i, prev, stall)
+                tag = f"{goals[i].name} {which} prefix stall={stall} [{k}, {k}]"
+                check(torch, e_rows, lambda: K.swap_rows(pairs, tables, mg),
+                      lambda: swap.swap_rows_plain(pairs, tables, mg), tag)
+                rows = K.swap_rows(pairs, tables, mg)
+                legs, adm = admission_args(co, ci, pairs, rows)
+                check(torch, e_adm, lambda: K.swap_admission(*adm),
+                      lambda: swap.swap_admission_plain(*adm), tag)
+                if which == "open" and stall == 0:
+                    timed[goals[i].name] = (pairs, tables, legs, adm, rows)
+    # K4/K5 on the swap apply's two legs (the out leg first, both from the
+    # pre-wave brokers): the first open-prefix wave that admits swaps
+    waves = [(name, w, int(K.swap_admission(*w[3]).sum())) for name, w in timed.items()]
+    name, (pairs, tables, (r_out, r_in), adm, rows), n_win = next(
+        (x for x in waves if x[2] > 0), (None, (None,) * 5, 0))
+    require(n_win > 0, f"no swap goal's open-prefix wave admits a swap: {waves}")
+    win = K.swap_admission(*adm)
+    log(f"  swap apply: {name}'s wave admits {n_win} of {k} rows")
+    b_out, b_in = st.replica_broker[r_out], st.replica_broker[r_in]
+    st1 = st
+    for leg, (reps, dsts) in enumerate(((r_out, b_in), (r_in, b_out))):
+        vals, seg, init = apply_sum_inputs(env, st1, reps, dsts, win)
+        sum_args = (vals, seg, B, init)
+        check(torch, entries["segment_sum"], lambda: K.segment_sum(*sum_args),
+              lambda: segment.segment_sum_plain(*sum_args),
+              f"swap apply leg {leg + 1} of {n_win} swaps N={vals.shape[0]} "
+              f"C={vals.shape[1]}")
+        for what, a in zip(("replica", "leader", "partition x rack", "topic x broker",
+                            "topic leader"),
+                           apply_move_count_inputs(env, st1, reps, dsts, win)):
+            check(torch, entries["segment_count"], lambda: K.segment_count(*a),
+                  lambda: segment.segment_count_plain(*a),
+                  f"swap apply leg {leg + 1} {what} counts N={a[0].shape[0]} nseg={a[1]}")
+        if leg == 0:
+            swap_sum_args = sum_args
+            swap_count_args = apply_move_count_inputs(env, st1, reps, dsts, win)[0]
+            st1 = apply_moves_batched(env, st1, reps, dsts, win)
+    timing(torch, e_rows, lambda: K.swap_rows(pairs, tables, mg),
+           lambda: swap.swap_rows_plain(pairs, tables, mg), None,
+           nbytes(*(x for x in fields_of(pairs) + fields_of(tables)
+                    if x is not pairs.tab or pairs.topic_up is not None
+                    or tables.family == swap.SWAP_TOPIC_REPLICA))
+           + k * (4 + 8 + 4),
+           k * k * (60 + 10 * len(pairs.vetoes)),
+           f"pass [{k}, {k}]")
+    timing(torch, e_adm, lambda: K.swap_admission(*adm),
+           lambda: swap.swap_admission_plain(*adm), None,
+           nbytes(*adm[:6]) + k, k * k * 10, f"K1={k}")
+    vals, seg, _B, init = swap_sum_args
+    lib_seg = torch.where(seg >= 0, seg, torch.full_like(seg, B))
+    lib_init = torch.cat([init, torch.zeros_like(init[:1])])
+    timing(torch, entries["segment_sum"], lambda: K.segment_sum(*swap_sum_args),
+           lambda: segment.segment_sum_plain(*swap_sum_args),
+           lambda: torch.index_add(lib_init, 0, lib_seg, vals),
+           nbytes(vals, seg, init) + init.numel() * 4, vals.numel(),
+           f"swap apply leg N={vals.shape[0]} C={vals.shape[1]} nseg={B}")
+    a = swap_count_args
+    timing(torch, entries["segment_count"], lambda: K.segment_count(*a),
+           lambda: segment.segment_count_plain(*a),
+           lambda: torch.index_add(a[3], 0, a[0], a[2]), nbytes(*a) + a[1] * 4,
+           a[0].shape[0], f"swap apply leg N={a[0].shape[0]} nseg={a[1]}")
+    gl = goals[swap_i[0]]
+    okey = gl.swap_out_key(env, st, gl.broker_severity(env, st)).contiguous()
+    check(torch, entries["select_candidates"], lambda: K.select_candidates(okey, k, 3, 0),
+          lambda: select.select_candidates_plain(okey, k, 3, 0),
+          f"{gl.name} swap-out keys k={k} stall=3")
+    timing(torch, entries["select_candidates"], lambda: K.select_candidates(okey, k, 0, 0),
+           lambda: select.select_candidates_plain(okey, k, 0, 0),
+           lambda: torch.topk(okey, k), nbytes(okey) + k * (4 + 8), 4 * R,
+           f"swap pool R={R} k={k}")
+
+    # K2: the usage and topic-replica families (the goal's own first wave)
+    # and LeaderReplicaDistributionGoal behind TopicReplica's topic veto
+    e = entries["move_score_classes"]
+    Kc = min(params.num_candidates, R)
+    T = min(params.num_dst_choices, B)
+    i_lrd = DEFAULT.index("LeaderReplicaDistributionGoal")
+    for i in swap_i + [i_lrd]:
+        gl, prev = goals[i], tuple(goals[:i])
+        key = gl.replica_key(env, st, gl.broker_severity(env, st)).contiguous()
+        kv, cand = K.select_candidates(key, Kc, 0, 0)
+        rooms, custom = engine._combined_move_rooms(prev, env, st)
+        args = engine._score_args(env, st, gl, rooms, custom, cand, kv,
+                                  engine._move_delta_rows(env, st, cand), T)
+        require((args[-1] is not None) == (i == i_lrd),
+                f"{gl.name}: the topic veto is {'missing' if i == i_lrd else 'present'}")
+        check(torch, e, lambda: K.move_score_classes(*args),
+              lambda: move_score.move_score_classes_plain(*args),
+              f"{gl.name} family {args[0]}, {i} previous goals"
+              f"{', topic veto' if args[-1] is not None else ''} [{Kc}, {B}] T={T}")
+        if i == swap_i[0]:
+            rd_args = args
+    timing(torch, e, lambda: K.move_score_classes(*rd_args),
+           lambda: move_score.move_score_classes_plain(*rd_args), None,
+           nbytes(*(t for t in rd_args if isinstance(t, torch.Tensor))) + Kc * T * (4 + 8),
+           Kc * B * 30, f"K={Kc} B={B} T={T} resource-distribution family")
+
+    # K6: the capacity family of the CPU / NW_OUT usage goals, and
+    # LeaderReplicaDistributionGoal behind the usage goals' vetoes
+    e = entries["leadership_rows"]
+    KL = min(params.num_leader_candidates, R)
+    for name in ("NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal",
+                 "LeaderReplicaDistributionGoal"):
+        i = DEFAULT.index(name)
+        gl, prev = goals[i], tuple(goals[:i])
+        lkey = gl.leader_key(env, st, gl.broker_severity(env, st)).contiguous()
+        lkv, lcand = K.select_candidates(lkey, KL, 0, 0)
+        args = engine._lead_args(env, st, gl, prev, lcand, lkv > -torch.inf)
+        check(torch, e, lambda: K.leadership_rows(*args),
+              lambda: leadership.leadership_rows_plain(*args),
+              f"{name} branch [{KL}, {env.max_rf}], {len(args[7])} vetoes")
+        if name == "CpuUsageDistributionGoal":
+            cpu_args = args
+    F = env.max_rf
+    timing(torch, e, lambda: K.leadership_rows(*cpu_args),
+           lambda: leadership.leadership_rows_plain(*cpu_args), None,
+           KL * F * (8 + 8 + 1 + 1 + 4 * 2 * (1 + len(cpu_args[7]))) + KL * (8 + 1 + 8)
+           + KL * (4 + 8), KL * F * (10 + 3 * len(cpu_args[7])),
+           f"branch [{KL}, {F}] CPU usage (capacity family, {len(cpu_args[7])} vetoes)")
+
+    # K7 adversarial at [128, 128]
+    n, Ba, Ta, F, Kr = 128, 24, 6, 4, 4
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g)
+
+    def adversarial(family, ties):
+        b_out, b_in = ri(0, 10, (n,)), ri(6, Ba, (n,))       # shared brokers
+        row_ok_out = torch.rand(n, generator=g) > 0.1         # all -inf rows
+        row_ok_out[:8] = False
+        p = swap.SwapPairs(
+            b_out=b_out, b_in=b_in, sib_out=ri(-1, Ba, (n, F)), sib_in=ri(-1, Ba, (n, F)),
+            orig_out=ri(0, Ba, (n,)), orig_in=ri(0, Ba, (n,)), row_ok_out=row_ok_out,
+            row_ok_in=torch.rand(n, generator=g) > 0.1,
+            new_ok=torch.rand(Ba, generator=g) > 0.3, broker_rack=torch.arange(Ba) % Kr,
+            t_out=ri(0, Ta, (n,)), t_in=ri(0, Ta, (n,)),
+            tab=ri(0, 6, (Ta, Ba)).int(), prow_out=ri(0, 2, (n, Kr)),
+            prow_in=ri(0, 2, (n, Kr)),
+            vetoes=[swap.SwapVeto(kind, ri(0, 50, (Ba,)).float(), ri(40, 90, (Ba,)).float(),
+                                  ri(0, 20, (n,)).float(), ri(0, 20, (n,)).float(),
+                                  lo=ri(0, 30, (Ba,)).float())
+                    for kind in range(4)],
+            topic_up=ri(3, 8, (Ta,)).float())
+        if family == swap.SWAP_RESOURCE_DIST:
+            u = ri(0, 100, (Ba,)).float()
+            x_in = torch.full((n,), 5.0) if ties else torch.rand(n, generator=g) * 20
+            x_in[0] = 0.0 if ties else x_in[0]      # one in-candidate every row prefers
+            t = swap.SwapTables(family, fb=torch.stack([u, u * 0 + 30.0, u * 0 + 60.0]),
+                                x_out=ri(0, 30, (n,)).float(), x_in=x_in)
+        else:
+            t = swap.SwapTables(family, tl=torch.stack([ri(0, 2, (Ta,)).float(),
+                                                        ri(2, 5, (Ta,)).float()]))
+        p.vetoes = [to_device(v, dev) for v in p.vetoes]
+        return to_device(p, dev), to_device(t, dev)
+
+    for family in (swap.SWAP_RESOURCE_DIST, swap.SWAP_TOPIC_REPLICA):
+        for ties in (False, True):
+            for strip in (False, True):
+                p, t = adversarial(family, ties)
+                if strip:       # no vetoes, so more pairs score and tie
+                    p = dataclasses.replace(p, vetoes=[], prow_out=None, prow_in=None,
+                                            topic_up=None)
+                check(torch, e_rows, lambda: K.swap_rows(p, t, mg),
+                      lambda: swap.swap_rows_plain(p, t, mg),
+                      f"adversarial family {family} ties={ties} vetoes={not strip} "
+                      f"[{n}, {n}]")
+    val = torch.tensor([1.0, 2.0, -float("inf"), 1e-10])[ri(0, 4, (n,))]
+    val = val.sort(descending=True, stable=True).values
+    adm = tuple(x.to(dev).contiguous() for x in (val, ri(0, 16, (n,)), ri(8, 24, (n,)),
+                                                 ri(0, 8, (n,)), ri(0, 24, (n,)),
+                                                 ri(0, 24, (n,)))) + (mg,)
+    check(torch, e_adm, lambda: K.swap_admission(*adm),
+          lambda: swap.swap_admission_plain(*adm),
+          f"adversarial K1={n} crowded brokers, in-candidates and partitions")
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the optimizer
 # ---------------------------------------------------------------------------
@@ -777,7 +1085,9 @@ def outcome(res) -> dict:
                 moves=res.num_replica_movements,
                 leads=res.num_leadership_movements,
                 proven=[g.fixpoint_proven for g in res.goal_results],
-                rounds=[g.finisher_rounds for g in res.goal_results])
+                rounds=[g.finisher_rounds for g in res.goal_results],
+                swaps=[g.swap_actions for g in res.goal_results],
+                swleft=[g.swap_window_remaining for g in res.goal_results])
 
 
 def print_outcome(tag: str, out: dict, oracle: dict) -> None:
@@ -788,11 +1098,13 @@ def print_outcome(tag: str, out: dict, oracle: dict) -> None:
         f"leadership movements {out['leads']} (JAX reference {oracle['leads']})")
     if "proven" in oracle:
         log(f"{tag}: fixpoint proven {out['proven']}, finisher rounds {out['rounds']}")
+    if "swaps" in oracle:
+        log(f"{tag}: swap actions {out['swaps']}, swap windows {out['swleft']}")
 
 
 def require_oracle(tag: str, out: dict, oracle: dict) -> None:
     for key in ("before", "after", "actions", "passes", "moves", "leads", "proven",
-                "rounds"):
+                "rounds", "swaps", "swleft"):
         if key in oracle:
             require(out[key] == oracle[key],
                     f"{tag}: {key} {out[key]} != JAX reference {oracle[key]}")
@@ -839,6 +1151,49 @@ def parity(torch, goals, spec: dict, key: str, tag: str) -> dict:
     return shapes
 
 
+def fixture16():
+    """``__graft_entry__._fixture_cluster()`` built with the port's builder:
+    16 brokers in 4 racks, the first half crowded with integer loads."""
+    from cruise_control_tpu_torch.model.builder import ClusterModelBuilder
+    b = ClusterModelBuilder()
+    for i in range(16):
+        b.add_broker(i, rack=f"r{i % 4}")
+    p = 0
+    for i in range(8):
+        for j in range(16):
+            load = [1.0, 50.0, 100.0, 500.0 + 10 * (p % 7)]
+            b.add_replica("load", p, i, is_leader=True, load=load)
+            if j % 4 == 0:
+                b.add_replica("load", p, (i + 1) % 8, is_leader=False, load=load)
+            p += 1
+    return b.build()
+
+
+def entry_check(torch) -> None:
+    """``__graft_entry__.entry()``'s run on the card: the port's
+    ``optimize_goal`` for DiskUsageDistributionGoal with
+    ``EngineParams(max_iters=64)`` on the 16-broker fixture (unpadded, as
+    ``_setup()`` builds it) ends satisfied with the reference's util."""
+    from cruise_control_tpu_torch.analyzer.engine import EngineParams, optimize_goal
+    from cruise_control_tpu_torch.analyzer.env import make_env
+    from cruise_control_tpu_torch.analyzer.goals import make_goal
+    from cruise_control_tpu_torch.analyzer.state import init_state
+    ct, meta = fixture16()
+    env = make_env(ct, meta, device="cuda")
+    st = init_state(env, ct.replica_broker, ct.replica_is_leader, ct.replica_offline,
+                    ct.replica_disk)
+    st2, info = optimize_goal(env, st, make_goal("DiskUsageDistributionGoal"), (),
+                              EngineParams(max_iters=64))
+    disk = st2.util[:, 3].tolist()
+    total = float(st2.util.sum())
+    log(f"entry: violated_after {info['violated_after']}, util sum {total}, "
+        f"disk {disk}")
+    require(info["violated_after"] is False and disk == ENTRY_DISK
+            and total == ENTRY_UTIL_SUM,
+            f"entry: not the reference's result (disk {ENTRY_DISK}, sum "
+            f"{ENTRY_UTIL_SUM}, violated_after False)")
+
+
 def slice_checks(torch, res, tag: str) -> None:
     from cruise_control_tpu_torch.analyzer.state import refresh
     env, st = res.env, res.final_state
@@ -868,13 +1223,16 @@ HAND_KERNEL_NAMES = (
     "salt_pack", "radix_hist", "radix_choose", "gather_top", "bitonic_top",
     "init_state", "tile_counts", "scan_counts", "tile_write", "pad_tail",
     "move_score_kernel", "ft_init", "ft_cand", "ft_part", "side_scan", "finish(",
-    "segment_sum_kernel", "segment_count_kernel", "leadership_rows_kernel")
+    "segment_sum_kernel", "segment_count_kernel", "leadership_rows_kernel",
+    "swap_rows_kernel", "swap_admission_kernel")
 
 
-def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict) -> dict:
-    """A main path at the 1,000-broker size, run twice: the launch counts
-    are zeroed just before run 1 and read just after it; the runs must be
-    bit-identical and match the reference's outcome."""
+def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
+              twice: bool = True) -> dict:
+    """A path at the 1,000-broker size, run twice (once with ``twice``
+    False): the launch counts are zeroed just before run 1 and read just
+    after it; the runs must be bit-identical and match the reference's
+    outcome."""
     from cruise_control_tpu_torch import kernels as K
     K.reset_launches()
     t0 = time.perf_counter()
@@ -883,33 +1241,38 @@ def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict) -> dict:
     wall1 = time.perf_counter() - t0
     launches = K.launches()
     shapes = K.launch_shapes()
-    t0 = time.perf_counter()
-    res2 = run_chain(opt, ct, meta, goals)
-    torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t0
-    log(f"{tag}: run 1 wall {wall1:.6f} s, run 2 wall {wall2:.6f} s")
+    if twice:
+        t0 = time.perf_counter()
+        res2 = run_chain(opt, ct, meta, goals)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        log(f"{tag}: run 1 wall {wall1:.6f} s, run 2 wall {wall2:.6f} s")
+    else:
+        wall2 = None
+        log(f"{tag}: run 1 wall {wall1:.6f} s (one run)")
     log(f"{tag}: kernel launches in run 1 {launches}")
     log(f"{tag}: launches by shape in run 1 {json.dumps(shapes)}")
     out = outcome(res1)
     print_outcome(tag, out, oracle)
     require_oracle(tag, out, oracle)
-    require(same_bits(torch, res1.final_state, res2.final_state)
-            and outcome(res2) == out, f"{tag}: the two runs differ")
-    log(f"{tag}: run 1 and run 2 bit-identical (assignment, leadership, util, "
-        f"leader util, counts)")
+    if twice:
+        require(same_bits(torch, res1.final_state, res2.final_state)
+                and outcome(res2) == out, f"{tag}: the two runs differ")
+        log(f"{tag}: run 1 and run 2 bit-identical (assignment, leadership, util, "
+            f"leader util, counts)")
     slice_checks(torch, res1, tag)
     return dict(launches=launches, shapes=shapes, walls=(wall1, wall2))
 
 
 def profile_run(torch, opt, ct, meta) -> None:
-    """One more run of the eleven-goal slice under torch.profiler: device
+    """One more run of the sixteen-goal slice under torch.profiler: device
     busy share of the wall and device time by kernel (device-side events
     only, so an op's kernels are not counted twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_chain(opt, ct, meta, CHAIN)
+        run_chain(opt, ct, meta, DEFAULT)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -937,7 +1300,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the adversarial kernel-check inputs")
     ap.add_argument("--profile", action="store_true",
-                    help="add a third eleven-goal slice run under torch.profiler")
+                    help="add a third sixteen-goal slice run under torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -953,6 +1316,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # 1. device
+    phase("phase 1: device")
     card = nvidia_smi()
     log(card)
     kind = torch.cuda.get_device_name(0)
@@ -960,6 +1324,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
 
     # 2. build
+    phase("phase 2: build")
     from cruise_control_tpu_torch import kernels as K
     info = K.build_all()
     log(f"build: {info['seconds']:.3f} s for {len(info['built'])} libraries "
@@ -991,30 +1356,46 @@ def main() -> int:
     ctx = dict(env=env, st=st, goals=make_goals(GOALS), params=params)
 
     # 3. kernels against their twins
+    phase("phase 3: kernels against their twins")
     entries = kernel_checks(torch, ctx, args.seed)
+    phase("phase 3: the eleven-goal chain's kernels")
     chain_kernel_checks(torch, ctx, entries, args.seed)
+    phase("phase 3: the sixteen goals' kernels")
+    swap_kernel_checks(torch, ctx, entries, args.seed)
     for en in entries.values():
         require(en.checks > 0 and en.timings, f"{en.name} was not checked")
 
     # 4. small parity against the CPU run and the JAX reference's counts
+    phase("phase 4: small parity")
     parity(torch, GOALS, SMALL_SPEC, "small", "small (32 brokers, 5 goals)")
     parity(torch, CHAIN, SMALL_SPEC, "chain_small", "small (32 brokers, 11 goals)")
     mid_shapes = parity(torch, CHAIN, MID_SPEC, "chain_mid", "mid (64 brokers, 11 goals)")
     require(mid_shapes["move_score_classes"].get("T=1", 0) > 0,
             "the 64-broker chain never ran the move scan (K2 at T=1)")
+    parity(torch, DEFAULT, SMALL_SPEC, "default_small", "small (32 brokers, 16 goals)")
+    mid16 = parity(torch, DEFAULT, MID_SPEC, "default_mid", "mid (64 brokers, 16 goals)")
+    window = mid16["swap_rows"].get("window [32, 32]", 0)
+    require(window == 4, f"the 64-broker sixteen goals ran {window} swap windows, "
+                         f"not the four usage goals' 4")
+    log(f"mid (64 brokers, 16 goals): K7 at the swap window launched {window} times")
+    entry_check(torch)
 
-    # 5. the slices: each main path counted on its first run
+    # 5. the slices: each path counted on its first run; the five- and
+    # eleven-goal slices of the earlier slices run once each (the smoke's
+    # time limit), the sixteen goals twice
+    phase("phase 5: the 1,000-broker slices")
     log(f"slice: R={pct.num_replicas} B={pct.num_brokers} K={params.num_candidates} "
         f"KL={params.num_leader_candidates} T={params.num_dst_choices} "
         f"pass_waves={params.pass_waves} pass_chunk={params.pass_chunk} "
         f"compute_dtype={params.compute_dtype}")
-    five = run_slice(torch, opt, ct, meta, GOALS, "slice (5 goals)", ORACLE["slice"])
+    five = run_slice(torch, opt, ct, meta, GOALS, "slice (5 goals)", ORACLE["slice"],
+                     twice=False)
     require(all(five["launches"][n] > 0 for n in FIVE_GOAL_KERNELS),
             f"a kernel of the five-goal path never launched: {five['launches']}")
     chain = run_slice(torch, opt, ct, meta, CHAIN, "slice (11 goals)",
-                      ORACLE["chain_slice"])
+                      ORACLE["chain_slice"], twice=False)
     launches = chain["launches"]
-    require(all(n > 0 for n in launches.values()),
+    require(all(n > 0 for name, n in launches.items() if not name.startswith("swap_")),
             f"a kernel of the eleven-goal path never launched: {launches}")
     Kf = min(params.finisher_candidates, pct.num_replicas)
     W = max(1, min(params.finisher_waves, pct.num_replicas // max(Kf, 1)))
@@ -1032,7 +1413,18 @@ def main() -> int:
         f"launched {shapes['move_score_classes'].get('T=1', 0)} times here and "
         f"{mid_shapes['move_score_classes'].get('T=1', 0)} times in the 64-broker "
         f"run")
+    default = run_slice(torch, opt, ct, meta, DEFAULT, "slice (16 goals)",
+                        ORACLE["default_slice"])
+    launches, shapes = default["launches"], default["shapes"]
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the sixteen-goal path never launched: {launches}")
+    k = min(params.num_swap_candidates, pct.num_replicas, 128)
+    for name, shape in (("swap_rows", f"pass [{k}, {k}]"), ("swap_admission", f"K1={k}")):
+        require(shapes[name].get(shape, 0) > 0,
+                f"the sixteen-goal path never launched {name} at {shape}: "
+                f"{shapes[name]}")
     if args.profile:
+        phase("profile")
         profile_run(torch, opt, ct, meta)
     for name, e in entries.items():
         for t in e.timings:

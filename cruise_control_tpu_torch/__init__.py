@@ -10,8 +10,9 @@ Layout (the slice ported so far):
 - ``common``    — Resource taxonomy (own copy)
 - ``model``     — ClusterTensor / ClusterMeta as host numpy, the builder,
                   the random-cluster generators, shape bucketing
-- ``analyzer``  — env, engine state, the move-branch goal kernels, the
-                  budgeted pass loop and ``GoalOptimizer.optimizations``
+- ``analyzer``  — env, engine state, the sixteen default goal kernels, the
+                  budgeted pass loop (move, leadership and swap branches,
+                  the finisher) and ``GoalOptimizer.optimizations``
 - ``kernels``   — the hand-written CUDA kernels (``csrc/``) with their
                   plain PyTorch twins and launch counters
 - ``convert``   — carries a reference env/state (as numpy leaves) over

@@ -1,5 +1,5 @@
 """The greedy optimization engine (counterpart of
-``cruise_control_tpu/analyzer/engine.py``): the move and leadership
+``cruise_control_tpu/analyzer/engine.py``): the move, leadership and swap
 branches, the exhaustive finisher and the chunked early-exit dispatch.
 
 One goal runs as a budgeted loop of PASSES; a pass is
@@ -12,19 +12,27 @@ One goal runs as a budgeted loop of PASSES; a pass is
     3. the move branch: K1 top-(K*W) of goal.replica_key, stall-salted;
          per wave K2 [K, B] score, destination spread, K3 admission, K4
          batched apply
-    4. other leadership goals: the leadership branch when no move landed.
+    4. other leadership goals: the leadership branch when no move landed
+    5. swap goals: the swap branch when neither moves nor transfers landed
+         (K1 top-K of swap_out_key and, salted apart, of swap_in_key; K7
+         [K1, K2] pair score and per-row best; a stable sort by value; K7
+         first-use admission; the two-leg batched apply on K4/K5).
 
 A goal still violated when its loop exits gets the exhaustive FINISHER:
 rounds of full-R scans (K1 compaction of the eligible rows, K2 with T = 1
 over [chunk, B], K6 over [chunk, F]) whose top true-gain actions apply in
 segment-parallel waves (K2 with the room-ranked column order, K6 per broker
-color, K3 with N = K * S rows). A round whose scans find nothing proves a
-single-action fixpoint.
+color, K3 with N = K * S rows). Swap goals add a swap tail once a round's
+scans read zero (salted swap passes until one applies nothing) and a swap
+clause to the certificate (no positive swap in the goal's unsalted top-K
+window, K7). A round whose scans find nothing proves a single-action
+fixpoint.
 
 The reference runs the loop as one ``lax.while_loop`` program; here it is a
 host loop over device tensors with one small device->host read per pass
-(plus one per branch gate for leadership goals), per finisher wave and per
-scan. Capturing a pass as a CUDA graph is later work (K11).
+(plus one per branch gate for leadership and swap goals), per finisher
+wave, per swap-tail pass and per scan. Capturing a pass as a CUDA graph is
+later work (K11).
 """
 from __future__ import annotations
 
@@ -36,18 +44,17 @@ import torch
 
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv, capacity_stripe_key
 from cruise_control_tpu_torch.analyzer.goals.base import (
-    NEG_INF, WAVE_DIMS, WAVE_ZERO_EXEMPT_DIMS, GoalKernel, lead_member_rows,
-    legit_lead_rows, legit_move_rows,
+    NEG_INF, WAVE_DIMS, WAVE_ZERO_EXEMPT_DIMS, GoalKernel, overrides,
+    lead_member_rows, legit_lead_rows, legit_move_rows, legit_swap_rows, swap_pairs,
 )
 from cruise_control_tpu_torch.analyzer.state import (
-    EngineState, apply_leaderships_batched, apply_moves_batched,
+    EngineState, apply_leaderships_batched, apply_moves_batched, apply_swaps_batched,
 )
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.kernels import (
     compact_eligible, leadership_rows, move_score_classes, select_candidates,
-    wave_admission,
+    swap_admission, swap_rows, wave_admission,
 )
-from cruise_control_tpu_torch.kernels.move_score import GOAL_MIN_TOPIC
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,23 +112,21 @@ def check_supported(params: EngineParams) -> None:
 
 
 def check_goal_supported(goal: GoalKernel) -> None:
-    if goal.uses_swaps:
-        raise NotImplementedError(
-            f"{goal.name}: the swap branch is not ported yet (ROADMAP.md Queue 2 "
-            f"K7, the next slice)")
     if goal.uses_disk_moves:
         raise NotImplementedError(
             f"{goal.name}: the intra-broker disk branch is not ported yet "
             f"(ROADMAP.md Queue 2 K8)")
 
 
-def _overrides(g: GoalKernel, name: str) -> bool:
-    return getattr(type(g), name) is not getattr(GoalKernel, name)
+def _custom_move_veto(g: GoalKernel) -> bool:
+    """A previous-goal move veto with no interval form: the rack veto, a
+    row veto or a (topic, broker) count veto, folded by the K2 kernel."""
+    return (g.rack_veto or overrides(g, "move_row_veto")
+            or overrides(g, "move_topic_veto"))
 
 
 def _vetoes_moves(g: GoalKernel) -> bool:
-    return (g.rack_veto or _overrides(g, "accept_move_rooms")
-            or _overrides(g, "move_row_veto"))
+    return overrides(g, "accept_move_rooms") or _custom_move_veto(g)
 
 
 def _wave_budget_capable(g: GoalKernel, leadership: bool = False) -> bool:
@@ -129,12 +134,12 @@ def _wave_budget_capable(g: GoalKernel, leadership: bool = False) -> bool:
     acceptance? Yes with cumulative budgets (per broker or per (topic,
     broker)), the first-touch rule (wave_safe), or no veto of the action
     kind in question."""
-    if _overrides(g, "wave_budgets") or g.wave_safe:
+    if overrides(g, "wave_budgets") or g.wave_safe:
         return True
-    if _overrides(g, "wave_topic_budgets"):
+    if overrides(g, "wave_topic_budgets"):
         return True
     if leadership:
-        return not _overrides(g, "lead_vetoes")
+        return not overrides(g, "lead_vetoes")
     return not _vetoes_moves(g)
 
 
@@ -183,13 +188,14 @@ def _combined_move_rooms(prev_goals: tuple, env: ClusterEnv, st: EngineState):
     """({dim: (src_room | None, dst_room | None)}, custom): the chain's
     interval-form vetoes folded into per-dim MIN room tables, and the goals
     whose veto has no interval form (RackAwareGoal's rack veto, the
-    MinTopicLeadersPerBrokerGoal row veto), which the K2 kernel folds."""
+    MinTopicLeadersPerBrokerGoal row veto, TopicReplicaDistributionGoal's
+    row and (topic, broker) count vetoes), which the K2 kernel folds."""
     rooms: dict = {}
     custom = []
     for g in prev_goals:
         rm = g.accept_move_rooms(env, st)
         if rm is None:
-            if g.rack_veto or _overrides(g, "move_row_veto"):
+            if _custom_move_veto(g):
                 custom.append(g)
             continue
         for dim, (s, d) in rm.items():
@@ -212,11 +218,17 @@ def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
     sib_b, replica_ok, dst_ok, new_ok = legit_move_rows(env, st, cand, goal.options)
     row_ok = replica_ok & ((kv > NEG_INF) if row_ok is None else row_ok)
     rack_veto = False
+    tveto = None
     for g in custom:
-        if g.rack_veto:
-            rack_veto = True
-        else:
+        rack_veto = rack_veto or g.rack_veto
+        if overrides(g, "move_row_veto"):
             row_ok = row_ok & g.move_row_veto(env, st, cand)
+        up = g.move_topic_veto(env, st)
+        if up is not None:
+            if tveto is not None:
+                raise NotImplementedError("two topic vetoes in one chain")
+            row_t = env.replica_topic[cand].contiguous()
+            tveto = (row_t, st.topic_broker_count, up[row_t].contiguous())
     dst_room = torch.full((WAVE_DIMS, B), torch.inf, dtype=torch.float32,
                           device=env.device)
     room_mask = 0
@@ -235,12 +247,11 @@ def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
     prow = None
     if goal.rack_veto or rack_veto:
         prow = st.part_rack_count[env.replica_partition[cand]].to(torch.int64)
-    topic = goal.move_topic_table(env, st, cand) if family == GOAL_MIN_TOPIC else None
     return (family, T, src_b.contiguous(),
             env.replica_original_broker[cand].contiguous(), sib_b,
             row_ok.contiguous(), d_rows, dst_room, room_mask, prow, rack_veto,
             row_f.contiguous(), col_f.contiguous(), dst_ok, new_ok, env.broker_rack,
-            order_b, topic)
+            order_b, goal.move_topic_table(env, st, cand), tveto)
 
 
 def chain_slack(env: ClusterEnv, st: EngineState, goals: tuple):
@@ -450,6 +461,66 @@ def _leadership_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKerne
     win = wave_admission(*args)
     st = apply_leaderships_batched(env, st, r_sorted, dst_rep, win)
     return st, win.sum()
+
+
+def _swap_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, prev_goals: tuple,
+               cand_out, okv, cand_in, ikv):
+    """(SwapPairs, SwapTables) of the K7 ``swap_rows`` launch: the
+    ``legit_swap_mask`` row parts with ``kv > -inf``, every previous goal's
+    ``accept_swap`` folded, the active goal's ``swap_score`` tables."""
+    accepts = [g.swap_accept(env, st, cand_out, cand_in) for g in prev_goals]
+    pairs = swap_pairs(env, st, cand_out, cand_in, accepts,
+                       legit_swap_rows(env, st, cand_out) & (okv > NEG_INF),
+                       legit_swap_rows(env, st, cand_in) & (ikv > NEG_INF))
+    return pairs, goal.swap_tables(env, st, cand_out, cand_in)
+
+
+def _swap_pools(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                params: EngineParams, severity, stall: int):
+    """(okv, cand_out, ikv, cand_in): the out pool of ``swap_out_key`` and
+    the in pool of ``swap_in_key`` (K1, salted apart by 101 on a stalled
+    pass), k = min(num_swap_candidates, R, 128) each (engine.py:1106)."""
+    k = min(params.num_swap_candidates, env.num_replicas, 128)
+    okv, cand_out = select_candidates(
+        goal.swap_out_key(env, st, severity).contiguous(), k, stall)
+    ikv, cand_in = select_candidates(
+        goal.swap_in_key(env, st, severity).contiguous(), k, stall, salt=101)
+    return okv, cand_out, ikv, cand_in
+
+
+def _swap_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                         prev_goals: tuple, params: EngineParams,
+                         severity: torch.Tensor, stall: int):
+    """engine.py:1080: one [K1, K2] scoring pass (K7 ``swap_rows``), the
+    rows in stable descending value order, the first-use admission (K7
+    ``swap_admission``: brokers in either role, the in-candidate and both
+    partitions first-use among the eligible rows) and one two-leg batched
+    apply. Returns (state, n_applied device scalar)."""
+    okv, cand_out, ikv, cand_in = _swap_pools(env, st, goal, params, severity, stall)
+    pairs, tables = _swap_args(env, st, goal, prev_goals, cand_out, okv, cand_in, ikv)
+    best_val, best_j, _n = swap_rows(pairs, tables, params.min_gain)
+    order = _desc_order(best_val)
+    r_out = cand_out[order]
+    j_s = best_j[order].contiguous()
+    r_in = cand_in[j_s]
+    win = swap_admission(best_val[order].contiguous(), pairs.b_out[order].contiguous(),
+                         pairs.b_in[j_s].contiguous(), j_s,
+                         env.replica_partition[r_out].contiguous(),
+                         env.replica_partition[r_in].contiguous(), params.min_gain)
+    st = apply_swaps_batched(env, st, r_out, r_in, win)
+    return st, win.sum()
+
+
+def _swap_window_positives(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                           prev_goals: tuple, params: EngineParams) -> int:
+    """engine.py:1385: the accepted positive-gain swaps in the goal's own
+    unsalted top-K swap window at this state (the certificate's swap
+    clause), from K7's per-row positive counts."""
+    severity = goal.broker_severity(env, st)
+    okv, cand_out, ikv, cand_in = _swap_pools(env, st, goal, params, severity, 0)
+    pairs, tables = _swap_args(env, st, goal, prev_goals, cand_out, okv, cand_in, ikv)
+    _best, _j, positives = swap_rows(pairs, tables, params.min_gain, what="window")
+    return int(positives.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -682,9 +753,12 @@ def _finisher_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                 st, n, _w = _move_branch_batched(env, st, goal, prev_goals,
                                                  params, severity, 0,
                                                  cand=cand, kv=kv)
-        n, nb = (int(x) for x in torch.stack([torch.as_tensor(n, device=env.device),
-                                              torch.as_tensor(nb, device=env.device)
-                                              ]).tolist())
+        # one device->host read for both counts (an int count is filled on
+        # the device: uploading it would wait for the stream)
+        n, nb = (int(x) for x in torch.stack([
+            x if isinstance(x, torch.Tensor)
+            else torch.full((), x, dtype=torch.int64, device=env.device)
+            for x in (n, nb)]).tolist())
         total += n
         boundary += nb
         if n == 0:
@@ -694,12 +768,15 @@ def _finisher_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 
 def _finisher(env: ClusterEnv, st: EngineState, goal: GoalKernel,
               prev_goals: tuple, params: EngineParams, run: bool):
-    """engine.py:1743 without the swap tail: while ``run`` (the goal was
-    still violated when its budgeted loop exited) and a round applies
-    anything, scan and wave-apply moves, then transfers. A round that
-    applies nothing ends the loop with a certificate when its scans found
-    zero positive actions. Returns (st, proven, moves_left, leads_left,
-    swaps_left, rounds, applied, boundary, segments)."""
+    """engine.py:1743: while ``run`` (the goal was still violated when its
+    budgeted loop exited) and a round applies anything, scan and wave-apply
+    moves, then transfers; a swap goal whose round drained both scans runs
+    up to ``finisher_swap_passes`` salted swap passes (stall = the pass
+    index) until one applies nothing. A round that applies nothing ends the
+    loop with a certificate when its scans found zero positive actions and,
+    for a swap goal, its unsalted swap window holds no positive swap.
+    Returns (st, proven, moves_left, leads_left, swaps_left, rounds,
+    applied, boundary, segments)."""
     use_moves = goal.uses_replica_moves
     use_leads = goal.uses_leadership_moves
     if params.max_finisher_rounds <= 0 or not (use_moves or use_leads):
@@ -728,6 +805,15 @@ def _finisher(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                                        leadership=True)
             applied += n
             bnd += nb
+        if (goal.uses_swaps and params.finisher_swap_passes > 0
+                and mleft == 0 and lleft == 0):
+            it, last = 0, 1
+            while last > 0 and it < params.finisher_swap_passes:
+                st, k = _swap_branch_batched(env, st, goal, prev_goals, params,
+                                             goal.broker_severity(env, st), it)
+                last = int(k)
+                applied += last
+                it += 1
         done = (applied == 0 or not bool(goal.violated(env, st))
                 or (mleft + lleft > 0
                     and mleft + lleft > (prev_m + prev_l) * 7 // 8))
@@ -738,14 +824,18 @@ def _finisher(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     ran = run and rounds > 0
     if not ran:
         mleft = lleft = -1
+    swleft = -1
+    if goal.uses_swaps and ran:
+        swleft = _swap_window_positives(env, st, goal, prev_goals, params)
     proven = (run and clean and (mleft == 0 or not use_moves)
-              and (lleft == 0 or not use_leads))
+              and (lleft == 0 or not use_leads)
+              and (swleft == 0 or not goal.uses_swaps))
     chain = (goal, *prev_goals)
     seg_capable = params.max_finisher_segments >= 2 and (
         (use_moves and all(_wave_budget_capable(g) for g in chain))
         or (use_leads and all(_wave_budget_capable(g, True) for g in chain)))
     segments = _segments(params, env)[1] if (seg_capable and ran) else 0
-    return st, proven, mleft, lleft, -1, rounds, total, bnd, segments
+    return st, proven, mleft, lleft, swleft, rounds, total, bnd, segments
 
 
 # ---------------------------------------------------------------------------
@@ -753,10 +843,11 @@ def _finisher(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 # ---------------------------------------------------------------------------
 def _loop_scalar_init():
     """The budgeted loop's scalar carries: (it, n_applied, stall, dribble,
-    sat, win_stat, win_dribble, plateau, tailp, b_moves, b_leads, b_waves)."""
+    sat, win_stat, win_dribble, plateau, tailp, b_moves, b_leads, b_swaps,
+    b_waves)."""
     return dict(it=0, n_applied=0, stall=0, dribble=0, sat=False,
                 win_stat=np.float32(np.inf), win_dribble=0, plateau=False,
-                tailp=0, b_moves=0, b_leads=0, b_waves=0)
+                tailp=0, b_moves=0, b_leads=0, b_swaps=0, b_waves=0)
 
 
 def _cond(c: dict, params: EngineParams) -> bool:
@@ -771,15 +862,15 @@ def _cond(c: dict, params: EngineParams) -> bool:
 
 def _step(env, st, goal, prev_goals, params, c: dict):
     """One pass (the reference's ``step``, engine.py:1953-2074, without the
-    swap and disk branches). The gated branches reuse the pass-start
-    severity, as the reference does: a branch that applied nothing left
-    the state untouched."""
+    disk branch). The gated branches reuse the pass-start severity, as the
+    reference does: a branch that applied nothing left the state
+    untouched."""
     severity = goal.broker_severity(env, st)
     c["tailp"] += int((c["stall"] + c["dribble"]) > 0)
     explore = c["stall"] + c["dribble"]
     lead_first = goal.uses_leadership_moves and goal.leadership_primary
     zero = torch.zeros((), dtype=torch.int64, device=env.device)
-    n_leads = n_moves = zero
+    n_leads = n_moves = n_swaps = zero
     n_waves = 0
     leads_now = 0
     if lead_first:
@@ -793,16 +884,20 @@ def _step(env, st, goal, prev_goals, params, c: dict):
         if int(n_moves) == 0:
             st, n_leads = _leadership_branch_batched(env, st, goal, prev_goals,
                                                      params, severity, explore)
+    if goal.uses_swaps and int(n_moves + n_leads) == 0:
+        st, n_swaps = _swap_branch_batched(env, st, goal, prev_goals, params,
+                                           severity, explore)
     # the pass's closing device->host read
-    moves, leads, viol, stat_now = torch.stack([
+    moves, leads, swaps, viol, stat_now = torch.stack([
         n_moves.to(torch.float32), n_leads.to(torch.float32),
-        goal.violated(env, st).to(torch.float32),
+        n_swaps.to(torch.float32), goal.violated(env, st).to(torch.float32),
         goal.stat(env, st).to(torch.float32)]).tolist()
-    moves, leads = int(moves), int(leads)
-    applied = moves + leads
+    moves, leads, swaps = int(moves), int(leads), int(swaps)
+    applied = moves + leads + swaps
     stat_now = np.float32(stat_now)
     c["b_moves"] += moves
     c["b_leads"] += leads
+    c["b_swaps"] += swaps
     c["b_waves"] += n_waves
     c["stall"] = 0 if applied > 0 else c["stall"] + 1
     is_dribble = applied < max(1, params.num_candidates // 128)
@@ -842,7 +937,7 @@ def _info(goal, params, c: dict, stat_before: float, violated: bool, fin: dict,
             "stat_before": stat_before,
             "move_actions": c["b_moves"],
             "lead_actions": c["b_leads"],
-            "swap_actions": 0,
+            "swap_actions": c["b_swaps"],
             "disk_actions": 0,
             "move_waves": c["b_waves"],
             "finisher_actions": fin["finisher_actions"],

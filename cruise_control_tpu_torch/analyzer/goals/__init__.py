@@ -1,11 +1,8 @@
 """Goal registry of the port. Names match the reference's class names.
 
-The port carries the default goal chain without its swap goals (the five
-move-branch goals of its first slice plus MinTopicLeadersPerBroker,
-NetworkOutboundCapacity, CpuCapacity, PotentialNwOut, LeaderReplica-
-Distribution and LeaderBytesInDistribution); every other goal of the
-reference raises ``NotImplementedError`` naming the ROADMAP item that ports
-it.
+The port carries the sixteen goals of the default chain (``DEFAULT_GOALS``
+of the reference's config/defaults.py); every other goal of the reference
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -16,13 +13,17 @@ from cruise_control_tpu_torch.analyzer.goals.capacity import (
     NetworkOutboundCapacityGoal, ReplicaCapacityGoal,
 )
 from cruise_control_tpu_torch.analyzer.goals.distribution import (
-    LeaderReplicaDistributionGoal, ReplicaDistributionGoal,
+    CpuUsageDistributionGoal, DiskUsageDistributionGoal, LeaderReplicaDistributionGoal,
+    NetworkInboundUsageDistributionGoal, NetworkOutboundUsageDistributionGoal,
+    ReplicaDistributionGoal, ResourceDistributionGoal,
 )
 from cruise_control_tpu_torch.analyzer.goals.network import (
     LeaderBytesInDistributionGoal, PotentialNwOutGoal,
 )
 from cruise_control_tpu_torch.analyzer.goals.rack import RackAwareGoal
-from cruise_control_tpu_torch.analyzer.goals.topic import MinTopicLeadersPerBrokerGoal
+from cruise_control_tpu_torch.analyzer.goals.topic import (
+    MinTopicLeadersPerBrokerGoal, TopicReplicaDistributionGoal,
+)
 
 GOAL_CLASSES: dict[str, type] = {
     "RackAwareGoal": RackAwareGoal,
@@ -34,33 +35,27 @@ GOAL_CLASSES: dict[str, type] = {
     "CpuCapacityGoal": CpuCapacityGoal,
     "ReplicaDistributionGoal": ReplicaDistributionGoal,
     "PotentialNwOutGoal": PotentialNwOutGoal,
+    "DiskUsageDistributionGoal": DiskUsageDistributionGoal,
+    "NetworkInboundUsageDistributionGoal": NetworkInboundUsageDistributionGoal,
+    "NetworkOutboundUsageDistributionGoal": NetworkOutboundUsageDistributionGoal,
+    "CpuUsageDistributionGoal": CpuUsageDistributionGoal,
+    "TopicReplicaDistributionGoal": TopicReplicaDistributionGoal,
     "LeaderReplicaDistributionGoal": LeaderReplicaDistributionGoal,
     "LeaderBytesInDistributionGoal": LeaderBytesInDistributionGoal,
 }
 
 # the reference's other goals (cruise_control_tpu/analyzer/goals/__init__.py)
 NOT_PORTED_GOALS = (
-    "RackAwareDistributionGoal", "DiskUsageDistributionGoal",
-    "NetworkInboundUsageDistributionGoal", "NetworkOutboundUsageDistributionGoal",
-    "CpuUsageDistributionGoal", "TopicReplicaDistributionGoal",
-    "PreferredLeaderElectionGoal", "IntraBrokerDiskCapacityGoal",
-    "IntraBrokerDiskUsageDistributionGoal", "KafkaAssignerEvenRackAwareGoal",
-    "KafkaAssignerDiskUsageDistributionGoal",
+    "RackAwareDistributionGoal", "PreferredLeaderElectionGoal",
+    "IntraBrokerDiskCapacityGoal", "IntraBrokerDiskUsageDistributionGoal",
+    "KafkaAssignerEvenRackAwareGoal", "KafkaAssignerDiskUsageDistributionGoal",
 )
-# the not-ported goals that need the swap branch (K7)
-SWAP_GOALS = ("DiskUsageDistributionGoal", "NetworkInboundUsageDistributionGoal",
-              "NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal",
-              "TopicReplicaDistributionGoal", "KafkaAssignerDiskUsageDistributionGoal")
 
 
 def make_goal(name: str, constraint: BalancingConstraint | None = None,
               options: OptimizationOptions | None = None) -> GoalKernel:
     cls = GOAL_CLASSES.get(name)
     if cls is None:
-        if name in SWAP_GOALS:
-            raise NotImplementedError(
-                f"goal {name!r} needs the swap branch, not ported yet (ROADMAP.md "
-                f"Queue 2 K7, the next slice); ported: {sorted(GOAL_CLASSES)}")
         if name in NOT_PORTED_GOALS:
             raise NotImplementedError(
                 f"goal {name!r} is not ported yet (ROADMAP.md Queue 1 item 4, "
@@ -77,9 +72,12 @@ def make_goals(names, constraint=None, options=None) -> list[GoalKernel]:
 
 __all__ = [
     "GOAL_CLASSES", "GoalKernel", "make_goal", "make_goals", "CapacityGoal",
-    "CpuCapacityGoal", "DiskCapacityGoal", "LeaderBytesInDistributionGoal",
+    "CpuCapacityGoal", "CpuUsageDistributionGoal", "DiskCapacityGoal",
+    "DiskUsageDistributionGoal", "LeaderBytesInDistributionGoal",
     "LeaderReplicaDistributionGoal", "MinTopicLeadersPerBrokerGoal",
-    "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
+    "NetworkInboundCapacityGoal", "NetworkInboundUsageDistributionGoal",
+    "NetworkOutboundCapacityGoal", "NetworkOutboundUsageDistributionGoal",
     "PotentialNwOutGoal", "RackAwareGoal", "ReplicaCapacityGoal",
-    "ReplicaDistributionGoal",
+    "ReplicaDistributionGoal", "ResourceDistributionGoal",
+    "TopicReplicaDistributionGoal",
 ]

@@ -19,14 +19,19 @@ EngineState):
   see ``kernels.leadership``);
 - ``wave_topic_budgets`` / ``segment_room_key``: per-(topic, broker) wave
   budgets and the finisher's broker-coloring key;
+- ``swap_out_key`` / ``swap_in_key`` / ``swap_tables`` / ``swap_accept``:
+  the swap counterparts (the two K1 keys; ``swap_score`` in the K7
+  kernel's family form; ``accept_swap`` as a previously optimized goal, see
+  ``kernels.swap``);
 - ``violated`` / ``stat``.
 
-The reference's [K, B] ``legit_move_mask`` and [K, F]
-``legit_leadership_mask`` are evaluated inside the K2 / K6 kernels;
-``legit_move_rows`` / ``legit_lead_rows`` prepare their inputs.
-``move_score`` / ``leadership_score`` / ``accept_leadership`` give the
-plain [K, B] / [K, F] values of the same tables (the kernels' twins), for
-tests and for the reader.
+The reference's [K, B] ``legit_move_mask``, [K, F]
+``legit_leadership_mask`` and [K1, K2] ``legit_swap_mask`` are evaluated
+inside the K2 / K6 / K7 kernels; ``legit_move_rows`` / ``legit_lead_rows``
+/ ``swap_pairs`` prepare their inputs. ``move_score`` /
+``leadership_score`` / ``accept_leadership`` / ``swap_score`` /
+``accept_swap`` give the plain values of the same tables (the kernels'
+twins), for tests and for the reader.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from cruise_control_tpu_torch.analyzer.env import (
 from cruise_control_tpu_torch.analyzer.state import EngineState
 from cruise_control_tpu_torch.kernels import leadership as lead_k
 from cruise_control_tpu_torch.kernels import move_score as move_k
+from cruise_control_tpu_torch.kernels import swap as swap_k
 from cruise_control_tpu_torch.kernels.select import mul32
 
 NEG_INF = -torch.inf
@@ -130,13 +136,20 @@ class GoalKernel:
         """f32[K, B] score of moving candidate k to broker b (no legitimacy):
         the K2 twin's arithmetic on this goal's tables."""
         family, row_f, col_f = self.move_tables(env, st, cand)
-        tab = self.move_topic_table(env, st, cand) if family == move_k.GOAL_MIN_TOPIC else None
         return move_k.goal_score_plain(family, None, row_f, col_f, cand.shape[0],
-                                       env.num_brokers, tab)
+                                       env.num_brokers,
+                                       self.move_topic_table(env, st, cand))
 
     def move_topic_table(self, env: ClusterEnv, st: EngineState, cand: torch.Tensor):
         """(row_t i64[K], i32[T, B] table) of a family that reads a
-        per-(topic, broker) count (MinTopicLeadersPerBrokerGoal)."""
+        per-(topic, broker) count (MinTopicLeadersPerBrokerGoal,
+        TopicReplicaDistributionGoal)."""
+        return None
+
+    def move_topic_veto(self, env: ClusterEnv, st: EngineState):
+        """Optional f32[T]: a custom ``accept_move`` veto on the destination's
+        (row topic, broker) replica count, ``count[t, b] + 1 <= up[t]``
+        (TopicReplicaDistributionGoal; the K2 and K7 kernels evaluate it)."""
         return None
 
     def accept_move_rooms(self, env: ClusterEnv, st: EngineState):
@@ -192,12 +205,64 @@ class GoalKernel:
             ok = ok & row_ok[:, None]
         return ok
 
+    # --- swaps ------------------------------------------------------------
+    def swap_out_key(self, env: ClusterEnv, st: EngineState, severity):
+        """f32[R] ranking of replicas to swap OUT of violating brokers."""
+        return torch.full((env.num_replicas,), NEG_INF, dtype=torch.float32,
+                          device=env.device)
+
+    def swap_in_key(self, env: ClusterEnv, st: EngineState, severity):
+        """f32[R] ranking of replicas to swap IN."""
+        return torch.full((env.num_replicas,), NEG_INF, dtype=torch.float32,
+                          device=env.device)
+
+    def swap_tables(self, env: ClusterEnv, st: EngineState, cand_out, cand_in):
+        """``kernels.swap.SwapTables`` of ``swap_score``."""
+        raise NotImplementedError(f"{self.name} has no swap score")
+
+    def swap_accept(self, env: ClusterEnv, st: EngineState, cand_out, cand_in):
+        """``kernels.swap.SwapAccept``: this goal's ``accept_swap`` as a
+        previously optimized goal. The default (base.py:236-246) is both
+        directed legs of ``accept_move`` in its own arithmetic: the rack
+        legs, the row-only veto of each side and the topic veto's
+        destination legs. A goal whose ``accept_move`` has an interval form
+        overrides this (never with its rooms, which may differ by one ulp)."""
+        if overrides(self, "accept_move_rooms"):
+            raise NotImplementedError(f"{self.name}: accept_swap of an interval-"
+                                      f"form accept_move must be written out")
+        row_out = row_in = None
+        if overrides(self, "move_row_veto"):
+            row_out = self.move_row_veto(env, st, cand_out)
+            row_in = self.move_row_veto(env, st, cand_in)
+        return swap_k.SwapAccept(row_out=row_out, row_in=row_in, rack=self.rack_veto,
+                                 topic_up=self.move_topic_veto(env, st))
+
+    def swap_score(self, env: ClusterEnv, st: EngineState, cand_out, cand_in):
+        """f32[K1, K2] (no legitimacy): the K7 twin's score on the tables."""
+        pairs = swap_pairs(env, st, cand_out, cand_in, ())
+        return swap_k.family_score_plain(
+            pairs, self.swap_tables(env, st, cand_out, cand_in))
+
+    def accept_swap(self, env: ClusterEnv, st: EngineState, cand_out, cand_in):
+        """bool[K1, K2] veto as a previously optimized goal."""
+        acc = self.swap_accept(env, st, cand_out, cand_in)
+        ones_out = torch.ones(cand_out.shape[0], dtype=torch.bool, device=env.device)
+        ones_in = torch.ones(cand_in.shape[0], dtype=torch.bool, device=env.device)
+        pairs = swap_pairs(env, st, cand_out, cand_in, (acc,), ones_out, ones_in)
+        return (swap_k.vetoes_plain(pairs) & pairs.row_ok_out[:, None]
+                & pairs.row_ok_in[None, :])
+
     def violated(self, env: ClusterEnv, st: EngineState) -> torch.Tensor:
         return (self.broker_severity(env, st) > 0).any()
 
     def stat(self, env: ClusterEnv, st: EngineState) -> torch.Tensor:
         """Scalar the goal tries to reduce (summed in the oracle's order)."""
         return xla_sum(torch.clamp(self.broker_severity(env, st), min=0.0))
+
+
+def overrides(g: GoalKernel, name: str) -> bool:
+    """Does goal ``g`` override the base method ``name``?"""
+    return getattr(type(g), name) is not getattr(GoalKernel, name)
 
 
 def broker_lookup(rb: torch.Tensor, *cols: torch.Tensor) -> torch.Tensor:
@@ -220,6 +285,23 @@ def candidate_load(env: ClusterEnv, st: EngineState, cand: torch.Tensor) -> torc
     return torch.where(lead, env.leader_load[cand], env.follower_load[cand])
 
 
+def sibling_brokers(env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+    """i64[K, F]: brokers hosting another replica of each candidate's
+    partition, -1 elsewhere."""
+    members = env.partition_replicas[env.replica_partition[cand]]          # [K, F]
+    member_broker = st.replica_broker[torch.clamp(members, min=0)]
+    sibling = (members >= 0) & (members != cand[:, None])
+    return torch.where(sibling, member_broker,
+                       torch.full_like(member_broker, -1)).contiguous()
+
+
+def new_broker_ok(env: ClusterEnv) -> torch.Tensor:
+    """bool[B]: the new-broker rule's destinations (every broker when the
+    cluster has no new broker, else the new ones; the back-home exception
+    is per row)."""
+    return env.broker_new | ~env.broker_new.any()
+
+
 def legit_move_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor,
                     options: OptimizationOptions):
     """Inputs of the [K, B] ``legit_move_mask`` (base.py:369-414) that the K2
@@ -228,17 +310,65 @@ def legit_move_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor,
     topic not excluded unless offline, offline-only mode), and the broker
     masks ``dst_ok`` (allowed destination) and ``new_ok`` (no new brokers,
     or b is new; the back-home exception is per row)."""
-    members = env.partition_replicas[env.replica_partition[cand]]          # [K, F]
-    member_broker = st.replica_broker[torch.clamp(members, min=0)]
-    sibling = (members >= 0) & (members != cand[:, None])
-    sib_b = torch.where(sibling, member_broker, torch.full_like(member_broker, -1))
+    sib_b = sibling_brokers(env, st, cand)
     offline = st.replica_offline[cand]
     topic_ok = ~env.topic_excluded[env.replica_topic[cand]] | offline
     replica_ok = env.replica_valid[cand] & topic_ok
     if options.fix_offline_replicas_only:
         replica_ok = replica_ok & offline
-    new_ok = env.broker_new | ~env.broker_new.any()
-    return sib_b.contiguous(), replica_ok, env.dst_candidate, new_ok
+    return sib_b, replica_ok, env.dst_candidate, new_broker_ok(env)
+
+
+def legit_swap_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+    """bool[K]: the row part of ``legit_swap_mask`` (base.py:417-451):
+    valid, online, topic not excluded, and the row's broker an allowed
+    destination (each broker receives the other row's replica)."""
+    return (env.replica_valid[cand] & ~st.replica_offline[cand]
+            & ~env.replica_topic_excluded[cand]
+            & env.dst_candidate[st.replica_broker[cand]])
+
+
+def swap_pairs(env: ClusterEnv, st: EngineState, cand_out, cand_in, accepts,
+               row_ok_out=None, row_ok_in=None) -> swap_k.SwapPairs:
+    """The K7 inputs of the pairs (cand_out[i], cand_in[j]): the brokers,
+    siblings, original brokers and topics of both sides, ``row_ok_*``
+    (default: ``legit_swap_rows``) ANDed with the row-only parts of every
+    ``SwapAccept`` in ``accepts``, whose vetoes, rack flags and topic veto
+    fold into the kernel's inputs."""
+    if row_ok_out is None:
+        row_ok_out = legit_swap_rows(env, st, cand_out)
+    if row_ok_in is None:
+        row_ok_in = legit_swap_rows(env, st, cand_in)
+    vetoes, rack, topic_up = [], False, None
+    for a in accepts:
+        if a.row_out is not None:
+            row_ok_out = row_ok_out & a.row_out
+        if a.row_in is not None:
+            row_ok_in = row_ok_in & a.row_in
+        vetoes.extend(a.vetoes)
+        rack = rack or a.rack
+        if a.topic_up is not None:
+            if topic_up is not None:
+                raise NotImplementedError("two topic vetoes in one chain")
+            topic_up = a.topic_up.contiguous()
+    prow_out = prow_in = None
+    if rack:
+        prc = st.part_rack_count
+        prow_out = prc[env.replica_partition[cand_out]].to(torch.int64).contiguous()
+        prow_in = prc[env.replica_partition[cand_in]].to(torch.int64).contiguous()
+    return swap_k.SwapPairs(
+        b_out=st.replica_broker[cand_out].contiguous(),
+        b_in=st.replica_broker[cand_in].contiguous(),
+        sib_out=sibling_brokers(env, st, cand_out),
+        sib_in=sibling_brokers(env, st, cand_in),
+        orig_out=env.replica_original_broker[cand_out].contiguous(),
+        orig_in=env.replica_original_broker[cand_in].contiguous(),
+        row_ok_out=row_ok_out.contiguous(), row_ok_in=row_ok_in.contiguous(),
+        new_ok=new_broker_ok(env), broker_rack=env.broker_rack,
+        t_out=env.replica_topic[cand_out].contiguous(),
+        t_in=env.replica_topic[cand_in].contiguous(),
+        tab=st.topic_broker_count, prow_out=prow_out, prow_in=prow_in,
+        vetoes=vetoes, topic_up=topic_up)
 
 
 def lead_member_rows(env: ClusterEnv, cand: torch.Tensor) -> torch.Tensor:

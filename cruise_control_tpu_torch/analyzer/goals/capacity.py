@@ -24,9 +24,20 @@ from cruise_control_tpu_torch.kernels.leadership import LEAD_CAPACITY, LeadTable
 from cruise_control_tpu_torch.kernels.move_score import (
     GOAL_CAPACITY, GOAL_REPLICA_CAPACITY,
 )
+from cruise_control_tpu_torch.kernels.swap import VETO_NET_CAPACITY, SwapAccept, SwapVeto
 
 # absolute violation tolerances per resource column, as f32 (Resource.java)
 RESOURCE_EPS = torch.tensor([EPSILON_ABS[r] for r in RESOURCES], dtype=torch.float32)
+_EPS_ON: dict = {}
+
+
+def resource_eps(device, resource: int) -> torch.Tensor:
+    """0-d f32 ``RESOURCE_EPS[resource]`` on ``device``, uploaded once per
+    device: a fresh upload per use would wait for the stream each time."""
+    eps = _EPS_ON.get(device)
+    if eps is None:
+        eps = _EPS_ON[device] = RESOURCE_EPS.to(device)
+    return eps[resource]
 
 
 def _inf_slack(B: int, device) -> torch.Tensor:
@@ -43,7 +54,7 @@ class CapacityGoal(GoalKernel):
         object.__setattr__(self, "uses_leadership_moves", True)
 
     def _eps(self, env: ClusterEnv) -> torch.Tensor:
-        return RESOURCE_EPS[self.resource].to(env.device)
+        return resource_eps(env.device, self.resource)
 
     def _limit(self, env: ClusterEnv) -> torch.Tensor:
         """f32[B]: allowed utilization; 0 for dead brokers."""
@@ -123,6 +134,16 @@ class CapacityGoal(GoalKernel):
         limit = self._limit(env) + self._eps(env)
         return None, [Veto(st.util[:, self.resource].contiguous(), limit,
                            x_rep=self._lead_delta(env).contiguous())]
+
+    def swap_accept(self, env: ClusterEnv, st: EngineState, cand_out, cand_in):
+        """Net-aware (capacity.py:134-148): both brokers stay under the limit
+        after the exchange, ``util -+ (l_out - l_in) <= limit + eps``."""
+        def load(cand):
+            return candidate_load(env, st, cand)[:, self.resource].contiguous()
+
+        return SwapAccept(vetoes=[SwapVeto(
+            VETO_NET_CAPACITY, st.util[:, self.resource].contiguous(),
+            self._limit(env) + self._eps(env), load(cand_out), load(cand_in))])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,3 +237,7 @@ class ReplicaCapacityGoal(GoalKernel):
 
     def segment_room_key(self, env: ClusterEnv, st: EngineState):
         return float(self._max()) - st.replica_count.to(torch.float32)
+
+    def swap_accept(self, env: ClusterEnv, st: EngineState, cand_out, cand_in):
+        """Swaps are count-neutral: always accepted (capacity.py:246)."""
+        return SwapAccept()

@@ -16,11 +16,12 @@ from cruise_control_tpu_torch.analyzer.env import ClusterEnv, resource_balance_l
 from cruise_control_tpu_torch.analyzer.goals.base import (
     NEG_INF, WAVE_DIMS, WAVE_LEADER_NW_IN, WAVE_POT_NW_OUT, GoalKernel, xla_sum,
 )
-from cruise_control_tpu_torch.analyzer.goals.capacity import RESOURCE_EPS
+from cruise_control_tpu_torch.analyzer.goals.capacity import resource_eps
 from cruise_control_tpu_torch.analyzer.state import EngineState
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.kernels.leadership import LEAD_BYTES_IN, LeadTables, Veto
 from cruise_control_tpu_torch.kernels.move_score import GOAL_CAPACITY
+from cruise_control_tpu_torch.kernels.swap import VETO_DIRECTED, SwapAccept, SwapVeto
 
 NW_IN = int(Resource.NW_IN)
 NW_OUT = int(Resource.NW_OUT)
@@ -37,7 +38,7 @@ class PotentialNwOutGoal(GoalKernel):
         return torch.where(env.broker_alive, thresh * cap, torch.zeros_like(cap))
 
     def _eps(self, env: ClusterEnv) -> torch.Tensor:
-        return RESOURCE_EPS[NW_OUT].to(env.device)
+        return resource_eps(env.device, NW_OUT)
 
     def broker_severity(self, env: ClusterEnv, st: EngineState):
         return st.potential_nw_out - self._limit(env) - self._eps(env)
@@ -82,6 +83,15 @@ class PotentialNwOutGoal(GoalKernel):
     def segment_room_key(self, env: ClusterEnv, st: EngineState):
         return self._limit(env) - st.potential_nw_out
 
+    def swap_accept(self, env: ClusterEnv, st: EngineState, cand_out, cand_in):
+        """Both directed legs of ``accept_move`` (network.py:59-62): the
+        destination's potential NW_OUT plus the arriving replica's leader
+        NW_OUT fits the limit, ``pnw[b] + pot <= limit + eps``."""
+        pot = env.leader_load[:, NW_OUT]
+        return SwapAccept(vetoes=[SwapVeto(
+            VETO_DIRECTED, st.potential_nw_out, self._limit(env) + self._eps(env),
+            pot[cand_out].contiguous(), pot[cand_in].contiguous())])
+
 
 @dataclasses.dataclass(frozen=True)
 class LeaderBytesInDistributionGoal(GoalKernel):
@@ -115,7 +125,7 @@ class LeaderBytesInDistributionGoal(GoalKernel):
         return upper
 
     def _eps(self, env: ClusterEnv) -> torch.Tensor:
-        return RESOURCE_EPS[NW_IN].to(env.device)
+        return resource_eps(env.device, NW_IN)
 
     def broker_severity(self, env: ClusterEnv, st: EngineState):
         return st.leader_util[:, NW_IN] - self._limits(env, st) - self._eps(env)

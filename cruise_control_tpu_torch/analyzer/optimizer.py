@@ -17,9 +17,10 @@ The port serves the reference's three shapes of the chain:
   chunked dispatch and the finisher.
 
 After the chain, certificate-driven escalation re-enters the finisher of a
-goal that exited violated and unproven with few actions left. Sessions,
-the preferred-leader pass, bf16 and the swap / disk goals raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+goal that exited violated and unproven with few actions left (its moves,
+transfers and swap window counted). Sessions, the preferred-leader pass,
+bf16 and the intra-broker disk goals raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 

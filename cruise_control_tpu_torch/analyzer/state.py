@@ -1,6 +1,6 @@
 """Mutable engine state + incremental maintenance (counterpart of
-``cruise_control_tpu/analyzer/state.py``: batched moves and batched
-leadership transfers).
+``cruise_control_tpu/analyzer/state.py``: batched moves, batched swaps and
+batched leadership transfers).
 
 The pass loop carries this dataclass of device tensors and applies the
 reference's bookkeeping as batched segment updates per wave; ``refresh``
@@ -234,6 +234,20 @@ def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor
         topic_broker_count=tbc.view(T, B), topic_leader_count=tlc.view(T, B),
         disk_util=du.view(B, D), util_residual=util_res,
         leader_util_residual=lead_res, moved=moved)
+
+
+def apply_swaps_batched(env: ClusterEnv, st: EngineState, r_out: torch.Tensor,
+                        r_in: torch.Tensor, mask: torch.Tensor) -> EngineState:
+    """Apply a WAVE of swaps (``r_out[W]`` <-> ``r_in[W]`` where ``mask[W]``)
+    as two batched move waves (state.py:442-452): the out leg first, both
+    legs reading their brokers from the pre-wave state. The swap admission
+    keeps the wave's rows on disjoint brokers and partitions, so the two
+    replica sets are disjoint and each leg's sources are untouched by the
+    other leg."""
+    b_out = st.replica_broker[r_out]
+    b_in = st.replica_broker[r_in]
+    st = apply_moves_batched(env, st, r_out, b_in, mask)
+    return apply_moves_batched(env, st, r_in, b_out, mask)
 
 
 def apply_lead_sum_inputs(env: ClusterEnv, st: EngineState, src: torch.Tensor,

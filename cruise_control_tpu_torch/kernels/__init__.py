@@ -11,6 +11,7 @@ from cruise_control_tpu_torch.kernels.leadership import leadership_rows
 from cruise_control_tpu_torch.kernels.move_score import move_score_classes
 from cruise_control_tpu_torch.kernels.segment import segment_count, segment_sum
 from cruise_control_tpu_torch.kernels.select import compact_eligible, select_candidates
+from cruise_control_tpu_torch.kernels.swap import swap_admission, swap_rows
 
 
 def reset_launches() -> None:
@@ -32,5 +33,5 @@ __all__ = [
     "KERNELS", "build_all", "compact_eligible", "launch_shapes", "launches",
     "leadership_rows",
     "move_score_classes", "reset_launches", "segment_count", "segment_sum",
-    "select_candidates", "wave_admission",
+    "select_candidates", "swap_admission", "swap_rows", "wave_admission",
 ]

@@ -32,14 +32,14 @@ __device__ __forceinline__ float violation(float u, float lo, float up) {
 }
 
 __global__ void leadership_rows_kernel(
-    int K, int F, int B, int R, int family, int V, int S, int active,
+    int K, int F, int B, int R, int family, int V, int S, int active, int vrow_mask,
     const long long* __restrict__ cand, const long long* __restrict__ members,
     const unsigned char* __restrict__ row_ok, const long long* __restrict__ rb,
     const unsigned char* __restrict__ roff,
     const unsigned char* __restrict__ broker_ok, const float* __restrict__ fb,
     const float* __restrict__ fr, const float* __restrict__ fk,
     const long long* __restrict__ row_t, const int* __restrict__ tab,
-    const int* __restrict__ vkind, const float* __restrict__ va,
+    const float* __restrict__ va,
     const float* __restrict__ vc, const float* __restrict__ vxr,
     const float* __restrict__ vxk, const long long* __restrict__ color,
     float* __restrict__ best, long long* __restrict__ fbest,
@@ -59,7 +59,8 @@ __global__ void leadership_rows_kernel(
     dbs[f] = db;
     bool ok = rok && mem >= 0 && mem != c_k && broker_ok[db] && !roff[m];
     for (int v = 0; v < V && ok; ++v) {
-      const float x = vkind[v] == 0 ? vxr[(long long)v * R + m] : vxk[(long long)v * K + k];
+      const float x = ((vrow_mask >> v) & 1) == 0 ? vxr[(long long)v * R + m]
+                                                  : vxk[(long long)v * K + k];
       ok = (va[(long long)v * B + db] + x) <= vc[(long long)v * B + db];
     }
     float s = -INFINITY;
@@ -116,15 +117,16 @@ __global__ void leadership_rows_kernel(
 
 extern "C" int cc_leadership_rows(
     int K, int F, int B, int R, int family, int V, int S, int active, int nfb,
+    int vrow_mask,
     const long long* cand, const long long* members, const unsigned char* row_ok,
     const long long* rb, const unsigned char* roff,
     const unsigned char* broker_ok, const float* fb, const float* fr,
-    const float* fk, const long long* row_t, const int* tab, const int* vkind,
+    const float* fk, const long long* row_t, const int* tab,
     const float* va, const float* vc, const float* vxr, const float* vxk,
     const long long* color, float* best, long long* fbest, float* seg_val,
     long long* seg_f, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (K <= 0 || F <= 0 || F > kMaxF || S < 0 || S > kMaxS || nfb < 1)
+  if (K <= 0 || F <= 0 || F > kMaxF || S < 0 || S > kMaxS || nfb < 1 || V > 31)
     return (int)cudaErrorInvalidValue;
   if (family == kCapacity && (fr == nullptr || nfb < 2)) return (int)cudaErrorInvalidValue;
   if (family == kMinTopic && (tab == nullptr || row_t == nullptr))
@@ -135,8 +137,8 @@ extern "C" int cc_leadership_rows(
     return (int)cudaErrorInvalidValue;
   const int threads = 128;
   leadership_rows_kernel<<<(K + threads - 1) / threads, threads, 0, stream>>>(
-      K, F, B, R, family, V, S, active, cand, members, row_ok, rb, roff,
-      broker_ok, fb, fr, fk, row_t, tab, vkind, va, vc, vxr, vxk, color, best,
+      K, F, B, R, family, V, S, active, vrow_mask, cand, members, row_ok, rb, roff,
+      broker_ok, fb, fr, fk, row_t, tab, va, vc, vxr, vxk, color, best,
       fbest, seg_val, seg_f);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,11 @@
 // (:369), RackAwareGoal.accept_move (goals/rack.py:72) and the move_score of
 // RackAwareGoal, CapacityGoal (and PotentialNwOutGoal, the same family on
 // potential NW_OUT), ReplicaCapacityGoal, ReplicaDistributionGoal,
-// MinTopicLeadersPerBrokerGoal and LeaderReplicaDistributionGoal. With a
+// MinTopicLeadersPerBrokerGoal, LeaderReplicaDistributionGoal,
+// ResourceDistributionGoal (distribution.py:117-133) and
+// TopicReplicaDistributionGoal (topic.py:97-118), and the destination leg
+// of TopicReplicaDistributionGoal.accept_move (topic.py:120-130) as a
+// previous goal (vtab[t, b] + 1 <= vup[k]; its source leg is row-only). With a
 // column order (order_b, the finisher's broker coloring of
 // _segment_move_wave :1504-1522) ordered column j holds broker order_b[j];
 // T = 1 is the exhaustive move scan's row argmax (:1302-1317). The goal's [B]-level columns (col_f) and per-row
@@ -30,6 +34,8 @@ constexpr int kGoalReplicaCapacity = 2;
 constexpr int kGoalReplicaDist = 3;
 constexpr int kGoalMinTopic = 4;
 constexpr int kGoalLeaderDist = 5;
+constexpr int kGoalResourceDist = 6;
+constexpr int kGoalTopicReplica = 7;
 constexpr int kMaxF = 64;
 constexpr int kDims = 8;
 
@@ -48,7 +54,8 @@ __global__ void move_score_kernel(
     const unsigned char* __restrict__ new_ok,
     const long long* __restrict__ broker_rack,
     const long long* __restrict__ order_b, const long long* __restrict__ row_t,
-    const int* __restrict__ tab, float* __restrict__ cls_val,
+    const int* __restrict__ tab, const int* __restrict__ vtab,
+    const float* __restrict__ vup, float* __restrict__ cls_val,
     long long* __restrict__ cls_q) {
   extern __shared__ float sc[];
   __shared__ long long sib[kMaxF];
@@ -72,7 +79,8 @@ __global__ void move_score_kernel(
   // per-row halves of the count goals' _gain (src side)
   const float vso = violation(r0, r1, r2);
   const float vsn = violation(r0 - 1.0f, r1, r2);
-  const long long trow = goal_kind == kGoalMinTopic ? row_t[k] * B : 0;
+  const long long trow = row_t != nullptr ? row_t[k] * B : 0;
+  const float vup_k = vtab != nullptr ? vup[k] : 0.0f;
 
   for (int j = threadIdx.x; j < Bp; j += blockDim.x) {
     const long long b = order_b != nullptr ? order_b[j] : (long long)j;
@@ -88,6 +96,7 @@ __global__ void move_score_kernel(
           ok = ok && okc;
         }
       }
+      if (ok && vtab != nullptr) ok = (float)vtab[trow + b] + 1.0f <= vup_k;
       long long others = 1;
       if (ok && need_rack) {
         const long long rb = broker_rack[b];
@@ -124,6 +133,26 @@ __global__ void move_score_kernel(
           const float gain = (vso - vsn) + (vdo - vdn);
           const bool feasible = (vsn <= vso) && (vdn <= vdo);
           s = (feasible && gain > 0.0f) ? gain * 0.9f : -INFINITY;
+        } else if (goal_kind == kGoalResourceDist) {
+          // r0, r1 = the source's violation before / after, r2 = the
+          // load, r3 = offline; c0..c3 = util, lower, upper, capacity
+          const float vdo = violation(c0, c1, c2);
+          const float vdn = violation(c0 + r2, c1, c2);
+          const float gain = (r0 - r1) + (vdo - vdn);
+          const bool feasible = (r1 <= r0) && (vdn <= vdo);
+          const float heal = 1.0f + fmaxf((c2 - c0) - r2, 0.0f) / c3;
+          s = (r3 != 0.0f) ? heal : ((feasible && gain > 0.0f) ? gain : -INFINITY);
+        } else if (goal_kind == kGoalTopicReplica) {
+          // r0, r1 = the row topic's lower / upper, r2 = the source's
+          // excess reduction (-inf when the source leg is infeasible),
+          // r3 = offline
+          const float c = (float)tab[trow + b];
+          const float deficit = fminf(fmaxf(r0 - c, 0.0f), 1.0f);
+          const float new_excess = fmaxf((c + 1.0f) - r1, 0.0f);
+          const float gain = r2 + deficit;
+          const float heal = 1.0f + fmaxf((r1 - c) - 1.0f, 0.0f) / (r1 + 1.0f);
+          s = (r3 != 0.0f) ? heal
+                           : ((new_excess <= 0.0f && gain > 0.0f) ? gain : -INFINITY);
         }
       }
     }
@@ -155,18 +184,21 @@ extern "C" int cc_move_score_classes(
     const float* row_f, const float* col_f, const unsigned char* dst_ok,
     const unsigned char* new_ok, const long long* broker_rack,
     const long long* order_b, const long long* row_t, const int* tab,
-    float* cls_val, long long* cls_q, void* stream_ptr) {
+    const int* vtab, const float* vup, float* cls_val, long long* cls_q,
+    void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (K <= 0 || B <= 0 || T <= 0 || F > kMaxF || Bp < B || Bp % T != 0)
     return (int)cudaErrorInvalidValue;
   if (order_b == nullptr && Bp != ((B + T - 1) / T) * T) return (int)cudaErrorInvalidValue;
-  if (goal_kind == kGoalMinTopic && (row_t == nullptr || tab == nullptr))
+  if ((goal_kind == kGoalMinTopic || goal_kind == kGoalTopicReplica) &&
+      (row_t == nullptr || tab == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (vtab != nullptr && (row_t == nullptr || vup == nullptr)) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)Bp * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   move_score_kernel<<<K, 256, smem, stream>>>(
       B, T, F, Kr, goal_kind, room_mask, exempt_mask, rack_accept, Bp, cur_b,
       orig_b, sib_b, row_ok, d_rows, dst_room, prow, row_f, col_f, dst_ok,
-      new_ok, broker_rack, order_b, row_t, tab, cls_val, cls_q);
+      new_ok, broker_rack, order_b, row_t, tab, vtab, vup, cls_val, cls_q);
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,7 @@ LEAD_BYTES_IN = 2      # LeaderBytesInDistributionGoal
 LEAD_LEADER_DIST = 3   # LeaderReplicaDistributionGoal
 MAX_F = 32
 MAX_S = 64
+MAX_V = 31
 
 
 @dataclasses.dataclass
@@ -144,7 +145,7 @@ def leadership_rows_plain(cand, members, row_ok, broker_ok, rb, roff, tables,
     return best, f, torch.stack(vals, 1), torch.stack(fs, 1)
 
 
-_SIGNATURES = {"cc_leadership_rows": [I] * 9 + [P] * 22}
+_SIGNATURES = {"cc_leadership_rows": [I] * 10 + [P] * 21}
 
 
 def leadership_rows(cand, members, row_ok, broker_ok, rb, roff, tables: LeadTables,
@@ -161,25 +162,24 @@ def leadership_rows(cand, members, row_ok, broker_ok, rb, roff, tables: LeadTabl
     B = broker_ok.shape[0]
     R = rb.shape[0]
     V = len(vetoes)
-    if F > MAX_F or S > MAX_S or K <= 0:
-        raise ValueError(f"leadership_rows: unsupported K={K} F={F} S={S}")
+    if F > MAX_F or S > MAX_S or K <= 0 or V > MAX_V:
+        raise ValueError(f"leadership_rows: unsupported K={K} F={F} S={S} V={V}")
     dev = cand.device
     f32 = torch.float32
-    va = vc = kind = vxr = vxk = None
+    va = vc = vxr = vxk = None
+    # bit v set: veto v reads its per-row x (x_row), else the member's (x_rep)
+    vrow_mask = sum(1 << i for i, v in enumerate(vetoes) if v.x_rep is None)
     if V:
         va = torch.stack([v.a for v in vetoes]).contiguous()
         vc = torch.stack([v.c for v in vetoes]).contiguous()
-        kind = torch.tensor([0 if v.x_rep is not None else 1 for v in vetoes],
-                            dtype=torch.int32, device=dev)
         zr = torch.zeros(R, dtype=f32, device=dev)
         zk = torch.zeros(K, dtype=f32, device=dev)
         vxr = torch.stack([zr if v.x_rep is None else v.x_rep for v in vetoes])
         vxk = torch.stack([zk if v.x_row is None else v.x_row for v in vetoes])
     tensors = [cand, members, row_ok, rb, roff, broker_ok, tables.fb, tables.fr,
-               tables.fk, tables.row_t, tables.tab, kind, va, vc, vxr, vxk, color]
+               tables.fk, tables.row_t, tables.tab, va, vc, vxr, vxk, color]
     dts = [torch.int64, torch.int64, torch.bool, torch.int64, torch.bool, torch.bool,
-           f32, f32, f32, torch.int64, torch.int32, torch.int32, f32, f32, f32, f32,
-           torch.int64]
+           f32, f32, f32, torch.int64, torch.int32, f32, f32, f32, f32, torch.int64]
     for t, dt in zip(tensors, dts):
         if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
             raise ValueError("leadership_rows: wrong dtype, layout or device")
@@ -189,7 +189,7 @@ def leadership_rows(cand, members, row_ok, broker_ok, rb, roff, tables: LeadTabl
     seg_f = torch.empty((K, S), dtype=torch.int64, device=dev) if S else None
     err = library("leadership_score", _SIGNATURES).cc_leadership_rows(
         K, F, B, R, int(tables.family), V, int(S), int(active),
-        int(tables.fb.shape[0]),
+        int(tables.fb.shape[0]), vrow_mask,
         *(ptr(t) for t in tensors), ptr(best), ptr(fbest), ptr(seg_val),
         ptr(seg_f), stream_ptr())
     check(err, "leadership_rows")

@@ -4,15 +4,18 @@ per-destination-class best.
 Replaces ``cruise_control_tpu/analyzer/engine.py`` ``_move_wave`` /
 ``_score_class_rows`` (:767-792) with ``_rooms_move_mask`` (:693),
 ``goals/base.py`` ``legit_move_mask`` (:369), ``RackAwareGoal.accept_move``
-(rack.py:72) and the active goal's ``move_score``. For every (candidate k,
-destination b) it evaluates legitimacy (allowed destination, new-broker
-rule, not self, no sibling replica on b), the chain's combined destination
-rooms, the Rack veto when RackAwareGoal is a previous goal, and the active
-goal's score; then it reduces each row to the best value and its lowest
-strided index ``q`` in every class ``b % T`` (``jnp.argmax``'s first-max
-rule). With a column order ``order_b`` (the segment-parallel finisher's
-broker coloring, ``_segment_move_wave`` :1504-1522) ordered column j holds
-broker ``order_b[j]`` (pad columns ``>= B`` score ``-inf``) and the classes
+(rack.py:72), ``TopicReplicaDistributionGoal.accept_move`` (topic.py:120)
+and the active goal's ``move_score``. For every (candidate k, destination
+b) it evaluates legitimacy (allowed destination, new-broker rule, not self,
+no sibling replica on b), the chain's combined destination rooms, the Rack
+veto when RackAwareGoal is a previous goal, the topic veto when
+TopicReplicaDistributionGoal is one (``tab[t, b] + 1 <= up[k]``; its
+source leg folds into ``row_ok``), and the active goal's score; then it
+reduces each row to the best value and its lowest strided index ``q`` in
+every class ``b % T`` (``jnp.argmax``'s first-max rule). With a column
+order ``order_b`` (the segment-parallel finisher's broker coloring,
+``_segment_move_wave`` :1504-1522) ordered column j holds broker
+``order_b[j]`` (pad columns ``>= B`` score ``-inf``) and the classes
 are ``j % T`` over the ordered columns; ``T = 1`` is the exhaustive move
 scan's plain row argmax (``_exhaustive_move_scan`` :1302-1317).
 
@@ -43,6 +46,8 @@ GOAL_REPLICA_CAPACITY = 2  # ReplicaCapacityGoal
 GOAL_REPLICA_DIST = 3      # ReplicaDistributionGoal
 GOAL_MIN_TOPIC = 4         # MinTopicLeadersPerBrokerGoal
 GOAL_LEADER_DIST = 5       # LeaderReplicaDistributionGoal
+GOAL_RESOURCE_DIST = 6     # ResourceDistributionGoal (the four usage goals)
+GOAL_TOPIC_REPLICA = 7     # TopicReplicaDistributionGoal
 WAVE_DIMS = 8
 EXEMPT_MASK = 1 << 5       # WAVE_LEADER_COUNT: zero-delta rows pass its rooms
 MAX_F = 64
@@ -97,12 +102,33 @@ def goal_score_plain(goal_kind, others, row_f, col_f, K, B, topic=None):
         gain = (vso - vsn)[:, None] + (vdo - vdn)[None, :]
         feasible = (vsn <= vso)[:, None] & (vdn <= vdo)[None, :]
         return torch.where(feasible & (gain > 0), gain * 0.9, neg)
+    if goal_kind == GOAL_RESOURCE_DIST:
+        vso, vsn, l = row_f[:, 0:1], row_f[:, 1:2], row_f[:, 2:3]
+        u, lo, up, cap = col_f[0][None, :], col_f[1][None, :], col_f[2][None, :], col_f[3][None, :]
+        vdo = _violation(u, lo, up)
+        vdn = _violation(u + l, lo, up)
+        gain = (vso - vsn) + (vdo - vdn)
+        feasible = (vsn <= vso) & (vdn <= vdo)
+        heal = 1.0 + torch.clamp((up - u) - l, min=0.0) / cap
+        s = torch.where(feasible & (gain > 0), gain, neg)
+        return torch.where((row_f[:, 3] != 0)[:, None], heal, s)
+    if goal_kind == GOAL_TOPIC_REPLICA:
+        row_t, tab = topic
+        c = tab.reshape(-1, B)[row_t].to(torch.float32)
+        lo, up, exr = row_f[:, 0:1], row_f[:, 1:2], row_f[:, 2:3]
+        deficit = torch.clamp(torch.clamp(lo - c, min=0.0), max=1.0)
+        new_excess = torch.clamp((c + 1.0) - up, min=0.0)
+        gain = exr + deficit
+        s = torch.where((new_excess <= 0.0) & (gain > 0), gain, neg)
+        heal = 1.0 + torch.clamp((up - c) - 1.0, min=0.0) / (up + 1.0)
+        return torch.where((row_f[:, 3] != 0)[:, None], heal, s)
     raise ValueError(f"unknown goal kind {goal_kind}")
 
 
 def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
                              dst_room, room_mask, prow, rack_accept, row_f, col_f,
-                             dst_ok, new_ok, broker_rack, order_b=None, topic=None):
+                             dst_ok, new_ok, broker_rack, order_b=None, topic=None,
+                             tveto=None):
     K, B = cur_b.shape[0], dst_ok.shape[0]
     bidx = torch.arange(B, device=cur_b.device)
     ok = (dst_ok[None, :] & (new_ok[None, :] | (bidx[None, :] == orig_b[:, None]))
@@ -114,6 +140,9 @@ def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
             if EXEMPT_MASK >> c & 1:
                 okc = okc | (d_rows[:, c] == 0)[:, None]
             ok = ok & okc
+    if tveto is not None:
+        row_t, vtab, vup = tveto
+        ok = ok & ((vtab.reshape(-1, B)[row_t].to(torch.float32) + 1.0) <= vup[:, None])
     others = None
     if prow is not None:
         cur_rack = broker_rack[cur_b]
@@ -137,17 +166,19 @@ def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
     return best, q
 
 
-_SIGNATURES = {"cc_move_score_classes": [I] * 10 + [P] * 18}
+_SIGNATURES = {"cc_move_score_classes": [I] * 10 + [P] * 20}
 
 
 def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
                        d_rows, dst_room, room_mask: int, prow, rack_accept: bool,
                        row_f, col_f, dst_ok, new_ok, broker_rack, order_b=None,
-                       topic=None):
+                       topic=None, tveto=None):
     """(cls_val f32[K, T], cls_q i64[K, T]): per row, the best score and its
     lowest strided index q over each destination class ``b % T`` (or, with
     ``order_b`` i64[Bp], over each class ``j % T`` of the ordered columns).
-    ``topic`` = (row_t i64[K], table i32[T, B]) for GOAL_MIN_TOPIC.
+    ``topic`` = (row_t i64[K], table i32[T, B]) for GOAL_MIN_TOPIC and
+    GOAL_TOPIC_REPLICA; ``tveto`` = (row_t, table i32[T, B], up f32[K]) the
+    topic veto's destination leg.
 
     Row inputs [K]: ``cur_b``/``orig_b`` i64 (current / original broker),
     ``sib_b`` i64[K, F] (brokers of the other replicas of the row's
@@ -162,7 +193,7 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
         return move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok,
                                         d_rows, dst_room, room_mask, prow,
                                         rack_accept, row_f, col_f, dst_ok, new_ok,
-                                        broker_rack, order_b, topic)
+                                        broker_rack, order_b, topic, tveto)
     K, F = sib_b.shape
     B = dst_ok.shape[0]
     Bp = -(-B // T) * T if order_b is None else order_b.shape[0]
@@ -172,16 +203,20 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
                          f"Bp={Bp}")
     if (goal_kind == GOAL_RACK or rack_accept) and prow is None:
         raise ValueError("the rack goal and rack veto need prow")
-    if goal_kind == GOAL_MIN_TOPIC and topic is None:
-        raise ValueError("GOAL_MIN_TOPIC needs its topic table")
+    if goal_kind in (GOAL_MIN_TOPIC, GOAL_TOPIC_REPLICA) and topic is None:
+        raise ValueError("the topic families need their topic table")
     row_t, tab = topic if topic is not None else (None, None)
+    vtab = vup = None
+    if tveto is not None:
+        vrow_t, vtab, vup = tveto
+        row_t = vrow_t if row_t is None else row_t   # both are the rows' topics
     tensors = [cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, prow, row_f, col_f,
-               dst_ok, new_ok, broker_rack, order_b, row_t, tab]
+               dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup]
     for t, dt in zip(tensors, (torch.int64, torch.int64, torch.int64, torch.bool,
                                torch.float32, torch.float32, torch.int64,
                                torch.float32, torch.float32, torch.bool,
                                torch.bool, torch.int64, torch.int64, torch.int64,
-                               torch.int32)):
+                               torch.int32, torch.int32, torch.float32)):
         if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
             raise ValueError("move_score_classes: wrong dtype, layout or device")
     Kr = prow.shape[1] if prow is not None else 0

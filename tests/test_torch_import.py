@@ -85,7 +85,12 @@ def test_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
     assert all(n == 0 for n in K.launches().values())
     order, n = K.compact_eligible(torch.tensor([False, True, True, False]), 6)
     assert order.tolist() == [1, 2, 4, 4, 4, 4] and int(n) == 2
+    win = K.swap_admission(torch.tensor([2.0, 1.0, 1.0]), torch.tensor([0, 0, 1]),
+                           torch.tensor([2, 3, 4]), torch.tensor([0, 1, 2]),
+                           torch.tensor([0, 1, 2]), torch.tensor([3, 4, 5]), 1e-9)
+    assert win.tolist() == [True, False, True]
     assert all(n == 0 for n in K.launches().values())
     assert set(K.launches()) == {"select_candidates", "compact_eligible",
                                  "move_score_classes", "wave_admission",
-                                 "leadership_rows", "segment_sum", "segment_count"}
+                                 "leadership_rows", "segment_sum", "segment_count",
+                                 "swap_rows", "swap_admission"}

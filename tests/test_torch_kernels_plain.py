@@ -340,3 +340,95 @@ def test_move_score_scan_and_column_order(chain_ctx, i):
     assert np.array_equal(bits(jnp.max(seg, axis=1)), bits(vs))
     assert np.array_equal(np.asarray(jnp.argmax(seg, axis=1)), qs.numpy())
     assert np.isfinite(np.asarray(sc)).any()
+
+
+# --- the third slice's K2 families and topic veto ---------------------------
+DEFAULT = CHAIN[:9] + ["DiskUsageDistributionGoal", "NetworkInboundUsageDistributionGoal",
+                       "NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal",
+                       "TopicReplicaDistributionGoal"] + CHAIN[9:]
+NEW_FAMILIES = list(range(9, 15))      # the four usage goals, TopicReplica, and
+                                       # LeaderReplica behind TopicReplica's veto
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["online", "offline"])
+def default_ctx(request):
+    """The spec's state with four topics flagged for MinTopicLeadersPerBroker,
+    the largest topic's replicas crowded onto brokers 0-7 (so the
+    topic-replica family scores) and, in the ``offline`` case, every 9th
+    valid replica offline (the families' healing scores)."""
+    ct, meta = ref_ct_mod.pad_cluster(*ref_rc.generate_scale(ref_rc.RandomClusterSpec(**SPEC)))
+    tml = np.zeros(ct.num_topics, bool)
+    tml[:4] = True
+    renv = ref_env_mod.make_env(ct, meta, topic_min_leaders_mask=tml)
+    rb = np.array(ct.replica_broker)
+    table = np.asarray(renv.partition_replicas)
+    topic = np.asarray(renv.partition_topic)
+    for p in np.flatnonzero(topic == np.bincount(topic).argmax()):
+        for f, r in enumerate(table[p]):
+            if r >= 0:
+                rb[r] = (3 * p + f) % 8
+    offline = np.array(ct.replica_offline)
+    if request.param:
+        offline[np.flatnonzero(np.asarray(ct.replica_valid))[::9]] = True
+    rst = ref_state_mod.init_state(renv, rb, ct.replica_is_leader, offline,
+                                   ct.replica_disk)
+    return dict(renv=renv, rst=rst,
+                penv=convert.env_from_arrays(convert.leaves(renv), "cpu"),
+                pst=convert.state_from_arrays(convert.leaves(rst), "cpu"),
+                rgoals=ref_make_goals(DEFAULT), pgoals=make_goals(DEFAULT))
+
+
+@pytest.mark.parametrize("i", NEW_FAMILIES, ids=[DEFAULT[i] for i in NEW_FAMILIES])
+def test_move_score_default_families(default_ctx, i):
+    """K2's resource-distribution and topic-replica families and the topic
+    veto against engine.py:776-792 with the default chain's prefix."""
+    c = default_ctx
+    renv, rst, penv, pst = c["renv"], c["rst"], c["penv"], c["pst"]
+    rg, pg = c["rgoals"], c["pgoals"]
+    valid = np.flatnonzero(np.asarray(renv.replica_valid))
+    cand = np.random.default_rng(i).choice(valid, 256, replace=False).astype(np.int32)
+    cj = jnp.asarray(cand)
+    mask = legit_move_mask(renv, rst, cj, rg[i].options)
+    rooms, custom = ref_engine._combined_move_rooms(tuple(rg[:i]), renv, rst)
+    mask = mask & ref_engine._rooms_move_mask(
+        rooms, ref_engine._move_delta_rows(renv, rst, cj), rst.replica_broker[cj])
+    for g in custom:
+        mask = mask & g.accept_move(renv, rst, cj)
+    sc = jnp.where(mask, rg[i].move_score(renv, rst, cj), -jnp.inf)
+    assert renv.num_brokers % T == 0
+    sv = sc.reshape(256, -1, T)
+    ct_ = torch.as_tensor(cand).long()
+    prooms, pcustom = engine._combined_move_rooms(tuple(pg[:i]), penv, pst)
+    args = engine._score_args(penv, pst, pg[i], prooms, pcustom, ct_, None,
+                              engine._move_delta_rows(penv, pst, ct_), T,
+                              row_ok=torch.ones(256, dtype=torch.bool))
+    assert (args[-1] is not None) == (i > DEFAULT.index("TopicReplicaDistributionGoal"))
+    val, q = move_score_classes(*args)
+    assert np.array_equal(bits(jnp.max(sv, axis=1)), bits(val))
+    assert np.array_equal(np.asarray(jnp.argmax(sv, axis=1)), q.numpy())
+    assert np.isfinite(np.asarray(sc)).any()
+    assert same_bits(rg[i].move_score(renv, rst, cj), pg[i].move_score(penv, pst, ct_))
+
+
+def same_bits(a, b) -> bool:
+    return np.array_equal(bits(a), bits(b))
+
+
+def test_topic_replica_accept_move_folds(default_ctx):
+    """TopicReplicaDistributionGoal.accept_move (topic.py:120-130) as the
+    row veto (source leg) and the (topic, broker) count veto (destination
+    leg) the K2 kernel folds."""
+    c = default_ctx
+    i = DEFAULT.index("TopicReplicaDistributionGoal")
+    rg, pg = c["rgoals"][i], c["pgoals"][i]
+    valid = np.flatnonzero(np.asarray(c["renv"].replica_valid))
+    cand = np.random.default_rng(3).choice(valid, 256, replace=False).astype(np.int32)
+    ref = np.asarray(rg.accept_move(c["renv"], c["rst"], jnp.asarray(cand)))
+    ct_ = torch.as_tensor(cand).long()
+    penv, pst = c["penv"], c["pst"]
+    up = pg.move_topic_veto(penv, pst)
+    t = penv.replica_topic[ct_]
+    dst = (pst.topic_broker_count[t].to(torch.float32) + 1.0) <= up[t][:, None]
+    port = pg.move_row_veto(penv, pst, ct_)[:, None] & dst
+    assert np.array_equal(ref, port.numpy())
+    assert ref.any() and not ref.all()

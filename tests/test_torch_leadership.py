@@ -203,3 +203,77 @@ def test_apply_leaderships_batched_bitwise(ctx, seed):
         assert same(a, convert.leaves(port)[name]), name
     assert not np.array_equal(np.asarray(ref.replica_is_leader),
                               np.asarray(rst.replica_is_leader))
+
+
+# --- the third slice: the usage goals' leadership (K6 capacity family) -------
+DEFAULT = CHAIN[:9] + ["DiskUsageDistributionGoal", "NetworkInboundUsageDistributionGoal",
+                       "NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal",
+                       "TopicReplicaDistributionGoal"] + CHAIN[9:]
+USAGE = list(range(9, 13))
+USAGE_LEAD = [DEFAULT.index("NetworkOutboundUsageDistributionGoal"),
+              DEFAULT.index("CpuUsageDistributionGoal")]
+
+
+@pytest.fixture(scope="module")
+def default_ctx(ctx):
+    return dict(ctx, rgoals=ref_make_goals(DEFAULT), pgoals=make_goals(DEFAULT))
+
+
+@pytest.mark.parametrize("i", USAGE, ids=[DEFAULT[i] for i in USAGE])
+def test_usage_goal_tables(default_ctx, i):
+    """Severity, keys, move score, budgets, rooms and room keys of the four
+    resource-distribution goals, and their accept_leadership veto."""
+    c = default_ctx
+    rg, pg = c["rgoals"][i], c["pgoals"][i]
+    renv, rst, penv, pst = c["renv"], c["rst"], c["penv"], c["pst"]
+    sev_r = rg.broker_severity(renv, rst)
+    assert same(sev_r, pg.broker_severity(penv, pst))
+    sev_p = pg.broker_severity(penv, pst)
+    assert same(rg.replica_key(renv, rst, sev_r), pg.replica_key(penv, pst, sev_p))
+    assert same(rg.leader_key(renv, rst, sev_r), pg.leader_key(penv, pst, sev_p))
+    cand = c["cand"]
+    assert same(rg.move_score(renv, rst, jnp.asarray(cand)),
+                pg.move_score(penv, pst, torch.as_tensor(cand).long()))
+    assert same(rg.accept_leadership(renv, rst, jnp.asarray(cand)),
+                pg.accept_leadership(penv, pst, torch.as_tensor(cand).long()))
+    for name in ("wave_budgets", "wave_gain_budgets", "segment_room_key"):
+        ref, port = getattr(rg, name)(renv, rst), getattr(pg, name)(penv, pst)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        port = port if isinstance(port, tuple) else (port,)
+        assert all(same(a, b) for a, b in zip(ref, port)), name
+    rr, pr = rg.accept_move_rooms(renv, rst), pg.accept_move_rooms(penv, pst)
+    assert list(rr) == list(pr)
+    for dim in rr:
+        assert all(same(a, b) for a, b in zip(rr[dim], pr[dim]))
+    assert same(rg.violated(renv, rst), pg.violated(penv, pst))
+    assert same(rg.stat(renv, rst), pg.stat(penv, pst))
+
+
+@pytest.mark.parametrize("i", USAGE_LEAD, ids=[DEFAULT[i] for i in USAGE_LEAD])
+def test_usage_goal_leadership_score(default_ctx, i):
+    """ResourceDistributionGoal.leadership_score (distribution.py:197-214)
+    through K6's capacity family: bit-identical, some scores finite."""
+    c = default_ctx
+    ref = c["rgoals"][i].leadership_score(c["renv"], c["rst"], jnp.asarray(c["cand"]))
+    port = c["pgoals"][i].leadership_score(c["penv"], c["pst"],
+                                           torch.as_tensor(c["cand"]).long())
+    assert same(ref, port)
+    assert np.isfinite(np.asarray(ref)).any()
+
+
+@pytest.mark.parametrize("i", USAGE_LEAD + [DEFAULT.index("LeaderReplicaDistributionGoal")],
+                         ids=[DEFAULT[i] for i in USAGE_LEAD] + ["LeaderReplicaDistributionGoal"])
+def test_default_lead_rows_twin(default_ctx, i):
+    """K6 rows with the default chain's prefix: the usage goals' own
+    leadership branch, and LeaderReplicaDistributionGoal behind the four
+    usage goals' accept_leadership vetoes."""
+    c = default_ctx
+    cand = c["cand"]
+    lkv = np.where(np.arange(KL) % 9 == 4, -np.inf, 1.0).astype(np.float32)
+    best_r, f_r = ref_lead_rows(c, i, jnp.asarray(cand), jnp.asarray(lkv))
+    ct_ = torch.as_tensor(cand).long()
+    best_p, f_p = leadership_rows(*engine._lead_args(
+        c["penv"], c["pst"], c["pgoals"][i], tuple(c["pgoals"][:i]), ct_,
+        torch.as_tensor(lkv) > -torch.inf))
+    assert same(best_r, best_p)
+    assert same(f_r, f_p)

@@ -21,6 +21,15 @@ outcome comes from a fresh interpreter, see torch_reference.py):
   counts, ``fixpoint_proven`` and ``finisher_rounds`` per goal;
 - the full 1,000-broker slice (``slow``: fused prefix of nine goals, two
   chunked deep-tail goals with the finisher).
+
+The sixteen default goals (``DEFAULT_GOALS``, with the swap branch; the
+reference again from a fresh interpreter):
+- fixture16 bit for bit (counts, swap actions, assignment, proposals);
+  spec-32b counts, swap actions and assignment; mid-64b counts,
+  ``fixpoint_proven``, ``finisher_rounds`` and ``swap_window_remaining``
+  per goal (the four usage goals' swap windows read 0);
+- the full 1,000-broker slice (``slow``: fused prefix of nine goals, seven
+  chunked goals with the finisher).
 """
 import dataclasses
 
@@ -36,7 +45,7 @@ from cruise_control_tpu_torch.analyzer.goals import GOAL_CLASSES, GoalKernel
 from cruise_control_tpu_torch.analyzer.goals.distribution import (
     LeaderReplicaDistributionGoal,
 )
-from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+from cruise_control_tpu_torch.analyzer.optimizer import DEFAULT_GOALS, GoalOptimizer
 from cruise_control_tpu_torch.model import random_cluster as port_rc
 from torch_reference import reference_chain
 
@@ -140,8 +149,10 @@ class _NoLeaderBudgetGoal(LeaderReplicaDistributionGoal):
 
 
 UNSUPPORTED = {
-    "swap goal": (dict(goal_names=["TopicReplicaDistributionGoal"]), None),
-    "deep-tail goal": (dict(goal_names=["DiskUsageDistributionGoal"]), None),
+    "swap goal": (dict(goal_names=["KafkaAssignerDiskUsageDistributionGoal"]), None),
+    "deep-tail goal": (dict(goal_names=["DiskUsageDistributionGoal",
+                                        "KafkaAssignerDiskUsageDistributionGoal"]), None),
+    "intra-broker goal": (dict(goal_names=["IntraBrokerDiskUsageDistributionGoal"]), None),
     "preferred leader election": (
         dict(goal_names=GOALS + ["PreferredLeaderElectionGoal"]), None),
     "session": (dict(session=object()), None),
@@ -196,7 +207,12 @@ def _run_chain(tmp_path, spec, goals=CHAIN):
 def _finisher_fields(res):
     return dict(proven=[g.fixpoint_proven for g in res.goal_results],
                 rounds=[g.finisher_rounds for g in res.goal_results],
-                quiesce=[g.quiesce_chunk for g in res.goal_results])
+                quiesce=[g.quiesce_chunk for g in res.goal_results],
+                swleft=[g.swap_window_remaining for g in res.goal_results])
+
+
+def _swaps(res):
+    return [g.swap_actions for g in res.goal_results]
 
 
 def _same_final(ref, port, names):
@@ -252,5 +268,61 @@ def test_chain_full_slice_matches_reference(tmp_path):
     assert _counts(port) == ref["counts"]
     assert _counts(port)["actions"] == [3051, 0, 0, 0, 0, 0, 557, 18136, 0, 1393, 1680]
     assert (_counts(port)["moves"], _counts(port)["leads"]) == (18469, 10751)
+    assert _finisher_fields(port) == ref["finisher"]
+    _same_final(ref, port, ("replica_broker",))
+
+
+# --- the sixteen default goals ----------------------------------------------
+def test_default_fixture16_bit_exact(tmp_path):
+    ref, port = _run_chain(tmp_path, None, DEFAULT_GOALS)
+    assert _counts(port) == ref["counts"]
+    assert _swaps(port) == ref["swaps"]
+    assert _counts(port) == dict(
+        before=["ReplicaDistributionGoal", "DiskUsageDistributionGoal",
+                "NetworkInboundUsageDistributionGoal",
+                "NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal",
+                "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal"],
+        after=[], actions=[0, 0, 0, 0, 0, 0, 0, 81, 0, 1, 0, 11, 0, 0, 0, 0],
+        passes=[3, 3, 3, 3, 3, 3, 3, 9, 3, 4, 3, 10, 3, 3, 3, 3], moves=83, leads=66)
+    assert _swaps(port)[9:14] == [0, 0, 1, 0, 0]
+    _same_final(ref, port, ("replica_broker", "replica_is_leader", "replica_disk"))
+    assert _proposals(port) == ref["proposals"]
+    assert port.balancedness_after == ref["balancedness_after"]
+
+
+def test_default_spec32_matches_reference(tmp_path):
+    ref, port = _run_chain(tmp_path, SMALL, DEFAULT_GOALS)
+    assert _counts(port) == ref["counts"]
+    assert _swaps(port) == ref["swaps"]
+    assert _counts(port)["actions"] == [60, 0, 0, 0, 0, 0, 19, 178, 0, 19, 20, 26, 18,
+                                        0, 0, 8]
+    assert (_counts(port)["moves"], _counts(port)["leads"]) == (307, 242)
+    assert _swaps(port)[9:14] == [1, 1, 4, 1, 0]
+    _same_final(ref, port, ("replica_broker", "replica_is_leader"))
+
+
+def test_default_mid64_matches_reference(tmp_path):
+    """Padded R 12,288: every goal chunked with the finisher; the four usage
+    goals end as proven fixpoints whose swap windows read 0."""
+    ref, port = _run_chain(tmp_path, MID, DEFAULT_GOALS)
+    assert _counts(port) == ref["counts"]
+    assert _finisher_fields(port) == ref["finisher"]
+    assert _finisher_fields(port)["swleft"] == [-1] * 9 + [0, 0, 0, 0, -1, -1, -1]
+    assert _finisher_fields(port)["proven"] == ([False] * 6 + [True, True, False]
+                                                + [True] * 4 + [False, True, True])
+    _same_final(ref, port, ("replica_broker",))
+
+
+@pytest.mark.slow
+def test_default_full_slice_matches_reference(tmp_path):
+    """The sixteen goals at their real size (1,000 brokers, padded R =
+    114,688): the fused prefix of nine goals, then seven goals chunked with
+    the finisher."""
+    ref, port = _run_chain(tmp_path, FULL, DEFAULT_GOALS)
+    assert _counts(port) == ref["counts"]
+    assert _swaps(port) == ref["swaps"]
+    assert _counts(port)["actions"] == [3051, 0, 0, 0, 0, 0, 557, 18136, 0, 1247, 1082,
+                                        1248, 1585, 617, 808, 1125]
+    assert (_counts(port)["moves"], _counts(port)["leads"]) == (22642, 12778)
     assert _finisher_fields(port) == ref["finisher"]
     _same_final(ref, port, ("replica_broker",))

@@ -12,8 +12,21 @@ whose directory every worker shares.
     ref = reference_chain(tmp_path, spec, goals)   # spec None = fixture16
 
 returns a dict of plain values: ``counts`` and ``finisher`` (the fields the
-tests compare), ``proposals`` (tuples), ``balancedness_after`` and
+tests compare), ``swaps`` (swap actions per goal), ``proposals`` (tuples),
+``balancedness_after`` and
 ``final`` (the final replica_broker / replica_is_leader / replica_disk).
+
+    ref = reference_goal(tmp_path, case)
+
+runs ONE goal program (the reference's ``engine.optimize_goal``, or the
+jitted ``_compiled_optimize`` that ``__graft_entry__.entry()`` runs) from a
+cluster's initial state and returns its ``info`` (host values) and
+``final`` leaves (replica_broker, replica_is_leader, util). ``case`` names
+the cluster (``"fixture16"``: ``__graft_entry__._setup()``'s unpadded
+fixture; ``"swap_tail"``: ``swap_tail_cluster()``; else a padded
+``generate_scale`` spec), the goal, its previous goals, the constraint,
+the engine parameters (``scaled``: the optimizer's scaled parameters of
+the padded shape, overridden by ``params``) and ``compiled``.
 """
 import json
 import os
@@ -46,7 +59,9 @@ out = dict(
                 moves=res.num_replica_movements, leads=res.num_leadership_movements),
     finisher=dict(proven=[r.fixpoint_proven for r in g],
                   rounds=[r.finisher_rounds for r in g],
-                  quiesce=[r.quiesce_chunk for r in g]),
+                  quiesce=[r.quiesce_chunk for r in g],
+                  swleft=[r.swap_window_remaining for r in g]),
+    swaps=[r.swap_actions for r in g],
     proposals=[dataclasses.astuple(p) for p in res.proposals],
     balancedness_after=res.balancedness_after,
     final={n: np.asarray(getattr(res.final_state, n))
@@ -56,17 +71,90 @@ with open(args["out"], "wb") as f:
 """
 
 
-def reference_chain(tmp_path: Path, spec: dict | None, goals: list[str],
-                    timeout: int = 900) -> dict:
-    out = tmp_path / "reference.pkl"
+_GOAL_CHILD = r"""
+import dataclasses, json, pickle, sys
+import numpy as np
+from cruise_control_tpu.analyzer import engine, init_state, make_env
+from cruise_control_tpu.analyzer.env import BalancingConstraint
+from cruise_control_tpu.analyzer.goals import make_goal
+from cruise_control_tpu.analyzer.optimizer import GoalOptimizer
+from cruise_control_tpu.model import cluster_tensor as ctm
+from cruise_control_tpu.model import random_cluster as rc
+
+case = json.loads(sys.argv[1])
+if case["cluster"] == "fixture16":
+    from __graft_entry__ import _fixture_cluster
+    ct, meta = _fixture_cluster()
+elif case["cluster"] == "swap_tail":
+    from torch_reference import swap_tail_cluster
+    ct, meta = swap_tail_cluster()
+else:
+    ct, meta = ctm.pad_cluster(*rc.generate_scale(rc.RandomClusterSpec(**case["cluster"])))
+env = make_env(ct, meta)
+st = init_state(env, ct.replica_broker, ct.replica_is_leader, ct.replica_offline,
+                ct.replica_disk)
+c = BalancingConstraint(**case.get("constraint", {}))
+goal = make_goal(case["goal"], c)
+prev = tuple(make_goal(n, c) for n in case.get("prev", []))
+if case.get("scaled"):
+    params = dataclasses.replace(
+        GoalOptimizer().scaled_params(env.num_replicas, env.num_brokers), **case["params"])
+else:
+    params = engine.EngineParams(**case["params"])
+if case.get("compiled"):
+    st2, info = engine._compiled_optimize(type(goal), goal, prev)(env, st, params)
+else:
+    st2, info = engine.optimize_goal(env, st, goal, prev, params)
+out = dict(info={k: np.asarray(v).item() for k, v in info.items()},
+           final={n: np.asarray(getattr(st2, n))
+                  for n in ("replica_broker", "replica_is_leader", "util")})
+with open(case["out"], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def swap_tail_cluster(num_brokers: int = 12, per_broker: int = 6):
+    """A cluster where only swaps can balance disk: every broker holds
+    ``per_broker`` single-replica partitions (so with
+    ``max_replicas_per_broker = per_broker`` ReplicaCapacityGoal vetoes
+    every move), a third of the brokers hold heavy replicas (disk about
+    900), a third medium (500), a third light (100)."""
+    from cruise_control_tpu.model.builder import ClusterModelBuilder
+    b = ClusterModelBuilder()
+    for i in range(num_brokers):
+        b.add_broker(i, rack=f"r{i % 4}")
+    p = 0
+    for i in range(num_brokers):
+        disk = (900.0, 500.0, 100.0)[i * 3 // num_brokers]
+        for j in range(per_broker):
+            b.add_replica(f"t{p % 3}", p, i, is_leader=True,
+                          load=[1.0, 10.0, 10.0, disk + j])
+            p += 1
+    return b.build()
+
+
+def _run_child(code: str, arg: dict, timeout: int) -> None:
     env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_ENABLE_COMPILATION_CACHE="false",
                PYTHONPATH=os.pathsep.join(
-                   p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
-    arg = json.dumps(dict(spec=spec, goals=goals, out=str(out)))
-    proc = subprocess.run([sys.executable, "-c", _CHILD, arg], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=timeout)
+                   p for p in (str(ROOT), str(ROOT / "tests"),
+                               os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(arg)], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"reference run failed (rc {proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
+
+
+def reference_chain(tmp_path: Path, spec: dict | None, goals: list[str],
+                    timeout: int = 900) -> dict:
+    out = tmp_path / "reference.pkl"
+    _run_child(_CHILD, dict(spec=spec, goals=goals, out=str(out)), timeout)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def reference_goal(tmp_path: Path, case: dict, timeout: int = 900) -> dict:
+    out = tmp_path / "reference_goal.pkl"
+    _run_child(_GOAL_CHILD, dict(case, out=str(out)), timeout)
     with open(out, "rb") as f:
         return pickle.load(f)
