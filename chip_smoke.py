@@ -26,7 +26,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    sixteen default goals on the 32-broker spec and the 64-broker,
    padded-R 12,288 spec (chunked dispatch and finisher; the sixteen
    goals' swap windows) run on the card and on the CPU (plain twins) and
-   must give the same bits and the JAX reference's outcome counts; and
+   must give the same bits and the JAX reference's outcome counts; the
+   JBOD specs (four logdirs per broker, a dead broker, two dead disks) at
+   32 brokers (unfused) and 64 brokers (chunked) with the intra-broker
+   chain and the ten-goal self-healing chain likewise; and
    ``__graft_entry__.entry()``'s run (DiskUsageDistributionGoal,
    ``EngineParams(max_iters=64)``, the 16-broker fixture) on the card;
 5. slices on the 1,000-broker / 98,326-replica ``generate_scale`` cluster,
@@ -43,15 +46,24 @@ Phases, each printing its own lines; any failure exits non-zero:
       [32, 32]; the JAX reference's outcome row).
    c. runs twice and the two runs must be bit identical; every run must
    keep refresh-consistent tallies and leave no partition with two
-   replicas on one broker. ``--profile`` adds
-   a third run of the sixteen-goal chain under ``torch.profiler`` and
+   replicas on one broker;
+   d. the JBOD self-healing path on the 1,000-broker x 4-logdir cluster
+      with 3 dead brokers and 7 dead-disk brokers (101,862 replicas, 492
+      offline): the intra-broker chain (``rebalance_disk``), the ten-goal
+      self-healing chain and the ``/demote_broker`` request
+      (PreferredLeaderElectionGoal alone, five brokers demoted), each twice
+      and bit identical, each the JAX reference's outcome row (the K8 and
+      K12 kernels must launch), and the pass alone with nothing demoted
+      once. ``--profile`` adds
+   one more run of every path of this phase under ``torch.profiler`` and
    prints device time by kernel.
 
 The line before the last is the ``kernels`` JSON object: each kernel's
-times are those of the shape it launched most often in the counted
-sixteen-goal run, with every timed shape and its launches listed beside
-them. The last line is ``{"ok": true, "device": {...}}``. Imports nothing
-of JAX.
+launches are those of the counted runs of the sixteen goals and the three
+JBOD requests together (each path's under ``launches_by_path``), and its
+times those of the shape it launched most often there, with every timed
+shape and its launches listed beside them. The last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -84,8 +96,22 @@ SMALL_SPEC = dict(num_brokers=32, num_partitions=1000, num_racks=4, num_topics=8
                   max_replication=3, skew=1.5, seed=3141, target_cpu_util=0.45)
 MID_SPEC = dict(num_brokers=64, num_racks=4, num_topics=8, num_partitions=8000,
                 max_replication=3, seed=3)
+INTRA = ["IntraBrokerDiskCapacityGoal", "IntraBrokerDiskUsageDistributionGoal"]
+JBOD_CHAIN = CHAIN[:8] + INTRA                   # bench.py rung 5's ten goals
+PLE = ["PreferredLeaderElectionGoal"]
+JBOD_SPEC = dict(num_brokers=1000, num_racks=20, num_topics=200, num_partitions=50000,
+                 max_replication=3, skew=1.0, seed=3143, logdirs_per_broker=4,
+                 target_cpu_util=0.45, num_dead_brokers=3, num_brokers_with_dead_disk=7)
+JBOD_SMALL = dict(num_brokers=32, num_racks=4, num_topics=8, num_partitions=1000,
+                  max_replication=3, skew=1.0, seed=3143, logdirs_per_broker=4,
+                  target_cpu_util=0.45, num_dead_brokers=1, num_brokers_with_dead_disk=2)
+JBOD_MID = dict(JBOD_SMALL, num_brokers=64, num_partitions=8000)
+DEMOTED = [11, 222, 444, 666, 888]               # broker indices of /demote_broker
 # Outcomes of the JAX reference (JAX_PLATFORMS=cpu) on these specs; the
 # tier-1 test tests/test_torch_slice.py holds the port to the live reference.
+# ``digests``: the first 16 hex digits of the sha256 of the bytes of the
+# reference's final float32 tallies (disk_util [B, D], util and leader_util
+# [B, M], potential_nw_out [B]; the padded shape).
 ORACLE = {
     "slice": dict(before={"RackAwareGoal", "ReplicaDistributionGoal"},
                   actions=[3051, 0, 0, 0, 18965], passes=[7, 3, 3, 3, 79],
@@ -150,6 +176,43 @@ ORACLE.update({
         rounds=[0] * 6 + [1, 1, 0] + [1] * 4 + [0, 1, 1], swaps=[0] * 16,
         swleft=[-1] * 9 + [0, 0, 0, 0] + [-1] * 3),
 })
+_HEAL = {"RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
+         "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal", "CpuCapacityGoal",
+         "ReplicaDistributionGoal"} | set(INTRA)
+ORACLE.update({
+    "jbod_intra": dict(before=set(INTRA), after=set(), actions=[165, 2713],
+                       passes=[4, 7], moves=0, leads=0, disk=[165, 2713],
+                       proposals=2313, digests=dict(
+                           disk_util="40cc6af69c4636b0", util="826e628119038d85",
+                           leader_util="885364b57121d475",
+                           potential_nw_out="272e128a4beb390f")),
+    "jbod_chain": dict(before=_HEAL, after=set(),
+                       actions=[3799, 0, 0, 0, 0, 0, 105, 12173, 0, 3068],
+                       passes=[8, 3, 3, 3, 3, 3, 5, 67, 3, 7], moves=13717, leads=5113,
+                       disk=[0] * 9 + [3068], proposals=14319,
+                       digests=dict(disk_util="25dde16fd944fdd9", util="41be1142d8dd2ce2",
+                                    leader_util="aab38ec89964f1e5",
+                                    potential_nw_out="554ae21877c99e4b")),
+    "jbod_demote": dict(before=set(PLE), after=set(), actions=[1], passes=[0], moves=0,
+                        leads=173, disk=[0]),
+    "jbod_ple": dict(before=set(), after=set(), actions=[0], passes=[0], moves=0,
+                     leads=0, disk=[0]),
+    "jbod_intra_small": dict(before=set(INTRA), after=set(), actions=[13, 93],
+                             passes=[4, 9], moves=0, leads=0, disk=[13, 93]),
+    "jbod_chain_small": dict(before=_HEAL, after=set(),
+                             actions=[78, 0, 0, 0, 0, 0, 5, 95, 0, 65],
+                             passes=[6, 3, 3, 3, 3, 3, 4, 8, 3, 7], moves=170, leads=108,
+                             disk=[0] * 9 + [65]),
+    "jbod_intra_mid": dict(before=set(INTRA), after=set(), actions=[71, 137],
+                           passes=[4, 5], moves=0, leads=0, disk=[71, 137],
+                           proposals=194),
+    "jbod_chain_mid": dict(before=_HEAL, after=set(),
+                           actions=[581, 0, 0, 0, 0, 0, 6, 794, 0, 86],
+                           passes=[9, 3, 3, 3, 3, 3, 4, 19, 3, 5], moves=1340, leads=860,
+                           disk=[0] * 9 + [86], proposals=1336),
+})
+# the kernels of the JBOD path that no earlier path launches
+JBOD_KERNELS = ("disk_rows", "disk_apply", "preferred_leader")
 # __graft_entry__.entry(): the reference's util disk column and total
 ENTRY_DISK = [5630, 5660, 5670, 5660, 5660, 5680, 5660, 5660, 5010, 4950, 4860, 4950,
               4920, 4910, 4910, 4940]
@@ -191,12 +254,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn) -> float:
-    """Median over REPS of the CUDA-event time around one call (warm)."""
+def time_ms(torch, fn, reps: int = REPS) -> float:
+    """Median over ``reps`` of the CUDA-event time around one call (warm)."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -286,9 +349,10 @@ def check(torch, entry: Entry, kernel_fn, plain_fn, what: str) -> None:
 
 
 def timing(torch, entry: Entry, kernel_fn, plain_fn, library_fn, nb, nops,
-           shape: str) -> None:
+           shape: str, plain_reps: int = REPS) -> None:
     """Time the kernel, its twin and the library call at one shape; one
-    counted launch first tells the shape key the wrapper counts it under."""
+    counted launch first tells the shape key the wrapper counts it under.
+    ``plain_reps`` cuts the windows of a twin that takes seconds."""
     from cruise_control_tpu_torch import kernels as K
     K.reset_launches()
     kernel_fn()
@@ -296,7 +360,7 @@ def timing(torch, entry: Entry, kernel_fn, plain_fn, library_fn, nb, nops,
     require(list(keys.values()) == [1],
             f"{entry.name} at {shape}: one timed call launched {keys}")
     ms = time_ms(torch, kernel_fn)
-    plain_ms = time_ms(torch, plain_fn)
+    plain_ms = time_ms(torch, plain_fn, plain_reps)
     lib_ms = time_ms(torch, library_fn) if library_fn is not None else None
     b_ms, by = bound(nb, nops)
     entry.timings.append(dict(shape=next(iter(keys)), at=shape, ms=ms,
@@ -307,9 +371,10 @@ def timing(torch, entry: Entry, kernel_fn, plain_fn, library_fn, nb, nops,
         f"bound {b_ms:.6f} ms ({by})")
 
 
-def kernel_entry(name: str, k, e: Entry, launches: int, ran: dict) -> dict:
+def kernel_entry(name: str, k, e: Entry, launches: int, ran: dict,
+                 by_path: dict) -> dict:
     """The kernels-line object of one kernel. Its times are those of the
-    shape it launched most often on the counted main path (``ran``:
+    shape it launched most often on the counted paths (``ran``:
     {shape: launches}); every timed shape is listed beside it with its own
     launches, and the launched shapes that were not timed with theirs."""
     by_shape = [dict(t, launches=ran.get(t["shape"], 0)) for t in e.timings]
@@ -324,7 +389,8 @@ def kernel_entry(name: str, k, e: Entry, launches: int, ran: dict) -> dict:
                 **{key: top[key] for key in ("ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by")},
                 shape=top["shape"], shape_launches=top["launches"], shapes=by_shape,
-                untimed_shapes={s: n for s, n in ran.items() if s not in timed})
+                untimed_shapes={s: n for s, n in ran.items() if s not in timed},
+                launches_by_path=by_path)
 
 
 # ---------------------------------------------------------------------------
@@ -504,6 +570,7 @@ def kernel_checks(torch, ctx, seed: int) -> dict:
            lambda: torch.index_add(zeros_r, 0, lib_seg_r, vals_r),
            nbytes(vals_r, seg_r) + B * vals_r.shape[1] * 4, vals_r.numel(),
            f"refresh N={R} C={vals_r.shape[1]} nseg={B}")
+    disk_sum_checks(torch, e, env, st, (r_sorted, dst_s, win), timed=False)
 
     # --- K4/K5 segment_count ----------------------------------------------
     e = entries["segment_count"]
@@ -536,6 +603,40 @@ def kernel_checks(torch, ctx, seed: int) -> dict:
                nbytes(*a) + nseg_c * 4, seg_c.shape[0],
                f"apply N={seg_c.shape[0]} nseg={nseg_c}")
     return entries
+
+
+def disk_sum_checks(torch, e: Entry, env, st, wave, timed: bool) -> None:
+    """K4/K5 ``segment_sum`` at the per-logdir disk tallies (C = 1, nseg =
+    B * D): refresh's sums over every replica, and one move wave's update
+    (``wave``: its rows, destinations and admission mask)."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer.state import (
+        apply_disk_sum_inputs, apply_sum_inputs, refresh_disk_inputs,
+    )
+    from cruise_control_tpu_torch.common.resources import Resource
+    from cruise_control_tpu_torch.kernels import segment
+
+    replicas, dsts, mask = wave
+    vals = apply_sum_inputs(env, st, replicas, dsts, mask)[0]
+    ref = refresh_disk_inputs(env, st)
+    app = apply_disk_sum_inputs(env, st, replicas, dsts, mask,
+                                vals[replicas.shape[0]:, Resource.DISK])[:4]
+    shapes = {"refresh": f"N={ref[0].shape[0]} C=1 nseg={ref[2]}",
+              "apply": f"N={app[0].shape[0]} C=1 nseg={app[2]}"}
+    for what, a, note in (("refresh", ref, ""),
+                          ("apply", app, f", {int(mask.sum())} moves in the wave")):
+        check(torch, e, lambda: K.segment_sum(*a), lambda: segment.segment_sum_plain(*a),
+              f"{what} disk tallies {shapes[what]}{note}")
+    if not timed:
+        return
+    for what, a in (("refresh", ref), ("apply", app)):
+        v, seg, n = a[:3]
+        init = a[3] if len(a) > 3 else torch.zeros((n, 1), dtype=v.dtype, device=v.device)
+        lib_seg = torch.where(seg >= 0, seg, torch.full_like(seg, n))
+        lib_init = torch.cat([init, torch.zeros_like(init[:1])])
+        timing(torch, e, lambda: K.segment_sum(*a), lambda: segment.segment_sum_plain(*a),
+               lambda: torch.index_add(lib_init, 0, lib_seg, v),
+               nbytes(*a) + n * 4, v.numel(), f"{what} disk {shapes[what]}", plain_reps=3)
 
 
 def chain_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
@@ -1069,6 +1170,168 @@ def swap_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
           f"adversarial K1={n} crowded brokers, in-candidates and partitions")
 
 
+def jbod_context(torch):
+    """The JBOD slice cluster (host), its padded form and its state on the
+    card, with the scaled engine parameters of the padded shape."""
+    import numpy as np
+    from cruise_control_tpu_torch.analyzer.env import make_env
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.state import init_state
+    from cruise_control_tpu_torch.model.cluster_tensor import pad_cluster
+    from cruise_control_tpu_torch.model.random_cluster import (
+        RandomClusterSpec, generate_scale,
+    )
+    ct, meta = generate_scale(RandomClusterSpec(**JBOD_SPEC))
+    dem = np.zeros(ct.num_brokers, bool)
+    dem[DEMOTED] = True
+    ct_demoted = dataclasses.replace(ct, broker_demoted=dem)
+    pct, pmeta = pad_cluster(ct, meta)
+    env = make_env(pct, pmeta, device="cuda")
+    st = init_state(env, pct.replica_broker, pct.replica_is_leader,
+                    pct.replica_offline, pct.replica_disk)
+    penv_dem = make_env(*pad_cluster(ct_demoted, meta), device="cuda")
+    params = GoalOptimizer(device="cuda").scaled_params(pct.num_replicas,
+                                                       pct.num_brokers)
+    log(f"jbod cluster: {meta.num_valid_replicas} replicas, "
+        f"{int(ct.replica_offline.sum())} offline, R={pct.num_replicas} "
+        f"B={pct.num_brokers} D={pct.num_disks} P={pct.num_partitions} "
+        f"K={params.num_candidates}")
+    return dict(ct=ct, ct_demoted=ct_demoted, meta=meta, env=env, st=st,
+                env_demoted=penv_dem, params=params)
+
+
+def disk_kernel_checks(torch, jctx, entries: dict, seed: int) -> None:
+    """Phase 3, JBOD part: K8 ``disk_rows`` / ``disk_apply`` at K x D on the
+    JBOD slice state (each intra-broker goal's first pass: K1's candidates,
+    its previous goal's veto) and on an adversarial state (every logdir's
+    utilization scaled by a random factor in [0.5, 2.5) or, for three in
+    ten, by 50 to put it over its limit; 1,760 candidates from 40 brokers;
+    every row maximum positive with planted ties, so the walk's order
+    decides); K1 ``select_candidates`` on both intra goals' keys (dead-disk
+    priority, -inf rows) at k = K; K12 ``preferred_leader`` at P x F with
+    the five brokers demoted, with nothing demoted, and with random leader
+    flags; K4/K5 ``segment_sum`` at the B x D disk tallies of refresh and of
+    the ten-goal chain's first wave."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import engine
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    from cruise_control_tpu_torch.analyzer.goals.base import disk_state
+    from cruise_control_tpu_torch.kernels import disk, ple, select
+
+    env, st, params = jctx["env"], jctx["st"], jctx["params"]
+    dev = env.device
+    g = torch.Generator().manual_seed(seed)
+    R, (B, D) = env.num_replicas, env.broker_disk_capacity.shape
+    Kd = min(params.num_candidates, R)
+    mg = params.min_gain
+    e_rows, e_apply = entries["disk_rows"], entries["disk_apply"]
+    cap_goal, band_goal = make_goals(INTRA)
+    ds = disk_state(env, st)
+    passes = {}
+    e_sel = entries["select_candidates"]
+    keys = {}
+    for goal, prev in ((cap_goal, ()), (band_goal, (cap_goal,))):
+        key = goal.replica_key(env, st, goal.broker_severity(env, st)).contiguous()
+        keys[goal.name] = key
+        for stall in (0, 3):
+            check(torch, e_sel, lambda: K.select_candidates(key, Kd, stall, 0),
+                  lambda: select.select_candidates_plain(key, Kd, stall, 0),
+                  f"{goal.name} keys R={R} k={Kd} stall={stall}")
+        kv, cand = K.select_candidates(key, Kd, 0, 0)
+        rule = goal.disk_rule()
+        vetoes = [p.disk_rule() for p in prev]
+        args = (ds, cand, kv, rule, vetoes)
+        check(torch, e_rows, lambda: K.disk_rows(*args),
+              lambda: disk.disk_rows_plain(*args), f"{goal.name} first pass K={Kd} D={D}")
+        best = K.disk_rows(*args)
+        order = engine._desc_order(best).contiguous()
+        aargs = (ds, cand, best, order, rule, vetoes, mg)
+        check(torch, e_apply, lambda: K.disk_apply(*aargs),
+              lambda: disk.disk_apply_plain(*aargs),
+              f"{goal.name} first pass, {int((best > mg).sum())} rows walked")
+        passes[goal.name] = (args, aargs, int((best > mg).sum()))
+    # adversarial: crowded logdirs, several rows per broker, all rows positive
+    scale = torch.rand((B, D), generator=g) * 2.0 + 0.5
+    scale = torch.where(torch.rand((B, D), generator=g) < 0.3, 50.0, scale).to(dev)
+    ds_adv = dataclasses.replace(ds, dutil=(ds.dutil * scale).contiguous())
+    brokers = torch.randperm(B, generator=g)[:40].to(dev)
+    pool = torch.nonzero(env.replica_valid & torch.isin(st.replica_broker, brokers))
+    cand = pool.flatten()[torch.randperm(pool.shape[0], generator=g)[:Kd].to(dev)]
+    cand = cand.contiguous()
+    kv = torch.where(torch.rand(cand.shape[0], generator=g) < 0.1, -torch.inf,
+                     1.0).to(dev)
+    vals = torch.tensor([3.0, 2.0, 2.0, 1.0, 0.5, 1e-8])
+    best = vals[torch.randint(0, vals.shape[0], (cand.shape[0],), generator=g)].to(dev)
+    order = engine._desc_order(best).contiguous()
+    for goal, prev in ((cap_goal, ()), (band_goal, (cap_goal,)), (cap_goal, (band_goal,))):
+        rule, vetoes = goal.disk_rule(), [p.disk_rule() for p in prev]
+        args = (ds_adv, cand, kv, rule, vetoes)
+        check(torch, e_rows, lambda: K.disk_rows(*args),
+              lambda: disk.disk_rows_plain(*args),
+              f"adversarial {goal.name} after {len(prev)} goals")
+        aargs = (ds_adv, cand, best, order, rule, vetoes, mg)
+        got = K.disk_apply(*aargs)
+        check(torch, e_apply, lambda: K.disk_apply(*aargs),
+              lambda: disk.disk_apply_plain(*aargs),
+              f"adversarial {goal.name} after {len(prev)} goals, all {cand.shape[0]} "
+              f"rows walked, {int(got[4])} applied")
+    # times at the band goal's first pass (the most rows walked)
+    key = keys[band_goal.name]
+    timing(torch, e_sel, lambda: K.select_candidates(key, Kd, 0, 0),
+           lambda: select.select_candidates_plain(key, Kd, 0, 0),
+           lambda: torch.topk(key, Kd), nbytes(key) + Kd * (4 + 8), 4 * R,
+           f"disk keys R={R} k={Kd}")
+    args, aargs, walked = passes[band_goal.name]
+    row_bytes = 8 + 4 + 8 + 8 + 1 + 4 + 1 + 1 + 4       # the row's reads, best written
+    state_bytes = B * D * (1 + 4 + 4) + B
+    timing(torch, e_rows, lambda: K.disk_rows(*args),
+           lambda: disk.disk_rows_plain(*args), None,
+           Kd * row_bytes + state_bytes, Kd * D * 30, f"K={Kd} D={D}")
+    timing(torch, e_apply, lambda: K.disk_apply(*aargs),
+           lambda: disk.disk_apply_plain(*aargs), None,
+           walked * (8 + 4 + 8 + row_bytes + D * 9 + 2 * 4 + 8 + 1 + 1)
+           + 2 * (B * D * 4 + R * 10),
+           walked * D * 40, f"K={Kd} D={D}, {walked} rows walked", plain_reps=3)
+
+    # --- K12 preferred_leader -------------------------------------------
+    e = entries["preferred_leader"]
+    env_d = jctx["env_demoted"]
+    Pn, F = env_d.partition_replicas.shape
+    flips = (torch.rand(R, generator=g) < 0.1).to(dev)
+    for what, en, lead in (("demoted", env_d, st.replica_is_leader),
+                           ("steady", env, st.replica_is_leader),
+                           ("random leader flags", env_d, st.replica_is_leader ^ flips)):
+        pargs = (en.partition_replicas, st.replica_broker, lead.contiguous(),
+                 st.replica_offline, en.broker_alive, en.broker_excluded_for_leadership,
+                 en.broker_demoted, st.leadership_moved)
+        for apply in (True, False):
+            check(torch, e, lambda: K.preferred_leader(*pargs, apply=apply),
+                  lambda: ple.preferred_leader_apply_plain(*pargs, apply),
+                  f"{what} P={Pn} F={F} apply={apply}")
+    pargs = (env_d.partition_replicas, st.replica_broker, st.replica_is_leader,
+             st.replica_offline, env_d.broker_alive, env_d.broker_excluded_for_leadership,
+             env_d.broker_demoted, st.leadership_moved)
+    n_viol = int(K.preferred_leader(*pargs, apply=False)[2])
+    n_members = int((env_d.partition_replicas >= 0).sum())
+    # the member table, each real member's broker, offline and leader flags,
+    # the three broker flag arrays and the count; applying adds the two
+    # flag copies (read and written) and two rows of both flags per flip
+    need = Pn * F * 8 + n_members * (8 + 1 + 1) + 3 * B + 4
+    for apply in (True, False):
+        timing(torch, e, lambda: K.preferred_leader(*pargs, apply=apply),
+               lambda: ple.preferred_leader_apply_plain(*pargs, apply), None,
+               need + (4 * R + 4 * n_viol if apply else 0),
+               Pn * F * 10, f"P={Pn} F={F} {'apply' if apply else 'check'}")
+
+    # --- K4/K5 segment_sum at D logdirs: refresh and a first wave's update
+    goal = make_goals(JBOD_CHAIN[:1])[0]
+    key = goal.replica_key(env, st, goal.broker_severity(env, st)).contiguous()
+    kv, cand = K.select_candidates(key, Kd, 0, 0)
+    r_sorted, dst_s, aargs = engine._admission_args(env, st, goal, (), params, cand, kv)
+    disk_sum_checks(torch, entries["segment_sum"], env, st,
+                    (r_sorted, dst_s, K.wave_admission(*aargs)), timed=True)
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the optimizer
 # ---------------------------------------------------------------------------
@@ -1087,7 +1350,9 @@ def outcome(res) -> dict:
                 proven=[g.fixpoint_proven for g in res.goal_results],
                 rounds=[g.finisher_rounds for g in res.goal_results],
                 swaps=[g.swap_actions for g in res.goal_results],
-                swleft=[g.swap_window_remaining for g in res.goal_results])
+                swleft=[g.swap_window_remaining for g in res.goal_results],
+                disk=[g.disk_actions for g in res.goal_results],
+                proposals=len(res.proposals))
 
 
 def print_outcome(tag: str, out: dict, oracle: dict) -> None:
@@ -1100,11 +1365,14 @@ def print_outcome(tag: str, out: dict, oracle: dict) -> None:
         log(f"{tag}: fixpoint proven {out['proven']}, finisher rounds {out['rounds']}")
     if "swaps" in oracle:
         log(f"{tag}: swap actions {out['swaps']}, swap windows {out['swleft']}")
+    if "disk" in oracle:
+        log(f"{tag}: disk actions {out['disk']} (JAX reference {oracle['disk']}), "
+            f"proposals {out['proposals']} (JAX reference {oracle.get('proposals', '-')})")
 
 
 def require_oracle(tag: str, out: dict, oracle: dict) -> None:
     for key in ("before", "after", "actions", "passes", "moves", "leads", "proven",
-                "rounds", "swaps", "swleft"):
+                "rounds", "swaps", "swleft", "disk", "proposals"):
         if key in oracle:
             require(out[key] == oracle[key],
                     f"{tag}: {key} {out[key]} != JAX reference {oracle[key]}")
@@ -1117,7 +1385,10 @@ def same_bits(torch, a, b) -> bool:
         (a.replica_broker, b.replica_broker), (a.replica_is_leader, b.replica_is_leader),
         (a.util.view(torch.int32), b.util.view(torch.int32)),
         (a.leader_util.view(torch.int32), b.leader_util.view(torch.int32)),
-        (a.replica_count, b.replica_count), (a.leader_count, b.leader_count)))
+        (a.replica_count, b.replica_count), (a.leader_count, b.leader_count),
+        (a.replica_disk, b.replica_disk), (a.replica_offline, b.replica_offline),
+        (a.disk_util.view(torch.int32), b.disk_util.view(torch.int32)),
+        (a.moved, b.moved), (a.leadership_moved, b.leadership_moved)))
 
 
 def parity(torch, goals, spec: dict, key: str, tag: str) -> dict:
@@ -1140,12 +1411,11 @@ def parity(torch, goals, spec: dict, key: str, tag: str) -> dict:
     print_outcome(tag, out, ORACLE[key])
     require(outcome(on_cpu) == out, f"{tag}: card and CPU outcomes differ")
     a, b = on_card.final_state, on_cpu.final_state
-    require(torch.equal(a.replica_broker.cpu(), b.replica_broker)
-            and torch.equal(a.replica_is_leader.cpu(), b.replica_is_leader)
-            and torch.equal(a.util.cpu().view(torch.int32), b.util.view(torch.int32)),
+    require(same_bits(torch, to_device(a, "cpu"), b),
             f"{tag}: card and CPU final states differ")
     require_oracle(tag, out, ORACLE[key])
-    log(f"{tag}: card == CPU bit for bit, == JAX reference counts "
+    log(f"{tag}: card == CPU bit for bit (assignment, logdirs, offline flags, "
+        f"util, disk util, counts), == JAX reference counts "
         f"(card wall {wall:.6f} s, first run in this process)")
     log(f"{tag}: launches by shape on the card {json.dumps(shapes)}")
     return shapes
@@ -1194,18 +1464,40 @@ def entry_check(torch) -> None:
             f"{ENTRY_UTIL_SUM}, violated_after False)")
 
 
-def slice_checks(torch, res, tag: str) -> None:
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+def slice_checks(torch, res, tag: str, digests: dict | None = None) -> None:
+    """Refresh-consistent tallies (ints equal, floats within 1e-3 relative,
+    relative to at least 1.0). ``digests`` maps a float tally to the digest
+    of the JAX reference's final value: that tally must be the reference's
+    bit for bit, and its drift check then skips the entries the refresh
+    reads as exactly 0 (a drained dead broker or logdir keeps the
+    reference's own rounding residue of its sequential subtractions)."""
     from cruise_control_tpu_torch.analyzer.state import refresh
     env, st = res.env, res.final_state
     ref = refresh(env, st)
+    digests = digests or {}
     for name in ("replica_count", "leader_count", "part_rack_count",
                  "topic_broker_count", "topic_leader_count"):
         require(torch.equal(getattr(st, name), getattr(ref, name)),
                 f"refresh(final).{name} != incremental")
+    for name, want_digest in digests.items():
+        got_digest = digest(getattr(st, name))
+        require(got_digest == want_digest,
+                f"final {name} digest {got_digest} != JAX reference {want_digest}")
+        log(f"{tag}: final {name} bit-identical to the JAX reference's "
+            f"(sha256 {got_digest})")
     worst = 0.0
     for name in ("util", "leader_util", "potential_nw_out", "disk_util"):
         got, want = getattr(st, name), getattr(ref, name)
-        rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+        err = (got - want).abs() / want.abs().clamp(min=1.0)
+        if name in digests:
+            err = torch.where(want == 0, torch.zeros_like(err), err)
+        rel = float(err.max())
         worst = max(worst, rel)
         require(rel <= 1e-3, f"refresh(final).{name} off by {rel} relative")
     members = env.partition_replicas
@@ -1224,7 +1516,8 @@ HAND_KERNEL_NAMES = (
     "init_state", "tile_counts", "scan_counts", "tile_write", "pad_tail",
     "move_score_kernel", "ft_init", "ft_cand", "ft_part", "side_scan", "finish(",
     "segment_sum_kernel", "segment_count_kernel", "leadership_rows_kernel",
-    "swap_rows_kernel", "swap_admission_kernel")
+    "swap_rows_kernel", "swap_admission_kernel", "disk_rows_kernel",
+    "disk_apply_kernel", "preferred_leader_kernel")
 
 
 def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
@@ -1259,20 +1552,21 @@ def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
         require(same_bits(torch, res1.final_state, res2.final_state)
                 and outcome(res2) == out, f"{tag}: the two runs differ")
         log(f"{tag}: run 1 and run 2 bit-identical (assignment, leadership, util, "
-            f"leader util, counts)")
-    slice_checks(torch, res1, tag)
-    return dict(launches=launches, shapes=shapes, walls=(wall1, wall2))
+            f"leader util, counts, logdirs, offline flags, disk util, moved flags)")
+    slice_checks(torch, res1, tag, oracle.get("digests"))
+    return dict(launches=launches, shapes=shapes, walls=(wall1, wall2),
+                run=(ct, meta, goals, tag))
 
 
-def profile_run(torch, opt, ct, meta) -> None:
-    """One more run of the sixteen-goal slice under torch.profiler: device
-    busy share of the wall and device time by kernel (device-side events
-    only, so an op's kernels are not counted twice)."""
+def profile_run(torch, opt, ct, meta, goals, tag: str) -> None:
+    """One more run of a path under torch.profiler: device busy share of
+    the wall and device time by kernel (device-side events only, so an
+    op's kernels are not counted twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_chain(opt, ct, meta, DEFAULT)
+        run_chain(opt, ct, meta, goals)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -1288,11 +1582,11 @@ def profile_run(torch, opt, ct, meta) -> None:
     ours = [r for r in rows if any(n in r[2] for n in HAND_KERNEL_NAMES)]
     own = sum(r[0] for r in ours) / 1e6
     launches = sum(r[1] for r in rows)
-    log(f"profile: wall {wall:.6f} s under the profiler, device busy {busy:.6f} s "
-        f"({100 * busy / wall:.2f}% of wall), {launches} device events; "
+    log(f"profile {tag}: wall {wall:.6f} s under the profiler, device busy "
+        f"{busy:.6f} s ({100 * busy / wall:.2f}% of wall), {launches} device events; "
         f"hand kernels {own:.6f} s ({100 * own / max(busy, 1e-12):.2f}% of busy)")
     for dev_us, count, key in rows[:25]:
-        log(f"profile:   {dev_us / 1e3:12.3f} ms  {count:7d}x  {key[:90]}")
+        log(f"profile {tag}:   {dev_us / 1e3:12.3f} ms  {count:7d}x  {key[:90]}")
 
 
 def main() -> int:
@@ -1300,7 +1594,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the adversarial kernel-check inputs")
     ap.add_argument("--profile", action="store_true",
-                    help="add a third sixteen-goal slice run under torch.profiler")
+                    help="add a run of every phase-5 path under torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -1319,8 +1613,8 @@ def main() -> int:
     phase("phase 1: device")
     card = nvidia_smi()
     log(card)
-    kind = torch.cuda.get_device_name(0)
-    log(f"device: {kind}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
+    device_kind = torch.cuda.get_device_name(0)
+    log(f"device: {device_kind}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
     # 2. build
@@ -1362,6 +1656,9 @@ def main() -> int:
     chain_kernel_checks(torch, ctx, entries, args.seed)
     phase("phase 3: the sixteen goals' kernels")
     swap_kernel_checks(torch, ctx, entries, args.seed)
+    phase("phase 3: the JBOD path's kernels")
+    jctx = jbod_context(torch)
+    disk_kernel_checks(torch, jctx, entries, args.seed)
     for en in entries.values():
         require(en.checks > 0 and en.timings, f"{en.name} was not checked")
 
@@ -1378,6 +1675,13 @@ def main() -> int:
     require(window == 4, f"the 64-broker sixteen goals ran {window} swap windows, "
                          f"not the four usage goals' 4")
     log(f"mid (64 brokers, 16 goals): K7 at the swap window launched {window} times")
+    for spec, size, tag in ((JBOD_SMALL, "small", "jbod 32 brokers"),
+                            (JBOD_MID, "mid", "jbod 64 brokers")):
+        for goals, req in ((INTRA, "intra"), (JBOD_CHAIN, "chain")):
+            shapes = parity(torch, goals, spec, f"jbod_{req}_{size}",
+                            f"{tag}, {len(goals)} goals")
+            require(all(shapes[n] for n in ("disk_rows", "disk_apply")),
+                    f"{tag}: the disk branch never launched")
     entry_check(torch)
 
     # 5. the slices: each path counted on its first run; the five- and
@@ -1395,7 +1699,8 @@ def main() -> int:
     chain = run_slice(torch, opt, ct, meta, CHAIN, "slice (11 goals)",
                       ORACLE["chain_slice"], twice=False)
     launches = chain["launches"]
-    require(all(n > 0 for name, n in launches.items() if not name.startswith("swap_")),
+    require(all(n > 0 for name, n in launches.items()
+                if not name.startswith("swap_") and name not in JBOD_KERNELS),
             f"a kernel of the eleven-goal path never launched: {launches}")
     Kf = min(params.finisher_candidates, pct.num_replicas)
     W = max(1, min(params.finisher_waves, pct.num_replicas // max(Kf, 1)))
@@ -1416,25 +1721,53 @@ def main() -> int:
     default = run_slice(torch, opt, ct, meta, DEFAULT, "slice (16 goals)",
                         ORACLE["default_slice"])
     launches, shapes = default["launches"], default["shapes"]
-    require(all(n > 0 for n in launches.values()),
+    require(all(n > 0 for name, n in launches.items() if name not in JBOD_KERNELS),
             f"a kernel of the sixteen-goal path never launched: {launches}")
     k = min(params.num_swap_candidates, pct.num_replicas, 128)
     for name, shape in (("swap_rows", f"pass [{k}, {k}]"), ("swap_admission", f"K1={k}")):
         require(shapes[name].get(shape, 0) > 0,
                 f"the sixteen-goal path never launched {name} at {shape}: "
                 f"{shapes[name]}")
+    jbod = {}
+    for req, goals, cl in (("intra", INTRA, jctx["ct"]), ("chain", JBOD_CHAIN, jctx["ct"]),
+                           ("demote", PLE, jctx["ct_demoted"])):
+        jbod[req] = run_slice(torch, opt, cl, jctx["meta"], goals,
+                              f"jbod ({req}, {len(goals)} goals)", ORACLE[f"jbod_{req}"])
+        log(f"jbod ({req}): launches of the JBOD kernels in run 1 "
+            f"{ {n: jbod[req]['launches'][n] for n in JBOD_KERNELS} }")
+    steady = run_slice(torch, opt, jctx["ct"], jctx["meta"], PLE,
+                       "jbod (preferred leader, nothing demoted)", ORACLE["jbod_ple"],
+                       twice=False)
+    jbod_launches = {n: sum(jbod[r]["launches"][n] for r in jbod) for n in K.KERNELS}
+    require(all(jbod_launches[n] > 0 for n in JBOD_KERNELS),
+            f"a kernel of the JBOD path never launched: {jbod_launches}")
+    require(jbod["demote"]["launches"]["preferred_leader"] == 2
+            and steady["launches"]["preferred_leader"] == 2,
+            "the preferred-leader pass is one apply and one check launch")
+    for req in ("intra", "chain"):
+        require(all(jbod[req]["launches"][n] > 0 for n in ("disk_rows", "disk_apply")),
+                f"jbod ({req}): the disk branch never launched")
     if args.profile:
         phase("profile")
-        profile_run(torch, opt, ct, meta)
+        for path in (five, chain, default, *jbod.values(), steady):
+            profile_run(torch, opt, *path["run"])
     for name, e in entries.items():
         for t in e.timings:
             log(f"timing {name} at {t['at']}: {json.dumps(t)}")
 
-    kernels = [kernel_entry(name, k, entries[name], launches[name], shapes[name])
-               for name, k in K.KERNELS.items()]
+    paths = {"default": default, **{f"jbod_{r}": v for r, v in jbod.items()}}
+    kernels = []
+    for name, k in K.KERNELS.items():
+        by_path = {p: v["launches"][name] for p, v in paths.items()}
+        ran = {}
+        for v in paths.values():
+            for shape, c in v["shapes"][name].items():
+                ran[shape] = ran.get(shape, 0) + c
+        kernels.append(kernel_entry(name, k, entries[name], sum(by_path.values()),
+                                    ran, by_path))
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0

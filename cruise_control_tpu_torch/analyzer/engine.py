@@ -1,10 +1,15 @@
 """The greedy optimization engine (counterpart of
-``cruise_control_tpu/analyzer/engine.py``): the move, leadership and swap
-branches, the exhaustive finisher and the chunked early-exit dispatch.
+``cruise_control_tpu/analyzer/engine.py``): the intra-broker disk, move,
+leadership and swap branches, the exhaustive finisher and the chunked
+early-exit dispatch.
 
 One goal runs as a budgeted loop of PASSES; a pass is
 
     1. severity = goal.broker_severity(state)                    f32[B]
+       intra-broker goals: the disk branch (K1 top-K of goal.replica_key,
+         stall-salted; K8 [K, D] score and per-row best; a stable sort by
+         value; K8's ordered walk re-scores each row against the live state
+         and applies it)
     2. leadership-primary goals: the leadership branch first
          (K1 top-KL of goal.leader_key, K6 [KL, F] score, K3 admission,
          batched transfer apply on K4/K5); replica moves only when it
@@ -44,7 +49,7 @@ import torch
 
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv, capacity_stripe_key
 from cruise_control_tpu_torch.analyzer.goals.base import (
-    NEG_INF, WAVE_DIMS, WAVE_ZERO_EXEMPT_DIMS, GoalKernel, overrides,
+    NEG_INF, WAVE_DIMS, WAVE_ZERO_EXEMPT_DIMS, GoalKernel, disk_state, overrides,
     lead_member_rows, legit_lead_rows, legit_move_rows, legit_swap_rows, swap_pairs,
 )
 from cruise_control_tpu_torch.analyzer.state import (
@@ -52,8 +57,8 @@ from cruise_control_tpu_torch.analyzer.state import (
 )
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.kernels import (
-    compact_eligible, leadership_rows, move_score_classes, select_candidates,
-    swap_admission, swap_rows, wave_admission,
+    compact_eligible, disk_apply, disk_rows, leadership_rows, move_score_classes,
+    select_candidates, swap_admission, swap_rows, wave_admission,
 )
 
 
@@ -109,13 +114,6 @@ def check_supported(params: EngineParams) -> None:
     if params.mesh is not None:
         raise NotImplementedError("the sharded engine is not ported yet "
                                   "(ROADMAP.md Queue 1 item 15)")
-
-
-def check_goal_supported(goal: GoalKernel) -> None:
-    if goal.uses_disk_moves:
-        raise NotImplementedError(
-            f"{goal.name}: the intra-broker disk branch is not ported yet "
-            f"(ROADMAP.md Queue 2 K8)")
 
 
 def _custom_move_veto(g: GoalKernel) -> bool:
@@ -523,6 +521,31 @@ def _swap_window_positives(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     return int(positives.sum())
 
 
+def _disk_move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                              prev_goals: tuple, params: EngineParams,
+                              severity: torch.Tensor, stall: int):
+    """engine.py:1197: the intra-broker analogue of the move branch. K1 keys
+    the top-K candidates (destinations are the D logdirs of each
+    candidate's own broker), K8 ``disk_rows`` gives each row's best masked
+    score, the rows sort stably by it (descending) and K8 ``disk_apply``
+    walks them in that order, re-scoring each against the live state
+    (``_rescore_disk_move_row``) and applying it when both scores exceed
+    ``min_gain``. Returns (state, n_applied device scalar)."""
+    kd = min(params.num_candidates, env.num_replicas)
+    key = goal.replica_key(env, st, severity)
+    kv, cand = select_candidates(key.contiguous(), kd, stall)
+    ds = disk_state(env, st)
+    rule = goal.disk_rule()
+    vetoes = [r for r in (g.disk_rule() for g in prev_goals) if r is not None]
+    best = disk_rows(ds, cand, kv, rule, vetoes)
+    order = _desc_order(best)
+    dutil, rdisk, roff, moved, n = disk_apply(ds, cand, best, order.contiguous(), rule,
+                                              vetoes, params.min_gain)
+    st = dataclasses.replace(st, disk_util=dutil, replica_disk=rdisk,
+                             replica_offline=roff, moved=moved)
+    return st, n
+
+
 # ---------------------------------------------------------------------------
 # The exhaustive finisher
 # ---------------------------------------------------------------------------
@@ -844,10 +867,10 @@ def _finisher(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 def _loop_scalar_init():
     """The budgeted loop's scalar carries: (it, n_applied, stall, dribble,
     sat, win_stat, win_dribble, plateau, tailp, b_moves, b_leads, b_swaps,
-    b_waves)."""
+    b_disk, b_waves)."""
     return dict(it=0, n_applied=0, stall=0, dribble=0, sat=False,
                 win_stat=np.float32(np.inf), win_dribble=0, plateau=False,
-                tailp=0, b_moves=0, b_leads=0, b_swaps=0, b_waves=0)
+                tailp=0, b_moves=0, b_leads=0, b_swaps=0, b_disk=0, b_waves=0)
 
 
 def _cond(c: dict, params: EngineParams) -> bool:
@@ -861,16 +884,18 @@ def _cond(c: dict, params: EngineParams) -> bool:
 
 
 def _step(env, st, goal, prev_goals, params, c: dict):
-    """One pass (the reference's ``step``, engine.py:1953-2074, without the
-    disk branch). The gated branches reuse the pass-start severity, as the
-    reference does: a branch that applied nothing left the state
-    untouched."""
+    """One pass (the reference's ``step``, engine.py:1953-2074). The gated
+    branches reuse the pass-start severity, as the reference does: a branch
+    that applied nothing left the state untouched."""
     severity = goal.broker_severity(env, st)
     c["tailp"] += int((c["stall"] + c["dribble"]) > 0)
     explore = c["stall"] + c["dribble"]
     lead_first = goal.uses_leadership_moves and goal.leadership_primary
     zero = torch.zeros((), dtype=torch.int64, device=env.device)
-    n_leads = n_moves = n_swaps = zero
+    n_leads = n_moves = n_swaps = n_disk = zero
+    if goal.uses_disk_moves:
+        st, n_disk = _disk_move_branch_batched(env, st, goal, prev_goals, params,
+                                               severity, explore)
     n_waves = 0
     leads_now = 0
     if lead_first:
@@ -888,13 +913,15 @@ def _step(env, st, goal, prev_goals, params, c: dict):
         st, n_swaps = _swap_branch_batched(env, st, goal, prev_goals, params,
                                            severity, explore)
     # the pass's closing device->host read
-    moves, leads, swaps, viol, stat_now = torch.stack([
-        n_moves.to(torch.float32), n_leads.to(torch.float32),
-        n_swaps.to(torch.float32), goal.violated(env, st).to(torch.float32),
+    disk, moves, leads, swaps, viol, stat_now = torch.stack([
+        n_disk.to(torch.float32), n_moves.to(torch.float32),
+        n_leads.to(torch.float32), n_swaps.to(torch.float32),
+        goal.violated(env, st).to(torch.float32),
         goal.stat(env, st).to(torch.float32)]).tolist()
-    moves, leads, swaps = int(moves), int(leads), int(swaps)
-    applied = moves + leads + swaps
+    disk, moves, leads, swaps = int(disk), int(moves), int(leads), int(swaps)
+    applied = disk + moves + leads + swaps
     stat_now = np.float32(stat_now)
+    c["b_disk"] += disk
     c["b_moves"] += moves
     c["b_leads"] += leads
     c["b_swaps"] += swaps
@@ -938,7 +965,7 @@ def _info(goal, params, c: dict, stat_before: float, violated: bool, fin: dict,
             "move_actions": c["b_moves"],
             "lead_actions": c["b_leads"],
             "swap_actions": c["b_swaps"],
-            "disk_actions": 0,
+            "disk_actions": c["b_disk"],
             "move_waves": c["b_waves"],
             "finisher_actions": fin["finisher_actions"],
             "finisher_segments": fin["finisher_segments"],
@@ -978,7 +1005,6 @@ def _goal_loop(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     ``passes_skipped``, ``quiesce_chunk``, ``chunks`` and
     ``finisher_skipped``."""
     check_supported(params)
-    check_goal_supported(goal)
     stat_before = float(goal.stat(env, st))
     c = _loop_scalar_init()
     quiesce_chunk, chunks, applied_prev = -1, 0, 0

@@ -1,8 +1,11 @@
 """Goal registry of the port. Names match the reference's class names.
 
 The port carries the sixteen goals of the default chain (``DEFAULT_GOALS``
-of the reference's config/defaults.py); every other goal of the reference
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+of the reference's config/defaults.py), the two intra-broker disk goals
+(``intra.broker.goals``) and ``PreferredLeaderElectionGoal`` (a one-shot pass
+the optimizer runs after the chain, never a chain goal); every other goal of
+the reference raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -16,6 +19,12 @@ from cruise_control_tpu_torch.analyzer.goals.distribution import (
     CpuUsageDistributionGoal, DiskUsageDistributionGoal, LeaderReplicaDistributionGoal,
     NetworkInboundUsageDistributionGoal, NetworkOutboundUsageDistributionGoal,
     ReplicaDistributionGoal, ResourceDistributionGoal,
+)
+from cruise_control_tpu_torch.analyzer.goals.intra_broker import (
+    IntraBrokerDiskCapacityGoal, IntraBrokerDiskUsageDistributionGoal,
+)
+from cruise_control_tpu_torch.analyzer.goals.leader_election import (
+    PreferredLeaderElectionGoal,
 )
 from cruise_control_tpu_torch.analyzer.goals.network import (
     LeaderBytesInDistributionGoal, PotentialNwOutGoal,
@@ -42,13 +51,15 @@ GOAL_CLASSES: dict[str, type] = {
     "TopicReplicaDistributionGoal": TopicReplicaDistributionGoal,
     "LeaderReplicaDistributionGoal": LeaderReplicaDistributionGoal,
     "LeaderBytesInDistributionGoal": LeaderBytesInDistributionGoal,
+    "IntraBrokerDiskCapacityGoal": IntraBrokerDiskCapacityGoal,
+    "IntraBrokerDiskUsageDistributionGoal": IntraBrokerDiskUsageDistributionGoal,
+    "PreferredLeaderElectionGoal": PreferredLeaderElectionGoal,
 }
 
 # the reference's other goals (cruise_control_tpu/analyzer/goals/__init__.py)
 NOT_PORTED_GOALS = (
-    "RackAwareDistributionGoal", "PreferredLeaderElectionGoal",
-    "IntraBrokerDiskCapacityGoal", "IntraBrokerDiskUsageDistributionGoal",
-    "KafkaAssignerEvenRackAwareGoal", "KafkaAssignerDiskUsageDistributionGoal",
+    "RackAwareDistributionGoal", "KafkaAssignerEvenRackAwareGoal",
+    "KafkaAssignerDiskUsageDistributionGoal",
 )
 
 
@@ -73,11 +84,12 @@ def make_goals(names, constraint=None, options=None) -> list[GoalKernel]:
 __all__ = [
     "GOAL_CLASSES", "GoalKernel", "make_goal", "make_goals", "CapacityGoal",
     "CpuCapacityGoal", "CpuUsageDistributionGoal", "DiskCapacityGoal",
-    "DiskUsageDistributionGoal", "LeaderBytesInDistributionGoal",
+    "DiskUsageDistributionGoal", "IntraBrokerDiskCapacityGoal",
+    "IntraBrokerDiskUsageDistributionGoal", "LeaderBytesInDistributionGoal",
     "LeaderReplicaDistributionGoal", "MinTopicLeadersPerBrokerGoal",
     "NetworkInboundCapacityGoal", "NetworkInboundUsageDistributionGoal",
     "NetworkOutboundCapacityGoal", "NetworkOutboundUsageDistributionGoal",
-    "PotentialNwOutGoal", "RackAwareGoal", "ReplicaCapacityGoal",
-    "ReplicaDistributionGoal", "ResourceDistributionGoal",
+    "PotentialNwOutGoal", "PreferredLeaderElectionGoal", "RackAwareGoal",
+    "ReplicaCapacityGoal", "ReplicaDistributionGoal", "ResourceDistributionGoal",
     "TopicReplicaDistributionGoal",
 ]

@@ -23,12 +23,17 @@ EngineState):
   the swap counterparts (the two K1 keys; ``swap_score`` in the K7
   kernel's family form; ``accept_swap`` as a previously optimized goal, see
   ``kernels.swap``);
+- ``disk_rule`` / ``disk_move_score`` / ``accept_disk_move``: the
+  intra-broker disk counterparts (``disk_rule`` is the goal's
+  ``disk_move_score`` and ``accept_disk_move`` in the K8 kernels' family
+  form, see ``kernels.disk``; None for a goal indifferent to logdirs);
 - ``violated`` / ``stat``.
 
 The reference's [K, B] ``legit_move_mask``, [K, F]
-``legit_leadership_mask`` and [K1, K2] ``legit_swap_mask`` are evaluated
-inside the K2 / K6 / K7 kernels; ``legit_move_rows`` / ``legit_lead_rows``
-/ ``swap_pairs`` prepare their inputs. ``move_score`` /
+``legit_leadership_mask``, [K1, K2] ``legit_swap_mask`` and [K, D]
+``legit_disk_move_mask`` are evaluated inside the K2 / K6 / K7 / K8
+kernels; ``legit_move_rows`` / ``legit_lead_rows`` / ``swap_pairs`` /
+``disk_state`` prepare their inputs. ``move_score`` /
 ``leadership_score`` / ``accept_leadership`` / ``swap_score`` /
 ``accept_swap`` give the plain values of the same tables (the kernels'
 twins), for tests and for the reader.
@@ -43,6 +48,8 @@ from cruise_control_tpu_torch.analyzer.env import (
     BalancingConstraint, ClusterEnv, OptimizationOptions,
 )
 from cruise_control_tpu_torch.analyzer.state import EngineState
+from cruise_control_tpu_torch.common.resources import Resource
+from cruise_control_tpu_torch.kernels import disk as disk_k
 from cruise_control_tpu_torch.kernels import leadership as lead_k
 from cruise_control_tpu_torch.kernels import move_score as move_k
 from cruise_control_tpu_torch.kernels import swap as swap_k
@@ -252,6 +259,30 @@ class GoalKernel:
         return (swap_k.vetoes_plain(pairs) & pairs.row_ok_out[:, None]
                 & pairs.row_ok_in[None, :])
 
+    # --- intra-broker disk moves ----------------------------------------
+    def disk_rule(self):
+        """``kernels.disk.DiskRule`` of this goal's ``disk_move_score`` and
+        ``accept_disk_move``; None: no disk score, every disk move accepted
+        (broker-level goals are indifferent to logdir placement)."""
+        return None
+
+    def disk_move_score(self, env: ClusterEnv, st: EngineState, cand):
+        """f32[K, D] (no legitimacy): improvement from moving candidate k to
+        logdir d of its own broker; -inf where not self-satisfied."""
+        rule = self.disk_rule()
+        if rule is None:
+            return torch.full((cand.shape[0], env.broker_disk_capacity.shape[1]),
+                              NEG_INF, dtype=torch.float32, device=env.device)
+        return disk_k.score_plain(rule, disk_state(env, st), cand)
+
+    def accept_disk_move(self, env: ClusterEnv, st: EngineState, cand):
+        """bool[K, D] veto of an intra-broker move as a previous goal."""
+        rule = self.disk_rule()
+        if rule is None:
+            return torch.ones((cand.shape[0], env.broker_disk_capacity.shape[1]),
+                              dtype=torch.bool, device=env.device)
+        return disk_k.accept_plain(rule, disk_state(env, st), cand)
+
     def violated(self, env: ClusterEnv, st: EngineState) -> torch.Tensor:
         return (self.broker_severity(env, st) > 0).any()
 
@@ -395,3 +426,23 @@ def legit_leadership_mask(env: ClusterEnv, st: EngineState, cand: torch.Tensor):
     row_ok, broker_ok = legit_lead_rows(env, st, cand)
     return lead_k.legit_plain(cand, members, row_ok, broker_ok,
                               st.replica_broker, st.replica_offline)
+
+
+def disk_state(env: ClusterEnv, st: EngineState) -> disk_k.DiskState:
+    """The K8 kernels' view of the intra-broker state."""
+    return disk_k.DiskState(
+        rb=st.replica_broker, rlead=st.replica_is_leader,
+        lead_disk=env.leader_load[:, Resource.DISK].contiguous(),
+        foll_disk=env.follower_load[:, Resource.DISK].contiguous(),
+        rvalid=env.replica_valid, rtexcl=env.replica_topic_excluded,
+        balive=env.broker_alive, dalive=env.broker_disk_alive,
+        dcap=env.broker_disk_capacity, rdisk=st.replica_disk,
+        roff=st.replica_offline, moved=st.moved, dutil=st.disk_util)
+
+
+def legit_disk_move_mask(env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+    """bool[K, D] legit intra-broker destinations (base.py:456; the plain form
+    of what the K8 kernels evaluate): destination logdir alive with capacity
+    and not the current one, replica valid on an alive broker, topic not
+    excluded unless the replica sits on a dead disk."""
+    return disk_k.legit_plain(disk_state(env, st), cand)

@@ -16,11 +16,15 @@ The port serves the reference's three shapes of the chain:
   deep-tail goal, no finisher), then each deep-tail goal through the
   chunked dispatch and the finisher.
 
-After the chain, certificate-driven escalation re-enters the finisher of a
-goal that exited violated and unproven with few actions left (its moves,
-transfers and swap window counted). Sessions, the preferred-leader pass,
-bf16 and the intra-broker disk goals raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+A request naming ``PreferredLeaderElectionGoal`` runs the chain of the
+other goals (possibly none, as ``/demote_broker`` asks), then the
+preferred-leader pass (K12, ``goals/leader_election.py``) in every shape,
+and reports it last. After that, certificate-driven escalation re-enters the
+finisher of a goal that exited violated and unproven with few actions left
+(its moves, transfers and swap window counted). The intra-broker disk goals
+run as chain goals with the disk branch (K8). Sessions, bf16 and the config
+surface raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -32,14 +36,16 @@ import numpy as np
 import torch
 
 from cruise_control_tpu_torch.analyzer.engine import (
-    EngineParams, _goal_loop, check_goal_supported, check_supported,
-    optimize_goal, optimize_goal_chunked,
+    EngineParams, _goal_loop, check_supported, optimize_goal, optimize_goal_chunked,
 )
 from cruise_control_tpu_torch.analyzer.env import (
     BalancingConstraint, ClusterEnv, OptimizationOptions, make_env,
     padded_partition_table, resolve_device,
 )
 from cruise_control_tpu_torch.analyzer.goals import make_goals
+from cruise_control_tpu_torch.analyzer.goals.leader_election import (
+    PreferredLeaderElectionGoal,
+)
 from cruise_control_tpu_torch.analyzer.proposals import diff_proposals
 from cruise_control_tpu_torch.analyzer.state import EngineState, init_state
 from cruise_control_tpu_torch.common.resources import Resource
@@ -378,12 +384,9 @@ class GoalOptimizer:
                 raise ValueError(
                     f"hard goals {missing} missing from requested goals; "
                     f"pass skip_hard_goal_check=True to override")
-        if "PreferredLeaderElectionGoal" in names:
-            raise NotImplementedError("PreferredLeaderElectionGoal is not ported "
-                                      "yet (ROADMAP.md Queue 1 item 7)")
-        goals = make_goals(names, self._constraint, options)
-        for g in goals:
-            check_goal_supported(g)
+        known = [n for n in names if n != "PreferredLeaderElectionGoal"]
+        goals = make_goals(known, self._constraint, options)
+        run_preferred = "PreferredLeaderElectionGoal" in names
 
         ct, meta = pad_cluster(ct, meta)
         num_replicas, num_brokers = ct.num_replicas, ct.num_brokers
@@ -453,6 +456,19 @@ class GoalOptimizer:
                 quiesce_chunk=info.get("quiesce_chunk", -1),
                 finisher_skipped=info.get("finisher_skipped", False))
             for g, info, dur in zip(goals, infos, durations)]
+        if run_preferred:
+            # optimizer.py:1183 (unfused) / :2700 (fused, inside the final
+            # program): after the chain, before the final stats and fetch
+            ple = PreferredLeaderElectionGoal(constraint=self._constraint,
+                                              options=options)
+            t0 = time.monotonic()
+            was, st, still = ple.run(env, st)
+            was, still = (bool(v) for v in torch.stack([was, still]).tolist())
+            goal_results.append(GoalResult(
+                name=ple.name, violated_before=was, violated_after=still,
+                iterations=1 if was else 0,
+                duration_s=0.0 if use_fused else time.monotonic() - t0,
+                stat_after=0.0))
         st_esc = self._escalate_unproven(env, st, goals, goal_results, params)
         if st_esc is not None:
             st = st_esc

@@ -96,6 +96,15 @@ def refresh_sum_inputs(env: ClusterEnv, st: EngineState):
     return vals.contiguous(), st.replica_broker
 
 
+def refresh_disk_inputs(env: ClusterEnv, st: EngineState):
+    """(values f32[R, 1], seg i64[R], nseg) of refresh's per-logdir disk
+    sums: segment ``broker * D + logdir``."""
+    B, D = env.broker_disk_capacity.shape
+    load = st.effective_load(env)
+    return (load[:, Resource.DISK:Resource.DISK + 1].contiguous(),
+            st.replica_broker * D + st.replica_disk, B * D)
+
+
 def refresh(env: ClusterEnv, st: EngineState) -> EngineState:
     """Recompute all derived state from the assignment (ground truth)."""
     B, P, T = env.num_brokers, env.num_partitions, env.num_topics
@@ -104,14 +113,12 @@ def refresh(env: ClusterEnv, st: EngineState) -> EngineState:
     rb = st.replica_broker
     valid = env.replica_valid
     lead = st.replica_is_leader & valid
-    load = st.effective_load(env)
     sums = segment_sum(*refresh_sum_inputs(env, st), B)
     vw = valid.to(torch.int32)
     lw = lead.to(torch.int32)
     flat = env.replica_partition * Kr + env.broker_rack[rb]
     tflat = env.replica_topic * B + rb
-    du = segment_sum(load[:, Resource.DISK:Resource.DISK + 1].contiguous(),
-                     rb * D + st.replica_disk, B * D)
+    du = segment_sum(*refresh_disk_inputs(env, st))
     util = sums[:, 0:4].contiguous()
     return dataclasses.replace(
         st, util=util, leader_util=sums[:, 4:8].contiguous(),
@@ -181,6 +188,27 @@ def apply_move_count_inputs(env: ClusterEnv, st: EngineState, replicas: torch.Te
             (t_seg, T * B, wl, st.topic_leader_count.reshape(-1)))
 
 
+def apply_disk_sum_inputs(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
+                          dsts: torch.Tensor, mask: torch.Tensor, dl: torch.Tensor):
+    """(values f32[2W, 1], seg i64[2W], nseg, init f32[B * D, 1], dst_disk
+    i64[W]) of one wave's per-logdir disk update: ``-dl`` at every source
+    logdir, then ``+dl`` at the destination's most-free alive logdir, read
+    at the pre-wave state (dead logdirs read -inf, first maximum wins).
+    Masked rows get segment -1."""
+    B, D = env.broker_disk_capacity.shape
+    src = st.replica_broker[replicas]
+    free = torch.where(env.broker_disk_alive[dsts],
+                       env.broker_disk_capacity[dsts] - st.disk_util[dsts],
+                       torch.full((dsts.shape[0], D), -torch.inf,
+                                  device=dsts.device))
+    dst_disk = torch.argmax(free, dim=1)
+    none = torch.full_like(src, -1)
+    seg = torch.cat([torch.where(mask, src * D + st.replica_disk[replicas], none),
+                     torch.where(mask, dsts * D + dst_disk, none)])
+    return (torch.cat([-dl, dl])[:, None].contiguous(), seg, B * D,
+            st.disk_util.reshape(B * D, 1).contiguous(), dst_disk)
+
+
 def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
                         dsts: torch.Tensor, mask: torch.Tensor) -> EngineState:
     """Apply a WAVE of moves: ``replicas[W]`` relocate to ``dsts[W]`` where
@@ -191,7 +219,6 @@ def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor
     B, P, T = env.num_brokers, env.num_partitions, env.num_topics
     Kr = env.num_racks
     D = env.broker_disk_capacity.shape[1]
-    src = st.replica_broker[replicas]
     vals, seg, init = apply_sum_inputs(env, st, replicas, dsts, mask)
     out = segment_sum(vals, seg, B, init)
     util, leader_util = out[:, 0:4], out[:, 4:8]
@@ -202,18 +229,9 @@ def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor
     rc, lc, prc, tbc, tlc = (segment_count(*a) for a in
                              apply_move_count_inputs(env, st, replicas, dsts, mask))
 
-    # destination logdir: most-free alive disk on dst at pre-wave state
-    free = torch.where(env.broker_disk_alive[dsts],
-                       env.broker_disk_capacity[dsts] - st.disk_util[dsts],
-                       torch.full((dsts.shape[0], D), -torch.inf,
-                                  device=dsts.device))
-    dst_disk = torch.argmax(free, dim=1)
-    dl = vals[replicas.shape[0]:, Resource.DISK]
-    none = torch.full_like(src, -1)
-    d_seg = torch.cat([torch.where(mask, src * D + st.replica_disk[replicas], none),
-                       torch.where(mask, dsts * D + dst_disk, none)])
-    du = segment_sum(torch.cat([-dl, dl])[:, None].contiguous(), d_seg, B * D,
-                     st.disk_util.reshape(B * D, 1).contiguous())
+    *disk_args, dst_disk = apply_disk_sum_inputs(
+        env, st, replicas, dsts, mask, vals[replicas.shape[0]:, Resource.DISK])
+    du = segment_sum(*disk_args)
 
     en = torch.nonzero(mask).flatten()
     r_en = replicas[en]

@@ -55,9 +55,14 @@ def segment_sum_plain(values, seg, nseg, init=None):
     counts = torch.bincount(s, minlength=nseg)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(rows.numel(), device=values.device) - starts[s]
-    for j in range(int(counts.max())):
-        sel = rank == j
-        acc[s[sel]] = acc[s[sel]] + values[rows[sel]]
+    # the rows grouped by rank: step j is one contiguous slice
+    by_rank = torch.argsort(rank, stable=True)
+    rows, s = rows[by_rank], s[by_rank]
+    lo = 0
+    for hi in torch.cumsum(torch.bincount(rank), 0).tolist():
+        sj = s[lo:hi]
+        acc[sj] = acc[sj] + values[rows[lo:hi]]
+        lo = hi
     return acc
 
 

@@ -66,6 +66,24 @@ class ClusterTensor:
     def num_disks(self) -> int:
         return self.broker_disk_capacity.shape[1]
 
+    def set_broker_alive(self, broker: int, alive: bool) -> "ClusterTensor":
+        """Mark broker death or revival (cluster_tensor.py:220): the hosted
+        replicas' offline flags and the broker's disk aliveness follow. On
+        death the broker's disk row reads dead; on revival a row that is all
+        dead comes back alive and a row with some alive disks stays as it
+        is (a disk that failed on its own stays dead)."""
+        alive_arr = self.broker_alive.copy()
+        alive_arr[broker] = alive
+        disk_alive = self.broker_disk_alive.copy()
+        row = disk_alive[broker]
+        disk_alive[broker] = (row | ~row.any()) if alive else np.zeros_like(row)
+        on_broker = (self.replica_broker == broker) & self.replica_valid
+        disk_ok = disk_alive[self.replica_broker, self.replica_disk]
+        offline = np.where(on_broker, ~(bool(alive) & disk_ok), self.replica_offline)
+        return dataclasses.replace(self, broker_alive=alive_arr,
+                                   replica_offline=offline,
+                                   broker_disk_alive=disk_alive)
+
 
 @dataclasses.dataclass
 class ClusterMeta:
@@ -78,6 +96,9 @@ class ClusterMeta:
     num_racks: int
     num_valid_replicas: int
     extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def broker_index(self, broker_id: int) -> int:
+        return self.broker_ids.index(broker_id)
 
 
 # Compact index dtypes. The reference stores these narrow in device memory

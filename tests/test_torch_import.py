@@ -93,4 +93,37 @@ def test_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
     assert set(K.launches()) == {"select_candidates", "compact_eligible",
                                  "move_score_classes", "wave_admission",
                                  "leadership_rows", "segment_sum", "segment_count",
-                                 "swap_rows", "swap_admission"}
+                                 "swap_rows", "swap_admission", "disk_rows",
+                                 "disk_apply", "preferred_leader"}
+
+
+def test_new_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
+    """The K8 and K12 wrappers dispatch on the tensors' device too."""
+    from cruise_control_tpu_torch.kernels.disk import DISK_CAPACITY, DiskRule, DiskState
+    K.reset_launches()
+    ds = DiskState(
+        rb=torch.tensor([0, 0, 1]), rlead=torch.tensor([True, True, True]),
+        lead_disk=torch.tensor([300.0, 500.0, 10.0]),
+        foll_disk=torch.tensor([300.0, 500.0, 10.0]),
+        rvalid=torch.ones(3, dtype=torch.bool), rtexcl=torch.zeros(3, dtype=torch.bool),
+        balive=torch.tensor([True, True]),
+        dalive=torch.tensor([[True, True], [True, False]]),
+        dcap=torch.full((2, 2), 1000.0), rdisk=torch.tensor([0, 0, 1]),
+        roff=torch.tensor([False, False, True]), moved=torch.zeros(3, dtype=torch.bool),
+        dutil=torch.tensor([[1000.0, 0.0], [0.0, 10.0]]))
+    rule = DiskRule(DISK_CAPACITY, 0.8)
+    cand = torch.tensor([0, 1, 2])
+    best = K.disk_rows(ds, cand, torch.zeros(3), rule, [])
+    # the overfull logdir's rows score their load, the dead disk's row heals
+    assert best[1] > best[0] > best[2] > 1.0
+    du, rd, off, moved, n = K.disk_apply(ds, cand, best, torch.tensor([1, 0, 2]), rule,
+                                         [], 1e-9)
+    assert int(n) == 2 and rd.tolist() == [0, 1, 0] and off.tolist() == [False] * 3
+    assert du.tolist() == [[500.0, 500.0], [10.0, 0.0]] and moved.tolist() == [False, True, True]
+    lead, mv, nv = K.preferred_leader(
+        torch.tensor([[1, 0]]), torch.tensor([0, 1]), torch.tensor([True, False]),
+        torch.tensor([False, False]), torch.tensor([True, True]),
+        torch.tensor([False, False]), torch.tensor([False, False]),
+        torch.tensor([False, False]), apply=True)
+    assert int(nv) == 1 and lead.tolist() == [False, True] and mv.tolist() == [True, True]
+    assert all(n == 0 for n in K.launches().values())

@@ -432,3 +432,153 @@ def test_topic_replica_accept_move_folds(default_ctx):
     port = pg.move_row_veto(penv, pst, ct_)[:, None] & dst
     assert np.array_equal(ref, port.numpy())
     assert ref.any() and not ref.all()
+
+
+# --- K8: the intra-broker disk branch ---------------------------------------
+JBOD = dict(num_brokers=32, num_racks=4, num_topics=8, num_partitions=1000,
+            max_replication=3, skew=1.0, seed=3143, logdirs_per_broker=4,
+            target_cpu_util=0.45, num_dead_brokers=1, num_brokers_with_dead_disk=2)
+INTRA = ["IntraBrokerDiskCapacityGoal", "IntraBrokerDiskUsageDistributionGoal"]
+
+
+@pytest.fixture(scope="module", params=[0, 1], ids=["state", "crowded"])
+def disk_ctx(request):
+    """The 32-broker JBOD state (dead broker, dead disks) and, for
+    ``crowded``, the same with every logdir's utilization scaled by a random
+    factor in [0.5, 6) so that many logdirs sit over their limit; candidates
+    are 96 replicas of three brokers (several rows per broker, so the walk's
+    order matters), the dead-disk replicas among them."""
+    import dataclasses
+    ct, meta = ref_ct_mod.pad_cluster(*ref_rc.generate_scale(ref_rc.RandomClusterSpec(**JBOD)))
+    renv = ref_env_mod.make_env(ct, meta)
+    rst = ref_state_mod.init_state(renv, ct.replica_broker, ct.replica_is_leader,
+                                   ct.replica_offline, ct.replica_disk)
+    rng = np.random.default_rng(request.param)
+    if request.param:
+        du = np.asarray(rst.disk_util) * rng.uniform(0.5, 6.0, rst.disk_util.shape)
+        rst = dataclasses.replace(rst, disk_util=jnp.asarray(du.astype(np.float32)))
+    b = np.asarray(ct.replica_broker)
+    valid = np.asarray(ct.replica_valid)
+    dead_disk_brokers = np.flatnonzero(np.asarray(ct.broker_alive)
+                                       & ~np.asarray(ct.broker_disk_alive).all(axis=1))
+    brokers = np.concatenate([dead_disk_brokers, [5]])[:3]
+    pool = np.flatnonzero(valid & np.isin(b, brokers))
+    cand = rng.choice(pool, 96, replace=False).astype(np.int32)
+    penv = convert.env_from_arrays(convert.leaves(renv), "cpu")
+    pst = convert.state_from_arrays(convert.leaves(rst), "cpu")
+    return dict(renv=renv, rst=rst, penv=penv, pst=pst, cand=cand, rng=rng)
+
+
+def _disk_args(name, prev):
+    from cruise_control_tpu.analyzer.goals import make_goal as ref_make_goal
+    from cruise_control_tpu_torch.analyzer.goals import make_goal
+    rg, pg = ref_make_goal(name), make_goal(name)
+    rprev = tuple(ref_make_goal(n) for n in prev)
+    vetoes = [r for r in (make_goal(n).disk_rule() for n in prev) if r is not None]
+    return rg, rprev, pg.disk_rule(), vetoes
+
+
+DISK_CASES = [("IntraBrokerDiskCapacityGoal", ()),
+              ("IntraBrokerDiskUsageDistributionGoal", ("IntraBrokerDiskCapacityGoal",)),
+              ("IntraBrokerDiskCapacityGoal", ("IntraBrokerDiskUsageDistributionGoal",))]
+
+
+@pytest.mark.parametrize("name,prev", DISK_CASES)
+def test_disk_rows_twin(disk_ctx, name, prev):
+    """``disk_rows`` against the reference's ``_disk_rows`` composition
+    (legit_disk_move_mask & accept_disk_move & kv > -inf & disk_move_score,
+    max over the logdirs), with some rows' kv at -inf."""
+    from cruise_control_tpu.analyzer.goals.base import legit_disk_move_mask as ref_legit
+    from cruise_control_tpu_torch.analyzer.goals.base import disk_state
+    from cruise_control_tpu_torch.kernels import disk_rows
+    renv, rst, c = disk_ctx["renv"], disk_ctx["rst"], jnp.asarray(disk_ctx["cand"])
+    rg, rprev, rule, vetoes = _disk_args(name, prev)
+    kv = np.where(disk_ctx["rng"].random(c.shape[0]) < 0.2, -np.inf, 1.0).astype(np.float32)
+    m = ref_legit(renv, rst, c)
+    for g in rprev:
+        m = m & g.accept_disk_move(renv, rst, c)
+    sc = rg.disk_move_score(renv, rst, c)
+    want = jnp.max(jnp.where(m & (jnp.asarray(kv) > -jnp.inf)[:, None], sc, -jnp.inf),
+                   axis=1)
+    got = disk_rows(disk_state(disk_ctx["penv"], disk_ctx["pst"]),
+                    torch.as_tensor(disk_ctx["cand"]).long(), torch.as_tensor(kv),
+                    rule, vetoes)
+    assert np.array_equal(bits(want), bits(got))
+    assert (np.asarray(want) > 0).sum() > 4
+
+
+@pytest.mark.parametrize("name,prev", DISK_CASES)
+def test_disk_apply_twin(disk_ctx, name, prev):
+    """``disk_apply`` against the reference's walk: ``_rescore_disk_move_row``,
+    ``argmax``, ``ok`` and ``apply_disk_move`` in ``argsort(-best)`` order,
+    with planted ties and non-positive rows among the row maxima."""
+    from cruise_control_tpu_torch.analyzer.goals.base import disk_state
+    from cruise_control_tpu_torch.kernels import disk_apply
+    renv, rst, cand = disk_ctx["renv"], disk_ctx["rst"], disk_ctx["cand"]
+    rg, rprev, rule, vetoes = _disk_args(name, prev)
+    n = cand.shape[0]
+    best = disk_ctx["rng"].choice(np.asarray([2.0, 1.0, 1.0, 0.5, 0.0, 1e-10, -np.inf],
+                                             np.float32), n)
+    order = np.argsort(-best, kind="stable")
+    mg = np.float32(1e-9)
+    st, applied = rst, 0
+    for k in order[:int((best > mg).sum())]:
+        row = ref_engine._rescore_disk_move_row(renv, st, rg, rprev, jnp.int32(cand[k]))
+        d = int(jnp.argmax(row))
+        ok = bool(best[k] > mg) and bool(row[d] > mg)
+        st = ref_state_mod.apply_disk_move(renv, st, jnp.int32(cand[k]), jnp.int32(d),
+                                           enabled=ok)
+        applied += ok
+    du, rd, off, moved, n_app = disk_apply(
+        disk_state(disk_ctx["penv"], disk_ctx["pst"]), torch.as_tensor(cand).long(),
+        torch.as_tensor(best), torch.as_tensor(order), rule, vetoes, 1e-9)
+    assert int(n_app) == applied > 0
+    assert np.array_equal(bits(st.disk_util), bits(du))
+    for want, got in ((st.replica_disk, rd), (st.replica_offline, off), (st.moved, moved)):
+        assert np.array_equal(np.asarray(want).astype(np.int64), got.numpy().astype(np.int64))
+
+
+# --- K12: the preferred-leader election pass ---------------------------------
+@pytest.mark.parametrize("demoted", [(), (3, 7, 11), tuple(range(32))],
+                         ids=["steady", "demote", "all-demoted"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_preferred_leader_twin(demoted, seed):
+    """``preferred_leader`` (count, flips) against the reference goal's
+    ``_preferred_leader`` / ``_current_leader`` / ``violated`` / ``apply`` on
+    the JBOD state with random leader flags (leaderless and two-leader
+    partitions) and random leadership exclusions."""
+    import dataclasses
+    from cruise_control_tpu.analyzer.goals.leader_election import (
+        PreferredLeaderElectionGoal as RefPLE,
+    )
+    from cruise_control_tpu_torch.kernels import ple
+    ct, meta = ref_ct_mod.pad_cluster(*ref_rc.generate_scale(ref_rc.RandomClusterSpec(**JBOD)))
+    rng = np.random.default_rng(seed)
+    dem = np.zeros(ct.num_brokers, bool)
+    dem[list(demoted)] = True
+    ct = dataclasses.replace(
+        ct, broker_demoted=jnp.asarray(dem),
+        broker_excluded_for_leadership=jnp.asarray(
+            np.asarray(ct.broker_excluded_for_leadership) | (rng.random(ct.num_brokers) < 0.1)))
+    renv = ref_env_mod.make_env(ct, meta)
+    lead = np.asarray(ct.replica_is_leader) ^ (rng.random(ct.num_replicas) < 0.1 * (seed + 1))
+    rst = ref_state_mod.init_state(renv, ct.replica_broker, jnp.asarray(lead),
+                                   ct.replica_offline, ct.replica_disk)
+    penv = convert.env_from_arrays(convert.leaves(renv), "cpu")
+    pst = convert.state_from_arrays(convert.leaves(rst), "cpu")
+    g = RefPLE()
+    args = (penv.partition_replicas, pst.replica_broker, pst.replica_is_leader,
+            pst.replica_offline, penv.broker_alive, penv.broker_excluded_for_leadership,
+            penv.broker_demoted)
+    pref, cur = ple.preferred_leader_plain(*args)
+    assert np.array_equal(np.asarray(g._preferred_leader(renv, rst)), pref.numpy())
+    assert np.array_equal(np.asarray(g._current_leader(renv, rst)), cur.numpy())
+    lead2, moved2, n = ple.preferred_leader(*args, pst.leadership_moved, apply=True)
+    assert bool(g.violated(renv, rst)) == (int(n) > 0)
+    want = g.apply(renv, rst)
+    assert np.array_equal(np.asarray(want.replica_is_leader), lead2.numpy())
+    assert np.array_equal(np.asarray(want.leadership_moved), moved2.numpy())
+    assert int(n) > 0
+    _l, _m, n_after = ple.preferred_leader(*args[:2], lead2, *args[3:], moved2,
+                                           apply=False)
+    assert bool(g.violated(renv, want)) == (int(n_after) > 0)

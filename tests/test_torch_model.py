@@ -199,3 +199,51 @@ def test_f32_sum_follows_numpys_reduction_order(n):
     a = np.random.default_rng(n).exponential(0.5, n).astype(np.float32)
     assert port_rc.f32_sum(a) == np.sum(a)
     assert port_rc.f32_sum(a).dtype == np.float32
+
+
+FIXTURES = ["small_cluster", "unbalanced_two_brokers", "leaders_skewed", "rack_violated",
+            "dead_broker_cluster", "capacity_violated", "unbalanced", "unbalanced2",
+            "unbalanced_with_a_follower", "preferred_leader_skewed",
+            "rack_aware_satisfiable", "rack_aware_unsatisfiable", "jbod_cluster",
+            "small_cluster_java", "medium_cluster_java", "min_leader_satisfiable",
+            "min_leader_satisfiable2", "min_leader_satisfiable3",
+            "min_leader_satisfiable4", "min_leader_unsatisfiable"]
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_fixtures_match_reference(name):
+    """The port's model/fixtures.py builds the reference's arrays and meta."""
+    from cruise_control_tpu.model import fixtures as ref_fx
+    from cruise_control_tpu_torch.model import fixtures as port_fx
+    ref_ct, ref_meta = getattr(ref_fx, name)()
+    ct, meta = getattr(port_fx, name)()
+    _assert_same_arrays(ref_ct, ct)
+    _assert_same_meta(ref_meta, meta)
+
+
+def test_synthetic_cluster_matches_reference():
+    from cruise_control_tpu.model import fixtures as ref_fx
+    from cruise_control_tpu_torch.model import fixtures as port_fx
+    kw = dict(num_brokers=12, num_replicas=300, num_partitions=110, num_topics=12,
+              num_racks=3, logdirs_per_broker=2, max_replication=3)
+    ref_ct, ref_meta = ref_fx.synthetic_cluster(**kw)
+    ct, meta = port_fx.synthetic_cluster(**kw)
+    _assert_same_arrays(ref_ct, ct)
+    _assert_same_meta(ref_meta, meta)
+
+
+@pytest.mark.parametrize("alive", [False, True])
+def test_set_broker_alive_matches_reference(alive):
+    """Broker death (and revival after it) gives the reference's offline
+    flags and disk aliveness, on a JBOD cluster with a dead disk."""
+    ref_ct, ref_meta = ref_rc.generate(ref_rc.RandomClusterSpec(**SPECS["dead-jbod-20b"]))
+    ct, meta = port_rc.generate(port_rc.RandomClusterSpec(**SPECS["dead-jbod-20b"]))
+    for b in (3, int(np.flatnonzero(~np.asarray(ct.broker_disk_alive).all(axis=1))[0])):
+        ref_ct = ref_ct.set_broker_alive(b, False)
+        ct = ct.set_broker_alive(b, False)
+        if alive:
+            ref_ct = ref_ct.set_broker_alive(b, True)
+            ct = ct.set_broker_alive(b, True)
+        _assert_same_arrays(ref_ct, ct)
+    assert meta.broker_index(meta.broker_ids[5]) == ref_meta.broker_index(
+        ref_meta.broker_ids[5]) == 5

@@ -30,6 +30,16 @@ reference again from a fresh interpreter):
   per goal (the four usage goals' swap windows read 0);
 - the full 1,000-broker slice (``slow``: fused prefix of nine goals, seven
   chunked goals with the finisher).
+
+The JBOD self-healing path (four logdirs per broker, dead brokers and dead
+disks; the reference again from a fresh interpreter):
+- the intra-broker chain (``rebalance_disk``) and the ten-goal chain of
+  ``bench.py``'s rung 5 (eight inter-broker goals, then both intra-broker
+  goals) at 32 brokers (unfused) and 64 brokers (padded R 10,240: chunked,
+  the intra-broker goals with their finisher gated out): counts, disk
+  actions, proposals and the final assignment with ``replica_disk``;
+- at 1,000 brokers (``slow``): both chains and the ``/demote_broker``
+  request (PreferredLeaderElectionGoal alone, five brokers demoted).
 """
 import dataclasses
 
@@ -152,9 +162,10 @@ UNSUPPORTED = {
     "swap goal": (dict(goal_names=["KafkaAssignerDiskUsageDistributionGoal"]), None),
     "deep-tail goal": (dict(goal_names=["DiskUsageDistributionGoal",
                                         "KafkaAssignerDiskUsageDistributionGoal"]), None),
-    "intra-broker goal": (dict(goal_names=["IntraBrokerDiskUsageDistributionGoal"]), None),
-    "preferred leader election": (
-        dict(goal_names=GOALS + ["PreferredLeaderElectionGoal"]), None),
+    "rack-aware distribution goal": (dict(goal_names=["RackAwareDistributionGoal"]),
+                                     None),
+    "kafka-assigner rack goal": (
+        dict(goal_names=GOALS + ["KafkaAssignerEvenRackAwareGoal"]), None),
     "session": (dict(session=object()), None),
     "measured goal durations": (dict(measure_goal_durations=True), None),
     "sequential leadership fallback": (
@@ -326,3 +337,95 @@ def test_default_full_slice_matches_reference(tmp_path):
     assert (_counts(port)["moves"], _counts(port)["leads"]) == (22642, 12778)
     assert _finisher_fields(port) == ref["finisher"]
     _same_final(ref, port, ("replica_broker",))
+
+
+# --- the JBOD self-healing path ---------------------------------------------
+INTRA = ["IntraBrokerDiskCapacityGoal", "IntraBrokerDiskUsageDistributionGoal"]
+JBOD_CHAIN = ["RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
+              "DiskCapacityGoal", "NetworkInboundCapacityGoal",
+              "NetworkOutboundCapacityGoal", "CpuCapacityGoal",
+              "ReplicaDistributionGoal"] + INTRA
+_JBOD = dict(num_racks=4, num_topics=8, max_replication=3, skew=1.0, seed=3143,
+             logdirs_per_broker=4, target_cpu_util=0.45, num_dead_brokers=1,
+             num_brokers_with_dead_disk=2)
+JBOD = {"jbod-32b": dict(_JBOD, num_brokers=32, num_partitions=1000),
+        "jbod-64b": dict(_JBOD, num_brokers=64, num_partitions=8000)}
+JBOD_FULL = dict(num_brokers=1000, num_racks=20, num_topics=200, num_partitions=50000,
+                 max_replication=3, skew=1.0, seed=3143, logdirs_per_broker=4,
+                 target_cpu_util=0.45, num_dead_brokers=3,
+                 num_brokers_with_dead_disk=7)
+# the JAX reference's rows, held live against the reference below
+JBOD_ROWS = {
+    ("jbod-32b", "intra"): dict(actions=[13, 93], passes=[4, 9]),
+    ("jbod-32b", "chain"): dict(actions=[78, 0, 0, 0, 0, 0, 5, 95, 0, 65],
+                                passes=[6, 3, 3, 3, 3, 3, 4, 8, 3, 7]),
+    ("jbod-64b", "intra"): dict(actions=[71, 137], passes=[4, 5]),
+    ("jbod-64b", "chain"): dict(actions=[581, 0, 0, 0, 0, 0, 6, 794, 0, 86],
+                                passes=[9, 3, 3, 3, 3, 3, 4, 19, 3, 5]),
+}
+
+
+def _jbod_run(tmp_path, spec, goals, demoted=None):
+    """The reference's outcome (fresh interpreter) and the port's run on the
+    same JBOD cluster (the port's own generator, demoted brokers set as
+    ``/demote_broker`` sets them)."""
+    ref = reference_chain(tmp_path, spec, goals, demoted=demoted)
+    ct, meta = port_rc.generate_scale(port_rc.RandomClusterSpec(**spec))
+    if demoted:
+        dem = np.zeros(ct.num_brokers, bool)
+        dem[demoted] = True
+        ct = dataclasses.replace(ct, broker_demoted=dem)
+    port = GoalOptimizer(device="cpu").optimizations(
+        ct, meta, **{**KW, "goal_names": goals})
+    return ref, port
+
+
+def _disk(res):
+    return [g.disk_actions for g in res.goal_results]
+
+
+@pytest.mark.parametrize("chain", ["intra", "chain"])
+@pytest.mark.parametrize("size", sorted(JBOD))
+def test_jbod_matches_reference(tmp_path, size, chain):
+    goals = INTRA if chain == "intra" else JBOD_CHAIN
+    ref, port = _jbod_run(tmp_path, JBOD[size], goals)
+    assert _counts(port) == ref["counts"]
+    assert _disk(port) == ref["disk"]
+    row = JBOD_ROWS[(size, chain)]
+    assert _counts(port)["actions"] == row["actions"]
+    assert _counts(port)["passes"] == row["passes"]
+    assert _counts(port)["before"] == [g for g in goals
+                                       if g != "MinTopicLeadersPerBrokerGoal"]
+    assert _counts(port)["after"] == []
+    assert _disk(port)[-1] == row["actions"][-1] > 0
+    _same_final(ref, port, ("replica_broker", "replica_is_leader", "replica_disk"))
+    for name in ("util", "disk_util"):      # the incremental tallies, bit for bit
+        assert np.array_equal(ref["final"][name].view(np.int32),
+                              getattr(port.final_state, name).numpy().view(np.int32)), name
+    assert _proposals(port) == ref["proposals"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("request_kind", ["intra", "chain", "demote"])
+def test_jbod_full_slice_matches_reference(tmp_path, request_kind):
+    """The JBOD path at its real size (1,000 brokers x 4 logdirs, 101,862
+    replicas, 492 offline, padded R 114,688: the fused shape): the three
+    requests of the slice."""
+    goals = {"intra": INTRA, "chain": JBOD_CHAIN,
+             "demote": ["PreferredLeaderElectionGoal"]}[request_kind]
+    demoted = [11, 222, 444, 666, 888] if request_kind == "demote" else None
+    ref, port = _jbod_run(tmp_path, JBOD_FULL, goals, demoted)
+    assert _counts(port) == ref["counts"]
+    assert _disk(port) == ref["disk"]
+    assert _counts(port)["after"] == []
+    want = {"intra": ([165, 2713], 0, 0, 2313),
+            "chain": ([3799, 0, 0, 0, 0, 0, 105, 12173, 0, 3068], 13717, 5113, 14319),
+            "demote": ([1], 0, 173, None)}[request_kind]
+    assert _counts(port)["actions"] == want[0]
+    assert (_counts(port)["moves"], _counts(port)["leads"]) == want[1:3]
+    if want[3] is not None:
+        assert len(port.proposals) == want[3]
+    _same_final(ref, port, ("replica_broker", "replica_is_leader", "replica_disk"))
+    for name in ("util", "disk_util"):
+        assert np.array_equal(ref["final"][name].view(np.int32),
+                              getattr(port.final_state, name).numpy().view(np.int32)), name

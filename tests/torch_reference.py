@@ -11,10 +11,13 @@ whose directory every worker shares.
 
     ref = reference_chain(tmp_path, spec, goals)   # spec None = fixture16
 
-returns a dict of plain values: ``counts`` and ``finisher`` (the fields the
-tests compare), ``swaps`` (swap actions per goal), ``proposals`` (tuples),
+(``spec`` may also name a function of the reference's
+``model/fixtures.py``; ``demoted`` lists broker indices to mark demoted,
+as ``/demote_broker`` does) returns a dict of plain values: ``counts`` and ``finisher`` (the fields the
+tests compare), ``swaps`` (swap actions per goal), ``disk`` (disk actions per goal), ``proposals`` (tuples),
 ``balancedness_after`` and
-``final`` (the final replica_broker / replica_is_leader / replica_disk).
+``final`` (the final replica_broker / replica_is_leader / replica_disk /
+util / disk_util).
 
     ref = reference_goal(tmp_path, case)
 
@@ -41,14 +44,21 @@ _CHILD = r"""
 import dataclasses, json, pickle, sys
 import numpy as np
 from cruise_control_tpu.analyzer.optimizer import GoalOptimizer
+from cruise_control_tpu.model import fixtures
 from cruise_control_tpu.model import random_cluster as rc
 
 args = json.loads(sys.argv[1])
 if args["spec"] is None:
     from __graft_entry__ import _fixture_cluster
     ct, meta = _fixture_cluster()
+elif isinstance(args["spec"], str):
+    ct, meta = getattr(fixtures, args["spec"])()
 else:
     ct, meta = rc.generate_scale(rc.RandomClusterSpec(**args["spec"]))
+if args.get("demoted"):
+    demoted = np.zeros(ct.num_brokers, bool)
+    demoted[args["demoted"]] = True
+    ct = dataclasses.replace(ct, broker_demoted=ct.broker_demoted | demoted)
 res = GoalOptimizer().optimizations(ct, meta, goal_names=args["goals"],
                                     skip_hard_goal_check=True,
                                     raise_on_failure=False)
@@ -62,10 +72,12 @@ out = dict(
                   quiesce=[r.quiesce_chunk for r in g],
                   swleft=[r.swap_window_remaining for r in g]),
     swaps=[r.swap_actions for r in g],
+    disk=[r.disk_actions for r in g],
     proposals=[dataclasses.astuple(p) for p in res.proposals],
     balancedness_after=res.balancedness_after,
     final={n: np.asarray(getattr(res.final_state, n))
-           for n in ("replica_broker", "replica_is_leader", "replica_disk")})
+           for n in ("replica_broker", "replica_is_leader", "replica_disk",
+                     "util", "disk_util")})
 with open(args["out"], "wb") as f:
     pickle.dump(out, f)
 """
@@ -145,10 +157,11 @@ def _run_child(code: str, arg: dict, timeout: int) -> None:
                            f"{proc.stderr[-4000:]}")
 
 
-def reference_chain(tmp_path: Path, spec: dict | None, goals: list[str],
-                    timeout: int = 900) -> dict:
+def reference_chain(tmp_path: Path, spec: dict | str | None, goals: list[str],
+                    timeout: int = 900, demoted: list | None = None) -> dict:
     out = tmp_path / "reference.pkl"
-    _run_child(_CHILD, dict(spec=spec, goals=goals, out=str(out)), timeout)
+    _run_child(_CHILD, dict(spec=spec, goals=goals, out=str(out), demoted=demoted),
+               timeout)
     with open(out, "rb") as f:
         return pickle.load(f)
 
