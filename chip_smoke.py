@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/H100 port (``cruise_control_tpu_torch``) on one
 NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile [PATH ...]]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -15,9 +15,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    with its selection, admission and transfer apply, the exhaustive scans
    and the segment-parallel finisher waves, the swap passes of the five
    swap goals with their admission and two-leg apply, the usage and
-   topic-replica score families and vetoes), on inputs
-   taken from the slice cluster's state and on adversarial inputs made from
-   ``--seed`` (planted ties, -inf rows, signed zeros). Ints, indices and
+   topic-replica score families and vetoes, the rack-distribution family
+   and the rack-limit veto of K2 and K7 on the slice state, on the slice
+   cluster remapped to 2 racks (limit 2) and on adversarial limits 0-3),
+   on inputs taken from the slice cluster's state and on adversarial
+   inputs made from ``--seed`` (planted ties, -inf rows, signed zeros). Ints, indices and
    bools must match exactly; floats must match bit for bit (stated
    tolerance 0 for every kernel). Each kernel, its twin and the nearest
    single PyTorch call are timed with CUDA events (median of 20);
@@ -29,7 +31,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    must give the same bits and the JAX reference's outcome counts; the
    JBOD specs (four logdirs per broker, a dead broker, two dead disks) at
    32 brokers (unfused) and 64 brokers (chunked) with the intra-broker
-   chain and the ten-goal self-healing chain likewise; and
+   chain and the ten-goal self-healing chain likewise; the 18-goal chain of
+   the Java parity matrix (``FULL_CHAIN``) on the 16-broker fixture, the
+   rack-distribution chain on the 32-broker spec remapped to 2 racks
+   (spec-32b-2r, limit 2) and the kafka-assigner chain on the 32-broker
+   spec likewise; and
    ``__graft_entry__.entry()``'s run (DiskUsageDistributionGoal,
    ``EngineParams(max_iters=64)``, the 16-broker fixture) on the card;
 5. slices on the 1,000-broker / 98,326-replica ``generate_scale`` cluster,
@@ -47,6 +53,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    c. runs twice and the two runs must be bit identical; every run must
    keep refresh-consistent tallies and leave no partition with two
    replicas on one broker;
+   c2. the 18-goal chain of the Java parity matrix (the sixteen goals,
+      RackAwareDistributionGoal after RackAwareGoal, TopicReplica last,
+      then the preferred-leader pass) and the kafka-assigner chain
+      (``kafka_assigner_goal_names([])``: the even rack-aware goal, then
+      the swap-only disk goal), each twice and bit identical, each the JAX
+      reference's outcome row;
    d. the JBOD self-healing path on the 1,000-broker x 4-logdir cluster
       with 3 dead brokers and 7 dead-disk brokers (101,862 replicas, 492
       offline): the intra-broker chain (``rebalance_disk``), the ten-goal
@@ -55,12 +67,15 @@ Phases, each printing its own lines; any failure exits non-zero:
       and bit identical, each the JAX reference's outcome row (the K8 and
       K12 kernels must launch), and the pass alone with nothing demoted
       once. ``--profile`` adds
-   one more run of every path of this phase under ``torch.profiler`` and
+   one more run of every path of this phase (or of the named ones: five,
+   eleven, sixteen, eighteen, kafka, jbod_intra, jbod_chain, jbod_demote,
+   jbod_ple) under ``torch.profiler`` and
    prints device time by kernel.
 
 The line before the last is the ``kernels`` JSON object: each kernel's
-launches are those of the counted runs of the sixteen goals and the three
-JBOD requests together (each path's under ``launches_by_path``), and its
+launches are those of the counted runs of the sixteen goals, the 18 goals,
+the kafka-assigner chain and the three JBOD requests together (each path's
+under ``launches_by_path``), and its
 times those of the shape it launched most often there, with every timed
 shape and its launches listed beside them. The last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -94,11 +109,25 @@ SLICE_SPEC = dict(num_brokers=1000, num_racks=20, num_topics=200,
                   target_cpu_util=0.45)
 SMALL_SPEC = dict(num_brokers=32, num_partitions=1000, num_racks=4, num_topics=8,
                   max_replication=3, skew=1.5, seed=3141, target_cpu_util=0.45)
+SMALL_2R_SPEC = dict(SMALL_SPEC, num_racks=2)       # spec-32b-2r: limit 2 for RF 3
 MID_SPEC = dict(num_brokers=64, num_racks=4, num_topics=8, num_partitions=8000,
                 max_replication=3, seed=3)
 INTRA = ["IntraBrokerDiskCapacityGoal", "IntraBrokerDiskUsageDistributionGoal"]
 JBOD_CHAIN = CHAIN[:8] + INTRA                   # bench.py rung 5's ten goals
 PLE = ["PreferredLeaderElectionGoal"]
+# DeterministicClusterTest's 18-goal chain (tests/test_java_parity_matrix.py)
+FULL_CHAIN = [
+    "RackAwareGoal", "RackAwareDistributionGoal", "MinTopicLeadersPerBrokerGoal",
+    "ReplicaCapacityGoal", "DiskCapacityGoal", "NetworkInboundCapacityGoal",
+    "NetworkOutboundCapacityGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+    "PotentialNwOutGoal", "DiskUsageDistributionGoal",
+    "NetworkInboundUsageDistributionGoal", "NetworkOutboundUsageDistributionGoal",
+    "CpuUsageDistributionGoal", "LeaderReplicaDistributionGoal",
+    "LeaderBytesInDistributionGoal", "TopicReplicaDistributionGoal",
+    "PreferredLeaderElectionGoal"]
+KAFKA_ASSIGNER = ["KafkaAssignerEvenRackAwareGoal", "KafkaAssignerDiskUsageDistributionGoal"]
+RACK_DIST = ["RackAwareDistributionGoal", "ReplicaCapacityGoal", "ReplicaDistributionGoal",
+             "DiskUsageDistributionGoal"]
 JBOD_SPEC = dict(num_brokers=1000, num_racks=20, num_topics=200, num_partitions=50000,
                  max_replication=3, skew=1.0, seed=3143, logdirs_per_broker=4,
                  target_cpu_util=0.45, num_dead_brokers=3, num_brokers_with_dead_disk=7)
@@ -210,6 +239,42 @@ ORACLE.update({
                            actions=[581, 0, 0, 0, 0, 0, 6, 794, 0, 86],
                            passes=[9, 3, 3, 3, 3, 3, 4, 19, 3, 5], moves=1340, leads=860,
                            disk=[0] * 9 + [86], proposals=1336),
+})
+_FULL_BEFORE = {"RackAwareGoal", "RackAwareDistributionGoal", "CpuCapacityGoal",
+                "ReplicaDistributionGoal", "TopicReplicaDistributionGoal",
+                "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal",
+                "PreferredLeaderElectionGoal"} | _USAGE
+ORACLE.update({
+    "full_slice": dict(
+        before=_FULL_BEFORE,
+        after={"ReplicaDistributionGoal", "LeaderReplicaDistributionGoal",
+               "LeaderBytesInDistributionGoal", "TopicReplicaDistributionGoal"},
+        actions=[3051, 0, 0, 0, 0, 0, 0, 557, 18136, 0, 1247, 1082, 1248, 1585, 772,
+                 1111, 581, 1],
+        passes=[7, 3, 3, 3, 3, 3, 3, 6, 132, 3, 104, 88, 99, 109, 48, 160, 40, 0],
+        moves=22641, leads=10764, proven=[False] * 14 + [True, True, True, False],
+        rounds=[0] * 14 + [1, 2, 1, 0],
+        swaps=[0] * 10 + [154, 166, 109, 110, 0, 0, 110, 0],
+        swleft=[-1] * 16 + [0, -1], proposals=19827),
+    "full_small": dict(
+        before={"ReplicaDistributionGoal", "LeaderReplicaDistributionGoal",
+                "LeaderBytesInDistributionGoal", "PreferredLeaderElectionGoal"} | _USAGE,
+        after=set(), actions=[0] * 8 + [81, 0, 1, 0, 11, 0, 0, 0, 0, 1],
+        passes=[3] * 8 + [9, 3, 4, 3, 10, 3, 3, 3, 3, 0], moves=83, leads=66,
+        proven=[False] * 18, rounds=[0] * 18, swaps=[0] * 12 + [1] + [0] * 5,
+        proposals=75),
+    "rack_dist_small_2r": dict(
+        before={"RackAwareDistributionGoal", "ReplicaDistributionGoal",
+                "DiskUsageDistributionGoal"}, after=set(), actions=[21, 0, 232, 18],
+        passes=[4, 3, 18, 6], moves=244, leads=197, swaps=[0] * 4, proposals=237),
+    "kafka_small": dict(
+        before=set(KAFKA_ASSIGNER), after=set(), actions=[60, 100], passes=[6, 63],
+        moves=237, leads=158, swaps=[0, 100], swleft=[-1, -1], proposals=218),
+    "kafka_slice": dict(
+        before=set(KAFKA_ASSIGNER), after={"KafkaAssignerDiskUsageDistributionGoal"},
+        actions=[3051, 833], passes=[7, 194], moves=4612, leads=821,
+        proven=[False, False], rounds=[0, 0], swaps=[0, 833], swleft=[-1, -1],
+        proposals=4466),
 })
 # the kernels of the JBOD path that no earlier path launches
 JBOD_KERNELS = ("disk_rows", "disk_apply", "preferred_leader")
@@ -490,8 +555,9 @@ def kernel_checks(torch, ctx, seed: int) -> dict:
                 torch.full((B,), 95.0), torch.full((B,), 105.0),
                 torch.rand(B, generator=g) + 1], 0)
         a = {n: t.to(dev).contiguous() for n, t in a.items()}
+        lim1 = torch.ones(Kc, dtype=torch.int32, device=dev)   # RackAwareGoal's veto
         args = (kind, T, a["cur_b"], a["orig_b"], a["sib_b"], a["row_ok"],
-                a["d_rows"], a["dst_room"], 0b10010, a["prow"], True, a["row_f"],
+                a["d_rows"], a["dst_room"], 0b10010, a["prow"], lim1, a["row_f"],
                 a["col_f"], a["dst_ok"], a["new_ok"], a["broker_rack"])
         check(torch, e, lambda: K.move_score_classes(*args),
               lambda: move_score.move_score_classes_plain(*args),
@@ -1131,7 +1197,8 @@ def swap_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
             new_ok=torch.rand(Ba, generator=g) > 0.3, broker_rack=torch.arange(Ba) % Kr,
             t_out=ri(0, Ta, (n,)), t_in=ri(0, Ta, (n,)),
             tab=ri(0, 6, (Ta, Ba)).int(), prow_out=ri(0, 2, (n, Kr)),
-            prow_in=ri(0, 2, (n, Kr)),
+            prow_in=ri(0, 2, (n, Kr)), lim_out=torch.ones(n, dtype=torch.int32),
+            lim_in=torch.ones(n, dtype=torch.int32),
             vetoes=[swap.SwapVeto(kind, ri(0, 50, (Ba,)).float(), ri(40, 90, (Ba,)).float(),
                                   ri(0, 20, (n,)).float(), ri(0, 20, (n,)).float(),
                                   lo=ri(0, 30, (Ba,)).float())
@@ -1155,7 +1222,7 @@ def swap_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
                 p, t = adversarial(family, ties)
                 if strip:       # no vetoes, so more pairs score and tie
                     p = dataclasses.replace(p, vetoes=[], prow_out=None, prow_in=None,
-                                            topic_up=None)
+                                            lim_out=None, lim_in=None, topic_up=None)
                 check(torch, e_rows, lambda: K.swap_rows(p, t, mg),
                       lambda: swap.swap_rows_plain(p, t, mg),
                       f"adversarial family {family} ties={ties} vetoes={not strip} "
@@ -1168,6 +1235,200 @@ def swap_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
     check(torch, e_adm, lambda: K.swap_admission(*adm),
           lambda: swap.swap_admission_plain(*adm),
           f"adversarial K1={n} crowded brokers, in-candidates and partitions")
+
+
+def two_rack_state(torch, ctx):
+    """The slice cluster with its brokers remapped to 2 racks (``b % 2``):
+    RackAwareDistributionGoal's limit ceil(RF / 2) reaches 2 for RF 3. Its
+    padded env and initial state on the card."""
+    import numpy as np
+    from cruise_control_tpu_torch.analyzer.env import make_env
+    from cruise_control_tpu_torch.analyzer.state import init_state
+    from cruise_control_tpu_torch.model.cluster_tensor import pad_cluster
+    ct = dataclasses.replace(ctx["ct"], broker_rack=(
+        np.arange(ctx["ct"].num_brokers) % 2).astype(np.int32))
+    meta = dataclasses.replace(ctx["meta"], num_racks=2, rack_ids=["r0", "r1"])
+    pct, pmeta = pad_cluster(ct, meta)
+    env = make_env(pct, pmeta, device=ctx["env"].device)
+    return env, init_state(env, pct.replica_broker, pct.replica_is_leader,
+                           pct.replica_offline, pct.replica_disk)
+
+
+def rack_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
+    """Phase 3, the rack-distribution part: K2's GOAL_RACK_DIST family and
+    the rack-limit veto (``others + 1 <= lim``) of K2 and K7, on the slice
+    state (20 racks: every limit 1), on the slice cluster remapped to 2
+    racks (limit 2 for RF 3; a chain holding both rack goals takes the
+    minimum) and on adversarial ``--seed`` inputs with limits 0-3 and
+    per-rack counts 0-3. Each at the main path's shapes: the move wave
+    [K, B] at T, the exhaustive scan [chunk, B] at T = 1, K7's pass
+    [32, 32]."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import engine
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    from cruise_control_tpu_torch.kernels import move_score, swap
+
+    env, st, params = ctx["env"], ctx["st"], ctx["params"]
+    dev = env.device
+    g = torch.Generator().manual_seed(seed + 4)
+    R, B = env.num_replicas, env.num_brokers
+    Kc, T = min(params.num_candidates, R), min(params.num_dst_choices, B)
+    chunk = min(params.scan_chunk, R)
+    k = min(params.num_swap_candidates, R, 128)
+    mg = params.min_gain
+    goals = make_goals(FULL_CHAIN[:-1])                 # PLE runs after the chain
+    i_rd, i_repl, i_disk = (FULL_CHAIN.index(n) for n in (
+        "RackAwareDistributionGoal", "ReplicaDistributionGoal",
+        "DiskUsageDistributionGoal"))
+    rd, repl, disk = goals[i_rd], goals[i_repl], goals[i_disk]
+    e, e_rows = entries["move_score_classes"], entries["swap_rows"]
+    states = {f"{env.num_real_racks} racks": (env, st),
+              "2 racks": two_rack_state(torch, ctx)}
+    timed = {}
+    for tag, (env_s, st_s) in states.items():
+        lim = rd.rack_limit(env_s, env_s.replica_partition[env_s.replica_valid])
+        log(f"rack kernel checks, {tag}: RackAwareDistributionGoal limits "
+            f"{sorted(set(lim.tolist()))}, violated {bool(rd.violated(env_s, st_s))}")
+        require(int(lim.max()) == (2 if tag == "2 racks" else 1),
+                f"{tag}: unexpected rack limits {int(lim.max())}")
+        # the family, alone and behind RackAwareGoal (FULL_CHAIN's order)
+        key = rd.replica_key(env_s, st_s, rd.broker_severity(env_s, st_s)).contiguous()
+        kv, cand = K.select_candidates(key, Kc, 0, 0)
+        n_rows = int((kv > -torch.inf).sum())
+        d_rows = engine._move_delta_rows(env_s, st_s, cand)
+        for prev in ((), tuple(goals[:i_rd])):
+            rooms, custom = engine._combined_move_rooms(prev, env_s, st_s)
+            args = engine._score_args(env_s, st_s, rd, rooms, custom, cand, kv, d_rows, T)
+            require(args[0] == move_score.GOAL_RACK_DIST
+                    and (args[10] is not None) == bool(prev), f"{tag}: the family's args")
+            check(torch, e, lambda: K.move_score_classes(*args),
+                  lambda: move_score.move_score_classes_plain(*args),
+                  f"{tag}: rack-distribution family, {len(prev)} previous goals "
+                  f"[{Kc}, {B}] T={T}, {n_rows} violating rows")
+            timed[("family", tag)] = args
+        # the veto: ReplicaDistributionGoal behind both rack goals (limit
+        # min(1, ceil(RF / racks))) and behind RackAwareDistributionGoal
+        # alone, its first wave at T and a move scan at T = 1
+        key = repl.replica_key(env_s, st_s, repl.broker_severity(env_s, st_s)).contiguous()
+        kv, cand = K.select_candidates(key, Kc, 0, 0)
+        order, _n = K.compact_eligible(key > -torch.inf, -(-R // chunk) * chunk)
+        idx = order[:chunk]
+        scan = torch.clamp(idx, max=R - 1)
+        for what, prev in (("both rack goals", tuple(goals[:i_repl])),
+                           ("RackAwareDistributionGoal", (rd,))):
+            rooms, custom = engine._combined_move_rooms(prev, env_s, st_s)
+            args = engine._score_args(env_s, st_s, repl, rooms, custom, cand, kv,
+                                      engine._move_delta_rows(env_s, st_s, cand), T)
+            require(args[10] is not None, f"{tag}: no rack-limit veto behind {what}")
+            check(torch, e, lambda: K.move_score_classes(*args),
+                  lambda: move_score.move_score_classes_plain(*args),
+                  f"{tag}: ReplicaDistributionGoal behind {what}, limits "
+                  f"{sorted(set(args[10].tolist()))} [{Kc}, {B}] T={T}")
+            timed[("veto", tag)] = args
+            sargs = engine._score_args(env_s, st_s, repl, rooms, custom, scan, None,
+                                       engine._move_delta_rows(env_s, st_s, scan), 1,
+                                       row_ok=idx < R)
+            check(torch, e, lambda: K.move_score_classes(*sargs),
+                  lambda: move_score.move_score_classes_plain(*sargs),
+                  f"{tag}: move scan behind {what} [{chunk}, {B}] T=1")
+        # K7: DiskUsageDistributionGoal's swap pass behind FULL_CHAIN's
+        # prefix (CpuCapacityGoal, violated here, left out: it vetoes every
+        # swap) and behind RackAwareDistributionGoal alone
+        okv, co, ikv, ci = engine._swap_pools(env_s, st_s, disk, params,
+                                              disk.broker_severity(env_s, st_s), 0)
+        for what, prev in (("the open prefix", tuple(
+                x for x in goals[:i_disk] if x.name != "CpuCapacityGoal")),
+                ("RackAwareDistributionGoal", (rd,))):
+            pairs, tables = engine._swap_args(env_s, st_s, disk, prev, co, okv, ci, ikv)
+            require(pairs.lim_out is not None, f"{tag}: no rack legs behind {what}")
+            check(torch, e_rows, lambda: K.swap_rows(pairs, tables, mg),
+                  lambda: swap.swap_rows_plain(pairs, tables, mg),
+                  f"{tag}: DiskUsageDistributionGoal swap pass behind {what}, limits "
+                  f"{sorted(set(pairs.lim_out.tolist()) | set(pairs.lim_in.tolist()))} "
+                  f"[{k}, {k}]")
+            timed[("swap", tag)] = (pairs, tables)
+
+    # adversarial: limits 0-3 against per-rack counts 0-3 (the row's own
+    # rack holds at least itself), every family with and without the veto
+    F, Kr = 4, 3
+    cur_b = torch.randint(0, B, (Kc,), generator=g)
+    rack = torch.arange(B) % Kr
+    prow = torch.randint(0, 4, (Kc, Kr), generator=g)
+    own = prow.gather(1, rack[cur_b][:, None]).clamp(min=1)
+    prow = prow.scatter(1, rack[cur_b][:, None], own)
+    row_f = torch.stack([(torch.rand(Kc, generator=g) > 0.3).float(),
+                         torch.randint(1, 4, (Kc,), generator=g).float(),
+                         torch.zeros(Kc), torch.zeros(Kc)], 1)
+    col_f = torch.zeros((4, B))
+    col_f[0] = torch.randint(0, 3, (B,), generator=g).float()     # planted ties
+    col_f[1] = 1.0
+    a = dict(cur_b=cur_b, orig_b=torch.randint(0, B, (Kc,), generator=g),
+             sib_b=torch.randint(-1, B, (Kc, F), generator=g),
+             row_ok=torch.rand(Kc, generator=g) > 0.1,
+             d_rows=torch.zeros((Kc, 8)), dst_room=torch.zeros((8, B)), prow=prow,
+             row_f=row_f, col_f=col_f, dst_ok=torch.rand(B, generator=g) > 0.05,
+             new_ok=torch.ones(B, dtype=torch.bool), broker_rack=rack)
+    a = {n: t.to(dev).contiguous() for n, t in a.items()}
+    lim = torch.randint(0, 4, (Kc,), generator=g, dtype=torch.int32).to(dev)
+    for fam in (move_score.GOAL_RACK_DIST, move_score.GOAL_RACK,
+                move_score.GOAL_REPLICA_CAPACITY):
+        for veto in (None, lim):
+            for TT in (T, 1):
+                args = (fam, TT, a["cur_b"], a["orig_b"], a["sib_b"], a["row_ok"],
+                        a["d_rows"], a["dst_room"], 0, a["prow"], veto, a["row_f"],
+                        a["col_f"], a["dst_ok"], a["new_ok"], a["broker_rack"])
+                check(torch, e, lambda: K.move_score_classes(*args),
+                      lambda: move_score.move_score_classes_plain(*args),
+                      f"adversarial family {fam} limits 1-3, veto "
+                      f"{'0-3' if veto is not None else 'none'} [{Kc}, {B}] T={TT}")
+    n, Ba = 128, 24
+    rk = torch.arange(Ba) % Kr
+    b_out = torch.randint(0, Ba, (n,), generator=g)
+    b_in = torch.randint(0, Ba, (n,), generator=g)
+
+    def counts(b):
+        c = torch.randint(0, 4, (n, Kr), generator=g)
+        return c.scatter(1, rk[b][:, None], c.gather(1, rk[b][:, None]).clamp(min=1))
+
+    u = torch.randint(0, 100, (Ba,), generator=g).float()
+    p = swap.SwapPairs(
+        b_out=b_out, b_in=b_in, sib_out=torch.randint(-1, Ba, (n, F), generator=g),
+        sib_in=torch.randint(-1, Ba, (n, F), generator=g),
+        orig_out=torch.randint(0, Ba, (n,), generator=g),
+        orig_in=torch.randint(0, Ba, (n,), generator=g),
+        row_ok_out=torch.rand(n, generator=g) > 0.1,
+        row_ok_in=torch.rand(n, generator=g) > 0.1,
+        new_ok=torch.ones(Ba, dtype=torch.bool), broker_rack=rk,
+        t_out=torch.zeros(n, dtype=torch.long), t_in=torch.zeros(n, dtype=torch.long),
+        tab=torch.zeros((1, Ba), dtype=torch.int32), prow_out=counts(b_out),
+        prow_in=counts(b_in),
+        lim_out=torch.randint(1, 4, (n,), generator=g, dtype=torch.int32),
+        lim_in=torch.randint(1, 4, (n,), generator=g, dtype=torch.int32))
+    t = swap.SwapTables(swap.SWAP_RESOURCE_DIST,
+                        fb=torch.stack([u, u * 0 + 30.0, u * 0 + 60.0]),
+                        x_out=torch.randint(0, 30, (n,), generator=g).float(),
+                        x_in=torch.randint(0, 30, (n,), generator=g).float())
+    p, t = to_device(p, dev), to_device(t, dev)
+    check(torch, e_rows, lambda: K.swap_rows(p, t, mg),
+          lambda: swap.swap_rows_plain(p, t, mg),
+          f"adversarial rack legs, limits 1-3 against counts 0-3 [{n}, {n}]")
+
+    args = timed[("family", "2 racks")]
+    timing(torch, e, lambda: K.move_score_classes(*args),
+           lambda: move_score.move_score_classes_plain(*args), None,
+           nbytes(*(t for t in args if isinstance(t, torch.Tensor))) + Kc * T * (4 + 8),
+           Kc * B * 14, f"K={Kc} B={B} T={T} rack-distribution family (2 racks)")
+    args = timed[("veto", "2 racks")]
+    timing(torch, e, lambda: K.move_score_classes(*args),
+           lambda: move_score.move_score_classes_plain(*args), None,
+           nbytes(*(t for t in args if isinstance(t, torch.Tensor))) + Kc * T * (4 + 8),
+           Kc * B * 16, f"K={Kc} B={B} T={T} rack-limit veto (2 racks)")
+    pairs, tables = timed[("swap", "2 racks")]
+    timing(torch, e_rows, lambda: K.swap_rows(pairs, tables, mg),
+           lambda: swap.swap_rows_plain(pairs, tables, mg), None,
+           nbytes(*(x for x in fields_of(pairs) + fields_of(tables)
+                    if x is not pairs.tab)) + k * (4 + 8 + 4),
+           k * k * (60 + 10 * len(pairs.vetoes)), f"pass [{k}, {k}] rack legs (2 racks)")
 
 
 def jbod_context(torch):
@@ -1391,21 +1652,23 @@ def same_bits(torch, a, b) -> bool:
         (a.moved, b.moved), (a.leadership_moved, b.leadership_moved)))
 
 
-def parity(torch, goals, spec: dict, key: str, tag: str) -> dict:
-    """One chain on a small spec, on the card and on the CPU (the twins):
-    the same bits and the JAX reference's outcome."""
+def parity(torch, goals, spec, key: str, tag: str) -> dict:
+    """One chain on a small cluster (a ``generate_scale`` spec, or a
+    function that builds the cluster), on the card and on the CPU (the
+    twins): the same bits and the JAX reference's outcome."""
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
     from cruise_control_tpu_torch.model.random_cluster import (
         RandomClusterSpec, generate_scale,
     )
     from cruise_control_tpu_torch import kernels as K
-    ct, meta = generate_scale(RandomClusterSpec(**spec))
+    ct, meta = spec() if callable(spec) else generate_scale(RandomClusterSpec(**spec))
     K.reset_launches()
     t0 = time.perf_counter()
     on_card = run_chain(GoalOptimizer(device="cuda"), ct, meta, goals)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     shapes = K.launch_shapes()
+    shapes["move_score_classes families"] = dict(K.FAMILY_LAUNCHES)
     on_cpu = run_chain(GoalOptimizer(device="cpu"), ct, meta, goals)
     out = outcome(on_card)
     print_outcome(tag, out, ORACLE[key])
@@ -1510,6 +1773,9 @@ def slice_checks(torch, res, tag: str, digests: dict | None = None) -> None:
         f"no partition has two replicas on one broker")
 
 
+# the phase-5 paths ``--profile`` may name, in the order they run
+PROFILE_PATHS = ("five", "eleven", "sixteen", "eighteen", "kafka", "jbod_intra",
+                 "jbod_chain", "jbod_demote", "jbod_ple")
 # device function names of the hand kernels, as the profiler lists them
 HAND_KERNEL_NAMES = (
     "salt_pack", "radix_hist", "radix_choose", "gather_top", "bitonic_top",
@@ -1534,6 +1800,7 @@ def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
     wall1 = time.perf_counter() - t0
     launches = K.launches()
     shapes = K.launch_shapes()
+    families = dict(K.FAMILY_LAUNCHES)
     if twice:
         t0 = time.perf_counter()
         res2 = run_chain(opt, ct, meta, goals)
@@ -1545,6 +1812,7 @@ def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
         log(f"{tag}: run 1 wall {wall1:.6f} s (one run)")
     log(f"{tag}: kernel launches in run 1 {launches}")
     log(f"{tag}: launches by shape in run 1 {json.dumps(shapes)}")
+    log(f"{tag}: K2 launches by goal family in run 1 {json.dumps(families)}")
     out = outcome(res1)
     print_outcome(tag, out, oracle)
     require_oracle(tag, out, oracle)
@@ -1554,8 +1822,8 @@ def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
         log(f"{tag}: run 1 and run 2 bit-identical (assignment, leadership, util, "
             f"leader util, counts, logdirs, offline flags, disk util, moved flags)")
     slice_checks(torch, res1, tag, oracle.get("digests"))
-    return dict(launches=launches, shapes=shapes, walls=(wall1, wall2),
-                run=(ct, meta, goals, tag))
+    return dict(launches=launches, shapes=shapes, families=families,
+                walls=(wall1, wall2), run=(ct, meta, goals, tag))
 
 
 def profile_run(torch, opt, ct, meta, goals, tag: str) -> None:
@@ -1593,8 +1861,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the adversarial kernel-check inputs")
-    ap.add_argument("--profile", action="store_true",
-                    help="add a run of every phase-5 path under torch.profiler")
+    ap.add_argument("--profile", nargs="*", metavar="PATH", choices=PROFILE_PATHS,
+                    help="add a run of every phase-5 path (or of the named ones) "
+                         "under torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -1647,7 +1916,7 @@ def main() -> int:
     env = make_env(pct, pmeta, device="cuda")
     st = init_state(env, pct.replica_broker, pct.replica_is_leader,
                     pct.replica_offline, pct.replica_disk)
-    ctx = dict(env=env, st=st, goals=make_goals(GOALS), params=params)
+    ctx = dict(env=env, st=st, goals=make_goals(GOALS), params=params, ct=ct, meta=meta)
 
     # 3. kernels against their twins
     phase("phase 3: kernels against their twins")
@@ -1656,6 +1925,8 @@ def main() -> int:
     chain_kernel_checks(torch, ctx, entries, args.seed)
     phase("phase 3: the sixteen goals' kernels")
     swap_kernel_checks(torch, ctx, entries, args.seed)
+    phase("phase 3: the rack-distribution family and the rack-limit veto")
+    rack_kernel_checks(torch, ctx, entries, args.seed)
     phase("phase 3: the JBOD path's kernels")
     jctx = jbod_context(torch)
     disk_kernel_checks(torch, jctx, entries, args.seed)
@@ -1682,6 +1953,18 @@ def main() -> int:
                             f"{tag}, {len(goals)} goals")
             require(all(shapes[n] for n in ("disk_rows", "disk_apply")),
                     f"{tag}: the disk branch never launched")
+    parity(torch, FULL_CHAIN, fixture16, "full_small", "fixture16 (16 brokers, 18 goals)")
+    rd_shapes = parity(torch, RACK_DIST, SMALL_2R_SPEC, "rack_dist_small_2r",
+                       "small 2 racks (32 brokers, rack-distribution chain)")
+    require(sum(rd_shapes["swap_rows"].values()) > 0,
+            "the 2-rack chain never ran a swap pass (K7's rack legs at limit 2)")
+    from cruise_control_tpu_torch.kernels.move_score import GOAL_RACK_DIST
+    require(rd_shapes["move_score_classes families"].get(GOAL_RACK_DIST, 0) > 0,
+            "the 2-rack chain never launched K2's rack-distribution family")
+    ka_shapes = parity(torch, KAFKA_ASSIGNER, SMALL_SPEC, "kafka_small",
+                       "small (32 brokers, kafka-assigner chain)")
+    require(sum(ka_shapes["swap_rows"].values()) > 0,
+            "the kafka-assigner chain never swapped")
     entry_check(torch)
 
     # 5. the slices: each path counted on its first run; the five- and
@@ -1728,6 +2011,21 @@ def main() -> int:
         require(shapes[name].get(shape, 0) > 0,
                 f"the sixteen-goal path never launched {name} at {shape}: "
                 f"{shapes[name]}")
+    full = run_slice(torch, opt, ct, meta, FULL_CHAIN, "slice (18 goals)",
+                     ORACLE["full_slice"])
+    launches = full["launches"]
+    require(all(n > 0 for name, n in launches.items()
+                if name not in ("disk_rows", "disk_apply")),
+            f"a kernel of the 18-goal path never launched: {launches}")
+    require(launches["preferred_leader"] == 2,
+            "the 18-goal chain's preferred-leader pass is one apply and one check")
+    kafka = run_slice(torch, opt, ct, meta, KAFKA_ASSIGNER, "slice (kafka-assigner)",
+                      ORACLE["kafka_slice"])
+    launches = kafka["launches"]
+    ka_kernels = ("select_candidates", "move_score_classes", "wave_admission",
+                  "segment_sum", "segment_count", "swap_rows", "swap_admission")
+    require(all(launches[n] > 0 for n in ka_kernels),
+            f"a kernel of the kafka-assigner path never launched: {launches}")
     jbod = {}
     for req, goals, cl in (("intra", INTRA, jctx["ct"]), ("chain", JBOD_CHAIN, jctx["ct"]),
                            ("demote", PLE, jctx["ct_demoted"])):
@@ -1747,15 +2045,18 @@ def main() -> int:
     for req in ("intra", "chain"):
         require(all(jbod[req]["launches"][n] > 0 for n in ("disk_rows", "disk_apply")),
                 f"jbod ({req}): the disk branch never launched")
-    if args.profile:
+    if args.profile is not None:
         phase("profile")
-        for path in (five, chain, default, *jbod.values(), steady):
-            profile_run(torch, opt, *path["run"])
+        runs = dict(zip(PROFILE_PATHS, (five, chain, default, full, kafka,
+                                        *jbod.values(), steady)))
+        for name in args.profile or PROFILE_PATHS:
+            profile_run(torch, opt, *runs[name]["run"])
     for name, e in entries.items():
         for t in e.timings:
             log(f"timing {name} at {t['at']}: {json.dumps(t)}")
 
-    paths = {"default": default, **{f"jbod_{r}": v for r, v in jbod.items()}}
+    paths = {"default": default, "full18": full, "kafka": kafka,
+             **{f"jbod_{r}": v for r, v in jbod.items()}}
     kernels = []
     for name, k in K.KERNELS.items():
         by_path = {p: v["launches"][name] for p, v in paths.items()}

@@ -50,7 +50,8 @@ import torch
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv, capacity_stripe_key
 from cruise_control_tpu_torch.analyzer.goals.base import (
     NEG_INF, WAVE_DIMS, WAVE_ZERO_EXEMPT_DIMS, GoalKernel, disk_state, overrides,
-    lead_member_rows, legit_lead_rows, legit_move_rows, legit_swap_rows, swap_pairs,
+    lead_member_rows, legit_lead_rows, legit_move_rows, legit_swap_rows, min_limit,
+    swap_pairs,
 )
 from cruise_control_tpu_torch.analyzer.state import (
     EngineState, apply_leaderships_batched, apply_moves_batched, apply_swaps_batched,
@@ -60,6 +61,7 @@ from cruise_control_tpu_torch.kernels import (
     compact_eligible, disk_apply, disk_rows, leadership_rows, move_score_classes,
     select_candidates, swap_admission, swap_rows, wave_admission,
 )
+from cruise_control_tpu_torch.kernels.move_score import RACK_FAMILIES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,9 +119,10 @@ def check_supported(params: EngineParams) -> None:
 
 
 def _custom_move_veto(g: GoalKernel) -> bool:
-    """A previous-goal move veto with no interval form: the rack veto, a
-    row veto or a (topic, broker) count veto, folded by the K2 kernel."""
-    return (g.rack_veto or overrides(g, "move_row_veto")
+    """A previous-goal move veto with no interval form: the rack-limit
+    veto, a row veto or a (topic, broker) count veto, folded by the K2
+    kernel."""
+    return (overrides(g, "rack_limit") or overrides(g, "move_row_veto")
             or overrides(g, "move_topic_veto"))
 
 
@@ -185,7 +188,7 @@ def _desc_order(x: torch.Tensor) -> torch.Tensor:
 def _combined_move_rooms(prev_goals: tuple, env: ClusterEnv, st: EngineState):
     """({dim: (src_room | None, dst_room | None)}, custom): the chain's
     interval-form vetoes folded into per-dim MIN room tables, and the goals
-    whose veto has no interval form (RackAwareGoal's rack veto, the
+    whose veto has no interval form (the rack goals' rack-limit veto, the
     MinTopicLeadersPerBrokerGoal row veto, TopicReplicaDistributionGoal's
     row and (topic, broker) count vetoes), which the K2 kernel folds."""
     rooms: dict = {}
@@ -213,12 +216,13 @@ def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
     per-broker destination rooms and goal columns."""
     B = env.num_brokers
     src_b = st.replica_broker[cand]
+    part = env.replica_partition[cand]
     sib_b, replica_ok, dst_ok, new_ok = legit_move_rows(env, st, cand, goal.options)
     row_ok = replica_ok & ((kv > NEG_INF) if row_ok is None else row_ok)
-    rack_veto = False
+    rack_lim = None
     tveto = None
     for g in custom:
-        rack_veto = rack_veto or g.rack_veto
+        rack_lim = min_limit(rack_lim, g.rack_limit(env, part))
         if overrides(g, "move_row_veto"):
             row_ok = row_ok & g.move_row_veto(env, st, cand)
         up = g.move_topic_veto(env, st)
@@ -243,11 +247,13 @@ def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
             room_mask |= 1 << dim
     family, row_f, col_f = goal.move_tables(env, st, cand)
     prow = None
-    if goal.rack_veto or rack_veto:
-        prow = st.part_rack_count[env.replica_partition[cand]].to(torch.int64)
+    if family in RACK_FAMILIES or rack_lim is not None:
+        prow = st.part_rack_count[part].to(torch.int64).contiguous()
+    if rack_lim is not None:
+        rack_lim = rack_lim.contiguous()
     return (family, T, src_b.contiguous(),
             env.replica_original_broker[cand].contiguous(), sib_b,
-            row_ok.contiguous(), d_rows, dst_room, room_mask, prow, rack_veto,
+            row_ok.contiguous(), d_rows, dst_room, room_mask, prow, rack_lim,
             row_f.contiguous(), col_f.contiguous(), dst_ok, new_ok, env.broker_rack,
             order_b, goal.move_topic_table(env, st, cand), tveto)
 

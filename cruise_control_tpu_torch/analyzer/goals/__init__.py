@@ -1,11 +1,11 @@
 """Goal registry of the port. Names match the reference's class names.
 
-The port carries the sixteen goals of the default chain (``DEFAULT_GOALS``
-of the reference's config/defaults.py), the two intra-broker disk goals
-(``intra.broker.goals``) and ``PreferredLeaderElectionGoal`` (a one-shot pass
-the optimizer runs after the chain, never a chain goal); every other goal of
-the reference raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+The port carries every goal of the reference: the sixteen of the default
+chain (``DEFAULT_GOALS`` of the reference's config/defaults.py),
+``RackAwareDistributionGoal``, the two kafka-assigner goals, the two
+intra-broker disk goals (``intra.broker.goals``) and
+``PreferredLeaderElectionGoal`` (a one-shot pass the optimizer runs after
+the chain, never a chain goal).
 """
 from __future__ import annotations
 
@@ -23,19 +23,26 @@ from cruise_control_tpu_torch.analyzer.goals.distribution import (
 from cruise_control_tpu_torch.analyzer.goals.intra_broker import (
     IntraBrokerDiskCapacityGoal, IntraBrokerDiskUsageDistributionGoal,
 )
+from cruise_control_tpu_torch.analyzer.goals.kafka_assigner import (
+    KAFKA_ASSIGNER_SUBSTITUTION, KafkaAssignerDiskUsageDistributionGoal,
+    KafkaAssignerEvenRackAwareGoal, kafka_assigner_goal_names,
+)
 from cruise_control_tpu_torch.analyzer.goals.leader_election import (
     PreferredLeaderElectionGoal,
 )
 from cruise_control_tpu_torch.analyzer.goals.network import (
     LeaderBytesInDistributionGoal, PotentialNwOutGoal,
 )
-from cruise_control_tpu_torch.analyzer.goals.rack import RackAwareGoal
+from cruise_control_tpu_torch.analyzer.goals.rack import (
+    RackAwareDistributionGoal, RackAwareGoal,
+)
 from cruise_control_tpu_torch.analyzer.goals.topic import (
     MinTopicLeadersPerBrokerGoal, TopicReplicaDistributionGoal,
 )
 
 GOAL_CLASSES: dict[str, type] = {
     "RackAwareGoal": RackAwareGoal,
+    "RackAwareDistributionGoal": RackAwareDistributionGoal,
     "MinTopicLeadersPerBrokerGoal": MinTopicLeadersPerBrokerGoal,
     "ReplicaCapacityGoal": ReplicaCapacityGoal,
     "DiskCapacityGoal": DiskCapacityGoal,
@@ -54,25 +61,16 @@ GOAL_CLASSES: dict[str, type] = {
     "IntraBrokerDiskCapacityGoal": IntraBrokerDiskCapacityGoal,
     "IntraBrokerDiskUsageDistributionGoal": IntraBrokerDiskUsageDistributionGoal,
     "PreferredLeaderElectionGoal": PreferredLeaderElectionGoal,
+    "KafkaAssignerEvenRackAwareGoal": KafkaAssignerEvenRackAwareGoal,
+    "KafkaAssignerDiskUsageDistributionGoal": KafkaAssignerDiskUsageDistributionGoal,
 }
-
-# the reference's other goals (cruise_control_tpu/analyzer/goals/__init__.py)
-NOT_PORTED_GOALS = (
-    "RackAwareDistributionGoal", "KafkaAssignerEvenRackAwareGoal",
-    "KafkaAssignerDiskUsageDistributionGoal",
-)
 
 
 def make_goal(name: str, constraint: BalancingConstraint | None = None,
               options: OptimizationOptions | None = None) -> GoalKernel:
     cls = GOAL_CLASSES.get(name)
     if cls is None:
-        if name in NOT_PORTED_GOALS:
-            raise NotImplementedError(
-                f"goal {name!r} is not ported yet (ROADMAP.md Queue 1 item 4, "
-                f"goal kernels); ported: {sorted(GOAL_CLASSES)}")
-        raise ValueError(f"unknown goal {name!r}; known: "
-                         f"{sorted(GOAL_CLASSES) + sorted(NOT_PORTED_GOALS)}")
+        raise ValueError(f"unknown goal {name!r}; known: {sorted(GOAL_CLASSES)}")
     return cls(constraint=constraint or BalancingConstraint(),
                options=options or OptimizationOptions())
 
@@ -83,6 +81,9 @@ def make_goals(names, constraint=None, options=None) -> list[GoalKernel]:
 
 __all__ = [
     "GOAL_CLASSES", "GoalKernel", "make_goal", "make_goals", "CapacityGoal",
+    "KAFKA_ASSIGNER_SUBSTITUTION", "KafkaAssignerDiskUsageDistributionGoal",
+    "KafkaAssignerEvenRackAwareGoal", "RackAwareDistributionGoal",
+    "kafka_assigner_goal_names",
     "CpuCapacityGoal", "CpuUsageDistributionGoal", "DiskCapacityGoal",
     "DiskUsageDistributionGoal", "IntraBrokerDiskCapacityGoal",
     "IntraBrokerDiskUsageDistributionGoal", "LeaderBytesInDistributionGoal",

@@ -119,9 +119,6 @@ class GoalKernel:
     # first-touch rule (rack/topic structured goals)
     wave_safe: bool = dataclasses.field(default=False, init=False)
     deep_tail: bool = dataclasses.field(default=False, init=False)
-    # a previous-goal veto with no interval form (RackAwareGoal): the K2
-    # kernel evaluates it from the partition's per-rack counts
-    rack_veto: bool = dataclasses.field(default=False, init=False)
 
     def broker_severity(self, env: ClusterEnv, st: EngineState) -> torch.Tensor:
         raise NotImplementedError
@@ -134,6 +131,13 @@ class GoalKernel:
         """(family, row_f f32[K, 4], col_f f32[4, B]) of ``move_score``."""
         raise NotImplementedError
 
+    def rack_limit(self, env: ClusterEnv, part: torch.Tensor):
+        """Optional i32[K]: a rack goal's ``accept_move`` as a previous goal,
+        the most replicas of partition ``part[k]`` one rack may hold
+        (``others + 1 <= limit``, evaluated by the K2 and K7 kernels from
+        the partitions' per-rack counts)."""
+        return None
+
     def move_row_veto(self, env: ClusterEnv, st: EngineState, cand: torch.Tensor):
         """Optional bool[K]: a custom ``accept_move`` veto that depends on
         the row only (it is folded into the K2 kernel's row legitimacy)."""
@@ -143,7 +147,11 @@ class GoalKernel:
         """f32[K, B] score of moving candidate k to broker b (no legitimacy):
         the K2 twin's arithmetic on this goal's tables."""
         family, row_f, col_f = self.move_tables(env, st, cand)
-        return move_k.goal_score_plain(family, None, row_f, col_f, cand.shape[0],
+        others = None
+        if family in move_k.RACK_FAMILIES:
+            others = move_k.rack_others(partition_rack_rows(env, st, cand),
+                                        st.replica_broker[cand], env.broker_rack)
+        return move_k.goal_score_plain(family, others, row_f, col_f, cand.shape[0],
                                        env.num_brokers,
                                        self.move_topic_table(env, st, cand))
 
@@ -231,9 +239,10 @@ class GoalKernel:
         """``kernels.swap.SwapAccept``: this goal's ``accept_swap`` as a
         previously optimized goal. The default (base.py:236-246) is both
         directed legs of ``accept_move`` in its own arithmetic: the rack
-        legs, the row-only veto of each side and the topic veto's
-        destination legs. A goal whose ``accept_move`` has an interval form
-        overrides this (never with its rooms, which may differ by one ulp)."""
+        legs (each side's rack limit), the row-only veto of each side and
+        the topic veto's destination legs. A goal whose ``accept_move`` has
+        an interval form overrides this (never with its rooms, which may
+        differ by one ulp)."""
         if overrides(self, "accept_move_rooms"):
             raise NotImplementedError(f"{self.name}: accept_swap of an interval-"
                                       f"form accept_move must be written out")
@@ -241,8 +250,11 @@ class GoalKernel:
         if overrides(self, "move_row_veto"):
             row_out = self.move_row_veto(env, st, cand_out)
             row_in = self.move_row_veto(env, st, cand_in)
-        return swap_k.SwapAccept(row_out=row_out, row_in=row_in, rack=self.rack_veto,
-                                 topic_up=self.move_topic_veto(env, st))
+        return swap_k.SwapAccept(
+            row_out=row_out, row_in=row_in,
+            lim_out=self.rack_limit(env, env.replica_partition[cand_out]),
+            lim_in=self.rack_limit(env, env.replica_partition[cand_in]),
+            topic_up=self.move_topic_veto(env, st))
 
     def swap_score(self, env: ClusterEnv, st: EngineState, cand_out, cand_in):
         """f32[K1, K2] (no legitimacy): the K7 twin's score on the tables."""
@@ -316,6 +328,16 @@ def candidate_load(env: ClusterEnv, st: EngineState, cand: torch.Tensor) -> torc
     return torch.where(lead, env.leader_load[cand], env.follower_load[cand])
 
 
+def partition_rack_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+    """i64[K, racks]: the per-rack replica counts of each row's partition."""
+    return st.part_rack_count[env.replica_partition[cand]].to(torch.int64).contiguous()
+
+
+def min_limit(a, b):
+    """The elementwise minimum of two optional limits (None: no limit)."""
+    return b if a is None else a if b is None else torch.minimum(a, b)
+
+
 def sibling_brokers(env: ClusterEnv, st: EngineState, cand: torch.Tensor):
     """i64[K, F]: brokers hosting another replica of each candidate's
     partition, -1 elsewhere."""
@@ -364,29 +386,30 @@ def swap_pairs(env: ClusterEnv, st: EngineState, cand_out, cand_in, accepts,
     """The K7 inputs of the pairs (cand_out[i], cand_in[j]): the brokers,
     siblings, original brokers and topics of both sides, ``row_ok_*``
     (default: ``legit_swap_rows``) ANDed with the row-only parts of every
-    ``SwapAccept`` in ``accepts``, whose vetoes, rack flags and topic veto
-    fold into the kernel's inputs."""
+    ``SwapAccept`` in ``accepts``, whose vetoes, rack limits (their
+    minimum) and topic veto fold into the kernel's inputs."""
     if row_ok_out is None:
         row_ok_out = legit_swap_rows(env, st, cand_out)
     if row_ok_in is None:
         row_ok_in = legit_swap_rows(env, st, cand_in)
-    vetoes, rack, topic_up = [], False, None
+    vetoes, lim_out, lim_in, topic_up = [], None, None, None
     for a in accepts:
         if a.row_out is not None:
             row_ok_out = row_ok_out & a.row_out
         if a.row_in is not None:
             row_ok_in = row_ok_in & a.row_in
         vetoes.extend(a.vetoes)
-        rack = rack or a.rack
+        lim_out = min_limit(lim_out, a.lim_out)
+        lim_in = min_limit(lim_in, a.lim_in)
         if a.topic_up is not None:
             if topic_up is not None:
                 raise NotImplementedError("two topic vetoes in one chain")
             topic_up = a.topic_up.contiguous()
     prow_out = prow_in = None
-    if rack:
-        prc = st.part_rack_count
-        prow_out = prc[env.replica_partition[cand_out]].to(torch.int64).contiguous()
-        prow_in = prc[env.replica_partition[cand_in]].to(torch.int64).contiguous()
+    if lim_out is not None:
+        prow_out = partition_rack_rows(env, st, cand_out)
+        prow_in = partition_rack_rows(env, st, cand_in)
+        lim_out, lim_in = lim_out.contiguous(), lim_in.contiguous()
     return swap_k.SwapPairs(
         b_out=st.replica_broker[cand_out].contiguous(),
         b_in=st.replica_broker[cand_in].contiguous(),
@@ -399,7 +422,7 @@ def swap_pairs(env: ClusterEnv, st: EngineState, cand_out, cand_in, accepts,
         t_out=env.replica_topic[cand_out].contiguous(),
         t_in=env.replica_topic[cand_in].contiguous(),
         tab=st.topic_broker_count, prow_out=prow_out, prow_in=prow_in,
-        vetoes=vetoes, topic_up=topic_up)
+        lim_out=lim_out, lim_in=lim_in, vetoes=vetoes, topic_up=topic_up)
 
 
 def lead_member_rows(env: ClusterEnv, cand: torch.Tensor) -> torch.Tensor:

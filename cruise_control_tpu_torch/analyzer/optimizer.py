@@ -24,7 +24,8 @@ finisher of a goal that exited violated and unproven with few actions left
 (its moves, transfers and swap window counted). The intra-broker disk goals
 run as chain goals with the disk branch (K8). Sessions, bf16 and the config
 surface raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+them. A hard-goal failure raises ``OptimizationFailureError`` with the
+result's provision recommendation.
 """
 from __future__ import annotations
 
@@ -49,6 +50,9 @@ from cruise_control_tpu_torch.analyzer.goals.leader_election import (
 from cruise_control_tpu_torch.analyzer.proposals import diff_proposals
 from cruise_control_tpu_torch.analyzer.state import EngineState, init_state
 from cruise_control_tpu_torch.common.resources import Resource
+from cruise_control_tpu_torch.detector.provisioner import (
+    ProvisionFloors, recommendation_from_result,
+)
 from cruise_control_tpu_torch.model.cluster_tensor import (
     ClusterMeta, ClusterTensor, broker_index_dtype, disk_index_dtype, pad_cluster,
 )
@@ -88,8 +92,9 @@ def _resolve_compute_dtype(pinned: str, num_replicas: int) -> str:
 
 
 class OptimizationFailureError(Exception):
-    """A hard goal could not be satisfied. ``recommendation`` stays None
-    until the provisioner is ported (ROADMAP.md Queue 1 item 12)."""
+    """A hard goal could not be satisfied. ``recommendation`` is the
+    ``detector.provisioner.ProvisionRecommendation`` of the result (the
+    reference's OptimizationFailureException carries one)."""
 
     def __init__(self, message: str, recommendation=None, result=None):
         super().__init__(message)
@@ -274,7 +279,7 @@ class GoalOptimizer:
                  engine_params: EngineParams | None = None, device="cuda"):
         if config is not None:
             raise NotImplementedError("the config surface is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 7); pass "
+                                      "(ROADMAP.md Queue 1 item 7b); pass "
                                       "constraint= / engine_params=")
         self.device = resolve_device(device)
         self._constraint = constraint or BalancingConstraint()
@@ -375,7 +380,7 @@ class GoalOptimizer:
                                       "(ROADMAP.md Queue 1 item 9)")
         if measure_goal_durations:
             raise NotImplementedError("measure_goal_durations is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 7)")
+                                      "(ROADMAP.md Queue 1 item 7b)")
         names = goal_names or self._default_goal_names
         if goal_names and not skip_hard_goal_check:
             missing = [h for h in self._hard_goal_names
@@ -501,6 +506,12 @@ class GoalOptimizer:
                       for r, g in zip(goal_results, goals)
                       if g.is_hard and r.violated_after]
             if failed:
+                # optimizer.py:1358-1375: attach how many brokers are missing
+                # (the floors' config keys are item 7b: their defaults here)
+                rec = recommendation_from_result(result, self._constraint,
+                                                 floors=ProvisionFloors())
                 raise OptimizationFailureError(
-                    f"hard goal(s) not satisfiable: {failed}", result=result)
+                    f"hard goal(s) not satisfiable: {failed} "
+                    f"[{rec.status.value}: {rec.reason}]",
+                    recommendation=rec, result=result)
         return result

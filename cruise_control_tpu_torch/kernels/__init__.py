@@ -9,7 +9,7 @@ from cruise_control_tpu_torch.kernels.admission import wave_admission
 from cruise_control_tpu_torch.kernels.build import KERNELS, build_all
 from cruise_control_tpu_torch.kernels.disk import disk_apply, disk_rows
 from cruise_control_tpu_torch.kernels.leadership import leadership_rows
-from cruise_control_tpu_torch.kernels.move_score import move_score_classes
+from cruise_control_tpu_torch.kernels.move_score import FAMILY_LAUNCHES, move_score_classes
 from cruise_control_tpu_torch.kernels.ple import preferred_leader
 from cruise_control_tpu_torch.kernels.segment import segment_count, segment_sum
 from cruise_control_tpu_torch.kernels.select import compact_eligible, select_candidates
@@ -20,6 +20,7 @@ def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
         k.shapes = {}
+    FAMILY_LAUNCHES.clear()
 
 
 def launches() -> dict:
@@ -32,8 +33,8 @@ def launch_shapes() -> dict:
 
 
 __all__ = [
-    "KERNELS", "build_all", "compact_eligible", "disk_apply", "disk_rows",
-    "launch_shapes", "launches", "leadership_rows", "move_score_classes",
+    "FAMILY_LAUNCHES", "KERNELS", "build_all", "compact_eligible", "disk_apply",
+    "disk_rows", "launch_shapes", "launches", "leadership_rows", "move_score_classes",
     "preferred_leader", "reset_launches", "segment_count", "segment_sum",
     "select_candidates", "swap_admission", "swap_rows", "wave_admission",
 ]

@@ -1,12 +1,15 @@
-// K2 move_score_classes: [K, B] move legitimacy + chain rooms + rack veto +
-// active-goal score, reduced to the best (value, lowest q) per destination
-// class b % T.
+// K2 move_score_classes: [K, B] move legitimacy + chain rooms + rack-limit
+// veto + active-goal score, reduced to the best (value, lowest q) per
+// destination class b % T.
 //
 // Replaces cruise_control_tpu/analyzer/engine.py _score_class_rows
 // (:767-792) with _rooms_move_mask (:693), goals/base.py legit_move_mask
-// (:369), RackAwareGoal.accept_move (goals/rack.py:72) and the move_score of
-// RackAwareGoal, CapacityGoal (and PotentialNwOutGoal, the same family on
-// potential NW_OUT), ReplicaCapacityGoal, ReplicaDistributionGoal,
+// (:369), RackAwareGoal.accept_move (goals/rack.py:72) and
+// RackAwareDistributionGoal.accept_move (:144) as previous goals (one
+// per-row rack limit lim[k], the chain's minimum: others + 1 <= lim[k]), and
+// the move_score of RackAwareGoal, RackAwareDistributionGoal (:129, its
+// limit ceil(RF / racks) per row), CapacityGoal (and PotentialNwOutGoal, the
+// same family on potential NW_OUT), ReplicaCapacityGoal, ReplicaDistributionGoal,
 // MinTopicLeadersPerBrokerGoal, LeaderReplicaDistributionGoal,
 // ResourceDistributionGoal (distribution.py:117-133) and
 // TopicReplicaDistributionGoal (topic.py:97-118), and the destination leg
@@ -36,6 +39,7 @@ constexpr int kGoalMinTopic = 4;
 constexpr int kGoalLeaderDist = 5;
 constexpr int kGoalResourceDist = 6;
 constexpr int kGoalTopicReplica = 7;
+constexpr int kGoalRackDist = 8;
 constexpr int kMaxF = 64;
 constexpr int kDims = 8;
 
@@ -45,11 +49,12 @@ __device__ __forceinline__ float violation(float u, float lo, float up) {
 
 __global__ void move_score_kernel(
     int B, int T, int F, int Kr, int goal_kind, int room_mask, int exempt_mask,
-    int rack_accept, int Bp, const long long* __restrict__ cur_b,
+    int Bp, const long long* __restrict__ cur_b,
     const long long* __restrict__ orig_b, const long long* __restrict__ sib_b,
     const unsigned char* __restrict__ row_ok, const float* __restrict__ d_rows,
     const float* __restrict__ dst_room, const long long* __restrict__ prow,
-    const float* __restrict__ row_f, const float* __restrict__ col_f,
+    const int* __restrict__ rack_lim, const float* __restrict__ row_f,
+    const float* __restrict__ col_f,
     const unsigned char* __restrict__ dst_ok,
     const unsigned char* __restrict__ new_ok,
     const long long* __restrict__ broker_rack,
@@ -67,8 +72,10 @@ __global__ void move_score_kernel(
   const bool rok = row_ok[k] != 0;
   const long long cb = cur_b[k];
   const long long ob = orig_b[k];
-  const bool need_rack = (goal_kind == kGoalRack) || rack_accept;
+  const bool need_rack =
+      goal_kind == kGoalRack || goal_kind == kGoalRackDist || rack_lim != nullptr;
   const long long crack = need_rack ? broker_rack[cb] : 0;
+  const long long lim_k = rack_lim != nullptr ? (long long)rack_lim[k] : 0;
   float d[kDims];
 #pragma unroll
   for (int c = 0; c < kDims; ++c) d[c] = d_rows[(long long)k * kDims + c];
@@ -101,7 +108,7 @@ __global__ void move_score_kernel(
       if (ok && need_rack) {
         const long long rb = broker_rack[b];
         others = prow[(long long)k * Kr + rb] - (rb == crack ? 1 : 0);
-        if (rack_accept) ok = others == 0;
+        if (rack_lim != nullptr) ok = others + 1 <= lim_k;
       }
       if (ok) {
         const float c0 = col_f[b];
@@ -110,6 +117,9 @@ __global__ void move_score_kernel(
         const float c3 = col_f[3 * B + b];
         if (goal_kind == kGoalRack) {
           s = (others == 0 && r0 != 0.0f) ? c0 : -INFINITY;
+        } else if (goal_kind == kGoalRackDist) {
+          // r0 = was violating or offline, r1 = the row's rack limit
+          s = ((float)(others + 1) <= r1 && r0 != 0.0f) ? c0 : -INFINITY;
         } else if (goal_kind == kGoalCapacity) {
           const bool feasible = (c0 + r0) <= c1;
           const float v = (r1 != 0.0f) ? c3 : (r0 + c2);
@@ -178,10 +188,11 @@ __global__ void move_score_kernel(
 
 extern "C" int cc_move_score_classes(
     int K, int B, int T, int F, int Kr, int goal_kind, int room_mask,
-    int exempt_mask, int rack_accept, int Bp, const long long* cur_b,
+    int exempt_mask, int Bp, const long long* cur_b,
     const long long* orig_b, const long long* sib_b, const unsigned char* row_ok,
     const float* d_rows, const float* dst_room, const long long* prow,
-    const float* row_f, const float* col_f, const unsigned char* dst_ok,
+    const int* rack_lim, const float* row_f, const float* col_f,
+    const unsigned char* dst_ok,
     const unsigned char* new_ok, const long long* broker_rack,
     const long long* order_b, const long long* row_t, const int* tab,
     const int* vtab, const float* vup, float* cls_val, long long* cls_q,
@@ -194,11 +205,14 @@ extern "C" int cc_move_score_classes(
       (row_t == nullptr || tab == nullptr))
     return (int)cudaErrorInvalidValue;
   if (vtab != nullptr && (row_t == nullptr || vup == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((goal_kind == kGoalRack || goal_kind == kGoalRackDist || rack_lim != nullptr) &&
+      (prow == nullptr || Kr <= 0))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)Bp * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   move_score_kernel<<<K, 256, smem, stream>>>(
-      B, T, F, Kr, goal_kind, room_mask, exempt_mask, rack_accept, Bp, cur_b,
-      orig_b, sib_b, row_ok, d_rows, dst_room, prow, row_f, col_f, dst_ok,
-      new_ok, broker_rack, order_b, row_t, tab, vtab, vup, cls_val, cls_q);
+      B, T, F, Kr, goal_kind, room_mask, exempt_mask, Bp, cur_b,
+      orig_b, sib_b, row_ok, d_rows, dst_room, prow, rack_lim, row_f, col_f,
+      dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup, cls_val, cls_q);
   return (int)cudaGetLastError();
 }

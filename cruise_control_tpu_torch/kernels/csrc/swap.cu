@@ -8,7 +8,10 @@
 // _swap_window_positives (:1414-1420), with goals/base.py legit_swap_mask
 // (:417), the accept_swap of every previous goal and the swap_score of
 // ResourceDistributionGoal (distribution.py:243-257) and
-// TopicReplicaDistributionGoal (topic.py:160-194). swap_admission replaces
+// TopicReplicaDistributionGoal (topic.py:160-194); the rack legs of
+// RackAwareGoal and RackAwareDistributionGoal (base.py accept_swap :236 over
+// their accept_move) take each moving row's own rack limit, others + 1 <=
+// lim_out[i] / lim_in[j]. swap_admission replaces
 // the .at[].min first-use admission of _swap_branch_batched (:1146-1177).
 // The goal's [B]-level columns (fb), per-row loads and per-topic limits
 // arrive precomputed with the reference's arithmetic; every float operation
@@ -55,7 +58,7 @@ __device__ __forceinline__ bool band_gain(float us, float ud, float l, float los
 }
 
 __global__ void swap_rows_kernel(
-    int K1, int K2, int F, int B, int T, int Kr, int family, int V, int rack,
+    int K1, int K2, int F, int B, int T, int Kr, int family, int V,
     int topic_veto, int vkinds, float min_gain,
     const long long* __restrict__ b_out, const long long* __restrict__ b_in,
     const long long* __restrict__ sib_out, const long long* __restrict__ sib_in,
@@ -65,6 +68,7 @@ __global__ void swap_rows_kernel(
     const unsigned char* __restrict__ new_ok,
     const long long* __restrict__ broker_rack,
     const long long* __restrict__ prow_out, const long long* __restrict__ prow_in,
+    const int* __restrict__ lim_out, const int* __restrict__ lim_in,
     const long long* __restrict__ t_out, const long long* __restrict__ t_in,
     const int* __restrict__ tab, const float* __restrict__ va, const float* __restrict__ vc,
     const float* __restrict__ vl, const float* __restrict__ vxo,
@@ -111,12 +115,12 @@ __global__ void swap_rows_kernel(
         ok = leg_out && leg_in;
       }
     }
-    if (ok && rack) {
+    if (ok && lim_out != nullptr) {
       const long long r_o = broker_rack[bo];
       const long long r_i = broker_rack[bi];
       const long long same = r_o == r_i ? 1 : 0;
-      ok = (prow_out[(long long)i * Kr + r_i] - same == 0) &&
-           (prow_in[(long long)j * Kr + r_o] - same == 0);
+      ok = (prow_out[(long long)i * Kr + r_i] - same + 1 <= (long long)lim_out[i]) &&
+           (prow_in[(long long)j * Kr + r_o] - same + 1 <= (long long)lim_in[j]);
     }
     if (ok && topic_veto) {
       const long long to = t_out[i];
@@ -202,14 +206,15 @@ __global__ void swap_admission_kernel(int K1, float min_gain,
 }  // namespace
 
 extern "C" int cc_swap_rows(
-    int K1, int K2, int F, int B, int T, int Kr, int family, int V, int rack,
+    int K1, int K2, int F, int B, int T, int Kr, int family, int V,
     int topic_veto, int vkinds, float min_gain, const long long* b_out,
     const long long* b_in, const long long* sib_out, const long long* sib_in,
     const long long* orig_out, const long long* orig_in,
     const unsigned char* row_ok_out, const unsigned char* row_ok_in,
     const unsigned char* new_ok, const long long* broker_rack,
-    const long long* prow_out, const long long* prow_in, const long long* t_out,
-    const long long* t_in, const int* tab, const float* va,
+    const long long* prow_out, const long long* prow_in, const int* lim_out,
+    const int* lim_in, const long long* t_out, const long long* t_in, const int* tab,
+    const float* va,
     const float* vc, const float* vl, const float* vxo, const float* vxi,
     const float* fb, const float* fo, const float* fi, const float* tl,
     const float* topic_up, float* best, long long* best_j, int* positives,
@@ -220,7 +225,8 @@ extern "C" int cc_swap_rows(
   if (V > 16 || (V > 0 && (va == nullptr || vc == nullptr || vl == nullptr ||
                             vxo == nullptr || vxi == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (rack && (prow_out == nullptr || prow_in == nullptr || Kr <= 0))
+  if ((lim_out == nullptr) != (lim_in == nullptr)) return (int)cudaErrorInvalidValue;
+  if (lim_out != nullptr && (prow_out == nullptr || prow_in == nullptr || Kr <= 0))
     return (int)cudaErrorInvalidValue;
   if (topic_veto && topic_up == nullptr) return (int)cudaErrorInvalidValue;
   if (family == kResourceDist && (fb == nullptr || fo == nullptr || fi == nullptr))
@@ -228,10 +234,10 @@ extern "C" int cc_swap_rows(
   if (family == kTopicReplica && tl == nullptr) return (int)cudaErrorInvalidValue;
   if (family != kResourceDist && family != kTopicReplica) return (int)cudaErrorInvalidValue;
   swap_rows_kernel<<<K1, kMaxK2, 0, stream>>>(
-      K1, K2, F, B, T, Kr, family, V, rack, topic_veto, vkinds, min_gain, b_out,
+      K1, K2, F, B, T, Kr, family, V, topic_veto, vkinds, min_gain, b_out,
       b_in, sib_out, sib_in, orig_out, orig_in, row_ok_out, row_ok_in, new_ok,
-      broker_rack, prow_out, prow_in, t_out, t_in, tab, va, vc, vl, vxo, vxi,
-      fb, fo, fi, tl, topic_up, best, best_j, positives);
+      broker_rack, prow_out, prow_in, lim_out, lim_in, t_out, t_in, tab, va, vc, vl,
+      vxo, vxi, fb, fo, fi, tl, topic_up, best, best_j, positives);
   return (int)cudaGetLastError();
 }
 

@@ -4,11 +4,15 @@ per-destination-class best.
 Replaces ``cruise_control_tpu/analyzer/engine.py`` ``_move_wave`` /
 ``_score_class_rows`` (:767-792) with ``_rooms_move_mask`` (:693),
 ``goals/base.py`` ``legit_move_mask`` (:369), ``RackAwareGoal.accept_move``
-(rack.py:72), ``TopicReplicaDistributionGoal.accept_move`` (topic.py:120)
-and the active goal's ``move_score``. For every (candidate k, destination
-b) it evaluates legitimacy (allowed destination, new-broker rule, not self,
-no sibling replica on b), the chain's combined destination rooms, the Rack
-veto when RackAwareGoal is a previous goal, the topic veto when
+(rack.py:72), ``RackAwareDistributionGoal.accept_move`` (rack.py:144),
+``TopicReplicaDistributionGoal.accept_move`` (topic.py:120) and the active
+goal's ``move_score``. For every (candidate k, destination b) it evaluates
+legitimacy (allowed destination, new-broker rule, not self, no sibling
+replica on b), the chain's combined destination rooms, the rack-limit veto
+when a rack goal is a previous goal (``others + 1 <= rack_lim[k]``, where
+``others`` counts the row partition's replicas in b's rack other than the
+row itself; RackAwareGoal's limit is 1, RackAwareDistributionGoal's
+ceil(RF / racks), a chain holding both takes the minimum), the topic veto when
 TopicReplicaDistributionGoal is one (``tab[t, b] + 1 <= up[k]``; its
 source leg folds into ``row_ok``), and the active goal's score; then it
 reduces each row to the best value and its lowest strided index ``q`` in
@@ -48,10 +52,14 @@ GOAL_MIN_TOPIC = 4         # MinTopicLeadersPerBrokerGoal
 GOAL_LEADER_DIST = 5       # LeaderReplicaDistributionGoal
 GOAL_RESOURCE_DIST = 6     # ResourceDistributionGoal (the four usage goals)
 GOAL_TOPIC_REPLICA = 7     # TopicReplicaDistributionGoal
+GOAL_RACK_DIST = 8         # RackAwareDistributionGoal
+RACK_FAMILIES = (GOAL_RACK, GOAL_RACK_DIST)
 WAVE_DIMS = 8
 EXEMPT_MASK = 1 << 5       # WAVE_LEADER_COUNT: zero-delta rows pass its rooms
 MAX_F = 64
 MAX_SMEM = 48 * 1024
+# launches by goal family since the last ``kernels.reset_launches()``
+FAMILY_LAUNCHES: dict[int, int] = {}
 
 
 def _violation(u, lower, upper):
@@ -63,6 +71,10 @@ def goal_score_plain(goal_kind, others, row_f, col_f, K, B, topic=None):
     neg = torch.full((K, B), -torch.inf, dtype=torch.float32, device=row_f.device)
     if goal_kind == GOAL_RACK:
         ok = (others == 0) & (row_f[:, 0] != 0)[:, None]
+        return torch.where(ok, col_f[0][None, :].expand(K, B), neg)
+    if goal_kind == GOAL_RACK_DIST:
+        # row_f[:, 0] = was violating or offline, row_f[:, 1] = the rack limit
+        ok = ((others + 1).to(torch.float32) <= row_f[:, 1:2]) & (row_f[:, 0] != 0)[:, None]
         return torch.where(ok, col_f[0][None, :].expand(K, B), neg)
     if goal_kind == GOAL_CAPACITY:
         l = row_f[:, 0:1]
@@ -125,8 +137,17 @@ def goal_score_plain(goal_kind, others, row_f, col_f, K, B, topic=None):
     raise ValueError(f"unknown goal kind {goal_kind}")
 
 
+def rack_others(prow, cur_b, broker_rack):
+    """i64[K, B]: replicas of each row's partition in b's rack, the row
+    itself not counted when b shares its current rack."""
+    K, B = cur_b.shape[0], broker_rack.shape[0]
+    cur_rack = broker_rack[cur_b]
+    return (prow.gather(1, broker_rack[None, :].expand(K, B))
+            - (broker_rack[None, :] == cur_rack[:, None]).to(prow.dtype))
+
+
 def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
-                             dst_room, room_mask, prow, rack_accept, row_f, col_f,
+                             dst_room, room_mask, prow, rack_lim, row_f, col_f,
                              dst_ok, new_ok, broker_rack, order_b=None, topic=None,
                              tveto=None):
     K, B = cur_b.shape[0], dst_ok.shape[0]
@@ -145,11 +166,9 @@ def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
         ok = ok & ((vtab.reshape(-1, B)[row_t].to(torch.float32) + 1.0) <= vup[:, None])
     others = None
     if prow is not None:
-        cur_rack = broker_rack[cur_b]
-        others = (prow.gather(1, broker_rack[None, :].expand(K, B))
-                  - (broker_rack[None, :] == cur_rack[:, None]).to(prow.dtype))
-        if rack_accept:
-            ok = ok & (others == 0)
+        others = rack_others(prow, cur_b, broker_rack)
+        if rack_lim is not None:
+            ok = ok & (others + 1 <= rack_lim[:, None])
     score = goal_score_plain(goal_kind, others, row_f, col_f, K, B, topic)
     sc = torch.where(ok & row_ok[:, None], score,
                      torch.full_like(score, -torch.inf))
@@ -166,11 +185,11 @@ def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
     return best, q
 
 
-_SIGNATURES = {"cc_move_score_classes": [I] * 10 + [P] * 20}
+_SIGNATURES = {"cc_move_score_classes": [I] * 9 + [P] * 21}
 
 
 def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
-                       d_rows, dst_room, room_mask: int, prow, rack_accept: bool,
+                       d_rows, dst_room, room_mask: int, prow, rack_lim,
                        row_f, col_f, dst_ok, new_ok, broker_rack, order_b=None,
                        topic=None, tveto=None):
     """(cls_val f32[K, T], cls_q i64[K, T]): per row, the best score and its
@@ -185,14 +204,16 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
     partition, -1 padded), ``row_ok`` bool (replica-level legitimacy, kv >
     -inf and the source-side rooms), ``d_rows`` f32[K, 8] (wave deltas),
     ``prow`` i64[K, racks] (the row partition's per-rack replica counts; for
-    the rack goal or veto, else None), ``row_f`` f32[K, 4]. Broker inputs [B]:
+    the rack families or the rack-limit veto, else None), ``rack_lim``
+    i32[K] (the rack-limit veto's per-row limit, None: no veto), ``row_f``
+    f32[K, 4]. Broker inputs [B]:
     ``dst_room`` f32[8, B] (combined destination rooms; dims in
     ``room_mask``), ``col_f`` f32[4, B], ``dst_ok``/``new_ok`` bool,
     ``broker_rack`` i64."""
     if not cur_b.is_cuda:
         return move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok,
                                         d_rows, dst_room, room_mask, prow,
-                                        rack_accept, row_f, col_f, dst_ok, new_ok,
+                                        rack_lim, row_f, col_f, dst_ok, new_ok,
                                         broker_rack, order_b, topic, tveto)
     K, F = sib_b.shape
     B = dst_ok.shape[0]
@@ -201,8 +222,10 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
             or Bp < B):
         raise ValueError(f"move_score_classes: unsupported F={F}, B={B}, T={T}, "
                          f"Bp={Bp}")
-    if (goal_kind == GOAL_RACK or rack_accept) and prow is None:
-        raise ValueError("the rack goal and rack veto need prow")
+    if (goal_kind in RACK_FAMILIES or rack_lim is not None) and prow is None:
+        raise ValueError("the rack families and the rack-limit veto need prow")
+    if rack_lim is not None and rack_lim.shape != (K,):
+        raise ValueError("move_score_classes: rack_lim is one limit per row")
     if goal_kind in (GOAL_MIN_TOPIC, GOAL_TOPIC_REPLICA) and topic is None:
         raise ValueError("the topic families need their topic table")
     row_t, tab = topic if topic is not None else (None, None)
@@ -210,10 +233,10 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
     if tveto is not None:
         vrow_t, vtab, vup = tveto
         row_t = vrow_t if row_t is None else row_t   # both are the rows' topics
-    tensors = [cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, prow, row_f, col_f,
-               dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup]
+    tensors = [cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, prow, rack_lim, row_f,
+               col_f, dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup]
     for t, dt in zip(tensors, (torch.int64, torch.int64, torch.int64, torch.bool,
-                               torch.float32, torch.float32, torch.int64,
+                               torch.float32, torch.float32, torch.int64, torch.int32,
                                torch.float32, torch.float32, torch.bool,
                                torch.bool, torch.int64, torch.int64, torch.int64,
                                torch.int32, torch.int32, torch.float32)):
@@ -223,9 +246,9 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
     cls_val = torch.empty((K, T), dtype=torch.float32, device=cur_b.device)
     cls_q = torch.empty((K, T), dtype=torch.int64, device=cur_b.device)
     err = library("move_score", _SIGNATURES).cc_move_score_classes(
-        K, B, T, F, Kr, int(goal_kind), int(room_mask), EXEMPT_MASK,
-        int(bool(rack_accept)), Bp,
+        K, B, T, F, Kr, int(goal_kind), int(room_mask), EXEMPT_MASK, Bp,
         *(ptr(t) for t in tensors), ptr(cls_val), ptr(cls_q), stream_ptr())
     check(err, "move_score_classes")
     KERNEL.count("ordered" if order_b is not None else f"T={T}")
+    FAMILY_LAUNCHES[goal_kind] = FAMILY_LAUNCHES.get(goal_kind, 0) + 1
     return cls_val, cls_q

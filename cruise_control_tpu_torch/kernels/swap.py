@@ -36,10 +36,13 @@ per-row values ``x_out[i]`` / ``x_in[j]``:
 - ``VETO_DIRECTED_EXEMPT``: the same, a leg with a zero value passes
   outright (LeaderReplicaDistributionGoal: only leaders are band-checked).
 
-The rack veto (RackAwareGoal's legs, from the partitions' per-rack counts)
-and the topic veto (TopicReplicaDistributionGoal's destination legs,
-``tab[t, b] + 1 <= up[t]``) are flags; every row-only part of a veto is
-folded into ``row_ok_out`` / ``row_ok_in``.
+The rack-limit veto (the legs of RackAwareGoal and
+RackAwareDistributionGoal, from the partitions' per-rack counts: each
+directed leg keeps ``others + 1 <= lim`` with the moving row's own limit,
+``lim_out[i]`` or ``lim_in[j]``, the chain's minimum) and the topic veto
+(TopicReplicaDistributionGoal's destination legs, ``tab[t, b] + 1 <=
+up[t]``) come as per-row limits and a per-topic table; every row-only part
+of a veto is folded into ``row_ok_out`` / ``row_ok_in``.
 
 Families (``SWAP_*``): resource distribution ``_gain(u[bo], u[bi], net,
 ...) x 0.95`` over ``fb`` = (util, lower, upper) f32[3, B]; topic replica
@@ -100,12 +103,14 @@ class SwapVeto:
 @dataclasses.dataclass
 class SwapAccept:
     """A goal's ``accept_swap`` as a previously optimized goal: row-only
-    parts, vetoes, the rack flag and the topic veto's per-topic upper
-    limit (None: no topic veto)."""
+    parts, vetoes, the rack limits of both sides' rows (None: no rack
+    veto) and the topic veto's per-topic upper limit (None: no topic
+    veto)."""
     row_out: torch.Tensor | None = None     # bool[K1]
     row_in: torch.Tensor | None = None      # bool[K2]
     vetoes: list = dataclasses.field(default_factory=list)
-    rack: bool = False
+    lim_out: torch.Tensor | None = None     # i32[K1]
+    lim_in: torch.Tensor | None = None      # i32[K2]
     topic_up: torch.Tensor | None = None    # f32[T]
 
 
@@ -127,9 +132,10 @@ class SwapPairs:
     row-only vetoes; ``new_ok`` bool[B] the new-broker rule's brokers (all
     true when the cluster has no new broker, else the new ones; a leg may
     also go back to the moving replica's original broker); ``prow_*``
-    i64[K, racks] the per-rack replica counts of each row's partition
-    (rack veto, else None); ``t_*`` the rows' topics and ``tab`` i32[T, B]
-    the (topic, broker) replica counts."""
+    i64[K, racks] the per-rack replica counts of each row's partition and
+    ``lim_*`` i32[K] its rack limit (rack veto, else None); ``t_*`` the
+    rows' topics and ``tab`` i32[T, B] the (topic, broker) replica
+    counts."""
     b_out: torch.Tensor
     b_in: torch.Tensor
     sib_out: torch.Tensor
@@ -145,6 +151,8 @@ class SwapPairs:
     tab: torch.Tensor
     prow_out: torch.Tensor | None = None
     prow_in: torch.Tensor | None = None
+    lim_out: torch.Tensor | None = None
+    lim_in: torch.Tensor | None = None
     vetoes: list = dataclasses.field(default_factory=list)
     topic_up: torch.Tensor | None = None
 
@@ -200,7 +208,7 @@ def vetoes_plain(p: SwapPairs) -> torch.Tensor:
         same = (r_o[:, None] == r_i[None, :]).to(p.prow_out.dtype)
         out_leg = p.prow_out[:, r_i] - same
         in_leg = p.prow_in[:, r_o].T - same
-        ok = ok & (out_leg == 0) & (in_leg == 0)
+        ok = ok & (out_leg + 1 <= p.lim_out[:, None]) & (in_leg + 1 <= p.lim_in[None, :])
     if p.topic_up is not None:
         c_oi = p.tab[p.t_out[:, None], bi[None, :]].to(torch.float32)
         c_io = p.tab[p.t_in[None, :], bo[:, None]].to(torch.float32)
@@ -278,7 +286,7 @@ def swap_admission_plain(val, b_out, b_in, j, p_out, p_in, min_gain: float):
 
 
 _SIGNATURES = {
-    "cc_swap_rows": [I] * 11 + [F32] + [P] * 29,
+    "cc_swap_rows": [I] * 10 + [F32] + [P] * 31,
     "cc_swap_admission": [I, F32] + [P] * 8,
 }
 
@@ -309,8 +317,11 @@ def swap_rows(p: SwapPairs, t: SwapTables, min_gain: float, what: str = "pass"):
     if any(v.kind not in (VETO_NET_CAPACITY, VETO_NET_BAND, VETO_DIRECTED,
                           VETO_DIRECTED_EXEMPT) for v in p.vetoes):
         raise ValueError("swap_rows: unknown veto kind")
-    if (p.prow_out is None) != (p.prow_in is None):
-        raise ValueError("swap_rows: the rack veto needs both prow tables")
+    rack = (p.prow_out, p.prow_in, p.lim_out, p.lim_in)
+    if any(x is None for x in rack) != all(x is None for x in rack):
+        raise ValueError("swap_rows: the rack veto needs both prow tables and limits")
+    if p.lim_out is not None and (p.lim_out.shape != (K1,) or p.lim_in.shape != (K2,)):
+        raise ValueError("swap_rows: the rack limits are one per row")
     if t.family == SWAP_RESOURCE_DIST and (t.fb is None or t.x_out is None
                                            or t.x_in is None):
         raise ValueError("swap_rows: the resource family needs fb, x_out, x_in")
@@ -328,18 +339,18 @@ def swap_rows(p: SwapPairs, t: SwapTables, min_gain: float, what: str = "pass"):
     Kr = p.prow_out.shape[1] if p.prow_out is not None else 0
     tensors = [p.b_out, p.b_in, p.sib_out, p.sib_in, p.orig_out, p.orig_in,
                p.row_ok_out, p.row_ok_in, p.new_ok, p.broker_rack, p.prow_out,
-               p.prow_in, p.t_out, p.t_in, p.tab, va, vc, vl, vxo, vxi,
-               t.fb, t.x_out, t.x_in, t.tl, p.topic_up]
+               p.prow_in, p.lim_out, p.lim_in, p.t_out, p.t_in, p.tab, va, vc, vl,
+               vxo, vxi, t.fb, t.x_out, t.x_in, t.tl, p.topic_up]
     _check_inputs("swap_rows", zip(tensors, (
         _I64, _I64, _I64, _I64, _I64, _I64, _BOOL, _BOOL, _BOOL, _I64, _I64, _I64,
-        _I64, _I64, _I32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32,
+        _I32, _I32, _I64, _I64, _I32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32,
         _F32, _F32)))
     best = torch.empty(K1, dtype=_F32, device=dev)
     best_j = torch.empty(K1, dtype=_I64, device=dev)
     cnt = torch.empty(K1, dtype=_I32, device=dev)
     err = library("swap", _SIGNATURES).cc_swap_rows(
-        K1, K2, F, B, Tn, Kr, int(t.family), V, int(p.prow_out is not None),
-        int(p.topic_up is not None), vkinds, float(min_gain),
+        K1, K2, F, B, Tn, Kr, int(t.family), V, int(p.topic_up is not None), vkinds,
+        float(min_gain),
         *(ptr(x) for x in tensors), ptr(best), ptr(best_j), ptr(cnt), stream_ptr())
     check(err, "swap_rows")
     KERNEL_ROWS.count(f"{what} [{K1}, {K2}]")

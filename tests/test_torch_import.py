@@ -52,6 +52,19 @@ def test_source_imports_nothing_of_jax(source):
     assert not FORBIDDEN.findall(text), f"{source} imports JAX or the JAX package"
 
 
+def test_verification_and_goal_modules_are_scanned():
+    """The rack-distribution and kafka-assigner goals, the verifier, the
+    stats, the sanity check and the provisioner are among the modules
+    imported with JAX blocked and scanned above."""
+    assert {"cruise_control_tpu_torch.analyzer.goals.rack",
+            "cruise_control_tpu_torch.analyzer.goals.kafka_assigner",
+            "cruise_control_tpu_torch.analyzer.verifier",
+            "cruise_control_tpu_torch.model.stats",
+            "cruise_control_tpu_torch.model.sanity",
+            "cruise_control_tpu_torch.detector",
+            "cruise_control_tpu_torch.detector.provisioner"} <= set(MODULES)
+
+
 def test_forbidden_pattern_tells_the_packages_apart():
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("from cruise_control_tpu.analyzer import engine")

@@ -10,8 +10,12 @@ The five move-branch goals of the first slice (``GOALS``):
   not integers, but every float the slice adds up follows the reference's
   order (see test_torch_kernels_plain.py), so counts and the assignment are
   equal as well.
-- Requests the slice cannot serve raise ``NotImplementedError``.
+- Requests the port cannot serve raise ``NotImplementedError``; the goals
+  that used to raise (RackAwareDistributionGoal and the two kafka-assigner
+  goals) now run and match the reference on fixture16.
 - The full 1,000-broker slice (``slow``) compares outcomes at size.
+
+Every reference outcome comes from a fresh interpreter (torch_reference.py).
 
 The default chain minus its swap goals (``CHAIN``, eleven goals with the
 leadership branch, the finisher and the chunked dispatch; the reference's
@@ -31,6 +35,14 @@ reference again from a fresh interpreter):
 - the full 1,000-broker slice (``slow``: fused prefix of nine goals, seven
   chunked goals with the finisher).
 
+The 18-goal chain of the Java parity matrix (``FULL_CHAIN``: the sixteen
+goals with RackAwareDistributionGoal after RackAwareGoal and
+TopicReplicaDistributionGoal last, then the preferred-leader pass) on
+fixture16 and at 1,000 brokers, and the kafka-assigner chain at 1,000
+brokers (all ``slow``): counts, swap actions, finisher fields, assignment
+and proposals against the reference (the tier-1 sizes are in
+test_torch_parity_matrix.py and test_torch_kafka_assigner.py).
+
 The JBOD self-healing path (four logdirs per broker, dead brokers and dead
 disks; the reference again from a fresh interpreter):
 - the intra-broker chain (``rebalance_disk``) and the ten-goal chain of
@@ -47,7 +59,6 @@ import numpy as np
 import pytest
 
 from __graft_entry__ import _fixture_cluster
-from cruise_control_tpu.analyzer.optimizer import GoalOptimizer as RefOptimizer
 from cruise_control_tpu.model import random_cluster as ref_rc
 from cruise_control_tpu_torch import convert
 from cruise_control_tpu_torch.analyzer.engine import EngineParams
@@ -57,7 +68,7 @@ from cruise_control_tpu_torch.analyzer.goals.distribution import (
 )
 from cruise_control_tpu_torch.analyzer.optimizer import DEFAULT_GOALS, GoalOptimizer
 from cruise_control_tpu_torch.model import random_cluster as port_rc
-from torch_reference import reference_chain
+from torch_reference import reference_chain, reference_chains
 
 GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
          "NetworkInboundCapacityGoal", "ReplicaDistributionGoal"]
@@ -73,24 +84,53 @@ CHAIN = ["RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
          "LeaderBytesInDistributionGoal"]
 MID = dict(num_brokers=64, num_racks=4, num_topics=8, num_partitions=8000,
            max_replication=3, seed=3)
+# the Java parity matrix's 18 goals and the kafka-assigner mode's two
+FULL_CHAIN = (["RackAwareGoal", "RackAwareDistributionGoal"] + DEFAULT_GOALS[1:13]
+              + ["LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal",
+                 "TopicReplicaDistributionGoal", "PreferredLeaderElectionGoal"])
+KAFKA_ASSIGNER = ["KafkaAssignerEvenRackAwareGoal", "KafkaAssignerDiskUsageDistributionGoal"]
 
 
-def _run_both(ct, meta, goals=GOALS):
-    kw = {**KW, "goal_names": goals}
-    ref = RefOptimizer().optimizations(ct, meta, **kw)
+# the requests that raised until their goals were ported, on fixture16
+FORMERLY_UNPORTED = {
+    "swap goal": ["KafkaAssignerDiskUsageDistributionGoal"],
+    "deep-tail goal": ["DiskUsageDistributionGoal",
+                       "KafkaAssignerDiskUsageDistributionGoal"],
+    "rack-aware distribution goal": ["RackAwareDistributionGoal"],
+    "kafka-assigner rack goal": GOALS + ["KafkaAssignerEvenRackAwareGoal"],
+}
+
+
+def _port_run(spec, goals=GOALS):
+    """The port's run of ``goals`` on the reference's cluster (``spec`` None:
+    fixture16)."""
+    ct, meta = (_fixture_cluster() if spec is None
+                else ref_rc.generate_scale(ref_rc.RandomClusterSpec(**spec)))
     pct, pmeta = convert.cluster_from_arrays(convert.leaves(ct), meta)
-    port = GoalOptimizer(device="cpu").optimizations(pct, pmeta, **kw)
-    return ref, port
+    return GoalOptimizer(device="cpu").optimizations(
+        pct, pmeta, **{**KW, "goal_names": goals})
 
 
 @pytest.fixture(scope="module")
-def fixture16():
-    return _run_both(*_fixture_cluster())
+def fixture16_refs(tmp_path_factory):
+    """The reference's fixture16 runs of ``GOALS`` and of
+    ``FORMERLY_UNPORTED``, from one fresh interpreter (the chains share
+    their programs at this shape)."""
+    runs = [GOALS, *FORMERLY_UNPORTED.values()]
+    out = reference_chains(tmp_path_factory.mktemp("fixture16"),
+                           [dict(spec=None, goals=g) for g in runs])
+    return dict(zip(["GOALS", *FORMERLY_UNPORTED], out))
 
 
 @pytest.fixture(scope="module")
-def spec32():
-    return _run_both(*ref_rc.generate_scale(ref_rc.RandomClusterSpec(**SMALL)))
+def fixture16(fixture16_refs):
+    return fixture16_refs["GOALS"], _port_run(None)
+
+
+@pytest.fixture(scope="module")
+def spec32(tmp_path_factory):
+    return (reference_chain(tmp_path_factory.mktemp("spec32"), SMALL, GOALS),
+            _port_run(SMALL))
 
 
 def _counts(res):
@@ -106,35 +146,36 @@ def _proposals(res):
 
 def test_fixture16_bit_exact(fixture16):
     ref, port = fixture16
-    assert _counts(port) == _counts(ref)
+    assert _counts(port) == ref["counts"]
     assert _counts(port) == dict(before=["ReplicaDistributionGoal"], after=[],
                                  actions=[0, 0, 0, 0, 81], passes=[3, 3, 3, 3, 9],
                                  moves=74, leads=57)
     for name in ("replica_broker", "replica_is_leader", "replica_disk"):
-        assert np.array_equal(np.asarray(getattr(ref.final_state, name)),
+        assert np.array_equal(ref["final"][name],
                               getattr(port.final_state, name).numpy()), name
-    assert _proposals(port) == _proposals(ref)
-    assert port.balancedness_after == ref.balancedness_after
+    assert _proposals(port) == ref["proposals"]
+    assert port.balancedness_after == ref["balancedness_after"]
 
 
 def test_fixture16_stats_match(fixture16):
     ref, port = fixture16
     for key in ("avg", "max", "min", "std"):
-        np.testing.assert_allclose(port.stats_after[key], ref.stats_after[key],
+        np.testing.assert_allclose(port.stats_after[key], ref["stats_after"][key],
                                    rtol=1e-6)
-    assert port.stats_after["replica_count_max"] == ref.stats_after["replica_count_max"]
-    assert port.stats_after["num_replicas"] == ref.stats_after["num_replicas"]
+    assert (port.stats_after["replica_count_max"]
+            == ref["stats_after"]["replica_count_max"])
+    assert port.stats_after["num_replicas"] == ref["stats_after"]["num_replicas"]
 
 
 def test_spec32_matches_reference(spec32):
     ref, port = spec32
-    assert _counts(port) == _counts(ref)
+    assert _counts(port) == ref["counts"]
     assert _counts(port) == dict(
         before=["RackAwareGoal", "ReplicaDistributionGoal"], after=[],
         actions=[60, 0, 0, 0, 207], passes=[6, 3, 3, 3, 15], moves=245, leads=170)
-    assert np.array_equal(np.asarray(ref.final_state.replica_broker),
+    assert np.array_equal(ref["final"]["replica_broker"],
                           port.final_state.replica_broker.numpy())
-    assert _proposals(port) == _proposals(ref)
+    assert _proposals(port) == ref["proposals"]
 
 
 def test_port_generator_feeds_the_same_run(spec32):
@@ -159,13 +200,6 @@ class _NoLeaderBudgetGoal(LeaderReplicaDistributionGoal):
 
 
 UNSUPPORTED = {
-    "swap goal": (dict(goal_names=["KafkaAssignerDiskUsageDistributionGoal"]), None),
-    "deep-tail goal": (dict(goal_names=["DiskUsageDistributionGoal",
-                                        "KafkaAssignerDiskUsageDistributionGoal"]), None),
-    "rack-aware distribution goal": (dict(goal_names=["RackAwareDistributionGoal"]),
-                                     None),
-    "kafka-assigner rack goal": (
-        dict(goal_names=GOALS + ["KafkaAssignerEvenRackAwareGoal"]), None),
     "session": (dict(session=object()), None),
     "measured goal durations": (dict(measure_goal_durations=True), None),
     "sequential leadership fallback": (
@@ -187,32 +221,40 @@ def test_unsupported_requests_raise(case, monkeypatch):
         GoalOptimizer(engine_params=params, device="cpu").optimizations(ct, meta, **kw)
 
 
+@pytest.mark.parametrize("case", sorted(FORMERLY_UNPORTED))
+def test_formerly_unported_goals_run(fixture16_refs, case):
+    """RackAwareDistributionGoal, the kafka-assigner goals, a swap-only goal
+    alone and behind a deep-tail goal: the request runs and gives the
+    reference's counts, swap actions, assignment and proposals."""
+    ref, port = fixture16_refs[case], _port_run(None, FORMERLY_UNPORTED[case])
+    assert _counts(port) == ref["counts"]
+    assert [g.swap_actions for g in port.goal_results] == ref["swaps"]
+    for name in ("replica_broker", "replica_is_leader"):
+        assert np.array_equal(ref["final"][name],
+                              getattr(port.final_state, name).numpy()), name
+    assert _proposals(port) == ref["proposals"]
+
+
 def test_config_surface_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GoalOptimizer(config={"goals": GOALS}, device="cpu")
 
 
 @pytest.mark.slow
-def test_full_slice_matches_reference():
+def test_full_slice_matches_reference(tmp_path):
     """The first slice at its real size (1,000 brokers, 98,326 replicas,
     padded R = 114,688: the fused prefix chain)."""
-    ref, port = _run_both(*ref_rc.generate_scale(ref_rc.RandomClusterSpec(**FULL)))
+    ref, port = _run_chain(tmp_path, FULL, GOALS)
     assert _counts(port)["before"] == ["RackAwareGoal", "ReplicaDistributionGoal"]
     assert _counts(port)["after"] == []
-    assert _counts(port) == _counts(ref)
+    assert _counts(port) == ref["counts"]
 
 
 # --- the default chain minus its swap goals ---------------------------------
 def _run_chain(tmp_path, spec, goals=CHAIN):
     """The JAX reference's outcome (computed in a fresh interpreter, see
     torch_reference.py) and the port's run on the same cluster."""
-    ref = reference_chain(tmp_path, spec, goals)
-    ct, meta = (_fixture_cluster() if spec is None
-                else ref_rc.generate_scale(ref_rc.RandomClusterSpec(**spec)))
-    pct, pmeta = convert.cluster_from_arrays(convert.leaves(ct), meta)
-    port = GoalOptimizer(device="cpu").optimizations(
-        pct, pmeta, **{**KW, "goal_names": goals})
-    return ref, port
+    return reference_chain(tmp_path, spec, goals), _port_run(spec, goals)
 
 
 def _finisher_fields(res):
@@ -337,6 +379,53 @@ def test_default_full_slice_matches_reference(tmp_path):
     assert (_counts(port)["moves"], _counts(port)["leads"]) == (22642, 12778)
     assert _finisher_fields(port) == ref["finisher"]
     _same_final(ref, port, ("replica_broker",))
+
+
+# --- the Java parity matrix's 18-goal chain and the kafka-assigner mode -------
+
+
+@pytest.mark.slow
+def test_full_chain_fixture16_bit_exact(tmp_path):
+    """The 18 goals on fixture16 (``slow``: the reference compiles 18 goal
+    programs, about 60 s): RackAwareDistributionGoal behind RackAwareGoal
+    (its limit-1 veto in every later goal's K2 and K7 calls), then PLE:
+    counts, swap actions, assignment and proposals bit for bit."""
+    ref, port = _run_chain(tmp_path, None, FULL_CHAIN)
+    assert _counts(port) == ref["counts"]
+    assert _counts(port)["actions"] == [0] * 8 + [81, 0, 1, 0, 11, 0, 0, 0, 0, 1]
+    assert _swaps(port) == ref["swaps"]
+    _same_final(ref, port, ("replica_broker", "replica_is_leader", "replica_disk"))
+    assert _proposals(port) == ref["proposals"]
+    assert port.balancedness_after == ref["balancedness_after"]
+
+
+@pytest.mark.slow
+def test_full_chain_full_slice_matches_reference(tmp_path):
+    """DeterministicClusterTest's 18 goals at the real size (1,000 brokers,
+    20 racks: every rack limit 1): the fused prefix of ten goals, then
+    seven chunked goals with the finisher, then the preferred-leader pass."""
+    ref, port = _run_chain(tmp_path, FULL, FULL_CHAIN)
+    assert _counts(port) == ref["counts"]
+    assert _swaps(port) == ref["swaps"]
+    assert _counts(port)["actions"] == [3051, 0, 0, 0, 0, 0, 0, 557, 18136, 0, 1247,
+                                        1082, 1248, 1585, 772, 1111, 581, 1]
+    assert (_counts(port)["moves"], _counts(port)["leads"]) == (22641, 10764)
+    assert _finisher_fields(port) == ref["finisher"]
+    _same_final(ref, port, ("replica_broker", "replica_is_leader"))
+    assert _proposals(port) == ref["proposals"]
+
+
+@pytest.mark.slow
+def test_kafka_assigner_full_slice_matches_reference(tmp_path):
+    """The kafka-assigner mode at the real size: the even rack goal in the
+    fused prefix, then the swap-only disk goal chunked (194 passes)."""
+    ref, port = _run_chain(tmp_path, FULL, KAFKA_ASSIGNER)
+    assert _counts(port) == ref["counts"]
+    assert _swaps(port) == ref["swaps"] == [0, 833]
+    assert _counts(port)["passes"] == [7, 194]
+    assert _finisher_fields(port) == ref["finisher"]
+    _same_final(ref, port, ("replica_broker", "replica_is_leader"))
+    assert _proposals(port) == ref["proposals"]
 
 
 # --- the JBOD self-healing path ---------------------------------------------

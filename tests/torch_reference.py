@@ -13,11 +13,25 @@ whose directory every worker shares.
 
 (``spec`` may also name a function of the reference's
 ``model/fixtures.py``; ``demoted`` lists broker indices to mark demoted,
-as ``/demote_broker`` does) returns a dict of plain values: ``counts`` and ``finisher`` (the fields the
-tests compare), ``swaps`` (swap actions per goal), ``disk`` (disk actions per goal), ``proposals`` (tuples),
-``balancedness_after`` and
-``final`` (the final replica_broker / replica_is_leader / replica_disk /
-util / disk_util).
+as ``/demote_broker`` does) returns a dict of plain values: ``counts`` and
+``finisher`` (the fields the tests compare), ``swaps`` (swap actions per
+goal), ``disk`` (disk actions per goal), ``proposals`` (tuples),
+``balancedness_after``, ``stats_after`` and ``final`` (the final
+replica_broker / replica_is_leader / replica_disk / util / disk_util).
+
+    refs = reference_chains(tmp_path, [dict(spec=..., goals=...), ...])
+
+runs several chains in ONE fresh interpreter (one JAX import, programs of
+one shape compiled once) and returns their dicts in order.
+
+    rows = reference_matrix_rows(tmp_path, [0, 1, ...])
+
+runs rows of the Java parity matrix (``tests/test_java_parity_matrix.py``
+``MATRIX``) through the reference, each in its own fresh interpreter, and
+returns, per row, its outcome as
+``tools/gen_parity_table.py`` words it (``optimized (N soft violated)``,
+``raises (UNDER_PROVISIONED)`` or ``raises``) and the status of the
+recommendation its failure carries (None when it optimizes).
 
     ref = reference_goal(tmp_path, case)
 
@@ -47,37 +61,69 @@ from cruise_control_tpu.analyzer.optimizer import GoalOptimizer
 from cruise_control_tpu.model import fixtures
 from cruise_control_tpu.model import random_cluster as rc
 
+def run(args):
+    if args["spec"] is None:
+        from __graft_entry__ import _fixture_cluster
+        ct, meta = _fixture_cluster()
+    elif isinstance(args["spec"], str):
+        ct, meta = getattr(fixtures, args["spec"])()
+    else:
+        ct, meta = rc.generate_scale(rc.RandomClusterSpec(**args["spec"]))
+    if args.get("demoted"):
+        demoted = np.zeros(ct.num_brokers, bool)
+        demoted[args["demoted"]] = True
+        ct = dataclasses.replace(ct, broker_demoted=ct.broker_demoted | demoted)
+    res = GoalOptimizer().optimizations(ct, meta, goal_names=args["goals"],
+                                        skip_hard_goal_check=True,
+                                        raise_on_failure=False)
+    g = res.goal_results
+    return dict(
+        counts=dict(before=res.violated_goals_before, after=res.violated_goals_after,
+                    actions=[r.iterations for r in g], passes=[r.passes for r in g],
+                    moves=res.num_replica_movements, leads=res.num_leadership_movements),
+        finisher=dict(proven=[r.fixpoint_proven for r in g],
+                      rounds=[r.finisher_rounds for r in g],
+                      quiesce=[r.quiesce_chunk for r in g],
+                      swleft=[r.swap_window_remaining for r in g]),
+        swaps=[r.swap_actions for r in g],
+        disk=[r.disk_actions for r in g],
+        proposals=[dataclasses.astuple(p) for p in res.proposals],
+        balancedness_after=res.balancedness_after,
+        stats_after=res.stats_after,
+        final={n: np.asarray(getattr(res.final_state, n))
+               for n in ("replica_broker", "replica_is_leader", "replica_disk",
+                         "util", "disk_util")})
+
+
+batch = json.loads(sys.argv[1])
+out = [run(args) for args in batch["runs"]]
+with open(batch["out"], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+_MATRIX_CHILD = r"""
+import json, pickle, sys
+from cruise_control_tpu.analyzer.optimizer import OptimizationFailureError
+from test_java_parity_matrix import MATRIX, run_row
+
+HARD = ("RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
+        "DiskCapacityGoal", "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
+        "CpuCapacityGoal", "KafkaAssignerEvenRackAwareGoal")
 args = json.loads(sys.argv[1])
-if args["spec"] is None:
-    from __graft_entry__ import _fixture_cluster
-    ct, meta = _fixture_cluster()
-elif isinstance(args["spec"], str):
-    ct, meta = getattr(fixtures, args["spec"])()
-else:
-    ct, meta = rc.generate_scale(rc.RandomClusterSpec(**args["spec"]))
-if args.get("demoted"):
-    demoted = np.zeros(ct.num_brokers, bool)
-    demoted[args["demoted"]] = True
-    ct = dataclasses.replace(ct, broker_demoted=ct.broker_demoted | demoted)
-res = GoalOptimizer().optimizations(ct, meta, goal_names=args["goals"],
-                                    skip_hard_goal_check=True,
-                                    raise_on_failure=False)
-g = res.goal_results
-out = dict(
-    counts=dict(before=res.violated_goals_before, after=res.violated_goals_after,
-                actions=[r.iterations for r in g], passes=[r.passes for r in g],
-                moves=res.num_replica_movements, leads=res.num_leadership_movements),
-    finisher=dict(proven=[r.fixpoint_proven for r in g],
-                  rounds=[r.finisher_rounds for r in g],
-                  quiesce=[r.quiesce_chunk for r in g],
-                  swleft=[r.swap_window_remaining for r in g]),
-    swaps=[r.swap_actions for r in g],
-    disk=[r.disk_actions for r in g],
-    proposals=[dataclasses.astuple(p) for p in res.proposals],
-    balancedness_after=res.balancedness_after,
-    final={n: np.asarray(getattr(res.final_state, n))
-           for n in ("replica_broker", "replica_is_leader", "replica_disk",
-                     "util", "disk_util")})
+out = []
+for i in args["rows"]:
+    _row_id, factory, chain, constraint, pattern, _expected = MATRIX[i]
+    try:
+        _ct, _meta, res = run_row(factory, chain, constraint, pattern)
+        hard = [g.name for g in res.goal_results if g.violated_after and g.name in HARD]
+        got = (("hard goals violated: " + ",".join(hard)) if hard
+               else f"optimized ({len(res.violated_goals_after)} soft violated)")
+        status = None
+    except OptimizationFailureError as e:
+        status = e.recommendation.status.value
+        got = "raises (UNDER_PROVISIONED)" if status == "UNDER_PROVISIONED" else "raises"
+    out.append(dict(got=got, status=status))
 with open(args["out"], "wb") as f:
     pickle.dump(out, f)
 """
@@ -157,13 +203,30 @@ def _run_child(code: str, arg: dict, timeout: int) -> None:
                            f"{proc.stderr[-4000:]}")
 
 
-def reference_chain(tmp_path: Path, spec: dict | str | None, goals: list[str],
-                    timeout: int = 900, demoted: list | None = None) -> dict:
+def reference_chains(tmp_path: Path, runs: list[dict], timeout: int = 900) -> list:
     out = tmp_path / "reference.pkl"
-    _run_child(_CHILD, dict(spec=spec, goals=goals, out=str(out), demoted=demoted),
-               timeout)
+    _run_child(_CHILD, dict(runs=runs, out=str(out)), timeout)
     with open(out, "rb") as f:
         return pickle.load(f)
+
+
+def reference_chain(tmp_path: Path, spec: dict | str | None, goals: list[str],
+                    timeout: int = 900, demoted: list | None = None) -> dict:
+    return reference_chains(tmp_path, [dict(spec=spec, goals=goals, demoted=demoted)],
+                            timeout)[0]
+
+
+def reference_matrix_rows(tmp_path: Path, rows: list[int], timeout: int = 1700) -> list:
+    """One fresh interpreter per row: a single XLA:CPU process compiling
+    the programs of many rows segfaults (as tests/test_java_parity_matrix.py
+    notes for the reference's own run)."""
+    out = []
+    for i in rows:
+        path = tmp_path / f"reference_matrix_{i}.pkl"
+        _run_child(_MATRIX_CHILD, dict(rows=[i], out=str(path)), timeout)
+        with open(path, "rb") as f:
+            out.extend(pickle.load(f))
+    return out
 
 
 def reference_goal(tmp_path: Path, case: dict, timeout: int = 900) -> dict:
