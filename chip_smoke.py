@@ -69,8 +69,20 @@ Phases, each printing its own lines; any failure exits non-zero:
       once. ``--profile`` adds
    one more run of every path of this phase (or of the named ones: five,
    eleven, sixteen, eighteen, kafka, jbod_intra, jbod_chain, jbod_demote,
-   jbod_ple) under ``torch.profiler`` and
-   prints device time by kernel.
+   jbod_ple, rung4, rung5) under ``torch.profiler`` and
+   prints device time by kernel;
+   e. BASELINE configs 4 and 5 at full size (7,000 brokers, 500,000
+      partitions: ``bench.py`` rungs 4 and 5) through ``GoalOptimizer()``'s
+      defaults, where "auto" resolves to bf16: the sixteen default goals
+      (rung 4) and the ten-goal JBOD self-heal with 20 dead brokers and 50
+      dead-disk brokers (rung 5), each twice and bit identical, and rung 4
+      once more pinned to f32. Each must give the JAX reference's row
+      exactly, with its final float tallies' digests.
+
+Phase 3 also holds the K1 keying kernel (``replica_keys``) against its twin
+for every key function it computes, with f32 tables and with the bf16 sweep
+view, on the slice, jbod-1000b, rung-4 and rung-5 states and on adversarial
+inputs (halfway-rounding loads, signed zeros, ties, offline rows).
 
 The line before the last is the ``kernels`` JSON object: each kernel's
 launches are those of the counted runs of the sixteen goals, the 18 goals,
@@ -136,6 +148,27 @@ JBOD_SMALL = dict(num_brokers=32, num_racks=4, num_topics=8, num_partitions=1000
                   target_cpu_util=0.45, num_dead_brokers=1, num_brokers_with_dead_disk=2)
 JBOD_MID = dict(JBOD_SMALL, num_brokers=64, num_partitions=8000)
 DEMOTED = [11, 222, 444, 666, 888]               # broker indices of /demote_broker
+# BASELINE.json configs 4 and 5 (bench.py rungs 4 and 5, bench.py:657-691) at
+# full size: 7,000 brokers, 500,000 partitions; "auto" resolves to bf16
+RUNG4_SPEC = dict(num_brokers=7000, num_racks=40, num_topics=2000,
+                  num_partitions=500000, max_replication=3, skew=1.0, seed=3142,
+                  target_cpu_util=0.45)
+RUNG5_SPEC = dict(RUNG4_SPEC, seed=3143, logdirs_per_broker=4, num_dead_brokers=20,
+                  num_brokers_with_dead_disk=50)
+# the goals whose keys the K1 keying kernel (replica_keys) computes, and
+# which of their key functions
+KEY_GOALS = ["CpuCapacityGoal", "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
+             "DiskCapacityGoal", "PotentialNwOutGoal", "LeaderBytesInDistributionGoal",
+             "DiskUsageDistributionGoal", "NetworkInboundUsageDistributionGoal",
+             "NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal",
+             "IntraBrokerDiskCapacityGoal", "IntraBrokerDiskUsageDistributionGoal"]
+KEY_FNS = {"CapacityGoal": ("replica_key", "leader_key"),
+           "PotentialNwOutGoal": ("replica_key",),
+           "LeaderBytesInDistributionGoal": ("leader_key",),
+           "ResourceDistributionGoal": ("replica_key", "leader_key", "swap_out_key",
+                                        "swap_in_key"),
+           "IntraBrokerDiskCapacityGoal": ("replica_key",),
+           "IntraBrokerDiskUsageDistributionGoal": ("replica_key",)}
 # Outcomes of the JAX reference (JAX_PLATFORMS=cpu) on these specs; the
 # tier-1 test tests/test_torch_slice.py holds the port to the live reference.
 # ``digests``: the first 16 hex digits of the sha256 of the bytes of the
@@ -276,6 +309,47 @@ ORACLE.update({
         proven=[False, False], rounds=[0, 0], swaps=[0, 833], swleft=[-1, -1],
         proposals=4466),
 })
+# BASELINE configs 4 and 5 through the JAX reference (JAX 0.9.0,
+# JAX_PLATFORMS=cpu, a fresh interpreter): ``python tests/torch_reference.py
+# rung4`` ("auto", which resolves to bf16), ``... rung4 float32`` and
+# ``... rung5``; digests as above.
+_R4_BEFORE = {"RackAwareGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
+              "TopicReplicaDistributionGoal", "LeaderReplicaDistributionGoal",
+              "LeaderBytesInDistributionGoal"} | _USAGE
+_R4_AFTER = {"LeaderBytesInDistributionGoal", "LeaderReplicaDistributionGoal",
+             "NetworkOutboundUsageDistributionGoal"}
+_R4_PROVEN = [False] * 11 + [True, False, False, True, True]
+_R4_ROUNDS = [0] * 11 + [1, 0, 0, 1, 1]
+_R4_SWLEFT = [-1] * 11 + [0] + [-1] * 4
+ORACLE.update({
+    "rung4_bf16": dict(
+        before=_R4_BEFORE, after=_R4_AFTER,
+        actions=[16714, 0, 0, 0, 0, 0, 825, 116773, 0, 12107, 11011, 11146, 10174, 674,
+                 5207, 6621],
+        passes=[8, 3, 3, 3, 3, 3, 4, 40, 3, 63, 78, 99, 115, 11, 56, 99],
+        moves=155090, leads=90291, proven=_R4_PROVEN, rounds=_R4_ROUNDS,
+        swaps=[0] * 9 + [137, 273, 282, 54, 34, 0, 0], swleft=_R4_SWLEFT,
+        disk=[0] * 16, proposals=155734,
+        digests=dict(disk_util="9b29a51824e2401a", util="7a1647b39da23a10",
+                     leader_util="81c587cf26af977a", potential_nw_out="3c1cc249b40fbf99")),
+    "rung4_f32": dict(
+        before=_R4_BEFORE, after=_R4_AFTER,
+        actions=[16714, 0, 0, 0, 0, 0, 826, 117145, 0, 12093, 11049, 11910, 11401, 692,
+                 5445, 6758],
+        passes=[8, 3, 3, 3, 3, 3, 4, 40, 3, 61, 80, 99, 112, 11, 63, 103],
+        moves=156133, leads=91677, proven=_R4_PROVEN, rounds=_R4_ROUNDS,
+        swaps=[0] * 9 + [130, 265, 257, 54, 26, 0, 0], swleft=_R4_SWLEFT,
+        disk=[0] * 16, proposals=157085,
+        digests=dict(disk_util="936391a989597ee3", util="691ae3bae0112cdd",
+                     leader_util="b8b213304649cf14", potential_nw_out="49f31a764cb396b0")),
+    "rung5_bf16": dict(
+        before=_HEAL, after=set(), actions=[20431, 0, 0, 0, 0, 0, 860, 110704, 0, 16682],
+        passes=[9, 3, 3, 3, 3, 3, 4, 38, 3, 22], moves=121897, leads=54475,
+        proven=[False] * 10, rounds=[0] * 10, swaps=[0] * 10, swleft=[-1] * 10,
+        disk=[0] * 9 + [16682], proposals=126681,
+        digests=dict(disk_util="f0c73615645acc8d", util="bd6324618028f42a",
+                     leader_util="1924067e9bfa289a", potential_nw_out="449f955b4861662d")),
+})
 # the kernels of the JBOD path that no earlier path launches
 JBOD_KERNELS = ("disk_rows", "disk_apply", "preferred_leader")
 # __graft_entry__.entry(): the reference's util disk column and total
@@ -401,7 +475,8 @@ class Entry:
         self.timings = []
 
 
-def check(torch, entry: Entry, kernel_fn, plain_fn, what: str) -> None:
+def check(torch, entry: Entry, kernel_fn, plain_fn, what: str,
+          quiet: bool = False) -> None:
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -410,7 +485,8 @@ def check(torch, entry: Entry, kernel_fn, plain_fn, what: str) -> None:
     err = compare(torch, got, want)
     entry.checks += 1
     entry.max_abs_err = max(entry.max_abs_err, err)
-    log(f"  {entry.name} {what}: bit-identical")
+    if not quiet:
+        log(f"  {entry.name} {what}: bit-identical")
 
 
 def timing(torch, entry: Entry, kernel_fn, plain_fn, library_fn, nb, nops,
@@ -1593,6 +1669,247 @@ def disk_kernel_checks(torch, jctx, entries: dict, seed: int) -> None:
                     (r_sorted, dst_s, K.wave_admission(*aargs)), timed=True)
 
 
+def rung_context(torch, spec: dict, tag: str) -> dict:
+    """A BASELINE rung's cluster (host), its padded form and its state on
+    the card, with the scaled engine parameters of the padded shape."""
+    from cruise_control_tpu_torch.analyzer.env import make_env
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.state import init_state
+    from cruise_control_tpu_torch.model.cluster_tensor import pad_cluster
+    from cruise_control_tpu_torch.model.random_cluster import (
+        RandomClusterSpec, generate_scale,
+    )
+    t0 = time.perf_counter()
+    ct, meta = generate_scale(RandomClusterSpec(**spec))
+    pct, pmeta = pad_cluster(ct, meta)
+    env = make_env(pct, pmeta, device="cuda")
+    st = init_state(env, pct.replica_broker, pct.replica_is_leader,
+                    pct.replica_offline, pct.replica_disk)
+    params = GoalOptimizer(device="cuda").scaled_params(pct.num_replicas,
+                                                       pct.num_brokers)
+    log(f"{tag}: {meta.num_valid_replicas} replicas "
+        f"({int(ct.replica_offline.sum())} offline), R={pct.num_replicas} "
+        f"B={pct.num_brokers} D={pct.num_disks} P={pct.num_partitions}; "
+        f"generated and on the card in {time.perf_counter() - t0:.3f} s")
+    log(f"{tag}: scaled parameters: compute_dtype={params.compute_dtype} "
+        f"K={params.num_candidates} KL={params.num_leader_candidates} "
+        f"T={params.num_dst_choices} swap pool "
+        f"{min(params.num_swap_candidates, pct.num_replicas, 128)} "
+        f"pass_waves={params.pass_waves} finisher K={params.finisher_candidates}")
+    return dict(ct=ct, meta=meta, env=env, st=st, params=params)
+
+
+def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str) -> None:
+    """Phase 3 at a 7,000-broker rung's shapes (the scale faults the
+    1,000-broker cells could not show), each kernel against its twin on the
+    bf16 sweep view: K1 at R 1,048,576 (k 7,040 at stalls 0 and 3, and the
+    finisher's 10,560), K2 at [1,760, 7,168] with T 71 (padded ``Bp``), K3,
+    K4/K5's apply and refresh sums and counts at 7,168 (and 28,672 logdir)
+    segments, K6 at KL 896, K7 at [128, 128]; for ReplicaDistributionGoal
+    and the usage goals after their default-chain prefixes."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import engine
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    from cruise_control_tpu_torch.analyzer.state import (
+        apply_move_count_inputs, apply_sum_inputs, refresh_disk_inputs,
+        refresh_sum_inputs,
+    )
+    from cruise_control_tpu_torch.kernels import (
+        admission, leadership, move_score, segment, select, swap,
+    )
+    env, st, params = rctx["env"], rctx["st"], rctx["params"]
+    env_sw = engine._sweep_env(env, params)
+    env_k, st_k = engine._sweep_view(env, st, env_sw)
+    R, B = env.num_replicas, env.num_brokers
+    Kc = min(params.num_candidates, R)
+    W = max(1, min(params.max_pass_waves, R // max(Kc, 1)))
+    T = min(params.num_dst_choices, B)
+    goals = make_goals(DEFAULT)
+    for i in (7, 9, 12):                      # ReplicaDistribution, DiskUsage, CpuUsage
+        goal, prev = goals[i], tuple(goals[:i])
+        sev = goal.broker_severity(env, st)
+        key = goal.replica_key(env_k, st_k, sev).contiguous()
+        for stall in (0, 3):
+            check(torch, entries["select_candidates"],
+                  lambda: K.select_candidates(key, Kc * W, stall, 0),
+                  lambda: select.select_candidates_plain(key, Kc * W, stall, 0),
+                  f"{tag} {goal.name} R={R} k={Kc * W} stall={stall}")
+        kv, cand = K.select_candidates(key, Kc * W, 0, 0)
+        cand, kv = cand[:Kc].contiguous(), kv[:Kc].contiguous()
+        rooms, custom = engine._combined_move_rooms(prev, env, st)
+        d_rows = engine._move_delta_rows(env, st, cand)
+        sargs = engine._score_args(env, st, goal, rooms, custom, cand, kv, d_rows, T,
+                                   env_sw=env_sw)
+        check(torch, entries["move_score_classes"], lambda: K.move_score_classes(*sargs),
+              lambda: move_score.move_score_classes_plain(*sargs),
+              f"{tag} {goal.name} K={Kc} B={B} T={T}")
+        if tag == "rung 4" and i == 9:
+            # the rung's own shapes: K1 over R ~ 1M, K2 at [1,760, 7,168], T 71
+            timing(torch, entries["select_candidates"],
+                   lambda: K.select_candidates(key, Kc * W, 0, 0),
+                   lambda: select.select_candidates_plain(key, Kc * W, 0, 0),
+                   lambda: torch.topk(key, Kc * W), nbytes(key) + Kc * W * (4 + 8),
+                   4 * R, f"{tag} R={R} k={Kc * W}")
+            rooms_used = bin(sargs[8]).count("1")
+            timing(torch, entries["move_score_classes"],
+                   lambda: K.move_score_classes(*sargs),
+                   lambda: move_score.move_score_classes_plain(*sargs), None,
+                   nbytes(*(t for t in sargs if isinstance(t, torch.Tensor)))
+                   + Kc * T * (4 + 8), Kc * B * (2 * rooms_used + 12),
+                   f"{tag} K={Kc} B={B} T={T}")
+        r_sorted, dst_s, aargs = engine._admission_args(env, st, goal, prev, params,
+                                                        cand, kv, env_sw)
+        check(torch, entries["wave_admission"], lambda: K.wave_admission(*aargs),
+              lambda: admission.wave_admission_plain(*aargs), f"{tag} {goal.name} wave")
+        win = K.wave_admission(*aargs)
+        va, sa, ia = apply_sum_inputs(env, st, r_sorted, dst_s, win)
+        check(torch, entries["segment_sum"], lambda: K.segment_sum(va, sa, B, ia),
+              lambda: segment.segment_sum_plain(va, sa, B, ia),
+              f"{tag} {goal.name} apply of {int(win.sum())} moves")
+        for a in apply_move_count_inputs(env, st, r_sorted, dst_s, win):
+            check(torch, entries["segment_count"], lambda: K.segment_count(*a),
+                  lambda: segment.segment_count_plain(*a),
+                  f"{tag} {goal.name} apply counts nseg={a[1]}", quiet=True)
+        if goal.uses_leadership_moves:
+            lkey = goal.leader_key(env_k, st_k, sev).contiguous()
+            KL = min(params.num_leader_candidates, R)
+            lkv, lcand = K.select_candidates(lkey, KL, 0, 0)
+            largs = engine._lead_args(env, st, goal, prev, lcand, lkv > -torch.inf, env_sw)
+            check(torch, entries["leadership_rows"], lambda: K.leadership_rows(*largs),
+                  lambda: leadership.leadership_rows_plain(*largs),
+                  f"{tag} {goal.name} KL={KL}")
+        if goal.uses_swaps:
+            okv, co, ikv, ci = engine._swap_pools(env_k, st_k, goal, params, sev, 0)
+            pairs, tables = engine._swap_args(env, st, goal, prev, co, okv, ci, ikv,
+                                              env_sw)
+            check(torch, entries["swap_rows"],
+                  lambda: K.swap_rows(pairs, tables, params.min_gain),
+                  lambda: swap.swap_rows_plain(pairs, tables, params.min_gain),
+                  f"{tag} {goal.name} [{co.shape[0]}, {ci.shape[0]}]")
+    kf = min(params.finisher_candidates, R) * max(1, min(params.finisher_waves,
+                                                           R // params.finisher_candidates))
+    gain = torch.where(torch.rand(R, device=env.device) < 0.3,
+                       torch.rand(R, device=env.device), torch.full((R,), -torch.inf,
+                                                                    device=env.device))
+    check(torch, entries["select_candidates"], lambda: K.select_candidates(gain, kf, 0, 0),
+          lambda: select.select_candidates_plain(gain, kf, 0, 0),
+          f"{tag} finisher top-k R={R} k={kf}")
+    vr, sr = refresh_sum_inputs(env, st)
+    check(torch, entries["segment_sum"], lambda: K.segment_sum(vr, sr, B),
+          lambda: segment.segment_sum_plain(vr, sr, B), f"{tag} refresh R={R} nseg={B}")
+    # refresh's sums re-read the segment ids once per segment: timed at B
+    lib_sr = torch.where(sr >= 0, sr, torch.full_like(sr, B))
+    zeros_r = torch.zeros((B + 1, vr.shape[1]), dtype=torch.float32, device=env.device)
+    timing(torch, entries["segment_sum"], lambda: K.segment_sum(vr, sr, B),
+           lambda: segment.segment_sum_plain(vr, sr, B),
+           lambda: torch.index_add(zeros_r, 0, lib_sr, vr),
+           nbytes(vr, sr) + B * vr.shape[1] * 4, vr.numel(),
+           f"{tag} refresh N={R} C={vr.shape[1]} nseg={B}", plain_reps=3)
+    D = env.broker_disk_capacity.shape[1]
+    if D > 1:
+        vals, seg, _nseg = refresh_disk_inputs(env, st)
+        check(torch, entries["segment_sum"], lambda: K.segment_sum(vals, seg, B * D),
+              lambda: segment.segment_sum_plain(vals, seg, B * D),
+              f"{tag} logdir sums R={R} nseg={B * D}")
+        lib_seg = torch.where(seg >= 0, seg, torch.full_like(seg, B * D))
+        zeros_d = torch.zeros((B * D + 1, 1), dtype=torch.float32, device=env.device)
+        timing(torch, entries["segment_sum"], lambda: K.segment_sum(vals, seg, B * D),
+               lambda: segment.segment_sum_plain(vals, seg, B * D),
+               lambda: torch.index_add(zeros_d, 0, lib_seg, vals),
+               nbytes(vals, seg) + B * D * 4, vals.numel(),
+               f"{tag} logdir refresh N={R} C=1 nseg={B * D}", plain_reps=3)
+    log(f"  {tag}: K1-K7 bit-identical to their twins at this rung's shapes")
+
+
+TIMED_KEYS = {("slice", "f32"), ("rung 4", "f32"), ("rung 4", "bf16")}
+
+
+def key_kernel_checks(torch, states: list, entries: dict, seed: int) -> None:
+    """Phase 3, K1 keying: ``replica_keys`` against its twin for every key
+    function it computes (``KEY_FNS`` over ``KEY_GOALS``), with f32 tables
+    and with the bf16 sweep view (``engine._sweep_env`` / ``_sweep_state``),
+    on each (tag, env, state) of ``states`` and on an adversarial state made
+    from ``seed`` on the first of them: loads from a few values whose
+    leader - follower differences fall halfway between bf16 neighbours
+    (round to nearest even decides), zeros of both signs and ties; a tenth
+    of the replicas offline, leadership flipped on a fifth; severities of
+    -1, -0.0, 0, 0.5 and 2. Timed at the slice state (f32) and at the
+    rung-4 state (f32 and bf16) on ``ResourceDistributionGoal.replica_key``
+    (its three broker rows); the torch chain it replaces is the library
+    column (the twin is that chain)."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import engine
+    from cruise_control_tpu_torch.analyzer.goals import base, make_goals
+    from cruise_control_tpu_torch.kernels import keys
+
+    e = entries["replica_keys"]
+    goals = make_goals(KEY_GOALS)
+    bf16 = engine.EngineParams(compute_dtype="bfloat16")
+
+    def fns(goal):
+        for cls in type(goal).__mro__:
+            if cls.__name__ in KEY_FNS:
+                return KEY_FNS[cls.__name__]
+        raise SmokeFailure(f"no key functions listed for {goal.name}")
+
+    def captured(goal, fn, env, st, sev):
+        got = []
+        real = base.replica_keys
+        base.replica_keys = lambda *a: got.append(a) or real(*a)
+        try:
+            getattr(goal, fn)(env, st, sev)
+        finally:
+            base.replica_keys = real
+        require(len(got) == 1, f"{goal.name}.{fn} did not run the keying kernel once")
+        return got[0]
+
+    g = torch.Generator().manual_seed(seed)
+    tag0, env0, st0 = states[0]
+    R, M = env0.leader_load.shape
+    dev = env0.device
+    lead_vals = torch.tensor([2.015625, 3.0, 1.0, 0.0, -0.0, 517.25, 1e-3])
+    foll_vals = torch.tensor([0.0078125, 0.00390625, 0.0, -0.0, 2.015625, 0.75])
+    pick = lambda v: v[torch.randint(0, v.shape[0], (R, M), generator=g)].to(dev)
+    env_adv = dataclasses.replace(env0, leader_load=pick(lead_vals).contiguous(),
+                                  follower_load=pick(foll_vals).contiguous())
+    flip = (torch.rand(R, generator=g) < 0.2).to(dev)
+    off = (torch.rand(R, generator=g) < 0.1).to(dev)
+    st_adv = dataclasses.replace(st0, replica_is_leader=st0.replica_is_leader ^ flip,
+                                 replica_offline=st0.replica_offline | off)
+    sev_vals = torch.tensor([-1.0, -0.0, 0.0, 0.5, 2.0])
+    B = env0.num_brokers
+    sev_adv = sev_vals[torch.randint(0, 5, (B,), generator=g)].to(dev)
+    runs = [(tag, env, st, None) for tag, env, st in states]
+    runs.append((f"adversarial ({tag0})", env_adv, st_adv, sev_adv))
+    timed = {}
+    for tag, env, st, sev_fixed in runs:
+        for dtype in ("f32", "bf16"):
+            env_k = engine._sweep_env(env, bf16) if dtype == "bf16" else env
+            st_k = engine._sweep_state(st, bf16) if dtype == "bf16" else st
+            n = 0
+            for goal in goals:
+                sev = goal.broker_severity(env, st) if sev_fixed is None else sev_fixed
+                for fn in fns(goal):
+                    args = captured(goal, fn, env_k, st_k, sev)
+                    check(torch, e, lambda: K.replica_keys(*args),
+                          lambda: keys.replica_keys_plain(*args),
+                          f"{tag} {dtype} {goal.name}.{fn}", quiet=True)
+                    n += 1
+                    if (fn == "replica_key" and goal.name == "DiskUsageDistributionGoal"
+                            and (tag, dtype) in TIMED_KEYS):
+                        timed[(tag, dtype)] = args
+            log(f"  replica_keys {tag} {dtype}: {n} key functions bit-identical")
+    for (tag, dtype), args in timed.items():
+        L = args[1][0]
+        R = L.shape[0]
+        load_bytes = 2 * L.element_size()
+        need = R * (load_bytes + 8 + 3 + 4) + nbytes(args[7], args[8])
+        timing(torch, e, lambda: K.replica_keys(*args),
+               lambda: keys.replica_keys_plain(*args),
+               lambda: keys.replica_keys_plain(*args), need, 20 * R,
+               f"{tag} {dtype}, ResourceDistributionGoal.replica_key")
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the optimizer
 # ---------------------------------------------------------------------------
@@ -1775,7 +2092,7 @@ def slice_checks(torch, res, tag: str, digests: dict | None = None) -> None:
 
 # the phase-5 paths ``--profile`` may name, in the order they run
 PROFILE_PATHS = ("five", "eleven", "sixteen", "eighteen", "kafka", "jbod_intra",
-                 "jbod_chain", "jbod_demote", "jbod_ple")
+                 "jbod_chain", "jbod_demote", "jbod_ple", "rung4", "rung5")
 # device function names of the hand kernels, as the profiler lists them
 HAND_KERNEL_NAMES = (
     "salt_pack", "radix_hist", "radix_choose", "gather_top", "bitonic_top",
@@ -1783,15 +2100,15 @@ HAND_KERNEL_NAMES = (
     "move_score_kernel", "ft_init", "ft_cand", "ft_part", "side_scan", "finish(",
     "segment_sum_kernel", "segment_count_kernel", "leadership_rows_kernel",
     "swap_rows_kernel", "swap_admission_kernel", "disk_rows_kernel",
-    "disk_apply_kernel", "preferred_leader_kernel")
+    "disk_apply_kernel", "preferred_leader_kernel", "replica_keys_kernel")
 
 
 def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
               twice: bool = True) -> dict:
-    """A path at the 1,000-broker size, run twice (once with ``twice``
-    False): the launch counts are zeroed just before run 1 and read just
-    after it; the runs must be bit-identical and match the reference's
-    outcome."""
+    """A path at the 1,000-broker size (or a 7,000-broker rung), run twice
+    (once with ``twice`` False): the launch counts are zeroed just before
+    run 1 and read just after it; the runs must be bit-identical and match
+    the reference's outcome row."""
     from cruise_control_tpu_torch import kernels as K
     K.reset_launches()
     t0 = time.perf_counter()
@@ -1801,6 +2118,7 @@ def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
     launches = K.launches()
     shapes = K.launch_shapes()
     families = dict(K.FAMILY_LAUNCHES)
+    key_families = dict(K.KEY_FAMILY_LAUNCHES)
     if twice:
         t0 = time.perf_counter()
         res2 = run_chain(opt, ct, meta, goals)
@@ -1813,6 +2131,7 @@ def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
     log(f"{tag}: kernel launches in run 1 {launches}")
     log(f"{tag}: launches by shape in run 1 {json.dumps(shapes)}")
     log(f"{tag}: K2 launches by goal family in run 1 {json.dumps(families)}")
+    log(f"{tag}: K1 keying launches by family in run 1 {json.dumps(key_families)}")
     out = outcome(res1)
     print_outcome(tag, out, oracle)
     require_oracle(tag, out, oracle)
@@ -1823,7 +2142,8 @@ def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
             f"leader util, counts, logdirs, offline flags, disk util, moved flags)")
     slice_checks(torch, res1, tag, oracle.get("digests"))
     return dict(launches=launches, shapes=shapes, families=families,
-                walls=(wall1, wall2), run=(ct, meta, goals, tag))
+                key_families=key_families, walls=(wall1, wall2),
+                run=(ct, meta, goals, tag))
 
 
 def profile_run(torch, opt, ct, meta, goals, tag: str) -> None:
@@ -1930,6 +2250,16 @@ def main() -> int:
     phase("phase 3: the JBOD path's kernels")
     jctx = jbod_context(torch)
     disk_kernel_checks(torch, jctx, entries, args.seed)
+    phase("phase 3: BASELINE configs 4 and 5 on the card")
+    r4 = rung_context(torch, RUNG4_SPEC, "rung 4")
+    r5 = rung_context(torch, RUNG5_SPEC, "rung 5")
+    phase("phase 3: K1-K7 at the 7,000-broker shapes")
+    rung_kernel_checks(torch, r4, entries, "rung 4")
+    rung_kernel_checks(torch, r5, entries, "rung 5")
+    phase("phase 3: the K1 keying kernel")
+    key_kernel_checks(torch, [("slice", env, st), ("jbod-1000b", jctx["env"], jctx["st"]),
+                              ("rung 4", r4["env"], r4["st"]),
+                              ("rung 5", r5["env"], r5["st"])], entries, args.seed)
     for en in entries.values():
         require(en.checks > 0 and en.timings, f"{en.name} was not checked")
 
@@ -2045,10 +2375,39 @@ def main() -> int:
     for req in ("intra", "chain"):
         require(all(jbod[req]["launches"][n] > 0 for n in ("disk_rows", "disk_apply")),
                 f"jbod ({req}): the disk branch never launched")
+    # 5e. BASELINE configs 4 and 5 at full size through GoalOptimizer()'s
+    # defaults ("auto" resolves to bf16), and rung 4 pinned to f32
+    phase("phase 5e: BASELINE configs 4 and 5 (7,000 brokers)")
+    from cruise_control_tpu_torch.analyzer.engine import EngineParams
+    for ctx_r, tag in ((r4, "rung 4"), (r5, "rung 5")):
+        require(ctx_r["params"].compute_dtype == "bfloat16",
+                f"{tag}: auto resolved to {ctx_r['params'].compute_dtype}, not bfloat16")
+    log("rung 4 / rung 5: GoalOptimizer() resolves compute_dtype to bfloat16")
+    rung4 = run_slice(torch, opt, r4["ct"], r4["meta"], DEFAULT,
+                      "rung 4 (16 goals, bf16)", ORACLE["rung4_bf16"])
+    rung5 = run_slice(torch, opt, r5["ct"], r5["meta"], JBOD_CHAIN,
+                      "rung 5 (10 goals, bf16)", ORACLE["rung5_bf16"])
+    opt32 = GoalOptimizer(device="cuda", engine_params=EngineParams(compute_dtype="float32"))
+    rung4_f32 = run_slice(torch, opt32, r4["ct"], r4["meta"], DEFAULT,
+                          "rung 4 (16 goals, pinned f32)", ORACLE["rung4_f32"],
+                          twice=False)
+    rung5_kernels = ("select_candidates", "move_score_classes", "wave_admission",
+                     "segment_sum", "segment_count", "leadership_rows", "disk_rows",
+                     "disk_apply", "replica_keys")
+    for run, ctx_r, tag, need in (
+            (rung4, r4, "rung 4 bf16", [n for n in K.KERNELS if n not in JBOD_KERNELS]),
+            (rung5, r5, "rung 5 bf16", rung5_kernels)):
+        R = ctx_r["env"].num_replicas
+        require(run["shapes"]["replica_keys"].get(f"R={R} bf16", 0) > 0,
+                f"{tag}: the keying kernel never ran on bf16 tables")
+        require(all(run["launches"][n] > 0 for n in need),
+                f"{tag}: a kernel of the path never launched: {run['launches']}")
+    log(f"phase 5e: walls (s) rung 4 bf16 {rung4['walls']}, rung 5 bf16 "
+        f"{rung5['walls']}, rung 4 f32 {rung4_f32['walls'][0]}")
     if args.profile is not None:
         phase("profile")
         runs = dict(zip(PROFILE_PATHS, (five, chain, default, full, kafka,
-                                        *jbod.values(), steady)))
+                                        *jbod.values(), steady, rung4, rung5)))
         for name in args.profile or PROFILE_PATHS:
             profile_run(torch, opt, *runs[name]["run"])
     for name, e in entries.items():
@@ -2056,7 +2415,7 @@ def main() -> int:
             log(f"timing {name} at {t['at']}: {json.dumps(t)}")
 
     paths = {"default": default, "full18": full, "kafka": kafka,
-             **{f"jbod_{r}": v for r, v in jbod.items()}}
+             **{f"jbod_{r}": v for r, v in jbod.items()}, "rung4": rung4, "rung5": rung5}
     kernels = []
     for name, k in K.KERNELS.items():
         by_path = {p: v["launches"][name] for p, v in paths.items()}

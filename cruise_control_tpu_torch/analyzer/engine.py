@@ -33,6 +33,13 @@ clause to the certificate (no positive swap in the goal's unsalted top-K
 window, K7). A round whose scans find nothing proves a single-action
 fixpoint.
 
+Under the bf16 precision policy (``compute_dtype="bfloat16"``, what "auto"
+resolves to at 262,144 replicas or more) every branch of the pass loop keys
+and scores on the sweep view (``_sweep_env``, ``_sweep_state``): the K1
+keying kernel reads the [R, M] loads in bf16, the score tables read them
+upcast, the broker accumulators are the compensated f32 sums; everything
+else, the finisher included, stays on the f32 env and state.
+
 The reference runs the loop as one ``lax.while_loop`` program; here it is a
 host loop over device tensors with one small device->host read per pass
 (plus one per branch gate for leadership and swap goals), per finisher
@@ -47,7 +54,7 @@ import math
 import numpy as np
 import torch
 
-from cruise_control_tpu_torch.analyzer.env import ClusterEnv, capacity_stripe_key
+from cruise_control_tpu_torch.analyzer.env import ClusterEnv, SweepEnv, capacity_stripe_key
 from cruise_control_tpu_torch.analyzer.goals.base import (
     NEG_INF, WAVE_DIMS, WAVE_ZERO_EXEMPT_DIMS, GoalKernel, disk_state, overrides,
     lead_member_rows, legit_lead_rows, legit_move_rows, legit_swap_rows, min_limit,
@@ -103,19 +110,66 @@ class EngineParams:
 
 def check_supported(params: EngineParams) -> None:
     """Raise for the engine options whose paths are not ported yet."""
-    if params.compute_dtype == "bfloat16":
-        raise NotImplementedError("bf16 score sweeps are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 5, precision policy)")
+    if params.compute_dtype not in ("auto", "float32", "bfloat16"):
+        raise ValueError(f"unknown compute_dtype {params.compute_dtype!r}")
     if params.compact_keying:
         raise NotImplementedError("compact_keying (the pooled candidate "
                                   "selection) is not ported yet (ROADMAP.md "
-                                  "Queue 2 K1)")
+                                  "Queue 1 item 5b)")
     if not params.chain_cache:
         raise NotImplementedError("chain_cache=False (per-goal accept masks) is "
-                                  "not ported yet (ROADMAP.md Queue 1 item 5)")
+                                  "not ported yet (ROADMAP.md Queue 1 item 5b)")
     if params.mesh is not None:
         raise NotImplementedError("the sharded engine is not ported yet "
                                   "(ROADMAP.md Queue 1 item 15)")
+
+
+# ---------------------------------------------------------------------------
+# The precision policy (engine.py:59-111)
+# ---------------------------------------------------------------------------
+# Under the bf16 policy only the SCORING sweeps read the [R, M] leader /
+# follower loads in bf16: the candidate keyings (K1 keying, which reads the
+# bf16 tables) and the score tables of K2, K6, K7 and K8's row scores (f32
+# tables built from the same values upcast). Legitimacy, chain rooms and
+# vetoes, delta rows, wave admission, applies, refresh, severities, verdicts,
+# the exhaustive scans and every stage of the finisher read the f32 env and
+# state. The reference computes its bf16 expressions in f32 inside its XLA
+# program and rounds where it materializes a bf16 array; the goals do the
+# same (``goals.base.sweep_round``).
+def _sweep_env(env: ClusterEnv, params: EngineParams) -> ClusterEnv:
+    """engine.py:85: the sweep view of the env, built once per goal; the
+    env itself unless the policy resolved to bf16 ("auto" reaching the
+    engine unresolved means f32), so every f32 path is bit for bit as it
+    was. The view keeps the bf16 tables in ``sweep_loads`` and their values
+    upcast to f32 in ``leader_load`` / ``follower_load`` (``SweepEnv``)."""
+    if params.compute_dtype != "bfloat16":
+        return env
+    lead = env.leader_load.to(torch.bfloat16).contiguous()
+    foll = env.follower_load.to(torch.bfloat16).contiguous()
+    fields = {f.name: getattr(env, f.name) for f in dataclasses.fields(ClusterEnv)}
+    return SweepEnv(**dict(fields, leader_load=lead.float(), follower_load=foll.float()),
+                    sweep_loads=(lead, foll))
+
+
+def _sweep_state(st: EngineState, params: EngineParams) -> EngineState:
+    """engine.py:98: the per-pass compensated view of the broker
+    accumulators the scores difference (``util + util_residual``,
+    ``leader_util + leader_util_residual`` in f32); the identity under f32."""
+    return _compensated(st) if params.compute_dtype == "bfloat16" else st
+
+
+def _compensated(st: EngineState) -> EngineState:
+    return dataclasses.replace(st, util=st.util + st.util_residual,
+                               leader_util=st.leader_util + st.leader_util_residual)
+
+
+def _sweep_view(env: ClusterEnv, st: EngineState, env_sw: ClusterEnv | None):
+    """(env, state) a branch's keying and score tables read: the sweep view
+    with the compensated state, or (env, st) itself in exact mode
+    (``env_sw`` None, the finisher) and under f32."""
+    if env_sw is None or env_sw.sweep_loads is None:
+        return env, st
+    return env_sw, _compensated(st)
 
 
 def _custom_move_veto(g: GoalKernel) -> bool:
@@ -150,7 +204,7 @@ def _require_capable(goals, leadership: bool) -> None:
         what = ("the sequential leadership fallback (seq_body)" if leadership
                 else "the one-move-per-broker wave")
         raise NotImplementedError(
-            f"{bad}: {what} is not ported yet (ROADMAP.md Queue 1 item 5)")
+            f"{bad}: {what} is not ported yet (ROADMAP.md Queue 1 item 5b)")
 
 
 def _move_delta_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor) -> torch.Tensor:
@@ -209,11 +263,13 @@ def _combined_move_rooms(prev_goals: tuple, env: ClusterEnv, st: EngineState):
 
 def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
                 custom, cand, kv, d_rows, T: int, order_b=None,
-                row_ok=None) -> tuple:
+                row_ok=None, env_sw: ClusterEnv | None = None) -> tuple:
     """Positional arguments of the K2 launch (``kernels.move_score_classes``)
     for the [K, B] stage: the per-row legitimacy (``kv > -inf``, or
     ``row_ok`` when given), source rooms, row vetoes and goal rows, the
-    per-broker destination rooms and goal columns."""
+    per-broker destination rooms and goal columns. Legitimacy, rooms and
+    vetoes read (env, st); the goal's score tables read the sweep view of
+    ``env_sw`` (engine.py:776-786)."""
     B = env.num_brokers
     src_b = st.replica_broker[cand]
     part = env.replica_partition[cand]
@@ -245,7 +301,8 @@ def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
         if dstr is not None:
             dst_room[dim] = dstr
             room_mask |= 1 << dim
-    family, row_f, col_f = goal.move_tables(env, st, cand)
+    env_k, st_k = _sweep_view(env, st, env_sw)
+    family, row_f, col_f = goal.move_tables(env_k, st_k, cand)
     prow = None
     if family in RACK_FAMILIES or rack_lim is not None:
         prow = st.part_rack_count[part].to(torch.int64).contiguous()
@@ -255,7 +312,7 @@ def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
             env.replica_original_broker[cand].contiguous(), sib_b,
             row_ok.contiguous(), d_rows, dst_room, room_mask, prow, rack_lim,
             row_f.contiguous(), col_f.contiguous(), dst_ok, new_ok, env.broker_rack,
-            order_b, goal.move_topic_table(env, st, cand), tveto)
+            order_b, goal.move_topic_table(env_k, st_k, cand), tveto)
 
 
 def chain_slack(env: ClusterEnv, st: EngineState, goals: tuple):
@@ -328,7 +385,8 @@ def _admit_leads(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 
 
 def _admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
-                    prev_goals: tuple, params: EngineParams, cand, kv):
+                    prev_goals: tuple, params: EngineParams, cand, kv,
+                    env_sw: ClusterEnv | None = None):
     """Score a wave (K2) and fan its rows across destination classes;
     returns (rows in score order, their destinations, the K3 arguments)."""
     K = cand.shape[0]
@@ -338,7 +396,8 @@ def _admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     T = min(params.num_dst_choices, B)
     Bp = -(-B // T) * T
     cls_val, cls_q = move_score_classes(
-        *_score_args(env, st, goal, rooms, custom, cand, kv, d_rows, T))
+        *_score_args(env, st, goal, rooms, custom, cand, kv, d_rows, T,
+                     env_sw=env_sw))
     # destination spread: the row at sorted position j prefers its best
     # destination in class (j mod T) when that class scores, else its
     # global best (lowest column among the max-achieving classes)
@@ -366,13 +425,15 @@ def _admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 
 
 def _move_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
-               prev_goals: tuple, params: EngineParams, cand, kv):
+               prev_goals: tuple, params: EngineParams, cand, kv,
+               env_sw: ClusterEnv | None = None):
     """ONE scored admission wave over ``cand``: re-score against the live
-    state (K2), fan rows across destination classes, admit under the chain's
+    state (K2, its tables from the sweep view of ``env_sw``; None is exact
+    mode), fan rows across destination classes, admit under the chain's
     cumulative budgets (K3) and apply the winners in one batch (K4).
     Returns (state, n_applied as a device scalar)."""
     r_sorted, dst_s, args = _admission_args(env, st, goal, prev_goals, params,
-                                            cand, kv)
+                                            cand, kv, env_sw)
     win = wave_admission(*args)
     st = apply_moves_batched(env, st, r_sorted, dst_s, win)
     return st, win.sum()
@@ -380,18 +441,21 @@ def _move_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 
 def _move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                          prev_goals: tuple, params: EngineParams,
-                         severity: torch.Tensor, stall: int, cand=None, kv=None):
-    """Key once (K1), then up to ``pass_waves`` rank-banded waves; a wave
-    that admits nothing ends the pass. ``cand``/``kv`` override the
-    selection (the finisher's non-segmented waves). Returns (state,
-    n_applied device scalar, waves run)."""
+                         severity: torch.Tensor, stall: int, cand=None, kv=None,
+                         env_sw: ClusterEnv | None = None):
+    """Key once (K1 keying on the sweep view, K1), then up to
+    ``pass_waves`` rank-banded waves; a wave that admits nothing ends the
+    pass. ``cand``/``kv`` override the selection (the finisher's
+    non-segmented waves, in exact mode). Returns (state, n_applied device
+    scalar, waves run)."""
     if cand is not None:
-        st, n = _move_wave(env, st, goal, prev_goals, params, cand, kv)
+        st, n = _move_wave(env, st, goal, prev_goals, params, cand, kv, env_sw)
         return st, n, 1
     R = env.num_replicas
     K = min(params.num_candidates, R)
     W = max(1, min(params.max_pass_waves, R // max(K, 1)))
-    key = goal.replica_key(env, st, severity)
+    env_k, st_k = _sweep_view(env, st, env_sw)
+    key = goal.replica_key(env_k, st_k, severity)
     k_all = min(K * W, R)
     kv_all, cand_all = select_candidates(key.contiguous(), k_all, stall)
     waves = min(max(int(params.pass_waves), 1), W)
@@ -399,7 +463,8 @@ def _move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     run = 0
     for w in range(waves):
         st, n = _move_wave(env, st, goal, prev_goals, params,
-                           cand_all[w * K:(w + 1) * K], kv_all[w * K:(w + 1) * K])
+                           cand_all[w * K:(w + 1) * K], kv_all[w * K:(w + 1) * K],
+                           env_sw)
         total = total + n
         run += 1
         if w + 1 < waves and int(n) == 0:
@@ -408,10 +473,12 @@ def _move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 
 
 def _lead_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
-               prev_goals: tuple, cand, row_extra) -> tuple:
+               prev_goals: tuple, cand, row_extra,
+               env_sw: ClusterEnv | None = None) -> tuple:
     """Positional arguments of the K6 launch (``kernels.leadership_rows``):
     legitimacy inputs, the chain's folded ``accept_leadership`` vetoes and
-    the active goal's ``leadership_score`` tables."""
+    the active goal's ``leadership_score`` tables (from the sweep view of
+    ``env_sw``)."""
     members = lead_member_rows(env, cand)
     row_ok, broker_ok = legit_lead_rows(env, st, cand)
     row_ok = row_ok & row_extra
@@ -423,17 +490,18 @@ def _lead_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
         vetoes.extend(v)
     return (cand.contiguous(), members, row_ok.contiguous(), broker_ok,
             st.replica_broker, st.replica_offline,
-            goal.lead_tables(env, st, cand), vetoes)
+            goal.lead_tables(*_sweep_view(env, st, env_sw), cand), vetoes)
 
 
 def _lead_admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
-                         prev_goals: tuple, params: EngineParams, lcand, lkv):
+                         prev_goals: tuple, params: EngineParams, lcand, lkv,
+                         env_sw: ClusterEnv | None = None):
     """Score a leadership wave over ``lcand`` (K6) and sort it by gain;
     returns (rows in score order, their destination replicas, the K3
     arguments)."""
     KL = lcand.shape[0]
     best_val, f_all = leadership_rows(*_lead_args(env, st, goal, prev_goals, lcand,
-                                                  lkv > NEG_INF))
+                                                  lkv > NEG_INF, env_sw))
     order = _desc_order(best_val)
     posn = torch.arange(KL, device=env.device)
     r_sorted = lcand[order]
@@ -450,40 +518,44 @@ def _lead_admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 def _leadership_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                                prev_goals: tuple, params: EngineParams,
                                severity: torch.Tensor, stall: int, cand=None,
-                               kv=None):
+                               kv=None, env_sw: ClusterEnv | None = None):
     """engine.py:968: one [KL, F] scoring pass (K6), then budgeted wave
     admission (K3; each candidate leads a distinct partition) and one
-    batched transfer apply. Returns (state, n_applied device scalar)."""
+    batched transfer apply; the keying and the score tables read the sweep
+    view of ``env_sw`` (None: exact mode). Returns (state, n_applied device
+    scalar)."""
     if cand is None:
         kl = min(params.num_leader_candidates, env.num_replicas)
-        lkey = goal.leader_key(env, st, severity)
+        lkey = goal.leader_key(*_sweep_view(env, st, env_sw), severity)
         lkv, lcand = select_candidates(lkey.contiguous(), kl, stall)
     else:
         lkv, lcand = kv, cand
     r_sorted, dst_rep, args = _lead_admission_args(env, st, goal, prev_goals, params,
-                                                   lcand, lkv)
+                                                   lcand, lkv, env_sw)
     win = wave_admission(*args)
     st = apply_leaderships_batched(env, st, r_sorted, dst_rep, win)
     return st, win.sum()
 
 
 def _swap_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, prev_goals: tuple,
-               cand_out, okv, cand_in, ikv):
+               cand_out, okv, cand_in, ikv, env_sw: ClusterEnv | None = None):
     """(SwapPairs, SwapTables) of the K7 ``swap_rows`` launch: the
     ``legit_swap_mask`` row parts with ``kv > -inf``, every previous goal's
-    ``accept_swap`` folded, the active goal's ``swap_score`` tables."""
+    ``accept_swap`` folded, the active goal's ``swap_score`` tables (from
+    the sweep view of ``env_sw``)."""
     accepts = [g.swap_accept(env, st, cand_out, cand_in) for g in prev_goals]
     pairs = swap_pairs(env, st, cand_out, cand_in, accepts,
                        legit_swap_rows(env, st, cand_out) & (okv > NEG_INF),
                        legit_swap_rows(env, st, cand_in) & (ikv > NEG_INF))
-    return pairs, goal.swap_tables(env, st, cand_out, cand_in)
+    return pairs, goal.swap_tables(*_sweep_view(env, st, env_sw), cand_out, cand_in)
 
 
 def _swap_pools(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                 params: EngineParams, severity, stall: int):
     """(okv, cand_out, ikv, cand_in): the out pool of ``swap_out_key`` and
     the in pool of ``swap_in_key`` (K1, salted apart by 101 on a stalled
-    pass), k = min(num_swap_candidates, R, 128) each (engine.py:1106)."""
+    pass), k = min(num_swap_candidates, R, 128) each (engine.py:1106), keyed
+    on (env, st) as given (the sweep view in the pass loop)."""
     k = min(params.num_swap_candidates, env.num_replicas, 128)
     okv, cand_out = select_candidates(
         goal.swap_out_key(env, st, severity).contiguous(), k, stall)
@@ -494,14 +566,20 @@ def _swap_pools(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 
 def _swap_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                          prev_goals: tuple, params: EngineParams,
-                         severity: torch.Tensor, stall: int):
+                         severity: torch.Tensor, stall: int,
+                         env_sw: ClusterEnv | None = None):
     """engine.py:1080: one [K1, K2] scoring pass (K7 ``swap_rows``), the
     rows in stable descending value order, the first-use admission (K7
     ``swap_admission``: brokers in either role, the in-candidate and both
     partitions first-use among the eligible rows) and one two-leg batched
-    apply. Returns (state, n_applied device scalar)."""
-    okv, cand_out, ikv, cand_in = _swap_pools(env, st, goal, params, severity, stall)
-    pairs, tables = _swap_args(env, st, goal, prev_goals, cand_out, okv, cand_in, ikv)
+    apply; the pools and the pair score tables read the sweep view of
+    ``env_sw`` (None: exact mode, the finisher's swap tail). Returns
+    (state, n_applied device scalar)."""
+    env_k, st_k = _sweep_view(env, st, env_sw)
+    okv, cand_out, ikv, cand_in = _swap_pools(env_k, st_k, goal, params, severity,
+                                              stall)
+    pairs, tables = _swap_args(env, st, goal, prev_goals, cand_out, okv, cand_in, ikv,
+                               env_sw)
     best_val, best_j, _n = swap_rows(pairs, tables, params.min_gain)
     order = _desc_order(best_val)
     r_out = cand_out[order]
@@ -529,21 +607,28 @@ def _swap_window_positives(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 
 def _disk_move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                               prev_goals: tuple, params: EngineParams,
-                              severity: torch.Tensor, stall: int):
+                              severity: torch.Tensor, stall: int,
+                              env_sw: ClusterEnv | None = None):
     """engine.py:1197: the intra-broker analogue of the move branch. K1 keys
     the top-K candidates (destinations are the D logdirs of each
     candidate's own broker), K8 ``disk_rows`` gives each row's best masked
     score, the rows sort stably by it (descending) and K8 ``disk_apply``
     walks them in that order, re-scoring each against the live state
     (``_rescore_disk_move_row``) and applying it when both scores exceed
-    ``min_gain``. Returns (state, n_applied device scalar)."""
+    ``min_gain``. The keying and ``disk_rows``' score read the sweep view
+    of ``env_sw``; its vetoes and the walk read the f32 loads. Returns
+    (state, n_applied device scalar)."""
     kd = min(params.num_candidates, env.num_replicas)
-    key = goal.replica_key(env, st, severity)
+    env_k, st_k = _sweep_view(env, st, env_sw)
+    key = goal.replica_key(env_k, st_k, severity)
     kv, cand = select_candidates(key.contiguous(), kd, stall)
     ds = disk_state(env, st)
     rule = goal.disk_rule()
     vetoes = [r for r in (g.disk_rule() for g in prev_goals) if r is not None]
-    best = disk_rows(ds, cand, kv, rule, vetoes)
+    ds_k = disk_state(env_k, st_k)
+    best = disk_rows(dataclasses.replace(ds, slead_disk=ds_k.lead_disk,
+                                         sfoll_disk=ds_k.foll_disk),
+                     cand, kv, rule, vetoes)
     order = _desc_order(best)
     dutil, rdisk, roff, moved, n = disk_apply(ds, cand, best, order.contiguous(), rule,
                                               vetoes, params.min_gain)
@@ -889,10 +974,11 @@ def _cond(c: dict, params: EngineParams) -> bool:
             and c["it"] < params.max_iters and not c["plateau"])
 
 
-def _step(env, st, goal, prev_goals, params, c: dict):
+def _step(env, st, goal, prev_goals, params, c: dict, env_sw=None):
     """One pass (the reference's ``step``, engine.py:1953-2074). The gated
     branches reuse the pass-start severity, as the reference does: a branch
-    that applied nothing left the state untouched."""
+    that applied nothing left the state untouched. Every branch keys and
+    scores on the sweep view of ``env_sw`` (``_sweep_env``)."""
     severity = goal.broker_severity(env, st)
     c["tailp"] += int((c["stall"] + c["dribble"]) > 0)
     explore = c["stall"] + c["dribble"]
@@ -901,23 +987,25 @@ def _step(env, st, goal, prev_goals, params, c: dict):
     n_leads = n_moves = n_swaps = n_disk = zero
     if goal.uses_disk_moves:
         st, n_disk = _disk_move_branch_batched(env, st, goal, prev_goals, params,
-                                               severity, explore)
+                                               severity, explore, env_sw)
     n_waves = 0
     leads_now = 0
     if lead_first:
         st, n_leads = _leadership_branch_batched(env, st, goal, prev_goals, params,
-                                                 severity, explore)
+                                                 severity, explore, env_sw=env_sw)
         leads_now = int(n_leads)
     if goal.uses_replica_moves and leads_now == 0:
         st, n_moves, n_waves = _move_branch_batched(env, st, goal, prev_goals,
-                                                    params, severity, explore)
+                                                    params, severity, explore,
+                                                    env_sw=env_sw)
     if goal.uses_leadership_moves and not lead_first:
         if int(n_moves) == 0:
             st, n_leads = _leadership_branch_batched(env, st, goal, prev_goals,
-                                                     params, severity, explore)
+                                                     params, severity, explore,
+                                                     env_sw=env_sw)
     if goal.uses_swaps and int(n_moves + n_leads) == 0:
         st, n_swaps = _swap_branch_batched(env, st, goal, prev_goals, params,
-                                           severity, explore)
+                                           severity, explore, env_sw)
     # the pass's closing device->host read
     disk, moves, leads, swaps, viol, stat_now = torch.stack([
         n_disk.to(torch.float32), n_moves.to(torch.float32),
@@ -1011,13 +1099,14 @@ def _goal_loop(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     ``passes_skipped``, ``quiesce_chunk``, ``chunks`` and
     ``finisher_skipped``."""
     check_supported(params)
+    env_sw = _sweep_env(env, params)
     stat_before = float(goal.stat(env, st))
     c = _loop_scalar_init()
     quiesce_chunk, chunks, applied_prev = -1, 0, 0
     while True:
         lim = c["it"] + chunk if chunk > 0 else math.inf
         while _cond(c, params) and c["it"] < lim:
-            st = _step(env, st, goal, prev_goals, params, c)
+            st = _step(env, st, goal, prev_goals, params, c, env_sw)
         chunks += 1
         if chunk <= 0 or not _cond(c, params):
             break

@@ -87,6 +87,8 @@ class ClusterEnv:
     num_real_racks: int                # ACTUAL rack count
     num_racks: int                     # padded rack-axis size (>= real)
     max_rf: int                        # padded membership-table width
+    # the f32 env has no bf16 load tables (``SweepEnv`` has)
+    sweep_loads = None
 
     @property
     def device(self) -> torch.device:
@@ -107,6 +109,15 @@ class ClusterEnv:
     @property
     def num_topics(self) -> int:
         return self.topic_excluded.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepEnv(ClusterEnv):
+    """The bf16 policy's sweep view of an env (``engine._sweep_env``):
+    ``sweep_loads`` holds the [R, M] leader / follower loads in bf16, which
+    the keying sweep (K1 keying) reads; ``leader_load`` / ``follower_load``
+    hold the same values upcast to f32 for the [K]-row score tables."""
+    sweep_loads: tuple | None = None
 
 
 def build_partition_replicas(ct: ClusterTensor) -> np.ndarray:

@@ -53,6 +53,7 @@ from cruise_control_tpu_torch.kernels import disk as disk_k
 from cruise_control_tpu_torch.kernels import leadership as lead_k
 from cruise_control_tpu_torch.kernels import move_score as move_k
 from cruise_control_tpu_torch.kernels import swap as swap_k
+from cruise_control_tpu_torch.kernels.keys import OFFLINE_BUMP_BF16, env_loads, replica_keys
 from cruise_control_tpu_torch.kernels.select import mul32
 
 NEG_INF = -torch.inf
@@ -100,6 +101,28 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
 def row_sum4(x: torch.Tensor) -> torch.Tensor:
     """Sum of the 4 resource columns, left to right (the oracle's order)."""
     return ((x[:, 0] + x[:, 1]) + x[:, 2]) + x[:, 3]
+
+
+def sweep_round(env: ClusterEnv, x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (and upcast) on the bf16 sweep view, where the
+    reference materializes a bf16 array; the identity on the f32 env."""
+    return x if env.sweep_loads is None else x.to(torch.bfloat16).float()
+
+
+def load_sum(env: ClusterEnv, st: EngineState) -> torch.Tensor:
+    """f32[R] sum of each replica's effective load over the four resources
+    (``jnp.sum(effective_load, axis=1)``; a bf16 array under the bf16
+    policy, so rounded there)."""
+    return sweep_round(env, row_sum4(st.effective_load(env)))
+
+
+def offline_bump(env: ClusterEnv, key: torch.Tensor, offline: torch.Tensor) -> torch.Tensor:
+    """``where(offline, key + 1e12, key)`` of a key that is a bf16 array in
+    the reference under the bf16 policy: there the constant is bf16(1e12)
+    and the result is rounded to bf16."""
+    if env.sweep_loads is None:
+        return torch.where(offline, key + 1e12, key)
+    return sweep_round(env, torch.where(offline, key + OFFLINE_BUMP_BF16, key))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -469,3 +492,19 @@ def legit_disk_move_mask(env: ClusterEnv, st: EngineState, cand: torch.Tensor):
     and not the current one, replica valid on an alive broker, topic not
     excluded unless the replica sits on a dead disk."""
     return disk_k.legit_plain(disk_state(env, st), cand)
+
+
+def sweep_keys(family: int, env: ClusterEnv, st: EngineState, col: int, rows: list,
+               scalars=None, disk=None) -> torch.Tensor:
+    """f32[R] keys of one ``replica_keys`` family (K1 keying) over the env's
+    keying tables (bf16 on the sweep view): ``rows`` are its f32[B] broker
+    rows, ``scalars`` up to three 0-d f32 values (zeros by default),
+    ``disk`` its (replica_disk, f32[n, B, D] logdir rows)."""
+    sc = torch.zeros(3, dtype=torch.float32, device=env.device)
+    for i, s in enumerate(scalars or ()):
+        sc[i] = s           # a device-side copy or fill: no host read
+    rdisk, dt = disk if disk is not None else (None, None)
+    return replica_keys(family, env_loads(env), col, st.replica_broker,
+                        st.replica_is_leader, st.replica_offline, env.replica_valid,
+                        torch.stack([r.to(torch.float32) for r in rows]).contiguous(),
+                        sc, rdisk, None if dt is None else dt.contiguous())

@@ -16,10 +16,12 @@ import torch
 
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv
 from cruise_control_tpu_torch.analyzer.goals.base import (
-    NEG_INF, WAVE_COUNT, WAVE_DIMS, GoalKernel, candidate_load, row_sum4,
+    NEG_INF, WAVE_COUNT, WAVE_DIMS, GoalKernel, candidate_load, load_sum, offline_bump,
+    sweep_keys, sweep_round,
 )
 from cruise_control_tpu_torch.analyzer.state import EngineState
 from cruise_control_tpu_torch.common.resources import EPSILON_ABS, RESOURCES
+from cruise_control_tpu_torch.kernels.keys import KEY_CAPACITY, KEY_LEAD_DELTA
 from cruise_control_tpu_torch.kernels.leadership import LEAD_CAPACITY, LeadTables, Veto
 from cruise_control_tpu_torch.kernels.move_score import (
     GOAL_CAPACITY, GOAL_REPLICA_CAPACITY,
@@ -29,6 +31,7 @@ from cruise_control_tpu_torch.kernels.swap import VETO_NET_CAPACITY, SwapAccept,
 # absolute violation tolerances per resource column, as f32 (Resource.java)
 RESOURCE_EPS = torch.tensor([EPSILON_ABS[r] for r in RESOURCES], dtype=torch.float32)
 _EPS_ON: dict = {}
+LEAD_SCORE_BF16 = 0.98828125     # bf16(0.99)
 
 
 def resource_eps(device, resource: int) -> torch.Tensor:
@@ -66,12 +69,9 @@ class CapacityGoal(GoalKernel):
         return st.util[:, self.resource] - self._limit(env) - self._eps(env)
 
     def replica_key(self, env: ClusterEnv, st: EngineState, severity):
-        on_bad = severity[st.replica_broker] > 0
-        load = st.effective_load(env)[:, self.resource]
-        offline = st.replica_offline & env.replica_valid
-        movable = env.replica_valid & on_bad & ((load > 0) | offline)
-        key = torch.where(movable, load, torch.full_like(load, NEG_INF))
-        return torch.where(offline, key + 1e12, key)
+        """Movable replicas of over-limit brokers by load, offline first
+        (K1 keying)."""
+        return sweep_keys(KEY_CAPACITY, env, st, self.resource, [severity])
 
     def move_tables(self, env: ClusterEnv, st: EngineState, cand):
         """Feasible iff util + load <= limit; score = load + 0.01 * headroom
@@ -113,11 +113,9 @@ class CapacityGoal(GoalKernel):
         return env.leader_load[:, self.resource] - env.follower_load[:, self.resource]
 
     def leader_key(self, env: ClusterEnv, st: EngineState, severity):
-        on_bad = severity[st.replica_broker] > 0
-        delta = self._lead_delta(env)
-        ok = (env.replica_valid & st.replica_is_leader & on_bad & (delta > 0)
-              & ~st.replica_offline)
-        return torch.where(ok, delta, torch.full_like(delta, NEG_INF))
+        """Online leaders of over-limit brokers by leader - follower delta
+        (K1 keying)."""
+        return sweep_keys(KEY_LEAD_DELTA, env, st, self.resource, [severity])
 
     def lead_tables(self, env: ClusterEnv, st: EngineState, cand):
         """Feasible iff the member's broker stays under the limit after
@@ -126,7 +124,14 @@ class CapacityGoal(GoalKernel):
         delta = self._lead_delta(env)
         util = st.util[:, self.resource]
         fb = torch.stack([util, self._limit(env), torch.zeros_like(util)])
-        fk = torch.stack([delta[cand] * 0.99 + 0.0, torch.zeros_like(delta[cand])])
+        if env.sweep_loads is None:
+            score = delta[cand] * 0.99 + 0.0
+        else:
+            # the reference's bf16 program materializes the candidate's delta
+            # and the score as bf16 arrays, 0.99 is a bf16 constant and its
+            # simplifier drops the + 0.0 (a -0.0 delta keeps its sign)
+            score = sweep_round(env, sweep_round(env, delta[cand]) * LEAD_SCORE_BF16)
+        fk = torch.stack([score, torch.zeros_like(delta[cand])])
         return LeadTables(LEAD_CAPACITY, fb.contiguous(), fk.contiguous(),
                           fr=delta.contiguous())
 
@@ -201,11 +206,11 @@ class ReplicaCapacityGoal(GoalKernel):
 
     def replica_key(self, env: ClusterEnv, st: EngineState, severity):
         on_bad = severity[st.replica_broker] > 0
-        load = row_sum4(st.effective_load(env))
+        load = load_sum(env, st)
         offline = st.replica_offline & env.replica_valid
         key = torch.where(env.replica_valid & on_bad, -load,
                           torch.full_like(load, NEG_INF))
-        return torch.where(offline, key + 1e12, key)
+        return offline_bump(env, key, offline)
 
     def move_tables(self, env: ClusterEnv, st: EngineState, cand):
         """Feasible iff the destination stays within the cap; score prefers

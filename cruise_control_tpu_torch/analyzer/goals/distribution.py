@@ -24,10 +24,13 @@ from cruise_control_tpu_torch.analyzer.env import (
 )
 from cruise_control_tpu_torch.analyzer.goals.base import (
     NEG_INF, WAVE_COUNT, WAVE_DIMS, WAVE_LEADER_COUNT, GoalKernel, broker_lookup,
-    candidate_load, row_sum4, spread_jitter, xla_sum,
+    candidate_load, load_sum, row_sum4, spread_jitter, sweep_keys, sweep_round, xla_sum,
 )
 from cruise_control_tpu_torch.analyzer.goals.capacity import resource_eps
 from cruise_control_tpu_torch.analyzer.state import EngineState
+from cruise_control_tpu_torch.kernels.keys import (
+    KEY_DIST, KEY_LEAD_DELTA, KEY_SWAP_IN, KEY_SWAP_OUT,
+)
 from cruise_control_tpu_torch.kernels.leadership import (
     LEAD_CAPACITY, LEAD_LEADER_DIST, LeadTables, Veto,
 )
@@ -92,20 +95,14 @@ class ResourceDistributionGoal(GoalKernel):
         lower, upper = self._limits(env, st)
         util = st.util[:, self.resource]
         eps = self._eps(env)
-        per = broker_lookup(st.replica_broker, util - upper, util, lower)
-        excess_src = per[:, 0] > eps
         any_deficit = ((lower - util) > eps).any()
-        load = st.effective_load(env)[:, self.resource]
-        donor = (per[:, 1] - load) >= per[:, 2]
         headroom = torch.where(env.dst_candidate, upper - util,
                                torch.full_like(util, NEG_INF))
-        fits = load <= headroom.max() + eps
-        movable = (env.replica_valid & (load > 0) & fits
-                   & (excess_src | (any_deficit & donor)))
-        offline = st.replica_offline & env.replica_valid
-        frac = load / torch.clamp(per[:, 1], min=1e-9)
-        key = torch.where(movable | offline, frac, torch.full_like(frac, NEG_INF))
-        return torch.where(offline, key + 1e12, key)
+        # K1 keying: excess source (util - upper > eps) or a donor
+        # (util - load >= lower) while some broker is deficient, the load
+        # fitting max(headroom) + eps; key load / util, offline first
+        return sweep_keys(KEY_DIST, env, st, self.resource, [util - upper, util, lower],
+                          [eps, any_deficit, headroom.max() + eps])
 
     def move_tables(self, env: ClusterEnv, st: EngineState, cand):
         """``_gain(util[src], util[b], l, ...)`` (the source's violations
@@ -158,11 +155,10 @@ class ResourceDistributionGoal(GoalKernel):
     def leader_key(self, env: ClusterEnv, st: EngineState, severity):
         _lower, upper = self._limits(env, st)
         util = st.util[:, self.resource]
-        on_excess = broker_lookup(st.replica_broker, util - upper)[:, 0] > self._eps(env)
-        delta = self._lead_delta(env)
-        ok = (env.replica_valid & st.replica_is_leader & on_excess & (delta > 0)
-              & ~st.replica_offline)
-        return torch.where(ok, delta, torch.full_like(delta, NEG_INF))
+        # K1 keying: online leaders on excess brokers (util - upper > eps)
+        # by leader - follower delta
+        return sweep_keys(KEY_LEAD_DELTA, env, st, self.resource, [util - upper],
+                          [self._eps(env)])
 
     def lead_tables(self, env: ClusterEnv, st: EngineState, cand):
         """The capacity family: feasible iff the member's broker stays under
@@ -173,7 +169,11 @@ class ResourceDistributionGoal(GoalKernel):
         util = st.util[:, self.resource]
         delta = self._lead_delta(env)
         src = st.replica_broker[cand]
-        gain = torch.minimum(torch.clamp(util[src] - upper[src], min=0.0), delta[cand])
+        # the reference's bf16 program materializes the candidate's delta as
+        # a bf16 array (``[:, None]`` after the subtraction); the members'
+        # deltas ``fr`` enter their sums unrounded
+        gain = torch.minimum(torch.clamp(util[src] - upper[src], min=0.0),
+                             sweep_round(env, delta[cand]))
         gain = torch.where(gain > 0, gain, torch.full_like(gain, NEG_INF))
         fb = torch.stack([util, upper, torch.zeros_like(util)])
         fk = torch.stack([gain, torch.zeros_like(gain)])
@@ -189,19 +189,13 @@ class ResourceDistributionGoal(GoalKernel):
     # -- swaps (rebalanceBySwappingLoadOut/In, ResourceDistributionGoal.java:598,:697) --
     def swap_out_key(self, env: ClusterEnv, st: EngineState, severity):
         """Replicas on out-of-band brokers, largest load first."""
-        on_bad = broker_lookup(st.replica_broker, severity)[:, 0] > 0
-        load = st.effective_load(env)[:, self.resource]
-        ok = env.replica_valid & on_bad & ~st.replica_offline
-        return torch.where(ok, load, torch.full_like(load, NEG_INF))
+        return sweep_keys(KEY_SWAP_OUT, env, st, self.resource, [severity])
 
     def swap_in_key(self, env: ClusterEnv, st: EngineState, severity):
         """Replicas on brokers not above the upper limit, smallest first."""
         _lower, upper = self._limits(env, st)
-        not_excess = broker_lookup(st.replica_broker,
-                                   st.util[:, self.resource] - upper)[:, 0] <= 0
-        load = st.effective_load(env)[:, self.resource]
-        ok = env.replica_valid & not_excess & ~st.replica_offline
-        return torch.where(ok, -load, torch.full_like(load, NEG_INF))
+        return sweep_keys(KEY_SWAP_IN, env, st, self.resource,
+                          [st.util[:, self.resource] - upper])
 
     def _swap_loads(self, env: ClusterEnv, st: EngineState, cand_out, cand_in):
         return (candidate_load(env, st, cand_out)[:, self.resource].contiguous(),
@@ -309,7 +303,7 @@ class ReplicaDistributionGoal(GoalKernel):
         over = per[:, 0] > 0
         any_deficit = (lower - c > 0).any()
         donor = per[:, 1] >= 0
-        load = row_sum4(st.effective_load(env))
+        load = load_sum(env, st)
         movable = env.replica_valid & (over | (any_deficit & donor))
         offline = st.replica_offline & env.replica_valid
         # light replicas first; the hash jitter spreads the pool across brokers
@@ -392,7 +386,7 @@ class LeaderReplicaDistributionGoal(GoalKernel):
         lower, upper = self._limits(env, st)
         c = st.leader_count.to(torch.float32)
         over = broker_lookup(st.replica_broker, c - upper)[:, 0] > 0
-        load = row_sum4(st.effective_load(env))
+        load = load_sum(env, st)
         movable = (env.replica_valid & st.replica_is_leader & over
                    & ~st.replica_offline)
         return torch.where(movable, -load, torch.full_like(load, NEG_INF))

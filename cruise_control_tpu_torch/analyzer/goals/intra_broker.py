@@ -20,15 +20,12 @@ import dataclasses
 import torch
 
 from cruise_control_tpu_torch.analyzer.env import BALANCE_MARGIN, ClusterEnv
-from cruise_control_tpu_torch.analyzer.goals.base import NEG_INF, GoalKernel, disk_state
+from cruise_control_tpu_torch.analyzer.goals.base import GoalKernel, disk_state, sweep_keys
 from cruise_control_tpu_torch.analyzer.state import EngineState
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.kernels import disk as disk_k
 from cruise_control_tpu_torch.kernels.disk import DISK_EPS, PCT_EPS, DiskRule
-
-
-def _all_replicas(env: ClusterEnv) -> torch.Tensor:
-    return torch.arange(env.num_replicas, device=env.device)
+from cruise_control_tpu_torch.kernels.keys import KEY_INTRA_CAPACITY, KEY_INTRA_USAGE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,15 +55,16 @@ class IntraBrokerDiskCapacityGoal(GoalKernel):
         return torch.where(env.broker_alive, sev - DISK_EPS, torch.zeros_like(sev))
 
     def replica_key(self, env: ClusterEnv, st: EngineState, severity):
+        """Replicas on over-limit or dead logdirs of alive brokers by DISK
+        load, dead disks first (K1 keying over the logdir rows: the
+        utilization, the limit + eps, and 1 where the logdir is dead or
+        unconfigured)."""
         ds = disk_state(env, st)
-        b = st.replica_broker
-        d = torch.clamp(st.replica_disk, min=0)
-        over = st.disk_util[b, d] > self._limit(ds)[b, d] + DISK_EPS
-        dead = disk_k.on_dead_disk(ds)
-        load = disk_k.candidate_disk_load(ds, _all_replicas(env))
-        movable = env.replica_valid & env.broker_alive[b] & (over | dead)
-        key = torch.where(movable, load, torch.full_like(load, NEG_INF))
-        return torch.where(dead, key + 1e12, key)
+        bad = ~(ds.dalive & (ds.dcap > 0))
+        rows = torch.stack([st.disk_util, self._limit(ds) + DISK_EPS,
+                            bad.to(torch.float32)])
+        return sweep_keys(KEY_INTRA_CAPACITY, env, st, Resource.DISK, [env.broker_alive],
+                          disk=(st.replica_disk, rows))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,16 +99,13 @@ class IntraBrokerDiskUsageDistributionGoal(GoalKernel):
 
     def replica_key(self, env: ClusterEnv, st: EngineState, severity):
         pct, lower, upper, _valid = self._band(env, st)
-        b = st.replica_broker
-        d = torch.clamp(st.replica_disk, min=0)
         avg = (lower + upper) / 2.0
         # any replica on an above-AVERAGE disk of a violating broker (a
         # below-lower disk fills by draining in-band disks above the mean);
-        # the score rejects moves with no band-violation gain
-        donor = pct[b, d] > avg[b] + PCT_EPS
-        load = disk_k.candidate_disk_load(disk_state(env, st), _all_replicas(env))
-        movable = env.replica_valid & (severity[b] > 0) & donor & (load > 0)
-        return torch.where(movable, load, torch.full_like(load, NEG_INF))
+        # the score rejects moves with no band-violation gain (K1 keying:
+        # pct[b, d] > avg[b] + PCT_EPS, severity[b] > 0, load > 0)
+        return sweep_keys(KEY_INTRA_USAGE, env, st, Resource.DISK,
+                          [severity, avg + PCT_EPS], disk=(st.replica_disk, pct[None]))
 
     def violated(self, env: ClusterEnv, st: EngineState):
         return (self._violation(env, st) > PCT_EPS).any()

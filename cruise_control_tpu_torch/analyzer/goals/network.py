@@ -14,11 +14,12 @@ import torch
 
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv, resource_balance_limits
 from cruise_control_tpu_torch.analyzer.goals.base import (
-    NEG_INF, WAVE_DIMS, WAVE_LEADER_NW_IN, WAVE_POT_NW_OUT, GoalKernel, xla_sum,
+    WAVE_DIMS, WAVE_LEADER_NW_IN, WAVE_POT_NW_OUT, GoalKernel, sweep_keys, xla_sum,
 )
 from cruise_control_tpu_torch.analyzer.goals.capacity import resource_eps
 from cruise_control_tpu_torch.analyzer.state import EngineState
 from cruise_control_tpu_torch.common.resources import Resource
+from cruise_control_tpu_torch.kernels.keys import KEY_LEAD_LOAD, KEY_POT_NW_OUT
 from cruise_control_tpu_torch.kernels.leadership import LEAD_BYTES_IN, LeadTables, Veto
 from cruise_control_tpu_torch.kernels.move_score import GOAL_CAPACITY
 from cruise_control_tpu_torch.kernels.swap import VETO_DIRECTED, SwapAccept, SwapVeto
@@ -44,12 +45,9 @@ class PotentialNwOutGoal(GoalKernel):
         return st.potential_nw_out - self._limit(env) - self._eps(env)
 
     def replica_key(self, env: ClusterEnv, st: EngineState, severity):
-        on_bad = severity[st.replica_broker] > 0
-        pot = env.leader_load[:, NW_OUT]
-        offline = st.replica_offline & env.replica_valid
-        ok = env.replica_valid & on_bad & ((pot > 0) | offline)
-        key = torch.where(ok, pot, torch.full_like(pot, NEG_INF))
-        return torch.where(offline, key + 1e12, key)
+        """Replicas of over-limit brokers by leader NW_OUT, offline first
+        (K1 keying)."""
+        return sweep_keys(KEY_POT_NW_OUT, env, st, NW_OUT, [severity])
 
     def move_tables(self, env: ClusterEnv, st: EngineState, cand):
         """The capacity family on potential NW_OUT: feasible iff pot + the
@@ -131,11 +129,8 @@ class LeaderBytesInDistributionGoal(GoalKernel):
         return st.leader_util[:, NW_IN] - self._limits(env, st) - self._eps(env)
 
     def leader_key(self, env: ClusterEnv, st: EngineState, severity):
-        on_bad = severity[st.replica_broker] > 0
-        lin = env.leader_load[:, NW_IN]
-        ok = (env.replica_valid & st.replica_is_leader & on_bad & (lin > 0)
-              & ~st.replica_offline)
-        return torch.where(ok, lin, torch.full_like(lin, NEG_INF))
+        """Online leaders of over-limit brokers by leader NW_IN (K1 keying)."""
+        return sweep_keys(KEY_LEAD_LOAD, env, st, NW_IN, [severity])
 
     def lead_tables(self, env: ClusterEnv, st: EngineState, cand):
         """Feasible iff the member's broker stays within the upper limit

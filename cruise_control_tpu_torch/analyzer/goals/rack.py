@@ -15,7 +15,9 @@ import dataclasses
 import torch
 
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv
-from cruise_control_tpu_torch.analyzer.goals.base import NEG_INF, GoalKernel, row_sum4
+from cruise_control_tpu_torch.analyzer.goals.base import (
+    NEG_INF, GoalKernel, load_sum, offline_bump, row_sum4,
+)
 from cruise_control_tpu_torch.analyzer.state import EngineState
 from cruise_control_tpu_torch.kernels import segment_count
 from cruise_control_tpu_torch.kernels.move_score import GOAL_RACK, GOAL_RACK_DIST
@@ -65,9 +67,9 @@ class RackAwareGoal(GoalKernel):
     def replica_key(self, env: ClusterEnv, st: EngineState, severity):
         viol = self._violating(env, st)
         offline = st.replica_offline & env.replica_valid
-        load = row_sum4(st.effective_load(env))
+        load = load_sum(env, st)
         key = torch.where(viol | offline, -load, torch.full_like(load, NEG_INF))
-        return torch.where(offline, key + 1e12, key)
+        return offline_bump(env, key, offline)
 
     def move_tables(self, env: ClusterEnv, st: EngineState, cand):
         """Feasible iff the destination rack holds no other replica of the
@@ -122,9 +124,9 @@ class RackAwareDistributionGoal(GoalKernel):
     def replica_key(self, env: ClusterEnv, st: EngineState, severity):
         viol = self._violating(env, st)
         offline = st.replica_offline & env.replica_valid
-        load = row_sum4(st.effective_load(env))
+        load = load_sum(env, st)
         key = torch.where(viol | offline, -load, torch.full_like(load, NEG_INF))
-        return torch.where(offline, key + 1e12, key)
+        return offline_bump(env, key, offline)
 
     def rack_limit(self, env: ClusterEnv, part):
         """i32[K] ``_max_per_rack_for`` (rack.py:123): ``accept_move`` keeps

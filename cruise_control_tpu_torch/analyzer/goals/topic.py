@@ -17,7 +17,9 @@ import dataclasses
 import torch
 
 from cruise_control_tpu_torch.analyzer.env import BALANCE_MARGIN, ClusterEnv
-from cruise_control_tpu_torch.analyzer.goals.base import NEG_INF, GoalKernel, row_sum4
+from cruise_control_tpu_torch.analyzer.goals.base import (
+    NEG_INF, GoalKernel, load_sum, offline_bump,
+)
 from cruise_control_tpu_torch.analyzer.state import EngineState
 from cruise_control_tpu_torch.kernels.leadership import LEAD_MIN_TOPIC, LeadTables
 from cruise_control_tpu_torch.kernels.move_score import GOAL_MIN_TOPIC, GOAL_TOPIC_REPLICA
@@ -84,11 +86,11 @@ class TopicReplicaDistributionGoal(GoalKernel):
         c = st.topic_broker_count.to(torch.float32)
         any_deficit_t = ((lower[:, None] - c) > 0).any(dim=1)
         donor = c_tb - 1 >= lower[t]
-        load = row_sum4(st.effective_load(env))
+        load = load_sum(env, st)
         movable = env.replica_valid & (over | (any_deficit_t[t] & donor))
         offline = st.replica_offline & env.replica_valid
         key = torch.where(movable | offline, -load, torch.full_like(load, NEG_INF))
-        return torch.where(offline, key + 1e12, key)
+        return offline_bump(env, key, offline)
 
     def move_tables(self, env: ClusterEnv, st: EngineState, cand):
         """Per row: the topic's limits, the source's excess reduction
@@ -139,7 +141,7 @@ class TopicReplicaDistributionGoal(GoalKernel):
         _lower, upper = self._limits(env, st)
         t = env.replica_topic
         over = self._count_at(st, t, st.replica_broker) > upper[t]
-        load = row_sum4(st.effective_load(env))
+        load = load_sum(env, st)
         ok = env.replica_valid & over & ~st.replica_offline
         return torch.where(ok, -load, torch.full_like(load, NEG_INF))
 
@@ -147,7 +149,7 @@ class TopicReplicaDistributionGoal(GoalKernel):
         lower, _upper = self._limits(env, st)
         t = env.replica_topic
         can_leave = self._count_at(st, t, st.replica_broker) - 1.0 >= lower[t]
-        load = row_sum4(st.effective_load(env))
+        load = load_sum(env, st)
         ok = env.replica_valid & can_leave & ~st.replica_offline
         return torch.where(ok, -load, torch.full_like(load, NEG_INF))
 
@@ -202,12 +204,12 @@ class MinTopicLeadersPerBrokerGoal(GoalKernel):
     def replica_key(self, env: ClusterEnv, st: EngineState, severity):
         """Leader replicas of min-leader topics on surplus brokers."""
         is_min_topic = env.topic_min_leaders[env.replica_topic]
-        load = row_sum4(st.effective_load(env))
+        load = load_sum(env, st)
         movable = (env.replica_valid & st.replica_is_leader & is_min_topic
                    & self._surplus(env, st) & ~st.replica_offline)
         offline = st.replica_offline & env.replica_valid
         key = torch.where(movable | offline, -load, torch.full_like(load, NEG_INF))
-        return torch.where(offline, key + 1e12, key)
+        return offline_bump(env, key, offline)
 
     def move_tables(self, env: ClusterEnv, st: EngineState, cand):
         """gain = min(deficit[t, b], 1) over the (topic, broker) table

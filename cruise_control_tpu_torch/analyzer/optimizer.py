@@ -22,9 +22,10 @@ preferred-leader pass (K12, ``goals/leader_election.py``) in every shape,
 and reports it last. After that, certificate-driven escalation re-enters the
 finisher of a goal that exited violated and unproven with few actions left
 (its moves, transfers and swap window counted). The intra-broker disk goals
-run as chain goals with the disk branch (K8). Sessions, bf16 and the config
-surface raise ``NotImplementedError`` naming the ROADMAP item that ports
-them. A hard-goal failure raises ``OptimizationFailureError`` with the
+run as chain goals with the disk branch (K8). At padded R >= 262,144
+"auto" resolves the precision policy to bf16 (``_resolve_compute_dtype``;
+the engine's ``_sweep_env``). Sessions and the config surface raise
+``NotImplementedError`` naming the ROADMAP item that ports them. A hard-goal failure raises ``OptimizationFailureError`` with the
 result's provision recommendation.
 """
 from __future__ import annotations

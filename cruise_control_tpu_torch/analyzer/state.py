@@ -135,12 +135,10 @@ def refresh(env: ClusterEnv, st: EngineState) -> EngineState:
 
 def apply_sum_inputs(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
                      dsts: torch.Tensor, mask: torch.Tensor):
-    """(values f32[2W, 17], seg i64[2W], init f32[B, 17]) of one wave's
+    """(values f32[2W, 9], seg i64[2W], init f32[B, 9]) of one wave's
     chained per-broker float update: every source row (negated, in row
     order), then every destination row; columns util[4], leader_util[4],
-    potential NW_OUT, and the util / leader_util deltas again for the
-    Neumaier residual. Masked rows get segment -1 (they add nothing)."""
-    B = env.num_brokers
+    potential NW_OUT. Masked rows get segment -1 (they add nothing)."""
     is_leader = st.replica_is_leader[replicas]
     src = st.replica_broker[replicas]
     zero = torch.zeros((replicas.shape[0], 4), dtype=torch.float32,
@@ -153,14 +151,32 @@ def apply_sum_inputs(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
     pot = torch.where(mask, env.leader_load[replicas, Resource.NW_OUT],
                       zero[:, 0])
     row = torch.cat([load, lead_load, pot[:, None]], dim=1)          # [W, 9]
-    row = torch.cat([row, row[:, :8]], dim=1)                         # + agg cols
     vals = torch.cat([-row, row]).contiguous()                        # src, then dst
     none = torch.full_like(src, -1)
     seg = torch.cat([torch.where(mask, src, none), torch.where(mask, dsts, none)])
-    init = torch.cat([st.util, st.leader_util, st.potential_nw_out[:, None],
-                      torch.zeros((B, 8), dtype=torch.float32,
-                                  device=replicas.device)], dim=1).contiguous()
+    init = torch.cat([st.util, st.leader_util, st.potential_nw_out[:, None]],
+                     dim=1).contiguous()
     return vals, seg, init
+
+
+def residual_inputs(st: EngineState, util: torch.Tensor, leader_util: torch.Tensor,
+                    vals: torch.Tensor, seg: torch.Tensor, chained: bool = False):
+    """(values f32[N, 8], seg, init f32[B, 8]) of one wave's Neumaier
+    residual update (``_kahan_scatter2``'s ``res + ((acc - new) + agg)``,
+    ``agg`` the wave's util / leader_util deltas scattered into zeros) as
+    XLA:CPU evaluates it: its simplifier folds the scatter into zeros into
+    the add, so the deltas add, in the scatter's row order, onto
+    ``res + (acc - new)`` when ``res`` enters the program as a value (a
+    loop carry: every apply of the pass loop and the finisher), and onto
+    ``acc - new`` alone when ``res`` is the previous apply's scatter output
+    in the same program (``chained``: the second leg of a swap wave; the
+    caller then adds ``res``). ``vals`` are the wave's rows (util and
+    leader_util deltas first), ``util`` / ``leader_util`` the updated
+    tallies."""
+    init = torch.cat([st.util - util, st.leader_util - leader_util], dim=1)
+    if not chained:
+        init = torch.cat([st.util_residual, st.leader_util_residual], dim=1) + init
+    return vals[:, :8].contiguous(), seg, init.contiguous()
 
 
 def apply_move_count_inputs(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
@@ -210,21 +226,25 @@ def apply_disk_sum_inputs(env: ClusterEnv, st: EngineState, replicas: torch.Tens
 
 
 def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor,
-                        dsts: torch.Tensor, mask: torch.Tensor) -> EngineState:
+                        dsts: torch.Tensor, mask: torch.Tensor,
+                        chained: bool = False) -> EngineState:
     """Apply a WAVE of moves: ``replicas[W]`` relocate to ``dsts[W]`` where
     ``mask[W]``. Masked rows add zero and never write the assignment;
     enabled rows must be unique. Float tallies follow the reference's
     chained ``.at[src].add(-x).at[dst].add(x)`` order, with the Neumaier
-    residual ``res + ((acc - new) + agg)`` of ``_kahan_scatter2``."""
+    residual of ``_kahan_scatter2`` (``residual_inputs``; ``chained``: this
+    wave directly follows another apply in the reference's program)."""
     B, P, T = env.num_brokers, env.num_partitions, env.num_topics
     Kr = env.num_racks
     D = env.broker_disk_capacity.shape[1]
     vals, seg, init = apply_sum_inputs(env, st, replicas, dsts, mask)
     out = segment_sum(vals, seg, B, init)
     util, leader_util = out[:, 0:4], out[:, 4:8]
-    util_res = st.util_residual + ((st.util - util) + out[:, 9:13])
-    lead_res = st.leader_util_residual + ((st.leader_util - leader_util)
-                                          + out[:, 13:17])
+    rv, rseg, rinit = residual_inputs(st, util, leader_util, vals, seg, chained)
+    res = segment_sum(rv, rseg, B, rinit)
+    if chained:
+        res = torch.cat([st.util_residual, st.leader_util_residual], dim=1) + res
+    util_res, lead_res = res[:, 0:4].contiguous(), res[:, 4:8].contiguous()
 
     rc, lc, prc, tbc, tlc = (segment_count(*a) for a in
                              apply_move_count_inputs(env, st, replicas, dsts, mask))
@@ -265,29 +285,25 @@ def apply_swaps_batched(env: ClusterEnv, st: EngineState, r_out: torch.Tensor,
     b_out = st.replica_broker[r_out]
     b_in = st.replica_broker[r_in]
     st = apply_moves_batched(env, st, r_out, b_in, mask)
-    return apply_moves_batched(env, st, r_in, b_out, mask)
+    return apply_moves_batched(env, st, r_in, b_out, mask, chained=True)
 
 
 def apply_lead_sum_inputs(env: ClusterEnv, st: EngineState, src: torch.Tensor,
                           dst: torch.Tensor, mask: torch.Tensor):
-    """(values f32[2W, 16], seg i64[2W], init f32[B, 16]) of one leadership
+    """(values f32[2W, 8], seg i64[2W], init f32[B, 8]) of one leadership
     wave's chained per-broker float update: every source row (in row order),
     then every destination row; columns util[4] (the leader - follower
-    shift), leader_util[4], and both again for the Neumaier residual."""
-    B = env.num_brokers
+    shift) and leader_util[4]."""
     bs = st.replica_broker[src]
     bd = st.replica_broker[dst]
     delta_s = env.leader_load[src] - env.follower_load[src]
     delta_d = env.leader_load[dst] - env.follower_load[dst]
     rows_s = torch.cat([-delta_s, -env.leader_load[src]], dim=1)
     rows_d = torch.cat([delta_d, env.leader_load[dst]], dim=1)
-    vals = torch.cat([torch.cat([rows_s, rows_s], dim=1),
-                      torch.cat([rows_d, rows_d], dim=1)]).contiguous()
+    vals = torch.cat([rows_s, rows_d]).contiguous()
     none = torch.full_like(bs, -1)
     seg = torch.cat([torch.where(mask, bs, none), torch.where(mask, bd, none)])
-    init = torch.cat([st.util, st.leader_util,
-                      torch.zeros((B, 8), dtype=torch.float32, device=src.device)],
-                     dim=1).contiguous()
+    init = torch.cat([st.util, st.leader_util], dim=1).contiguous()
     return vals, seg, init
 
 
@@ -313,16 +329,17 @@ def apply_leaderships_batched(env: ClusterEnv, st: EngineState, src: torch.Tenso
     partition per row, distinct partitions across enabled rows) where
     ``mask[W]``. Float tallies follow the reference's chained
     ``.at[src].add(-x).at[dst].add(y)`` order with the Neumaier residual of
-    ``_kahan_scatter2``; masked rows add nothing (segment -1); the leader
+    ``_kahan_scatter2`` (``residual_inputs``); masked rows add nothing
+    (segment -1); the leader
     flags clear at the sources and set at the destinations (OR-style, so a
     masked row never writes)."""
     B, T, R = env.num_brokers, env.num_topics, env.num_replicas
     vals, seg, init = apply_lead_sum_inputs(env, st, src, dst, mask)
     out = segment_sum(vals, seg, B, init)
     util, leader_util = out[:, 0:4], out[:, 4:8]
-    util_res = st.util_residual + ((st.util - util) + out[:, 8:12])
-    lead_res = st.leader_util_residual + ((st.leader_util - leader_util)
-                                          + out[:, 12:16])
+    rv, rseg, rinit = residual_inputs(st, util, leader_util, vals, seg)
+    res = segment_sum(rv, rseg, B, rinit)
+    util_res, lead_res = res[:, 0:4].contiguous(), res[:, 4:8].contiguous()
     lc_args, tlc_args = apply_lead_count_inputs(env, st, src, dst, mask)
     lc = segment_count(*lc_args)
     tlc = segment_count(*tlc_args)

@@ -8,6 +8,7 @@ kernel's source, the reference function it replaces and its launch count.
 from cruise_control_tpu_torch.kernels.admission import wave_admission
 from cruise_control_tpu_torch.kernels.build import KERNELS, build_all
 from cruise_control_tpu_torch.kernels.disk import disk_apply, disk_rows
+from cruise_control_tpu_torch.kernels.keys import KEY_FAMILY_LAUNCHES, replica_keys
 from cruise_control_tpu_torch.kernels.leadership import leadership_rows
 from cruise_control_tpu_torch.kernels.move_score import FAMILY_LAUNCHES, move_score_classes
 from cruise_control_tpu_torch.kernels.ple import preferred_leader
@@ -21,6 +22,7 @@ def reset_launches() -> None:
         k.launches = 0
         k.shapes = {}
     FAMILY_LAUNCHES.clear()
+    KEY_FAMILY_LAUNCHES.clear()
 
 
 def launches() -> dict:
@@ -33,8 +35,9 @@ def launch_shapes() -> dict:
 
 
 __all__ = [
-    "FAMILY_LAUNCHES", "KERNELS", "build_all", "compact_eligible", "disk_apply",
-    "disk_rows", "launch_shapes", "launches", "leadership_rows", "move_score_classes",
-    "preferred_leader", "reset_launches", "segment_count", "segment_sum",
-    "select_candidates", "swap_admission", "swap_rows", "wave_admission",
+    "FAMILY_LAUNCHES", "KEY_FAMILY_LAUNCHES", "KERNELS", "build_all", "compact_eligible",
+    "disk_apply", "disk_rows", "launch_shapes", "launches", "leadership_rows",
+    "move_score_classes", "preferred_leader", "replica_keys", "reset_launches",
+    "segment_count", "segment_sum", "select_candidates", "swap_admission", "swap_rows",
+    "wave_admission",
 ]

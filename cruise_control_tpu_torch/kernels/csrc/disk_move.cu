@@ -46,6 +46,8 @@ struct Disk {
   const unsigned char* rlead;
   const float* lead_disk;
   const float* foll_disk;
+  const float* slead_disk;  // the loads the score reads (the sweep view's
+  const float* sfoll_disk;  // under the bf16 policy; lead/foll_disk else)
   const unsigned char* rvalid;
   const unsigned char* rtexcl;
   const unsigned char* balive;
@@ -92,6 +94,7 @@ __device__ float disk_score(const Disk& s, long long r, int d) {
   bool ok = dst_alive && (long long)d != cur && s.rvalid[r] && bal && topic_ok;
   if (!ok) return -INFINITY;
   const float l = s.rlead[r] ? s.lead_disk[r] : s.foll_disk[r];
+  const float ls = s.rlead[r] ? s.slead_disk[r] : s.sfoll_disk[r];
   const float util = s.dutil[i];
   const bool valid_d = valid_at(s, b, d);
   const float capm = fmaxf(s.dcap[i], kCapFloor);
@@ -110,12 +113,12 @@ __device__ float disk_score(const Disk& s, long long r, int d) {
     const float limit = valid_d ? s.a * s.dcap[i] : 0.0f;
     const bool valid_c = valid_at(s, b, (int)cc);
     const float limit_c = valid_c ? s.a * s.dcap[ic] : 0.0f;
-    const bool feasible = util + l <= limit;
+    const bool feasible = util + ls <= limit;
     const bool src_over = s.dutil[ic] > limit_c + kDiskEps;
     const bool dead = s.rvalid[r] && bal && !(s.dalive[ic] && s.dcap[ic] > 0.0f);
     if (!(feasible && (src_over || dead))) return -INFINITY;
     const float headroom = fmaxf(limit - util, 0.0f);
-    return dead ? 1.0f + headroom / capm : l + (0.01f * headroom) / capm;
+    return dead ? 1.0f + headroom / capm : ls + (0.01f * headroom) / capm;
   }
   // kBand
   if (!valid_d) return -INFINITY;
@@ -125,9 +128,9 @@ __device__ float disk_score(const Disk& s, long long r, int d) {
   const float src_pct = s.dutil[ic] / src_cap;
   const float pct = util / capm;
   const float vsb = band_viol(src_pct, up, lo);
-  const float vsa = band_viol(src_pct - l / src_cap, up, lo);
+  const float vsa = band_viol(src_pct - ls / src_cap, up, lo);
   const float vdb = band_viol(pct, up, lo);
-  const float vda = band_viol(pct + l / capm, up, lo);
+  const float vda = band_viol(pct + ls / capm, up, lo);
   return (vsb - vsa) + (vdb - vda);
 }
 
@@ -185,6 +188,7 @@ __global__ void disk_apply_kernel(Disk s, int K, float min_gain,
 Disk make_disk(int B, int D, int family, int vflags, float a, float b, float vcap,
                float vup, const long long* rb, const unsigned char* rlead,
                const float* lead_disk, const float* foll_disk,
+               const float* slead_disk, const float* sfoll_disk,
                const unsigned char* rvalid, const unsigned char* rtexcl,
                const unsigned char* balive, const unsigned char* dalive,
                const float* dcap, const long long* rdisk, const float* dutil) {
@@ -192,6 +196,7 @@ Disk make_disk(int B, int D, int family, int vflags, float a, float b, float vca
   s.B = B; s.D = D; s.family = family; s.vflags = vflags;
   s.a = a; s.b = b; s.vcap = vcap; s.vup = vup;
   s.rb = rb; s.rlead = rlead; s.lead_disk = lead_disk; s.foll_disk = foll_disk;
+  s.slead_disk = slead_disk; s.sfoll_disk = sfoll_disk;
   s.rvalid = rvalid; s.rtexcl = rtexcl; s.balive = balive; s.dalive = dalive;
   s.dcap = dcap; s.rdisk = rdisk; s.dutil = dutil;
   return s;
@@ -202,7 +207,8 @@ Disk make_disk(int B, int D, int family, int vflags, float a, float b, float vca
 extern "C" int cc_disk_rows(
     int K, int B, int D, int family, int vflags, float a, float b, float vcap,
     float vup, const long long* rb, const unsigned char* rlead,
-    const float* lead_disk, const float* foll_disk, const unsigned char* rvalid,
+    const float* lead_disk, const float* foll_disk, const float* slead_disk,
+    const float* sfoll_disk, const unsigned char* rvalid,
     const unsigned char* rtexcl, const unsigned char* balive,
     const unsigned char* dalive, const float* dcap, const long long* rdisk,
     const float* dutil, const long long* cand, const float* kv, float* best,
@@ -210,7 +216,8 @@ extern "C" int cc_disk_rows(
   if (K <= 0 || D <= 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Disk s = make_disk(B, D, family, vflags, a, b, vcap, vup, rb, rlead, lead_disk,
-                     foll_disk, rvalid, rtexcl, balive, dalive, dcap, rdisk, dutil);
+                     foll_disk, slead_disk, sfoll_disk, rvalid, rtexcl, balive,
+                     dalive, dcap, rdisk, dutil);
   const int rows = kRowsThreads / D;
   const int grid = (K + rows - 1) / rows;
   disk_rows_kernel<<<grid, rows * D, 0, stream>>>(s, K, cand, kv, best);
@@ -229,7 +236,8 @@ extern "C" int cc_disk_apply(
   if (K <= 0 || D <= 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Disk s = make_disk(B, D, family, vflags, a, b, vcap, vup, rb, rlead, lead_disk,
-                     foll_disk, rvalid, rtexcl, balive, dalive, dcap, rdisk, dutil);
+                     foll_disk, lead_disk, foll_disk, rvalid, rtexcl, balive, dalive,
+                     dcap, rdisk, dutil);
   disk_apply_kernel<<<1, 32, 0, stream>>>(s, K, min_gain, cand, best, order, rdisk,
                                           roff, moved, dutil, n_applied);
   return (int)cudaGetLastError();

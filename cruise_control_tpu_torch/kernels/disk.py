@@ -8,7 +8,10 @@
 destination logdir is alive with capacity and differs from the current one,
 the replica is valid on an alive broker, its topic is not excluded unless it
 sits on a dead disk), the folded vetoes, ``kv > -inf`` and the score, and
-reduces each row to its maximum.
+reduces each row to its maximum. Its score reads ``slead_disk`` /
+``sfoll_disk`` when given (the bf16 sweep view's DISK loads, upcast: the
+reference's ``disk_move_score`` reads ``env_sw``), its vetoes and legitimacy
+the f32 loads.
 
 ``disk_apply`` replaces the sequential ``fori_loop`` of the same branch
 (:1238-1253) with ``_rescore_disk_move_row`` (:1186) and ``state.py``
@@ -100,6 +103,17 @@ class DiskState:
     roff: torch.Tensor          # bool[R] offline
     moved: torch.Tensor         # bool[R]
     dutil: torch.Tensor         # f32[B, D]
+    # the DISK loads ``disk_rows``' score reads (the bf16 sweep view's,
+    # upcast); None: lead_disk / foll_disk. Vetoes and the walk read those.
+    slead_disk: torch.Tensor | None = None
+    sfoll_disk: torch.Tensor | None = None
+
+
+def score_state(ds: DiskState) -> DiskState:
+    """``ds`` with the loads the score reads."""
+    if ds.slead_disk is None:
+        return ds
+    return dataclasses.replace(ds, lead_disk=ds.slead_disk, foll_disk=ds.sfoll_disk)
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +235,7 @@ def masked_scores_plain(ds: DiskState, cand, rule: DiskRule, vetoes) -> torch.Te
     m = legit_plain(ds, cand)
     for v in vetoes:
         m = m & accept_plain(v, ds, cand)
-    s = score_plain(rule, ds, cand)
+    s = score_plain(rule, score_state(ds), cand)
     return torch.where(m, s, torch.full_like(s, -torch.inf))
 
 
@@ -267,7 +281,7 @@ def disk_apply_plain(ds: DiskState, cand, best, order, rule: DiskRule, vetoes,
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 _SIGNATURES = {
-    "cc_disk_rows": [I] * 5 + [F32] * 4 + [P] * 15,
+    "cc_disk_rows": [I] * 5 + [F32] * 4 + [P] * 17,
     "cc_disk_apply": [I] * 5 + [F32] * 5 + [P] * 18,
 }
 _F32, _I64, _BOOL = torch.float32, torch.int64, torch.bool
@@ -311,6 +325,9 @@ def disk_rows(ds: DiskState, cand, kv, rule: DiskRule, vetoes) -> torch.Tensor:
     if not (0 < K and 0 < D <= MAX_D):
         raise ValueError(f"disk_rows: unsupported K={K} D={D}")
     st_t, st_dt = _state_tensors(ds)
+    sc = score_state(ds)
+    st_t = st_t[:4] + [sc.lead_disk, sc.foll_disk] + st_t[4:]
+    st_dt = st_dt[:4] + [_F32, _F32] + st_dt[4:]
     tensors = st_t + [ds.rdisk, ds.dutil, cand, kv]
     _check_inputs("disk_rows", tensors, st_dt + [_I64, _F32, _I64, _F32])
     family, vflags, a, b, vcap, vup = _rule_args(rule, vetoes)

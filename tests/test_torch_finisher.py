@@ -150,7 +150,9 @@ def test_segment_move_wave(ctx, i):
     rg, prev_r = ctx["rgoals"][i], tuple(ctx["rgoals"][:i])
     gain, _ = ref_engine._exhaustive_move_scan(renv, rst, rg, prev_r, CHUNK)
     kv, cand = _top(gain, 256, rp.min_gain)
-    st_r, n_r, nb_r = ref_engine._segment_move_wave(renv, rst, rg, prev_r, rp, cand, kv)
+    # compiled, as the engine runs it (the residual's folded scatter)
+    st_r, n_r, nb_r = jax.jit(lambda e, s, c, k: ref_engine._segment_move_wave(
+        e, s, rg, prev_r, rp, c, k))(renv, rst, cand, kv)
     st_p, n_p, nb_p = engine._segment_move_wave(
         ctx["penv"], ctx["pst"], ctx["pgoals"][i], tuple(ctx["pgoals"][:i]),
         ctx["pparams"], torch.as_tensor(np.array(cand)).long(),
@@ -166,7 +168,8 @@ def test_segment_lead_wave(ctx, i):
     rg, prev_r = ctx["rgoals"][i], tuple(ctx["rgoals"][:i])
     gain, _ = ref_engine._exhaustive_lead_scan(renv, rst, rg, prev_r, CHUNK)
     kv, cand = _top(gain, 128, rp.min_gain)
-    st_r, n_r, nb_r = ref_engine._segment_lead_wave(renv, rst, rg, prev_r, rp, cand, kv)
+    st_r, n_r, nb_r = jax.jit(lambda e, s, c, k: ref_engine._segment_lead_wave(
+        e, s, rg, prev_r, rp, c, k))(renv, rst, cand, kv)
     st_p, n_p, nb_p = engine._segment_lead_wave(
         ctx["penv"], ctx["pst"], ctx["pgoals"][i], tuple(ctx["pgoals"][:i]),
         ctx["pparams"], torch.as_tensor(np.array(cand)).long(),

@@ -107,7 +107,7 @@ def test_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
                                  "move_score_classes", "wave_admission",
                                  "leadership_rows", "segment_sum", "segment_count",
                                  "swap_rows", "swap_admission", "disk_rows",
-                                 "disk_apply", "preferred_leader"}
+                                 "disk_apply", "preferred_leader", "replica_keys"}
 
 
 def test_new_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():

@@ -10,6 +10,7 @@ flagged for MinTopicLeadersPerBrokerGoal so its tables are not trivial.
 
 Every comparison is exact: indices, ints and bools equal, floats
 bit-identical (tolerance 0)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -194,7 +195,8 @@ def test_apply_leaderships_batched_bitwise(ctx, seed):
     pick = np.argmax(ok * rng.random(members.shape), axis=1)   # a random follower
     dst = members[np.arange(64), pick].astype(np.int32)
     mask = rng.random(64) < 0.7
-    ref = ref_state_mod.apply_leaderships_batched(
+    # compiled, as the engine runs it (the residual's folded scatter)
+    ref = jax.jit(ref_state_mod.apply_leaderships_batched)(
         renv, rst, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask))
     port = state_mod.apply_leaderships_batched(
         penv, pst, torch.as_tensor(src).long(), torch.as_tensor(dst).long(),

@@ -4,6 +4,7 @@ make_env / init_state give equal leaves; a random wave of
 apply_moves_batched matches the reference and refresh()."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,7 +149,9 @@ def test_apply_moves_batched_matches_reference_and_refresh(spec):
     renv, rst, penv, pst = _both(spec)
     for wave in range(3):
         rep, dst, mask = _random_wave(penv, pst, 24, seed=wave)
-        rst = ref_state_mod.apply_moves_batched(
+        # compiled, as the engine runs it: XLA folds _kahan_scatter2's scatter
+        # into zeros into the residual's add (state.residual_inputs)
+        rst = jax.jit(ref_state_mod.apply_moves_batched)(
             renv, rst, jnp.asarray(rep, jnp.int32), jnp.asarray(dst, jnp.int32),
             jnp.asarray(mask))
         pst = state_mod.apply_moves_batched(

@@ -57,6 +57,7 @@ ROOT = Path(__file__).resolve().parent.parent
 _CHILD = r"""
 import dataclasses, json, pickle, sys
 import numpy as np
+from cruise_control_tpu.analyzer.engine import EngineParams
 from cruise_control_tpu.analyzer.optimizer import GoalOptimizer
 from cruise_control_tpu.model import fixtures
 from cruise_control_tpu.model import random_cluster as rc
@@ -73,9 +74,13 @@ def run(args):
         demoted = np.zeros(ct.num_brokers, bool)
         demoted[args["demoted"]] = True
         ct = dataclasses.replace(ct, broker_demoted=ct.broker_demoted | demoted)
-    res = GoalOptimizer().optimizations(ct, meta, goal_names=args["goals"],
-                                        skip_hard_goal_check=True,
-                                        raise_on_failure=False)
+    kw = dict(args.get("params") or {})
+    if args.get("dtype"):
+        kw["compute_dtype"] = args["dtype"]
+    params = EngineParams(**kw) if kw else None
+    res = GoalOptimizer(engine_params=params).optimizations(
+        ct, meta, goal_names=args["goals"], skip_hard_goal_check=True,
+        raise_on_failure=False)
     g = res.goal_results
     return dict(
         counts=dict(before=res.violated_goals_before, after=res.violated_goals_after,
@@ -92,7 +97,8 @@ def run(args):
         stats_after=res.stats_after,
         final={n: np.asarray(getattr(res.final_state, n))
                for n in ("replica_broker", "replica_is_leader", "replica_disk",
-                         "util", "disk_util")})
+                         "util", "disk_util", "leader_util", "potential_nw_out",
+                         "util_residual", "leader_util_residual")})
 
 
 batch = json.loads(sys.argv[1])
@@ -211,9 +217,13 @@ def reference_chains(tmp_path: Path, runs: list[dict], timeout: int = 900) -> li
 
 
 def reference_chain(tmp_path: Path, spec: dict | str | None, goals: list[str],
-                    timeout: int = 900, demoted: list | None = None) -> dict:
-    return reference_chains(tmp_path, [dict(spec=spec, goals=goals, demoted=demoted)],
-                            timeout)[0]
+                    timeout: int = 900, demoted: list | None = None,
+                    dtype: str | None = None, params: dict | None = None) -> dict:
+    """``dtype`` pins ``EngineParams.compute_dtype`` ("float32" or
+    "bfloat16"; None keeps the reference's "auto"); ``params`` sets other
+    ``EngineParams`` fields."""
+    return reference_chains(tmp_path, [dict(spec=spec, goals=goals, demoted=demoted,
+                                            dtype=dtype, params=params)], timeout)[0]
 
 
 def reference_matrix_rows(tmp_path: Path, rows: list[int], timeout: int = 1700) -> list:
@@ -234,3 +244,51 @@ def reference_goal(tmp_path: Path, case: dict, timeout: int = 900) -> dict:
     _run_child(_GOAL_CHILD, dict(case, out=str(out)), timeout)
     with open(out, "rb") as f:
         return pickle.load(f)
+
+
+# BASELINE.json configs 4 and 5 (bench.py rungs 4 and 5): the clusters and
+# chains whose reference rows chip_smoke.py's ORACLE holds
+RUNGS = {
+    "rung4": dict(spec=dict(num_brokers=7000, num_racks=40, num_topics=2000,
+                            num_partitions=500000, max_replication=3, skew=1.0,
+                            seed=3142, target_cpu_util=0.45),
+                  goals=None),
+    "rung5": dict(spec=dict(num_brokers=7000, num_racks=40, num_topics=2000,
+                            num_partitions=500000, max_replication=3, skew=1.0,
+                            seed=3143, logdirs_per_broker=4, num_dead_brokers=20,
+                            num_brokers_with_dead_disk=50, target_cpu_util=0.45),
+                  goals=["RackAwareGoal", "MinTopicLeadersPerBrokerGoal",
+                         "ReplicaCapacityGoal", "DiskCapacityGoal",
+                         "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
+                         "CpuCapacityGoal", "ReplicaDistributionGoal",
+                         "IntraBrokerDiskCapacityGoal",
+                         "IntraBrokerDiskUsageDistributionGoal"]),
+}
+
+
+def oracle_row(ref: dict) -> dict:
+    """A reference chain's outcome in the form of chip_smoke.py's ORACLE
+    rows, with the digests of its final float32 tallies."""
+    import hashlib
+    c, f = ref["counts"], ref["finisher"]
+    return dict(before=sorted(c["before"]), after=sorted(c["after"]),
+                actions=c["actions"], passes=c["passes"], moves=c["moves"],
+                leads=c["leads"], proven=f["proven"], rounds=f["rounds"],
+                swaps=ref["swaps"], swleft=f["swleft"], disk=ref["disk"],
+                proposals=len(ref["proposals"]),
+                digests={n: hashlib.sha256(ref["final"][n].tobytes()).hexdigest()[:16]
+                         for n in ("disk_util", "util", "leader_util",
+                                   "potential_nw_out")})
+
+
+if __name__ == "__main__":
+    # python tests/torch_reference.py rung4 [float32|bfloat16]: the JAX
+    # reference's outcome row of a rung (default "auto"), as JSON
+    import tempfile
+    name = sys.argv[1]
+    dtype = sys.argv[2] if len(sys.argv) > 2 else None
+    rung = RUNGS[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = reference_chain(Path(tmp), rung["spec"], rung["goals"], timeout=7200,
+                              dtype=dtype)
+    print(json.dumps(dict(rung=name, dtype=dtype or "auto", **oracle_row(ref))))
