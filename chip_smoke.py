@@ -69,7 +69,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       once. ``--profile`` adds
    one more run of every path of this phase (or of the named ones: five,
    eleven, sixteen, eighteen, kafka, jbod_intra, jbod_chain, jbod_demote,
-   jbod_ple, rung4, rung5) under ``torch.profiler`` and
+   jbod_ple, rung4, rung5, session) under ``torch.profiler`` and
    prints device time by kernel;
    e. BASELINE configs 4 and 5 at full size (7,000 brokers, 500,000
       partitions: ``bench.py`` rungs 4 and 5) through ``GoalOptimizer()``'s
@@ -79,6 +79,27 @@ Phases, each printing its own lines; any failure exits non-zero:
       once more pinned to f32. Each must give the JAX reference's row
       exactly, with its final float tallies' digests.
 
+6. the resident-session service rounds of the e2e-1000b-50000p cell
+   (``bench.py`` ``run_e2e_rung``'s service cluster: 1,000 brokers on 20
+   racks, 50,000 RF-2 partitions over 200 topics; the sixteen default
+   goals) through ``SimulatedClusterBackend`` -> ``LoadMonitor`` ->
+   ``ResidentClusterSession`` -> ``GoalOptimizer(config=...)
+   .optimizations(None, session=...)``
+   (``cruise_control_tpu_torch.analyzer.session_script``): a rebuild sync and
+   a delta sync, R1 full, R2 the revalidation memo, R3 full after 8
+   leadership flips; then the same script on a fresh session with
+   ``analyzer.incremental.seed.dirty``, whose R3 is a reduced round (K1's
+   seed mask). The launch counts are zeroed just before the two scripts and
+   read just after. Every round must give the JAX reference's row (modes,
+   verdicts, certificates, per-goal actions and passes, movements, proposals
+   and their digest, final-state digests); the second script's R1 and R2
+   must repeat the first's bit for bit; the reduced R3's one-sided verdict
+   against the full R3 must be the reference's. Then K5 (``session_finalize``),
+   K1's seed mask and K13 (``seeded_probe``) are held against their twins at
+   the cell's padded R on the reduced round's inputs and timed. Sync walls
+   (rebuild and delta) and round walls are printed; ``--profile session``
+   profiles the plain script's R3.
+
 Phase 3 also holds the K1 keying kernel (``replica_keys``) against its twin
 for every key function it computes, with f32 tables and with the bf16 sweep
 view, on the slice, jbod-1000b, rung-4 and rung-5 states and on adversarial
@@ -86,9 +107,10 @@ inputs (halfway-rounding loads, signed zeros, ties, offline rows).
 
 The line before the last is the ``kernels`` JSON object: each kernel's
 launches are those of the counted runs of the sixteen goals, the 18 goals,
-the kafka-assigner chain and the three JBOD requests together (each path's
-under ``launches_by_path``), and its
-times those of the shape it launched most often there, with every timed
+the kafka-assigner chain, the three JBOD requests, the two rungs and the
+session scripts together (each path's under ``launches_by_path``), and its
+times those of the shape it launched most often there (the session kernels:
+on the session path; the others: on the earlier paths), with every timed
 shape and its launches listed beside them. The last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -352,6 +374,122 @@ ORACLE.update({
 })
 # the kernels of the JBOD path that no earlier path launches
 JBOD_KERNELS = ("disk_rows", "disk_apply", "preferred_leader")
+# the kernels of the resident-session path (phase 6) that no earlier path
+# launches: K5's finalize, K1 with a seed mask, K13's probe
+SESSION_KERNELS = ("session_finalize", "select_candidates_masked", "seeded_probe")
+# The e2e-1000b-50000p cell's rounds through the JAX reference (JAX 0.9.0,
+# JAX_PLATFORMS=cpu, a fresh interpreter): ``python tests/torch_reference.py
+# session-e2e``, the rows of ``cruise_control_tpu_torch.analyzer.
+# session_script.session_script`` (digests: the first 16 hex digits of the
+# sha256 of the final state's leaves, as f32 or i64). R2 is R1 re-stamped
+# by the revalidation memo; R3 runs full, or reduced with dirty seeding.
+_SESSION_R1 = {'sync': 'delta',
+               'churn': 0,
+               'round': 'full',
+               'before': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                          'DiskUsageDistributionGoal', 'LeaderBytesInDistributionGoal',
+                          'LeaderReplicaDistributionGoal', 'NetworkInboundUsageDistributionGoal',
+                          'NetworkOutboundUsageDistributionGoal', 'RackAwareGoal',
+                          'ReplicaDistributionGoal', 'TopicReplicaDistributionGoal'],
+               'after': ['DiskUsageDistributionGoal', 'LeaderReplicaDistributionGoal',
+                         'NetworkInboundUsageDistributionGoal',
+                         'NetworkOutboundUsageDistributionGoal', 'ReplicaDistributionGoal'],
+               'proven': [False, False, False, False, False, False, False, False, False, True,
+                          True, False, False, False, True, False],
+               'actions': [2522, 0, 0, 0, 0, 0, 12479, 28471, 0, 4722, 580, 6142, 469, 455, 3842,
+                           0],
+               'passes': [4, 3, 3, 3, 3, 3, 9, 170, 3, 196, 194, 200, 118, 43, 205, 3],
+               'modes': ['full', 'full', 'full', 'full', 'full', 'full', 'full', 'full', 'full',
+                         'full', 'full', 'full', 'full', 'full', 'full', 'full'],
+               'moves': 45997,
+               'leads': 36316,
+               'proposals': 40307,
+               'proposals_sha': '1deda5700010611c',
+               'fallback': 0,
+               'skipped': 0,
+               'digests': {'replica_broker': '2a0d62b57d77e784',
+                           'replica_is_leader': 'b4f54de1aa7c4df5',
+                           'replica_disk': 'b527dab94f6bf43c',
+                           'util': '1363f9a8f1e27710',
+                           'leader_util': '8b7c754a2e28ccec',
+                           'potential_nw_out': '86fb82b41d781330',
+                           'disk_util': '60d08f201df88d3e',
+                           'replica_count': '640d7a03a9b66f3b',
+                           'leader_count': 'f2236f00f087180c',
+                           'topic_broker_count': 'ef9dfa6d4e61562f'}}
+_SESSION_R3_FULL = {'sync': 'delta',
+                    'churn': 16,
+                    'round': 'full',
+                    'before': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                               'DiskUsageDistributionGoal', 'LeaderBytesInDistributionGoal',
+                               'LeaderReplicaDistributionGoal', 'NetworkInboundUsageDistributionGoal',
+                               'NetworkOutboundUsageDistributionGoal', 'RackAwareGoal',
+                               'ReplicaDistributionGoal', 'TopicReplicaDistributionGoal'],
+                    'after': ['DiskUsageDistributionGoal', 'LeaderReplicaDistributionGoal',
+                              'NetworkInboundUsageDistributionGoal',
+                              'NetworkOutboundUsageDistributionGoal', 'ReplicaDistributionGoal',
+                              'TopicReplicaDistributionGoal'],
+                    'proven': [False, False, False, False, False, False, False, False, False, True,
+                               True, True, False, True, False, False],
+                    'actions': [2522, 0, 0, 0, 0, 0, 12481, 28599, 0, 4837, 580, 6075, 508, 430, 3979,
+                                0],
+                    'passes': [4, 3, 3, 3, 3, 3, 9, 169, 3, 197, 194, 198, 140, 48, 206, 3],
+                    'modes': ['full', 'full', 'full', 'full', 'full', 'full', 'full', 'full', 'full',
+                              'full', 'full', 'full', 'full', 'full', 'full', 'full'],
+                    'moves': 45817,
+                    'leads': 36537,
+                    'proposals': 40465,
+                    'proposals_sha': '1ff8531688101287',
+                    'fallback': 0,
+                    'skipped': 0,
+                    'digests': {'replica_broker': '98bb3f2c9e95f762',
+                                'replica_is_leader': '7e7064f09b3e7e5d',
+                                'replica_disk': 'b527dab94f6bf43c',
+                                'util': 'd68ffcb73c93b84f',
+                                'leader_util': '148866041b91fec0',
+                                'potential_nw_out': '1053a3e8070e7d1c',
+                                'disk_util': 'db2cc1f8a230693a',
+                                'replica_count': '73dc53296108be02',
+                                'leader_count': '56a5472ea9defeee',
+                                'topic_broker_count': 'b757633f6b7b039c'}}
+_SESSION_R3_REDUCED = {'sync': 'delta',
+                       'churn': 16,
+                       'round': 'reduced',
+                       'before': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                  'DiskUsageDistributionGoal', 'LeaderBytesInDistributionGoal',
+                                  'LeaderReplicaDistributionGoal', 'NetworkInboundUsageDistributionGoal',
+                                  'NetworkOutboundUsageDistributionGoal', 'RackAwareGoal',
+                                  'ReplicaDistributionGoal', 'TopicReplicaDistributionGoal'],
+                       'after': ['DiskUsageDistributionGoal', 'LeaderBytesInDistributionGoal',
+                                 'LeaderReplicaDistributionGoal', 'NetworkInboundUsageDistributionGoal',
+                                 'NetworkOutboundUsageDistributionGoal', 'TopicReplicaDistributionGoal'],
+                       'proven': [False, False, False, False, False, False, False, False, False, True,
+                                  True, True, False, False, True, True],
+                       'actions': [2522, 0, 0, 0, 0, 0, 12481, 30025, 0, 4837, 580, 6075, 1575, 443, 4688,
+                                   0],
+                       'passes': [4, 3, 3, 3, 3, 3, 9, 175, 3, 197, 194, 198, 186, 55, 366, 11],
+                       'modes': ['full', 'reduced', 'reduced', 'reduced', 'reduced', 'reduced', 'full',
+                                 'full', 'reduced', 'full', 'full', 'full', 'full', 'full', 'full',
+                                 'full'],
+                       'moves': 46134,
+                       'leads': 37046,
+                       'proposals': 40901,
+                       'proposals_sha': 'f9a7adb806310ba4',
+                       'fallback': 5,
+                       'skipped': 0,
+                       'digests': {'replica_broker': '099bd6da4c8de599',
+                                   'replica_is_leader': 'a20943ea6e37c566',
+                                   'replica_disk': 'b527dab94f6bf43c',
+                                   'util': 'f0d32a594142d50d',
+                                   'leader_util': 'ab3695b9488c6710',
+                                   'potential_nw_out': '442cbb215145150b',
+                                   'disk_util': '495fc73dbad5d8dc',
+                                   'replica_count': '41d06e66ba559df6',
+                                   'leader_count': '83d631844c6c0510',
+                                   'topic_broker_count': 'fa83ea9dd6da203a'}}
+_SESSION_R2 = dict(_SESSION_R1, round="revalidated", modes=["revalidated"] * 16)
+SESSION_ORACLE = {"plain": [_SESSION_R1, _SESSION_R2, _SESSION_R3_FULL],
+                  "seeded": [_SESSION_R1, _SESSION_R2, _SESSION_R3_REDUCED]}
 # __graft_entry__.entry(): the reference's util disk column and total
 ENTRY_DISK = [5630, 5660, 5670, 5660, 5660, 5680, 5660, 5660, 5010, 4950, 4860, 4950,
               4920, 4910, 4910, 4940]
@@ -2092,7 +2230,7 @@ def slice_checks(torch, res, tag: str, digests: dict | None = None) -> None:
 
 # the phase-5 paths ``--profile`` may name, in the order they run
 PROFILE_PATHS = ("five", "eleven", "sixteen", "eighteen", "kafka", "jbod_intra",
-                 "jbod_chain", "jbod_demote", "jbod_ple", "rung4", "rung5")
+                 "jbod_chain", "jbod_demote", "jbod_ple", "rung4", "rung5", "session")
 # device function names of the hand kernels, as the profiler lists them
 HAND_KERNEL_NAMES = (
     "salt_pack", "radix_hist", "radix_choose", "gather_top", "bitonic_top",
@@ -2100,7 +2238,8 @@ HAND_KERNEL_NAMES = (
     "move_score_kernel", "ft_init", "ft_cand", "ft_part", "side_scan", "finish(",
     "segment_sum_kernel", "segment_count_kernel", "leadership_rows_kernel",
     "swap_rows_kernel", "swap_admission_kernel", "disk_rows_kernel",
-    "disk_apply_kernel", "preferred_leader_kernel", "replica_keys_kernel")
+    "disk_apply_kernel", "preferred_leader_kernel", "replica_keys_kernel",
+    "finalize_kernel", "probe_kernel")
 
 
 def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
@@ -2147,14 +2286,19 @@ def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
 
 
 def profile_run(torch, opt, ct, meta, goals, tag: str) -> None:
-    """One more run of a path under torch.profiler: device busy share of
-    the wall and device time by kernel (device-side events only, so an
-    op's kernels are not counted twice)."""
+    """One more run of a path under torch.profiler (``profile_call``)."""
+    profile_call(torch, lambda: run_chain(opt, ct, meta, goals), tag)
+
+
+def profile_call(torch, fn, tag: str):
+    """``fn()`` under torch.profiler: device busy share of the wall and
+    device time by kernel (device-side events only, so an op's kernels are
+    not counted twice). Returns what ``fn`` returns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_chain(opt, ct, meta, goals)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -2175,6 +2319,198 @@ def profile_run(torch, opt, ct, meta, goals, tag: str) -> None:
         f"hand kernels {own:.6f} s ({100 * own / max(busy, 1e-12):.2f}% of busy)")
     for dev_us, count, key in rows[:25]:
         log(f"profile {tag}:   {dev_us / 1e3:12.3f} ms  {count:7d}x  {key[:90]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the resident-session service rounds
+# ---------------------------------------------------------------------------
+def one_sided(full: dict, reduced: dict, names: list) -> dict:
+    """The seeding contract of a reduced round against the full round on
+    the same churn: violations only shrink, certificates only appear."""
+    cf = {n for n, c in zip(names, full["proven"]) if c}
+    cr = {n for n, c in zip(names, reduced["proven"]) if c}
+    return dict(violations_shrink=set(reduced["after"]) <= set(full["after"]),
+                certificates_appear=cf <= cr,
+                new_violations=sorted(set(reduced["after"]) - set(full["after"])),
+                lost_certificates=sorted(cf - cr))
+
+
+def session_phase(torch, entries: dict, profile: bool, seed: int) -> dict:
+    """The e2e-1000b-50000p cell through ``SimulatedClusterBackend`` ->
+    ``LoadMonitor`` -> ``ResidentClusterSession`` -> ``GoalOptimizer(config=
+    ...).optimizations(None, session=...)`` on the card: the plain script
+    (R1 full, R2 revalidated, R3 full after 8 leadership flips), then the
+    same script on a fresh backend, monitor and session with dirty seeding
+    (its R3 reduced). The launch counts are zeroed just before the two
+    scripts and read just after; every round must give the JAX reference's
+    row; the second script's R1 and R2 repeat the first's bit for bit; then
+    K5, K1's seed mask and K13 are held against their twins at the cell's
+    padded R on the inputs the reduced round saw."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.session import finalize_inputs
+    from cruise_control_tpu_torch.analyzer.session_script import (
+        SESSION_E2E, port_ns, session_script,
+    )
+    from cruise_control_tpu_torch.config import DEFAULT_GOALS
+    from cruise_control_tpu_torch.kernels import finalize, probe, select
+    ns = port_ns("cuda")
+    walls = {"plain": [], "seeded": []}
+    syncs = {"plain": [], "seeded": []}
+    seen = {}
+
+    def runner(key):
+        def run_round(i, call, sess):
+            if key == "seeded" and i == 2:
+                # the reduced round's inputs, for the kernel checks below
+                rd = sess._round_delta
+                seen.update(env=sess.env, st=sess.state,
+                            h={k: v.copy() for k, v in sess._h.items()},
+                            dirty=sess.dirty_replica_mask(rd["dirty_brokers"],
+                                                          rd["dirty_topics"]))
+            t0 = time.perf_counter()
+            if profile and key == "plain" and i == 2:
+                res = profile_call(torch, call, "session R3 (full, 8 leadership flips)")
+            else:
+                res = call()
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t0)
+            return res
+        return run_round
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rows = {}
+    for key, seed_dirty in (("plain", False), ("seeded", True)):
+        rows[key] = session_script(
+            ns, SESSION_E2E, seed_dirty=seed_dirty, run_round=runner(key),
+            on_sync=lambda info, wall, key=key: syncs[key].append((info["mode"], wall)))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches, shapes = K.launches(), K.launch_shapes()
+    log(f"session: kernel launches {launches}")
+    log(f"session: launches by shape {json.dumps(shapes)}")
+    for key in rows:
+        log(f"session {key}: sync walls (s) {syncs[key]}; round walls (s) {walls[key]}")
+        for i, (got, want) in enumerate(zip(rows[key], SESSION_ORACLE[key])):
+            diff = {k: (got.get(k), want[k]) for k in want if got.get(k) != want[k]}
+            require(not diff, f"session {key} R{i + 1} differs from the JAX reference: {diff}")
+            log(f"session {key} R{i + 1}: sync {got['sync']} (churn {got['churn']}), round "
+                f"{got['round']}, violated after {got['after']}, {got['moves']} replica / "
+                f"{got['leads']} leadership movements, {got['proposals']} proposals, "
+                f"{got['fallback']} fallback goals: the JAX reference's row (final state "
+                f"digests {got['digests']['util']} util, {got['digests']['replica_broker']} "
+                f"assignment)")
+    require(rows["plain"][:2] == rows["seeded"][:2],
+            "session: the second script's R1 / R2 differ from the first's")
+    log("session: the second script's R1 and R2 (a fresh backend, monitor, session and "
+        "optimizer) are bit-identical to the first's, final-state digests included")
+    got_v = one_sided(rows["plain"][2], rows["seeded"][2], DEFAULT_GOALS)
+    want_v = one_sided(SESSION_ORACLE["plain"][2], SESSION_ORACLE["seeded"][2],
+                       DEFAULT_GOALS)
+    require(got_v == want_v, f"session: one-sided verdict {got_v} != the reference's {want_v}")
+    log(f"session: the reduced R3 against the full R3, the one-sided contract: {got_v} "
+        f"(the JAX reference's own verdict on this cell, equal)")
+    require(all(n > 0 for name, n in launches.items() if name not in JBOD_KERNELS),
+            f"a kernel of the session path never launched: {launches}")
+    log(f"session: both scripts {total:.6f} s")
+
+    # --- the new kernels against their twins at the cell's padded R ---------
+    env, st, h, dirty = seen["env"], seen["st"], seen["h"], seen["dirty"]
+    dev = env.device
+    R, B = env.num_replicas, env.num_brokers
+    g = torch.Generator().manual_seed(seed)
+    broker, lead_packed, disk = finalize_inputs(h, dev)
+    fargs = (lead_packed, broker, disk, env.replica_topic, env.replica_valid,
+             env.broker_alive, env.broker_disk_alive, env.topic_excluded,
+             env.broker_excluded_for_replica_move)
+    e = entries["session_finalize"]
+    check(torch, e, lambda: K.session_finalize(*fargs),
+          lambda: finalize.session_finalize_plain(*fargs), f"R={R} B={B}")
+    lead, off, rtexcl, dst = K.session_finalize(*fargs)
+    require(torch.equal(lead, st.replica_is_leader) and torch.equal(off, st.replica_offline)
+            and torch.equal(rtexcl, env.replica_topic_excluded)
+            and torch.equal(dst, env.dst_candidate),
+            "session_finalize disagrees with the resident state its sync built")
+    for n in (1, 7, 1003):
+        Ba, Da, Ta = 5, 3, 4
+        adv = (torch.randint(0, 256, ((n + 7) // 8,), generator=g, dtype=torch.uint8),
+               torch.randint(0, Ba, (n,), generator=g), torch.randint(0, Da, (n,), generator=g),
+               torch.randint(0, Ta, (n,), generator=g), torch.rand(n, generator=g) < 0.9,
+               torch.rand(Ba, generator=g) < 0.7, torch.rand((Ba, Da), generator=g) < 0.7,
+               torch.rand(Ta, generator=g) < 0.5, torch.rand(Ba, generator=g) < 0.3)
+        adv = tuple(a.to(dev) for a in adv)
+        check(torch, e, lambda: K.session_finalize(*adv),
+              lambda: finalize.session_finalize_plain(*adv), f"adversarial R={n}")
+    timing(torch, e, lambda: K.session_finalize(*fargs),
+           lambda: finalize.session_finalize_plain(*fargs), None,
+           nbytes(fargs) + 3 * R + B, 4 * R, f"R={R} B={B}")
+
+    goals = make_goals(DEFAULT_GOALS)
+    mask = torch.tensor(dirty, device=dev)
+    masks = {"dirty": mask, "none": torch.zeros_like(mask), "all": torch.ones_like(mask),
+             "random": (torch.rand(R, generator=g) < 0.3).to(dev)}
+    log(f"session: the reduced round's dirty set holds {int(mask.sum())} of {R} replicas")
+    sev = {gl.name: gl.broker_severity(env, st) for gl in goals}
+    keys = {gl.name: gl.replica_key(env, st, sev[gl.name]).contiguous()
+            for gl in goals if gl.uses_replica_moves}
+    e = entries["select_candidates_masked"]
+    ran_k = sorted(int(k.split("=")[1]) for k in shapes["select_candidates_masked"])
+    for name in ("RackAwareGoal", "ReplicaDistributionGoal", "DiskUsageDistributionGoal"):
+        for mname, m in masks.items():
+            for stall in (0, 3):
+                for k in ran_k:
+                    check(torch, e, lambda: K.select_candidates(keys[name], k, stall,
+                                                                seed_mask=m),
+                          lambda: select.select_candidates_plain(keys[name], k, stall,
+                                                                 seed_mask=m),
+                          f"{name} mask {mname} stall={stall} k={k}", quiet=True)
+    log(f"  select_candidates_masked: {e.checks} checks bit-identical (k in {ran_k}, "
+        f"masks {list(masks)}, stall 0 and 3)")
+    key = keys["ReplicaDistributionGoal"]
+    for k in ran_k:
+        timing(torch, e, lambda: K.select_candidates(key, k, 0, seed_mask=mask),
+               lambda: select.select_candidates_plain(key, k, 0, seed_mask=mask),
+               lambda: torch.topk(torch.where(mask, key, -torch.inf), k),
+               nbytes(key, mask) + k * (4 + 8), 4 * R, f"R={R} k={k}")
+
+    e = entries["seeded_probe"]
+    by_count = {}
+    for gl in goals:
+        ks = []
+        if gl.uses_replica_moves or gl.uses_disk_moves:
+            ks.append(gl.replica_key(env, st, sev[gl.name]))
+        if gl.uses_leadership_moves:
+            ks.append(gl.leader_key(env, st, sev[gl.name]))
+        if gl.uses_swaps:
+            ks.append(gl.swap_out_key(env, st, sev[gl.name]))
+        ks = [x.contiguous() for x in ks]
+        by_count.setdefault(len(ks), ks)
+        for mname, m in masks.items():
+            check(torch, e, lambda: K.seeded_probe(m, ks),
+                  lambda: probe.seeded_probe_plain(m, ks), f"{gl.name} mask {mname}",
+                  quiet=True)
+    neg = torch.full((R,), -torch.inf, device=dev)
+    for n in (1, 2, 3):
+        for row in (0, R - 1, R // 2):
+            ks = [neg.clone() for _ in range(n)]
+            ks[-1][row] = 0.0
+            for mname, m in masks.items():
+                check(torch, e, lambda: K.seeded_probe(m, ks),
+                      lambda: probe.seeded_probe_plain(m, ks),
+                      f"one eligible row {row} of {n} keys, mask {mname}", quiet=True)
+    log(f"  seeded_probe: {e.checks} checks bit-identical (every default goal's keys, "
+        f"masks {list(masks)}, one eligible row at the ends and the middle)")
+    for shape in shapes["seeded_probe"]:
+        n = int(shape.split("keys=")[1])
+        ks = by_count[n]
+        cmp = mask & (ks[0] > -torch.inf)
+        timing(torch, e, lambda: K.seeded_probe(mask, ks),
+               lambda: probe.seeded_probe_plain(mask, ks), lambda: torch.any(cmp),
+               nbytes(mask, ks) + 4, 2 * n * R, f"R={R} keys={n}")
+    return dict(launches=launches, shapes=shapes, walls=walls, syncs=syncs)
 
 
 def main() -> int:
@@ -2261,7 +2597,8 @@ def main() -> int:
                               ("rung 4", r4["env"], r4["st"]),
                               ("rung 5", r5["env"], r5["st"])], entries, args.seed)
     for en in entries.values():
-        require(en.checks > 0 and en.timings, f"{en.name} was not checked")
+        require(en.checks > 0 and en.timings or en.name in SESSION_KERNELS,
+                f"{en.name} was not checked")
 
     # 4. small parity against the CPU run and the JAX reference's counts
     phase("phase 4: small parity")
@@ -2313,7 +2650,8 @@ def main() -> int:
                       ORACLE["chain_slice"], twice=False)
     launches = chain["launches"]
     require(all(n > 0 for name, n in launches.items()
-                if not name.startswith("swap_") and name not in JBOD_KERNELS),
+                if not name.startswith("swap_")
+                and name not in JBOD_KERNELS + SESSION_KERNELS),
             f"a kernel of the eleven-goal path never launched: {launches}")
     Kf = min(params.finisher_candidates, pct.num_replicas)
     W = max(1, min(params.finisher_waves, pct.num_replicas // max(Kf, 1)))
@@ -2334,7 +2672,8 @@ def main() -> int:
     default = run_slice(torch, opt, ct, meta, DEFAULT, "slice (16 goals)",
                         ORACLE["default_slice"])
     launches, shapes = default["launches"], default["shapes"]
-    require(all(n > 0 for name, n in launches.items() if name not in JBOD_KERNELS),
+    require(all(n > 0 for name, n in launches.items()
+                if name not in JBOD_KERNELS + SESSION_KERNELS),
             f"a kernel of the sixteen-goal path never launched: {launches}")
     k = min(params.num_swap_candidates, pct.num_replicas, 128)
     for name, shape in (("swap_rows", f"pass [{k}, {k}]"), ("swap_admission", f"K1={k}")):
@@ -2345,7 +2684,7 @@ def main() -> int:
                      ORACLE["full_slice"])
     launches = full["launches"]
     require(all(n > 0 for name, n in launches.items()
-                if name not in ("disk_rows", "disk_apply")),
+                if name not in ("disk_rows", "disk_apply") + SESSION_KERNELS),
             f"a kernel of the 18-goal path never launched: {launches}")
     require(launches["preferred_leader"] == 2,
             "the 18-goal chain's preferred-leader pass is one apply and one check")
@@ -2395,7 +2734,8 @@ def main() -> int:
                      "segment_sum", "segment_count", "leadership_rows", "disk_rows",
                      "disk_apply", "replica_keys")
     for run, ctx_r, tag, need in (
-            (rung4, r4, "rung 4 bf16", [n for n in K.KERNELS if n not in JBOD_KERNELS]),
+            (rung4, r4, "rung 4 bf16", [n for n in K.KERNELS
+                                        if n not in JBOD_KERNELS + SESSION_KERNELS]),
             (rung5, r5, "rung 5 bf16", rung5_kernels)):
         R = ctx_r["env"].num_replicas
         require(run["shapes"]["replica_keys"].get(f"R={R} bf16", 0) > 0,
@@ -2404,23 +2744,36 @@ def main() -> int:
                 f"{tag}: a kernel of the path never launched: {run['launches']}")
     log(f"phase 5e: walls (s) rung 4 bf16 {rung4['walls']}, rung 5 bf16 "
         f"{rung5['walls']}, rung 4 f32 {rung4_f32['walls'][0]}")
+    # 6. the resident-session service rounds (e2e-1000b-50000p)
+    phase("phase 6: resident-session rounds (e2e-1000b-50000p)")
+    profile_session = args.profile is not None and (not args.profile
+                                                    or "session" in args.profile)
+    session = session_phase(torch, entries, profile_session, args.seed)
+    for en in entries.values():
+        require(en.checks > 0 and en.timings, f"{en.name} was not checked")
     if args.profile is not None:
         phase("profile")
         runs = dict(zip(PROFILE_PATHS, (five, chain, default, full, kafka,
                                         *jbod.values(), steady, rung4, rung5)))
         for name in args.profile or PROFILE_PATHS:
-            profile_run(torch, opt, *runs[name]["run"])
+            if name != "session":
+                profile_run(torch, opt, *runs[name]["run"])
     for name, e in entries.items():
         for t in e.timings:
             log(f"timing {name} at {t['at']}: {json.dumps(t)}")
 
     paths = {"default": default, "full18": full, "kafka": kafka,
-             **{f"jbod_{r}": v for r, v in jbod.items()}, "rung4": rung4, "rung5": rung5}
+             **{f"jbod_{r}": v for r, v in jbod.items()}, "rung4": rung4, "rung5": rung5,
+             "session": session}
     kernels = []
     for name, k in K.KERNELS.items():
         by_path = {p: v["launches"][name] for p, v in paths.items()}
+        # the timed shapes of the earlier kernels are those of the earlier
+        # paths; the session kernels' those of the session path
         ran = {}
-        for v in paths.values():
+        for p, v in paths.items():
+            if (p == "session") != (name in SESSION_KERNELS):
+                continue
             for shape, c in v["shapes"][name].items():
                 ran[shape] = ran.get(shape, 0) + c
         kernels.append(kernel_entry(name, k, entries[name], sum(by_path.values()),

@@ -442,10 +442,11 @@ def _move_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 def _move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                          prev_goals: tuple, params: EngineParams,
                          severity: torch.Tensor, stall: int, cand=None, kv=None,
-                         env_sw: ClusterEnv | None = None):
-    """Key once (K1 keying on the sweep view, K1), then up to
-    ``pass_waves`` rank-banded waves; a wave that admits nothing ends the
-    pass. ``cand``/``kv`` override the selection (the finisher's
+                         env_sw: ClusterEnv | None = None,
+                         seed_mask: torch.Tensor | None = None):
+    """Key once (K1 keying on the sweep view, K1 with the seed mask), then
+    up to ``pass_waves`` rank-banded waves; a wave that admits nothing ends
+    the pass. ``cand``/``kv`` override the selection (the finisher's
     non-segmented waves, in exact mode). Returns (state, n_applied device
     scalar, waves run)."""
     if cand is not None:
@@ -457,7 +458,8 @@ def _move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     env_k, st_k = _sweep_view(env, st, env_sw)
     key = goal.replica_key(env_k, st_k, severity)
     k_all = min(K * W, R)
-    kv_all, cand_all = select_candidates(key.contiguous(), k_all, stall)
+    kv_all, cand_all = select_candidates(key.contiguous(), k_all, stall,
+                                         seed_mask=seed_mask)
     waves = min(max(int(params.pass_waves), 1), W)
     total = torch.zeros((), dtype=torch.int64, device=env.device)
     run = 0
@@ -518,7 +520,8 @@ def _lead_admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 def _leadership_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                                prev_goals: tuple, params: EngineParams,
                                severity: torch.Tensor, stall: int, cand=None,
-                               kv=None, env_sw: ClusterEnv | None = None):
+                               kv=None, env_sw: ClusterEnv | None = None,
+                               seed_mask: torch.Tensor | None = None):
     """engine.py:968: one [KL, F] scoring pass (K6), then budgeted wave
     admission (K3; each candidate leads a distinct partition) and one
     batched transfer apply; the keying and the score tables read the sweep
@@ -527,7 +530,8 @@ def _leadership_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKerne
     if cand is None:
         kl = min(params.num_leader_candidates, env.num_replicas)
         lkey = goal.leader_key(*_sweep_view(env, st, env_sw), severity)
-        lkv, lcand = select_candidates(lkey.contiguous(), kl, stall)
+        lkv, lcand = select_candidates(lkey.contiguous(), kl, stall,
+                                       seed_mask=seed_mask)
     else:
         lkv, lcand = kv, cand
     r_sorted, dst_rep, args = _lead_admission_args(env, st, goal, prev_goals, params,
@@ -551,14 +555,17 @@ def _swap_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, prev_goals: t
 
 
 def _swap_pools(env: ClusterEnv, st: EngineState, goal: GoalKernel,
-                params: EngineParams, severity, stall: int):
+                params: EngineParams, severity, stall: int,
+                seed_mask: torch.Tensor | None = None):
     """(okv, cand_out, ikv, cand_in): the out pool of ``swap_out_key`` and
     the in pool of ``swap_in_key`` (K1, salted apart by 101 on a stalled
     pass), k = min(num_swap_candidates, R, 128) each (engine.py:1106), keyed
-    on (env, st) as given (the sweep view in the pass loop)."""
+    on (env, st) as given (the sweep view in the pass loop). ``seed_mask`` masks the out pool
+    only: swap counterparties can live anywhere (engine.py:158-160)."""
     k = min(params.num_swap_candidates, env.num_replicas, 128)
     okv, cand_out = select_candidates(
-        goal.swap_out_key(env, st, severity).contiguous(), k, stall)
+        goal.swap_out_key(env, st, severity).contiguous(), k, stall,
+        seed_mask=seed_mask)
     ikv, cand_in = select_candidates(
         goal.swap_in_key(env, st, severity).contiguous(), k, stall, salt=101)
     return okv, cand_out, ikv, cand_in
@@ -567,17 +574,20 @@ def _swap_pools(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 def _swap_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                          prev_goals: tuple, params: EngineParams,
                          severity: torch.Tensor, stall: int,
-                         env_sw: ClusterEnv | None = None):
+                         env_sw: ClusterEnv | None = None,
+                         seed_mask: torch.Tensor | None = None,
+                         fold_legs: bool = False):
     """engine.py:1080: one [K1, K2] scoring pass (K7 ``swap_rows``), the
     rows in stable descending value order, the first-use admission (K7
     ``swap_admission``: brokers in either role, the in-candidate and both
     partitions first-use among the eligible rows) and one two-leg batched
     apply; the pools and the pair score tables read the sweep view of
     ``env_sw`` (None: exact mode, the finisher's swap tail). Returns
-    (state, n_applied device scalar)."""
+    (state, n_applied device scalar). ``fold_legs``: the apply's residuals
+    as the chunked pass loop folds them (``state.apply_swaps_batched``)."""
     env_k, st_k = _sweep_view(env, st, env_sw)
     okv, cand_out, ikv, cand_in = _swap_pools(env_k, st_k, goal, params, severity,
-                                              stall)
+                                              stall, seed_mask)
     pairs, tables = _swap_args(env, st, goal, prev_goals, cand_out, okv, cand_in, ikv,
                                env_sw)
     best_val, best_j, _n = swap_rows(pairs, tables, params.min_gain)
@@ -589,7 +599,7 @@ def _swap_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                          pairs.b_in[j_s].contiguous(), j_s,
                          env.replica_partition[r_out].contiguous(),
                          env.replica_partition[r_in].contiguous(), params.min_gain)
-    st = apply_swaps_batched(env, st, r_out, r_in, win)
+    st = apply_swaps_batched(env, st, r_out, r_in, win, fold_legs)
     return st, win.sum()
 
 
@@ -608,7 +618,8 @@ def _swap_window_positives(env: ClusterEnv, st: EngineState, goal: GoalKernel,
 def _disk_move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                               prev_goals: tuple, params: EngineParams,
                               severity: torch.Tensor, stall: int,
-                              env_sw: ClusterEnv | None = None):
+                              env_sw: ClusterEnv | None = None,
+                              seed_mask: torch.Tensor | None = None):
     """engine.py:1197: the intra-broker analogue of the move branch. K1 keys
     the top-K candidates (destinations are the D logdirs of each
     candidate's own broker), K8 ``disk_rows`` gives each row's best masked
@@ -621,7 +632,7 @@ def _disk_move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel
     kd = min(params.num_candidates, env.num_replicas)
     env_k, st_k = _sweep_view(env, st, env_sw)
     key = goal.replica_key(env_k, st_k, severity)
-    kv, cand = select_candidates(key.contiguous(), kd, stall)
+    kv, cand = select_candidates(key.contiguous(), kd, stall, seed_mask=seed_mask)
     ds = disk_state(env, st)
     rule = goal.disk_rule()
     vetoes = [r for r in (g.disk_rule() for g in prev_goals) if r is not None]
@@ -974,11 +985,15 @@ def _cond(c: dict, params: EngineParams) -> bool:
             and c["it"] < params.max_iters and not c["plateau"])
 
 
-def _step(env, st, goal, prev_goals, params, c: dict, env_sw=None):
+def _step(env, st, goal, prev_goals, params, c: dict, env_sw=None, seed_mask=None,
+          fold_legs=False):
     """One pass (the reference's ``step``, engine.py:1953-2074). The gated
     branches reuse the pass-start severity, as the reference does: a branch
     that applied nothing left the state untouched. Every branch keys and
-    scores on the sweep view of ``env_sw`` (``_sweep_env``)."""
+    scores on the sweep view of ``env_sw`` (``_sweep_env``); ``seed_mask``
+    (bool[R], a reduced round's dirty set; None on full rounds) masks the
+    four budgeted keyings (engine.py:943, :995, :1119, :1218); ``fold_legs``
+    is the chunked pass loop's residual fold of a swap wave."""
     severity = goal.broker_severity(env, st)
     c["tailp"] += int((c["stall"] + c["dribble"]) > 0)
     explore = c["stall"] + c["dribble"]
@@ -987,25 +1002,27 @@ def _step(env, st, goal, prev_goals, params, c: dict, env_sw=None):
     n_leads = n_moves = n_swaps = n_disk = zero
     if goal.uses_disk_moves:
         st, n_disk = _disk_move_branch_batched(env, st, goal, prev_goals, params,
-                                               severity, explore, env_sw)
+                                               severity, explore, env_sw, seed_mask)
     n_waves = 0
     leads_now = 0
     if lead_first:
         st, n_leads = _leadership_branch_batched(env, st, goal, prev_goals, params,
-                                                 severity, explore, env_sw=env_sw)
+                                                 severity, explore, env_sw=env_sw,
+                                                 seed_mask=seed_mask)
         leads_now = int(n_leads)
     if goal.uses_replica_moves and leads_now == 0:
         st, n_moves, n_waves = _move_branch_batched(env, st, goal, prev_goals,
                                                     params, severity, explore,
-                                                    env_sw=env_sw)
+                                                    env_sw=env_sw, seed_mask=seed_mask)
     if goal.uses_leadership_moves and not lead_first:
         if int(n_moves) == 0:
             st, n_leads = _leadership_branch_batched(env, st, goal, prev_goals,
                                                      params, severity, explore,
-                                                     env_sw=env_sw)
+                                                     env_sw=env_sw, seed_mask=seed_mask)
     if goal.uses_swaps and int(n_moves + n_leads) == 0:
         st, n_swaps = _swap_branch_batched(env, st, goal, prev_goals, params,
-                                           severity, explore, env_sw)
+                                           severity, explore, env_sw, seed_mask,
+                                           fold_legs)
     # the pass's closing device->host read
     disk, moves, leads, swaps, viol, stat_now = torch.stack([
         n_disk.to(torch.float32), n_moves.to(torch.float32),
@@ -1085,7 +1102,8 @@ def _goal_finish(env, st, goal, prev_goals, params, run: bool):
 
 def _goal_loop(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                prev_goals: tuple, params: EngineParams, finisher: bool = True,
-               chunk: int = 0):
+               chunk: int = 0, seed_mask: torch.Tensor | None = None,
+               allow_cert_skip: bool = False):
     """One goal's budgeted loop (engine.py:2110). ``finisher=False`` is the
     fused-prefix form; with ``finisher=True`` the exhaustive finisher runs
     when the goal exits violated (it compiles out, as in the reference,
@@ -1097,7 +1115,17 @@ def _goal_loop(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     admissions leave the state bit-unchanged, so every later budgeted pass
     would re-rank the same starved pools); the info then adds
     ``passes_skipped``, ``quiesce_chunk``, ``chunks`` and
-    ``finisher_skipped``."""
+    ``finisher_skipped``.
+
+    ``seed_mask`` (bool[R] or None) keys the budgeted selection pools from a
+    reduced round's dirty set (K1's seed mask); the finisher's scans stay
+    unmasked, so a certificate is a full-R proof. ``allow_cert_skip``
+    (chunked only; the caller established that the carried round proved
+    this goal a persistent violated fixpoint and the chain applied nothing
+    before it) skips the finisher of a goal that quiesced with zero
+    actions: the info then says ``fixpoint_proven False`` and
+    ``finisher_skipped True`` and the caller patches the certificate from
+    the carryover (engine.py:2534-2538)."""
     check_supported(params)
     env_sw = _sweep_env(env, params)
     stat_before = float(goal.stat(env, st))
@@ -1106,7 +1134,8 @@ def _goal_loop(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     while True:
         lim = c["it"] + chunk if chunk > 0 else math.inf
         while _cond(c, params) and c["it"] < lim:
-            st = _step(env, st, goal, prev_goals, params, c, env_sw)
+            st = _step(env, st, goal, prev_goals, params, c, env_sw, seed_mask,
+                       fold_legs=chunk > 0)
         chunks += 1
         if chunk <= 0 or not _cond(c, params):
             break
@@ -1115,9 +1144,14 @@ def _goal_loop(env: ClusterEnv, st: EngineState, goal: GoalKernel,
             break
         applied_prev = c["n_applied"]
     fin = dict(_NO_FINISHER)
+    finisher_skipped = False
     if finisher:
-        st, fin = _goal_finish(env, st, goal, prev_goals, params,
-                               bool(goal.violated(env, st)))
+        run = bool(goal.violated(env, st))
+        if (run and chunk > 0 and allow_cert_skip and quiesce_chunk >= 0
+                and c["n_applied"] == 0):
+            finisher_skipped = True
+        else:
+            st, fin = _goal_finish(env, st, goal, prev_goals, params, run)
     violated, stat_after = torch.stack([goal.violated(env, st).to(torch.float32),
                                         goal.stat(env, st).to(torch.float32)]).tolist()
     info = _info(goal, params, c, stat_before, bool(violated), fin, stat_after)
@@ -1130,21 +1164,42 @@ def _goal_loop(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                                         params.tail_total_budget + 1 - c["tailp"],
                                         stall_cap + 1 - c["stall"]))
         info.update(passes_skipped=passes_skipped, quiesce_chunk=quiesce_chunk,
-                    chunks=chunks, finisher_skipped=False)
+                    chunks=chunks, finisher_skipped=finisher_skipped)
     return st, info
 
 
 def optimize_goal(env: ClusterEnv, st: EngineState, goal: GoalKernel,
-                  prev_goals: tuple = (), params: EngineParams = EngineParams()):
+                  prev_goals: tuple = (), params: EngineParams = EngineParams(),
+                  seed_mask: torch.Tensor | None = None):
     """Run one goal to completion (the per-goal program). Returns (state,
     info dict)."""
-    return _goal_loop(env, st, goal, tuple(prev_goals), params, finisher=True)
+    return _goal_loop(env, st, goal, tuple(prev_goals), params, finisher=True,
+                      seed_mask=seed_mask)
 
 
 def optimize_goal_chunked(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                           prev_goals: tuple = (),
-                          params: EngineParams = EngineParams()):
+                          params: EngineParams = EngineParams(),
+                          seed_mask: torch.Tensor | None = None,
+                          allow_cert_skip: bool = False):
     """engine.py:2452: the budgeted loop in chunks of ``pass_chunk`` passes
-    with the quiesce exit, then the finisher (see ``_goal_loop``)."""
+    with the quiesce exit, then the finisher, or its certificate-gated skip
+    (see ``_goal_loop``)."""
     return _goal_loop(env, st, goal, tuple(prev_goals), params, finisher=True,
-                      chunk=max(params.pass_chunk, 1))
+                      chunk=max(params.pass_chunk, 1), seed_mask=seed_mask,
+                      allow_cert_skip=allow_cert_skip)
+
+
+def goal_probe(goal: GoalKernel, env: ClusterEnv, st: EngineState,
+               seed_mask: torch.Tensor) -> dict:
+    """engine.py ``_compiled_goal_probe`` (:2298): the chain short-circuit's
+    probe of a reduced goal, as host values: its verdict, whether any
+    seed-mask row ranks eligible for an action it uses (K13,
+    ``GoalKernel.seeded_work_probe``) and its stat, in one read.
+    ``violated False`` and ``has_work False`` prove the goal program a
+    no-op on this state."""
+    viol, work, stat = torch.stack([
+        goal.violated(env, st).to(torch.float32),
+        goal.seeded_work_probe(env, st, seed_mask).to(torch.float32),
+        goal.stat(env, st).to(torch.float32)]).tolist()
+    return {"violated": bool(viol), "has_work": bool(work), "stat": stat}

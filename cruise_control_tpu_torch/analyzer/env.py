@@ -52,6 +52,30 @@ class BalancingConstraint:
     goal_violation_distribution_threshold_multiplier: float = 1.0
     min_topic_leaders_per_broker: int = 1
 
+    @classmethod
+    def from_config(cls, cfg) -> "BalancingConstraint":
+        """The constraint of a ``config.cruise_control_config`` (env.py:58)."""
+        names = ("cpu", "network.inbound", "network.outbound", "disk")
+        return cls(
+            resource_balance_percentage=tuple(
+                cfg.get_double(f"{n}.balance.threshold") for n in names),
+            capacity_threshold=tuple(
+                cfg.get_double(f"{n}.capacity.threshold") for n in names),
+            low_utilization_threshold=tuple(
+                cfg.get_double(f"{n}.low.utilization.threshold") for n in names),
+            max_replicas_per_broker=cfg.get_int("max.replicas.per.broker"),
+            replica_balance_percentage=cfg.get_double("replica.count.balance.threshold"),
+            leader_replica_balance_percentage=cfg.get_double(
+                "leader.replica.count.balance.threshold"),
+            topic_replica_balance_percentage=cfg.get_double(
+                "topic.replica.count.balance.threshold"),
+            topic_replica_balance_min_gap=cfg.get_int("topic.replica.count.balance.min.gap"),
+            topic_replica_balance_max_gap=cfg.get_int("topic.replica.count.balance.max.gap"),
+            goal_violation_distribution_threshold_multiplier=cfg.get_double(
+                "goal.violation.distribution.threshold.multiplier"),
+            min_topic_leaders_per_broker=cfg.get_int("min.topic.leaders.per.broker"),
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimizationOptions:

@@ -52,6 +52,7 @@ from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.kernels import disk as disk_k
 from cruise_control_tpu_torch.kernels import leadership as lead_k
 from cruise_control_tpu_torch.kernels import move_score as move_k
+from cruise_control_tpu_torch.kernels import probe as probe_k
 from cruise_control_tpu_torch.kernels import swap as swap_k
 from cruise_control_tpu_torch.kernels.keys import OFFLINE_BUMP_BF16, env_loads, replica_keys
 from cruise_control_tpu_torch.kernels.select import mul32
@@ -324,6 +325,25 @@ class GoalKernel:
     def stat(self, env: ClusterEnv, st: EngineState) -> torch.Tensor:
         """Scalar the goal tries to reduce (summed in the oracle's order)."""
         return xla_sum(torch.clamp(self.broker_severity(env, st), min=0.0))
+
+    def seeded_work_probe(self, env: ClusterEnv, st: EngineState,
+                          seed_mask: torch.Tensor) -> torch.Tensor:
+        """bool 0-d (goals/base.py:268): would any seed-mask row rank
+        eligible (> -inf) for an action kind this goal uses? Its replica
+        key (moves or disk moves), leader key and swap-out key, the keys the
+        engine masks, reduced by K13 (``kernels.seeded_probe``). False
+        proves every selection pool of the goal's pass loop all -inf."""
+        sev = self.broker_severity(env, st)
+        keys = []
+        if self.uses_replica_moves or self.uses_disk_moves:
+            keys.append(self.replica_key(env, st, sev))
+        if self.uses_leadership_moves:
+            keys.append(self.leader_key(env, st, sev))
+        if self.uses_swaps:
+            keys.append(self.swap_out_key(env, st, sev))
+        if not keys:
+            return torch.zeros((), dtype=torch.bool, device=env.device)
+        return probe_k.seeded_probe(seed_mask, [k.contiguous() for k in keys])
 
 
 def overrides(g: GoalKernel, name: str) -> bool:

@@ -24,9 +24,22 @@ finisher of a goal that exited violated and unproven with few actions left
 (its moves, transfers and swap window counted). The intra-broker disk goals
 run as chain goals with the disk branch (K8). At padded R >= 262,144
 "auto" resolves the precision policy to bf16 (``_resolve_compute_dtype``;
-the engine's ``_sweep_env``). Sessions and the config surface raise
-``NotImplementedError`` naming the ROADMAP item that ports them. A hard-goal failure raises ``OptimizationFailureError`` with the
-result's provision recommendation.
+the engine's ``_sweep_env``). A hard-goal failure raises
+``OptimizationFailureError`` with the result's provision recommendation.
+
+``GoalOptimizer(config=...)`` reads every knob the reference's constructor
+reads (``config.cruise_control_config``). ``optimizations(None,
+session=...)`` is the resident-session service round (optimizer.py:714-1378):
+it consumes the session's round delta, tries the whole-round certificate
+memo (``_revalidated_round``: one verdict pass against the carried round's
+start verdicts), and otherwise runs the chain from the session's lent state,
+with dirty-set seed masks for the goals a reduced round may confine (K1's
+seed mask, ``analyzer.incremental.seed.dirty``), the chain short-circuit of
+an untouched reduced goal (K13), churn-adaptive budgets, the
+certificate-gated finisher skip and the full-R repair sweep after a seeded
+chain (``_reseed_fallback``). ``measure_goal_durations`` and the flight
+recorder (``round_trace``) are not ported yet (ROADMAP Queue 1 item 7b,
+the rest).
 """
 from __future__ import annotations
 
@@ -38,7 +51,8 @@ import numpy as np
 import torch
 
 from cruise_control_tpu_torch.analyzer.engine import (
-    EngineParams, _goal_loop, check_supported, optimize_goal, optimize_goal_chunked,
+    EngineParams, _goal_loop, check_supported, goal_probe, optimize_goal,
+    optimize_goal_chunked,
 )
 from cruise_control_tpu_torch.analyzer.env import (
     BalancingConstraint, ClusterEnv, OptimizationOptions, make_env,
@@ -51,6 +65,7 @@ from cruise_control_tpu_torch.analyzer.goals.leader_election import (
 from cruise_control_tpu_torch.analyzer.proposals import diff_proposals
 from cruise_control_tpu_torch.analyzer.state import EngineState, init_state
 from cruise_control_tpu_torch.common.resources import Resource
+from cruise_control_tpu_torch.config.defaults import DEFAULT_GOALS, DEFAULT_HARD_GOALS
 from cruise_control_tpu_torch.detector.provisioner import (
     ProvisionFloors, recommendation_from_result,
 )
@@ -64,31 +79,27 @@ BF16_AUTO_MIN_REPLICAS = 262_144
 FUSED_MIN_REPLICAS = 65_536      # analyzer.fused.chain.min.replicas default
 FINISHER_MIN_REPLICAS = 8192     # analyzer.finisher.min.replicas default
 CHUNK_MIN_REPLICAS = 8192        # analyzer.pass.chunk.min.replicas default
-ESCALATION_MAX_REMAINING = 2048  # analyzer.finisher.escalation.max.remaining
-ESCALATION_FACTOR = 4            # analyzer.finisher.escalation.factor
 
-# reference config/defaults.py DEFAULT_GOALS / DEFAULT_HARD_GOALS
-DEFAULT_GOALS = [
-    "RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
-    "DiskCapacityGoal", "NetworkInboundCapacityGoal",
-    "NetworkOutboundCapacityGoal", "CpuCapacityGoal", "ReplicaDistributionGoal",
-    "PotentialNwOutGoal", "DiskUsageDistributionGoal",
-    "NetworkInboundUsageDistributionGoal", "NetworkOutboundUsageDistributionGoal",
-    "CpuUsageDistributionGoal", "TopicReplicaDistributionGoal",
-    "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal",
-]
-DEFAULT_HARD_GOALS = [
-    "RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
-    "DiskCapacityGoal", "NetworkInboundCapacityGoal",
-    "NetworkOutboundCapacityGoal", "CpuCapacityGoal",
-]
+_NO_GOAL_RUN = {"iterations": 0, "passes": 0, "violated_after": False,
+                "hit_max_iters": False, "plateau_exit": False,
+                "fixpoint_proven": False, "finisher_rounds": 0,
+                "moves_remaining": -1, "leads_remaining": -1,
+                "swap_window_remaining": -1, "move_actions": 0, "lead_actions": 0,
+                "swap_actions": 0, "disk_actions": 0, "move_waves": 0,
+                "finisher_actions": 0, "finisher_segments": 0,
+                "finisher_boundary": 0, "passes_skipped": 0, "quiesce_chunk": -1,
+                "finisher_skipped": False}
 
 
-def _resolve_compute_dtype(pinned: str, num_replicas: int) -> str:
-    """The reference's precision policy with no config: an explicit
-    ``EngineParams.compute_dtype`` wins, "auto" is bf16 at >= 256k replicas."""
+def _resolve_compute_dtype(pinned: str, num_replicas: int,
+                           config_dtype: str | None = None) -> str:
+    """The reference's precision policy: an explicit
+    ``EngineParams.compute_dtype`` wins, then an explicit
+    ``analyzer.compute.dtype``; "auto" is bf16 at >= 256k replicas."""
     if pinned != "auto":
         return pinned
+    if config_dtype in ("float32", "bfloat16"):
+        return config_dtype
     return "bfloat16" if num_replicas >= BF16_AUTO_MIN_REPLICAS else "float32"
 
 
@@ -169,6 +180,21 @@ class OptimizerResult:
     @property
     def violated_goals_after(self) -> list[str]:
         return [g.name for g in self.goal_results if g.violated_after]
+
+
+@dataclasses.dataclass
+class IncrementalCarryover:
+    """One completed full or reduced round's verdicts and result, kept on
+    the ``ResidentClusterSession`` (optimizer.py:231): the certificate memo
+    returns ``result`` re-stamped when nothing relevant changed since, and
+    dirty-set seeding keys the next reduced round off ``violated_after``.
+    ``result.final_state`` is the one device state it pins. The session
+    clears it on every rebuild and invalidate."""
+    chain_key: tuple        # (goal-name tuple, options repr)
+    violated_before: tuple  # bool per chain goal at round start
+    violated_after: dict    # name -> bool at round end
+    proven: dict            # name -> fixpoint_proven at round end
+    result: object          # the carried OptimizerResult
 
 
 def _balancedness(goals, results_violated: dict,
@@ -278,15 +304,82 @@ def _pack_final(env: ClusterEnv, st: EngineState):
 class GoalOptimizer:
     def __init__(self, config=None, constraint: BalancingConstraint | None = None,
                  engine_params: EngineParams | None = None, device="cuda"):
-        if config is not None:
-            raise NotImplementedError("the config surface is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 7b); pass "
-                                      "constraint= / engine_params=")
+        """optimizer.py:299-506: every knob from ``config`` (a
+        ``config.cruise_control_config``), or the reference's defaults when
+        it is None. ``analyzer.profile.level`` and the compile cache are
+        JAX-side knobs the port reads nothing from."""
         self.device = resolve_device(device)
-        self._constraint = constraint or BalancingConstraint()
+        self._config = config
+        if constraint is None:
+            constraint = (BalancingConstraint.from_config(config) if config is not None
+                          else BalancingConstraint())
+        self._constraint = constraint
+        if engine_params is None and config is not None:
+            engine_params = EngineParams(
+                max_iters=config.get_int("analyzer.max.iterations"),
+                num_candidates=config.get_int("analyzer.candidate.replicas.per.broker"),
+                num_leader_candidates=config.get_int(
+                    "analyzer.leader.candidates.per.iteration"),
+                num_swap_candidates=config.get_int(
+                    "analyzer.swap.candidates.per.iteration"),
+                num_dst_choices=config.get_int("analyzer.destination.spread"),
+                stall_retries=config.get_int("analyzer.stall.retries"),
+                tail_pass_budget=config.get_int("analyzer.tail.pass.budget"),
+                pass_waves=config.get_int("analyzer.pass.waves"),
+                max_pass_waves=max(config.get_int("analyzer.pass.waves"),
+                                   EngineParams.max_pass_waves),
+                compact_keying=config.get_boolean("analyzer.compact.keying"),
+                chain_cache=config.get_boolean("analyzer.chain.cache"),
+                finisher_segments=config.get_int("analyzer.finisher.segments"),
+                max_finisher_segments=config.get_int("analyzer.finisher.segments"),
+                finisher_overlap=config.get_boolean("analyzer.finisher.overlap"),
+                pass_chunk=config.get_int("analyzer.pass.chunk"))
         self._params = engine_params or EngineParams()
-        self._default_goal_names = list(DEFAULT_GOALS)
-        self._hard_goal_names = set(DEFAULT_HARD_GOALS)
+
+        def knob(kind: str, key: str, default):
+            return getattr(config, f"get_{kind}")(key) if config is not None else default
+
+        self._fused_min_replicas = knob("int", "analyzer.fused.chain.min.replicas",
+                                        FUSED_MIN_REPLICAS)
+        self._mesh_axis_brokers = knob("int", "tpu.mesh.axis.brokers", 1)
+        if self._mesh_axis_brokers > 1:
+            raise NotImplementedError("the sharded engine is not ported yet "
+                                      "(ROADMAP.md Queue 1 item 15)")
+        self._finisher_min_replicas = knob("int", "analyzer.finisher.min.replicas",
+                                           FINISHER_MIN_REPLICAS)
+        self._compute_dtype = knob("string", "analyzer.compute.dtype", "auto")
+        self._escalation = knob("boolean", "analyzer.finisher.escalation", True)
+        self._escalation_max_remaining = knob(
+            "int", "analyzer.finisher.escalation.max.remaining", 2048)
+        self._escalation_factor = knob("int", "analyzer.finisher.escalation.factor", 4)
+        # analyzer.incremental.*: session rounds track deltas and carry over;
+        # ``revalidate`` is the whole-round memo, ``seed.dirty`` the opt-in
+        # dirty-set seeding (one-sided parity)
+        self._incremental = knob("boolean", "analyzer.incremental.enabled", True)
+        self._revalidate = knob("boolean", "analyzer.incremental.revalidate", True)
+        self._reval_tol = knob("double", "analyzer.incremental.revalidate.tolerance", 0.0)
+        self._seed_dirty = knob("boolean", "analyzer.incremental.seed.dirty", False)
+        # analyzer.pass.*: convergence-gated pass scheduling
+        self._pass_chunk = knob("int", "analyzer.pass.chunk", 8)
+        self._chunk_min_replicas = knob("int", "analyzer.pass.chunk.min.replicas",
+                                        CHUNK_MIN_REPLICAS)
+        self._adaptive_budgets = knob("boolean", "analyzer.pass.adaptive.budgets", True)
+        self._adaptive_floor = knob("int", "analyzer.pass.adaptive.floor.passes", 4)
+        self._cert_skip = knob("boolean", "analyzer.pass.certificate.skip", True)
+        self._shortcircuit = knob("boolean", "analyzer.pass.goal.shortcircuit", True)
+        # (chain_key, num_replicas) whose short-circuit probes have run once
+        self._probe_warmed: set = set()
+        self._balancedness_priority_weight = knob(
+            "double", "goal.balancedness.priority.weight", BALANCEDNESS_PRIORITY_WEIGHT)
+        self._balancedness_strictness_weight = knob(
+            "double", "goal.balancedness.strictness.weight",
+            BALANCEDNESS_STRICTNESS_WEIGHT)
+        if config is not None:
+            self._default_goal_names = list(config.get_list("goals"))
+            self._hard_goal_names = set(config.get_list("hard.goals"))
+        else:
+            self._default_goal_names = list(DEFAULT_GOALS)
+            self._hard_goal_names = set(DEFAULT_HARD_GOALS)
 
     @property
     def default_goal_names(self) -> list[str]:
@@ -300,7 +393,8 @@ class GoalOptimizer:
         """Per-cluster engine parameters from the PADDED shape bucket
         (the reference's scaling, unchanged)."""
         p = self._params
-        small = num_replicas < FINISHER_MIN_REPLICAS
+        small = (self._finisher_min_replicas >= 0
+                 and num_replicas < self._finisher_min_replicas)
         return dataclasses.replace(
             p,
             num_candidates=min(1760, max(p.num_candidates, num_brokers // 4,
@@ -316,17 +410,19 @@ class GoalOptimizer:
                            max(p.pass_waves, 4 if num_replicas >= 262_144 else 1)),
             finisher_rounds=0 if small else p.finisher_rounds,
             max_finisher_rounds=0 if small else p.max_finisher_rounds,
-            compute_dtype=_resolve_compute_dtype(p.compute_dtype, num_replicas))
+            compute_dtype=_resolve_compute_dtype(p.compute_dtype, num_replicas,
+                                                 self._compute_dtype))
 
     def _escalate_unproven(self, env: ClusterEnv, st: EngineState, goals,
                            goal_results, params: EngineParams):
         """optimizer.py:1553: a goal whose finisher exited violated, unproven
-        and with at most ESCALATION_MAX_REMAINING actions left re-enters its
-        finisher once at the end of the chain, with finisher_rounds x
-        ESCALATION_FACTOR, the budgeted loop skipped and every other chain
-        goal's veto in force; then every verdict is refreshed. Returns the
-        escalated state, or None when nothing escalated."""
-        if params.finisher_rounds <= 0:
+        and with at most ``analyzer.finisher.escalation.max.remaining``
+        actions left re-enters its finisher once at the end of the chain,
+        with finisher_rounds x ``analyzer.finisher.escalation.factor``, the
+        budgeted loop skipped and every other chain goal's veto in force;
+        then every verdict is refreshed. Returns the escalated state, or
+        None when nothing escalated."""
+        if not self._escalation or params.finisher_rounds <= 0:
             return None
         by_name = {g.name: g for g in goals}
         candidates = []
@@ -338,15 +434,16 @@ class GoalOptimizer:
                 continue
             remaining = (max(r.moves_remaining, 0) + max(r.leads_remaining, 0)
                          + max(r.swap_window_remaining, 0))
-            if remaining <= ESCALATION_MAX_REMAINING:
+            if remaining <= self._escalation_max_remaining:
                 candidates.append((r, g))
         if not candidates:
             return None
+        factor = self._escalation_factor
         esc = dataclasses.replace(
             params, max_iters=0, stall_retries=0, tail_pass_budget=0,
             tail_total_budget=0, sat_stall_retries=0, sat_tail_passes=0,
-            finisher_rounds=params.finisher_rounds * ESCALATION_FACTOR,
-            finisher_swap_passes=params.finisher_swap_passes * ESCALATION_FACTOR)
+            finisher_rounds=params.finisher_rounds * factor,
+            finisher_swap_passes=params.finisher_swap_passes * factor)
         for r, g in candidates:
             prev = tuple(x for x in goals if x.name != r.name)
             st, info = optimize_goal(env, st, g, prev, esc)
@@ -368,6 +465,20 @@ class GoalOptimizer:
                 r.hit_max_iters = False
         return st
 
+    def _min_leader_mask(self, meta, pattern: str | None, num_topics: int):
+        """bool[T] of the topics matching the min-leaders regex (the
+        ``topics.with.min.leaders.per.broker`` key when no pattern is given),
+        padded to ``num_topics``; None without a pattern."""
+        if pattern is None and self._config is not None:
+            pattern = self._config.get_string("topics.with.min.leaders.per.broker")
+        if not pattern:
+            return None
+        rx = re.compile(pattern)
+        tml = np.asarray([bool(rx.fullmatch(t)) for t in meta.topic_names], bool)
+        if tml.shape[0] < num_topics:
+            tml = np.pad(tml, (0, num_topics - tml.shape[0]))
+        return tml
+
     def optimizations(self, ct: ClusterTensor | None, meta: ClusterMeta | None = None,
                       goal_names: list[str] | None = None,
                       options: OptimizationOptions = OptimizationOptions(),
@@ -376,12 +487,16 @@ class GoalOptimizer:
                       measure_goal_durations: bool = False,
                       min_leader_topic_pattern: str | None = None,
                       session=None) -> OptimizerResult:
-        if session is not None:
-            raise NotImplementedError("resident sessions are not ported yet "
-                                      "(ROADMAP.md Queue 1 item 9)")
+        """Run the chain over ``ct`` / ``meta``, or, with ``session`` (a
+        synced ``ResidentClusterSession``; ``ct`` and ``meta`` may be None),
+        from the session's resident env and lent state: the service round of
+        optimizer.py:714-1378, with its memo, seeding and carryover."""
         if measure_goal_durations:
             raise NotImplementedError("measure_goal_durations is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 7b)")
+                                      "(ROADMAP.md Queue 1 item 7b, the rest)")
+        if session is not None and session.device != self.device:
+            raise ValueError(f"the session lives on {session.device}, the optimizer "
+                             f"on {self.device}")
         names = goal_names or self._default_goal_names
         if goal_names and not skip_hard_goal_check:
             missing = [h for h in self._hard_goal_names
@@ -394,46 +509,150 @@ class GoalOptimizer:
         goals = make_goals(known, self._constraint, options)
         run_preferred = "PreferredLeaderElectionGoal" in names
 
-        ct, meta = pad_cluster(ct, meta)
-        num_replicas, num_brokers = ct.num_replicas, ct.num_brokers
+        # -- the round delta is consumed BEFORE optimizer_inputs (which lends
+        # the resident state away); then the whole-round memo is tried
+        incremental = self._incremental and session is not None
+        chain_key = (tuple(names), repr(options))
+        rd = session.consume_round_delta() if incremental else None
+        co = session.carryover if incremental else None
+        if (incremental and self._revalidate and co is not None
+                and co.chain_key == chain_key
+                and rd["syncs"] >= 1 and rd["churn"] == 0
+                and not rd["broker_flips"] and not rd["rebuilt"]
+                and rd["load_drift"] <= self._reval_tol):
+            memo = self._revalidated_round(session, goals, raise_on_failure)
+            if memo is not None:
+                return memo
+        taken_gen = None
+        if session is not None:
+            (env, st, meta, part_table, initial_broker, initial_leader,
+             initial_disk, host_valid, host_part) = session.optimizer_inputs()
+            taken_gen = session.sync_generation
+        else:
+            ct, meta = pad_cluster(ct, meta)
+        num_replicas = env.num_replicas if session is not None else ct.num_replicas
+        num_brokers = env.num_brokers if session is not None else ct.num_brokers
         params = self.scaled_params(num_replicas, num_brokers)
         check_supported(params)
-        use_fused = num_replicas >= FUSED_MIN_REPLICAS
-        use_chunked = params.pass_chunk > 0 and num_replicas >= CHUNK_MIN_REPLICAS
 
-        tml = None
-        if min_leader_topic_pattern:
-            rx = re.compile(min_leader_topic_pattern)
-            tml = np.asarray([bool(rx.fullmatch(t)) for t in meta.topic_names], bool)
-            if tml.shape[0] < ct.num_topics:
-                tml = np.pad(tml, (0, ct.num_topics - tml.shape[0]))
-        part_table = padded_partition_table(ct)
-        env = make_env(ct, meta, topic_min_leaders_mask=tml,
-                       partition_table=part_table, device=self.device)
-        st = init_state(env, ct.replica_broker, ct.replica_is_leader,
-                        ct.replica_offline, ct.replica_disk)
-        initial_broker = np.asarray(ct.replica_broker, np.int32)
-        initial_leader = np.asarray(ct.replica_is_leader, bool)
-        initial_disk = np.asarray(ct.replica_disk, np.int32)
+        # -- dirty-set seed masks (K1's seed mask): None on full rounds (the
+        # reference's all-ones mask: the same bits), the dirty replica set
+        # for each goal a reduced round may confine
+        seed_masks = [None] * len(goals)
+        mask_modes = ["full"] * len(goals) if incremental else None
+        reduced_names: set = set()
+        dirty_count = 0
+        if (incremental and self._seed_dirty and co is not None
+                and co.chain_key == chain_key and rd["syncs"] >= 1
+                and not rd["rebuilt"] and not rd["broker_flips"]
+                and 0 < rd["churn"] <= session.seed_budget_replicas(num_replicas)):
+            np_dirty = session.dirty_replica_mask(rd["dirty_brokers"], rd["dirty_topics"])
+            if np_dirty.any():
+                dirty_count = int(np_dirty.sum())
+                dirty = torch.tensor(np_dirty, device=self.device)
+                # seedable: satisfied at the carried round's end AND on the
+                # churned round-start state
+                viol_now = violations(goals, env, st)
+                for i, g in enumerate(goals):
+                    if not co.violated_after.get(g.name, True) and not viol_now[i]:
+                        seed_masks[i] = dirty
+                        mask_modes[i] = "reduced"
+                        reduced_names.add(g.name)
+
+        if session is None:
+            tml = self._min_leader_mask(meta, min_leader_topic_pattern, ct.num_topics)
+            part_table = padded_partition_table(ct)
+            env = make_env(ct, meta, topic_min_leaders_mask=tml,
+                           partition_table=part_table, device=self.device)
+            st = init_state(env, ct.replica_broker, ct.replica_is_leader,
+                            ct.replica_offline, ct.replica_disk)
+            initial_broker = np.asarray(ct.replica_broker, np.int32)
+            initial_leader = np.asarray(ct.replica_is_leader, bool)
+            initial_disk = np.asarray(ct.replica_disk, np.int32)
+            host_valid = np.asarray(ct.replica_valid, bool)
+            host_part = np.asarray(ct.replica_partition, np.int32)
+
+        use_fused = (self._fused_min_replicas >= 0
+                     and num_replicas >= self._fused_min_replicas)
+        use_chunked = (self._pass_chunk > 0 and params.pass_chunk > 0
+                       and num_replicas >= self._chunk_min_replicas)
+        adaptive_params = params
+        if use_chunked and self._adaptive_budgets and dirty_count > 0 and reduced_names:
+            # churn-adaptive budgets for the dirty-seeded goals only: ceil(D /
+            # K) + 1 passes drain the dirty pool once and prove quiescence
+            need = max(self._adaptive_floor,
+                       -(-dirty_count // max(int(params.num_candidates), 1)) + 1)
+            adaptive_params = dataclasses.replace(
+                params,
+                stall_retries=min(int(params.stall_retries), need),
+                sat_stall_retries=min(int(params.sat_stall_retries), need),
+                tail_pass_budget=min(int(params.tail_pass_budget), 4 * need),
+                sat_tail_passes=min(int(params.sat_tail_passes), 4 * need),
+                tail_total_budget=min(int(params.tail_total_budget), 8 * need),
+                finisher_rounds=min(int(params.finisher_rounds), max(2, need)))
+        # certificate-skip eligibility (carryover half): churn within the
+        # reduced-round budget since the carried round
+        cert_carry_ok = False
+        if (use_chunked and self._cert_skip and incremental and co is not None
+                and co.chain_key == chain_key and rd["syncs"] >= 1
+                and not rd["rebuilt"] and not rd["broker_flips"]):
+            cert_carry_ok = 0 <= rd["churn"] <= session.seed_budget_replicas(num_replicas)
+        carried_map = ({r.name: r for r in co.result.goal_results}
+                       if cert_carry_ok else {})
+        if (use_chunked and incremental and self._shortcircuit
+                and (chain_key, num_replicas) not in self._probe_warmed):
+            # optimizer.py:943-951: the first full chunked round of a chain
+            # and shape runs every goal's short-circuit probe once, results
+            # discarded; in the reference that compiles the probe programs,
+            # here it builds and loads K13's library, so the first reduced
+            # round builds nothing
+            ones = torch.ones(num_replicas, dtype=torch.bool, device=self.device)
+            for g in goals:
+                g.seeded_work_probe(env, st, ones)
+            self._probe_warmed.add((chain_key, num_replicas))
 
         stats_before = cluster_stats_state(env, st)
-        violated_before = dict(zip((g.name for g in goals),
-                                   violations(goals, env, st)))
+        violated_before = dict(zip((g.name for g in goals), violations(goals, env, st)))
         infos, durations = [], []
         prev: tuple = ()
+        actions_so_far = 0
         # fused: the prefix up to the first deep-tail goal runs without the
-        # finisher; each later goal (and, unfused, every goal) runs as its
-        # own program with the finisher at its chain position
+        # finisher; each later goal (and, unfused, every goal) runs with the
+        # finisher at its chain position
         split = (next((i for i, g in enumerate(goals) if g.deep_tail), len(goals))
                  if use_fused else 0)
         for gi, g in enumerate(goals):
             t0 = time.monotonic()
+            reduced_goal = mask_modes is not None and mask_modes[gi] == "reduced"
             if gi < split:
-                st, info = _goal_loop(env, st, g, prev, params, finisher=False)
+                st, info = _goal_loop(env, st, g, prev, params, finisher=False,
+                                      seed_mask=seed_masks[gi])
+            elif use_chunked and reduced_goal and self._shortcircuit and (
+                    pr := goal_probe(g, env, st, seed_masks[gi])) and (
+                    not pr["violated"] and not pr["has_work"]):
+                # the chain short-circuit: a reduced goal entering satisfied
+                # with no seeded work would run a bit-exact no-op program
+                info = dict(_NO_GOAL_RUN, stat_before=pr["stat"], stat=pr["stat"])
+                mask_modes[gi] = "skipped"
             elif use_chunked:
-                st, info = optimize_goal_chunked(env, st, g, prev, params)
+                allow_skip = (cert_carry_ok and actions_so_far == 0
+                              and g.name in carried_map
+                              and co.violated_after.get(g.name) is True
+                              and co.proven.get(g.name) is True)
+                st, info = optimize_goal_chunked(
+                    env, st, g, prev, adaptive_params if reduced_goal else params,
+                    seed_mask=seed_masks[gi], allow_cert_skip=allow_skip)
+                if info["finisher_skipped"]:
+                    # the carried certificate stands in for the skipped scans
+                    cr = carried_map[g.name]
+                    info.update(fixpoint_proven=True,
+                                moves_remaining=cr.moves_remaining,
+                                leads_remaining=cr.leads_remaining,
+                                swap_window_remaining=cr.swap_window_remaining)
             else:
-                st, info = optimize_goal(env, st, g, prev, params)
+                st, info = optimize_goal(env, st, g, prev, params,
+                                         seed_mask=seed_masks[gi])
+            actions_so_far += int(info["iterations"])
             durations.append(0.0 if use_fused else time.monotonic() - t0)
             infos.append(info)
             prev = prev + (g,)
@@ -460,8 +679,9 @@ class GoalOptimizer:
                 finisher_boundary=info["finisher_boundary"],
                 passes_skipped=info.get("passes_skipped", 0),
                 quiesce_chunk=info.get("quiesce_chunk", -1),
-                finisher_skipped=info.get("finisher_skipped", False))
-            for g, info, dur in zip(goals, infos, durations)]
+                finisher_skipped=info.get("finisher_skipped", False),
+                mode=mask_modes[gi] if mask_modes is not None else "full")
+            for gi, (g, info, dur) in enumerate(zip(goals, infos, durations))]
         if run_preferred:
             # optimizer.py:1183 (unfused) / :2700 (fused, inside the final
             # program): after the chain, before the final stats and fetch
@@ -475,44 +695,151 @@ class GoalOptimizer:
                 iterations=1 if was else 0,
                 duration_s=0.0 if use_fused else time.monotonic() - t0,
                 stat_after=0.0))
+        # the full-R repair sweep of a dirty-seeded chain, before escalation
+        fallbacks = 0
+        if reduced_names:
+            st_fb, fallbacks = self._reseed_fallback(
+                env, st, goals, goal_results, params, co.violated_after, use_chunked)
+            if st_fb is not None:
+                st = st_fb
         st_esc = self._escalate_unproven(env, st, goals, goal_results, params)
         if st_esc is not None:
             st = st_esc
         stats_after = cluster_stats_state(env, st)
         pb, plead, pdisk, data_mb = _pack_final(env, st)
         R = env.num_replicas
-        final_broker = np.asarray(pb, np.int32)
-        final_leader = np.unpackbits(plead)[:R].astype(bool)
-        final_disk = np.asarray(pdisk, np.int32)
         proposals = diff_proposals(
             meta, initial_broker, initial_leader, initial_disk,
-            final_broker, final_leader, final_disk,
-            part_table, np.asarray(ct.replica_valid, bool),
-            np.asarray(ct.replica_partition, np.int32))
+            np.asarray(pb, np.int32), np.unpackbits(plead)[:R].astype(bool),
+            np.asarray(pdisk, np.int32), part_table, host_valid, host_part)
         viol_after = {r.name: r.violated_after for r in goal_results}
         result = OptimizerResult(
             goal_results=goal_results, proposals=proposals,
             stats_before=stats_before, stats_after=stats_after,
-            balancedness_before=_balancedness(goals, violated_before),
-            balancedness_after=_balancedness(goals, viol_after),
+            balancedness_before=_balancedness(
+                goals, violated_before, self._balancedness_priority_weight,
+                self._balancedness_strictness_weight),
+            balancedness_after=_balancedness(
+                goals, viol_after, self._balancedness_priority_weight,
+                self._balancedness_strictness_weight),
             num_replica_movements=proposals.num_replica_additions,
             num_leadership_movements=proposals.num_leadership_changes,
             data_to_move_mb=data_mb,
+            round_mode="reduced" if reduced_names else "full",
+            fallback_goals=fallbacks,
             passes_dispatched=sum(r.passes for r in goal_results),
             passes_skipped=sum(r.passes_skipped for r in goal_results),
             early_exit_goals=sum(1 for r in goal_results if r.quiesce_chunk >= 0),
+            skipped_goals=sum(1 for r in goal_results if r.mode == "skipped"),
             final_state=st, env=env, meta=meta)
+        # the carryover is saved BEFORE the hard-goal raise: the consumed
+        # round delta is gone either way (optimizer.py:1337-1347)
+        if incremental:
+            session.note_carryover(
+                IncrementalCarryover(
+                    chain_key=chain_key,
+                    violated_before=tuple(bool(violated_before[g.name]) for g in goals),
+                    violated_after={r.name: r.violated_after for r in goal_results},
+                    proven={r.name: r.fixpoint_proven for r in goal_results},
+                    result=result),
+                taken_generation=taken_gen)
         if raise_on_failure:
             failed = [r.name + (" (iteration budget exhausted)" if r.hit_max_iters else "")
                       for r, g in zip(goal_results, goals)
                       if g.is_hard and r.violated_after]
             if failed:
                 # optimizer.py:1358-1375: attach how many brokers are missing
-                # (the floors' config keys are item 7b: their defaults here)
-                rec = recommendation_from_result(result, self._constraint,
-                                                 floors=ProvisionFloors())
+                floors = (ProvisionFloors.from_config(self._config)
+                          if self._config is not None else ProvisionFloors())
+                rec = recommendation_from_result(result, self._constraint, floors=floors)
                 raise OptimizationFailureError(
                     f"hard goal(s) not satisfiable: {failed} "
                     f"[{rec.status.value}: {rec.reason}]",
                     recommendation=rec, result=result)
         return result
+
+    # ------------------------------------------------ incremental round modes
+    def _revalidated_round(self, session, goals, raise_on_failure):
+        """optimizer.py:1390, the certificate re-validation memo: one verdict
+        pass over the resident state (peeked, never lent); every verdict
+        equal to the carried round's start verdicts proves the deterministic
+        chain would replay bit for bit, so the carried result returns
+        re-stamped. Any mismatch returns None and the full round runs."""
+        co = session.carryover
+        t0 = time.monotonic()
+        env, st = session.revalidation_view()
+        if tuple(violations(goals, env, st)) != co.violated_before:
+            return None
+        grs = [dataclasses.replace(r, duration_s=0.0, mode="revalidated")
+               for r in co.result.goal_results]
+        result = dataclasses.replace(
+            co.result, goal_results=grs, round_mode="revalidated",
+            revalidate_s=time.monotonic() - t0, durations_measured=False,
+            fallback_goals=0)
+        session.note_revalidated()
+        if raise_on_failure:
+            failed = [r.name for r, g in zip(grs, goals)
+                      if g.is_hard and r.violated_after]
+            if failed:
+                raise OptimizationFailureError(
+                    f"hard goal(s) not satisfiable: {failed} [revalidated round]",
+                    result=result)
+        return result
+
+    def _reseed_fallback(self, env, st, goals, goal_results, params,
+                         carried_violated: dict, use_chunked: bool):
+        """optimizer.py:1451: the full-R repair sweep after a dirty-seeded
+        chain. In chain order it re-runs, unmasked and with the goal's
+        chain-prefix veto and the static budgets, every goal the round left
+        violated without a certificate, or violated with one where the
+        carried round ended it satisfied; then it re-reads every verdict,
+        and repeats once for the goals the first sweep broke. Returns (new
+        state, goals re-run), or (None, 0) when no verdict needs repair."""
+        order = {g.name: i for i, g in enumerate(goals)}
+        exempt = {r.name for r in goal_results
+                  if r.violated_after and r.fixpoint_proven
+                  and carried_violated.get(r.name) is not False}
+        todo = [r for r in goal_results
+                if r.name in order and r.violated_after and r.name not in exempt]
+        if not todo:
+            return None, 0
+        swept: set = set()
+        for _sweep in range(2):
+            todo.sort(key=lambda r: order[r.name])
+            for r in todo:
+                gi = order[r.name]
+                g = goals[gi]
+                if use_chunked:
+                    st, info = optimize_goal_chunked(env, st, g, tuple(goals[:gi]), params)
+                    r.passes_skipped += int(info.get("passes_skipped", 0))
+                    if r.quiesce_chunk < 0:
+                        r.quiesce_chunk = int(info.get("quiesce_chunk", -1))
+                else:
+                    st, info = optimize_goal(env, st, g, tuple(goals[:gi]), params)
+                r.violated_after = bool(info["violated_after"])
+                r.fixpoint_proven = bool(info["fixpoint_proven"])
+                r.hit_max_iters = r.violated_after and not r.fixpoint_proven
+                r.iterations += int(info["iterations"])
+                r.passes += int(info.get("passes", 0))
+                r.moves_remaining = int(info["moves_remaining"])
+                r.leads_remaining = int(info["leads_remaining"])
+                r.swap_window_remaining = int(info["swap_window_remaining"])
+                r.finisher_rounds += int(info.get("finisher_rounds", 0))
+                r.finisher_actions += int(info.get("finisher_actions", 0))
+                r.stat_after = float(info["stat"])
+                r.mode = "full"
+                swept.add(r.name)
+            fresh = dict(zip((g.name for g in goals), violations(goals, env, st)))
+            for r in goal_results:
+                if r.name not in fresh or r.violated_after == fresh[r.name]:
+                    continue
+                r.violated_after = fresh[r.name]
+                if r.violated_after:
+                    r.fixpoint_proven = False
+                r.hit_max_iters = r.violated_after and not r.fixpoint_proven
+            todo = [r for r in goal_results
+                    if r.name in order and r.violated_after
+                    and r.name not in swept and r.name not in exempt]
+            if not todo:
+                break
+        return st, len(swept)

@@ -57,13 +57,28 @@ def init_state(env: ClusterEnv, replica_broker, replica_is_leader,
     def t(a, dtype):
         return torch.tensor(np.asarray(a), device=dev).to(dtype)
 
+    return state_from_assignment(env, t(replica_broker, torch.int64),
+                                 t(replica_is_leader, torch.bool),
+                                 t(replica_offline, torch.bool),
+                                 t(replica_disk, torch.int64))
+
+
+def state_from_assignment(env: ClusterEnv, replica_broker: torch.Tensor,
+                          replica_is_leader: torch.Tensor,
+                          replica_offline: torch.Tensor,
+                          replica_disk: torch.Tensor) -> EngineState:
+    """Engine state of an assignment already on the device (i64 broker and
+    logdir columns, bool flags): zeroed tallies, then ``refresh``. Shared by
+    ``init_state`` and the resident session's finalize, so a sync is bit for
+    bit a rebuild."""
+    dev = env.device
     B, P, T, R = env.num_brokers, env.num_partitions, env.num_topics, env.num_replicas
     f32, i32 = torch.float32, torch.int32
     st = EngineState(
-        replica_broker=t(replica_broker, torch.int64),
-        replica_is_leader=t(replica_is_leader, torch.bool),
-        replica_offline=t(replica_offline, torch.bool),
-        replica_disk=t(replica_disk, torch.int64),
+        replica_broker=replica_broker,
+        replica_is_leader=replica_is_leader,
+        replica_offline=replica_offline,
+        replica_disk=replica_disk,
         util=torch.zeros_like(env.broker_capacity),
         leader_util=torch.zeros_like(env.broker_capacity),
         potential_nw_out=torch.zeros(B, dtype=f32, device=dev),
@@ -169,8 +184,8 @@ def residual_inputs(st: EngineState, util: torch.Tensor, leader_util: torch.Tens
     ``res + (acc - new)`` when ``res`` enters the program as a value (a
     loop carry: every apply of the pass loop and the finisher), and onto
     ``acc - new`` alone when ``res`` is the previous apply's scatter output
-    in the same program (``chained``: the second leg of a swap wave; the
-    caller then adds ``res``). ``vals`` are the wave's rows (util and
+    in the same program (``chained``; a swap wave folds its two legs
+    together, ``swap_residual_inputs``). ``vals`` are the wave's rows (util and
     leader_util deltas first), ``util`` / ``leader_util`` the updated
     tallies."""
     init = torch.cat([st.util - util, st.leader_util - leader_util], dim=1)
@@ -275,17 +290,55 @@ def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor
 
 
 def apply_swaps_batched(env: ClusterEnv, st: EngineState, r_out: torch.Tensor,
-                        r_in: torch.Tensor, mask: torch.Tensor) -> EngineState:
+                        r_in: torch.Tensor, mask: torch.Tensor,
+                        fold_legs: bool = False) -> EngineState:
     """Apply a WAVE of swaps (``r_out[W]`` <-> ``r_in[W]`` where ``mask[W]``)
     as two batched move waves (state.py:442-452): the out leg first, both
     legs reading their brokers from the pre-wave state. The swap admission
     keeps the wave's rows on disjoint brokers and partitions, so the two
     replica sets are disjoint and each leg's sources are untouched by the
-    other leg."""
+    other leg. The Neumaier residuals follow the reference's program: leg
+    by leg (the second leg ``chained``) in a program of its own or the
+    per-goal pass loop, and with ``fold_legs`` as the chunked pass loop
+    folds the two legs into one update (``swap_residual_inputs``)."""
     b_out = st.replica_broker[r_out]
     b_in = st.replica_broker[r_in]
-    st = apply_moves_batched(env, st, r_out, b_in, mask)
-    return apply_moves_batched(env, st, r_in, b_out, mask, chained=True)
+    st1 = apply_moves_batched(env, st, r_out, b_in, mask)
+    st2 = apply_moves_batched(env, st1, r_in, b_out, mask, chained=True)
+    if not fold_legs:
+        return st2
+    v1, s1, _ = apply_sum_inputs(env, st, r_out, b_in, mask)
+    v2, s2, _ = apply_sum_inputs(env, st1, r_in, b_out, mask)
+    vals, seg, init = swap_residual_inputs(st, st1, st2, v1, s1, v2, s2)
+    res = segment_sum(vals, seg, env.num_brokers, init)
+    return dataclasses.replace(st2, util_residual=res[:, 0:4].contiguous(),
+                               leader_util_residual=res[:, 4:8].contiguous())
+
+
+def swap_residual_inputs(st: EngineState, st1: EngineState, st2: EngineState,
+                         v1: torch.Tensor, s1: torch.Tensor, v2: torch.Tensor,
+                         s2: torch.Tensor):
+    """(values f32[4W, 8], seg, init f32[B, 8]) of a swap wave's residual
+    update as the reference's chunked pass loop folds its two
+    ``_kahan_scatter2`` calls (read off its XLA:CPU program,
+    ``_compiled_goal_chunk(...).lower(...).compile().as_text()``): one init ``(res + (acc - new1)) +
+    (new1 - new2)``, then every source delta of both legs (leg 2's, then
+    leg 1's) and then every destination delta (leg 1's, then leg 2's), each
+    broker's in row order. The admission puts a broker in one role of one
+    row, so a broker leaving in leg 1 adds its leg-1 delta before its leg-2
+    one and a broker receiving in leg 1 the other way round. ``st``, ``st1``
+    and ``st2`` are the states before, between and after the legs; ``v`` /
+    ``s`` each leg's ``apply_sum_inputs`` rows (sources, then destinations)."""
+    W = v1.shape[0] // 2
+    cat = torch.cat
+    acc = cat([st.util, st.leader_util], dim=1)
+    new1 = cat([st1.util, st1.leader_util], dim=1)
+    new2 = cat([st2.util, st2.leader_util], dim=1)
+    res = cat([st.util_residual, st.leader_util_residual], dim=1)
+    init = (res + (acc - new1)) + (new1 - new2)
+    vals = cat([v2[:W, :8], v1[:W, :8], v1[W:, :8], v2[W:, :8]])
+    seg = cat([s2[:W], s1[:W], s1[W:], s2[W:]])
+    return vals.contiguous(), seg, init.contiguous()
 
 
 def apply_lead_sum_inputs(env: ClusterEnv, st: EngineState, src: torch.Tensor,

@@ -4,7 +4,8 @@ The reference's ``ClusterTensor`` / ``ClusterEnv`` / ``EngineState`` are
 dataclasses whose leaves convert to numpy arrays; these functions take such
 leaves as ``{field name: numpy array}`` (and a ClusterMeta-like object for
 the names) and build the port's counterparts, so a test can start both
-packages from the same bits and compare them leaf by leaf. Nothing here
+packages from the same bits and compare them leaf by leaf; a resident
+session's host mirrors convert into the port's finalize inputs. Nothing here
 imports the reference: its objects are read by field name only.
 """
 from __future__ import annotations
@@ -84,3 +85,18 @@ def state_from_arrays(arrays: dict, device="cuda") -> EngineState:
     dev = resolve_device(device)
     return EngineState(**{f.name: _tensor(f.name, arrays[f.name], dev)
                           for f in dataclasses.fields(EngineState)})
+
+
+def finalize_inputs_from_arrays(arrays: dict, device="cuda") -> tuple:
+    """The port's finalize inputs (``analyzer.session.sync_finalize``) from a
+    session's host mirrors as numpy arrays: ``lead_packed`` (u8, big-endian
+    bit-packed leadership), ``replica_broker`` and ``replica_disk`` (any
+    integer dtype), ``leader_load`` and ``follower_load`` (f32 [R, M]).
+    Returns (broker i64, lead_packed u8, disk i64, leader_rows, follower_rows)
+    on ``device``, the same bits the reference's ``_sync_finalize`` reads."""
+    dev = resolve_device(device)
+    return (_tensor("replica_broker", arrays["replica_broker"], dev),
+            torch.as_tensor(np.array(arrays["lead_packed"], np.uint8), device=dev),
+            _tensor("replica_disk", arrays["replica_disk"], dev),
+            _tensor("leader_load", arrays["leader_load"], dev),
+            _tensor("follower_load", arrays["follower_load"], dev))

@@ -6,9 +6,10 @@ Reference: detector/Provisioner.java and the ProvisionRecommendation /
 ProvisionStatus model (UNDER_PROVISIONED / RIGHT_SIZED / OVER_PROVISIONED).
 ``GoalOptimizer.optimizations`` attaches ``recommendation_from_result`` to
 the ``OptimizationFailureError`` of a hard-goal failure, as the reference's
-OptimizationFailureException carries one. The provisioner SPI itself
-(``NoopProvisioner``, ``SimulatedProvisioner``) and the floors' config
-keys are ROADMAP.md Queue 1 items 12 and 7b.
+OptimizationFailureException carries one; ``ProvisionFloors.from_config``
+reads the floors' ``overprovisioned.*`` keys. The provisioner SPI itself
+(``NoopProvisioner``, ``SimulatedProvisioner``) is ROADMAP.md Queue 1 item
+12.
 """
 from __future__ import annotations
 
@@ -49,6 +50,14 @@ class ProvisionFloors:
     min_brokers: int = 3
     min_extra_racks: int = 1
     max_replicas_per_broker: int = 1500
+
+    @classmethod
+    def from_config(cls, cfg) -> "ProvisionFloors":
+        return cls(
+            min_brokers=cfg.get_int("overprovisioned.min.brokers"),
+            min_extra_racks=cfg.get_int("overprovisioned.min.extra.racks"),
+            max_replicas_per_broker=int(cfg.get_int(
+                "overprovisioned.max.replicas.per.broker")))
 
 
 def _host(t) -> np.ndarray:

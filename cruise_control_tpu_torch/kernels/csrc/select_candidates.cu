@@ -17,6 +17,11 @@
 // Bound: bytes — the keys are read once, but the radix passes re-read the
 // 8-byte composites eight times.
 //
+// The optional seed mask (engine.py _mask_key :153, dirty-set seeding of a
+// reduced round) sends every row outside it to -inf BEFORE salting; the
+// salt maps -inf to -inf, so this equals the reference's mask-then-salt.
+// A null mask (full rounds) reads every key as it is.
+//
 // compact_eligible replaces engine.py _compact_eligible (:1257): the indices
 // of the true entries of bool[n] in index order, the tail padded with the
 // sentinel n, and their count. Three launches: per-tile counts, one scan of
@@ -40,11 +45,12 @@ __device__ __forceinline__ float from_sortable(uint32_t s) {
   return __uint_as_float(u);
 }
 
-__global__ void salt_pack(const float* __restrict__ key, int n, int stall,
-                          int salt, u64* __restrict__ comp) {
+__global__ void salt_pack(const float* __restrict__ key,
+                          const unsigned char* __restrict__ mask, int n,
+                          int stall, int salt, u64* __restrict__ comp) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float v = key[i];
+  float v = (mask == nullptr || mask[i]) ? key[i] : -INFINITY;
   if (stall > 0) {
     uint32_t h = (uint32_t)i * 2246822519u
                  + ((uint32_t)stall + (uint32_t)salt) * 3266489917u;
@@ -216,7 +222,9 @@ extern "C" int cc_compact_eligible(const unsigned char* elig, int n, int pad_len
   return (int)cudaGetLastError();
 }
 
-extern "C" int cc_select_candidates(const float* key, int n, int k, int stall,
+extern "C" int cc_select_candidates(const float* key,
+                                    const unsigned char* mask, int n, int k,
+                                    int stall,
                                     int salt, u64* comp, u64* sel,
                                     u64* state, unsigned int* hist,
                                     float* out_kv, long long* out_idx,
@@ -229,7 +237,7 @@ extern "C" int cc_select_candidates(const float* key, int n, int k, int stall,
   const int blocks = (n + threads - 1) / threads;
   const int hist_blocks = blocks < 1024 ? blocks : 1024;
   init_state<<<1, 256, 0, stream>>>(state, hist, k);
-  salt_pack<<<blocks, threads, 0, stream>>>(key, n, stall, salt, comp);
+  salt_pack<<<blocks, threads, 0, stream>>>(key, mask, n, stall, salt, comp);
   for (int shift = 56; shift >= 0; shift -= 8) {
     radix_hist<<<hist_blocks, threads, 0, stream>>>(comp, n, state, shift, hist);
     radix_choose<<<1, 256, 0, stream>>>(state, hist, shift);

@@ -19,6 +19,10 @@ keys once and writes k results; the radix passes re-read the composites).
 The plain twin sorts the same order-preserving integers with a stable
 ``torch.sort``; the hash runs in int64 masked to 32 bits.
 
+A ``seed_mask`` (bool[R]: ``engine.py`` ``_mask_key`` :153, the K1 seed
+mask of a reduced round's dirty-set seeding) sends the rows outside it to
+-inf before salting; its launches also count on ``select_candidates_masked``.
+
 ``compact_eligible`` (engine.py ``_compact_eligible`` :1257) compacts the
 true entries of a bool[R] into index order for the exhaustive scans, in
 the same library (``csrc/select_candidates.cu``).
@@ -34,6 +38,9 @@ from cruise_control_tpu_torch.kernels.build import (
 KERNEL = register("select_candidates",
                   "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
                   "cruise_control_tpu/analyzer/engine.py:179")
+KERNEL_MASKED = register("select_candidates_masked",
+                         "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
+                         "cruise_control_tpu/analyzer/engine.py:153")
 KERNEL_COMPACT = register("compact_eligible",
                           "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
                           "cruise_control_tpu/analyzer/engine.py:1257")
@@ -69,23 +76,37 @@ def sortable_key(v: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 0x80000000, (~u) & _M32, u | 0x80000000)
 
 
-def select_candidates_plain(key, k, stall, salt=0):
-    salted = stall_salt_plain(key, stall, salt)
+def mask_key_plain(key: torch.Tensor, seed_mask: torch.Tensor | None) -> torch.Tensor:
+    """``_mask_key``: rows outside ``seed_mask`` read -inf (None: all rows)."""
+    if seed_mask is None:
+        return key
+    return torch.where(seed_mask, key, torch.full_like(key, -torch.inf))
+
+
+def select_candidates_plain(key, k, stall, salt=0, seed_mask=None):
+    salted = stall_salt_plain(mask_key_plain(key, seed_mask), stall, salt)
     order = torch.sort(sortable_key(salted), descending=True, stable=True)[1][:k]
     return salted[order], order
 
 
-_SIGNATURES = {"cc_select_candidates": [P, I, I, I, I, P, P, P, P, P, P, P],
+_SIGNATURES = {"cc_select_candidates": [P, P, I, I, I, I, P, P, P, P, P, P, P],
                "cc_compact_eligible": [P, I, I, P, P, P, P]}
 
 
-def select_candidates(key: torch.Tensor, k: int, stall: int, salt: int = 0):
-    """(kv f32[k], cand i64[k]) of the stall-salted key, k = min(k, R)."""
+def select_candidates(key: torch.Tensor, k: int, stall: int, salt: int = 0,
+                      seed_mask: torch.Tensor | None = None):
+    """(kv f32[k], cand i64[k]) of the stall-salted key, k = min(k, R); rows
+    outside ``seed_mask`` (bool[R], None: every row) read -inf."""
     k = min(int(k), key.shape[0])
     if not key.is_cuda:
-        return select_candidates_plain(key, k, stall, salt)
+        return select_candidates_plain(key, k, stall, salt, seed_mask)
     if key.dtype != torch.float32 or not key.is_contiguous() or key.dim() != 1:
         raise ValueError("select_candidates takes a contiguous f32[R] key")
+    if seed_mask is not None and (seed_mask.dtype != torch.bool
+                                  or tuple(seed_mask.shape) != tuple(key.shape)
+                                  or not seed_mask.is_contiguous()
+                                  or seed_mask.device != key.device):
+        raise ValueError("select_candidates takes a contiguous bool[R] seed mask")
     if not 0 < k <= MAX_K:
         raise ValueError(f"select_candidates supports 0 < k <= {MAX_K}, got {k}")
     n = key.shape[0]
@@ -97,10 +118,12 @@ def select_candidates(key: torch.Tensor, k: int, stall: int, salt: int = 0):
     kv = torch.empty(k, dtype=torch.float32, device=dev)
     idx = torch.empty(k, dtype=torch.int64, device=dev)
     err = library("select_candidates", _SIGNATURES).cc_select_candidates(
-        ptr(key), n, k, int(stall), int(salt), ptr(comp),
+        ptr(key), ptr(seed_mask), n, k, int(stall), int(salt), ptr(comp),
         ptr(sel), ptr(state), ptr(hist), ptr(kv), ptr(idx), stream_ptr())
     check(err, "select_candidates")
     KERNEL.count(f"k={k}")
+    if seed_mask is not None:
+        KERNEL_MASKED.count(f"k={k}")
     return kv, idx
 
 

@@ -120,6 +120,11 @@ class ClusterModelBuilder:
         return self
 
     # ---- assembly ----
+    def broker_arrays(self, broker_ids: list, ridx: dict):
+        """Public alias of :meth:`_broker_arrays`: the resident session's
+        broker-axis refresh recomputes these dense arrays without a build."""
+        return self._broker_arrays(broker_ids, ridx)
+
     def _broker_arrays(self, broker_ids: list, ridx: dict):
         """Dense broker topology arrays shared by both assembly paths."""
         B = len(broker_ids)

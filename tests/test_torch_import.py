@@ -65,6 +65,29 @@ def test_verification_and_goal_modules_are_scanned():
             "cruise_control_tpu_torch.detector.provisioner"} <= set(MODULES)
 
 
+def test_session_slice_modules_are_scanned():
+    """The resident-session slice's modules (config, backend, monitor,
+    snapshot deltas, the session, its script and the K5 / K13 kernels) are
+    among the modules imported with JAX blocked and scanned above."""
+    assert {"cruise_control_tpu_torch.config", "cruise_control_tpu_torch.config.configdef",
+            "cruise_control_tpu_torch.config.defaults",
+            "cruise_control_tpu_torch.backend", "cruise_control_tpu_torch.backend.interface",
+            "cruise_control_tpu_torch.backend.simulated",
+            "cruise_control_tpu_torch.backend.topic_config",
+            "cruise_control_tpu_torch.monitor", "cruise_control_tpu_torch.monitor.metricdef",
+            "cruise_control_tpu_torch.monitor.capacity",
+            "cruise_control_tpu_torch.monitor.cpu_model",
+            "cruise_control_tpu_torch.monitor.fetcher",
+            "cruise_control_tpu_torch.monitor.load_monitor",
+            "cruise_control_tpu_torch.monitor.aggregator.sample_aggregator",
+            "cruise_control_tpu_torch.monitor.sampling.samplers",
+            "cruise_control_tpu_torch.model.delta",
+            "cruise_control_tpu_torch.analyzer.session",
+            "cruise_control_tpu_torch.analyzer.session_script",
+            "cruise_control_tpu_torch.kernels.finalize",
+            "cruise_control_tpu_torch.kernels.probe"} <= set(MODULES)
+
+
 def test_forbidden_pattern_tells_the_packages_apart():
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("from cruise_control_tpu.analyzer import engine")
@@ -77,6 +100,12 @@ def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         GoalOptimizer()
+    from cruise_control_tpu_torch.analyzer.session import ResidentClusterSession
+    from cruise_control_tpu_torch.config import cruise_control_config
+    with pytest.raises(RuntimeError, match="cuda"):
+        GoalOptimizer(config=cruise_control_config())
+    with pytest.raises(RuntimeError, match="cuda"):
+        ResidentClusterSession(monitor=None)
     ct, meta = generate(RandomClusterSpec(num_brokers=4, num_racks=2, num_topics=2,
                                           num_partitions=8, seed=1))
     with pytest.raises(RuntimeError, match="cuda"):
@@ -107,7 +136,9 @@ def test_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
                                  "move_score_classes", "wave_admission",
                                  "leadership_rows", "segment_sum", "segment_count",
                                  "swap_rows", "swap_admission", "disk_rows",
-                                 "disk_apply", "preferred_leader", "replica_keys"}
+                                 "disk_apply", "preferred_leader", "replica_keys",
+                                 "session_finalize", "select_candidates_masked",
+                                 "seeded_probe"}
 
 
 def test_new_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
@@ -139,4 +170,26 @@ def test_new_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
         torch.tensor([False, False]), torch.tensor([False, False]),
         torch.tensor([False, False]), apply=True)
     assert int(nv) == 1 and lead.tolist() == [False, True] and mv.tolist() == [True, True]
+    assert all(n == 0 for n in K.launches().values())
+
+
+def test_session_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
+    """K5 finalize, K1's seed mask and K13 dispatch on the tensors' device
+    too."""
+    K.reset_launches()
+    lead, off, rtexcl, dst = K.session_finalize(
+        torch.tensor([0b10100000], dtype=torch.uint8), torch.tensor([0, 1, 1]),
+        torch.tensor([0, 0, 1]), torch.tensor([1, 0, 1]),
+        torch.tensor([True, True, False]), torch.tensor([True, False]),
+        torch.tensor([[True, False], [True, True]]), torch.tensor([False, True]),
+        torch.tensor([False, True]))
+    assert lead.tolist() == [True, False, True]
+    assert off.tolist() == [False, True, False]
+    assert rtexcl.tolist() == [True, False, True] and dst.tolist() == [True, False]
+    key = torch.arange(8, dtype=torch.float32)
+    mask = torch.tensor([True, False] * 4)
+    kv, idx = K.select_candidates(key, 3, 0, seed_mask=mask)
+    assert idx.tolist() == [6, 4, 2]
+    assert bool(K.seeded_probe(mask, [key]))
+    assert not bool(K.seeded_probe(mask, [torch.where(mask, -torch.inf, key)]))
     assert all(n == 0 for n in K.launches().values())

@@ -200,7 +200,6 @@ class _NoLeaderBudgetGoal(LeaderReplicaDistributionGoal):
 
 
 UNSUPPORTED = {
-    "session": (dict(session=object()), None),
     "measured goal durations": (dict(measure_goal_durations=True), None),
     "sequential leadership fallback": (
         dict(goal_names=["NoLeaderBudgetGoal"]), "seq_body"),
@@ -241,8 +240,12 @@ def test_formerly_unported_goals_run(fixture16_refs, case):
 
 
 def test_config_surface_raises():
+    """The config surface is ported (tests/test_torch_config.py); the
+    sharded engine it can ask for is not."""
+    from cruise_control_tpu_torch.config import cruise_control_config
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GoalOptimizer(config={"goals": GOALS}, device="cpu")
+        GoalOptimizer(config=cruise_control_config({"tpu.mesh.axis.brokers": 2}),
+                      device="cpu")
 
 
 @pytest.mark.slow

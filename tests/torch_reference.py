@@ -44,6 +44,17 @@ fixture; ``"swap_tail"``: ``swap_tail_cluster()``; else a padded
 ``generate_scale`` spec), the goal, its previous goals, the constraint,
 the engine parameters (``scaled``: the optimizer's scaled parameters of
 the padded shape, overridden by ``params``) and ``compiled``.
+
+    rows = reference_session(tmp_path, spec)
+
+runs a resident-session service script
+(``cruise_control_tpu_torch.analyzer.session_script``) through
+the reference's ``SimulatedClusterBackend`` -> ``LoadMonitor`` ->
+``ResidentClusterSession`` -> ``GoalOptimizer.optimizations(None,
+session=...)`` and returns its rounds' rows; the port's tests run the same
+function over the port's classes (``session_script.port_ns``) in-process.
+``python tests/torch_reference.py session-e2e`` prints the rows of the
+e2e-1000b-50000p cell that ``chip_smoke.py`` phase 6 holds.
 """
 import json
 import os
@@ -281,11 +292,393 @@ def oracle_row(ref: dict) -> dict:
                                    "potential_nw_out")})
 
 
+def reference_session_ns() -> dict:
+    """The reference's classes for ``session_script``
+    (``cruise_control_tpu_torch/analyzer/session_script.py``)."""
+    from cruise_control_tpu.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu.analyzer.session import ResidentClusterSession
+    from cruise_control_tpu.backend.simulated import SimulatedClusterBackend
+    from cruise_control_tpu.config import cruise_control_config
+    from cruise_control_tpu.monitor.load_monitor import LoadMonitor
+    from cruise_control_tpu.monitor.sampling.samplers import SimulatedMetricSampler
+    return dict(GoalOptimizer=GoalOptimizer,
+                ResidentClusterSession=ResidentClusterSession,
+                SimulatedClusterBackend=SimulatedClusterBackend,
+                cruise_control_config=cruise_control_config,
+                LoadMonitor=LoadMonitor, SimulatedMetricSampler=SimulatedMetricSampler)
+
+
+_SESSION_CHILD = r"""
+import json, pickle, sys
+from cruise_control_tpu_torch.analyzer.session_script import session_script
+from torch_reference import reference_session_ns
+args = json.loads(sys.argv[1])
+ns = reference_session_ns()
+out = [session_script(ns, args["spec"], seed_dirty=sd) for sd in args["seed_dirty"]]
+with open(args["out"], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def reference_session(tmp_path: Path, spec: dict, seed_dirty=(False,),
+                      timeout: int = 900) -> list:
+    """The reference's rows of ``session_script`` for each ``seed_dirty``
+    value, in one fresh interpreter."""
+    out = tmp_path / "reference_session.pkl"
+    _run_child(_SESSION_CHILD, dict(spec=spec, seed_dirty=list(seed_dirty),
+                                    out=str(out)), timeout)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+# ---------------------------------------------------------------------------
+# Session cases (tests/test_session.py's scripts, either package)
+# ---------------------------------------------------------------------------
+def session_test_backend(ns, seed=0, num_brokers=10, num_partitions=60, rf=2,
+                         jbod=True):
+    """tests/test_session.py ``_backend``: JBOD brokers (1-3 logdirs)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    be = ns["SimulatedClusterBackend"]()
+    for b in range(num_brokers):
+        logdirs = ({f"/d{j}": 50_000.0 for j in range(1 + b % 3)} if jbod else None)
+        be.add_broker(b, f"r{b % 3}", logdirs=logdirs)
+    for p in range(num_partitions):
+        reps = [int(x) for x in rng.choice(num_brokers, size=rf, replace=False)]
+        be.create_partition(f"t{p % 6}", p, reps,
+                            size_mb=float(rng.uniform(10, 500)),
+                            bytes_in_rate=float(rng.uniform(1, 50)),
+                            bytes_out_rate=float(rng.uniform(1, 100)),
+                            cpu_util=float(rng.uniform(0.1, 5)))
+    return be
+
+
+def monitored(ns, be, rounds=6, start_round=0, config=None):
+    lm = ns["LoadMonitor"](config=config, backend=be,
+                           sampler=ns["SimulatedMetricSampler"](be))
+    lm.start_up()
+    for i in range(start_round, start_round + rounds):
+        lm.sample_once(now_ms=i * 300_000.0)
+    return lm
+
+
+def scripted_delta_stream(be, lm):
+    """tests/test_session.py ``_scripted_delta_stream``: a leadership flip,
+    same-RF replica churn, a broker death, a disk failure, an appended
+    (sorts-last) topic and fresh metric windows."""
+    info = be.partitions()[("t1", 1)]
+    be.elect_leaders({("t1", 1): info.replicas[-1]})
+    be.alter_partition_reassignments({("t0", 0): [7, 8]})
+    be.advance(10 * 60_000.0)
+    be.kill_broker(9)
+    be.fail_disk(1, "/d1")
+    be.create_partition("zz-late", 0, [0, 2], size_mb=100.0,
+                        bytes_in_rate=10.0, bytes_out_rate=20.0, cpu_util=1.0)
+    be.create_partition("zz-late", 1, [3, 4], size_mb=50.0,
+                        bytes_in_rate=5.0, bytes_out_rate=10.0, cpu_util=0.5)
+    for i in range(6, 9):
+        lm.sample_once(now_ms=i * 300_000.0)
+
+
+def _np(x):
+    import numpy as np
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def _fields(obj) -> dict:
+    """{field: numpy array} of a dataclass of arrays (either package); int
+    fields (an env's static sizes) as ints."""
+    import dataclasses
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if hasattr(v, "shape") and tuple(v.shape) == () and _np(v).dtype.kind in "iu":
+            out[f.name] = int(_np(v))
+        elif hasattr(v, "shape"):
+            out[f.name] = _np(v)
+        elif isinstance(v, int):
+            out[f.name] = int(v)
+    return out
+
+
+def session_snapshot(sess) -> dict:
+    """A session's resident env and state leaves, host mirrors and names,
+    as numpy arrays and lists."""
+    import numpy as np
+    return dict(env=_fields(sess.env), state=_fields(sess.state),
+                part_table=np.asarray(sess.part_table),
+                mirrors={k: np.asarray(v).copy() for k, v in sess._h.items()},
+                lead_packed=np.packbits(sess._h["replica_is_leader"]),
+                meta=dict(topic_names=list(sess.meta.topic_names),
+                          partition_ids=[tuple(p) for p in sess.meta.partition_ids],
+                          broker_ids=list(sess.meta.broker_ids),
+                          num_valid_replicas=int(sess.meta.num_valid_replicas)))
+
+
+def session_case(ns, name: str) -> dict:
+    """One of tests/test_session.py's scripts through the classes in ``ns``:
+
+    - ``delta``: rebuild, the scripted delta stream, a metric-only round;
+      the session's snapshot after each sync;
+    - ``fallback``: a broker-set change, an RF change and a zero churn
+      budget, each of which must rebuild; then a metric-only delta; the
+      sync modes and reasons."""
+    kw = ns.get("kw", {})
+    if name == "delta":
+        be = session_test_backend(ns)
+        lm = monitored(ns, be)
+        sess = ns["ResidentClusterSession"](lm, **kw)
+        out = [(sess.sync()["mode"], session_snapshot(sess))]
+        scripted_delta_stream(be, lm)
+        info = sess.sync()
+        out.append((info["mode"], session_snapshot(sess)))
+        lm.sample_once(now_ms=9 * 300_000.0)
+        out.append((sess.sync()["mode"], session_snapshot(sess)))
+        return dict(syncs=out, churn=info["churn"], epoch=sess.epoch)
+    if name == "fallback":
+        be = session_test_backend(ns, seed=2)
+        lm = monitored(ns, be)
+        sess = ns["ResidentClusterSession"](lm, **kw)
+        infos = [sess.sync()]
+        be.add_broker(99, "r0")
+        lm.sample_once(now_ms=6 * 300_000.0)
+        infos.append(sess.sync())
+        be.alter_partition_reassignments({("t0", 0): [0, 1, 2]})
+        be.advance(10 * 60_000.0)
+        lm.sample_once(now_ms=7 * 300_000.0)
+        infos.append(sess.sync())
+        tight = ns["ResidentClusterSession"](lm, config=ns["cruise_control_config"](
+            {"analyzer.session.max.delta.fraction": 0.0}), **kw)
+        tight.sync()
+        be.elect_leaders({("t1", 1): be.partitions()[("t1", 1)].replicas[-1]})
+        lm.sample_once(now_ms=8 * 300_000.0)
+        infos.append(tight.sync())
+        lm.sample_once(now_ms=9 * 300_000.0)
+        infos.append(sess.sync())
+        return dict(syncs=[(i["mode"], i.get("reason")) for i in infos],
+                    epoch=sess.epoch, snapshot=session_snapshot(sess))
+    raise ValueError(name)
+
+
+_SESSION_CASE_CHILD = r"""
+import json, pickle, sys
+from torch_reference import reference_session_ns, session_case
+args = json.loads(sys.argv[1])
+out = session_case(reference_session_ns(), args["name"])
+with open(args["out"], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def reference_session_case(tmp_path: Path, name: str, timeout: int = 600) -> dict:
+    """``session_case`` through the reference, in a fresh interpreter."""
+    out = tmp_path / f"reference_session_{name}.pkl"
+    _run_child(_SESSION_CASE_CHILD, dict(name=name, out=str(out)), timeout)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+# ---------------------------------------------------------------------------
+# Incremental cases (tests/test_incremental.py's scripts, either package)
+# ---------------------------------------------------------------------------
+INCREMENTAL_GOALS = ["ReplicaCapacityGoal", "ReplicaDistributionGoal",
+                     "LeaderReplicaDistributionGoal"]
+INCREMENTAL_CASES = ("zero_churn", "forced_rerun", "churn", "epoch", "shadow",
+                     "chain_change", "revalidate_off", "seeded", "dirty_mask")
+
+
+def incremental_case(ns, name: str) -> dict:
+    """One of tests/test_incremental.py's scripts (cases 1-3 and 5-8, the
+    one-sided seeding case and the dirty-mask case) through the classes in
+    ``ns``. Returns the rows of its rounds (``session_script.round_row``)
+    and the session counters the reference's test asserts on."""
+    from cruise_control_tpu_torch.analyzer.session_script import round_row
+    kw = ns.get("kw", {})
+    seeds = dict(zero_churn=0, forced_rerun=5, churn=1, epoch=3, shadow=4,
+                 chain_change=6, revalidate_off=7, seeded=8, dirty_mask=10)
+    goals = INCREMENTAL_GOALS
+
+    def optimizer(extra=None):
+        cfg = {"goals": ",".join(goals), "hard.goals": "ReplicaCapacityGoal"}
+        cfg.update(extra or {})
+        return ns["GoalOptimizer"](config=ns["cruise_control_config"](cfg), **kw)
+
+    def setup(extra=None):
+        be = session_test_backend(ns, seed=seeds[name], jbod=False)
+        lm = monitored(ns, be)
+        return be, lm, ns["ResidentClusterSession"](lm, **kw), optimizer(extra)
+
+    rows = []
+
+    def rnd(opt, sess, info=None, goal_names=goals):
+        res = opt.optimizations(None, session=sess, goal_names=goal_names,
+                                raise_on_failure=False, skip_hard_goal_check=True)
+        rows.append(round_row(info or {"mode": "none"}, res))
+        return res
+
+    def steady(opt, sess, lm, t):
+        lm.sample_once(now_ms=t * 300_000.0)
+        return rnd(opt, sess, sess.sync())
+
+    out = {}
+    if name == "seeded":
+        for extra in ({}, {"analyzer.incremental.seed.dirty": True}):
+            be, lm, sess, opt = setup(extra)
+            rnd(opt, sess, sess.sync())
+            info = be.partitions()[("t2", 2)]
+            be.elect_leaders({("t2", 2): info.replicas[-1]})
+            steady(opt, sess, lm, 6)
+        return dict(rows=rows)
+    if name == "dirty_mask":
+        be, lm, sess, _ = setup()
+        sess.sync()
+        return dict(brokers=sess.dirty_replica_mask({0}, set()),
+                    topics=sess.dirty_replica_mask(set(), {0}),
+                    both=sess.dirty_replica_mask({1, 3}, {2}),
+                    none=sess.dirty_replica_mask(set(), set()))
+    be, lm, sess, opt = setup({"analyzer.incremental.revalidate": False}
+                              if name == "revalidate_off" else None)
+    rnd(opt, sess, sess.sync())
+    steady(opt, sess, lm, 6)
+    if name == "zero_churn":
+        donated = sess.donated_rounds
+        steady(opt, sess, lm, 7)
+        out["donated_in_memo"] = sess.donated_rounds - donated
+        steady(opt, sess, lm, 8)
+    elif name == "forced_rerun":
+        rnd(opt, sess)
+    elif name == "churn":
+        info = be.partitions()[("t1", 1)]
+        be.elect_leaders({("t1", 1): info.replicas[-1]})
+        steady(opt, sess, lm, 7)
+        steady(opt, sess, lm, 8)
+    elif name == "epoch":
+        steady(opt, sess, lm, 7)
+        be.add_broker(99, "r0")
+        lm.sample_once(now_ms=8 * 300_000.0)
+        out["sync"] = sess.sync()["mode"]
+        out["carryover_cleared"] = sess.carryover is None
+        rnd(opt, sess)
+    elif name == "shadow":
+        sess.note_carryover(sess.carryover, taken_generation=sess.sync_generation - 1)
+        steady(opt, sess, lm, 7)
+        steady(opt, sess, lm, 8)
+    elif name == "chain_change":
+        lm.sample_once(now_ms=7 * 300_000.0)
+        rnd(opt, sess, sess.sync(), goal_names=goals[:2])
+    elif name == "revalidate_off":
+        steady(opt, sess, lm, 7)
+    out.update(rows=rows, revalidated_rounds=sess.revalidated_rounds)
+    return out
+
+
+_INCREMENTAL_CHILD = r"""
+import json, pickle, sys
+from torch_reference import incremental_case, reference_session_ns
+args = json.loads(sys.argv[1])
+ns = reference_session_ns()
+out = {name: incremental_case(ns, name) for name in args["names"]}
+with open(args["out"], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def reference_incremental_cases(tmp_path: Path, names=INCREMENTAL_CASES,
+                                timeout: int = 900) -> dict:
+    """``incremental_case`` for each name through the reference, in one
+    fresh interpreter."""
+    out = tmp_path / "reference_incremental.pkl"
+    _run_child(_INCREMENTAL_CHILD, dict(names=list(names), out=str(out)), timeout)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+# ---------------------------------------------------------------------------
+# Pass-gating cases (tests/test_pass_gating.py's solo scripts, either package)
+# ---------------------------------------------------------------------------
+GATING_CONFIGS = {
+    "mono": {"analyzer.pass.chunk": 0},
+    "oversized": {"analyzer.pass.chunk.min.replicas": 0, "analyzer.pass.chunk": 64},
+    "skip": {"max.replicas.per.broker": 5, "analyzer.finisher.min.replicas": 0,
+             "analyzer.pass.chunk.min.replicas": 0},
+    "noskip": {"max.replicas.per.broker": 5, "analyzer.finisher.min.replicas": 0,
+               "analyzer.pass.chunk.min.replicas": 0,
+               "analyzer.pass.certificate.skip": False},
+}
+
+
+def gating_case(ns, name: str) -> list:
+    """tests/test_pass_gating.py ``_run_two_rounds`` under one of
+    ``GATING_CONFIGS``: a full round, then a one-leadership-flip churn round
+    (dirty seeding on), on the seed-8 fixture. Returns the two rounds' rows
+    with the gating counters per goal."""
+    from cruise_control_tpu_torch.analyzer.session_script import round_row
+    kw = ns.get("kw", {})
+    goals = INCREMENTAL_GOALS
+    be = session_test_backend(ns, seed=8, jbod=False)
+    lm = monitored(ns, be)
+    cfg = {"goals": ",".join(goals), "hard.goals": "ReplicaCapacityGoal",
+           "analyzer.incremental.seed.dirty": True}
+    cfg.update(GATING_CONFIGS[name])
+    sess = ns["ResidentClusterSession"](lm, **kw)
+    opt = ns["GoalOptimizer"](config=ns["cruise_control_config"](cfg), **kw)
+    rows = []
+    for flip in (False, True):
+        if flip:
+            info = be.partitions()[("t2", 2)]
+            be.elect_leaders({("t2", 2): info.replicas[-1]})
+            lm.sample_once(now_ms=6 * 300_000.0)
+        sync = sess.sync()
+        res = opt.optimizations(None, session=sess, goal_names=goals,
+                                raise_on_failure=False, skip_hard_goal_check=True)
+        row = round_row(sync, res)
+        g = res.goal_results
+        row.update(
+            finisher_skipped=[r.finisher_skipped for r in g],
+            quiesce_chunk=[r.quiesce_chunk for r in g],
+            passes_skipped=[r.passes_skipped for r in g],
+            remaining=[(r.moves_remaining, r.leads_remaining, r.swap_window_remaining)
+                       for r in g],
+            early_exit_goals=res.early_exit_goals,
+            passes_dispatched=res.passes_dispatched)
+        rows.append(row)
+    return rows
+
+
+_GATING_CHILD = r"""
+import json, pickle, sys
+from torch_reference import gating_case, reference_session_ns
+args = json.loads(sys.argv[1])
+ns = reference_session_ns()
+out = {name: gating_case(ns, name) for name in args["names"]}
+with open(args["out"], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def reference_gating_cases(tmp_path: Path, names=tuple(GATING_CONFIGS),
+                           timeout: int = 900) -> dict:
+    out = tmp_path / "reference_gating.pkl"
+    _run_child(_GATING_CHILD, dict(names=list(names), out=str(out)), timeout)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
 if __name__ == "__main__":
     # python tests/torch_reference.py rung4 [float32|bfloat16]: the JAX
     # reference's outcome row of a rung (default "auto"), as JSON
     import tempfile
     name = sys.argv[1]
+    if name == "session-e2e":
+        # python tests/torch_reference.py session-e2e: the reference's rows of
+        # the e2e-1000b-50000p cell, the plain script then the dirty-seeded one
+        with tempfile.TemporaryDirectory() as tmp:
+            sys.path.insert(0, str(ROOT))
+            from cruise_control_tpu_torch.analyzer.session_script import SESSION_E2E
+            plain, seeded = reference_session(Path(tmp), SESSION_E2E,
+                                              seed_dirty=(False, True), timeout=7200)
+        print(json.dumps(dict(cell="e2e-1000b-50000p", plain=plain, seeded=seeded)))
+        sys.exit(0)
     dtype = sys.argv[2] if len(sys.argv) > 2 else None
     rung = RUNGS[name]
     with tempfile.TemporaryDirectory() as tmp:
