@@ -69,7 +69,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       once. ``--profile`` adds
    one more run of every path of this phase (or of the named ones: five,
    eleven, sixteen, eighteen, kafka, jbod_intra, jbod_chain, jbod_demote,
-   jbod_ple, rung4, rung5, session) under ``torch.profiler`` and
+   jbod_ple, rung4, rung5, session, heal) under ``torch.profiler`` and
    prints device time by kernel;
    e. BASELINE configs 4 and 5 at full size (7,000 brokers, 500,000
       partitions: ``bench.py`` rungs 4 and 5) through ``GoalOptimizer()``'s
@@ -100,19 +100,41 @@ Phases, each printing its own lines; any failure exits non-zero:
    (rebuild and delta) and round walls are printed; ``--profile session``
    profiles the plain script's R3.
 
+7. the self-healing service at the same cell
+   (``cruise_control_tpu_torch.analyzer.heal_script``): ``CruiseControl(
+   device="cuda")`` over the cell's ``SimulatedClusterBackend`` with
+   self-healing and forecasting on, its anomaly manager and executor driven
+   synchronously on the simulated clock: (a) a broker failure, CHECK inside
+   the grace ladder, then the FIX (``remove_brokers`` on the self-healing
+   goals, executed to its end); (b) a dead disk, the FIX of its offline
+   replicas on the resident session; (c) one topic's load ramped over the
+   windows, K15's forecast, the PREDICTED verdict before any breach, the
+   pre-breach heal and the speculative proposal install. The script runs
+   twice; the launch counts are zeroed just before and read just after.
+   Every step must give the JAX reference's row (``python
+   tests/torch_reference.py heal-e2e``: handled anomalies and actions, the
+   fixes' proposal counts and sha256, the executor's task census, the
+   simulated clock, the backend assignment's sha256, the forecast's
+   sha256) and the two runs the same bits. Detection, FIX and forecast walls
+   and each executor run's simulated ms are printed.
+
 Phase 3 also holds the K1 keying kernel (``replica_keys``) against its twin
 for every key function it computes, with f32 tables and with the bf16 sweep
 view, on the slice, jbod-1000b, rung-4 and rung-5 states and on adversarial
-inputs (halfway-rounding loads, signed zeros, ties, offline rows).
+inputs (halfway-rounding loads, signed zeros, ties, offline rows), and K15
+(``forecast``) against its twin at the heal cell's shape (E 50,000
+partitions, W 4 and 5 windows, M 10 metrics) and on adversarial histories
+(holes, all-holes rows, signed and tiny values, one window, four knob sets).
 
 The line before the last is the ``kernels`` JSON object: each kernel's
 launches are those of the counted runs of the sixteen goals, the 18 goals,
-the kafka-assigner chain, the three JBOD requests, the two rungs and the
-session scripts together (each path's under ``launches_by_path``), and its
-times those of the shape it launched most often there (the session kernels:
-on the session path; the others: on the earlier paths), with every timed
-shape and its launches listed beside them. The last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+the kafka-assigner chain, the three JBOD requests, the two rungs, the
+session scripts and the heal scripts together (each path's under
+``launches_by_path``), and its times those of the shape it launched most
+often there (the session kernels: on the session path; K15: on the heal
+path; the others: on the earlier paths), with every timed shape and its
+launches listed beside them. The last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -377,6 +399,12 @@ JBOD_KERNELS = ("disk_rows", "disk_apply", "preferred_leader")
 # the kernels of the resident-session path (phase 6) that no earlier path
 # launches: K5's finalize, K1 with a seed mask, K13's probe
 SESSION_KERNELS = ("session_finalize", "select_candidates_masked", "seeded_probe")
+# the kernel of the self-healing service path (phase 7) that no earlier path
+# launches: K15's forecast
+HEAL_KERNELS = ("forecast",)
+# the path whose launch shapes time each later slice's kernels
+KERNEL_PATH = {**{n: "session" for n in SESSION_KERNELS},
+               **{n: "heal" for n in HEAL_KERNELS}}
 # The e2e-1000b-50000p cell's rounds through the JAX reference (JAX 0.9.0,
 # JAX_PLATFORMS=cpu, a fresh interpreter): ``python tests/torch_reference.py
 # session-e2e``, the rows of ``cruise_control_tpu_torch.analyzer.
@@ -2230,7 +2258,8 @@ def slice_checks(torch, res, tag: str, digests: dict | None = None) -> None:
 
 # the phase-5 paths ``--profile`` may name, in the order they run
 PROFILE_PATHS = ("five", "eleven", "sixteen", "eighteen", "kafka", "jbod_intra",
-                 "jbod_chain", "jbod_demote", "jbod_ple", "rung4", "rung5", "session")
+                 "jbod_chain", "jbod_demote", "jbod_ple", "rung4", "rung5", "session",
+                 "heal")
 # device function names of the hand kernels, as the profiler lists them
 HAND_KERNEL_NAMES = (
     "salt_pack", "radix_hist", "radix_choose", "gather_top", "bitonic_top",
@@ -2239,7 +2268,7 @@ HAND_KERNEL_NAMES = (
     "segment_sum_kernel", "segment_count_kernel", "leadership_rows_kernel",
     "swap_rows_kernel", "swap_admission_kernel", "disk_rows_kernel",
     "disk_apply_kernel", "preferred_leader_kernel", "replica_keys_kernel",
-    "finalize_kernel", "probe_kernel")
+    "finalize_kernel", "probe_kernel", "forecast_kernel")
 
 
 def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
@@ -2294,13 +2323,19 @@ def profile_call(torch, fn, tag: str):
     """``fn()`` under torch.profiler: device busy share of the wall and
     device time by kernel (device-side events only, so an op's kernels are
     not counted twice). Returns what ``fn`` returns."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    profile_report(prof, wall, tag)
+    return out
+
+
+def profile_report(prof, wall: float, tag: str) -> None:
+    """Print a profiled call's device busy share and its top device kernels."""
+    from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -2319,7 +2354,6 @@ def profile_call(torch, fn, tag: str):
         f"hand kernels {own:.6f} s ({100 * own / max(busy, 1e-12):.2f}% of busy)")
     for dev_us, count, key in rows[:25]:
         log(f"profile {tag}:   {dev_us / 1e3:12.3f} ms  {count:7d}x  {key[:90]}")
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2413,7 +2447,8 @@ def session_phase(torch, entries: dict, profile: bool, seed: int) -> dict:
     require(got_v == want_v, f"session: one-sided verdict {got_v} != the reference's {want_v}")
     log(f"session: the reduced R3 against the full R3, the one-sided contract: {got_v} "
         f"(the JAX reference's own verdict on this cell, equal)")
-    require(all(n > 0 for name, n in launches.items() if name not in JBOD_KERNELS),
+    require(all(n > 0 for name, n in launches.items()
+                if name not in JBOD_KERNELS + HEAL_KERNELS),
             f"a kernel of the session path never launched: {launches}")
     log(f"session: both scripts {total:.6f} s")
 
@@ -2513,6 +2548,225 @@ def session_phase(torch, entries: dict, profile: bool, seed: int) -> dict:
     return dict(launches=launches, shapes=shapes, walls=walls, syncs=syncs)
 
 
+# ---------------------------------------------------------------------------
+# phase 3, K15: the forecaster's kernel against its twin
+# ---------------------------------------------------------------------------
+# the forecaster's shape at e2e-1000b-50000p: 50,000 partitions, the ring's 4
+# and 5 completed windows, the 10 partition metrics
+FORECAST_E, FORECAST_M = 50_000, 10
+
+
+def forecast_kernel_checks(torch, entries: dict, seed: int) -> None:
+    """K15 against its twin: random histories with holes (leading,
+    trailing, interior, all-holes rows) at the heal cell's shapes under the
+    heal config's knobs and adversarial ones, signed and tiny values, one
+    window; then timed at W 4 and 5."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer.heal_script import HEAL_CONFIG
+    from cruise_control_tpu_torch.kernels import forecast
+    e = entries["forecast"]
+    g = torch.Generator().manual_seed(seed)
+    heal_knobs = (0.45, 0.25, 0.5, HEAL_CONFIG["forecast.horizon.ms"] / 300_000.0)
+    knob_sets = [heal_knobs, (0.9, 0.1, 0.2, 2.0), (0.2, 0.5, 0.8, 20.0),
+                 (0.7252333, 0.9459341, 0.5998188, 1.5724896)]
+
+    def history(E, W, M, scale=100.0, signed=False):
+        vals = torch.rand((E, W, M), generator=g) * scale
+        if signed:
+            vals = vals * 2.0 - scale
+        mask = torch.rand((E, W), generator=g) > 0.25
+        if E >= 4:
+            mask[0, 0] = False
+            mask[1, -1] = False
+            mask[2, W // 2] = False
+            mask[3, :] = False
+        return vals.float().cuda().contiguous(), mask.cuda().contiguous()
+
+    cases = [(FORECAST_E, 5, FORECAST_M, 100.0, False),
+             (FORECAST_E, 4, FORECAST_M, 1e5, False),
+             (1003, 5, FORECAST_M, 50.0, True), (257, 1, 3, 10.0, False),
+             (64, 8, 4, 1e-3, False), (7, 2, 10, 1.0, True)]
+    for E, W, M, scale, signed in cases:
+        vals, mask = history(E, W, M, scale, signed)
+        for knobs in knob_sets:
+            check(torch, e, lambda: K.forecast_batch(vals, mask, *knobs),
+                  lambda: forecast.forecast_plain(vals, mask, *knobs),
+                  f"E={E} W={W} M={M} knobs {knobs}", quiet=True)
+    log(f"  forecast: {e.checks} checks bit-identical (E up to {FORECAST_E}, W 1-8, holes, "
+        f"signed and tiny values, {len(knob_sets)} knob sets)")
+    for W in (4, 5):
+        vals, mask = history(FORECAST_E, W, FORECAST_M)
+        nb = nbytes(vals, mask) + FORECAST_E * FORECAST_M * 4
+        timing(torch, e, lambda: K.forecast_batch(vals, mask, *heal_knobs),
+               lambda: forecast.forecast_plain(vals, mask, *heal_knobs), None,
+               nb, 12 * FORECAST_E * W * FORECAST_M, f"E={FORECAST_E} W={W} M={FORECAST_M}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the self-healing service
+# ---------------------------------------------------------------------------
+# The heal script at e2e-1000b-50000p through the JAX reference (JAX 0.9.0,
+# JAX_PLATFORMS=cpu, a fresh interpreter): ``python tests/torch_reference.py
+# heal-e2e``, the rows of ``cruise_control_tpu_torch.analyzer.heal_script.
+# heal_script`` (sha256 digests: their first 16 hex digits).
+HEAL_ORACLE = [{'step': 'broker_failure',
+  'detected': 2,
+  'handled': [[{'type': 'BROKER_FAILURE', 'action': 'CHECK', 'fix': None, 'error': None},
+               {'type': 'GOAL_VIOLATION', 'action': 'IGNORE', 'fix': None, 'error': None}],
+              [{'type': 'BROKER_FAILURE',
+                'action': 'FIX',
+                'fix': {'operation': 'REMOVE_BROKER',
+                        'executed': True,
+                        'proposals': 34565,
+                        'proposals_sha': '718a41f7b63601cc'},
+                'error': None}]],
+  'census': {'state': 'NO_TASK_IN_PROGRESS',
+             'total': 63472,
+             'by_state': {'COMPLETED': 63472},
+             'executions': 1,
+             'completed_total': 63472},
+  'sim_ms': 490000.0,
+  'assignment': '0c50bacc5b8cd11a'},
+ {'step': 'disk_failure',
+  'detected': 1,
+  'handled': [[{'type': 'DISK_FAILURE',
+                'action': 'FIX',
+                'fix': {'operation': 'FIX_OFFLINE_REPLICAS',
+                        'executed': True,
+                        'proposals': 121,
+                        'proposals_sha': '5616fbdc861262df'},
+                'error': None}],
+              []],
+  'census': {'state': 'NO_TASK_IN_PROGRESS',
+             'total': 205,
+             'by_state': {'COMPLETED': 205},
+             'executions': 2,
+             'completed_total': 63677},
+  'sim_ms': 710000.0,
+  'assignment': '8e6db39fc2577147'},
+ {'step': 'predicted_breach',
+  'detected': 1,
+  'handled': [[{'type': 'PREDICTED_GOAL_VIOLATION',
+                'action': 'FIX',
+                'fix': {'operation': 'forecast_heal',
+                        'executed': True,
+                        'proposals': 1,
+                        'proposals_sha': 'b181409496cb644d'},
+                'error': None}]],
+  'census': {'state': 'NO_TASK_IN_PROGRESS',
+             'total': 2,
+             'by_state': {'COMPLETED': 2},
+             'executions': 3,
+             'completed_total': 63679},
+  'sim_ms': 720000.0,
+  'assignment': '40af3afbc01f1011',
+  'forecast': 'e28d9abca45f2937',
+  'forecast_shape': [50000, 10],
+  'rising': True,
+  'predicted': ['NetworkOutboundCapacityGoal'],
+  'predictions': 1,
+  'speculative': {'installs': 1, 'hits': 1, 'stale': 0},
+  'cached_proposals': 8311,
+  'cached_violated_after': ['CpuCapacityGoal', 'ReplicaDistributionGoal']}]
+
+
+HEAL_PROFILED = ("detect a", "fix a", "fix b", "detect c", "fix c")
+
+
+def heal_phase(torch, profile: bool = False) -> dict:
+    """``heal_script`` at e2e-1000b-50000p through the port's
+    ``CruiseControl(device="cuda")`` twice, the launch counts zeroed just
+    before and read just after: the broker failure (CHECK, then the FIX's
+    evacuation executed on ``SimClock``), the disk failure (FIX of the
+    offline replicas on the resident session), the predicted breach (K15's
+    forecast, the PREDICTED verdict, the pre-breach heal and the speculative
+    install). Every row must be the JAX reference's, and the two runs the
+    same bits. ``profile`` adds a third run whose detection and FIX steps
+    run under torch.profiler."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer.heal_script import (
+        HEAL_E2E, heal_script, port_heal_ns,
+    )
+    walls = []
+
+    def timer_for(run_walls):
+        import contextlib
+
+        @contextlib.contextmanager
+        def timer(label):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            run_walls[label] = time.perf_counter() - t0
+        return timer
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    runs = []
+    for _ in range(2):
+        run_walls = {}
+        t_run = time.perf_counter()
+        runs.append(heal_script(port_heal_ns("cuda"), HEAL_E2E, timer=timer_for(run_walls)))
+        torch.cuda.synchronize()
+        run_walls["script"] = time.perf_counter() - t_run
+        walls.append(run_walls)
+    total = time.perf_counter() - t0
+    launches, shapes = K.launches(), K.launch_shapes()
+    log(f"heal: kernel launches {launches}")
+    log(f"heal: launches by shape {json.dumps(shapes)}")
+    for i, rows in enumerate(runs):
+        for got, want in zip(rows, HEAL_ORACLE):
+            diff = {k: (got.get(k), want[k]) for k in want if got.get(k) != want[k]}
+            require(not diff, f"heal run {i + 1} {want['step']} differs from the JAX "
+                              f"reference: {diff}")
+        require(len(rows) == len(HEAL_ORACLE), f"heal run {i + 1}: {len(rows)} steps")
+    require(runs[0] == runs[1], "heal: the second run differs from the first")
+    prev_ms = 0.0
+    for row in runs[0]:
+        handled = [[(h["type"], h["action"]) + ((h["fix"]["operation"], h["fix"]["proposals"])
+                                                if h["fix"] else ()) for h in hs]
+                   for hs in row["handled"]]
+        log(f"heal {row['step']}: handled {handled}; executor census "
+            f"{row['census']['by_state']} ({row['census']['total']} tasks), executor run "
+            f"{row['sim_ms'] - prev_ms:.1f} simulated ms; assignment {row['assignment']}: "
+            f"the JAX reference's row" + (f"; forecast {row['forecast_shape']} sha256 "
+                                         f"{row['forecast']}, predicted {row['predicted']}, "
+                                         f"speculative {row['speculative']}"
+                                         if "forecast" in row else ""))
+        prev_ms = row["sim_ms"]
+    log("heal: the second run (a fresh backend and facade) is bit-identical to the first")
+    for i, w in enumerate(walls):
+        log(f"heal run {i + 1} walls (s): detection rounds a/b/c {w['detect a']:.6f} / "
+            f"{w['detect b']:.6f} / {w['detect c']:.6f}; FIX rounds (optimize and "
+            f"execute) a/b/c {w['fix a']:.6f} / {w['fix b']:.6f} / {w['fix c']:.6f}; "
+            f"forecast {w['forecast']:.6f}; the whole script {w['script']:.6f}")
+    require(launches["forecast"] > 0, f"K15 never launched on the heal path: {launches}")
+    require(all(launches[n] > 0 for n in FIVE_GOAL_KERNELS),
+            f"a kernel of the heal path's optimize rounds never launched: {launches}")
+    log(f"heal: both runs {total:.6f} s")
+    if profile:
+        import contextlib
+
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        @contextlib.contextmanager
+        def profiled(label):
+            if label not in HEAL_PROFILED:
+                yield
+                return
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                yield
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            profile_report(prof, wall, f"heal {label}")
+        heal_script(port_heal_ns("cuda"), HEAL_E2E, timer=profiled)
+    return dict(launches=launches, shapes=shapes, walls=walls)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2592,6 +2846,8 @@ def main() -> int:
     phase("phase 3: K1-K7 at the 7,000-broker shapes")
     rung_kernel_checks(torch, r4, entries, "rung 4")
     rung_kernel_checks(torch, r5, entries, "rung 5")
+    phase("phase 3: K15, the forecaster's kernel")
+    forecast_kernel_checks(torch, entries, args.seed)
     phase("phase 3: the K1 keying kernel")
     key_kernel_checks(torch, [("slice", env, st), ("jbod-1000b", jctx["env"], jctx["st"]),
                               ("rung 4", r4["env"], r4["st"]),
@@ -2651,7 +2907,7 @@ def main() -> int:
     launches = chain["launches"]
     require(all(n > 0 for name, n in launches.items()
                 if not name.startswith("swap_")
-                and name not in JBOD_KERNELS + SESSION_KERNELS),
+                and name not in JBOD_KERNELS + SESSION_KERNELS + HEAL_KERNELS),
             f"a kernel of the eleven-goal path never launched: {launches}")
     Kf = min(params.finisher_candidates, pct.num_replicas)
     W = max(1, min(params.finisher_waves, pct.num_replicas // max(Kf, 1)))
@@ -2673,7 +2929,7 @@ def main() -> int:
                         ORACLE["default_slice"])
     launches, shapes = default["launches"], default["shapes"]
     require(all(n > 0 for name, n in launches.items()
-                if name not in JBOD_KERNELS + SESSION_KERNELS),
+                if name not in JBOD_KERNELS + SESSION_KERNELS + HEAL_KERNELS),
             f"a kernel of the sixteen-goal path never launched: {launches}")
     k = min(params.num_swap_candidates, pct.num_replicas, 128)
     for name, shape in (("swap_rows", f"pass [{k}, {k}]"), ("swap_admission", f"K1={k}")):
@@ -2684,7 +2940,8 @@ def main() -> int:
                      ORACLE["full_slice"])
     launches = full["launches"]
     require(all(n > 0 for name, n in launches.items()
-                if name not in ("disk_rows", "disk_apply") + SESSION_KERNELS),
+                if name not in ("disk_rows", "disk_apply") + SESSION_KERNELS
+                + HEAL_KERNELS),
             f"a kernel of the 18-goal path never launched: {launches}")
     require(launches["preferred_leader"] == 2,
             "the 18-goal chain's preferred-leader pass is one apply and one check")
@@ -2735,7 +2992,8 @@ def main() -> int:
                      "disk_apply", "replica_keys")
     for run, ctx_r, tag, need in (
             (rung4, r4, "rung 4 bf16", [n for n in K.KERNELS
-                                        if n not in JBOD_KERNELS + SESSION_KERNELS]),
+                                        if n not in JBOD_KERNELS + SESSION_KERNELS
+                                        + HEAL_KERNELS]),
             (rung5, r5, "rung 5 bf16", rung5_kernels)):
         R = ctx_r["env"].num_replicas
         require(run["shapes"]["replica_keys"].get(f"R={R} bf16", 0) > 0,
@@ -2749,6 +3007,10 @@ def main() -> int:
     profile_session = args.profile is not None and (not args.profile
                                                     or "session" in args.profile)
     session = session_phase(torch, entries, profile_session, args.seed)
+    # 7. the self-healing service (e2e-1000b-50000p)
+    phase("phase 7: self-healing service (e2e-1000b-50000p)")
+    heal = heal_phase(torch, args.profile is not None
+                      and (not args.profile or "heal" in args.profile))
     for en in entries.values():
         require(en.checks > 0 and en.timings, f"{en.name} was not checked")
     if args.profile is not None:
@@ -2756,7 +3018,7 @@ def main() -> int:
         runs = dict(zip(PROFILE_PATHS, (five, chain, default, full, kafka,
                                         *jbod.values(), steady, rung4, rung5)))
         for name in args.profile or PROFILE_PATHS:
-            if name != "session":
+            if name not in ("session", "heal"):
                 profile_run(torch, opt, *runs[name]["run"])
     for name, e in entries.items():
         for t in e.timings:
@@ -2764,15 +3026,16 @@ def main() -> int:
 
     paths = {"default": default, "full18": full, "kafka": kafka,
              **{f"jbod_{r}": v for r, v in jbod.items()}, "rung4": rung4, "rung5": rung5,
-             "session": session}
+             "session": session, "heal": heal}
     kernels = []
     for name, k in K.KERNELS.items():
         by_path = {p: v["launches"][name] for p, v in paths.items()}
         # the timed shapes of the earlier kernels are those of the earlier
-        # paths; the session kernels' those of the session path
+        # paths; the session kernels' those of the session path, K15's those
+        # of the heal path
         ran = {}
         for p, v in paths.items():
-            if (p == "session") != (name in SESSION_KERNELS):
+            if KERNEL_PATH.get(name) != (p if p in ("session", "heal") else None):
                 continue
             for shape, c in v["shapes"][name].items():
                 ran[shape] = ran.get(shape, 0) + c

@@ -181,6 +181,40 @@ class OptimizerResult:
     def violated_goals_after(self) -> list[str]:
         return [g.name for g in self.goal_results if g.violated_after]
 
+    def to_json(self) -> dict:
+        """optimizer.py:192: the reference's OptimizationResult schema
+        (``api.responses.optimization_result_json``) with the violated-goal
+        lists and the per-goal counters as extension fields."""
+        from cruise_control_tpu_torch.api.responses import optimization_result_json
+        out = optimization_result_json(
+            self,
+            num_windows=getattr(self, "num_windows", 1),
+            monitored_partitions_pct=getattr(self, "monitored_partitions_pct",
+                                             1.0))
+        out["summary"]["violatedGoalsBefore"] = self.violated_goals_before
+        out["summary"]["violatedGoalsAfter"] = self.violated_goals_after
+        if self.passes_dispatched or self.passes_skipped:
+            out["summary"]["passesDispatched"] = self.passes_dispatched
+            out["summary"]["passesSkipped"] = self.passes_skipped
+            out["summary"]["earlyExitGoals"] = self.early_exit_goals
+            out["summary"]["skippedGoals"] = self.skipped_goals
+        if self.parked_early or self.compacted_out:
+            out["summary"]["parkedEarly"] = self.parked_early
+            out["summary"]["compactedOut"] = self.compacted_out
+        for g, entry in zip(self.goal_results, out["goalSummary"]):
+            entry["iterations"] = g.iterations
+            entry["budgetExhausted"] = g.hit_max_iters
+            if g.escalations:
+                entry["escalations"] = g.escalations
+            if g.violated_after:
+                entry["fixpointProven"] = g.fixpoint_proven
+                if g.moves_remaining >= 0:
+                    entry["actionsRemaining"] = {
+                        "moves": g.moves_remaining,
+                        "leaderships": g.leads_remaining,
+                        "swapWindow": g.swap_window_remaining}
+        return out
+
 
 @dataclasses.dataclass
 class IncrementalCarryover:
@@ -303,13 +337,22 @@ def _pack_final(env: ClusterEnv, st: EngineState):
 
 class GoalOptimizer:
     def __init__(self, config=None, constraint: BalancingConstraint | None = None,
-                 engine_params: EngineParams | None = None, device="cuda"):
+                 engine_params: EngineParams | None = None, device="cuda",
+                 sensors=None, recorder=None):
         """optimizer.py:299-506: every knob from ``config`` (a
         ``config.cruise_control_config``), or the reference's defaults when
         it is None. ``analyzer.profile.level`` and the compile cache are
-        JAX-side knobs the port reads nothing from."""
+        JAX-side knobs the port reads nothing from. ``sensors`` (the
+        facade's ``MetricRegistry``) carries the proposal-computation-timer;
+        ``recorder`` is kept for the facade but records no round yet (the
+        flight recorder's ``round_trace``: ROADMAP Queue 1 item 7b)."""
+        from cruise_control_tpu_torch.common.sensors import MetricRegistry
         self.device = resolve_device(device)
         self._config = config
+        self._sensors = sensors if sensors is not None else MetricRegistry()
+        # GoalOptimizer.java:125 proposal-computation-timer
+        self._proposal_timer = self._sensors.timer("proposal-computation-timer")
+        self.recorder = recorder
         if constraint is None:
             constraint = (BalancingConstraint.from_config(config) if config is not None
                           else BalancingConstraint())
@@ -479,6 +522,63 @@ class GoalOptimizer:
             tml = np.pad(tml, (0, num_topics - tml.shape[0]))
         return tml
 
+    def warmup(self, num_brokers: int, num_replicas: int,
+               num_partitions: int | None = None, num_topics: int = 8,
+               num_racks: int = 4, logdirs_per_broker: int = 1,
+               max_replication: int | None = None,
+               goal_names: list[str] | None = None) -> dict:
+        """optimizer.py:516: one run over a synthetic cluster of this shape
+        with near-zero budgets, off the critical path. On the card it builds
+        every kernel library first (``kernels.build_all``), so the first real
+        round loads them instead of waiting for ``nvcc``. Returns
+        {"seconds", "shape", "goals"}."""
+        from cruise_control_tpu_torch.model.fixtures import synthetic_cluster
+        t0 = time.monotonic()
+        if self.device.type == "cuda":
+            from cruise_control_tpu_torch.kernels import build_all
+            build_all()
+        ct, meta = synthetic_cluster(
+            num_brokers, num_replicas, num_partitions=num_partitions,
+            num_topics=num_topics, num_racks=num_racks,
+            logdirs_per_broker=logdirs_per_broker,
+            max_replication=max_replication)
+        saved = self._params
+        self._params = dataclasses.replace(
+            saved, max_iters=1, stall_retries=0, tail_pass_budget=1,
+            tail_total_budget=1, sat_stall_retries=0, sat_tail_passes=1,
+            stat_window=1, finisher_rounds=min(saved.finisher_rounds, 1))
+        try:
+            self.optimizations(ct, meta, goal_names=goal_names,
+                               raise_on_failure=False,
+                               skip_hard_goal_check=True)
+        finally:
+            self._params = saved
+        return {"seconds": round(time.monotonic() - t0, 3),
+                "shape": {"brokers": ct.num_brokers,
+                          "replicas": ct.num_replicas,
+                          "partitions": ct.num_partitions,
+                          "topics": ct.num_topics},
+                "goals": list(goal_names or self._default_goal_names)}
+
+    def violated_goals(self, ct: ClusterTensor, meta: ClusterMeta,
+                       goal_names: list[str] | None = None,
+                       options: OptimizationOptions = OptimizationOptions(),
+                       ) -> list[str]:
+        """optimizer.py:688: names of the goals violated on ``ct`` as it is
+        (no optimization, no proposals): pad, upload and read every verdict
+        once. The predicted-violation detector's pre-breach guard."""
+        names = goal_names or self._default_goal_names
+        known = [n for n in names if n != "PreferredLeaderElectionGoal"]
+        goals = make_goals(known, self._constraint, options)
+        ct, meta = pad_cluster(ct, meta)
+        tml = self._min_leader_mask(meta, None, ct.num_topics)
+        env = make_env(ct, meta, topic_min_leaders_mask=tml,
+                       partition_table=padded_partition_table(ct),
+                       device=self.device)
+        st = init_state(env, ct.replica_broker, ct.replica_is_leader,
+                        ct.replica_offline, ct.replica_disk)
+        return [g.name for g, v in zip(goals, violations(goals, env, st)) if v]
+
     def optimizations(self, ct: ClusterTensor | None, meta: ClusterMeta | None = None,
                       goal_names: list[str] | None = None,
                       options: OptimizationOptions = OptimizationOptions(),
@@ -486,11 +586,40 @@ class GoalOptimizer:
                       raise_on_failure: bool = True,
                       measure_goal_durations: bool = False,
                       min_leader_topic_pattern: str | None = None,
-                      session=None) -> OptimizerResult:
+                      session=None, span=None) -> OptimizerResult:
         """Run the chain over ``ct`` / ``meta``, or, with ``session`` (a
         synced ``ResidentClusterSession``; ``ct`` and ``meta`` may be None),
         from the session's resident env and lent state: the service round of
-        optimizer.py:714-1378, with its memo, seeding and carryover."""
+        optimizer.py:714-1378, with its memo, seeding and carryover.
+
+        ``span`` (``common.tracing.Span``): the causal parent; the round
+        opens an "optimize" child under it, ended with the round's proposal
+        and movement counts (host-side only)."""
+        round_span = (span.child("optimize", "optimize-round")
+                      if span is not None else None)
+        with self._proposal_timer.time():
+            try:
+                res = self._optimizations(
+                    ct, meta, goal_names, options, skip_hard_goal_check,
+                    raise_on_failure, measure_goal_durations,
+                    min_leader_topic_pattern, session)
+            except OptimizationFailureError as e:
+                if round_span is not None and e.result is not None:
+                    self._end_round_span(round_span, e.result)
+                raise
+        if round_span is not None:
+            self._end_round_span(round_span, res)
+        return res
+
+    @staticmethod
+    def _end_round_span(round_span, res) -> None:
+        round_span.end(proposals=len(res.proposals),
+                       moves=res.num_replica_movements,
+                       leads=res.num_leadership_movements, round=None)
+
+    def _optimizations(self, ct, meta, goal_names, options, skip_hard_goal_check,
+                       raise_on_failure, measure_goal_durations,
+                       min_leader_topic_pattern, session) -> OptimizerResult:
         if measure_goal_durations:
             raise NotImplementedError("measure_goal_durations is not ported yet "
                                       "(ROADMAP.md Queue 1 item 7b, the rest)")

@@ -46,6 +46,18 @@ class ExecutionProposal:
     def has_leader_action(self) -> bool:
         return self.old_leader != self.new_leader
 
+    def data_to_move_mb(self, replica_disk_mb: float) -> float:
+        return replica_disk_mb * len(self.replicas_to_add)
+
+    def to_json(self) -> dict:
+        return {
+            "topicPartition": {"topic": self.topic, "partition": self.partition},
+            "oldLeader": self.old_leader,
+            "newLeader": self.new_leader,
+            "oldReplicas": [b for b, _ in self.old_replicas],
+            "newReplicas": [b for b, _ in self.new_replicas],
+        }
+
 
 class ProposalSet(Sequence):
     """Lazy sequence of ExecutionProposals over vectorized diff arrays."""

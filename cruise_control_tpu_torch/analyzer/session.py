@@ -55,6 +55,7 @@ from cruise_control_tpu_torch.analyzer.env import (
     make_env, padded_partition_table, resolve_device,
 )
 from cruise_control_tpu_torch.analyzer.state import state_from_assignment
+from cruise_control_tpu_torch.common.tracing import tree_device_bytes
 from cruise_control_tpu_torch.kernels import session_finalize
 from cruise_control_tpu_torch.model.cluster_tensor import pad_cluster
 from cruise_control_tpu_torch.model.delta import (
@@ -131,13 +132,6 @@ def _scatter_env(env, **writes):
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 {item})")
-
-
-def _tensor_bytes(obj) -> int:
-    if obj is None:
-        return 0
-    return sum(v.nbytes for v in (getattr(obj, f.name) for f in dataclasses.fields(obj))
-               if isinstance(v, torch.Tensor))
 
 
 class ResidentClusterSession:
@@ -378,12 +372,34 @@ class ResidentClusterSession:
     def readmit(self) -> bool:
         _not_ported("fleet spill and readmit", "item 13")
 
+    def pending_delta_json(self) -> dict:
+        """session.py:590: what the next optimize round's round delta holds."""
+        rd = self._round_delta
+        return {"churn": rd["churn"], "syncs": rd["syncs"],
+                "dirtyBrokers": len(rd["dirty_brokers"]),
+                "dirtyTopics": len(rd["dirty_topics"]),
+                "brokerFlips": rd["broker_flips"], "loadDrift": rd["load_drift"],
+                "rebuilt": rd["rebuilt"]}
+
+    def state_json(self) -> dict:
+        """session.py:605, served under the facade's AnalyzerState. The
+        shadow slot and fleet spill are not ported (0 and False)."""
+        return {"epoch": self.epoch, "rebuildRounds": self.rebuild_rounds,
+                "deltaRounds": self.delta_rounds,
+                "donatedRounds": self.donated_rounds, "shadowSyncs": 0,
+                "syncGeneration": self.sync_generation, "spilled": False,
+                "spills": 0, "readmits": 0,
+                "revalidatedRounds": self.revalidated_rounds,
+                "carryover": self.carryover is not None,
+                "pendingDelta": self.pending_delta_json(),
+                "lastSync": dict(self.last_sync_info)}
+
     def device_bytes(self) -> dict:
         """Resident device footprint {env_bytes, state_bytes}: the sums of
         the tensors' ``nbytes``; a lent state reads 0."""
         with self.lock:
-            return {"env_bytes": _tensor_bytes(self.env),
-                    "state_bytes": _tensor_bytes(self.state)}
+            return {"env_bytes": tree_device_bytes(self.env),
+                    "state_bytes": tree_device_bytes(self.state)}
 
     # ------------------------------------------------ state materialization
     def _put(self, a: np.ndarray) -> torch.Tensor:

@@ -176,14 +176,23 @@ class ConfigDef:
         return out
 
 
+REFERENCE_PACKAGE = "cruise_control_tpu."
+PORT_PACKAGE = "cruise_control_tpu_torch."
+
+
 def resolve_class(spec: Any):
-    """Resolve a dotted ``pkg.mod.Class`` path (or pass through a class)."""
+    """Resolve a dotted ``pkg.mod.Class`` path (or pass through a class).
+    A path into the reference's package (every class-valued default names
+    one) resolves to the port's class of the same module path, so the port
+    never imports the reference."""
     if isinstance(spec, type):
         return spec
     if callable(spec) and not isinstance(spec, str):
         return spec
     if not isinstance(spec, str):
         raise ConfigException(f"Cannot resolve class from {spec!r}")
+    if spec.startswith(REFERENCE_PACKAGE):
+        spec = PORT_PACKAGE + spec[len(REFERENCE_PACKAGE):]
     mod_name, _, cls_name = spec.rpartition(".")
     if not mod_name:
         raise ConfigException(f"Class spec {spec!r} must be a dotted path")

@@ -1,8 +1,9 @@
 """Framework config surface (counterpart of
 ``cruise_control_tpu/config/defaults.py``: every key and default verbatim,
 class-valued defaults included, so they still name the reference's classes;
-the port resolves none of them, its entry points take their collaborators
-as arguments).
+``configdef.resolve_class`` reads such a name as the port's class of the
+same module path. The monitor still takes its sampler, store and capacity
+resolver as arguments).
 
 Analogue of the reference's 8 config-constants classes
 (cruise-control/src/main/java/com/linkedin/kafka/cruisecontrol/config/constants/

@@ -7,9 +7,9 @@ ProvisionStatus model (UNDER_PROVISIONED / RIGHT_SIZED / OVER_PROVISIONED).
 ``GoalOptimizer.optimizations`` attaches ``recommendation_from_result`` to
 the ``OptimizationFailureError`` of a hard-goal failure, as the reference's
 OptimizationFailureException carries one; ``ProvisionFloors.from_config``
-reads the floors' ``overprovisioned.*`` keys. The provisioner SPI itself
-(``NoopProvisioner``, ``SimulatedProvisioner``) is ROADMAP.md Queue 1 item
-12.
+reads the floors' ``overprovisioned.*`` keys. The provisioner SPI
+(``NoopProvisioner``, and ``SimulatedProvisioner``, which resizes a
+simulated backend) is the one the facade's ``provisioner.class`` resolves.
 """
 from __future__ import annotations
 
@@ -38,6 +38,148 @@ class ProvisionRecommendation:
     def to_json(self) -> dict:
         return {"status": self.status.value, "numBrokers": self.num_brokers,
                 "reason": self.reason}
+
+
+class NoopProvisioner:
+    def configure(self, config, **extra):
+        pass
+
+    def rightsize(self, recommendations: list, context: dict | None = None) -> bool:
+        """Returns True if any action was taken (never, for noop)."""
+        return False
+
+
+class SimulatedProvisioner:
+    """Actuating Provisioner for simulated backends.
+
+    The reference ships the SPI plus NoopProvisioner and leaves real
+    actuation to deployment plugins (a cloud autoscaler behind
+    ``Provisioner.rightsize``). Against a SimulatedClusterBackend the loop
+    can be closed for real: UNDER_PROVISIONED adds brokers to the backend
+    (rack chosen to balance the existing rack layout, capacities cloned from
+    an existing broker), OVER_PROVISIONED drains the emptiest high-id brokers
+    through the facade and decommissions them. Every actuation lands in
+    ``history`` (on the backend clock) so scenario timelines and chaos
+    campaigns can assert the detect -> rightsize -> actuate -> re-converge
+    chain deterministically.
+
+    Guard rails: a cooldown between actuations (``provision.actuation.
+    cooldown.ms`` — a detector re-asserting UNDER before the resize has
+    effect must not add again) and a lifetime add cap (``provision.max.
+    added.brokers`` — also keeps sim clusters inside their padded engine
+    shape bucket). Actuation is skipped while a proposal execution is in
+    flight: resizing under a moving cluster is how real autoscalers cause
+    outages.
+    """
+
+    def __init__(self):
+        self._backend = None
+        self._cc = None
+        self.cooldown_ms = 600_000.0
+        self.max_added_brokers = 4
+        self.num_added = 0
+        self.history: list[dict] = []
+        self._last_action_ms = -1e18
+
+    def configure(self, config, backend=None, cruise_control=None, **extra):
+        if backend is not None:
+            self._backend = backend
+        if cruise_control is not None:
+            self._cc = cruise_control
+        # the app wiring reads the keys once and hands them down; direct
+        # construction (tests/tools) may pass a config instead
+        if "actuation_cooldown_ms" in extra:
+            self.cooldown_ms = float(extra["actuation_cooldown_ms"])
+        elif config is not None:
+            self.cooldown_ms = float(config.get_int(
+                "provision.actuation.cooldown.ms"))
+        if "max_added_brokers" in extra:
+            self.max_added_brokers = int(extra["max_added_brokers"])
+        elif config is not None:
+            self.max_added_brokers = config.get_int(
+                "provision.max.added.brokers")
+
+    # ------------------------------------------------------------------ SPI
+    def rightsize(self, recommendations: list, context: dict | None = None) -> bool:
+        be = self._backend
+        if be is None or not hasattr(be, "add_broker"):
+            return False
+        now = float(be.now_ms())
+        if now - self._last_action_ms < self.cooldown_ms:
+            return False
+        cc = self._cc
+        if cc is not None and cc.executor.has_ongoing_execution():
+            return False
+        acted = False
+        for rec in recommendations:
+            if rec.status is ProvisionStatus.UNDER_PROVISIONED:
+                acted = self._add_brokers(rec, now) or acted
+            elif rec.status is ProvisionStatus.OVER_PROVISIONED:
+                acted = self._remove_brokers(rec, now) or acted
+        if acted:
+            self._last_action_ms = now
+        return acted
+
+    # ------------------------------------------------------------ actuation
+    def _add_brokers(self, rec: "ProvisionRecommendation", now: float) -> bool:
+        be = self._backend
+        brokers = be.brokers()
+        n = min(max(rec.num_brokers, 1),
+                self.max_added_brokers - self.num_added)
+        if n <= 0 or not brokers:
+            return False
+        # clone the lowest-id alive broker's hardware shape; place each new
+        # broker on the currently least-populated rack (ties by rack name) so
+        # rack-aware goals stay satisfiable as the cluster grows
+        template_id = min(b for b, node in brokers.items() if node.alive)
+        template = brokers[template_id]
+        rack_counts: dict[str, int] = {}
+        for node in brokers.values():
+            rack_counts[node.rack] = rack_counts.get(node.rack, 0) + 1
+        next_id = max(brokers) + 1
+        for i in range(n):
+            rack = min(sorted(rack_counts), key=lambda r: rack_counts[r])
+            be.add_broker(next_id + i, rack=rack,
+                          logdirs=dict(template.logdirs),
+                          cpu_capacity=template.cpu_capacity,
+                          nw_in_capacity=template.nw_in_capacity,
+                          nw_out_capacity=template.nw_out_capacity)
+            rack_counts[rack] += 1
+            self.history.append({"ms": now, "action": "add_broker",
+                                 "broker": next_id + i, "rack": rack,
+                                 "reason": rec.reason})
+        self.num_added += n
+        return True
+
+    def _remove_brokers(self, rec: "ProvisionRecommendation", now: float) -> bool:
+        be = self._backend
+        brokers = be.brokers()
+        counts = {b: 0 for b, node in brokers.items() if node.alive}
+        for info in be.partitions().values():
+            for b in info.replicas:
+                if b in counts:
+                    counts[b] += 1
+        # emptiest first, highest id breaking ties (scale-down retires the
+        # newest hardware first)
+        candidates = sorted(counts, key=lambda b: (counts[b], -b))
+        n = max(rec.num_brokers, 1)
+        acted = False
+        for b in candidates[:n]:
+            if counts[b] > 0:
+                if self._cc is None:
+                    continue
+                # drain through the same facade path operators use; any
+                # failure (unsatisfiable evacuation) simply leaves the broker
+                self._cc.remove_brokers(
+                    [b], reason=f"provisioner right-size: {rec.reason}")
+                if any(b in info.replicas
+                       for info in be.partitions().values()):
+                    continue
+            be.decommission_broker(b)
+            self.history.append({"ms": now, "action": "remove_broker",
+                                 "broker": b, "reason": rec.reason})
+            acted = True
+        return acted
 
 
 @dataclasses.dataclass

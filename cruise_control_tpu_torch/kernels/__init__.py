@@ -9,6 +9,7 @@ from cruise_control_tpu_torch.kernels.admission import wave_admission
 from cruise_control_tpu_torch.kernels.build import KERNELS, build_all
 from cruise_control_tpu_torch.kernels.disk import disk_apply, disk_rows
 from cruise_control_tpu_torch.kernels.finalize import session_finalize
+from cruise_control_tpu_torch.kernels.forecast import forecast_batch
 from cruise_control_tpu_torch.kernels.keys import KEY_FAMILY_LAUNCHES, replica_keys
 from cruise_control_tpu_torch.kernels.leadership import leadership_rows
 from cruise_control_tpu_torch.kernels.move_score import FAMILY_LAUNCHES, move_score_classes
@@ -38,7 +39,7 @@ def launch_shapes() -> dict:
 
 __all__ = [
     "FAMILY_LAUNCHES", "KEY_FAMILY_LAUNCHES", "KERNELS", "build_all", "compact_eligible",
-    "disk_apply", "disk_rows", "launch_shapes", "launches", "leadership_rows",
+    "disk_apply", "disk_rows", "forecast_batch", "launch_shapes", "launches", "leadership_rows",
     "move_score_classes", "preferred_leader", "replica_keys", "reset_launches",
     "seeded_probe", "segment_count", "segment_sum", "select_candidates",
     "session_finalize", "swap_admission", "swap_rows", "wave_admission",

@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("select_candidates", "move_score", "wave_admission", "segment_sum",
            "leadership_score", "swap", "disk_move", "preferred_leader", "replica_keys",
-           "session_finalize", "seeded_probe")
+           "session_finalize", "seeded_probe", "forecast")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

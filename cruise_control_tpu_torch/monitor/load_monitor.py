@@ -5,9 +5,9 @@ The port's copy differs in what it wires from the config: it never resolves
 a class-valued key (their defaults name the reference's classes), so the
 sampler, a sample store, a capacity resolver and a partition assignor come
 in as arguments (defaults: no store, ``DefaultCapacityResolver``, the
-fetcher's own assignor); the sensors are a no-op registry until
-``common/sensors.py`` is ported, and a backend failure behind the fault
-tolerance seam raises the port's own ``ServiceUnavailableError``.
+fetcher's own assignor). Its sensors are ``common.sensors.MetricRegistry``
+(the facade's, or a private one), and a backend failure behind the fault
+tolerance seam raises ``common.retries.ServiceUnavailableError``.
 
 Reference: monitor/LoadMonitor.java:78 — owns the aggregators, metadata
 client and capacity resolver; ``clusterModel(from, to, requirements, ...)``
@@ -24,7 +24,6 @@ weights (monitor/cpu_model.py).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import threading
 import time
@@ -32,6 +31,8 @@ import time
 import numpy as np
 
 from cruise_control_tpu_torch.common.resources import Resource
+from cruise_control_tpu_torch.common.retries import ServiceUnavailableError
+from cruise_control_tpu_torch.common.sensors import MetricRegistry
 from cruise_control_tpu_torch.model.builder import ClusterModelBuilder
 from cruise_control_tpu_torch.monitor.aggregator.sample_aggregator import MetricSampleAggregator
 from cruise_control_tpu_torch.monitor.capacity import DefaultCapacityResolver
@@ -43,43 +44,6 @@ from cruise_control_tpu_torch.monitor.metricdef import (
     BROKER_METRIC_DEF, PARTITION_METRIC_DEF,
 )
 from cruise_control_tpu_torch.monitor.sampling.samplers import Samples
-
-
-class ServiceUnavailableError(Exception):
-    """A metadata read behind the fault-tolerance seam failed (the
-    reference's ``common.retries.ServiceUnavailableError``): a declared
-    degraded read that carries when to retry."""
-
-    def __init__(self, message: str, retry_after_s: float = 1.0):
-        super().__init__(message)
-        self.retry_after_s = retry_after_s
-
-
-class _NoTimer:
-    def time(self):
-        return contextlib.nullcontext()
-
-    def record(self, _seconds) -> None:
-        pass
-
-
-class _NoMeter:
-    def mark(self, _n: int = 1) -> None:
-        pass
-
-
-class NoSensors:
-    """The sensor registry's surface that the monitor calls, recording
-    nothing (``common/sensors.py`` is not ported yet)."""
-
-    def timer(self, _name):
-        return _NoTimer()
-
-    def meter(self, _name):
-        return _NoMeter()
-
-    def gauge(self, _name, _fn) -> None:
-        pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +93,7 @@ class LoadMonitor:
                  capacity_resolver=None, sensors=None, recorder=None,
                  fault_tolerance=None, tracer=None, cluster_id=None,
                  assignor=None, on_execution_store=None):
-        self._sensors = sensors if sensors is not None else NoSensors()
+        self._sensors = sensors if sensors is not None else MetricRegistry()
         # fleet mode (PR 13): which tenant cluster this monitor (and its
         # per-tenant aggregators) belongs to — a label for state/logs only
         self.cluster_id = cluster_id

@@ -88,6 +88,52 @@ def test_session_slice_modules_are_scanned():
             "cruise_control_tpu_torch.kernels.probe"} <= set(MODULES)
 
 
+def test_self_healing_slice_modules_are_scanned():
+    """The self-healing slice's modules (sensors, retries, tracing, the
+    executor, the detectors and their manager, the forecaster and K15, the
+    facade, its result renderers and the heal script) are among the modules
+    imported with JAX blocked and scanned above."""
+    assert {"cruise_control_tpu_torch.common.sensors",
+            "cruise_control_tpu_torch.common.retries",
+            "cruise_control_tpu_torch.common.tracing",
+            "cruise_control_tpu_torch.executor", "cruise_control_tpu_torch.executor.task",
+            "cruise_control_tpu_torch.executor.strategy",
+            "cruise_control_tpu_torch.executor.planner",
+            "cruise_control_tpu_torch.executor.notifier",
+            "cruise_control_tpu_torch.executor.executor",
+            "cruise_control_tpu_torch.detector.anomalies",
+            "cruise_control_tpu_torch.detector.notifier",
+            "cruise_control_tpu_torch.detector.metric_anomaly",
+            "cruise_control_tpu_torch.detector.topic_anomaly",
+            "cruise_control_tpu_torch.detector.maintenance",
+            "cruise_control_tpu_torch.detector.detectors",
+            "cruise_control_tpu_torch.detector.manager",
+            "cruise_control_tpu_torch.reporter.topic",
+            "cruise_control_tpu_torch.forecast",
+            "cruise_control_tpu_torch.forecast.forecaster",
+            "cruise_control_tpu_torch.kernels.forecast",
+            "cruise_control_tpu_torch.api.responses",
+            "cruise_control_tpu_torch.app",
+            "cruise_control_tpu_torch.analyzer.heal_script"} <= set(MODULES)
+
+
+def test_reference_class_names_resolve_to_the_port():
+    """Every class-valued default names a reference class; the port's
+    resolver reads it as the port's class of the same module path, so the
+    facade's wiring imports nothing of the JAX package."""
+    from cruise_control_tpu_torch.config import cruise_control_config, resolve_class
+    from cruise_control_tpu_torch.detector.notifier import SelfHealingNotifier
+    cfg = cruise_control_config()
+    assert cfg.get_class("anomaly.notifier.class") is SelfHealingNotifier
+    for key in ("provisioner.class", "metric.anomaly.finder.class",
+                "maintenance.event.reader.class", "optimization.options.generator.class",
+                "metric.sampler.class", "broker.capacity.config.resolver.class",
+                "executor.notifier.class", "topic.config.provider.class",
+                "broker.failures.class", "goal.violations.class", "disk.failures.class"):
+        assert cfg.get_class(key).__module__.startswith("cruise_control_tpu_torch."), key
+    assert resolve_class("collections.OrderedDict").__name__ == "OrderedDict"
+
+
 def test_forbidden_pattern_tells_the_packages_apart():
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("from cruise_control_tpu.analyzer import engine")
@@ -138,7 +184,7 @@ def test_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
                                  "swap_rows", "swap_admission", "disk_rows",
                                  "disk_apply", "preferred_leader", "replica_keys",
                                  "session_finalize", "select_candidates_masked",
-                                 "seeded_probe"}
+                                 "seeded_probe", "forecast"}
 
 
 def test_new_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():

@@ -21,8 +21,12 @@ from cruise_control_tpu_torch.analyzer.session_script import (
     SESSION_SMALL, port_ns, session_backend,
 )
 from cruise_control_tpu_torch.model import delta as port_delta
+from cruise_control_tpu_torch.common.retries import (
+    ServiceUnavailableError as RetriesServiceUnavailableError,
+)
+from cruise_control_tpu_torch.common.sensors import MetricRegistry
 from cruise_control_tpu_torch.monitor.load_monitor import (
-    LoadMonitor, NoSensors, ServiceUnavailableError,
+    LoadMonitor, ServiceUnavailableError,
 )
 from torch_reference import (
     monitored, reference_session_ns, scripted_delta_stream, session_test_backend,
@@ -156,12 +160,14 @@ def test_diff_snapshots_and_dirty_sets_equal(mutation):
 
 def test_monitor_runs_without_the_reference_classes():
     """The port's monitor resolves no class-valued config key (their
-    defaults name the reference's classes) and has its own sensors and
-    degraded-read error."""
+    defaults name the reference's classes); its sensors are the port's
+    ``MetricRegistry`` and its degraded-read error the port's
+    ``common.retries.ServiceUnavailableError``."""
     be = session_test_backend(PORT)
     lm = monitored(PORT, be, config=PORT["cruise_control_config"]())
     assert lm._store is None and lm.on_execution_store is None
-    assert isinstance(lm._sensors, NoSensors)
+    assert isinstance(lm._sensors, MetricRegistry)
+    assert ServiceUnavailableError is RetriesServiceUnavailableError
     assert lm.num_valid_windows >= 1
 
     class Breaker:

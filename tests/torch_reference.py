@@ -664,11 +664,252 @@ def reference_gating_cases(tmp_path: Path, names=tuple(GATING_CONFIGS),
         return pickle.load(f)
 
 
+# ---------------------------------------------------------------------------
+# The self-healing service (the facade, the detectors, the forecaster)
+# ---------------------------------------------------------------------------
+def reference_heal_ns() -> dict:
+    """The reference's classes for ``heal_script``
+    (``cruise_control_tpu_torch/analyzer/heal_script.py``) and the facade
+    cases below."""
+    from cruise_control_tpu.app import CruiseControl
+    from cruise_control_tpu.backend.simulated import SimulatedClusterBackend
+    from cruise_control_tpu.config import cruise_control_config
+    return dict(CruiseControl=CruiseControl,
+                SimulatedClusterBackend=SimulatedClusterBackend,
+                cruise_control_config=cruise_control_config)
+
+
+def facade_backend(ns, n_brokers=4, rf=2, n_parts=8):
+    """tests/test_detector.py ``_backend``."""
+    be = ns["SimulatedClusterBackend"]()
+    for b in range(n_brokers):
+        be.add_broker(b, f"r{b % 2}")
+    for p in range(n_parts):
+        replicas = [(p + i) % n_brokers for i in range(rf)]
+        be.create_partition("t", p, replicas, size_mb=100.0, bytes_in_rate=50.0,
+                            bytes_out_rate=100.0, cpu_util=2.0)
+    return be
+
+
+def facade(ns, be, extra_config=None):
+    """tests/test_detector.py ``_cc``: a started facade with 20 sampled
+    windows."""
+    props = {"self.healing.enabled": True,
+             "broker.failure.alert.threshold.ms": 100,
+             "broker.failure.self.healing.threshold.ms": 200,
+             "self.healing.target.topic.replication.factor": 2}
+    props.update(extra_config or {})
+    cc = ns["CruiseControl"](be, ns["cruise_control_config"](props), **ns.get("kw", {}))
+    cc.start_up()
+    for i in range(20):
+        cc.load_monitor.sample_once(now_ms=i * 60_000.0)
+    return cc
+
+
+def _handled_rows(entries) -> list:
+    return [(h["anomaly"]["type"], h["action"], "fixResult" in h, h.get("fixError"))
+            for h in entries]
+
+
+def _assignment(be) -> list:
+    return [(tp, list(p.replicas), p.leader) for tp, p in sorted(be.partitions().items())]
+
+
+FACADE_CASES = ("broker_failure", "deferred_check", "goal_violation", "maintenance",
+                "admin")
+
+
+def facade_case(ns, name: str, tmp: str) -> dict:
+    """One of tests/test_detector.py's facade cases (and the lend protocol
+    across a FIX), through either package's ``CruiseControl``; plain values."""
+    import os
+    if name in ("broker_failure", "deferred_check"):
+        be = facade_backend(ns)
+        cc = facade(ns, be)
+        dead = 3 if name == "broker_failure" else 2
+        be.kill_broker(dead)
+        ad = cc.anomaly_detector
+        t = be.now_ms() + 1000
+        n = ad.run_detection_round(now_ms=t)
+        h1 = ad.handle_anomalies(now_ms=t)
+        queued, deferred = ad.num_queued(), len(ad._deferred)
+        early = ad.handle_anomalies(now_ms=t + 50) if name == "deferred_check" else []
+        h2 = ad.handle_anomalies(now_ms=t + 10_000)
+        st = ad.state_json()
+        return dict(n=n, h1=_handled_rows(h1), queued=queued, deferred=deferred,
+                    early=_handled_rows(early), h2=_handled_rows(h2),
+                    deferred_after=len(ad._deferred),
+                    actions=st["numSelfHealingActions"],
+                    evacuated=all(dead not in p.replicas
+                                  for p in be.partitions().values()),
+                    assignment=_assignment(be),
+                    census=cc.executor.state_json().get("numTasksByState"))
+    if name == "goal_violation":
+        be = ns["SimulatedClusterBackend"]()
+        for b in range(3):
+            be.add_broker(b, f"r{b}")
+        for p in range(6):
+            be.create_partition("t", p, [0], size_mb=50_000.0, bytes_in_rate=100.0,
+                                bytes_out_rate=100.0, cpu_util=5.0)
+        cc = facade(ns, be, {"anomaly.detection.goals":
+                             "DiskCapacityGoal,ReplicaDistributionGoal"})
+        found = cc.goal_violation_detector.run_once(0.0)
+        return dict(types=[a.anomaly_type.name for a in found],
+                    fixable=[list(a.violated_goals_fixable) for a in found],
+                    unfixable=[list(a.violated_goals_unfixable) for a in found],
+                    balancedness=float(cc.goal_violation_detector.last_balancedness))
+    if name == "maintenance":
+        import json
+        be = facade_backend(ns)
+        with open(os.path.join(tmp, "maintenance_events.jsonl"), "w") as f:
+            f.write(json.dumps({"type": "REBALANCE"}) + "\n")
+        cc = facade(ns, be, {"maintenance.event.path": tmp,
+                             "maintenance.event.self.healing.enabled": True})
+        n = cc.anomaly_detector.run_detection_round(now_ms=1e9)
+        h = cc.anomaly_detector.handle_anomalies(now_ms=1e9)
+        return dict(n=n, handled=_handled_rows(h), assignment=_assignment(be),
+                    census=cc.executor.state_json().get("numTasksByState"))
+    if name == "lend":
+        # a FIX round on the resident session (a dead disk: fix offline
+        # replicas): the final_state the session carries from the detection
+        # round before it is left as it was (the lend protocol)
+        be = facade_backend(ns, n_brokers=6, n_parts=12)
+        cc = facade(ns, be)
+        sess = cc.resident_session
+        be.fail_disk(5, "/logdir0")
+        ad = cc.anomaly_detector
+        t = be.now_ms() + 1000
+        n = ad.run_detection_round(now_ms=t)
+        carried = sess.carryover.result.final_state
+        before = {k: _np(getattr(carried, k)).copy()
+                  for k in ("replica_broker", "replica_is_leader", "util")}
+        h = ad.handle_anomalies(now_ms=t)
+        after = {k: _np(getattr(carried, k)) for k in before}
+        return dict(n=n, handled=_handled_rows(h), rounds=sess.delta_rounds
+                    + sess.rebuild_rounds,
+                    unchanged={k: bool((before[k] == after[k]).all()) for k in before},
+                    digests={k: hashlib_digest(before[k]) for k in before},
+                    assignment=_assignment(be))
+    if name == "admin":
+        # the facade's admin and state surface on a quiet cluster
+        be = facade_backend(ns)
+        cc = facade(ns, be)
+        out = dict(pause=cc.pause_sampling("maintenance window"),
+                   resume=cc.resume_sampling("done"),
+                   stop=cc.stop_proposal_execution(),
+                   admin=cc.admin(disable_self_healing_for=["broker_failure"],
+                                  enable_self_healing_for=["disk_failure"],
+                                  concurrent_leader_movements=123,
+                                  drop_recently_removed_brokers=[1]))
+        try:
+            cc.admin(disable_self_healing_for=["no_such_type"])
+            out["bad_admin"] = None
+        except ValueError as e:
+            out["bad_admin"] = str(e)
+        st = cc.state_json(["MONITOR", "EXECUTOR", "ANALYZER", "ANOMALY_DETECTOR",
+                            "FORECAST", "SENSORS"])
+        out["state_keys"] = sorted(st)
+        out["analyzer"] = {k: v for k, v in st["AnalyzerState"].items()
+                           if k != "residentSession"}
+        ad_state = st["AnomalyDetectorState"]
+        out["detector"] = dict(enabled=ad_state["selfHealingEnabled"],
+                               detectors=ad_state["registeredDetectors"],
+                               intervals=ad_state["detectionIntervalsMs"])
+        out["executor_state"] = st["ExecutorState"]["state"]
+        out["forecast"] = st["ForecastState"]
+        out["monitor_state"] = st["MonitorState"].get("state")
+        health = cc.health_json()
+        out["health"] = dict(status=health["status"], role=health["role"],
+                             degraded=health["degraded"],
+                             breached=health["slo"]["breached"])
+        out["sensors"] = sorted(n for n in st["Sensors"] if not n.startswith("xla-"))
+        out["metrics_lines"] = sorted(
+            line.split("{")[0].split(" ")[0] for line in cc.metrics_text().splitlines()
+            if line and not line.startswith("#") and "xla_compile" not in line)
+        out["spec"] = cc.speculative_state_json()
+        cc.shutdown()
+        return out
+    raise ValueError(name)
+
+
+def hashlib_digest(a) -> str:
+    import hashlib
+    import numpy as np
+    a = np.asarray(a)
+    a = a.astype(np.float32 if a.dtype.kind == "f" else np.int64)
+    return hashlib.sha256(a.tobytes()).hexdigest()[:16]
+
+
+_FACADE_CHILD = r"""
+import json, pickle, sys
+from cruise_control_tpu_torch.analyzer.heal_script import heal_script
+from torch_reference import facade_case, reference_heal_ns
+args = json.loads(sys.argv[1])
+ns = reference_heal_ns()
+out = {"heal": [heal_script(ns, spec) for spec in args["heal"]]}
+out.update({name: facade_case(ns, name, args["tmp"]) for name in args["cases"]})
+with open(args["out"], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def reference_facade(tmp_path: Path, cases=FACADE_CASES, heal=(),
+                     timeout: int = 900) -> dict:
+    """The reference's ``facade_case`` results for ``cases`` and its
+    ``heal_script`` rows for each spec of ``heal`` (under ``"heal"``), all
+    in ONE fresh interpreter: the reference's facade compiles its goal
+    chains there, never inside a test worker. (``facade_case("lend")`` is
+    the port's check alone; any case runs here.)"""
+    out = tmp_path / "reference_facade.pkl"
+    case_dir = tmp_path / "reference_facade"
+    case_dir.mkdir(exist_ok=True)
+    _run_child(_FACADE_CHILD, dict(cases=list(cases), heal=list(heal),
+                                   tmp=str(case_dir), out=str(out)), timeout)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+# ---------------------------------------------------------------------------
+# Reference runs of the host-side cases (executor, detectors, forecaster)
+# ---------------------------------------------------------------------------
+_CASES_CHILD = r"""
+import importlib, json, pickle, sys
+from pathlib import Path
+args = json.loads(sys.argv[1])
+mod = importlib.import_module(args["module"])
+out = getattr(mod, args["function"])(*args.get("args", []))
+with open(args["out"], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def reference_cases(tmp_path: Path, module: str, function: str, *args,
+                    timeout: int = 600):
+    """``tests/<module>.py``'s ``function(*args)`` run in a fresh interpreter
+    (the reference's side of a test module's cases, so the test worker
+    imports and compiles nothing of JAX); its pickled result."""
+    out = tmp_path / f"reference_{module}_{function}.pkl"
+    _run_child(_CASES_CHILD, dict(module=module, function=function,
+                                  args=list(args), out=str(out)), timeout)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
 if __name__ == "__main__":
     # python tests/torch_reference.py rung4 [float32|bfloat16]: the JAX
     # reference's outcome row of a rung (default "auto"), as JSON
     import tempfile
     name = sys.argv[1]
+    if name == "heal-e2e":
+        # python tests/torch_reference.py heal-e2e: the reference's rows of
+        # the self-healing script at e2e-1000b-50000p (chip_smoke.py phase 7)
+        with tempfile.TemporaryDirectory() as tmp:
+            sys.path.insert(0, str(ROOT))
+            from cruise_control_tpu_torch.analyzer.heal_script import HEAL_E2E
+            rows = reference_facade(Path(tmp), cases=(), heal=(HEAL_E2E,),
+                                    timeout=7200)["heal"][0]
+        print(json.dumps(dict(cell="e2e-1000b-50000p", heal=rows)))
+        sys.exit(0)
     if name == "session-e2e":
         # python tests/torch_reference.py session-e2e: the reference's rows of
         # the e2e-1000b-50000p cell, the plain script then the dirty-seeded one
