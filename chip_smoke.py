@@ -55,9 +55,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    replicas on one broker;
    c2. the 18-goal chain of the Java parity matrix (the sixteen goals,
       RackAwareDistributionGoal after RackAwareGoal, TopicReplica last,
-      then the preferred-leader pass) and the kafka-assigner chain
+      then the preferred-leader pass), once, and the kafka-assigner chain
       (``kafka_assigner_goal_names([])``: the even rack-aware goal, then
-      the swap-only disk goal), each twice and bit identical, each the JAX
+      the swap-only disk goal), twice and bit identical, each the JAX
       reference's outcome row;
    d. the JBOD self-healing path on the 1,000-broker x 4-logdir cluster
       with 3 dead brokers and 7 dead-disk brokers (101,862 replicas, 492
@@ -75,9 +75,11 @@ Phases, each printing its own lines; any failure exits non-zero:
       partitions: ``bench.py`` rungs 4 and 5) through ``GoalOptimizer()``'s
       defaults, where "auto" resolves to bf16: the sixteen default goals
       (rung 4) and the ten-goal JBOD self-heal with 20 dead brokers and 50
-      dead-disk brokers (rung 5), each twice and bit identical, and rung 4
-      once more pinned to f32. Each must give the JAX reference's row
-      exactly, with its final float tallies' digests.
+      dead-disk brokers (rung 5), rung 4 once and rung 5 twice and bit
+      identical, and rung 4 once more pinned to f32. Each must give the JAX
+      reference's row exactly, with its final float tallies' digests (the
+      18-goal chain and rung 4 bf16 run once since fleet mode joined the
+      smoke: phase 4 holds the card's bits against the CPU's).
 
 6. the resident-session service rounds of the e2e-1000b-50000p cell
    (``bench.py`` ``run_e2e_rung``'s service cluster: 1,000 brokers on 20
@@ -118,7 +120,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    sha256) and the two runs the same bits. Detection, FIX and forecast walls
    and each executor run's simulated ms are printed.
 
-Phase 3 also holds the K1 keying kernel (``replica_keys``) against its twin
+8. fleet mode at the fleet-16x100b cell (``bench.py`` ``run_fleet_rung``'s
+   tenants at BASELINE config 2's size: 16 tenants of 100 brokers on 4 racks
+   with 5,000 RF-2 partitions, the sixteen default goals) through
+   ``FleetScheduler(device="cuda").run_round``
+   (``cruise_control_tpu_torch.fleet_script.fleet_e2e``): round 1 and round 2
+   (one more window, delta syncs), the launch counts zeroed just before and
+   read just after, every tenant's row the JAX reference's (``python
+   tests/torch_reference.py fleet-e2e``); the same rounds on a fresh fleet,
+   bit-identical; the 16 solo rounds on the card, equal to the lanes; a
+   memory budget below the footprint: the LRU spill of the coldest tenant
+   and its readmit, every env and state leaf bit-identical; the move wave's
+   kernel launches in one pass at L = 1 and L = 16, equal; the round walls,
+   the solo walls and ``nvidia-smi``'s utilization.gpu sampled during the
+   rounds; the four lane kernels timed at the shapes the cell launched most.
+
+Phase 3 also holds the four lane kernels of the fleet's move wave (K14:
+``replica_keys_lanes``, ``select_candidates_lanes``,
+``move_score_classes_lanes``, ``wave_admission_lanes``) against their lane
+twins on a 16-lane stack at the fleet cell's shape (all 16 lanes and every
+other lane, a stall and a seed mask per lane, keys tied across lanes), and
+times each at L = 16 beside 16 solo launches and its bound. It also holds the K1 keying kernel (``replica_keys``) against its twin
 for every key function it computes, with f32 tables and with the bf16 sweep
 view, on the slice, jbod-1000b, rung-4 and rung-5 states and on adversarial
 inputs (halfway-rounding loads, signed zeros, ties, offline rows), and K15
@@ -129,10 +151,10 @@ partitions, W 4 and 5 windows, M 10 metrics) and on adversarial histories
 The line before the last is the ``kernels`` JSON object: each kernel's
 launches are those of the counted runs of the sixteen goals, the 18 goals,
 the kafka-assigner chain, the three JBOD requests, the two rungs, the
-session scripts and the heal scripts together (each path's under
-``launches_by_path``), and its times those of the shape it launched most
-often there (the session kernels: on the session path; K15: on the heal
-path; the others: on the earlier paths), with every timed shape and its
+session scripts, the heal scripts and the fleet rounds together (each path's
+under ``launches_by_path``), and its times those of the shape it launched
+most often there (the session kernels: on the session path; K15: on the heal
+path; the lane kernels: on the fleet path; the others: on the earlier paths), with every timed shape and its
 launches listed beside them. The last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
@@ -402,9 +424,14 @@ SESSION_KERNELS = ("session_finalize", "select_candidates_masked", "seeded_probe
 # the kernel of the self-healing service path (phase 7) that no earlier path
 # launches: K15's forecast
 HEAL_KERNELS = ("forecast",)
+# the kernels of the fleet path (phase 8) that no earlier path launches:
+# the lane forms (K14) of the move wave's kernels
+FLEET_KERNELS = ("replica_keys_lanes", "select_candidates_lanes",
+                 "move_score_classes_lanes", "wave_admission_lanes")
 # the path whose launch shapes time each later slice's kernels
 KERNEL_PATH = {**{n: "session" for n in SESSION_KERNELS},
-               **{n: "heal" for n in HEAL_KERNELS}}
+               **{n: "heal" for n in HEAL_KERNELS},
+               **{n: "fleet" for n in FLEET_KERNELS}}
 # The e2e-1000b-50000p cell's rounds through the JAX reference (JAX 0.9.0,
 # JAX_PLATFORMS=cpu, a fresh interpreter): ``python tests/torch_reference.py
 # session-e2e``, the rows of ``cruise_control_tpu_torch.analyzer.
@@ -2448,7 +2475,7 @@ def session_phase(torch, entries: dict, profile: bool, seed: int) -> dict:
     log(f"session: the reduced R3 against the full R3, the one-sided contract: {got_v} "
         f"(the JAX reference's own verdict on this cell, equal)")
     require(all(n > 0 for name, n in launches.items()
-                if name not in JBOD_KERNELS + HEAL_KERNELS),
+                if name not in JBOD_KERNELS + HEAL_KERNELS + FLEET_KERNELS),
             f"a kernel of the session path never launched: {launches}")
     log(f"session: both scripts {total:.6f} s")
 
@@ -2767,6 +2794,792 @@ def heal_phase(torch, profile: bool = False) -> dict:
     return dict(launches=launches, shapes=shapes, walls=walls)
 
 
+# ---------------------------------------------------------------------------
+# phase 3 and phase 8: the fleet's lane kernels (K14) and fleet-16x100b
+# ---------------------------------------------------------------------------
+# a lane stack at the fleet-16x100b shape: 16 tenants of 100 brokers on 4
+# racks with 5,000 RF-2 partitions (10,000 replicas each, padded R 10,240)
+LANES = 16
+LANE_SPEC = dict(num_brokers=100, num_racks=4, num_topics=12, num_partitions=5000,
+                 max_replication=2, skew=1.0, target_cpu_util=0.45)
+LANE_GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
+              "ReplicaDistributionGoal", "DiskUsageDistributionGoal"]
+# The fleet-16x100b cell's rounds through the JAX reference (JAX 0.9.0,
+# JAX_PLATFORMS=cpu, a fresh interpreter): ``python tests/torch_reference.py
+# fleet-e2e``, the rows of ``cruise_control_tpu_torch.fleet_script.fleet_e2e``
+# (digest: the first 16 hex digits of the sha256 of the final assignment).
+FLEET_ORACLE = {'rounds': [{'tenant-0': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1207, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1207,
+                                         'mode': 'full',
+                                         'digest': 'cd558f6567f4588c'},
+                            'tenant-1': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1162, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1162,
+                                         'mode': 'full',
+                                         'digest': 'ac40e015eea86a27'},
+                            'tenant-2': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1248, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1248,
+                                         'mode': 'full',
+                                         'digest': 'a11b3dc0559dc6af'},
+                            'tenant-3': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1215, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1215,
+                                         'mode': 'full',
+                                         'digest': 'b66c57b870468a17'},
+                            'tenant-4': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1197, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1197,
+                                         'mode': 'full',
+                                         'digest': '53b682a1fb551dca'},
+                            'tenant-5': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1264, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1264,
+                                         'mode': 'full',
+                                         'digest': 'afe012e5f50a5c45'},
+                            'tenant-6': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1217, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1217,
+                                         'mode': 'full',
+                                         'digest': '3efdfff227d244aa'},
+                            'tenant-7': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1231, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1231,
+                                         'mode': 'full',
+                                         'digest': '627e69fd909f5b04'},
+                            'tenant-8': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1158, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1158,
+                                         'mode': 'full',
+                                         'digest': '23718ced52a08428'},
+                            'tenant-9': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1192, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1192,
+                                         'mode': 'full',
+                                         'digest': 'f6630e2b0d693fc0'},
+                            'tenant-10': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1206, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1206,
+                                          'mode': 'full',
+                                          'digest': 'c0a7a8962dacb5db'},
+                            'tenant-11': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1205, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1205,
+                                          'mode': 'full',
+                                          'digest': '7dd9aff6335a3848'},
+                            'tenant-12': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1287, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1287,
+                                          'mode': 'full',
+                                          'digest': '19ee01d2c643892d'},
+                            'tenant-13': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1217, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1217,
+                                          'mode': 'full',
+                                          'digest': '2b4ac9b1672cf0f7'},
+                            'tenant-14': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1232, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1232,
+                                          'mode': 'full',
+                                          'digest': 'e8dd80f5005a9213'},
+                            'tenant-15': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1177, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1177,
+                                          'mode': 'full',
+                                          'digest': '1dae701a40aaec37'}},
+                           {'tenant-0': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1207, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1207,
+                                         'mode': 'full',
+                                         'digest': 'cd558f6567f4588c'},
+                            'tenant-1': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1162, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1162,
+                                         'mode': 'full',
+                                         'digest': 'ac40e015eea86a27'},
+                            'tenant-2': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1248, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1248,
+                                         'mode': 'full',
+                                         'digest': 'a11b3dc0559dc6af'},
+                            'tenant-3': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1215, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1215,
+                                         'mode': 'full',
+                                         'digest': 'b66c57b870468a17'},
+                            'tenant-4': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1197, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1197,
+                                         'mode': 'full',
+                                         'digest': '53b682a1fb551dca'},
+                            'tenant-5': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1264, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1264,
+                                         'mode': 'full',
+                                         'digest': 'afe012e5f50a5c45'},
+                            'tenant-6': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1217, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1217,
+                                         'mode': 'full',
+                                         'digest': '3efdfff227d244aa'},
+                            'tenant-7': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1231, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1231,
+                                         'mode': 'full',
+                                         'digest': '627e69fd909f5b04'},
+                            'tenant-8': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1158, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1158,
+                                         'mode': 'full',
+                                         'digest': '23718ced52a08428'},
+                            'tenant-9': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal',
+                                                   'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal',
+                                                   'ReplicaDistributionGoal'],
+                                         'actions': [1192, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                         'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                         'proven': [False, False, False, False, False, False, True, True,
+                                                    False, True, True, True, True, False, True, True],
+                                         'proposals': 1192,
+                                         'mode': 'full',
+                                         'digest': 'f6630e2b0d693fc0'},
+                            'tenant-10': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1206, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1206,
+                                          'mode': 'full',
+                                          'digest': 'c0a7a8962dacb5db'},
+                            'tenant-11': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1205, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1205,
+                                          'mode': 'full',
+                                          'digest': '7dd9aff6335a3848'},
+                            'tenant-12': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1287, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1287,
+                                          'mode': 'full',
+                                          'digest': '19ee01d2c643892d'},
+                            'tenant-13': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1217, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1217,
+                                          'mode': 'full',
+                                          'digest': '2b4ac9b1672cf0f7'},
+                            'tenant-14': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1232, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1232,
+                                          'mode': 'full',
+                                          'digest': 'e8dd80f5005a9213'},
+                            'tenant-15': {'after': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                    'DiskUsageDistributionGoal',
+                                                    'LeaderBytesInDistributionGoal',
+                                                    'LeaderReplicaDistributionGoal',
+                                                    'NetworkInboundUsageDistributionGoal',
+                                                    'NetworkOutboundUsageDistributionGoal',
+                                                    'ReplicaDistributionGoal'],
+                                          'actions': [1177, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                                          'passes': [7, 3, 3, 3, 3, 3, 8, 8, 3, 8, 8, 8, 8, 3, 8, 8],
+                                          'proven': [False, False, False, False, False, False, True, True,
+                                                     False, True, True, True, True, False, True, True],
+                                          'proposals': 1177,
+                                          'mode': 'full',
+                                          'digest': '1dae701a40aaec37'}}],
+                'reports': [{'launches': 1,
+                             'optimized': ['tenant-0', 'tenant-1', 'tenant-10', 'tenant-11', 'tenant-12',
+                                           'tenant-13', 'tenant-14', 'tenant-15', 'tenant-2', 'tenant-3',
+                                           'tenant-4', 'tenant-5', 'tenant-6', 'tenant-7', 'tenant-8',
+                                           'tenant-9'],
+                             'failed': {}},
+                            {'launches': 1,
+                             'optimized': ['tenant-0', 'tenant-1', 'tenant-10', 'tenant-11', 'tenant-12',
+                                           'tenant-13', 'tenant-14', 'tenant-15', 'tenant-2', 'tenant-3',
+                                           'tenant-4', 'tenant-5', 'tenant-6', 'tenant-7', 'tenant-8',
+                                           'tenant-9'],
+                             'failed': {}}]}
+
+
+def lane_context(torch) -> dict:
+    """A lane stack of ``LANES`` generate_scale clusters at the fleet cell's
+    shape on the card (seeds 100..115), with the optimizer's params."""
+    from cruise_control_tpu_torch.analyzer.env import make_env
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    from cruise_control_tpu_torch.analyzer.lanes import LaneStack
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.state import init_state
+    from cruise_control_tpu_torch.model.cluster_tensor import pad_cluster
+    from cruise_control_tpu_torch.model.random_cluster import (
+        RandomClusterSpec, generate_scale,
+    )
+    raw = [generate_scale(RandomClusterSpec(**LANE_SPEC, seed=100 + k))
+           for k in range(LANES)]
+    # one shape bucket for all lanes: the largest padded dims as pad floors
+    padded = [pad_cluster(ct, meta)[0] for ct, meta in raw]
+    floors = dict(min_replicas=max(c.num_replicas for c in padded),
+                  min_brokers=max(c.num_brokers for c in padded),
+                  min_partitions=max(c.num_partitions for c in padded),
+                  min_topics=max(c.num_topics for c in padded))
+    envs, sts = [], []
+    for ct, meta in raw:
+        ct, meta = pad_cluster(ct, meta, **floors)
+        env = make_env(ct, meta, device="cuda")
+        envs.append(env)
+        sts.append(init_state(env, ct.replica_broker, ct.replica_is_leader,
+                              ct.replica_offline, ct.replica_disk))
+    params = GoalOptimizer(device="cuda").scaled_params(envs[0].num_replicas,
+                                                        envs[0].num_brokers)
+    return dict(stack=LaneStack(envs, sts), params=params, goals=make_goals(LANE_GOALS))
+
+
+def lane_wave(torch, lctx, goal_name: str, lanes: list, seed: int) -> dict:
+    """The first move wave's inputs of the four lane launches for ``lanes``
+    (each lane's solo SPI on its views, as the lane pass loop builds them),
+    with a different stall and seed mask in every lane (one all-ones)."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import engine
+    from cruise_control_tpu_torch.analyzer.goals.base import KeySpec, capture_keys
+    from cruise_control_tpu_torch.kernels.keys import env_loads
+    stack, params = lctx["stack"], lctx["params"]
+    names = [gl.name for gl in lctx["goals"]]
+    gi = names.index(goal_name)
+    goal, prev = lctx["goals"][gi], tuple(lctx["goals"][:gi])
+    dev = stack.device
+    R = stack.num_replicas
+    g = torch.Generator().manual_seed(seed)
+    sev = {l: goal.broker_severity(stack.envs[l], stack.sts[l]) for l in lanes}
+    with capture_keys():
+        specs = [goal.replica_key(stack.envs[l], stack.sts[l], sev[l]) for l in lanes]
+    out = dict(goal=goal, lanes=lanes)
+    if isinstance(specs[0], KeySpec):
+        st_b = stack.st_b
+        out["keys"] = (specs[0].family, env_loads(stack.env_b), specs[0].col,
+                       st_b.replica_broker, st_b.replica_is_leader, st_b.replica_offline,
+                       stack.env_b.replica_valid, lanes,
+                       torch.stack([sp.bt for sp in specs]).contiguous(),
+                       torch.stack([sp.sc for sp in specs]).contiguous())
+        key = K.replica_keys_lanes(*out["keys"])
+    else:
+        key = torch.stack(specs).contiguous()
+    Kc = min(params.num_candidates, R)
+    W = max(1, min(params.max_pass_waves, R // max(Kc, 1)))
+    k_all = min(Kc * W, R)
+    mask = (torch.rand((len(lanes), R), generator=g) < 0.8).to(dev)
+    mask[0] = True
+    stalls = [j % 3 for j in range(len(lanes))]
+    out["select"] = (key, k_all, stalls, 0, mask.contiguous())
+    kv, cand = K.select_candidates_lanes(key, k_all, stalls, seed_mask=mask.contiguous())
+    preps = [engine._score_prep(stack.envs[l], stack.sts[l], goal, prev, params,
+                                cand[j, :Kc], kv[j, :Kc])
+             for j, l in enumerate(lanes)]
+    room_mask = 0
+    for _d, a in preps:
+        room_mask |= a[8]
+    out["score"] = [a[:8] + (room_mask,) + a[9:] for _d, a in preps]
+    cls_val, cls_q = K.move_score_classes_lanes(out["score"])
+    fins = [engine._admission_from_scores(stack.envs[l], stack.sts[l], goal, prev, params,
+                                          cand[j, :Kc], preps[j][0], cls_val[j], cls_q[j])
+            for j, l in enumerate(lanes)]
+    out["admit"] = [f[2] for f in fins]
+    out["K"], out["R"], out["B"] = Kc, R, stack.env_b.num_brokers
+    return out
+
+
+def lane_timings(torch, entries: dict, wv: dict, tag: str) -> None:
+    """Time the four lane kernels at ``wv``'s lanes beside their lane twins,
+    the same lanes' solo launches one after another and the bound."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.kernels import admission, keys, move_score, select
+    La, R, Kc, B = len(wv["lanes"]), wv["R"], wv["K"], wv["B"]
+
+    def solo_ms(e, fn):
+        ms = time_ms(torch, fn)
+        e.timings[-1]["solo_ms"] = ms
+        log(f"  {e.name} at {tag}: {La} solo launches {ms:.6f} ms")
+
+    if "keys" in wv:
+        e = entries["replica_keys_lanes"]
+        a = wv["keys"]
+        timing(torch, e, lambda: K.replica_keys_lanes(*a),
+               lambda: keys.replica_keys_lanes_plain(*a), None,
+               La * R * (2 * 4 + 8 + 3 + 4) + nbytes(a[8], a[9]), La * 20 * R, tag)
+        solo = [(a[0], (a[1][0][l], a[1][1][l]), a[2], a[3][l], a[4][l], a[5][l], a[6][l],
+                 a[8][j], a[9][j]) for j, l in enumerate(a[7])]
+        solo_ms(e, lambda: [K.replica_keys(*x) for x in solo])
+    e = entries["select_candidates_lanes"]
+    key, k_all, stalls, salt, mask = wv["select"]
+    timing(torch, e, lambda: K.select_candidates_lanes(key, k_all, stalls, salt, mask),
+           lambda: select.select_candidates_lanes_plain(key, k_all, stalls, salt, mask),
+           lambda: torch.topk(torch.where(mask, key, -torch.inf), k_all, dim=1),
+           nbytes(key, mask) + La * k_all * (4 + 8), La * 4 * R, tag)
+    solo_ms(e, lambda: [K.select_candidates(key[j], k_all, stalls[j], salt,
+                                            seed_mask=mask[j]) for j in range(La)])
+    e = entries["move_score_classes_lanes"]
+    sa = wv["score"]
+    T = sa[0][1]
+    rooms_used = bin(sa[0][8]).count("1")
+    timing(torch, e, lambda: K.move_score_classes_lanes(sa),
+           lambda: move_score.move_score_classes_lanes_plain(sa), None,
+           sum(nbytes(*(t for t in a if isinstance(t, torch.Tensor))) for a in sa)
+           + La * Kc * T * (4 + 8), La * Kc * B * (2 * rooms_used + 12), tag)
+    solo_ms(e, lambda: [K.move_score_classes(*a) for a in sa])
+    e = entries["wave_admission_lanes"]
+    aa = wv["admit"]
+    N = aa[0][0].shape[0]
+    timing(torch, e, lambda: K.wave_admission_lanes(aa),
+           lambda: admission.wave_admission_lanes_plain(aa), None,
+           sum(nbytes(*a[:7], *a[7][:2], a[8]) + N for a in aa), La * N * 8 * 6, tag)
+    solo_ms(e, lambda: [K.wave_admission(*a) for a in aa])
+
+
+def lane_kernel_checks(torch, lctx, entries: dict, seed: int) -> None:
+    """The four lane kernels against their lane twins (loops of the solo
+    twins) at L = 16 and on a running subset (every other lane, so frozen
+    lanes sit between running ones), for a goal with the K1 keying
+    (DiskUsageDistributionGoal) and one with plain keys
+    (ReplicaDistributionGoal); then timed at L = 16."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.kernels import admission, keys, move_score, select
+    full = list(range(LANES))
+    for goal_name in ("DiskUsageDistributionGoal", "ReplicaDistributionGoal"):
+        for lanes in (full, full[1::2]):
+            wv = lane_wave(torch, lctx, goal_name, lanes, seed)
+            tag = f"{goal_name} L={len(lanes)}"
+            if "keys" in wv:
+                a = wv["keys"]
+                check(torch, entries["replica_keys_lanes"],
+                      lambda: K.replica_keys_lanes(*a),
+                      lambda: keys.replica_keys_lanes_plain(*a), tag)
+            key, k_all, stalls, salt, mask = wv["select"]
+            check(torch, entries["select_candidates_lanes"],
+                  lambda: K.select_candidates_lanes(key, k_all, stalls, salt, mask),
+                  lambda: select.select_candidates_lanes_plain(key, k_all, stalls, salt,
+                                                               mask), tag)
+            check(torch, entries["move_score_classes_lanes"],
+                  lambda: K.move_score_classes_lanes(wv["score"]),
+                  lambda: move_score.move_score_classes_lanes_plain(wv["score"]), tag)
+            check(torch, entries["wave_admission_lanes"],
+                  lambda: K.wave_admission_lanes(wv["admit"]),
+                  lambda: admission.wave_admission_lanes_plain(wv["admit"]), tag)
+    # adversarial K1 lanes: keys tied across lanes, signed zeros, all -inf lanes
+    g = torch.Generator().manual_seed(seed)
+    R = lctx["stack"].num_replicas
+    base = torch.randint(0, 6, (R,), generator=g).float()
+    adv = torch.stack([base, base, -base, torch.zeros(R), torch.full((R,), -torch.inf)])
+    adv[0, :64] = -0.0
+    adv = adv.cuda().contiguous()
+    for stalls in ([0, 0, 0, 0, 0], [0, 2, 1, 5, 3]):
+        check(torch, entries["select_candidates_lanes"],
+              lambda: K.select_candidates_lanes(adv, 1024, stalls),
+              lambda: select.select_candidates_lanes_plain(adv, 1024, stalls),
+              f"adversarial ties across lanes, stalls {stalls}")
+    lane_timings(torch, entries, lane_wave(torch, lctx, "DiskUsageDistributionGoal", full,
+                                           seed), f"L={LANES}")
+
+
+def fleet_phase(torch, lctx, entries: dict, seed: int) -> dict:
+    """The fleet-16x100b cell through ``FleetScheduler.run_round`` on the
+    card (``fleet_script.fleet_e2e``): round 1 (full) and round 2 (one more
+    window, delta syncs), the launch counts zeroed just before and read just
+    after, every tenant's row the JAX reference's; the same rounds on a fresh
+    fleet, bit-identical; the 16 solo rounds, equal to the lanes; the memory
+    budget's LRU spill and a bit-identical readmit; the move wave's launches
+    in one pass at L = 1 and L = 16; the walls and the card's busy share."""
+    import threading
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import lanes as lanes_mod
+    from cruise_control_tpu_torch.fleet_script import (
+        FLEET_E2E, fleet_e2e, port_fleet_ns, solo_e2e,
+    )
+    ns = port_fleet_ns("cuda")
+    util = []
+    stop = threading.Event()
+
+    def sample_util():
+        while not stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=utilization.gpu",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=30)
+            if out.returncode == 0 and out.stdout.strip():
+                util.append(float(out.stdout.strip().splitlines()[0]))
+            stop.wait(0.2)
+
+    K.reset_launches()
+    sampler = threading.Thread(target=sample_util, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        run = fleet_e2e(ns, FLEET_E2E)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        sampler.join(60)
+    total = time.perf_counter() - t0
+    launches, shapes = K.launches(), K.launch_shapes()
+    log(f"fleet: kernel launches {launches}")
+    log(f"fleet: launches by shape {json.dumps(shapes)}")
+    log(f"fleet: round walls (s) {run['walls']}, both rounds {total:.6f} s; "
+        f"nvidia-smi utilization.gpu sampled every 0.2 s during them: mean "
+        f"{statistics.mean(util) if util else float('nan'):.3f}% over {len(util)} samples")
+    for r, (got, want) in enumerate(zip(run["rounds"], FLEET_ORACLE["rounds"])):
+        for cid in want:
+            diff = {k: (got[cid].get(k), v) for k, v in want[cid].items()
+                    if got[cid].get(k) != v}
+            require(not diff, f"fleet R{r + 1} {cid} differs from the JAX reference: {diff}")
+        log(f"fleet R{r + 1}: {len(want)} tenants, every row the JAX reference's "
+            f"({sum(v['proposals'] for v in got.values())} proposals)")
+    require(run["reports"] == FLEET_ORACLE["reports"],
+            f"fleet reports {run['reports']} != the reference's {FLEET_ORACLE['reports']}")
+    require(all(launches[n] > 0 for n in FLEET_KERNELS + FIVE_GOAL_KERNELS),
+            f"a kernel of the fleet path never launched: {launches}")
+    fleet = run["fleet"]
+
+    # the same rounds on a fresh fleet: bit-identical
+    again = fleet_e2e(ns, FLEET_E2E)
+    require(again["rounds"] == run["rounds"], "fleet: the second fleet's rows differ")
+    log(f"fleet: a fresh fleet gives the same rows bit for bit (walls {again['walls']})")
+    again["fleet"].shutdown()
+
+    # the 16 solo rounds on the card: each equal to its lane
+    solo = solo_e2e(ns, FLEET_E2E)
+    require(solo["rows"] == run["rounds"][0], "fleet: a lane differs from its solo round")
+    log(f"fleet: the {len(solo['rows'])} solo rounds equal the lanes; solo walls (s) "
+        f"{solo['walls']}, sum {sum(solo['walls']):.6f} s against the fleet's round 1 "
+        f"{run['walls'][0]:.6f} s")
+
+    # the memory budget: LRU spill, readmit bit-identical
+    ids = fleet.cluster_ids
+    sess = fleet.tenants[ids[0]].session
+    sess._ensure_state()
+    pre = {("env", f.name): getattr(sess.env, f.name).clone()
+           for f in dataclasses.fields(sess.env)
+           if hasattr(getattr(sess.env, f.name), "clone")}
+    pre.update({("st", f.name): getattr(sess.state, f.name).clone()
+                for f in dataclasses.fields(sess.state)})
+    for t in fleet.tenants.values():
+        t.last_round_seq = 1
+    fleet.tenants[ids[0]].last_round_seq = 0           # the coldest
+    resident = fleet.device_bytes()
+    fleet.memory_budget_bytes = resident - 1
+    spilled = fleet.enforce_memory_budget()
+    require(spilled == [ids[0]], f"fleet: the LRU spilled {spilled}, not {ids[0]}")
+    freed = fleet.device_bytes()
+    require(freed < resident and sess.spilled, "fleet: nothing was freed")
+    fleet.memory_budget_bytes = -1
+    require(sess.readmit(), "fleet: the readmit did nothing")
+    for (kind, name), v in pre.items():
+        now = getattr(sess.env if kind == "env" else sess.state, name)
+        require(now.dtype == v.dtype and torch.equal(now, v),
+                f"fleet: {kind}.{name} differs after spill and readmit")
+    log(f"fleet: with LRU ranks that make {ids[0]} the coldest, a budget of "
+        f"{resident - 1} bytes spilled {spilled} ({resident} -> {freed} bytes "
+        f"resident); its readmit is bit-identical, every env and state leaf")
+    # the fleet's own lane stack (its tenants' states after round 2) for the
+    # timings at the shapes the cell launched most
+    fctx = dict(lctx, stack=lanes_mod.LaneStack(
+        *zip(*(fleet.tenants[cid].session.revalidation_view() for cid in ids))))
+    fctx["params"] = fleet.optimizer.scaled_params(fctx["stack"].num_replicas,
+                                                   fctx["stack"].env_b.num_brokers)
+    fleet.shutdown()
+
+    # the move wave's launches in one pass at L = 1 and L = 16
+    goal = next(gl for gl in lctx["goals"] if gl.name == "DiskUsageDistributionGoal")
+    one = dataclasses.replace(lctx["params"], max_iters=1)
+    per_pass = {}
+    for La in (1, LANES):
+        K.reset_launches()
+        lanes_mod.fleet_goal_loop(lctx["stack"], goal, (), {l: one for l in range(La)},
+                                  list(range(La)), 0, {})
+        torch.cuda.synchronize()
+        per_pass[La] = {n: c for n, c in K.launches().items() if c}
+    log(f"fleet: the move wave's launches in one pass, L=1 {per_pass[1]}, "
+        f"L={LANES} {per_pass[LANES]}")
+    require(per_pass[1] == per_pass[LANES],
+            "fleet: the move wave's launches per pass depend on the lane count")
+    # time the lane kernels at the shapes the cell launched most
+    for name in FLEET_KERNELS:
+        ran = shapes[name]
+        top = max(ran, key=ran.get)
+        La = int(top.split()[0].split("=")[1])
+        if all(t["shape"] != top for t in entries[name].timings):
+            wv = lane_wave(torch, fctx, "DiskUsageDistributionGoal", list(range(La)), seed)
+            lane_timings(torch, {name: entries[name],
+                                 **{n: Entry(n) for n in FLEET_KERNELS if n != name}},
+                         wv, f"L={La}")
+    return dict(launches=launches, shapes=shapes, walls=run["walls"],
+                solo_walls=solo["walls"], util=util)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2848,6 +3661,9 @@ def main() -> int:
     rung_kernel_checks(torch, r5, entries, "rung 5")
     phase("phase 3: K15, the forecaster's kernel")
     forecast_kernel_checks(torch, entries, args.seed)
+    phase("phase 3: the fleet's lane kernels (K14)")
+    lctx = lane_context(torch)
+    lane_kernel_checks(torch, lctx, entries, args.seed)
     phase("phase 3: the K1 keying kernel")
     key_kernel_checks(torch, [("slice", env, st), ("jbod-1000b", jctx["env"], jctx["st"]),
                               ("rung 4", r4["env"], r4["st"]),
@@ -2907,7 +3723,8 @@ def main() -> int:
     launches = chain["launches"]
     require(all(n > 0 for name, n in launches.items()
                 if not name.startswith("swap_")
-                and name not in JBOD_KERNELS + SESSION_KERNELS + HEAL_KERNELS),
+                and name not in JBOD_KERNELS + SESSION_KERNELS + HEAL_KERNELS
+                + FLEET_KERNELS),
             f"a kernel of the eleven-goal path never launched: {launches}")
     Kf = min(params.finisher_candidates, pct.num_replicas)
     W = max(1, min(params.finisher_waves, pct.num_replicas // max(Kf, 1)))
@@ -2929,7 +3746,8 @@ def main() -> int:
                         ORACLE["default_slice"])
     launches, shapes = default["launches"], default["shapes"]
     require(all(n > 0 for name, n in launches.items()
-                if name not in JBOD_KERNELS + SESSION_KERNELS + HEAL_KERNELS),
+                if name not in JBOD_KERNELS + SESSION_KERNELS + HEAL_KERNELS
+                + FLEET_KERNELS),
             f"a kernel of the sixteen-goal path never launched: {launches}")
     k = min(params.num_swap_candidates, pct.num_replicas, 128)
     for name, shape in (("swap_rows", f"pass [{k}, {k}]"), ("swap_admission", f"K1={k}")):
@@ -2937,11 +3755,11 @@ def main() -> int:
                 f"the sixteen-goal path never launched {name} at {shape}: "
                 f"{shapes[name]}")
     full = run_slice(torch, opt, ct, meta, FULL_CHAIN, "slice (18 goals)",
-                     ORACLE["full_slice"])
+                     ORACLE["full_slice"], twice=False)
     launches = full["launches"]
     require(all(n > 0 for name, n in launches.items()
                 if name not in ("disk_rows", "disk_apply") + SESSION_KERNELS
-                + HEAL_KERNELS),
+                + HEAL_KERNELS + FLEET_KERNELS),
             f"a kernel of the 18-goal path never launched: {launches}")
     require(launches["preferred_leader"] == 2,
             "the 18-goal chain's preferred-leader pass is one apply and one check")
@@ -2980,7 +3798,7 @@ def main() -> int:
                 f"{tag}: auto resolved to {ctx_r['params'].compute_dtype}, not bfloat16")
     log("rung 4 / rung 5: GoalOptimizer() resolves compute_dtype to bfloat16")
     rung4 = run_slice(torch, opt, r4["ct"], r4["meta"], DEFAULT,
-                      "rung 4 (16 goals, bf16)", ORACLE["rung4_bf16"])
+                      "rung 4 (16 goals, bf16)", ORACLE["rung4_bf16"], twice=False)
     rung5 = run_slice(torch, opt, r5["ct"], r5["meta"], JBOD_CHAIN,
                       "rung 5 (10 goals, bf16)", ORACLE["rung5_bf16"])
     opt32 = GoalOptimizer(device="cuda", engine_params=EngineParams(compute_dtype="float32"))
@@ -2993,7 +3811,7 @@ def main() -> int:
     for run, ctx_r, tag, need in (
             (rung4, r4, "rung 4 bf16", [n for n in K.KERNELS
                                         if n not in JBOD_KERNELS + SESSION_KERNELS
-                                        + HEAL_KERNELS]),
+                                        + HEAL_KERNELS + FLEET_KERNELS]),
             (rung5, r5, "rung 5 bf16", rung5_kernels)):
         R = ctx_r["env"].num_replicas
         require(run["shapes"]["replica_keys"].get(f"R={R} bf16", 0) > 0,
@@ -3011,6 +3829,9 @@ def main() -> int:
     phase("phase 7: self-healing service (e2e-1000b-50000p)")
     heal = heal_phase(torch, args.profile is not None
                       and (not args.profile or "heal" in args.profile))
+    # 8. fleet mode (fleet-16x100b)
+    phase("phase 8: fleet mode (fleet-16x100b)")
+    fleet = fleet_phase(torch, lctx, entries, args.seed)
     for en in entries.values():
         require(en.checks > 0 and en.timings, f"{en.name} was not checked")
     if args.profile is not None:
@@ -3026,16 +3847,16 @@ def main() -> int:
 
     paths = {"default": default, "full18": full, "kafka": kafka,
              **{f"jbod_{r}": v for r, v in jbod.items()}, "rung4": rung4, "rung5": rung5,
-             "session": session, "heal": heal}
+             "session": session, "heal": heal, "fleet": fleet}
     kernels = []
     for name, k in K.KERNELS.items():
         by_path = {p: v["launches"][name] for p, v in paths.items()}
         # the timed shapes of the earlier kernels are those of the earlier
         # paths; the session kernels' those of the session path, K15's those
-        # of the heal path
+        # of the heal path, the lane kernels' those of the fleet path
         ran = {}
         for p, v in paths.items():
-            if KERNEL_PATH.get(name) != (p if p in ("session", "heal") else None):
+            if KERNEL_PATH.get(name) != (p if p in ("session", "heal", "fleet") else None):
                 continue
             for shape, c in v["shapes"][name].items():
                 ran[shape] = ran.get(shape, 0) + c

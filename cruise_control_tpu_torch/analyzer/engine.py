@@ -384,20 +384,26 @@ def _admit_leads(env: ClusterEnv, st: EngineState, goal: GoalKernel,
             kgroup, topic, None)
 
 
-def _admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
-                    prev_goals: tuple, params: EngineParams, cand, kv,
-                    env_sw: ClusterEnv | None = None):
-    """Score a wave (K2) and fan its rows across destination classes;
+def _score_prep(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                prev_goals: tuple, params: EngineParams, cand, kv,
+                env_sw: ClusterEnv | None = None):
+    """(wave-delta rows, K2 arguments) of a move wave over ``cand``."""
+    d_rows = _move_delta_rows(env, st, cand)
+    rooms, custom = _combined_move_rooms(prev_goals, env, st)
+    T = min(params.num_dst_choices, env.num_brokers)
+    return d_rows, _score_args(env, st, goal, rooms, custom, cand, kv, d_rows, T,
+                               env_sw=env_sw)
+
+
+def _admission_from_scores(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                           prev_goals: tuple, params: EngineParams, cand, d_rows,
+                           cls_val, cls_q):
+    """Fan a scored wave's rows across destination classes and sort them;
     returns (rows in score order, their destinations, the K3 arguments)."""
     K = cand.shape[0]
     B = env.num_brokers
-    d_rows = _move_delta_rows(env, st, cand)
-    rooms, custom = _combined_move_rooms(prev_goals, env, st)
     T = min(params.num_dst_choices, B)
     Bp = -(-B // T) * T
-    cls_val, cls_q = move_score_classes(
-        *_score_args(env, st, goal, rooms, custom, cand, kv, d_rows, T,
-                     env_sw=env_sw))
     # destination spread: the row at sorted position j prefers its best
     # destination in class (j mod T) when that class scores, else its
     # global best (lowest column among the max-achieving classes)
@@ -422,6 +428,18 @@ def _admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     args = _admit_moves(env, st, goal, prev_goals, r_sorted, src_s, dst_s,
                         d_rows[order].contiguous(), wave_ok)
     return r_sorted, dst_s, args
+
+
+def _admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                    prev_goals: tuple, params: EngineParams, cand, kv,
+                    env_sw: ClusterEnv | None = None):
+    """Score a wave (K2) and fan its rows across destination classes;
+    returns (rows in score order, their destinations, the K3 arguments)."""
+    d_rows, score_args = _score_prep(env, st, goal, prev_goals, params, cand, kv,
+                                     env_sw)
+    cls_val, cls_q = move_score_classes(*score_args)
+    return _admission_from_scores(env, st, goal, prev_goals, params, cand, d_rows,
+                                  cls_val, cls_q)
 
 
 def _move_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
@@ -1024,11 +1042,24 @@ def _step(env, st, goal, prev_goals, params, c: dict, env_sw=None, seed_mask=Non
                                            severity, explore, env_sw, seed_mask,
                                            fold_legs)
     # the pass's closing device->host read
-    disk, moves, leads, swaps, viol, stat_now = torch.stack([
-        n_disk.to(torch.float32), n_moves.to(torch.float32),
-        n_leads.to(torch.float32), n_swaps.to(torch.float32),
-        goal.violated(env, st).to(torch.float32),
-        goal.stat(env, st).to(torch.float32)]).tolist()
+    _close_pass(c, params, torch.stack(_pass_row(env, st, goal, n_disk, n_moves, n_leads,
+                                                 n_swaps)).tolist(), n_waves)
+    return st
+
+
+def _pass_row(env, st, goal, n_disk, n_moves, n_leads, n_swaps) -> list:
+    """The f32 device scalars a pass closes on: its four action counts, the
+    goal's verdict and its stat."""
+    return [n_disk.to(torch.float32), n_moves.to(torch.float32),
+            n_leads.to(torch.float32), n_swaps.to(torch.float32),
+            goal.violated(env, st).to(torch.float32),
+            goal.stat(env, st).to(torch.float32)]
+
+
+def _close_pass(c: dict, params: EngineParams, row: list, n_waves: int) -> None:
+    """Update the loop's scalar carries from a pass's closing read ``row``
+    (``_pass_row``'s values on the host)."""
+    disk, moves, leads, swaps, viol, stat_now = row
     disk, moves, leads, swaps = int(disk), int(moves), int(leads), int(swaps)
     applied = disk + moves + leads + swaps
     stat_now = np.float32(stat_now)
@@ -1050,7 +1081,6 @@ def _step(env, st, goal, prev_goals, params, c: dict, env_sw=None, seed_mask=Non
         c["win_dribble"] = c["dribble"]
     c["it"] += 1
     c["n_applied"] += applied
-    return st
 
 
 def _info(goal, params, c: dict, stat_before: float, violated: bool, fin: dict,
@@ -1156,16 +1186,22 @@ def _goal_loop(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                                         goal.stat(env, st).to(torch.float32)]).tolist()
     info = _info(goal, params, c, stat_before, bool(violated), fin, stat_after)
     if chunk > 0:
-        passes_skipped = 0
-        if quiesce_chunk >= 0:
-            stall_cap = (min(params.stall_retries, params.sat_stall_retries)
-                         if c["sat"] else params.stall_retries)
-            passes_skipped = max(0, min(params.max_iters - c["it"],
-                                        params.tail_total_budget + 1 - c["tailp"],
-                                        stall_cap + 1 - c["stall"]))
-        info.update(passes_skipped=passes_skipped, quiesce_chunk=quiesce_chunk,
-                    chunks=chunks, finisher_skipped=finisher_skipped)
+        info.update(passes_skipped=passes_skipped(c, params, quiesce_chunk),
+                    quiesce_chunk=quiesce_chunk, chunks=chunks,
+                    finisher_skipped=finisher_skipped)
     return st, info
+
+
+def passes_skipped(c: dict, params: EngineParams, quiesce_chunk: int) -> int:
+    """The budgeted passes a quiesced goal did not dispatch (0 when it did
+    not quiesce)."""
+    if quiesce_chunk < 0:
+        return 0
+    stall_cap = (min(params.stall_retries, params.sat_stall_retries)
+                 if c["sat"] else params.stall_retries)
+    return max(0, min(params.max_iters - c["it"],
+                      params.tail_total_budget + 1 - c["tailp"],
+                      stall_cap + 1 - c["stall"]))
 
 
 def optimize_goal(env: ClusterEnv, st: EngineState, goal: GoalKernel,

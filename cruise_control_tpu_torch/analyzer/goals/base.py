@@ -40,7 +40,9 @@ twins), for tests and for the reader.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import torch
 
@@ -514,17 +516,49 @@ def legit_disk_move_mask(env: ClusterEnv, st: EngineState, cand: torch.Tensor):
     return disk_k.legit_plain(disk_state(env, st), cand)
 
 
+@dataclasses.dataclass(frozen=True)
+class KeySpec:
+    """A ``replica_keys`` launch a goal's key function asked for, not yet
+    made: its family, load column, broker rows f32[n, B], scalars f32[3]
+    and logdir rows f32[n, B, D] (or None). The fleet's lane engine
+    collects one per running lane and launches them together
+    (``kernels.replica_keys_lanes``)."""
+    family: int
+    col: int
+    bt: torch.Tensor
+    sc: torch.Tensor
+    dt: torch.Tensor | None
+
+
+_KEY_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capture_keys():
+    """Inside this block (this thread only) ``sweep_keys`` returns its
+    ``KeySpec`` instead of launching the keying kernel."""
+    _KEY_CAPTURE.on = True
+    try:
+        yield
+    finally:
+        _KEY_CAPTURE.on = False
+
+
 def sweep_keys(family: int, env: ClusterEnv, st: EngineState, col: int, rows: list,
                scalars=None, disk=None) -> torch.Tensor:
     """f32[R] keys of one ``replica_keys`` family (K1 keying) over the env's
     keying tables (bf16 on the sweep view): ``rows`` are its f32[B] broker
     rows, ``scalars`` up to three 0-d f32 values (zeros by default),
-    ``disk`` its (replica_disk, f32[n, B, D] logdir rows)."""
+    ``disk`` its (replica_disk, f32[n, B, D] logdir rows). Under
+    ``capture_keys`` it returns the launch's ``KeySpec`` instead."""
     sc = torch.zeros(3, dtype=torch.float32, device=env.device)
     for i, s in enumerate(scalars or ()):
         sc[i] = s           # a device-side copy or fill: no host read
     rdisk, dt = disk if disk is not None else (None, None)
+    bt = torch.stack([r.to(torch.float32) for r in rows]).contiguous()
+    dt = None if dt is None else dt.contiguous()
+    if getattr(_KEY_CAPTURE, "on", False):
+        return KeySpec(family, col, bt, sc, dt)
     return replica_keys(family, env_loads(env), col, st.replica_broker,
                         st.replica_is_leader, st.replica_offline, env.replica_valid,
-                        torch.stack([r.to(torch.float32) for r in rows]).contiguous(),
-                        sc, rdisk, None if dt is None else dt.contiguous())
+                        bt, sc, rdisk, dt)

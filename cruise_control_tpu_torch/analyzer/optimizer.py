@@ -51,14 +51,15 @@ import numpy as np
 import torch
 
 from cruise_control_tpu_torch.analyzer.engine import (
-    EngineParams, _goal_loop, check_supported, goal_probe, optimize_goal,
-    optimize_goal_chunked,
+    EngineParams, _goal_finish, _goal_loop, _info, check_supported, goal_probe,
+    optimize_goal, optimize_goal_chunked, passes_skipped,
 )
 from cruise_control_tpu_torch.analyzer.env import (
     BalancingConstraint, ClusterEnv, OptimizationOptions, make_env,
     padded_partition_table, resolve_device,
 )
 from cruise_control_tpu_torch.analyzer.goals import make_goals
+from cruise_control_tpu_torch.analyzer.lanes import LaneStack, fleet_goal_loop, read_values
 from cruise_control_tpu_torch.analyzer.goals.leader_election import (
     PreferredLeaderElectionGoal,
 )
@@ -410,6 +411,14 @@ class GoalOptimizer:
         self._adaptive_floor = knob("int", "analyzer.pass.adaptive.floor.passes", 4)
         self._cert_skip = knob("boolean", "analyzer.pass.certificate.skip", True)
         self._shortcircuit = knob("boolean", "analyzer.pass.goal.shortcircuit", True)
+        # fleet.pass.*: ragged fleet gating on the batched chunked path
+        # (per-lane budgets, short-circuit, certificate skip, parking) and
+        # the compaction policy the lane statistics report
+        self._fleet_gating = knob("boolean", "fleet.pass.gating.enabled", True)
+        self._fleet_compaction = knob("boolean", "fleet.pass.compaction.enabled", True)
+        # launch-level statistics of the last batched round (the reference
+        # records them on its round trace: optimizer.py:2006-2038)
+        self.last_fleet_round: dict = {}
         # (chain_key, num_replicas) whose short-circuit probes have run once
         self._probe_warmed: set = set()
         self._balancedness_priority_weight = knob(
@@ -972,3 +981,546 @@ class GoalOptimizer:
             if not todo:
                 break
         return st, len(swept)
+
+    # ----------------------------------------------- fleet batched launch
+    def optimizations_batched(self, sessions: list, goal_names=None,
+                              options: OptimizationOptions = OptimizationOptions(),
+                              raise_on_failure: bool = False,
+                              on_result=None) -> list:
+        """optimizer.py:1625: one batched launch over K same-bucket resident
+        sessions (fleet mode). The tenants' padded env and state stack along
+        a lane axis (``analyzer.lanes.LaneStack``) and the goal chain runs
+        over the stack: the move wave's kernels launch once per wave for
+        every running lane, the other branches lane by lane. Per-tenant
+        verdicts, certificates and proposal sets are bit-identical to K solo
+        runs. Sessions must be synced by the caller and share one shape
+        bucket; returns one ``OptimizerResult`` per session, in order.
+        ``on_result(i, result)`` fires as each lane lands (early landing of
+        parked lanes on the gated path)."""
+        with self._proposal_timer.time():
+            return self._optimizations_batched(sessions, goal_names, options,
+                                               raise_on_failure, on_result)
+
+    def _optimizations_batched(self, sessions, goal_names, options,
+                               raise_on_failure, on_result=None) -> list:
+        names = goal_names or self._default_goal_names
+        known = [n for n in names if n != "PreferredLeaderElectionGoal"]
+        goals = make_goals(known, self._constraint, options)
+        run_preferred = "PreferredLeaderElectionGoal" in names
+        ple = (PreferredLeaderElectionGoal(constraint=self._constraint, options=options)
+               if run_preferred else None)
+        for s in sessions:
+            if s.device != self.device:
+                raise ValueError(f"a session lives on {s.device}, the optimizer on "
+                                 f"{self.device}")
+
+        # the round deltas are consumed BEFORE the lending input take, then
+        # the whole-fleet certificate memo is tried (all or nothing)
+        chain_key = (tuple(names), repr(options))
+        rds = ([s.consume_round_delta() for s in sessions]
+               if self._incremental else [None] * len(sessions))
+        if self._incremental and self._revalidate:
+            memo = self._revalidated_fleet(sessions, goals, rds, chain_key)
+            if memo is not None:
+                return memo
+
+        inputs = [s.optimizer_inputs() for s in sessions]
+        gens = [s.sync_generation for s in sessions]
+        envs = [i[0] for i in inputs]
+        stack = LaneStack(envs, [i[1] for i in inputs])
+        num_replicas = envs[0].num_replicas
+        num_brokers = envs[0].num_brokers
+        params = self.scaled_params(num_replicas, num_brokers)
+        check_supported(params)
+
+        # per-tenant seed masks: all-ones rows (None) for full tenants, the
+        # dirty rows for churn-budgeted tenants with a carryover
+        K0 = len(sessions)
+        reduced_by_tenant: list[set] = [set() for _ in sessions]
+        dirty_counts = [0] * K0
+        masks = None
+        if self._incremental:
+            masks = []
+            for k, (s, rd) in enumerate(zip(sessions, rds)):
+                co = s.carryover
+                masks_k = [None] * len(goals)
+                budget = s.seed_budget_replicas(num_replicas)
+                if (self._seed_dirty and rd is not None and co is not None
+                        and co.chain_key == chain_key
+                        and rd["syncs"] >= 1 and not rd["rebuilt"]
+                        and not rd["broker_flips"]
+                        and 0 < rd["churn"] <= budget):
+                    np_dirty = s.dirty_replica_mask(rd["dirty_brokers"],
+                                                    rd["dirty_topics"])
+                    if np_dirty.any():
+                        dirty_counts[k] = int(np_dirty.sum())
+                        dirty = torch.tensor(np_dirty, device=self.device)
+                        viol_now = violations(goals, stack.envs[k], stack.sts[k])
+                        for i, g in enumerate(goals):
+                            if not co.violated_after.get(g.name, True) and not viol_now[i]:
+                                masks_k[i] = dirty
+                                reduced_by_tenant[k].add(g.name)
+                masks.append(masks_k)
+
+        use_chunked = (self._pass_chunk > 0 and params.pass_chunk > 0
+                       and num_replicas >= self._chunk_min_replicas)
+        gating = use_chunked and self._fleet_gating and masks is not None
+
+        lane_need = np.zeros(K0, np.int64)
+        reduced_flags = np.zeros((K0, len(goals)), bool)
+        cert_goal = np.zeros((K0, len(goals)), bool)
+        carried_maps: list[dict] = [{} for _ in sessions]
+        if gating:
+            for k, (s, rd) in enumerate(zip(sessions, rds)):
+                for gi, g in enumerate(goals):
+                    reduced_flags[k, gi] = g.name in reduced_by_tenant[k]
+                if (self._adaptive_budgets and dirty_counts[k] > 0
+                        and reduced_by_tenant[k]):
+                    lane_need[k] = max(self._adaptive_floor,
+                                       -(-dirty_counts[k]
+                                         // max(int(params.num_candidates), 1)) + 1)
+                co = s.carryover
+                if (self._cert_skip and rd is not None and co is not None
+                        and co.chain_key == chain_key
+                        and rd["syncs"] >= 1 and not rd["rebuilt"]
+                        and not rd["broker_flips"]
+                        and 0 <= rd["churn"] <= s.seed_budget_replicas(num_replicas)):
+                    carried_maps[k] = {r.name: r for r in co.result.goal_results}
+                    for gi, g in enumerate(goals):
+                        cert_goal[k, gi] = (co.violated_after.get(g.name) is True
+                                            and co.proven.get(g.name) is True)
+
+        results_by_idx: dict[int, OptimizerResult] = {}
+        failed_hard: list[tuple] = []
+
+        def finalize_tenant(i, payload):
+            """Tenant i's OptimizerResult from its lane's payload (optimizer.py
+            :1785-1927): the per-tenant fallback and escalation, proposals,
+            carryover and ``on_result``."""
+            session = sessions[i]
+            (env, _st0, meta, part_table, initial_broker, initial_leader,
+             initial_disk, host_valid, host_part) = inputs[i]
+            st_i = payload["state"]
+            infos = payload["infos"]
+            violated_before = {g.name: bool(v)
+                               for g, v in zip(goals, payload["viol_before"])}
+            goal_results = [
+                GoalResult(
+                    name=g.name, violated_before=violated_before[g.name],
+                    violated_after=bool(info["violated_after"]),
+                    iterations=int(info["iterations"]), duration_s=0.0,
+                    stat_after=float(info["stat"]),
+                    hit_max_iters=bool(info.get("hit_max_iters", False)),
+                    passes=int(info.get("passes", 0)),
+                    stat_before=float(info.get("stat_before", 0.0)),
+                    fixpoint_proven=bool(info.get("fixpoint_proven", False)),
+                    moves_remaining=int(info.get("moves_remaining", -1)),
+                    leads_remaining=int(info.get("leads_remaining", -1)),
+                    swap_window_remaining=int(info.get("swap_window_remaining", -1)),
+                    finisher_rounds=int(info.get("finisher_rounds", 0)),
+                    plateau_exit=bool(info.get("plateau_exit", False)),
+                    move_actions=int(info.get("move_actions", 0)),
+                    lead_actions=int(info.get("lead_actions", 0)),
+                    swap_actions=int(info.get("swap_actions", 0)),
+                    disk_actions=int(info.get("disk_actions", 0)),
+                    move_waves=int(info.get("move_waves", 0)),
+                    finisher_actions=int(info.get("finisher_actions", 0)),
+                    finisher_segments=int(info.get("finisher_segments", 0)),
+                    finisher_boundary=int(info.get("finisher_boundary", 0)),
+                    passes_skipped=int(info.get("passes_skipped", 0)),
+                    quiesce_chunk=int(info.get("quiesce_chunk", -1)),
+                    finisher_skipped=bool(info.get("finisher_skipped", False)))
+                for g, info in zip(goals, infos)]
+            for r in goal_results:
+                if r.finisher_skipped and r.name in carried_maps[i]:
+                    # the carried certificate stands in for the skipped scans
+                    cr = carried_maps[i][r.name]
+                    r.fixpoint_proven = True
+                    r.moves_remaining = cr.moves_remaining
+                    r.leads_remaining = cr.leads_remaining
+                    r.swap_window_remaining = cr.swap_window_remaining
+            skipped_names = payload.get("skipped_names") or set()
+            for r in goal_results:
+                if r.name in skipped_names:
+                    r.mode = "skipped"
+                elif r.name in reduced_by_tenant[i]:
+                    r.mode = "reduced"
+            if run_preferred:
+                goal_results.append(GoalResult(
+                    name="PreferredLeaderElectionGoal",
+                    violated_before=bool(payload["ple_was"]),
+                    violated_after=bool(payload["ple_still"]),
+                    iterations=1 if payload["ple_was"] else 0,
+                    duration_s=0.0, stat_after=0.0))
+            stats_before = payload["stats_before"]
+            stats_after = payload["stats_after"]
+            pb, plead, pdisk, data_mb = payload["packed"]
+            n_fb = 0
+            if reduced_by_tenant[i]:
+                st_fb, n_fb = self._reseed_fallback(
+                    env, st_i, goals, goal_results, params,
+                    session.carryover.violated_after, use_chunked)
+                if st_fb is not None:
+                    st_i = st_fb
+                    stats_after = cluster_stats_state(env, st_i)
+                    pb, plead, pdisk, data_mb = _pack_final(env, st_i)
+            st_esc = self._escalate_unproven(env, st_i, goals, goal_results, params)
+            if st_esc is not None:
+                st_i = st_esc
+                stats_after = cluster_stats_state(env, st_i)
+                pb, plead, pdisk, data_mb = _pack_final(env, st_i)
+            R = env.num_replicas
+            proposals = diff_proposals(
+                meta, initial_broker, initial_leader, initial_disk,
+                np.asarray(pb, np.int32), np.unpackbits(plead)[:R].astype(bool),
+                np.asarray(pdisk, np.int32), part_table, host_valid, host_part)
+            viol_after = {g.name: g.violated_after for g in goal_results}
+            result = OptimizerResult(
+                goal_results=goal_results, proposals=proposals,
+                stats_before=stats_before, stats_after=stats_after,
+                balancedness_before=_balancedness(
+                    goals, violated_before, self._balancedness_priority_weight,
+                    self._balancedness_strictness_weight),
+                balancedness_after=_balancedness(
+                    goals, viol_after, self._balancedness_priority_weight,
+                    self._balancedness_strictness_weight),
+                num_replica_movements=proposals.num_replica_additions,
+                num_leadership_movements=proposals.num_leadership_changes,
+                data_to_move_mb=float(data_mb),
+                round_mode="reduced" if reduced_by_tenant[i] else "full",
+                fallback_goals=n_fb,
+                passes_dispatched=sum(r.passes for r in goal_results),
+                passes_skipped=sum(r.passes_skipped for r in goal_results),
+                early_exit_goals=sum(1 for r in goal_results if r.quiesce_chunk >= 0),
+                skipped_goals=sum(1 for r in goal_results if r.mode == "skipped"),
+                parked_early=bool(payload.get("parked_early", False)),
+                compacted_out=bool(payload.get("compacted_out", False)),
+                final_state=st_i, env=env, meta=meta)
+            results_by_idx[i] = result
+            if self._incremental:
+                session.note_carryover(
+                    IncrementalCarryover(
+                        chain_key=chain_key,
+                        violated_before=tuple(bool(violated_before[g.name])
+                                              for g in goals),
+                        violated_after={r.name: r.violated_after for r in goal_results},
+                        proven={r.name: r.fixpoint_proven for r in goal_results},
+                        result=result),
+                    taken_generation=gens[i])
+            if raise_on_failure:
+                failed = [r.name for r, g in zip(goal_results, goals)
+                          if g.is_hard and r.violated_after]
+                if failed:
+                    failed_hard.append((i, result, failed))
+            if on_result is not None:
+                on_result(i, result)
+            return result
+
+        fleet_stats = None
+        if gating:
+            fleet_stats = self._fleet_chain_gated(
+                stack, goals, ple, params, masks, lane_need, reduced_flags, cert_goal,
+                finalize_tenant)
+        else:
+            payloads = self._fleet_chain(stack, goals, ple, params, masks,
+                                         params.pass_chunk if use_chunked else 0)
+            for i, payload in enumerate(payloads):
+                finalize_tenant(i, payload)
+                if raise_on_failure and failed_hard:
+                    break
+        if raise_on_failure and failed_hard:
+            i, result, failed = min(failed_hard, key=lambda t: t[0])
+            raise OptimizationFailureError(
+                f"hard goal(s) not satisfiable for tenant {i}: {failed}", result=result)
+        results = [results_by_idx[i] for i in range(K0)]
+        info = {"mode": "fleet", "tenants": K0}
+        if fleet_stats is not None:
+            info["gated"] = True
+            info.update(fleet_stats)
+        info["lanes"] = [{"tenant": i, "round_mode": r.round_mode,
+                          "passes_dispatched": r.passes_dispatched,
+                          "passes_skipped": r.passes_skipped,
+                          "early_exit_goals": r.early_exit_goals,
+                          "skipped_goals": r.skipped_goals,
+                          "parked_early": r.parked_early,
+                          "compacted_out": r.compacted_out}
+                         for i, r in enumerate(results)]
+        self.last_fleet_round = info
+        return results
+
+    @staticmethod
+    def _lane_head(stack, goals, lanes: list) -> dict:
+        """{lane: (stats before, violated-before flags)} (the fleet head)."""
+        return {l: (cluster_stats_state(stack.envs[l], stack.sts[l]),
+                    violations(goals, stack.envs[l], stack.sts[l])) for l in lanes}
+
+    @staticmethod
+    def _lane_final(stack, ple, lanes: list) -> dict:
+        """{lane: payload part} of the closing step (``_compiled_fleet_final``
+        :2626): the optional preferred-leader pass, final stats and the
+        packed final assignment, lane by lane."""
+        out = {}
+        for l in lanes:
+            part = {}
+            if ple is not None:
+                was, st, still = ple.run(stack.envs[l], stack.sts[l])
+                stack.write(l, st)
+                part["ple_was"], part["ple_still"] = (
+                    bool(v) for v in torch.stack([was, still]).tolist())
+            part["stats_after"] = cluster_stats_state(stack.envs[l], stack.sts[l])
+            part["packed"] = _pack_final(stack.envs[l], stack.sts[l])
+            part["state"] = stack.state_copy(l)
+            out[l] = part
+        return out
+
+    def _lane_finish(self, stack, g, prev: tuple, lane_params: dict, lanes: list,
+                     skip: dict | None = None) -> dict:
+        """{lane: (violated, finisher counts, stat)}: the finisher of goal
+        ``g`` for ``lanes``, lane by lane (``_compiled_fleet_finish`` :2346),
+        gated on the lane's verdict (and off where ``skip`` says so)."""
+        viol = read_values([g.violated(stack.envs[l], stack.sts[l]) for l in lanes])
+        fins = {}
+        for l, v in zip(lanes, viol):
+            run = bool(v) and not (skip or {}).get(l, False)
+            st2, fins[l] = _goal_finish(stack.envs[l], stack.sts[l], g, prev,
+                                        lane_params[l], run)
+            stack.write(l, st2)
+        after = read_values([x for l in lanes
+                             for x in (g.violated(stack.envs[l], stack.sts[l]),
+                                       g.stat(stack.envs[l], stack.sts[l]))])
+        return {l: (bool(after[2 * j]), fins[l], after[2 * j + 1])
+                for j, l in enumerate(lanes)}
+
+    def _fleet_chain(self, stack, goals, ple, params, masks, chunk: int) -> list:
+        """The ungated fleet launch: the monolithic chain (``chunk`` 0,
+        ``_compiled_fleet_chain`` :2563) or the chunked one with per-lane
+        quiescence (``_fleet_chain_chunked`` :2045). Returns one payload per
+        lane."""
+        lanes = list(range(stack.size))
+        lane_params = {l: params for l in lanes}
+        head = self._lane_head(stack, goals, lanes)
+        infos = {l: [] for l in lanes}
+        prev: tuple = ()
+        for gi, g in enumerate(goals):
+            seed = {l: masks[l][gi] for l in lanes} if masks is not None else {}
+            carries, quiesce, stat0 = fleet_goal_loop(stack, g, prev, lane_params, lanes,
+                                                      chunk, seed)
+            fin = self._lane_finish(stack, g, prev, lane_params, lanes)
+            for l in lanes:
+                viol, f, stat = fin[l]
+                info = _info(g, params, carries[l], stat0[l], viol, f, stat)
+                if chunk > 0:
+                    info.update(passes_skipped=passes_skipped(carries[l], params,
+                                                              quiesce[l]),
+                                quiesce_chunk=quiesce[l])
+                infos[l].append(info)
+            prev = prev + (g,)
+        final = self._lane_final(stack, ple, lanes)
+        return [dict(final[l], viol_before=head[l][1], stats_before=head[l][0],
+                     infos=infos[l]) for l in lanes]
+
+    @staticmethod
+    def _skipped_info(s0: float) -> dict:
+        """A short-circuited goal's host info (optimizer.py:2156)."""
+        return dict(_NO_GOAL_RUN, stat_before=s0, stat=s0)
+
+    def _fleet_chain_gated(self, stack, goals, ple, params, masks, lane_need,
+                           reduced_flags, cert_goal, finalize) -> dict:
+        """optimizer.py:2176, ragged fleet gating: the chunked fleet launch
+        with per-lane churn-clamped budgets, the per-lane chain
+        short-circuit (K13 probe, lane by lane), the per-lane certificate
+        finisher skip, parking of lanes whose every remaining goal probes
+        as a no-op (their final step runs and ``finalize`` fires at once:
+        early landing) and the pow2 compaction policy. The stack is never
+        re-gathered: each stage launches for the running lanes' list, so a
+        compaction here only moves the policy's row map and counters,
+        which follow the reference's. Returns the launch statistics."""
+        K0 = stack.size
+        G = len(goals)
+        all_lanes = list(range(K0))
+        head = self._lane_head(stack, goals, all_lanes)
+        static = {f: int(getattr(params, f)) for f in
+                  ("stall_retries", "sat_stall_retries", "tail_pass_budget",
+                   "sat_tail_passes", "tail_total_budget", "finisher_rounds")}
+        need0 = np.asarray(lane_need, np.int64)
+
+        def lane_params(gi, ok):
+            """The goal's per-lane params: churn-clamped budgets where the
+            goal is dirty-seeded on the lane, the static ones elsewhere."""
+            n = int(need0[ok])
+            if not (reduced_flags[ok, gi] and n > 0):
+                return params
+            caps = {"stall_retries": n, "sat_stall_retries": n,
+                    "tail_pass_budget": 4 * n, "sat_tail_passes": 4 * n,
+                    "tail_total_budget": 8 * n, "finisher_rounds": max(2, n)}
+            return dataclasses.replace(params, **{f: min(static[f], caps[f])
+                                                  for f in static})
+
+        def probes(g, gi, lanes):
+            """{lane: (violated, has_work, stat)} of goal ``g``'s K13 probe
+            against each lane's mask, in one read."""
+            vals = read_values([x for l in lanes for x in (
+                g.violated(stack.envs[l], stack.sts[l]),
+                g.seeded_work_probe(stack.envs[l], stack.sts[l],
+                                    masks[l][gi] if masks[l][gi] is not None
+                                    else torch.ones(stack.num_replicas, dtype=torch.bool,
+                                                    device=stack.device)),
+                g.stat(stack.envs[l], stack.sts[l]))])
+            return {l: (bool(vals[3 * j]), bool(vals[3 * j + 1]), vals[3 * j + 2])
+                    for j, l in enumerate(lanes)}
+
+        orig = np.arange(K0)            # stack row -> original tenant
+        pad = np.zeros(K0, bool)        # pow2 pad rows of the policy
+        done = np.zeros(K0, bool)       # parked lanes still in the row map
+        actions_total = np.zeros(K0, np.int64)
+        lane_infos: list[list] = [[] for _ in range(K0)]
+        skipped_names: list[set] = [set() for _ in range(K0)]
+        parked_flag = np.zeros(K0, bool)
+        compacted_flag = np.zeros(K0, bool)
+        stats = {"parked": 0, "compactions": 0, "compacted_out": 0}
+
+        def finalize_lanes(oks):
+            final = self._lane_final(stack, ple, oks)
+            for ok in oks:
+                finalize(ok, dict(final[ok], viol_before=head[ok][1],
+                                  stats_before=head[ok][0], infos=lane_infos[ok],
+                                  skipped_names=skipped_names[ok],
+                                  parked_early=bool(parked_flag[ok]),
+                                  compacted_out=bool(compacted_flag[ok])))
+
+        prev: tuple = ()
+        for gi, g in enumerate(goals):
+            alive = ~done & ~pad
+            alive_ok = [int(orig[r]) for r in np.flatnonzero(alive)]
+            lp = {ok: lane_params(gi, ok) for ok in all_lanes}
+            pr0 = probes(g, gi, alive_ok) if alive_ok else {}
+            sc_ok = set()
+            if self._shortcircuit:
+                for ok in alive_ok:
+                    viol, work, stat = pr0[ok]
+                    if reduced_flags[ok, gi] and not viol and not work:
+                        sc_ok.add(ok)
+                        lane_infos[ok].append(self._skipped_info(float(stat)))
+                        skipped_names[ok].add(g.name)
+            run_ok = [ok for ok in alive_ok if ok not in sc_ok]
+            if run_ok:
+                seed = {ok: masks[ok][gi] for ok in run_ok}
+                carries, quiesce, stat0 = fleet_goal_loop(
+                    stack, g, prev, lp, run_ok, params.pass_chunk, seed)
+                exit_viol = dict(zip(run_ok, read_values(
+                    [g.violated(stack.envs[ok], stack.sts[ok]) for ok in run_ok])))
+                fs = {}
+                for ok in run_ok:
+                    fs[ok] = bool(self._cert_skip and cert_goal[ok, gi]
+                                  and actions_total[ok] == 0 and quiesce[ok] >= 0
+                                  and carries[ok]["n_applied"] == 0)
+                need_fin = [ok for ok in run_ok if exit_viol[ok] and not fs[ok]]
+                if need_fin:
+                    fin = self._lane_finish(stack, g, prev, lp, run_ok, skip=fs)
+                else:
+                    # no lane needs a real finisher run: the sentinels on the
+                    # host, the exit verdicts and stats (zero launches)
+                    stat_exit = dict(zip(run_ok, read_values(
+                        [g.stat(stack.envs[ok], stack.sts[ok]) for ok in run_ok])))
+                    fin = {ok: (bool(exit_viol[ok]), None, stat_exit[ok])
+                           for ok in run_ok}
+                for ok in run_ok:
+                    viol, f, stat = fin[ok]
+                    f = f if f is not None else {
+                        "fixpoint_proven": False, "moves_remaining": -1,
+                        "leads_remaining": -1, "swap_window_remaining": -1,
+                        "finisher_rounds": 0, "finisher_actions": 0,
+                        "finisher_boundary": 0, "finisher_segments": 0}
+                    info = _info(g, lp[ok], carries[ok], stat0[ok], viol, f, stat)
+                    info.update(passes_skipped=passes_skipped(carries[ok], lp[ok],
+                                                              quiesce[ok]),
+                                quiesce_chunk=quiesce[ok], finisher_skipped=fs[ok])
+                    lane_infos[ok].append(info)
+                    actions_total[ok] += int(info["iterations"])
+            prev = prev + (g,)
+
+            # boundary parking + compaction: a lane whose EVERY remaining
+            # goal is dirty-seeded and probes as a no-op finishes here
+            if gi >= G - 1 or not self._shortcircuit:
+                continue
+            cand = ~done & ~pad
+            for gj in range(gi + 1, G):
+                cand &= reduced_flags[orig, gj]
+            if not np.any(cand):
+                continue
+            park = cand.copy()
+            probes_rest = []
+            for gj in range(gi + 1, G):
+                rows = [int(orig[r]) for r in np.flatnonzero(park)]
+                pr = probes(goals[gj], gj, rows)
+                probes_rest.append(pr)
+                for r in np.flatnonzero(park):
+                    viol, work, _stat = pr[int(orig[r])]
+                    park[r] = not viol and not work
+                if not np.any(park):
+                    break
+            if not np.any(park):
+                continue
+            for r in np.flatnonzero(park):
+                ok = int(orig[r])
+                for gj, pr in zip(range(gi + 1, G), probes_rest):
+                    lane_infos[ok].append(self._skipped_info(float(pr[ok][2])))
+                    skipped_names[ok].add(goals[gj].name)
+                parked_flag[ok] = True
+            stats["parked"] += int(park.sum())
+            will_drop = (done | park) & ~pad
+            alive_rows = np.flatnonzero(~done & ~park & ~pad)
+            kq = (1 << (int(alive_rows.size) - 1).bit_length()
+                  if alive_rows.size else 0)
+            compact = (self._fleet_compaction and alive_rows.size > 0
+                       and kq < orig.shape[0])
+            if compact:
+                for ok in orig[will_drop]:
+                    compacted_flag[int(ok)] = True
+                stats["compactions"] += 1
+                stats["compacted_out"] += int(will_drop.sum())
+            finalize_lanes([int(orig[r]) for r in np.flatnonzero(park)])
+            done = done | park
+            if compact:
+                rows = list(alive_rows) + [int(alive_rows[0])] * (kq - alive_rows.size)
+                orig = orig[np.asarray(rows)]
+                pad = np.zeros(kq, bool)
+                pad[alive_rows.size:] = True
+                done = np.zeros(kq, bool)
+
+        finalize_lanes([int(orig[r]) for r in np.flatnonzero(~done & ~pad)])
+        return stats
+
+    def _revalidated_fleet(self, sessions, goals, rds, chain_key):
+        """optimizer.py:2493, the whole-fleet certificate memo: when EVERY
+        tenant is eligible and every tenant's verdict re-check matches its
+        carried round, the launch is skipped and each carried result returns
+        re-stamped; otherwise None (all or nothing)."""
+        for s, rd in zip(sessions, rds):
+            co = s.carryover
+            if (rd is None or co is None or co.chain_key != chain_key
+                    or rd["syncs"] < 1 or rd["churn"] != 0
+                    or rd["broker_flips"] or rd["rebuilt"]
+                    or rd["load_drift"] > self._reval_tol):
+                return None
+        t0 = time.monotonic()
+        checked = []
+        for s in sessions:
+            env, st = s.revalidation_view()
+            if tuple(violations(goals, env, st)) != s.carryover.violated_before:
+                return None
+            checked.append(s)
+        reval_s = time.monotonic() - t0
+        results = []
+        for s in checked:
+            co = s.carryover
+            grs = [dataclasses.replace(r, duration_s=0.0, mode="revalidated")
+                   for r in co.result.goal_results]
+            result = dataclasses.replace(
+                co.result, goal_results=grs, round_mode="revalidated",
+                revalidate_s=reval_s, durations_measured=False, fallback_goals=0)
+            s.note_revalidated()
+            results.append(result)
+        self.last_fleet_round = {"mode": "fleet", "tenants": len(sessions),
+                                 "revalidated": True}
+        return results

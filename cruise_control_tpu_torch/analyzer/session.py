@@ -36,9 +36,18 @@ host mirrors of the observed assignment through the finalize, into fresh
 tensors. A round's result, and the carryover that keeps it, therefore never
 shares a tensor that a later sync writes.
 
-Not ported yet: fleet spill and readmit and the pad-to-join floors (ROADMAP
-Queue 1 item 13), the pipelined service loop that syncs while a round is in
-flight (item 12) and the mesh (item 15); they raise ``NotImplementedError``.
+Fleet mode (``fleet.FleetScheduler``): ``spill`` mirrors the env to the
+host and releases both device slots under the fleet's memory budget; the
+next touch (``sync``, ``revalidation_view`` or ``readmit``) uploads the
+mirror and rematerializes the state through the same finalize every sync
+runs, so a readmitted session is bit-identical to a never-spilled one.
+``bucket_floors`` (the admission engine's pad-to-join) are pad floors of
+the rebuild. When a batched round stacks the session, the stack copies the
+lent state, and the next sync rematerializes it as after a solo round.
+
+Not ported yet: the pipelined service loop that syncs while a round is in
+flight (ROADMAP Queue 1 item 12) and the mesh (item 15); they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -184,7 +193,11 @@ class ResidentClusterSession:
         self.last_sync_info: dict = {}
         self.sync_generation = 0
         self._sync_key: tuple | None = None
-        # the pad-to-join floors of fleet admission (item 13): None only
+        # fleet spill/readmit: the host env mirror while spilled
+        self._spilled_env = None
+        self.spills = 0
+        self.readmits = 0
+        # the pad-to-join floors of fleet admission (pad_cluster's min_*)
         self.bucket_floors: dict | None = None
         # incremental carryover (optimizer.IncrementalCarryover) and what
         # changed since the last optimize round consumed it
@@ -209,6 +222,9 @@ class ResidentClusterSession:
             if not agg.window_starts_ms:
                 raise NotEnoughValidWindowsError("0 valid windows < required 1")
             snap = mon._snapshot()
+            if self.env is None and self._spilled_env is not None:
+                # a spilled tenant touched again: readmit, then the delta path
+                self._readmit_locked()
             if self.env is None:
                 return self._rebuild("cold start", allow_capacity_estimation)
             # sync memo: unchanged (metadata, windows) since the last sync
@@ -291,6 +307,7 @@ class ResidentClusterSession:
         with self.lock:
             self.env = None
             self.state = None
+            self._spilled_env = None
             self._sync_key = None
             self.carryover = None
             self._load_baseline = None
@@ -326,8 +343,10 @@ class ResidentClusterSession:
 
     def revalidation_view(self) -> tuple:
         """(env, state) for the certificate re-check: the resident state is
-        peeked (rematerialized if lent), never taken."""
+        peeked (rematerialized if lent or spilled), never taken."""
         with self.lock:
+            if self.env is None and self._spilled_env is not None:
+                self._readmit_locked()
             self._ensure_state()
             return self.env, self.state
 
@@ -366,11 +385,49 @@ class ResidentClusterSession:
             return mask & valid
 
     # ------------------------------------------------- fleet spill/readmit
+    @property
+    def spilled(self) -> bool:
+        return self._spilled_env is not None
+
     def spill(self) -> bool:
-        _not_ported("fleet spill and readmit", "item 13")
+        """session.py:550: reclaim this tenant's device footprint (the
+        fleet's memory budget): mirror the env to the host and drop both
+        device slots. The observed assignment already lives in the host
+        mirrors, so the next readmit's finalize rebuilds the state bit for
+        bit. No-op while cold or already spilled; returns whether a spill
+        happened."""
+        with self.lock:
+            if self.env is None:
+                return False
+            self._ensure_state()     # a lent state is observed first, as a sync would
+            self._spilled_env = {
+                f.name: (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v)
+                for f in dataclasses.fields(self.env)
+                for v in (getattr(self.env, f.name),)}
+            self.env = None
+            self.state = None
+            self.spills += 1
+            return True
 
     def readmit(self) -> bool:
-        _not_ported("fleet spill and readmit", "item 13")
+        """Re-admit a spilled session: upload the host env mirror and
+        rematerialize the state through the finalize (``sync`` does this
+        implicitly). Returns whether a readmission happened."""
+        with self.lock:
+            if self._spilled_env is None:
+                return False
+            self._readmit_locked()
+            return True
+
+    def _readmit_locked(self) -> None:
+        host_env = self._spilled_env
+        self._spilled_env = None
+        from cruise_control_tpu_torch.analyzer.env import ClusterEnv
+        self.env = ClusterEnv(**{
+            k: (v.to(self.device) if isinstance(v, torch.Tensor) else v)
+            for k, v in host_env.items()})
+        self._materialize(self.env.leader_load, self.env.follower_load)
+        self.readmits += 1
 
     def pending_delta_json(self) -> dict:
         """session.py:590: what the next optimize round's round delta holds."""
@@ -383,12 +440,12 @@ class ResidentClusterSession:
 
     def state_json(self) -> dict:
         """session.py:605, served under the facade's AnalyzerState. The
-        shadow slot and fleet spill are not ported (0 and False)."""
+        shadow slot is not ported (0)."""
         return {"epoch": self.epoch, "rebuildRounds": self.rebuild_rounds,
                 "deltaRounds": self.delta_rounds,
                 "donatedRounds": self.donated_rounds, "shadowSyncs": 0,
-                "syncGeneration": self.sync_generation, "spilled": False,
-                "spills": 0, "readmits": 0,
+                "syncGeneration": self.sync_generation, "spilled": self.spilled,
+                "spills": self.spills, "readmits": self.readmits,
                 "revalidatedRounds": self.revalidated_rounds,
                 "carryover": self.carryover is not None,
                 "pendingDelta": self.pending_delta_json(),
@@ -446,8 +503,6 @@ class ResidentClusterSession:
 
     # ------------------------------------------------------------ rebuild
     def _rebuild(self, reason: str, allow_capacity_estimation: bool) -> dict:
-        if self.bucket_floors:
-            _not_ported("the pad-to-join bucket floors", "item 13")
         t0 = time.monotonic()
         mon = self._monitor
         # the model must correspond to ONE metadata generation: retry if a
@@ -459,7 +514,7 @@ class ResidentClusterSession:
             if mon._snapshot().generation == snap.generation:
                 break
         ct = self._apply_excluded_pattern(ct, meta)
-        ct, meta = pad_cluster(ct, meta)
+        ct, meta = pad_cluster(ct, meta, **(self.bucket_floors or {}))
         part_table = padded_partition_table(ct)
         tml = self._tml_mask(meta, ct.num_topics)
         env = make_env(ct, meta, topic_min_leaders_mask=tml,

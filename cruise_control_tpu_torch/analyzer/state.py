@@ -249,44 +249,115 @@ def apply_moves_batched(env: ClusterEnv, st: EngineState, replicas: torch.Tensor
     chained ``.at[src].add(-x).at[dst].add(x)`` order, with the Neumaier
     residual of ``_kahan_scatter2`` (``residual_inputs``; ``chained``: this
     wave directly follows another apply in the reference's program)."""
-    B, P, T = env.num_brokers, env.num_partitions, env.num_topics
-    Kr = env.num_racks
-    D = env.broker_disk_capacity.shape[1]
-    vals, seg, init = apply_sum_inputs(env, st, replicas, dsts, mask)
-    out = segment_sum(vals, seg, B, init)
-    util, leader_util = out[:, 0:4], out[:, 4:8]
-    rv, rseg, rinit = residual_inputs(st, util, leader_util, vals, seg, chained)
-    res = segment_sum(rv, rseg, B, rinit)
-    if chained:
-        res = torch.cat([st.util_residual, st.leader_util_residual], dim=1) + res
-    util_res, lead_res = res[:, 0:4].contiguous(), res[:, 4:8].contiguous()
+    return apply_moves_lanes([env], [st], replicas[None], dsts[None], mask[None],
+                             chained)[0]
 
-    rc, lc, prc, tbc, tlc = (segment_count(*a) for a in
-                             apply_move_count_inputs(env, st, replicas, dsts, mask))
 
-    *disk_args, dst_disk = apply_disk_sum_inputs(
-        env, st, replicas, dsts, mask, vals[replicas.shape[0]:, Resource.DISK])
-    du = segment_sum(*disk_args)
+def _fold(parts: list, width: int, index: int = 1) -> tuple:
+    """Concatenate per-lane segment-sum / count arguments with lane j's
+    segment ids offset by ``j * width`` (negative ids stay skipped), so one
+    launch serves every lane and each lane's rows keep their solo order."""
+    if len(parts) == 1:
+        return tuple(parts[0])
+    cols = list(zip(*parts))
+    seg = torch.cat([torch.where(sg >= 0, sg + j * width, sg)
+                     for j, sg in enumerate(cols[index])])
+    return tuple(seg if i == index else torch.cat(c) if isinstance(c[0], torch.Tensor)
+                 else c[0] for i, c in enumerate(cols))
 
-    en = torch.nonzero(mask).flatten()
-    r_en = replicas[en]
-    replica_broker = st.replica_broker.clone()
-    replica_broker[r_en] = dsts[en]
-    replica_disk = st.replica_disk.clone()
-    replica_disk[r_en] = dst_disk[en]
-    offline = st.replica_offline.clone()
-    offline[r_en] = False
-    moved = st.moved.clone()
-    moved[r_en] = True
-    return dataclasses.replace(
-        st, replica_broker=replica_broker, replica_disk=replica_disk,
-        replica_offline=offline, util=util.contiguous(),
-        leader_util=leader_util.contiguous(),
-        potential_nw_out=out[:, 8].contiguous(), replica_count=rc,
-        leader_count=lc, part_rack_count=prc.view(P, Kr),
-        topic_broker_count=tbc.view(T, B), topic_leader_count=tlc.view(T, B),
-        disk_util=du.view(B, D), util_residual=util_res,
-        leader_util_residual=lead_res, moved=moved)
+
+def apply_moves_lanes(envs: list, sts: list, replicas: torch.Tensor,
+                      dsts: torch.Tensor, mask: torch.Tensor,
+                      chained: bool = False, into: tuple | None = None):
+    """``apply_moves_batched`` of La lanes (``envs`` / ``sts`` their solo
+    views, ``replicas`` / ``dsts`` / ``mask`` [La, W]) with the K4/K5
+    launches shared: every segment sum and count folds the lane into its
+    segment ids (``lane * B + broker``), each lane's rows contiguous and in
+    their solo order, so every f32 sum keeps its order. Returns the lanes'
+    new states, or, with ``into`` = (a lane stack's [L, ...] state, the
+    lanes' indices in it), writes them into those rows of the stack (one
+    write per field for all lanes) and returns None."""
+    La = len(envs)
+    env0 = envs[0]
+    B, P, T = env0.num_brokers, env0.num_partitions, env0.num_topics
+    Kr = env0.num_racks
+    D = env0.broker_disk_capacity.shape[1]
+    W = replicas.shape[1]
+    ins = [apply_sum_inputs(envs[j], sts[j], replicas[j], dsts[j], mask[j])
+           for j in range(La)]
+    vals, seg, init = _fold(ins, B)
+    out = segment_sum(vals, seg, La * B, init).view(La, B, -1)
+    res_in = [residual_inputs(sts[j], out[j, :, 0:4], out[j, :, 4:8], ins[j][0],
+                              ins[j][1], chained) for j in range(La)]
+    rvals, rseg, rinit = _fold(res_in, B)
+    res = segment_sum(rvals, rseg, La * B, rinit).view(La, B, -1)
+    counts = [apply_move_count_inputs(envs[j], sts[j], replicas[j], dsts[j], mask[j])
+              for j in range(La)]
+    tallies = []
+    for kind in range(5):
+        per = [counts[j][kind] for j in range(La)]
+        nseg = per[0][1]
+        if La == 1:
+            tallies.append(segment_count(*per[0]).view(1, nseg))
+            continue
+        segs = torch.cat([a[0] + j * nseg for j, a in enumerate(per)])
+        tallies.append(segment_count(segs, La * nseg, torch.cat([a[2] for a in per]),
+                                     torch.cat([a[3] for a in per])).view(La, nseg))
+    disk_in = [apply_disk_sum_inputs(envs[j], sts[j], replicas[j], dsts[j], mask[j],
+                                     ins[j][0][W:, Resource.DISK]) for j in range(La)]
+    dvals, dseg, _n, dinit, _dd = _fold(disk_in, B * D)
+    du = segment_sum(dvals, dseg, La * B * D, dinit).view(La, B * D)
+    if into is not None:
+        st_b, lanes = into
+        if chained:
+            raise ValueError("a lane stack's move wave is never chained")
+        idx = torch.as_tensor(lanes, device=replicas.device)
+        st_b.util[idx] = out[:, :, 0:4]
+        st_b.leader_util[idx] = out[:, :, 4:8]
+        st_b.potential_nw_out[idx] = out[:, :, 8]
+        st_b.util_residual[idx] = res[:, :, 0:4]
+        st_b.leader_util_residual[idx] = res[:, :, 4:8]
+        st_b.replica_count[idx] = tallies[0]
+        st_b.leader_count[idx] = tallies[1]
+        st_b.part_rack_count[idx] = tallies[2].view(La, P, Kr)
+        st_b.topic_broker_count[idx] = tallies[3].view(La, T, B)
+        st_b.topic_leader_count[idx] = tallies[4].view(La, T, B)
+        st_b.disk_util[idx] = du.view(La, B, D)
+        j, w = torch.nonzero(mask, as_tuple=True)
+        flat = idx[j] * st_b.replica_broker.shape[1] + replicas[j, w]
+        st_b.replica_broker.view(-1)[flat] = dsts[j, w]
+        st_b.replica_disk.view(-1)[flat] = torch.stack([d[4] for d in disk_in])[j, w]
+        st_b.replica_offline.view(-1)[flat] = False
+        st_b.moved.view(-1)[flat] = True
+        return None
+    out_states = []
+    for j in range(La):
+        st = sts[j]
+        util_res, lead_res = res[j, :, 0:4], res[j, :, 4:8]
+        if chained:
+            util_res = st.util_residual + util_res
+            lead_res = st.leader_util_residual + lead_res
+        en = torch.nonzero(mask[j]).flatten()
+        r_en = replicas[j][en]
+        replica_broker = st.replica_broker.clone()
+        replica_broker[r_en] = dsts[j][en]
+        replica_disk = st.replica_disk.clone()
+        replica_disk[r_en] = disk_in[j][4][en]
+        offline = st.replica_offline.clone()
+        offline[r_en] = False
+        moved = st.moved.clone()
+        moved[r_en] = True
+        rc, lc, prc, tbc, tlc = (t[j] for t in tallies)
+        out_states.append(dataclasses.replace(
+            st, replica_broker=replica_broker, replica_disk=replica_disk,
+            replica_offline=offline, util=out[j, :, 0:4].contiguous(),
+            leader_util=out[j, :, 4:8].contiguous(),
+            potential_nw_out=out[j, :, 8].contiguous(), replica_count=rc.contiguous(),
+            leader_count=lc.contiguous(), part_rack_count=prc.reshape(P, Kr),
+            topic_broker_count=tbc.reshape(T, B), topic_leader_count=tlc.reshape(T, B),
+            disk_util=du[j].reshape(B, D), util_residual=util_res.contiguous(),
+            leader_util_residual=lead_res.contiguous(), moved=moved))
+    return out_states
 
 
 def apply_swaps_batched(env: ClusterEnv, st: EngineState, r_out: torch.Tensor,

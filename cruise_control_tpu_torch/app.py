@@ -6,11 +6,13 @@ config=None, device="cuda")`` hands ``device`` to the ``GoalOptimizer``, the
 resident session and the forecaster (``device="cpu"`` runs the kernels'
 plain twins, for the tests); "cuda" without a card raises. It resolves the
 class-valued config keys to the port's classes (``config.configdef.
-resolve_class``). A single-tenant deployment is what it serves: the REST
-reads (``broker_load_json``, ``kafka_cluster_state``, ``partition_load``)
-and the threaded pipeline route raise ``NotImplementedError`` naming ROADMAP
-Queue 1 item 12, the fleet sink item 13 and an HA role item 14, as does a
-configured sample store (item 11, the rest).
+resolve_class``). It serves one cluster, alone or as a tenant of a
+``fleet.FleetScheduler`` (``cluster_id``; the scheduler sets
+``fleet_request_sink``, through which the goal-violation detectors enqueue
+heal-lane requests). The REST reads (``broker_load_json``,
+``kafka_cluster_state``, ``partition_load``) and the threaded pipeline route
+raise ``NotImplementedError`` naming ROADMAP Queue 1 item 12 and an HA role
+item 14, as does a configured sample store (item 11, the rest).
 
 Reference: KafkaCruiseControl.java:73 (866) — constructs AdminClient ->
 AnomalyDetectorManager -> Executor -> LoadMonitor -> GoalOptimizer
@@ -78,7 +80,7 @@ def _not_ported(what: str, item: str):
 
 
 class CruiseControl:
-    def __init__(self, backend, config=None, device="cuda"):
+    def __init__(self, backend, config=None, device="cuda", cluster_id=None):
         from cruise_control_tpu_torch.common.sensors import MetricRegistry
         from cruise_control_tpu_torch.common.tracing import (
             EventJournal, FlightRecorder, SpanTracer,
@@ -87,6 +89,9 @@ class CruiseControl:
         self.config = config or cruise_control_config()
         self.backend = backend
         self.device = resolve_device(device)
+        # the tenant cluster this facade serves in fleet mode (None: a
+        # single-tenant deployment); labels the monitor's aggregators
+        self.cluster_id = cluster_id
         # fleet admission engine (PR 18): (lane, reason, now_ms) -> dict,
         # set by FleetScheduler.add_tenant — detector FIX/PREDICTED verdicts
         # and user rebalances enqueue optimization requests through it
@@ -148,7 +153,7 @@ class CruiseControl:
             _not_ported("the sample store (sample.store.path)", "item 11, the rest")
         cfg = self.config
         self.load_monitor = LoadMonitor(
-            config=cfg, backend=backend,
+            config=cfg, backend=backend, cluster_id=cluster_id,
             sampler=cfg.get_configured_instance("metric.sampler.class",
                                                 backend=backend),
             capacity_resolver=cfg.get_configured_instance(
@@ -268,8 +273,20 @@ class CruiseControl:
 
     @fleet_request_sink.setter
     def fleet_request_sink(self, sink) -> None:
-        if sink is not None:
-            _not_ported("fleet mode (the admission engine's request sink)", "item 13")
+        self._fleet_request_sink = sink
+
+    def _heal_admission_sink(self, reason: str, now_ms: float | None = None) -> None:
+        """app.py:669: a FIX/PREDICTED verdict on a fleet tenant enqueues a
+        heal-lane optimization request; a no-op without a fleet."""
+        sink = self.fleet_request_sink
+        if sink is None:
+            return
+        from cruise_control_tpu_torch.pipeline import LANE_HEAL
+        try:
+            sink(LANE_HEAL, reason, now_ms)
+        except Exception:   # noqa: BLE001 - an enqueue never breaks detection
+            logging.getLogger(__name__).exception(
+                "fleet heal-lane enqueue failed for %s", self.cluster_id)
 
     @property
     def ha(self):
@@ -328,7 +345,8 @@ class CruiseControl:
             sensors=self.sensors,
             anomaly_cls=self.config.get_class("goal.violations.class"),
             allow_capacity_estimation=allow_est,
-            session_supplier=session_supplier)
+            session_supplier=session_supplier,
+            admission_sink=self._heal_admission_sink)
         slow = SlowBrokerFinder()
         slow.configure(self.config)
         # metric.anomaly.finder.class (MetricAnomalyFinder SPI): percentile
@@ -434,7 +452,8 @@ class CruiseControl:
                 self.goal_optimizer, self.load_monitor, self.forecaster,
                 self.config.get_list("anomaly.detection.goals"),
                 sensors=self.sensors,
-                allow_capacity_estimation=allow_est)
+                allow_capacity_estimation=allow_est,
+                admission_sink=self._heal_admission_sink)
             self.predicted_goal_violation_detector = pred
             register("PredictedGoalViolationDetector", pred.run_once,
                      interval_ms=interval(

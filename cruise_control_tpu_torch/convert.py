@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv, resolve_device
+from cruise_control_tpu_torch.analyzer.lanes import LaneStack
 from cruise_control_tpu_torch.analyzer.state import EngineState
 from cruise_control_tpu_torch.model.cluster_tensor import ClusterMeta, ClusterTensor
 
@@ -85,6 +86,25 @@ def state_from_arrays(arrays: dict, device="cuda") -> EngineState:
     dev = resolve_device(device)
     return EngineState(**{f.name: _tensor(f.name, arrays[f.name], dev)
                           for f in dataclasses.fields(EngineState)})
+
+
+def lane_stack_from_arrays(env_arrays: dict, state_arrays: dict, device="cuda"):
+    """The port's lane stack (``analyzer.lanes.LaneStack``) from the
+    reference's stacked [K, ...] env and state leaves (``_compiled_stack``'s
+    output as numpy: ``num_real_racks`` one value per lane or one for all,
+    ``num_racks`` / ``max_rf`` the static sizes)."""
+    K = int(np.asarray(state_arrays["replica_broker"]).shape[0])
+    real = np.broadcast_to(np.asarray(env_arrays["num_real_racks"]), (K,))
+    envs, sts = [], []
+    for k in range(K):
+        lane = {n: (np.asarray(v)[k] if n not in ("num_racks", "max_rf",
+                                                 "num_real_racks") else v)
+                for n, v in env_arrays.items()}
+        lane["num_real_racks"] = real[k]
+        envs.append(env_from_arrays(lane, device))
+        sts.append(state_from_arrays({n: np.asarray(v)[k] for n, v in state_arrays.items()},
+                                     device))
+    return LaneStack(envs, sts)
 
 
 def finalize_inputs_from_arrays(arrays: dict, device="cuda") -> tuple:

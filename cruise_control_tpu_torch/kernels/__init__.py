@@ -5,18 +5,24 @@ tensor launches the kernel (or raises), a CPU tensor runs the plain twin.
 There is no fallback from one to the other. ``KERNELS`` holds each
 kernel's source, the reference function it replaces and its launch count.
 """
-from cruise_control_tpu_torch.kernels.admission import wave_admission
+from cruise_control_tpu_torch.kernels.admission import wave_admission, wave_admission_lanes
 from cruise_control_tpu_torch.kernels.build import KERNELS, build_all
 from cruise_control_tpu_torch.kernels.disk import disk_apply, disk_rows
 from cruise_control_tpu_torch.kernels.finalize import session_finalize
 from cruise_control_tpu_torch.kernels.forecast import forecast_batch
-from cruise_control_tpu_torch.kernels.keys import KEY_FAMILY_LAUNCHES, replica_keys
+from cruise_control_tpu_torch.kernels.keys import (
+    KEY_FAMILY_LAUNCHES, replica_keys, replica_keys_lanes,
+)
 from cruise_control_tpu_torch.kernels.leadership import leadership_rows
-from cruise_control_tpu_torch.kernels.move_score import FAMILY_LAUNCHES, move_score_classes
+from cruise_control_tpu_torch.kernels.move_score import (
+    FAMILY_LAUNCHES, move_score_classes, move_score_classes_lanes,
+)
 from cruise_control_tpu_torch.kernels.ple import preferred_leader
 from cruise_control_tpu_torch.kernels.probe import seeded_probe
 from cruise_control_tpu_torch.kernels.segment import segment_count, segment_sum
-from cruise_control_tpu_torch.kernels.select import compact_eligible, select_candidates
+from cruise_control_tpu_torch.kernels.select import (
+    compact_eligible, select_candidates, select_candidates_lanes,
+)
 from cruise_control_tpu_torch.kernels.swap import swap_admission, swap_rows
 
 
@@ -40,7 +46,8 @@ def launch_shapes() -> dict:
 __all__ = [
     "FAMILY_LAUNCHES", "KEY_FAMILY_LAUNCHES", "KERNELS", "build_all", "compact_eligible",
     "disk_apply", "disk_rows", "forecast_batch", "launch_shapes", "launches", "leadership_rows",
-    "move_score_classes", "preferred_leader", "replica_keys", "reset_launches",
-    "seeded_probe", "segment_count", "segment_sum", "select_candidates",
-    "session_finalize", "swap_admission", "swap_rows", "wave_admission",
+    "move_score_classes", "move_score_classes_lanes", "preferred_leader", "replica_keys",
+    "replica_keys_lanes", "reset_launches", "seeded_probe", "segment_count", "segment_sum",
+    "select_candidates", "select_candidates_lanes", "session_finalize", "swap_admission",
+    "swap_rows", "wave_admission", "wave_admission_lanes",
 ]

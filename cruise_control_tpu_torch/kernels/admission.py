@@ -21,6 +21,12 @@ each block scanned left to right, the block totals scanned the same way
 (recursively), and the exclusive block prefix added back. ``xla_cumsum``
 reproduces that order exactly, so the sums match the oracle bit for bit.
 
+``wave_admission_lanes`` is the fleet's lane form (K14): the solo
+arguments of La lanes stacked into [La, ...] tensors, in ONE launch
+sequence (grid dimension y = lane; ``side_scan`` runs one CTA per (side,
+lane)); each lane's verdicts are its solo launch's. Its twin loops the solo
+twin over the lanes.
+
 CUDA kernel (``csrc/wave_admission.cu``): first-touch tables by integer
 atomicMin; one CTA per side sorts (group, row) keys in shared memory (N <=
 16,384), scans in the XLA order and finds group starts with a block-wide
@@ -32,12 +38,15 @@ from __future__ import annotations
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stream_ptr,
+    I, P, check, library, ptr, register, stack_lanes, stream_ptr,
 )
 
 KERNEL = register("wave_admission",
                   "cruise_control_tpu_torch/kernels/csrc/wave_admission.cu",
                   "cruise_control_tpu/analyzer/engine.py:555")
+KERNEL_LANES = register("wave_admission_lanes",
+                        "cruise_control_tpu_torch/kernels/csrc/wave_admission.cu",
+                        "cruise_control_tpu/analyzer/optimizer.py:2563")
 MAX_K = 16384
 SCAN_BASE = 16
 
@@ -155,7 +164,8 @@ def wave_admission_plain(d, src_b, dst_b, wave_ok, part, src_slack, dst_slack,
     return win
 
 
-_SIGNATURES = {"cc_wave_admission": [I] * 7 + [P] * 23}
+_SIGNATURES = {"cc_wave_admission": [I] * 7 + [P] * 23,
+               "cc_wave_admission_lanes": [I] * 8 + [P] * 23}
 
 
 def wave_admission(d, src_b, dst_b, wave_ok, part, src_slack, dst_slack,
@@ -223,4 +233,99 @@ def wave_admission(d, src_b, dst_b, wave_ok, part, src_slack, dst_slack,
         ptr(fscratch), ptr(cum), ptr(rank), ptr(win), stream_ptr())
     check(err, "wave_admission")
     KERNEL.count(f"N={N}")
+    return win
+
+
+def wave_admission_lanes_plain(lane_args: list) -> torch.Tensor:
+    return torch.stack([wave_admission_plain(*a) for a in lane_args])
+
+
+def _stack_l(vals):
+    return stack_lanes(vals, "wave_admission_lanes")
+
+
+def wave_admission_lanes(lane_args: list) -> torch.Tensor:
+    """bool[La, N]: ``wave_admission`` of each lane's positional argument
+    tuple in ``lane_args`` (N, the gain dimension, the candidate and
+    partition counts and the topic budget shape must agree across lanes)."""
+    head = lane_args[0]
+    if not head[0].is_cuda:
+        return wave_admission_lanes_plain(lane_args)
+    La = len(lane_args)
+    padded = [tuple(a) + (None,) * (13 - len(a)) for a in lane_args]
+    d, src_b, dst_b, wave_ok, part, src_slack, dst_slack = (
+        _stack_l([a[i] for a in padded]) for i in range(7))
+    d_dst = _stack_l([a[0] if a[9] is None else a[9] for a in padded])
+    gains = [a[7] for a in padded]
+    gain_escape = _stack_l([a[8] for a in padded])
+    kgs = [a[10] for a in padded]
+    topics_ = [a[11] for a in padded]
+    nps = {a[12] for a in padded}
+    _La, N, _C = d.shape
+    B = src_slack.shape[1]
+    if not 0 < N <= MAX_K or d.shape[2] != 8:
+        raise ValueError(f"wave_admission_lanes supports 0 < N <= {MAX_K} rows of 8 dims")
+    if any(g is None for g in gains) and not all(g is None for g in gains):
+        raise ValueError("wave_admission_lanes: a gain budget in some lanes only")
+    if gains[0] is not None:
+        dims = {g[2] for g in gains}
+        if len(dims) != 1:
+            raise ValueError("wave_admission_lanes: lanes disagree on the gain dim")
+        src_gain = _stack_l([g[0] for g in gains])
+        dst_gain = _stack_l([g[1] for g in gains])
+        dim = dims.pop()
+    else:
+        src_gain = dst_gain = None
+        dim = -1
+    if kgs[0] is not None:
+        if len({kg[1] for kg in kgs}) != 1:
+            raise ValueError("wave_admission_lanes: lanes disagree on the candidates")
+        kg, nk = _stack_l([kg[0] for kg in kgs]), kgs[0][1]
+    else:
+        kg, nk = _stack_l(kgs), 0
+    if topics_[0] is not None:
+        if len({(t[1], t[2].shape[1]) for t in topics_}) != 1:
+            raise ValueError("wave_admission_lanes: lanes disagree on the topic budgets")
+        topics, nT = _stack_l([t[0] for t in topics_]), topics_[0][1]
+        tdelta, ts_slack, td_slack = (_stack_l([t[i] for t in topics_]) for i in (2, 3, 4))
+        G = tdelta.shape[2]
+    else:
+        _stack_l(topics_)
+        topics = tdelta = ts_slack = td_slack = None
+        nT, G = 0, 0
+    np_ = 0
+    if part is not None:
+        if len(nps) != 1:
+            raise ValueError("wave_admission_lanes: lanes disagree on the partitions")
+        np_ = nps.pop()
+        if np_ is None:
+            np_ = int(part.max()) + 1
+    checks = ((d, torch.float32), (d_dst, torch.float32), (src_b, torch.int64),
+              (dst_b, torch.int64), (wave_ok, torch.bool), (kg, torch.int64),
+              (part, torch.int64), (topics, torch.int64), (tdelta, torch.float32),
+              (ts_slack, torch.float32), (td_slack, torch.float32),
+              (src_slack, torch.float32), (dst_slack, torch.float32),
+              (src_gain, torch.float32), (dst_gain, torch.float32),
+              (gain_escape, torch.bool))
+    for t, dt in checks:
+        if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
+            raise ValueError("wave_admission_lanes: wrong dtype, layout or device")
+    dev = d.device
+    n16 = -(-N // SCAN_BASE) * SCAN_BASE
+    sides = 4 if G else 2
+    fscratch = torch.empty(La * sides * (2 * n16 * 8 + 64 * 8), dtype=torch.float32,
+                           device=dev)
+    cum = torch.empty(La * sides * N * 8, dtype=torch.float32, device=dev)
+    rank = torch.empty(La * sides * N, dtype=torch.int32, device=dev)
+    first = torch.empty(La * max(1, nk + np_), dtype=torch.int32, device=dev)
+    ok = torch.empty((La, N), dtype=torch.bool, device=dev)
+    win = torch.empty((La, N), dtype=torch.bool, device=dev)
+    err = library("wave_admission", _SIGNATURES).cc_wave_admission_lanes(
+        La, N, B, int(nT), int(G), int(dim), int(nk), int(np_), ptr(d), ptr(d_dst),
+        ptr(src_b), ptr(dst_b), ptr(wave_ok), ptr(kg), ptr(part), ptr(topics),
+        ptr(tdelta), ptr(ts_slack), ptr(td_slack), ptr(src_slack), ptr(dst_slack),
+        ptr(src_gain), ptr(dst_gain), ptr(gain_escape), ptr(first), ptr(ok),
+        ptr(fscratch), ptr(cum), ptr(rank), ptr(win), stream_ptr())
+    check(err, "wave_admission_lanes")
+    KERNEL_LANES.count(f"L={La} N={N}")
     return win

@@ -112,6 +112,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {err}")
 
 
+def stack_lanes(vals: list, what: str):
+    """One argument of a lane launch from the lanes' solo values: the
+    tensors stacked on a new leading axis (contiguous), tuples member-wise,
+    None when every lane passes None."""
+    if all(v is None for v in vals):
+        return None
+    if any(v is None for v in vals):
+        raise ValueError(f"{what}: an argument is None in some lanes only")
+    if isinstance(vals[0], tuple):
+        return tuple(stack_lanes([v[i] for v in vals], what) for i in range(len(vals[0])))
+    import torch
+    return torch.stack(vals).contiguous()
+
+
 def ptr(t) -> ctypes.c_void_p:
     """Device pointer of a tensor (``None`` -> NULL)."""
     return ctypes.c_void_p(0 if t is None else t.data_ptr())

@@ -21,6 +21,12 @@
 // values (row_f) arrive precomputed with the reference's arithmetic; every
 // float operation here is one IEEE add/sub/compare (built with --fmad=false).
 //
+// Lanes (K14, the fleet's tenant axis): grid dimension y = lane. Every
+// input and output is the [L, ...] stack of L solo launches' arguments
+// (row tables [L, K, ...], broker tables [L, ..., B], topic tables
+// [L, T, B]); lane y reads and writes only its own slices, so each lane is
+// its solo launch bit for bit. The solo entry point is L = 1.
+//
 // Design: one CTA per candidate row; threads stride over the Bp columns; the row's
 // sibling brokers sit in shared memory; scores are staged in shared memory
 // (Bp = ceil(B/T)*T floats, -inf padded) and one thread per class walks its
@@ -61,10 +67,34 @@ __global__ void move_score_kernel(
     const long long* __restrict__ order_b, const long long* __restrict__ row_t,
     const int* __restrict__ tab, const int* __restrict__ vtab,
     const float* __restrict__ vup, float* __restrict__ cls_val,
-    long long* __restrict__ cls_q) {
+    long long* __restrict__ cls_q, int K, long long tab_n, long long vtab_n) {
   extern __shared__ float sc[];
   __shared__ long long sib[kMaxF];
   const int k = blockIdx.x;
+  {
+    const long long y = blockIdx.y;
+    const long long yK = y * K, yB = y * B;
+    cur_b += yK;
+    orig_b += yK;
+    sib_b += yK * F;
+    row_ok += yK;
+    d_rows += yK * kDims;
+    dst_room += yB * kDims;
+    if (prow != nullptr) prow += yK * Kr;
+    if (rack_lim != nullptr) rack_lim += yK;
+    row_f += yK * 4;
+    col_f += yB * 4;
+    dst_ok += yB;
+    new_ok += yB;
+    broker_rack += yB;
+    if (order_b != nullptr) order_b += y * Bp;
+    if (row_t != nullptr) row_t += yK;
+    if (tab != nullptr) tab += y * tab_n;
+    if (vtab != nullptr) vtab += y * vtab_n;
+    if (vup != nullptr) vup += yK;
+    cls_val += yK * T;
+    cls_q += yK * T;
+  }
   const int Bq = Bp / T;
   for (int f = threadIdx.x; f < F; f += blockDim.x) sib[f] = sib_b[(long long)k * F + f];
   __syncthreads();
@@ -186,19 +216,19 @@ __global__ void move_score_kernel(
 
 }  // namespace
 
-extern "C" int cc_move_score_classes(
-    int K, int B, int T, int F, int Kr, int goal_kind, int room_mask,
-    int exempt_mask, int Bp, const long long* cur_b,
-    const long long* orig_b, const long long* sib_b, const unsigned char* row_ok,
-    const float* d_rows, const float* dst_room, const long long* prow,
-    const int* rack_lim, const float* row_f, const float* col_f,
-    const unsigned char* dst_ok,
-    const unsigned char* new_ok, const long long* broker_rack,
-    const long long* order_b, const long long* row_t, const int* tab,
-    const int* vtab, const float* vup, float* cls_val, long long* cls_q,
-    void* stream_ptr) {
+extern "C" int cc_move_score_classes_lanes(
+    int L, int K, int B, int T, int F, int Kr, int goal_kind, int room_mask,
+    int exempt_mask, int Bp, long long tab_n, long long vtab_n,
+    const long long* cur_b, const long long* orig_b, const long long* sib_b,
+    const unsigned char* row_ok, const float* d_rows, const float* dst_room,
+    const long long* prow, const int* rack_lim, const float* row_f, const float* col_f,
+    const unsigned char* dst_ok, const unsigned char* new_ok,
+    const long long* broker_rack, const long long* order_b, const long long* row_t,
+    const int* tab, const int* vtab, const float* vup, float* cls_val,
+    long long* cls_q, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (K <= 0 || B <= 0 || T <= 0 || F > kMaxF || Bp < B || Bp % T != 0)
+  if (L <= 0 || L > 65535 || K <= 0 || B <= 0 || T <= 0 || F > kMaxF || Bp < B ||
+      Bp % T != 0)
     return (int)cudaErrorInvalidValue;
   if (order_b == nullptr && Bp != ((B + T - 1) / T) * T) return (int)cudaErrorInvalidValue;
   if ((goal_kind == kGoalMinTopic || goal_kind == kGoalTopicReplica) &&
@@ -210,9 +240,27 @@ extern "C" int cc_move_score_classes(
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)Bp * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  move_score_kernel<<<K, 256, smem, stream>>>(
+  move_score_kernel<<<dim3(K, L), 256, smem, stream>>>(
       B, T, F, Kr, goal_kind, room_mask, exempt_mask, Bp, cur_b,
       orig_b, sib_b, row_ok, d_rows, dst_room, prow, rack_lim, row_f, col_f,
-      dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup, cls_val, cls_q);
+      dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup, cls_val, cls_q, K,
+      tab_n, vtab_n);
   return (int)cudaGetLastError();
+}
+
+extern "C" int cc_move_score_classes(
+    int K, int B, int T, int F, int Kr, int goal_kind, int room_mask,
+    int exempt_mask, int Bp, const long long* cur_b,
+    const long long* orig_b, const long long* sib_b, const unsigned char* row_ok,
+    const float* d_rows, const float* dst_room, const long long* prow,
+    const int* rack_lim, const float* row_f, const float* col_f,
+    const unsigned char* dst_ok,
+    const unsigned char* new_ok, const long long* broker_rack,
+    const long long* order_b, const long long* row_t, const int* tab,
+    const int* vtab, const float* vup, float* cls_val, long long* cls_q,
+    void* stream_ptr) {
+  return cc_move_score_classes_lanes(
+      1, K, B, T, F, Kr, goal_kind, room_mask, exempt_mask, Bp, 0, 0, cur_b, orig_b,
+      sib_b, row_ok, d_rows, dst_room, prow, rack_lim, row_f, col_f, dst_ok, new_ok,
+      broker_rack, order_b, row_t, tab, vtab, vup, cls_val, cls_q, stream_ptr);
 }

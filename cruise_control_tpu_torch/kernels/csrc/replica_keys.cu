@@ -22,6 +22,14 @@
 // bf16 array rounds its key once to bf16 (round to nearest even) at the
 // end, and its offline bump adds bf16(1e12) instead of f32(1e12).
 //
+// Lanes (K14, the fleet's tenant axis): grid dimension y = lane position j.
+// The [R]-sized tables (loads, broker, flags, logdir) are the lane stack's
+// [L, R, ...] tensors, read at lane lanes[j] (the running subset of the
+// stack); the per-broker rows, scalars and logdir rows are [La, ...] with
+// one row per position j, and so is the output. Each lane's keys are its
+// solo launch's, bit for bit; the solo entry point is La = 1 with no lane
+// list.
+//
 // Design: one thread per replica; no shared memory, no atomics, every
 // output written by one thread. Bound: bytes (about 19 bytes a replica
 // under bf16; the [R, M] rows are 8 bytes under bf16, so a warp's column
@@ -48,7 +56,8 @@ enum Family {
 
 struct Args {
   long long R;
-  int M, col, family, round_out, B, D;
+  int M, col, family, round_out, B, D, nbt, nsc, ndt;
+  const long long* lanes;
   float bump;
   const long long* rb;
   const unsigned char* lead;
@@ -68,6 +77,19 @@ __global__ void replica_keys_kernel(Args a, const T* __restrict__ L,
                                     const T* __restrict__ F, float* __restrict__ out) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= a.R) return;
+  const long long y = blockIdx.y;
+  const long long lane = a.lanes != nullptr ? a.lanes[y] : y;
+  L += lane * a.R * a.M;
+  F += lane * a.R * a.M;
+  out += y * a.R;
+  a.rb += lane * a.R;
+  a.lead += lane * a.R;
+  a.off += lane * a.R;
+  a.valid += lane * a.R;
+  if (a.rdisk != nullptr) a.rdisk += lane * a.R;
+  a.bt += y * a.nbt * (long long)a.B;
+  a.sc += y * a.nsc;
+  if (a.dt != nullptr) a.dt += y * a.ndt * (long long)a.B * a.D;
   const long long b = a.rb[r];
   const bool v = a.valid[r] != 0;
   const bool ld = a.lead[r] != 0;
@@ -139,31 +161,60 @@ __global__ void replica_keys_kernel(Args a, const T* __restrict__ L,
 
 }  // namespace
 
+static int launch_keys(int La, const long long* lanes, int R, int M, int col,
+                       int family, int is_bf16, int round_out, int B, int D, int nbt,
+                       int nsc, int ndt, float bump, const void* L, const void* F,
+                       const long long* rb, const unsigned char* lead,
+                       const unsigned char* off, const unsigned char* valid,
+                       const float* bt, const float* sc, const long long* rdisk,
+                       const float* dt, float* out, cudaStream_t stream) {
+  if (La <= 0 || La > 65535 || R <= 0 || M <= 0 || col < 0 || col >= M ||
+      family < kCapacity || family > kIntraUsage || B <= 0 || nbt <= 0 || nsc < 3)
+    return (int)cudaErrorInvalidValue;
+  if ((family == kIntraCapacity || family == kIntraUsage) &&
+      (D <= 0 || rdisk == nullptr || dt == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.R = R; a.M = M; a.col = col; a.family = family; a.round_out = round_out;
+  a.B = B; a.D = D; a.nbt = nbt; a.nsc = nsc; a.ndt = ndt; a.lanes = lanes;
+  a.bump = bump;
+  a.rb = rb; a.lead = lead; a.off = off; a.valid = valid;
+  a.bt = bt; a.sc = sc; a.rdisk = rdisk; a.dt = dt;
+  const long long grid = ((long long)R + kThreads - 1) / kThreads;
+  const dim3 g((unsigned)grid, (unsigned)La);
+  if (is_bf16) {
+    replica_keys_kernel<__nv_bfloat16><<<g, kThreads, 0, stream>>>(
+        a, (const __nv_bfloat16*)L, (const __nv_bfloat16*)F, out);
+  } else {
+    replica_keys_kernel<float><<<g, kThreads, 0, stream>>>(
+        a, (const float*)L, (const float*)F, out);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int cc_replica_keys(
     int R, int M, int col, int family, int is_bf16, int round_out, int B, int D,
     float bump, const void* L, const void* F, const long long* rb,
     const unsigned char* lead, const unsigned char* off, const unsigned char* valid,
     const float* bt, const float* sc, const long long* rdisk, const float* dt,
     float* out, void* stream_ptr) {
-  if (R <= 0 || M <= 0 || col < 0 || col >= M || family < kCapacity ||
-      family > kIntraUsage || B <= 0)
-    return (int)cudaErrorInvalidValue;
-  if ((family == kIntraCapacity || family == kIntraUsage) &&
-      (D <= 0 || rdisk == nullptr || dt == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  Args a;
-  a.R = R; a.M = M; a.col = col; a.family = family; a.round_out = round_out;
-  a.B = B; a.D = D; a.bump = bump;
-  a.rb = rb; a.lead = lead; a.off = off; a.valid = valid;
-  a.bt = bt; a.sc = sc; a.rdisk = rdisk; a.dt = dt;
-  const long long grid = ((long long)R + kThreads - 1) / kThreads;
-  if (is_bf16) {
-    replica_keys_kernel<__nv_bfloat16><<<(unsigned)grid, kThreads, 0, stream>>>(
-        a, (const __nv_bfloat16*)L, (const __nv_bfloat16*)F, out);
-  } else {
-    replica_keys_kernel<float><<<(unsigned)grid, kThreads, 0, stream>>>(
-        a, (const float*)L, (const float*)F, out);
-  }
-  return (int)cudaGetLastError();
+  return launch_keys(1, nullptr, R, M, col, family, is_bf16, round_out, B, D, 1, 3, 0,
+                     bump, L, F, rb, lead, off, valid, bt, sc, rdisk, dt, out,
+                     (cudaStream_t)stream_ptr);
+}
+
+// La lanes of a lane stack: the [R]-sized tables are [L, R, ...] read at
+// lanes[j] (i64[La] on the device); bt [La, nbt, B], sc [La, nsc], dt
+// [La, ndt, B, D] and out [La, R] have one row per position j.
+extern "C" int cc_replica_keys_lanes(
+    int La, const long long* lanes, int R, int M, int col, int family, int is_bf16,
+    int round_out, int B, int D, int nbt, int nsc, int ndt, float bump, const void* L,
+    const void* F, const long long* rb, const unsigned char* lead,
+    const unsigned char* off, const unsigned char* valid, const float* bt,
+    const float* sc, const long long* rdisk, const float* dt, float* out,
+    void* stream_ptr) {
+  if (lanes == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_keys(La, lanes, R, M, col, family, is_bf16, round_out, B, D, nbt, nsc,
+                     ndt, bump, L, F, rb, lead, off, valid, bt, sc, rdisk, dt, out,
+                     (cudaStream_t)stream_ptr);
 }

@@ -22,6 +22,13 @@
 // salt maps -inf to -inf, so this equals the reference's mask-then-salt.
 // A null mask (full rounds) reads every key as it is.
 //
+// Lanes (K14, the fleet's tenant axis): cc_select_candidates_lanes runs L
+// independent selections in the same launches, grid dimension y = lane.
+// Lane j reads key / mask row j of [L, n], salts with its own stall and
+// keeps its own composites, radix state and histogram, so each lane's
+// output is bit for bit a solo launch on its row (ties lowest index first
+// within the lane). The solo entry point is the L = 1 case.
+//
 // compact_eligible replaces engine.py _compact_eligible (:1257): the indices
 // of the true entries of bool[n] in index order, the tail padded with the
 // sentinel n, and their count. Three launches: per-tile counts, one scan of
@@ -47,9 +54,15 @@ __device__ __forceinline__ float from_sortable(uint32_t s) {
 
 __global__ void salt_pack(const float* __restrict__ key,
                           const unsigned char* __restrict__ mask, int n,
-                          int stall, int salt, u64* __restrict__ comp) {
+                          int stall0, const int* __restrict__ stalls, int salt,
+                          u64* __restrict__ comp) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const long long lane = blockIdx.y;
+  key += lane * n;
+  if (mask != nullptr) mask += lane * n;
+  comp += lane * n;
+  const int stall = stalls != nullptr ? stalls[lane] : stall0;
   float v = (mask == nullptr || mask[i]) ? key[i] : -INFINITY;
   if (stall > 0) {
     uint32_t h = (uint32_t)i * 2246822519u
@@ -65,6 +78,8 @@ __global__ void salt_pack(const float* __restrict__ key,
 // state[0] = prefix of the k-th composite found so far, state[1] = rank of
 // the k-th within the current prefix, state[2] = gather counter.
 __global__ void init_state(u64* state, unsigned int* hist, int k) {
+  state += 4 * blockIdx.x;
+  hist += 256 * blockIdx.x;
   if (threadIdx.x == 0) {
     state[0] = 0ull;
     state[1] = (u64)k;
@@ -77,6 +92,10 @@ __global__ void radix_hist(const u64* __restrict__ comp, int n,
                            const u64* __restrict__ state, int shift,
                            unsigned int* __restrict__ hist) {
   __shared__ unsigned int sh[256];
+  const long long lane = blockIdx.y;
+  comp += lane * n;
+  state += 4 * lane;
+  hist += 256 * lane;
   for (int b = threadIdx.x; b < 256; b += blockDim.x) sh[b] = 0u;
   __syncthreads();
   const u64 prefix = state[0];
@@ -95,6 +114,8 @@ __global__ void radix_hist(const u64* __restrict__ comp, int n,
 }
 
 __global__ void radix_choose(u64* state, unsigned int* hist, int shift) {
+  state += 4 * blockIdx.x;
+  hist += 256 * blockIdx.x;
   if (threadIdx.x == 0) {
     const u64 k_rem = state[1];
     u64 cum = 0ull;
@@ -112,10 +133,14 @@ __global__ void radix_choose(u64* state, unsigned int* hist, int shift) {
   for (int b = threadIdx.x; b < 256; b += blockDim.x) hist[b] = 0u;
 }
 
-__global__ void gather_top(const u64* __restrict__ comp, int n, u64* state,
+__global__ void gather_top(const u64* __restrict__ comp, int n, int k, u64* state,
                            u64* __restrict__ sel) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const long long lane = blockIdx.y;
+  comp += lane * n;
+  state += 4 * lane;
+  sel += lane * k;
   const u64 c = comp[i];
   if (c >= state[0]) {
     const u64 p = atomicAdd(&state[2], 1ull);
@@ -127,6 +152,10 @@ __global__ void bitonic_top(const u64* __restrict__ sel, int k, int kpad,
                             float* __restrict__ out_kv,
                             long long* __restrict__ out_idx) {
   extern __shared__ u64 s[];
+  const long long lane = blockIdx.x;
+  sel += lane * k;
+  out_kv += lane * k;
+  out_idx += lane * k;
   for (int i = threadIdx.x; i < kpad; i += blockDim.x) {
     s[i] = (i < k) ? sel[i] : 0ull;   // pads sort below every real row
   }
@@ -222,6 +251,33 @@ extern "C" int cc_compact_eligible(const unsigned char* elig, int n, int pad_len
   return (int)cudaGetLastError();
 }
 
+static int launch_select(const float* key, const unsigned char* mask, int L, int n,
+                         int k, int stall, const int* stalls, int salt, u64* comp,
+                         u64* sel, u64* state, unsigned int* hist, float* out_kv,
+                         long long* out_idx, cudaStream_t stream) {
+  if (L <= 0 || L > 65535 || n <= 0 || k <= 0 || k > n || k > 16384)
+    return (int)cudaErrorInvalidValue;
+  int kpad = 1;
+  while (kpad < k) kpad <<= 1;
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads;
+  const int hist_blocks = blocks < 1024 ? blocks : 1024;
+  init_state<<<L, 256, 0, stream>>>(state, hist, k);
+  salt_pack<<<dim3(blocks, L), threads, 0, stream>>>(key, mask, n, stall, stalls, salt,
+                                                     comp);
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    radix_hist<<<dim3(hist_blocks, L), threads, 0, stream>>>(comp, n, state, shift,
+                                                            hist);
+    radix_choose<<<L, 256, 0, stream>>>(state, hist, shift);
+  }
+  gather_top<<<dim3(blocks, L), threads, 0, stream>>>(comp, n, k, state, sel);
+  const int smem = kpad * (int)sizeof(u64);
+  cudaFuncSetAttribute(bitonic_top, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  bitonic_top<<<L, 1024, smem, stream>>>(sel, k, kpad, out_kv, out_idx);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int cc_select_candidates(const float* key,
                                     const unsigned char* mask, int n, int k,
                                     int stall,
@@ -229,23 +285,20 @@ extern "C" int cc_select_candidates(const float* key,
                                     u64* state, unsigned int* hist,
                                     float* out_kv, long long* out_idx,
                                     void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (n <= 0 || k <= 0 || k > n || k > 16384) return (int)cudaErrorInvalidValue;
-  int kpad = 1;
-  while (kpad < k) kpad <<= 1;
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  const int hist_blocks = blocks < 1024 ? blocks : 1024;
-  init_state<<<1, 256, 0, stream>>>(state, hist, k);
-  salt_pack<<<blocks, threads, 0, stream>>>(key, mask, n, stall, salt, comp);
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    radix_hist<<<hist_blocks, threads, 0, stream>>>(comp, n, state, shift, hist);
-    radix_choose<<<1, 256, 0, stream>>>(state, hist, shift);
-  }
-  gather_top<<<blocks, threads, 0, stream>>>(comp, n, state, sel);
-  const int smem = kpad * (int)sizeof(u64);
-  cudaFuncSetAttribute(bitonic_top, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
-  bitonic_top<<<1, 1024, smem, stream>>>(sel, k, kpad, out_kv, out_idx);
-  return (int)cudaGetLastError();
+  return launch_select(key, mask, 1, n, k, stall, nullptr, salt, comp, sel, state,
+                       hist, out_kv, out_idx, (cudaStream_t)stream_ptr);
+}
+
+// L lanes: key / mask [L, n], stalls int32[L] on the device, scratch and
+// outputs with one row per lane (comp [L, n], sel [L, k], state [L, 4],
+// hist [L, 256], out [L, k]).
+extern "C" int cc_select_candidates_lanes(const float* key,
+                                          const unsigned char* mask, int L, int n,
+                                          int k, const int* stalls, int salt,
+                                          u64* comp, u64* sel, u64* state,
+                                          unsigned int* hist, float* out_kv,
+                                          long long* out_idx, void* stream_ptr) {
+  if (stalls == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_select(key, mask, L, n, k, 0, stalls, salt, comp, sel, state, hist,
+                       out_kv, out_idx, (cudaStream_t)stream_ptr);
 }

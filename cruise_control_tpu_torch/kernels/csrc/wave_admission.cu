@@ -26,6 +26,13 @@
 //     prefix max (O(N), no walk back), per-row in-group cumsum and rank;
 //   finish: one thread per row: budget compares, gain caps, the verdict.
 // Bound: latency; the sorts are O(N log^2 N) on one CTA per side.
+//
+// Lanes (K14, the fleet's tenant axis): grid dimension y = lane, so
+// side_scan runs one CTA per (side, lane). Every input is the [L, ...]
+// stack of L solo launches' arguments (rows [L, N, ...], slack and gain
+// tables [L, B, ...]); each lane has its own first-touch tables, scratch,
+// cumsums and ranks, so its verdicts are its solo launch's bit for bit.
+// The solo entry point is L = 1.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,13 +47,18 @@ constexpr int kInf = 0x7FFFFFFF;
 
 __global__ void ft_init(int* __restrict__ first, int n) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  first += (long long)blockIdx.y * n;
   if (j < n) first[j] = kInf;
 }
 
 __global__ void ft_cand(int N, const unsigned char* __restrict__ wave_ok,
                         const long long* __restrict__ kgroup,
-                        int* __restrict__ first_k) {
+                        int* __restrict__ first_k, int nfirst) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const long long y = blockIdx.y;
+  wave_ok += y * N;
+  kgroup += y * N;
+  first_k += y * nfirst;
   if (i < N && wave_ok[i]) atomicMin(&first_k[kgroup[i]], i);
 }
 
@@ -54,9 +66,17 @@ __global__ void ft_part(int N, const unsigned char* __restrict__ wave_ok,
                         const long long* __restrict__ kgroup,
                         const int* __restrict__ first_k,
                         const long long* __restrict__ part,
-                        int* __restrict__ first_p, unsigned char* __restrict__ ok) {
+                        int* __restrict__ first_p, unsigned char* __restrict__ ok,
+                        int nfirst) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
+  const long long y = blockIdx.y;
+  wave_ok += y * N;
+  if (kgroup != nullptr) kgroup += y * N;
+  first_k += y * nfirst;
+  if (part != nullptr) part += y * N;
+  first_p += y * nfirst;
+  ok += y * N;
   bool o = wave_ok[i] != 0;
   if (kgroup != nullptr) o = o && first_k[kgroup[i]] == i;
   ok[i] = o ? 1 : 0;
@@ -130,10 +150,24 @@ __global__ void side_scan(int N, int B, int nT, int G,
                           const float* __restrict__ d_src,
                           const float* __restrict__ d_dst,
                           const float* __restrict__ tdelta, float* __restrict__ fscratch,
-                          int fstride, float* __restrict__ cum, int* __restrict__ rank) {
+                          int fstride, float* __restrict__ cum, int* __restrict__ rank,
+                          int sides) {
   extern __shared__ u64 keys[];
   __shared__ int chunk_max[kThreads];
   const int side = blockIdx.x;
+  {
+    const long long y = blockIdx.y;
+    ok += y * N;
+    src_b += y * N;
+    dst_b += y * N;
+    if (topics != nullptr) topics += y * N;
+    d_src += y * N * kDims;
+    d_dst += y * N * kDims;
+    if (tdelta != nullptr) tdelta += y * N * G;
+    fscratch += y * sides * (long long)fstride;
+    cum += y * sides * (long long)N * kDims;
+    rank += y * sides * (long long)N;
+  }
   const int tid = threadIdx.x;
   const int C = side < 2 ? kDims : G;
   int kpad = 1;
@@ -233,9 +267,34 @@ __global__ void finish(int N, int G, int gain_dim, const unsigned char* __restri
                        const float* __restrict__ dst_gain,
                        const unsigned char* __restrict__ gain_escape,
                        const float* __restrict__ cum, const int* __restrict__ rank,
-                       unsigned char* __restrict__ win) {
+                       unsigned char* __restrict__ win, int B, int sides, int nfirst) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
+  {
+    const long long y = blockIdx.y;
+    ok += y * N;
+    if (part != nullptr) part += y * N;
+    first_p += y * nfirst;
+    src_b += y * N;
+    dst_b += y * N;
+    d_src += y * N * kDims;
+    d_dst += y * N * kDims;
+    src_slack += y * B * kDims;
+    dst_slack += y * B * kDims;
+    if (tdelta != nullptr) {
+      tdelta += y * N * G;
+      ts_slack += y * N * G;
+      td_slack += y * N * G;
+    }
+    if (src_gain != nullptr) {
+      src_gain += y * B;
+      dst_gain += y * B;
+    }
+    if (gain_escape != nullptr) gain_escape += y * N;
+    cum += y * sides * (long long)N * kDims;
+    rank += y * sides * (long long)N;
+    win += y * N;
+  }
   const bool o = ok[i] != 0;
   bool admit = o;
   const float* cum0 = cum;
@@ -277,8 +336,8 @@ __global__ void finish(int N, int G, int gain_dim, const unsigned char* __restri
 
 }  // namespace
 
-extern "C" int cc_wave_admission(
-    int N, int B, int nT, int G, int gain_dim, int nk, int np,
+extern "C" int cc_wave_admission_lanes(
+    int L, int N, int B, int nT, int G, int gain_dim, int nk, int np,
     const float* d_src, const float* d_dst, const long long* src_b,
     const long long* dst_b, const unsigned char* wave_ok, const long long* kgroup,
     const long long* part, const long long* topics, const float* tdelta,
@@ -287,7 +346,8 @@ extern "C" int cc_wave_admission(
     const unsigned char* gain_escape, int* first, unsigned char* ok,
     float* fscratch, float* cum, int* rank, unsigned char* win, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (N <= 0 || N > kMaxN || G < 0 || G > kDims || gain_dim >= kDims)
+  if (L <= 0 || L > 65535 || N <= 0 || N > kMaxN || G < 0 || G > kDims ||
+      gain_dim >= kDims)
     return (int)cudaErrorInvalidValue;
   if ((kgroup != nullptr && nk <= 0) || (part != nullptr && np <= 0))
     return (int)cudaErrorInvalidValue;
@@ -297,21 +357,43 @@ extern "C" int cc_wave_admission(
   int* first_k = first;
   int* first_p = first + (nk > 0 ? nk : 0);
   const int nfirst = (nk > 0 ? nk : 0) + (np > 0 ? np : 0);
-  if (nfirst > 0) ft_init<<<(nfirst + tpb - 1) / tpb, tpb, 0, stream>>>(first, nfirst);
-  if (kgroup != nullptr) ft_cand<<<nb, tpb, 0, stream>>>(N, wave_ok, kgroup, first_k);
-  ft_part<<<nb, tpb, 0, stream>>>(N, wave_ok, kgroup, first_k, part, first_p, ok);
+  const int nf = nfirst > 0 ? nfirst : 1;   // the per-lane stride of `first`
+  if (nfirst > 0)
+    ft_init<<<dim3((nfirst + tpb - 1) / tpb, L), tpb, 0, stream>>>(first, nf);
+  if (kgroup != nullptr)
+    ft_cand<<<dim3(nb, L), tpb, 0, stream>>>(N, wave_ok, kgroup, first_k, nf);
+  ft_part<<<dim3(nb, L), tpb, 0, stream>>>(N, wave_ok, kgroup, first_k, part, first_p,
+                                            ok, nf);
   int kpad = 1;
   while (kpad < N) kpad <<= 1;
   const int smem = kpad * (int)sizeof(u64);
   cudaFuncSetAttribute(side_scan, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int n16 = ((N + kBase - 1) / kBase) * kBase;
   const int fstride = 2 * n16 * kDims + 64 * kDims;
-  side_scan<<<G > 0 ? 4 : 2, kThreads, smem, stream>>>(
+  const int sides = G > 0 ? 4 : 2;
+  side_scan<<<dim3(sides, L), kThreads, smem, stream>>>(
       N, B, nT, G, ok, src_b, dst_b, topics, d_src, d_dst, tdelta, fscratch,
-      fstride, cum, rank);
-  finish<<<nb, tpb, 0, stream>>>(N, G, gain_dim, ok, part, first_p, src_b, dst_b,
-                                 d_src, d_dst, src_slack, dst_slack, tdelta,
-                                 ts_slack, td_slack, src_gain, dst_gain,
-                                 gain_escape, cum, rank, win);
+      fstride, cum, rank, sides);
+  finish<<<dim3(nb, L), tpb, 0, stream>>>(N, G, gain_dim, ok, part, first_p, src_b,
+                                          dst_b, d_src, d_dst, src_slack, dst_slack,
+                                          tdelta, ts_slack, td_slack, src_gain,
+                                          dst_gain, gain_escape, cum, rank, win, B,
+                                          sides, nf);
   return (int)cudaGetLastError();
+}
+
+extern "C" int cc_wave_admission(
+    int N, int B, int nT, int G, int gain_dim, int nk, int np,
+    const float* d_src, const float* d_dst, const long long* src_b,
+    const long long* dst_b, const unsigned char* wave_ok, const long long* kgroup,
+    const long long* part, const long long* topics, const float* tdelta,
+    const float* ts_slack, const float* td_slack, const float* src_slack,
+    const float* dst_slack, const float* src_gain, const float* dst_gain,
+    const unsigned char* gain_escape, int* first, unsigned char* ok,
+    float* fscratch, float* cum, int* rank, unsigned char* win, void* stream_ptr) {
+  return cc_wave_admission_lanes(1, N, B, nT, G, gain_dim, nk, np, d_src, d_dst, src_b,
+                                 dst_b, wave_ok, kgroup, part, topics, tdelta,
+                                 ts_slack, td_slack, src_slack, dst_slack, src_gain,
+                                 dst_gain, gain_escape, first, ok, fscratch, cum, rank,
+                                 win, stream_ptr);
 }

@@ -35,6 +35,12 @@ The offline bump ``key + 1e12`` adds f32(1e12) = 999999995904 to an f32 key
 and bf16(1e12) = 233 * 2**32 to a bf16 one (a Python constant in a bf16
 expression is a bf16 constant); K1's ``v >= 5e11`` test covers both.
 
+``replica_keys_lanes`` is the fleet's lane form (K14): the keys of La
+running lanes of a lane stack in ONE launch (grid dimension y = lane). The
+[R]-sized tables are the stack's [L, R, ...] tensors read at the lane's
+index; the per-broker rows, scalars and logdir rows have one row per
+running lane. Its twin loops the solo twin over the lanes.
+
 CUDA kernel (``csrc/replica_keys.cu``): one thread per replica, templated
 on the load dtype (``float``, ``__nv_bfloat16``); no atomics, no shared
 memory. Bound: bytes, about 19 bytes a replica under bf16 (two 2-byte load
@@ -53,6 +59,10 @@ from cruise_control_tpu_torch.kernels.build import (
 
 KERNEL = register("replica_keys", "cruise_control_tpu_torch/kernels/csrc/replica_keys.cu",
                   "cruise_control_tpu/analyzer/engine.py:929")
+
+KERNEL_LANES = register("replica_keys_lanes",
+                        "cruise_control_tpu_torch/kernels/csrc/replica_keys.cu",
+                        "cruise_control_tpu/analyzer/optimizer.py:2563")
 
 KEY_CAPACITY = 0
 KEY_POT_NW_OUT = 1
@@ -136,7 +146,8 @@ def replica_keys_plain(family: int, loads, col: int, rb, lead, off, valid, bt, s
     return key.to(torch.bfloat16).float() if round_out else key
 
 
-_SIGNATURES = {"cc_replica_keys": [I] * 8 + [ctypes.c_float] + [P] * 12}
+_SIGNATURES = {"cc_replica_keys": [I] * 8 + [ctypes.c_float] + [P] * 12,
+               "cc_replica_keys_lanes": [I, P] + [I] * 11 + [ctypes.c_float] + [P] * 12}
 
 
 def replica_keys(family: int, loads, col: int, rb, lead, off, valid, bt, sc,
@@ -179,4 +190,59 @@ def replica_keys(family: int, loads, col: int, rb, lead, off, valid, bt, sc,
     KERNEL.count(f"R={R} {dtype}")
     fam = f"{FAMILY_NAMES[family]} {dtype}"
     KEY_FAMILY_LAUNCHES[fam] = KEY_FAMILY_LAUNCHES.get(fam, 0) + 1
+    return out
+
+
+def replica_keys_lanes_plain(family, loads, col, rb, lead, off, valid, lanes, bt, sc,
+                             rdisk=None, dt=None) -> torch.Tensor:
+    return torch.stack([
+        replica_keys_plain(family, (loads[0][l], loads[1][l]), col, rb[l], lead[l],
+                           off[l], valid[l], bt[j], sc[j],
+                           None if rdisk is None else rdisk[l],
+                           None if dt is None else dt[j])
+        for j, l in enumerate(lanes)])
+
+
+def replica_keys_lanes(family: int, loads, col: int, rb, lead, off, valid, lanes: list,
+                       bt, sc, rdisk=None, dt=None) -> torch.Tensor:
+    """f32[La, R]: ``replica_keys`` of the lanes ``lanes`` of a lane stack.
+    ``loads`` = (leader, follower) [L, R, M]; ``rb`` / ``lead`` / ``off`` /
+    ``valid`` (and ``rdisk``) [L, R]; ``bt`` f32[La, n, B], ``sc`` f32[La, 3]
+    (and ``dt`` f32[La, n, B, D]) one row per entry of ``lanes``."""
+    if not rb.is_cuda:
+        return replica_keys_lanes_plain(family, loads, col, rb, lead, off, valid, lanes,
+                                        bt, sc, rdisk, dt)
+    Lt, Ft = loads
+    _L, R, M = Lt.shape
+    La, nbt, B = bt.shape
+    intra = family in (KEY_INTRA_CAPACITY, KEY_INTRA_USAGE)
+    if not (0 <= family < len(FAMILY_NAMES) and 0 < R and 0 <= col < M
+            and Lt.dtype in (torch.float32, torch.bfloat16) and La == len(lanes)
+            and sc.shape[0] == La and sc.shape[1] >= 3):
+        raise ValueError(f"replica_keys_lanes: unsupported family={family} R={R} "
+                         f"col={col} dtype={Lt.dtype} lanes={len(lanes)}")
+    tensors = [Lt, Ft, rb, lead, off, valid, bt, sc] + ([rdisk, dt] if intra else [])
+    dts = ([Lt.dtype, Lt.dtype, torch.int64] + [torch.bool] * 3
+           + [torch.float32] * 2 + ([torch.int64, torch.float32] if intra else []))
+    for t, dt_ in zip(tensors, dts):
+        if t.dtype != dt_ or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError("replica_keys_lanes: wrong dtype, layout or device")
+    if Ft.shape != Lt.shape or tuple(rb.shape) != (_L, R):
+        raise ValueError("replica_keys_lanes: mismatched shapes")
+    D = dt.shape[3] if intra else 0
+    ndt = dt.shape[1] if intra else 0
+    round_out = _round_out(family, loads)
+    lanes_t = torch.tensor(list(lanes), dtype=torch.int64).to(rb.device,
+                                                              non_blocking=True)
+    out = torch.empty((La, R), dtype=torch.float32, device=rb.device)
+    err = library("replica_keys", _SIGNATURES).cc_replica_keys_lanes(
+        La, ptr(lanes_t), R, M, col, family, int(Lt.dtype == torch.bfloat16),
+        int(round_out), B, D, nbt, sc.shape[1], ndt,
+        OFFLINE_BUMP_BF16 if round_out else OFFLINE_BUMP_F32,
+        ptr(Lt), ptr(Ft), ptr(rb), ptr(lead), ptr(off), ptr(valid), ptr(bt), ptr(sc),
+        ptr(rdisk if intra else None), ptr(dt if intra else None), ptr(out),
+        stream_ptr())
+    check(err, "replica_keys_lanes")
+    dtype = "bf16" if Lt.dtype == torch.bfloat16 else "f32"
+    KERNEL_LANES.count(f"L={La} R={R} {dtype}")
     return out

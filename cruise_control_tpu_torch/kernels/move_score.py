@@ -27,6 +27,11 @@ Goal families (``GOAL_*``): the goal precomputes its [B]-level columns
 (``col_f`` f32[4, B]) and per-row values (``row_f`` f32[K, 4]) with the
 reference's own arithmetic; the kernel does only the [K, B] part.
 
+``move_score_classes_lanes`` is the fleet's lane form (K14): the solo
+arguments of La lanes, stacked into [La, ...] tensors, in ONE launch (grid
+dimension y = lane); each lane's result is its solo launch's. Its twin
+loops the solo twin over the lanes.
+
 CUDA kernel (``csrc/move_score.cu``): one CTA per candidate row, threads
 over B, scores staged in shared memory, one thread per class for the
 reduction. Bound: bytes (the [B]-level tables are read once per row from
@@ -34,15 +39,21 @@ L2; the work is a few dozen operations per (k, b)).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stream_ptr,
+    I, P, check, library, ptr, register, stack_lanes, stream_ptr,
 )
 
 KERNEL = register("move_score_classes",
                   "cruise_control_tpu_torch/kernels/csrc/move_score.cu",
                   "cruise_control_tpu/analyzer/engine.py:767")
+
+KERNEL_LANES = register("move_score_classes_lanes",
+                        "cruise_control_tpu_torch/kernels/csrc/move_score.cu",
+                        "cruise_control_tpu/analyzer/optimizer.py:2563")
 
 GOAL_RACK = 0              # RackAwareGoal
 GOAL_CAPACITY = 1          # CapacityGoal (Disk / NetworkInbound / ...)
@@ -185,7 +196,9 @@ def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
     return best, q
 
 
-_SIGNATURES = {"cc_move_score_classes": [I] * 9 + [P] * 21}
+_SIGNATURES = {"cc_move_score_classes": [I] * 9 + [P] * 21,
+               "cc_move_score_classes_lanes": [I] * 10 + [ctypes.c_longlong] * 2
+               + [P] * 21}
 
 
 def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
@@ -250,5 +263,66 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
         *(ptr(t) for t in tensors), ptr(cls_val), ptr(cls_q), stream_ptr())
     check(err, "move_score_classes")
     KERNEL.count("ordered" if order_b is not None else f"T={T}")
+    FAMILY_LAUNCHES[goal_kind] = FAMILY_LAUNCHES.get(goal_kind, 0) + 1
+    return cls_val, cls_q
+
+
+def move_score_classes_lanes_plain(lane_args: list):
+    outs = [move_score_classes_plain(*a) for a in lane_args]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def move_score_classes_lanes(lane_args: list):
+    """(cls_val f32[La, K, T], cls_q i64[La, K, T]): ``move_score_classes``
+    of each lane's positional argument tuple in ``lane_args``. The integer
+    arguments (goal family, T, room mask) must agree across the lanes."""
+    head = lane_args[0]
+    goal_kind, T, room_mask = head[0], head[1], head[8]
+    for a in lane_args[1:]:
+        if (a[0], a[1], a[8]) != (goal_kind, T, room_mask):
+            raise ValueError("move_score_classes_lanes: lanes disagree on the "
+                             "family, T or room mask")
+    if not head[2].is_cuda:
+        return move_score_classes_lanes_plain(lane_args)
+    La = len(lane_args)
+    (cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, prow, rack_lim, row_f, col_f,
+     dst_ok, new_ok, broker_rack, order_b, topic, tveto) = (
+        stack_lanes([a[i] for a in lane_args], "move_score_classes_lanes")
+        for i in (2, 3, 4, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18))
+    _La, K, F = sib_b.shape
+    B = dst_ok.shape[1]
+    Bp = -(-B // T) * T if order_b is None else order_b.shape[1]
+    if (F > MAX_F or Bp * 4 > MAX_SMEM or not 0 < T <= 1024 or Bp % T
+            or Bp < B):
+        raise ValueError(f"move_score_classes_lanes: unsupported F={F}, B={B}, "
+                         f"T={T}, Bp={Bp}")
+    if (goal_kind in RACK_FAMILIES or rack_lim is not None) and prow is None:
+        raise ValueError("the rack families and the rack-limit veto need prow")
+    if goal_kind in (GOAL_MIN_TOPIC, GOAL_TOPIC_REPLICA) and topic is None:
+        raise ValueError("the topic families need their topic table")
+    row_t, tab = topic if topic is not None else (None, None)
+    vtab = vup = None
+    if tveto is not None:
+        vrow_t, vtab, vup = tveto
+        row_t = vrow_t if row_t is None else row_t
+    tensors = [cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, prow, rack_lim, row_f,
+               col_f, dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup]
+    for t, dt in zip(tensors, (torch.int64, torch.int64, torch.int64, torch.bool,
+                               torch.float32, torch.float32, torch.int64, torch.int32,
+                               torch.float32, torch.float32, torch.bool,
+                               torch.bool, torch.int64, torch.int64, torch.int64,
+                               torch.int32, torch.int32, torch.float32)):
+        if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
+            raise ValueError("move_score_classes_lanes: wrong dtype, layout or device")
+    Kr = prow.shape[2] if prow is not None else 0
+    tab_n = tab[0].numel() if tab is not None else 0
+    vtab_n = vtab[0].numel() if vtab is not None else 0
+    cls_val = torch.empty((La, K, T), dtype=torch.float32, device=cur_b.device)
+    cls_q = torch.empty((La, K, T), dtype=torch.int64, device=cur_b.device)
+    err = library("move_score", _SIGNATURES).cc_move_score_classes_lanes(
+        La, K, B, T, F, Kr, int(goal_kind), int(room_mask), EXEMPT_MASK, Bp, tab_n,
+        vtab_n, *(ptr(t) for t in tensors), ptr(cls_val), ptr(cls_q), stream_ptr())
+    check(err, "move_score_classes_lanes")
+    KERNEL_LANES.count(f"L={La} T={T}")
     FAMILY_LAUNCHES[goal_kind] = FAMILY_LAUNCHES.get(goal_kind, 0) + 1
     return cls_val, cls_q

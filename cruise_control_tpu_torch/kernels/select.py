@@ -23,6 +23,13 @@ A ``seed_mask`` (bool[R]: ``engine.py`` ``_mask_key`` :153, the K1 seed
 mask of a reduced round's dirty-set seeding) sends the rows outside it to
 -inf before salting; its launches also count on ``select_candidates_masked``.
 
+``select_candidates_lanes`` is the fleet's lane form (K14: ``vmap`` of
+``_select_candidates`` over the tenant axis, optimizer.py
+``_compiled_fleet_chain`` :2563): L keys [L, R], one stall per lane, one
+seed-mask row per lane, in ONE launch sequence (grid dimension y = lane);
+each lane's output is its solo launch's, bit for bit. Its twin is a loop of
+the solo twin over the lanes.
+
 ``compact_eligible`` (engine.py ``_compact_eligible`` :1257) compacts the
 true entries of a bool[R] into index order for the exhaustive scans, in
 the same library (``csrc/select_candidates.cu``).
@@ -41,6 +48,9 @@ KERNEL = register("select_candidates",
 KERNEL_MASKED = register("select_candidates_masked",
                          "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
                          "cruise_control_tpu/analyzer/engine.py:153")
+KERNEL_LANES = register("select_candidates_lanes",
+                        "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
+                        "cruise_control_tpu/analyzer/optimizer.py:2563")
 KERNEL_COMPACT = register("compact_eligible",
                           "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
                           "cruise_control_tpu/analyzer/engine.py:1257")
@@ -90,6 +100,7 @@ def select_candidates_plain(key, k, stall, salt=0, seed_mask=None):
 
 
 _SIGNATURES = {"cc_select_candidates": [P, P, I, I, I, I, P, P, P, P, P, P, P],
+               "cc_select_candidates_lanes": [P, P, I, I, I, P, I] + [P] * 7,
                "cc_compact_eligible": [P, I, I, P, P, P, P]}
 
 
@@ -124,6 +135,50 @@ def select_candidates(key: torch.Tensor, k: int, stall: int, salt: int = 0,
     KERNEL.count(f"k={k}")
     if seed_mask is not None:
         KERNEL_MASKED.count(f"k={k}")
+    return kv, idx
+
+
+def select_candidates_lanes_plain(key, k, stalls, salt=0, seed_mask=None):
+    outs = [select_candidates_plain(key[j], k, int(stalls[j]), salt,
+                                    None if seed_mask is None else seed_mask[j])
+            for j in range(key.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def select_candidates_lanes(key: torch.Tensor, k: int, stalls, salt: int = 0,
+                            seed_mask: torch.Tensor | None = None):
+    """(kv f32[L, k], cand i64[L, k]): ``select_candidates`` of every row of
+    ``key`` f32[L, R] with lane j's stall ``stalls[j]`` and seed-mask row j
+    (``seed_mask`` bool[L, R], None: every row of every lane)."""
+    L, n = key.shape
+    k = min(int(k), n)
+    if len(stalls) != L:
+        raise ValueError("select_candidates_lanes takes one stall per lane")
+    if not key.is_cuda:
+        return select_candidates_lanes_plain(key, k, stalls, salt, seed_mask)
+    if key.dtype != torch.float32 or not key.is_contiguous():
+        raise ValueError("select_candidates_lanes takes a contiguous f32[L, R] key")
+    if seed_mask is not None and (seed_mask.dtype != torch.bool
+                                  or tuple(seed_mask.shape) != (L, n)
+                                  or not seed_mask.is_contiguous()
+                                  or seed_mask.device != key.device):
+        raise ValueError("select_candidates_lanes takes a contiguous bool[L, R] "
+                         "seed mask")
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"select_candidates_lanes supports 0 < k <= {MAX_K}, got {k}")
+    dev = key.device
+    st = torch.tensor([int(x) for x in stalls], dtype=torch.int32).to(dev, non_blocking=True)
+    comp = torch.empty((L, n), dtype=torch.int64, device=dev)
+    sel = torch.empty((L, k), dtype=torch.int64, device=dev)
+    state = torch.empty((L, 4), dtype=torch.int64, device=dev)
+    hist = torch.empty((L, 256), dtype=torch.int32, device=dev)
+    kv = torch.empty((L, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((L, k), dtype=torch.int64, device=dev)
+    err = library("select_candidates", _SIGNATURES).cc_select_candidates_lanes(
+        ptr(key), ptr(seed_mask), L, n, k, ptr(st), int(salt), ptr(comp), ptr(sel),
+        ptr(state), ptr(hist), ptr(kv), ptr(idx), stream_ptr())
+    check(err, "select_candidates_lanes")
+    KERNEL_LANES.count(f"L={L} k={k}")
     return kv, idx
 
 

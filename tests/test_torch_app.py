@@ -130,11 +130,14 @@ def test_waiting_surfaces_name_their_items():
             call()
     with pytest.raises(NotImplementedError, match="item 12"):
         cc.service_pipeline = object()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cc.fleet_request_sink = lambda *a: None
     with pytest.raises(NotImplementedError, match="item 14"):
         cc.ha = object()
     assert cc.ha is None and cc.service_pipeline is None and cc.fleet_request_sink is None
+    # fleet mode is ported: the sink takes the detectors' heal-lane requests
+    seen = []
+    cc.fleet_request_sink = lambda lane, reason, now_ms: seen.append((lane, reason, now_ms))
+    cc._heal_admission_sink("goal violation: RackAwareGoal", 5.0)
+    assert seen == [(0, "goal violation: RackAwareGoal", 5.0)]
     with pytest.raises(NotImplementedError, match="item 11"):
         CruiseControl(facade_backend(PORT), cruise_control_config(
             {"sample.store.path": "/nonexistent"}), device="cpu")

@@ -8,7 +8,8 @@ max_finisher_rounds=12)``: at this size the optimizer would compile it out.
   ``_segment_move_wave`` and ``_segment_lead_wave``;
 - ``optimize_goal_chunked`` for LeaderReplicaDistributionGoal with the
   chain's prefix as previous goals: the same info dict, passes, quiesce
-  chunk and final state;
+  chunk and final state (the reference's whole chunked loop runs in a
+  fresh interpreter, ``reference_chunked_leader_distribution``);
 - the end-of-chain escalation (``GoalOptimizer._escalate_unproven``) with
   one finisher round: the same escalations, verdicts, counts and final
   state.
@@ -36,6 +37,7 @@ from cruise_control_tpu_torch.analyzer import engine
 from cruise_control_tpu_torch.analyzer import optimizer
 from cruise_control_tpu_torch.analyzer.goals import make_goals
 from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+from torch_reference import reference_cases
 
 CHAIN = ["RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
          "DiskCapacityGoal", "NetworkInboundCapacityGoal",
@@ -50,8 +52,7 @@ MOVE_GOALS = [6, 7, 9]
 LEAD_GOALS = [6, 9, 10]
 
 
-@pytest.fixture(scope="module")
-def ctx():
+def _context() -> dict:
     ct, meta = ref_ct_mod.pad_cluster(*ref_rc.generate_scale(ref_rc.RandomClusterSpec(**SPEC)))
     tml = np.zeros(ct.num_topics, bool)
     tml[:4] = True
@@ -67,6 +68,11 @@ def ctx():
                 pst=convert.state_from_arrays(convert.leaves(rst), "cpu"),
                 rgoals=ref_make_goals(CHAIN), pgoals=make_goals(CHAIN),
                 rparams=rparams, pparams=pparams)
+
+
+@pytest.fixture(scope="module")
+def ctx():
+    return _context()
 
 
 def bits(a) -> np.ndarray:
@@ -93,7 +99,8 @@ RESIDUALS = ("util_residual", "leader_util_residual")
 
 def same_state(rst, pst, skip=()) -> None:
     pl = convert.leaves(pst)
-    for name, a in convert.leaves(rst).items():
+    ref = rst if isinstance(rst, dict) else convert.leaves(rst)
+    for name, a in ref.items():
         if name not in skip:
             assert same(a, pl[name]), name
 
@@ -178,11 +185,25 @@ def test_segment_lead_wave(ctx, i):
     same_state(st_r, st_p)
 
 
-def test_optimize_goal_chunked_leader_distribution(ctx):
+def reference_chunked_leader_distribution() -> tuple:
+    """The reference's ``optimize_goal_chunked`` run of
+    ``test_optimize_goal_chunked_leader_distribution`` as numpy leaves and
+    host values: run by ``torch_reference.reference_cases`` in a fresh
+    interpreter, so the test worker compiles none of the reference's whole
+    chunked goal loop."""
+    c = _context()
     i = CHAIN.index("LeaderReplicaDistributionGoal")
     st_r, info_r = ref_engine.optimize_goal_chunked(
-        ctx["renv"], ctx["rst"], ctx["rgoals"][i], tuple(ctx["rgoals"][:i]),
-        ctx["rparams"])
+        c["renv"], c["rst"], c["rgoals"][i], tuple(c["rgoals"][:i]), c["rparams"])
+    host = (bool, int, float, str, type(None), np.generic)
+    return convert.leaves(st_r), {k: v if isinstance(v, host) else np.asarray(v)[()]
+                                  for k, v in info_r.items()}
+
+
+def test_optimize_goal_chunked_leader_distribution(ctx, tmp_path):
+    i = CHAIN.index("LeaderReplicaDistributionGoal")
+    st_r, info_r = reference_cases(tmp_path, "test_torch_finisher",
+                                   "reference_chunked_leader_distribution")
     st_p, info_p = engine.optimize_goal_chunked(
         ctx["penv"], ctx["pst"], ctx["pgoals"][i], tuple(ctx["pgoals"][:i]),
         ctx["pparams"])

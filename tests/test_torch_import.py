@@ -184,7 +184,9 @@ def test_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
                                  "swap_rows", "swap_admission", "disk_rows",
                                  "disk_apply", "preferred_leader", "replica_keys",
                                  "session_finalize", "select_candidates_masked",
-                                 "seeded_probe", "forecast"}
+                                 "seeded_probe", "forecast", "select_candidates_lanes",
+                                 "replica_keys_lanes", "move_score_classes_lanes",
+                                 "wave_admission_lanes"}
 
 
 def test_new_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
@@ -238,4 +240,25 @@ def test_session_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
     assert idx.tolist() == [6, 4, 2]
     assert bool(K.seeded_probe(mask, [key]))
     assert not bool(K.seeded_probe(mask, [torch.where(mask, -torch.inf, key)]))
+    assert all(n == 0 for n in K.launches().values())
+
+
+def test_fleet_slice_modules_are_scanned():
+    """The fleet slice's modules (the scheduler, the lane constants, the lane
+    stack and its pass loop, the fleet scripts) are among the modules
+    imported with JAX blocked and scanned above."""
+    assert {"cruise_control_tpu_torch.fleet", "cruise_control_tpu_torch.pipeline",
+            "cruise_control_tpu_torch.analyzer.lanes",
+            "cruise_control_tpu_torch.fleet_script"} <= set(MODULES)
+
+
+def test_fleet_cuda_by_default_and_lane_wrappers_count_no_launch_on_cpu(monkeypatch):
+    from cruise_control_tpu_torch.fleet import FleetScheduler
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FleetScheduler()
+    K.reset_launches()
+    key = torch.stack([torch.arange(8, dtype=torch.float32)] * 2)
+    kv, idx = K.select_candidates_lanes(key, 3, [0, 0])
+    assert idx.tolist() == [[7, 6, 5], [7, 6, 5]]
     assert all(n == 0 for n in K.launches().values())

@@ -14,9 +14,9 @@ K1's seed mask and K13 are held against the reference's ``_mask_key`` +
 tolerance 0. The reference runs in one fresh interpreter
 (``tests/torch_reference.py`` ``reference_incremental_cases``).
 
-The spill / readmit case (``test_carryover_survives_spill_readmit``) and
-the shadow-sync race of the pipelined loop wait for ROADMAP Queue 1 items
-13 and 12.
+The spill / readmit case (``test_carryover_survives_spill_readmit``) runs
+as the ``spill`` case; the shadow-sync race of the pipelined loop waits
+for ROADMAP Queue 1 item 12.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -73,6 +73,9 @@ def test_round_modes_are_the_reference_tests_modes(reference):
     assert modes["chain_change"] == ["full", "full", "full"]
     assert modes["revalidate_off"] == ["full", "full", "full"]
     assert modes["seeded"] == ["full", "full", "full", "reduced"]
+    assert modes["spill"] == ["full", "full", "revalidated", "revalidated"]
+    assert reference["spill"]["spilled"] and reference["spill"]["carryover_kept"]
+    assert reference["spill"]["readmitted"]
     rz = reference["zero_churn"]["rows"]
     assert all(m == "revalidated" for m in rz[2]["modes"])
     assert {k: v for k, v in rz[2].items() if k not in ("round", "modes")} == {

@@ -2,7 +2,8 @@
 
 - the goal's ``_preferred_leader``, ``_current_leader``, ``violated`` and
   ``apply`` (the K12 twin, then ``refresh``) on ``preferred_leader_skewed``
-  and on the 32-broker JBOD state with brokers demoted and dead;
+  and on the 32-broker JBOD state with brokers demoted and dead, the
+  reference's side from one fresh interpreter (``reference_ple_cases``);
 - the ``/demote_broker`` request (``["PreferredLeaderElectionGoal"]`` alone,
   an empty chain) through ``GoalOptimizer.optimizations`` in the unfused
   shape and in the fused shape (padded R 65,536), and a chain with the pass
@@ -10,6 +11,7 @@
   torch_reference.py): counts, the PLE result, the final assignment and
   the proposals. Exact throughout (tolerance 0)."""
 import dataclasses
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +34,7 @@ from cruise_control_tpu_torch.analyzer.optimizer import (
 from cruise_control_tpu_torch.model import cluster_tensor as port_ct_mod
 from cruise_control_tpu_torch.model import fixtures
 from cruise_control_tpu_torch.model import random_cluster as port_rc
-from torch_reference import reference_chain
+from torch_reference import reference_cases, reference_chain
 
 JBOD32 = dict(num_brokers=32, num_racks=4, num_topics=8, num_partitions=1000,
               max_replication=3, skew=1.0, seed=3143, logdirs_per_broker=4,
@@ -62,26 +64,52 @@ def _same_leaves(rst, pst, names):
             assert np.array_equal(a.astype(np.int64), b.astype(np.int64)), n
 
 
-@pytest.mark.parametrize("case", ["skewed", "jbod32", "jbod32-demoted"])
-def test_goal_matches_reference(case):
-    if case == "skewed":
-        ct, meta = ref_fixtures.preferred_leader_skewed()
-        demoted = ()
-    else:
-        ct, meta = ref_ct_mod.pad_cluster(
-            *ref_rc.generate_scale(ref_rc.RandomClusterSpec(**JBOD32)))
-        demoted = DEMOTED if case.endswith("demoted") else ()
-    renv, rst, penv, pst = _states(ct, meta, demoted)
-    rg, pg = RefPLE(), make_goal("PreferredLeaderElectionGoal")
-    assert np.array_equal(np.asarray(rg._preferred_leader(renv, rst)),
-                          pg._preferred_leader(penv, pst).numpy())
-    assert np.array_equal(np.asarray(rg._current_leader(renv, rst)),
-                          pg._current_leader(penv, pst).numpy())
-    was = bool(rg.violated(renv, rst))
+CASES = ["skewed", "jbod32", "jbod32-demoted"]
+
+
+def reference_ple_cases() -> dict:
+    """The reference's side of ``test_goal_matches_reference`` for every
+    case, as numpy values: run by ``torch_reference.reference_cases`` in a
+    fresh interpreter, so the test worker compiles nothing of JAX."""
+    out = {}
+    for case in CASES:
+        if case == "skewed":
+            ct, meta = ref_fixtures.preferred_leader_skewed()
+            demoted = ()
+        else:
+            ct, meta = ref_ct_mod.pad_cluster(
+                *ref_rc.generate_scale(ref_rc.RandomClusterSpec(**JBOD32)))
+            demoted = DEMOTED if case.endswith("demoted") else ()
+        renv, rst, _penv, _pst = _states(ct, meta, demoted)
+        rg = RefPLE()
+        rst2 = rg.apply(renv, rst)
+        out[case] = dict(env=convert.leaves(renv), st=convert.leaves(rst),
+                         preferred=np.asarray(rg._preferred_leader(renv, rst)),
+                         current=np.asarray(rg._current_leader(renv, rst)),
+                         was=bool(rg.violated(renv, rst)), st2=convert.leaves(rst2),
+                         still=bool(rg.violated(renv, rst2)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def ref_ple(tmp_path_factory):
+    return reference_cases(tmp_path_factory.mktemp("ple"), "test_torch_ple",
+                           "reference_ple_cases")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_goal_matches_reference(case, ref_ple):
+    ref = ref_ple[case]
+    penv = convert.env_from_arrays(ref["env"], "cpu")
+    pst = convert.state_from_arrays(ref["st"], "cpu")
+    rst2 = SimpleNamespace(**ref["st2"])
+    pg = make_goal("PreferredLeaderElectionGoal")
+    assert np.array_equal(ref["preferred"], pg._preferred_leader(penv, pst).numpy())
+    assert np.array_equal(ref["current"], pg._current_leader(penv, pst).numpy())
+    was = ref["was"]
     assert was == bool(pg.violated(penv, pst)) == (case != "jbod32")
-    rst2 = rg.apply(renv, rst)
     pwas, pst2, pstill = pg.run(penv, pst)
-    assert bool(pwas) == was and bool(pstill) == bool(rg.violated(renv, rst2)) is False
+    assert bool(pwas) == was and bool(pstill) == ref["still"] is False
     _same_leaves(rst2, pst2, ("replica_is_leader", "leadership_moved", "leader_count",
                               "util", "leader_util", "topic_leader_count", "disk_util"))
     _same_leaves(rst2, pg.apply(penv, pst), ("replica_is_leader",))

@@ -240,13 +240,18 @@ def test_session_surface():
     assert sizes["state_bytes"] == sum(
         getattr(sess.state, f.name).nbytes for f in dataclasses.fields(sess.state))
     assert sess.epoch == 1 and sess.rebuild_rounds == 1
-    for call in (sess.spill, sess.readmit):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
+    # fleet spill and readmit: the device slots drop, the readmit is bit for bit
+    before = {f.name: getattr(sess.state, f.name).clone()
+              for f in dataclasses.fields(sess.state)}
+    assert not sess.readmit() and sess.spill() and sess.spilled
+    assert sess.device_bytes() == {"env_bytes": 0, "state_bytes": 0}
+    assert sess.readmit() and not sess.spilled
+    assert all(torch.equal(getattr(sess.state, n), v) for n, v in before.items())
+    assert sess.state_json()["spills"] == sess.state_json()["readmits"] == 1
+    # the pad-to-join floors pad the rebuild
     sess.bucket_floors = {"min_replicas": 4096}
     sess.invalidate()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sess.sync()
+    assert sess.sync()["mode"] == "rebuild" and sess.env.num_replicas == 4096
     with pytest.raises(NotImplementedError, match="item 15"):
         ResidentClusterSession(lm, device="cpu", mesh=object())
     with pytest.raises(RuntimeError, match="cuda"):

@@ -484,18 +484,19 @@ def reference_session_case(tmp_path: Path, name: str, timeout: int = 600) -> dic
 INCREMENTAL_GOALS = ["ReplicaCapacityGoal", "ReplicaDistributionGoal",
                      "LeaderReplicaDistributionGoal"]
 INCREMENTAL_CASES = ("zero_churn", "forced_rerun", "churn", "epoch", "shadow",
-                     "chain_change", "revalidate_off", "seeded", "dirty_mask")
+                     "chain_change", "revalidate_off", "seeded", "dirty_mask", "spill")
 
 
 def incremental_case(ns, name: str) -> dict:
     """One of tests/test_incremental.py's scripts (cases 1-3 and 5-8, the
-    one-sided seeding case and the dirty-mask case) through the classes in
+    one-sided seeding case, the dirty-mask case and the carryover across a
+    fleet spill and readmit) through the classes in
     ``ns``. Returns the rows of its rounds (``session_script.round_row``)
     and the session counters the reference's test asserts on."""
     from cruise_control_tpu_torch.analyzer.session_script import round_row
     kw = ns.get("kw", {})
     seeds = dict(zero_churn=0, forced_rerun=5, churn=1, epoch=3, shadow=4,
-                 chain_change=6, revalidate_off=7, seeded=8, dirty_mask=10)
+                 chain_change=6, revalidate_off=7, seeded=8, dirty_mask=10, spill=2)
     goals = INCREMENTAL_GOALS
 
     def optimizer(extra=None):
@@ -568,6 +569,12 @@ def incremental_case(ns, name: str) -> dict:
         rnd(opt, sess, sess.sync(), goal_names=goals[:2])
     elif name == "revalidate_off":
         steady(opt, sess, lm, 7)
+    elif name == "spill":
+        steady(opt, sess, lm, 7)
+        out["spilled"] = sess.spill()
+        out["carryover_kept"] = sess.carryover is not None
+        steady(opt, sess, lm, 8)          # the sync readmits, then the memo
+        out["readmitted"] = sess.readmits >= 1
     out.update(rows=rows, revalidated_rounds=sess.revalidated_rounds)
     return out
 
@@ -895,11 +902,69 @@ def reference_cases(tmp_path: Path, module: str, function: str, *args,
         return pickle.load(f)
 
 
+# ---------------------------------------------------------------------------
+# Fleet mode (cruise_control_tpu_torch/fleet_script.py, either package)
+# ---------------------------------------------------------------------------
+def reference_fleet_ns() -> dict:
+    """The reference's classes for ``fleet_script``."""
+    from cruise_control_tpu.app import CruiseControl
+    from cruise_control_tpu.backend.simulated import SimulatedClusterBackend
+    from cruise_control_tpu.config import cruise_control_config
+    from cruise_control_tpu.fleet import FleetScheduler
+    from cruise_control_tpu.pipeline import LANE_HEAL, LANE_REBALANCE, LANE_REFRESH
+    return dict(CruiseControl=CruiseControl, SimulatedClusterBackend=SimulatedClusterBackend,
+                cruise_control_config=cruise_control_config, FleetScheduler=FleetScheduler,
+                LANE_HEAL=LANE_HEAL, LANE_REBALANCE=LANE_REBALANCE,
+                LANE_REFRESH=LANE_REFRESH)
+
+
+_FLEET_CHILD = r"""
+import json, pickle, sys
+from cruise_control_tpu_torch import fleet_script
+from torch_reference import reference_fleet_ns
+args = json.loads(sys.argv[1])
+ns = reference_fleet_ns()
+out = {}
+for name in args["cases"]:
+    if name == "fleet_e2e":
+        run = fleet_script.fleet_e2e(ns, args["spec"])
+        run.pop("fleet").shutdown()
+        out[name] = run
+    else:
+        out[name] = getattr(fleet_script, name)(ns)
+with open(args["out"], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def reference_fleet_cases(tmp_path: Path, cases: tuple, spec: dict | None = None,
+                          timeout: int = 900) -> dict:
+    """The reference's results of ``fleet_script``'s functions named in
+    ``cases`` ("fleet_cases", "gating_cases", "serving_cases", "fleet_e2e"
+    with ``spec``), all in ONE fresh interpreter: its vmapped fleet
+    programs compile there, never inside a test worker."""
+    out = tmp_path / "reference_fleet.pkl"
+    _run_child(_FLEET_CHILD, dict(cases=list(cases), spec=spec, out=str(out)), timeout)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
 if __name__ == "__main__":
     # python tests/torch_reference.py rung4 [float32|bfloat16]: the JAX
     # reference's outcome row of a rung (default "auto"), as JSON
     import tempfile
     name = sys.argv[1]
+    if name == "fleet-e2e":
+        # python tests/torch_reference.py fleet-e2e: the reference's rows of
+        # the fleet-16x100b cell's two rounds (chip_smoke.py phase 8)
+        with tempfile.TemporaryDirectory() as tmp:
+            sys.path.insert(0, str(ROOT))
+            from cruise_control_tpu_torch.fleet_script import FLEET_E2E
+            run = reference_fleet_cases(Path(tmp), ("fleet_e2e",), spec=FLEET_E2E,
+                                        timeout=7200)["fleet_e2e"]
+        print(json.dumps(dict(cell="fleet-16x100b", rounds=run["rounds"],
+                              reports=run["reports"])))
+        sys.exit(0)
     if name == "heal-e2e":
         # python tests/torch_reference.py heal-e2e: the reference's rows of
         # the self-healing script at e2e-1000b-50000p (chip_smoke.py phase 7)
