@@ -112,12 +112,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    replicas on the resident session; (c) one topic's load ramped over the
    windows, K15's forecast, the PREDICTED verdict before any breach, the
    pre-breach heal and the speculative proposal install. The script runs
-   twice; the launch counts are zeroed just before and read just after.
+   once (twice before phase 9 joined); the launch counts are zeroed just
+   before and read just after.
    Every step must give the JAX reference's row (``python
    tests/torch_reference.py heal-e2e``: handled anomalies and actions, the
    fixes' proposal counts and sha256, the executor's task census, the
    simulated clock, the backend assignment's sha256, the forecast's
-   sha256) and the two runs the same bits. Detection, FIX and forecast walls
+   sha256). Detection, FIX and forecast walls
    and each executor run's simulated ms are printed.
 
 8. fleet mode at the fleet-16x100b cell (``bench.py`` ``run_fleet_rung``'s
@@ -127,20 +128,47 @@ Phases, each printing its own lines; any failure exits non-zero:
    (``cruise_control_tpu_torch.fleet_script.fleet_e2e``): round 1 and round 2
    (one more window, delta syncs), the launch counts zeroed just before and
    read just after, every tenant's row the JAX reference's (``python
-   tests/torch_reference.py fleet-e2e``); the same rounds on a fresh fleet,
-   bit-identical; the 16 solo rounds on the card, equal to the lanes; a
-   memory budget below the footprint: the LRU spill of the coldest tenant
-   and its readmit, every env and state leaf bit-identical; the move wave's
-   kernel launches in one pass at L = 1 and L = 16, equal; the round walls,
-   the solo walls and ``nvidia-smi``'s utilization.gpu sampled during the
-   rounds; the four lane kernels timed at the shapes the cell launched most.
+   tests/torch_reference.py fleet-e2e``); the 16 solo rounds on the card,
+   equal to the lanes; a memory budget below the footprint: the LRU spill of
+   the coldest tenant and its readmit, every env and state leaf
+   bit-identical; the kernel launches of one move-wave pass, one
+   leadership-branch pass and one swap-branch pass at L = 1 and L = 16,
+   equal; the round walls, the solo walls and ``nvidia-smi``'s
+   utilization.gpu sampled during the rounds; the eight lane kernels timed
+   at the shapes the cell launched most. (Round 1 on a fresh fleet runs in
+   phase 9's fleet service, held against the same rows bit for bit.)
+
+9. the front door (``cruise_control_tpu_torch.service_script``): the
+   single-tenant service at e2e-1000b-50000p built by ``main.build_app`` /
+   ``build_server`` with the pipelined loop (lockstep ingest-and-sync steps,
+   a ``pipelined_round`` with the next window's ingest and sync overlapped
+   under it, then threaded), driven over HTTP through the port's client:
+   ``POST /rebalance?dryrun=true`` (202 / ``User-Task-ID``), ``GET
+   /proposals`` twice, ``/load``, ``/kafka_cluster_state``,
+   ``/partition_load``, ``/state?substates=PIPELINE,ROUND_TRACES``; then the
+   fleet service at fleet-16x100b (``fleet.cluster.ids``,
+   ``main.build_fleet``): ``POST /rebalance?cluster_id=<id>&dryrun=true`` for
+   every tenant (each queues a rebalance-lane request), one dispatch of the
+   queued requests (one batched launch of 16 lanes), every tenant's
+   proposals through ``?cluster_id=``, an unknown id 404 and a malformed one
+   400. The launch
+   counts are zeroed just before each service and read just after; every
+   row must be the reference's (``python tests/torch_reference.py
+   service-e2e``, pasted as ``SERVICE_ORACLE``; the tenants' rows
+   ``FLEET_ORACLE``'s round 1); the round traces' overlap fractions and
+   the request walls are printed.
 
 Phase 3 also holds the four lane kernels of the fleet's move wave (K14:
 ``replica_keys_lanes``, ``select_candidates_lanes``,
 ``move_score_classes_lanes``, ``wave_admission_lanes``) against their lane
 twins on a 16-lane stack at the fleet cell's shape (all 16 lanes and every
 other lane, a stall and a seed mask per lane, keys tied across lanes), and
-times each at L = 16 beside 16 solo launches and its bound. It also holds the K1 keying kernel (``replica_keys``) against its twin
+times each at L = 16 beside 16 solo launches and its bound; likewise the
+lane kernels of the leadership branch, the swap branch and the probe
+(``leadership_rows_lanes``, ``swap_rows_lanes``, ``swap_admission_lanes``,
+``seeded_probe_lanes``) on the lanes' states and adversarially (vetoed
+rows, tied admission values on shared brokers and partitions, -inf, NaN and
++inf probe keys). It also holds the K1 keying kernel (``replica_keys``) against its twin
 for every key function it computes, with f32 tables and with the bf16 sweep
 view, on the slice, jbod-1000b, rung-4 and rung-5 states and on adversarial
 inputs (halfway-rounding loads, signed zeros, ties, offline rows), and K15
@@ -151,8 +179,9 @@ partitions, W 4 and 5 windows, M 10 metrics) and on adversarial histories
 The line before the last is the ``kernels`` JSON object: each kernel's
 launches are those of the counted runs of the sixteen goals, the 18 goals,
 the kafka-assigner chain, the three JBOD requests, the two rungs, the
-session scripts, the heal scripts and the fleet rounds together (each path's
-under ``launches_by_path``), and its times those of the shape it launched
+session scripts, the heal scripts, the fleet rounds and the front door's
+two services together (each path's under ``launches_by_path``), and its
+times those of the shape it launched
 most often there (the session kernels: on the session path; K15: on the heal
 path; the lane kernels: on the fleet path; the others: on the earlier paths), with every timed shape and its
 launches listed beside them. The last line is ``{"ok": true, "device":
@@ -425,9 +454,13 @@ SESSION_KERNELS = ("session_finalize", "select_candidates_masked", "seeded_probe
 # launches: K15's forecast
 HEAL_KERNELS = ("forecast",)
 # the kernels of the fleet path (phase 8) that no earlier path launches:
-# the lane forms (K14) of the move wave's kernels
-FLEET_KERNELS = ("replica_keys_lanes", "select_candidates_lanes",
-                 "move_score_classes_lanes", "wave_admission_lanes")
+# the lane forms (K14) of the move wave's kernels, and of the leadership and
+# swap branches' and the probe's
+MOVE_LANE_KERNELS = ("replica_keys_lanes", "select_candidates_lanes",
+                     "move_score_classes_lanes", "wave_admission_lanes")
+BRANCH_LANE_KERNELS = ("leadership_rows_lanes", "swap_rows_lanes", "swap_admission_lanes",
+                       "seeded_probe_lanes")
+FLEET_KERNELS = MOVE_LANE_KERNELS + BRANCH_LANE_KERNELS
 # the path whose launch shapes time each later slice's kernels
 KERNEL_PATH = {**{n: "session" for n in SESSION_KERNELS},
                **{n: "heal" for n in HEAL_KERNELS},
@@ -630,6 +663,28 @@ def fields_of(obj) -> list:
         for x in (v if isinstance(v, list) else [v]):
             out.extend(fields_of(x) if dataclasses.is_dataclass(x) else [x])
     return out
+
+
+def lead_bytes(n: int, F: int) -> int:
+    """The bytes one K6 launch over ``n`` candidate rows of ``F`` members
+    must move: per (k, f) the member id, its broker, offline flag, broker
+    flag and eight f32 table / veto reads; per row the candidate, its flag
+    and two values; out a value and an index per row."""
+    return n * F * (8 + 8 + 1 + 1 + 4 * 8) + n * (8 + 1 + 4 * 2) + n * (4 + 8)
+
+
+def swap_rows_work(pairs, tables) -> tuple:
+    """(bytes, operations) of one K7 ``swap_rows`` launch: every operand of
+    the pairs and tables once (the topic table only where the topic veto or
+    the topic family reads it), the three outputs per out row, and about
+    60 + 10 V operations per pair."""
+    from cruise_control_tpu_torch.kernels import swap
+    k1, k2 = pairs.b_out.shape[0], pairs.b_in.shape[0]
+    reads_tab = (pairs.topic_up is not None
+                 or tables.family == swap.SWAP_TOPIC_REPLICA)
+    nb = nbytes(*(x for x in fields_of(pairs) + fields_of(tables)
+                  if x is not pairs.tab or reads_tab))
+    return nb + k1 * (4 + 8 + 4), k1 * k2 * (60 + 10 * len(pairs.vetoes))
 
 
 def to_device(obj, dev):
@@ -1148,21 +1203,15 @@ def chain_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
     br_args = engine._lead_args(env, st, goals[i_lrd], tuple(goals[:i_lrd]), lcand,
                                 lkv > -torch.inf)
 
-    def lead_bytes(n):
-        """Per (k, f): the member id, its broker, offline flag, broker flag
-        and eight f32 table / veto reads; per row: candidate, flag, two
-        values; outputs: value + index."""
-        return n * F * (8 + 8 + 1 + 1 + 4 * 8) + n * (8 + 1 + 4 * 2) + n * (4 + 8)
-
     timing(torch, e, lambda: K.leadership_rows(*br_args),
            lambda: leadership.leadership_rows_plain(*br_args), None,
-           lead_bytes(KL), KL * F * 30, f"branch [{KL}, {F}]")
+           lead_bytes(KL, F), KL * F * 30, f"branch [{KL}, {F}]")
     timing(torch, e, lambda: K.leadership_rows(*scan_args),
            lambda: leadership.leadership_rows_plain(*scan_args), None,
-           lead_bytes(chunk), chunk * F * 30, f"lead scan [{chunk}, {F}]")
+           lead_bytes(chunk, F), chunk * F * 30, f"lead scan [{chunk}, {F}]")
     timing(torch, e, lambda: K.leadership_rows(*seg_args, color=color, S=S, active=active),
            lambda: leadership.leadership_rows_plain(*seg_args, color, S, active), None,
-           lead_bytes(Kf) + Kf * S * 12, Kf * F * (30 + S),
+           lead_bytes(Kf, F) + Kf * S * 12, Kf * F * (30 + S),
            f"segment wave [{Kf}, {F}] x {S}")
     lkey, adm_args, sum_args, counts = lead_pass["LeaderReplicaDistributionGoal"]
     timing(torch, entries["select_candidates"], lambda: K.select_candidates(lkey, KL, 0, 0),
@@ -1368,12 +1417,7 @@ def swap_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
             st1 = apply_moves_batched(env, st1, reps, dsts, win)
     timing(torch, e_rows, lambda: K.swap_rows(pairs, tables, mg),
            lambda: swap.swap_rows_plain(pairs, tables, mg), None,
-           nbytes(*(x for x in fields_of(pairs) + fields_of(tables)
-                    if x is not pairs.tab or pairs.topic_up is not None
-                    or tables.family == swap.SWAP_TOPIC_REPLICA))
-           + k * (4 + 8 + 4),
-           k * k * (60 + 10 * len(pairs.vetoes)),
-           f"pass [{k}, {k}]")
+           *swap_rows_work(pairs, tables), f"pass [{k}, {k}]")
     timing(torch, e_adm, lambda: K.swap_admission(*adm),
            lambda: swap.swap_admission_plain(*adm), None,
            nbytes(*adm[:6]) + k, k * k * 10, f"K1={k}")
@@ -2702,14 +2746,15 @@ HEAL_PROFILED = ("detect a", "fix a", "fix b", "detect c", "fix c")
 
 def heal_phase(torch, profile: bool = False) -> dict:
     """``heal_script`` at e2e-1000b-50000p through the port's
-    ``CruiseControl(device="cuda")`` twice, the launch counts zeroed just
+    ``CruiseControl(device="cuda")`` once (twice before the front door
+    joined the smoke; phase 9 checks determinism at the same cell), the
+    launch counts zeroed just
     before and read just after: the broker failure (CHECK, then the FIX's
     evacuation executed on ``SimClock``), the disk failure (FIX of the
     offline replicas on the resident session), the predicted breach (K15's
     forecast, the PREDICTED verdict, the pre-breach heal and the speculative
-    install). Every row must be the JAX reference's, and the two runs the
-    same bits. ``profile`` adds a third run whose detection and FIX steps
-    run under torch.profiler."""
+    install). Every row must be the JAX reference's. ``profile`` adds a run
+    whose detection and FIX steps run under torch.profiler."""
     from cruise_control_tpu_torch import kernels as K
     from cruise_control_tpu_torch.analyzer.heal_script import (
         HEAL_E2E, heal_script, port_heal_ns,
@@ -2731,7 +2776,7 @@ def heal_phase(torch, profile: bool = False) -> dict:
     K.reset_launches()
     t0 = time.perf_counter()
     runs = []
-    for _ in range(2):
+    for _ in range(1):
         run_walls = {}
         t_run = time.perf_counter()
         runs.append(heal_script(port_heal_ns("cuda"), HEAL_E2E, timer=timer_for(run_walls)))
@@ -2748,7 +2793,6 @@ def heal_phase(torch, profile: bool = False) -> dict:
             require(not diff, f"heal run {i + 1} {want['step']} differs from the JAX "
                               f"reference: {diff}")
         require(len(rows) == len(HEAL_ORACLE), f"heal run {i + 1}: {len(rows)} steps")
-    require(runs[0] == runs[1], "heal: the second run differs from the first")
     prev_ms = 0.0
     for row in runs[0]:
         handled = [[(h["type"], h["action"]) + ((h["fix"]["operation"], h["fix"]["proposals"])
@@ -2762,7 +2806,6 @@ def heal_phase(torch, profile: bool = False) -> dict:
                                          f"speculative {row['speculative']}"
                                          if "forecast" in row else ""))
         prev_ms = row["sim_ms"]
-    log("heal: the second run (a fresh backend and facade) is bit-identical to the first")
     for i, w in enumerate(walls):
         log(f"heal run {i + 1} walls (s): detection rounds a/b/c {w['detect a']:.6f} / "
             f"{w['detect b']:.6f} / {w['detect c']:.6f}; FIX rounds (optimize and "
@@ -2771,7 +2814,7 @@ def heal_phase(torch, profile: bool = False) -> dict:
     require(launches["forecast"] > 0, f"K15 never launched on the heal path: {launches}")
     require(all(launches[n] > 0 for n in FIVE_GOAL_KERNELS),
             f"a kernel of the heal path's optimize rounds never launched: {launches}")
-    log(f"heal: both runs {total:.6f} s")
+    log(f"heal: the run {total:.6f} s")
     if profile:
         import contextlib
 
@@ -3447,13 +3490,216 @@ def lane_kernel_checks(torch, lctx, entries: dict, seed: int) -> None:
                                            seed), f"L={LANES}")
 
 
+# the goals of the branch lane kernels' checks: a leadership-primary goal
+# (K6) and a swap goal (K7), each after the lane stack's move goals, and the
+# probe's goals (K13: two and three key kinds)
+LANE_LEAD_GOAL = "LeaderReplicaDistributionGoal"
+LANE_SWAP_GOAL = "DiskUsageDistributionGoal"
+# a goal whose probe reads 1, 2 or 3 key kinds
+PROBE_GOALS = {1: "ReplicaDistributionGoal", 2: "DiskUsageDistributionGoal",
+               3: "CpuUsageDistributionGoal"}
+
+
+def branch_lane_wave(torch, lctx, lanes: list, seed: int, adversarial: bool = False,
+                     probe_goal: str = LANE_SWAP_GOAL) -> dict:
+    """The inputs of the leadership and swap branches' lane launches for
+    ``lanes`` (each lane's solo SPI on its views, as
+    ``lanes.lead_branch_lanes`` / ``swap_branch_lanes`` build them, with a
+    different stall in every lane) and of the probe's (a seed mask per lane:
+    one all-false, one all-true, the others random; ``probe_goal``'s keys).
+    ``adversarial``: half
+    the leadership rows and swap out rows of every other lane vetoed, the
+    swap admission's rows on a few brokers and partitions with tied values,
+    and probe keys of -inf, NaN and +inf."""
+    from cruise_control_tpu_torch.analyzer import engine
+    from cruise_control_tpu_torch.analyzer import lanes as lanes_mod
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    from cruise_control_tpu_torch.kernels import leadership, swap
+    stack, params = lctx["stack"], lctx["params"]
+    dev = stack.device
+    R = stack.num_replicas
+    g = torch.Generator().manual_seed(seed)
+    out = dict(lanes=lanes, R=R, B=stack.env_b.num_brokers)
+    stalls = {l: j % 3 for j, l in enumerate(lanes)}
+    envs = [stack.envs[l] for l in lanes]
+    sts = [stack.sts[l] for l in lanes]
+    # K6: the leader keys, K1 at KL, then each lane's K6 operands
+    lead = make_goals(LANE_GOALS + [LANE_LEAD_GOAL])
+    goal, prev = lead[-1], tuple(lead[:-1])
+    sev = {l: goal.broker_severity(stack.envs[l], stack.sts[l]) for l in lanes}
+    kl = min(params.num_leader_candidates, R)
+    lkey = lanes_mod.lane_keys(stack, goal, lanes, sev, params, "leader_key")
+    out["lead_select"] = (lkey, kl, [stalls[l] for l in lanes])
+    lkv, lcand = lanes_mod.select_candidates_lanes(*out["lead_select"])
+    args = []
+    for j in range(len(lanes)):
+        a = engine._lead_args(envs[j], sts[j], goal, prev, lcand[j], lkv[j] > -torch.inf)
+        if adversarial and j % 2:
+            a = (a[0], a[1], (a[2] & (torch.rand(kl, generator=g) < 0.5).to(dev))
+                 .contiguous()) + a[3:]
+        args.append(a)
+    out["lead"] = args
+    # the assignment and the swap pairs' racks and topic counts read from the
+    # stack's rows at the lane index list, as the fleet's branches read them
+    out["lead_stacked"] = (lanes, stack.st_b.replica_broker, stack.st_b.replica_offline)
+    out["swap_stacked"] = (lanes, stack.env_b.broker_rack, stack.st_b.topic_broker_count)
+    best_l, f_l = leadership.leadership_rows_lanes_plain(args)
+    out["lead_admit"] = [engine._lead_admission_from_scores(
+        envs[j], sts[j], goal, prev, params, lcand[j], best_l[j], f_l[j])[2]
+        for j in range(len(lanes))]
+    # K7: the out and in pools, then each lane's pair operands
+    goals = make_goals(LANE_GOALS)
+    gi = LANE_GOALS.index(LANE_SWAP_GOAL)
+    sgoal, sprev = goals[gi], tuple(goals[:gi])
+    sev = {l: sgoal.broker_severity(stack.envs[l], stack.sts[l]) for l in lanes}
+    k = min(params.num_swap_candidates, R, 128)
+    st_list = [stalls[l] for l in lanes]
+    okv, cand_out = lanes_mod.select_candidates_lanes(
+        lanes_mod.lane_keys(stack, sgoal, lanes, sev, params, "swap_out_key"), k, st_list)
+    ikv, cand_in = lanes_mod.select_candidates_lanes(
+        lanes_mod.lane_keys(stack, sgoal, lanes, sev, params, "swap_in_key"), k, st_list,
+        salt=101)
+    pairs, tables = [], []
+    for j in range(len(lanes)):
+        pr, tb = engine._swap_args(envs[j], sts[j], sgoal, sprev, cand_out[j], okv[j],
+                                   cand_in[j], ikv[j])
+        if adversarial and j % 2:
+            pr = dataclasses.replace(pr, row_ok_out=(
+                pr.row_ok_out & (torch.rand(k, generator=g) < 0.5).to(dev)).contiguous())
+        pairs.append(pr)
+        tables.append(tb)
+    out["swap"] = (pairs, tables, params.min_gain)
+    best, best_j, _n = swap.swap_rows_lanes_plain(pairs, tables, params.min_gain)
+    adm = [engine._swap_admission_inputs(envs[j], pairs[j], cand_out[j], cand_in[j],
+                                         best[j], best_j[j]) for j in range(len(lanes))]
+    rows = [torch.stack([a[2][i] for a in adm]).contiguous() for i in range(6)]
+    if adversarial:
+        La = len(lanes)
+        rows[0] = torch.randint(-2, 3, (La, k), generator=g).float().to(dev)
+        for i in (1, 2, 4, 5):
+            rows[i] = torch.randint(0, 6, (La, k), generator=g).to(dev)
+        rows[3] = torch.randint(0, 8, (La, k), generator=g).to(dev)
+    out["swap_adm"] = rows + [params.min_gain]
+    # K13: a seed mask per lane against the probe goal's keys
+    pgoal = make_goals([probe_goal])[0]
+    methods = pgoal.seeded_work_methods()
+    sev = {l: pgoal.broker_severity(stack.envs[l], stack.sts[l]) for l in lanes}
+    keys = [lanes_mod.lane_keys(stack, pgoal, lanes, sev, None, m) for m in methods]
+    mask = (torch.rand((len(lanes), R), generator=g) < 0.01).to(dev)
+    mask[0] = False
+    if len(lanes) > 1:
+        mask[1] = True
+    if adversarial:
+        special = torch.tensor([-torch.inf, float("nan"), torch.inf, -0.0])
+        keys = [torch.where(torch.rand(k_.shape, generator=g).to(dev) < 0.999,
+                            torch.full_like(k_, -torch.inf),
+                            special[torch.randint(0, 4, k_.shape, generator=g)].to(dev))
+                .contiguous() for k_ in keys]
+    out["probe"] = (mask.contiguous(), keys)
+    return out
+
+
+def branch_lane_timings(torch, entries: dict, wv: dict, tag: str) -> None:
+    """Time the leadership, swap and probe lane kernels at ``wv``'s lanes
+    beside their lane twins, the same lanes' solo launches one after another
+    and the bound; and the move wave's lane kernels that these branches
+    launch at shapes of their own (K1 at the leader and swap pools' k, K3
+    at the leadership wave's N), when ``entries`` holds them."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.kernels import admission, leadership, probe, select, swap
+    La = len(wv["lanes"])
+
+    def solo_ms(e, fn):
+        ms = time_ms(torch, fn)
+        e.timings[-1]["solo_ms"] = ms
+        log(f"  {e.name} at {tag}: {La} solo launches {ms:.6f} ms")
+
+    # each bound is La times the solo launch's (``lead_bytes``,
+    # ``swap_rows_work``): a lane gathers only its own rows' members
+    la, ls, ss = wv["lead"], wv["lead_stacked"], wv["swap_stacked"]
+    Kl, F = la[0][1].shape
+    timing(torch, entries["leadership_rows_lanes"], lambda: K.leadership_rows_lanes(la, ls),
+           lambda: leadership.leadership_rows_lanes_plain(la), None,
+           La * lead_bytes(Kl, F), La * Kl * F * 30, tag)
+    solo_ms(entries["leadership_rows_lanes"], lambda: [K.leadership_rows(*a) for a in la])
+    pairs, tables, mg = wv["swap"]
+    K1 = pairs[0].b_out.shape[0]
+    work = [swap_rows_work(p, t) for p, t in zip(pairs, tables)]
+    timing(torch, entries["swap_rows_lanes"],
+           lambda: K.swap_rows_lanes(pairs, tables, mg, ss),
+           lambda: swap.swap_rows_lanes_plain(pairs, tables, mg), None,
+           sum(w[0] for w in work), sum(w[1] for w in work), tag)
+    solo_ms(entries["swap_rows_lanes"],
+            lambda: [K.swap_rows(p, t, mg) for p, t in zip(pairs, tables)])
+    ad = wv["swap_adm"]
+    timing(torch, entries["swap_admission_lanes"], lambda: K.swap_admission_lanes(*ad),
+           lambda: swap.swap_admission_lanes_plain(*ad), None,
+           nbytes(*ad[:6]) + La * K1, La * K1 * K1 * 10, tag)
+    solo_ms(entries["swap_admission_lanes"],
+            lambda: [K.swap_admission(*(x[j] for x in ad[:6]), mg) for j in range(La)])
+    mask, keys = wv["probe"]
+    timing(torch, entries["seeded_probe_lanes"], lambda: K.seeded_probe_lanes(mask, keys),
+           lambda: probe.seeded_probe_lanes_plain(mask, keys),
+           lambda: torch.stack([(torch.where(mask, k_, -torch.inf) > -torch.inf).any(dim=1)
+                                for k_ in keys]).any(dim=0),
+           nbytes(mask, *keys) + La * 4, La * wv["R"] * 2 * len(keys), tag)
+    solo_ms(entries["seeded_probe_lanes"],
+            lambda: [K.seeded_probe(mask[j], [k_[j] for k_ in keys]) for j in range(La)])
+    if "select_candidates_lanes" in entries:
+        key, kl, stalls = wv["lead_select"]
+        timing(torch, entries["select_candidates_lanes"],
+               lambda: K.select_candidates_lanes(key, kl, stalls),
+               lambda: select.select_candidates_lanes_plain(key, kl, stalls),
+               lambda: torch.topk(key, kl, dim=1), nbytes(key) + La * kl * (4 + 8),
+               La * 4 * wv["R"], tag)
+        solo_ms(entries["select_candidates_lanes"],
+                lambda: [K.select_candidates(key[j], kl, stalls[j]) for j in range(La)])
+    if "wave_admission_lanes" in entries:
+        aa = wv["lead_admit"]
+        N = aa[0][0].shape[0]
+        timing(torch, entries["wave_admission_lanes"], lambda: K.wave_admission_lanes(aa),
+               lambda: admission.wave_admission_lanes_plain(aa), None,
+               sum(nbytes(*a[:7], *a[7][:2], a[8]) + N for a in aa), La * N * 8 * 6, tag)
+        solo_ms(entries["wave_admission_lanes"], lambda: [K.wave_admission(*a) for a in aa])
+
+
+def branch_lane_checks(torch, lctx, entries: dict, seed: int) -> None:
+    """The leadership, swap and probe lane kernels (K6, K7's rows and
+    admission, K13) against their lane twins (loops of the solo twins) at
+    the fleet cell's shape, L = 16 and every other lane, on the lanes'
+    states and adversarially; then timed at L = 16."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.kernels import leadership, probe, swap
+    full = list(range(LANES))
+    for lanes in (full, full[1::2]):
+        for adversarial in (False, True):
+            wv = branch_lane_wave(torch, lctx, lanes, seed, adversarial)
+            tag = f"L={len(lanes)}{' adversarial' if adversarial else ''}"
+            check(torch, entries["leadership_rows_lanes"],
+                  lambda: K.leadership_rows_lanes(wv["lead"], wv["lead_stacked"]),
+                  lambda: leadership.leadership_rows_lanes_plain(wv["lead"]), tag)
+            pairs, tables, mg = wv["swap"]
+            check(torch, entries["swap_rows_lanes"],
+                  lambda: K.swap_rows_lanes(pairs, tables, mg, wv["swap_stacked"]),
+                  lambda: swap.swap_rows_lanes_plain(pairs, tables, mg), tag)
+            check(torch, entries["swap_admission_lanes"],
+                  lambda: K.swap_admission_lanes(*wv["swap_adm"]),
+                  lambda: swap.swap_admission_lanes_plain(*wv["swap_adm"]), tag)
+            mask, keys = wv["probe"]
+            check(torch, entries["seeded_probe_lanes"],
+                  lambda: K.seeded_probe_lanes(mask, keys),
+                  lambda: probe.seeded_probe_lanes_plain(mask, keys), tag)
+    branch_lane_timings(torch, entries, branch_lane_wave(torch, lctx, full, seed),
+                        f"L={LANES}")
+
+
 def fleet_phase(torch, lctx, entries: dict, seed: int) -> dict:
     """The fleet-16x100b cell through ``FleetScheduler.run_round`` on the
     card (``fleet_script.fleet_e2e``): round 1 (full) and round 2 (one more
     window, delta syncs), the launch counts zeroed just before and read just
-    after, every tenant's row the JAX reference's; the same rounds on a fresh
-    fleet, bit-identical; the 16 solo rounds, equal to the lanes; the memory
-    budget's LRU spill and a bit-identical readmit; the move wave's launches
+    after, every tenant's row the JAX reference's; the 16 solo rounds, equal
+    to the lanes; the memory budget's LRU spill and a bit-identical readmit;
+    the move wave's, the leadership branch's and the swap branch's launches
     in one pass at L = 1 and L = 16; the walls and the card's busy share."""
     import threading
     from cruise_control_tpu_torch import kernels as K
@@ -3479,7 +3725,9 @@ def fleet_phase(torch, lctx, entries: dict, seed: int) -> dict:
     sampler.start()
     t0 = time.perf_counter()
     try:
-        run = fleet_e2e(ns, FLEET_E2E)
+        # round 1 on the sampled windows, round 2 after one more window: the
+        # delta syncs, the per-lane seed masks and the fleet memo's re-check
+        run = fleet_e2e(ns, FLEET_E2E, rounds=2)
         torch.cuda.synchronize()
     finally:
         stop.set()
@@ -3488,7 +3736,7 @@ def fleet_phase(torch, lctx, entries: dict, seed: int) -> dict:
     launches, shapes = K.launches(), K.launch_shapes()
     log(f"fleet: kernel launches {launches}")
     log(f"fleet: launches by shape {json.dumps(shapes)}")
-    log(f"fleet: round walls (s) {run['walls']}, both rounds {total:.6f} s; "
+    log(f"fleet: round walls (s) {run['walls']}, {total:.6f} s in all; "
         f"nvidia-smi utilization.gpu sampled every 0.2 s during them: mean "
         f"{statistics.mean(util) if util else float('nan'):.3f}% over {len(util)} samples")
     for r, (got, want) in enumerate(zip(run["rounds"], FLEET_ORACLE["rounds"])):
@@ -3498,17 +3746,13 @@ def fleet_phase(torch, lctx, entries: dict, seed: int) -> dict:
             require(not diff, f"fleet R{r + 1} {cid} differs from the JAX reference: {diff}")
         log(f"fleet R{r + 1}: {len(want)} tenants, every row the JAX reference's "
             f"({sum(v['proposals'] for v in got.values())} proposals)")
+    require(len(run["rounds"]) == len(FLEET_ORACLE["rounds"]),
+            f"fleet: {len(run['rounds'])} rounds ran")
     require(run["reports"] == FLEET_ORACLE["reports"],
             f"fleet reports {run['reports']} != the reference's {FLEET_ORACLE['reports']}")
     require(all(launches[n] > 0 for n in FLEET_KERNELS + FIVE_GOAL_KERNELS),
             f"a kernel of the fleet path never launched: {launches}")
     fleet = run["fleet"]
-
-    # the same rounds on a fresh fleet: bit-identical
-    again = fleet_e2e(ns, FLEET_E2E)
-    require(again["rounds"] == run["rounds"], "fleet: the second fleet's rows differ")
-    log(f"fleet: a fresh fleet gives the same rows bit for bit (walls {again['walls']})")
-    again["fleet"].shutdown()
 
     # the 16 solo rounds on the card: each equal to its lane
     solo = solo_e2e(ns, FLEET_E2E)
@@ -3566,18 +3810,936 @@ def fleet_phase(torch, lctx, entries: dict, seed: int) -> dict:
         f"L={LANES} {per_pass[LANES]}")
     require(per_pass[1] == per_pass[LANES],
             "fleet: the move wave's launches per pass depend on the lane count")
+    # the leadership and swap branches' launches in one pass at L = 1 and 16
+    branch_pass = branch_launches_per_pass(torch, lctx)
     # time the lane kernels at the shapes the cell launched most
-    for name in FLEET_KERNELS:
+    for name in MOVE_LANE_KERNELS:
         ran = shapes[name]
         top = max(ran, key=ran.get)
         La = int(top.split()[0].split("=")[1])
         if all(t["shape"] != top for t in entries[name].timings):
             wv = lane_wave(torch, fctx, "DiskUsageDistributionGoal", list(range(La)), seed)
             lane_timings(torch, {name: entries[name],
-                                 **{n: Entry(n) for n in FLEET_KERNELS if n != name}},
+                                 **{n: Entry(n) for n in MOVE_LANE_KERNELS if n != name}},
                          wv, f"L={La}")
+    for name in BRANCH_LANE_KERNELS:
+        ran = shapes[name]
+        top = max(ran, key=ran.get)
+        if all(t["shape"] != top for t in entries[name].timings):
+            La = int(top.split()[0].split("=")[1])
+            keys = int(top.split("keys=")[1]) if "keys=" in top else 2
+            require(keys in PROBE_GOALS, f"no probe goal reads {keys} key kinds")
+            wv = branch_lane_wave(torch, fctx, list(range(La)), seed,
+                                  probe_goal=PROBE_GOALS[keys])
+            branch_lane_timings(torch, {name: entries[name],
+                                        **{n: Entry(n) for n in BRANCH_LANE_KERNELS
+                                           if n != name}}, wv, f"L={La}")
+    # K1 and K3 lanes at the branches' own shapes, when one of those is
+    # the shape the cell launched most
+    for name in ("select_candidates_lanes", "wave_admission_lanes"):
+        ran = shapes[name]
+        top = max(ran, key=ran.get)
+        if all(t["shape"] != top for t in entries[name].timings):
+            La = int(top.split()[0].split("=")[1])
+            wv = branch_lane_wave(torch, fctx, list(range(La)), seed)
+            branch_lane_timings(torch, {name: entries[name],
+                                        **{n: Entry(n) for n in BRANCH_LANE_KERNELS}},
+                                wv, f"L={La}")
     return dict(launches=launches, shapes=shapes, walls=run["walls"],
-                solo_walls=solo["walls"], util=util)
+                solo_walls=solo["walls"], util=util, branch_pass=branch_pass,
+                rows=run["rounds"])
+
+
+def branch_launches_per_pass(torch, lctx) -> dict:
+    """The kernel launches of one leadership-branch pass
+    (``lanes.lead_branch_lanes``, LeaderReplicaDistributionGoal) and one
+    swap-branch pass (``swap_branch_lanes``, DiskUsageDistributionGoal) at
+    L = 1 and L = 16: each must be the same at both lane counts."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import lanes as lanes_mod
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    stack, params = lctx["stack"], lctx["params"]
+    lead = make_goals(LANE_GOALS + [LANE_LEAD_GOAL])
+    goals = make_goals(LANE_GOALS)
+    gi = LANE_GOALS.index(LANE_SWAP_GOAL)
+    out = {}
+    for tag, goal, prev, fn, extra in (
+            ("leadership", lead[-1], tuple(lead[:-1]), lanes_mod.lead_branch_lanes, ()),
+            ("swap", goals[gi], tuple(goals[:gi]), lanes_mod.swap_branch_lanes, (True,))):
+        per = {}
+        for La in (1, LANES):
+            lanes = list(range(La))
+            sev = {l: goal.broker_severity(stack.envs[l], stack.sts[l]) for l in lanes}
+            K.reset_launches()
+            fn(stack, goal, prev, params, sev, {l: 0 for l in lanes}, lanes, {}, *extra)
+            torch.cuda.synchronize()
+            per[La] = {n: c for n, c in K.launches().items() if c}
+        log(f"fleet: the {tag} branch's launches in one pass, L=1 {per[1]}, "
+            f"L={LANES} {per[LANES]}")
+        require(per[1] == per[LANES],
+                f"fleet: the {tag} branch's launches per pass depend on the lane count")
+        out[tag] = per
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the front door
+# ---------------------------------------------------------------------------
+# The front door's rows through the JAX reference (JAX 0.9.0,
+# JAX_PLATFORMS=cpu, a fresh interpreter): ``python tests/torch_reference.py
+# service-e2e``, the rows of ``cruise_control_tpu_torch.service_script``'s
+# ``service_e2e`` at e2e-1000b-50000p and ``fleet_service_e2e`` at
+# fleet-16x100b (digests: the first 16 hex digits of the sha256 of the
+# bodies' canonical JSON without their wall-clock fields and stats; the
+# stats those of the final state; an error body's stack trace is dropped).
+# The fleet service's tenant rows and round report are FLEET_ORACLE's round
+# 1, the reference's fleet_e2e, exactly; its part here is ``python
+# tests/torch_reference.py service-e2e fleet`` (every tenant is
+# under-provisioned, so its POST /rebalance answers 500 with the hard-goal
+# failure and the provision recommendation).
+SERVICE_ORACLE = {'service': {'round': {'sync': 'pipelined',
+                                        'churn': 0,
+                                        'round': 'full',
+                                        'before': ['CpuCapacityGoal', 'CpuUsageDistributionGoal',
+                                                   'DiskUsageDistributionGoal', 'LeaderBytesInDistributionGoal',
+                                                   'LeaderReplicaDistributionGoal',
+                                                   'NetworkInboundUsageDistributionGoal',
+                                                   'NetworkOutboundUsageDistributionGoal', 'RackAwareGoal',
+                                                   'ReplicaDistributionGoal', 'TopicReplicaDistributionGoal'],
+                                        'after': ['DiskUsageDistributionGoal', 'LeaderReplicaDistributionGoal',
+                                                  'NetworkInboundUsageDistributionGoal',
+                                                  'NetworkOutboundUsageDistributionGoal',
+                                                  'ReplicaDistributionGoal'],
+                                        'proven': [False, False, False, False, False, False, False, False, False,
+                                                   True, True, False, False, False, True, False],
+                                        'actions': [2522, 0, 0, 0, 0, 0, 12479, 28471, 0, 4722, 580, 6142, 469, 455,
+                                                    3842, 0],
+                                        'passes': [4, 3, 3, 3, 3, 3, 9, 170, 3, 196, 194, 200, 118, 43, 205, 3],
+                                        'modes': ['full', 'full', 'full', 'full', 'full', 'full', 'full', 'full',
+                                                  'full', 'full', 'full', 'full', 'full', 'full', 'full', 'full'],
+                                        'moves': 45997,
+                                        'leads': 36316,
+                                        'proposals': 40307,
+                                        'proposals_sha': '1deda5700010611c',
+                                        'fallback': 0,
+                                        'skipped': 0,
+                                        'digests': {'replica_broker': '2a0d62b57d77e784',
+                                                    'replica_is_leader': 'b4f54de1aa7c4df5',
+                                                    'replica_disk': 'b527dab94f6bf43c',
+                                                    'util': '1363f9a8f1e27710',
+                                                    'leader_util': '8b7c754a2e28ccec',
+                                                    'potential_nw_out': '86fb82b41d781330',
+                                                    'disk_util': '60d08f201df88d3e',
+                                                    'replica_count': '640d7a03a9b66f3b',
+                                                    'leader_count': 'f2236f00f087180c',
+                                                    'topic_broker_count': 'ef9dfa6d4e61562f'}},
+                              'sync': {'mode': 'delta', 'ingested': 51000},
+                              'steps': [{'ingested': 1, 'sync': None, 'skipped': True},
+                                        {'ingested': 1, 'sync': 'rebuild', 'skipped': False},
+                                        {'ingested': 1, 'sync': 'delta', 'skipped': False},
+                                        {'ingested': 1, 'sync': 'delta', 'skipped': False},
+                                        {'ingested': 1, 'sync': 'delta', 'skipped': False},
+                                        {'ingested': 1, 'sync': 'delta', 'skipped': False}],
+                              'rebalance': {'summary': {'numReplicaMovements': 45997,
+                                                        'numLeaderMovements': 36316,
+                                                        'numIntraBrokerReplicaMovements': 0,
+                                                        'violatedGoalsBefore': ['RackAwareGoal', 'CpuCapacityGoal',
+                                                                                'ReplicaDistributionGoal',
+                                                                                'DiskUsageDistributionGoal',
+                                                                                'NetworkInboundUsageDistributionGoal',
+                                                                                'NetworkOutboundUsageDistributionGoal',
+                                                                                'CpuUsageDistributionGoal',
+                                                                                'TopicReplicaDistributionGoal',
+                                                                                'LeaderReplicaDistributionGoal',
+                                                                                'LeaderBytesInDistributionGoal'],
+                                                        'violatedGoalsAfter': ['ReplicaDistributionGoal',
+                                                                               'DiskUsageDistributionGoal',
+                                                                               'NetworkInboundUsageDistributionGoal',
+                                                                               'NetworkOutboundUsageDistributionGoal',
+                                                                               'LeaderReplicaDistributionGoal']},
+                                            'sums': {'dataToMoveMB': 10732861, 'intraBrokerDataToMoveMB': 0},
+                                            'stale': None,
+                                            'digest': '6652013c8a2b411d',
+                                            'stats': {'metadata': {'brokers': 1000,
+                                                                   'replicas': 100000,
+                                                                   'topics': 200},
+                                                      'statistics': {'AVG': {'cpu': 45.6494,
+                                                                             'networkInbound': 1991.9742,
+                                                                             'networkOutbound': 1991.9742,
+                                                                             'disk': 19919.7402,
+                                                                             'potentialNwOut': 3983.9485,
+                                                                             'replicas': 100.0,
+                                                                             'leaderReplicas': 50.0,
+                                                                             'topicReplicas': 0.5},
+                                                                     'MAX': {'cpu': 49.7587,
+                                                                             'networkInbound': 2504.8337,
+                                                                             'networkOutbound': 2181.2451,
+                                                                             'disk': 25048.3262,
+                                                                             'potentialNwOut': 5009.6675,
+                                                                             'replicas': 109,
+                                                                             'leaderReplicas': 72.0,
+                                                                             'topicReplicas': 3.0},
+                                                                     'MIN': {'cpu': 36.5994,
+                                                                             'networkInbound': 1802.6973,
+                                                                             'networkOutbound': 1347.7023,
+                                                                             'disk': 18026.9863,
+                                                                             'potentialNwOut': 3605.3945,
+                                                                             'replicas': 59,
+                                                                             'leaderReplicas': 18.0,
+                                                                             'topicReplicas': 0.0},
+                                                                     'STD': {'cpu': 3.4584,
+                                                                             'networkInbound': 153.7976,
+                                                                             'networkOutbound': 193.1999,
+                                                                             'disk': 1537.9761,
+                                                                             'potentialNwOut': 307.5952,
+                                                                             'replicas': 9.773432731628418,
+                                                                             'leaderReplicas': 10.7348,
+                                                                             'topicReplicas': 0.6975}}}},
+                              'proposals': [{'summary': {'numReplicaMovements': 45997,
+                                                         'numLeaderMovements': 36316,
+                                                         'numIntraBrokerReplicaMovements': 0,
+                                                         'violatedGoalsBefore': ['RackAwareGoal', 'CpuCapacityGoal',
+                                                                                 'ReplicaDistributionGoal',
+                                                                                 'DiskUsageDistributionGoal',
+                                                                                 'NetworkInboundUsageDistributionGoal',
+                                                                                 'NetworkOutboundUsageDistributionGoal',
+                                                                                 'CpuUsageDistributionGoal',
+                                                                                 'TopicReplicaDistributionGoal',
+                                                                                 'LeaderReplicaDistributionGoal',
+                                                                                 'LeaderBytesInDistributionGoal'],
+                                                         'violatedGoalsAfter': ['ReplicaDistributionGoal',
+                                                                                'DiskUsageDistributionGoal',
+                                                                                'NetworkInboundUsageDistributionGoal',
+                                                                                'NetworkOutboundUsageDistributionGoal',
+                                                                                'LeaderReplicaDistributionGoal']},
+                                             'sums': {'dataToMoveMB': 10732861, 'intraBrokerDataToMoveMB': 0},
+                                             'stale': False,
+                                             'digest': '6cb47ab94e3377bf',
+                                             'stats': {'metadata': {'brokers': 1000,
+                                                                    'replicas': 100000,
+                                                                    'topics': 200},
+                                                       'statistics': {'AVG': {'cpu': 45.6494,
+                                                                              'networkInbound': 1991.9742,
+                                                                              'networkOutbound': 1991.9742,
+                                                                              'disk': 19919.7402,
+                                                                              'potentialNwOut': 3983.9485,
+                                                                              'replicas': 100.0,
+                                                                              'leaderReplicas': 50.0,
+                                                                              'topicReplicas': 0.5},
+                                                                      'MAX': {'cpu': 49.7587,
+                                                                              'networkInbound': 2504.8337,
+                                                                              'networkOutbound': 2181.2451,
+                                                                              'disk': 25048.3262,
+                                                                              'potentialNwOut': 5009.6675,
+                                                                              'replicas': 109,
+                                                                              'leaderReplicas': 72.0,
+                                                                              'topicReplicas': 3.0},
+                                                                      'MIN': {'cpu': 36.5994,
+                                                                              'networkInbound': 1802.6973,
+                                                                              'networkOutbound': 1347.7023,
+                                                                              'disk': 18026.9863,
+                                                                              'potentialNwOut': 3605.3945,
+                                                                              'replicas': 59,
+                                                                              'leaderReplicas': 18.0,
+                                                                              'topicReplicas': 0.0},
+                                                                      'STD': {'cpu': 3.4584,
+                                                                              'networkInbound': 153.7976,
+                                                                              'networkOutbound': 193.1999,
+                                                                              'disk': 1537.9761,
+                                                                              'potentialNwOut': 307.5952,
+                                                                              'replicas': 9.773432731628418,
+                                                                              'leaderReplicas': 10.7348,
+                                                                              'topicReplicas': 0.6975}}}},
+                                            {'summary': {'numReplicaMovements': 45997,
+                                                         'numLeaderMovements': 36316,
+                                                         'numIntraBrokerReplicaMovements': 0,
+                                                         'violatedGoalsBefore': ['RackAwareGoal', 'CpuCapacityGoal',
+                                                                                 'ReplicaDistributionGoal',
+                                                                                 'DiskUsageDistributionGoal',
+                                                                                 'NetworkInboundUsageDistributionGoal',
+                                                                                 'NetworkOutboundUsageDistributionGoal',
+                                                                                 'CpuUsageDistributionGoal',
+                                                                                 'TopicReplicaDistributionGoal',
+                                                                                 'LeaderReplicaDistributionGoal',
+                                                                                 'LeaderBytesInDistributionGoal'],
+                                                         'violatedGoalsAfter': ['ReplicaDistributionGoal',
+                                                                                'DiskUsageDistributionGoal',
+                                                                                'NetworkInboundUsageDistributionGoal',
+                                                                                'NetworkOutboundUsageDistributionGoal',
+                                                                                'LeaderReplicaDistributionGoal']},
+                                             'sums': {'dataToMoveMB': 10732861, 'intraBrokerDataToMoveMB': 0},
+                                             'stale': False,
+                                             'digest': '6cb47ab94e3377bf',
+                                             'stats': {'metadata': {'brokers': 1000,
+                                                                    'replicas': 100000,
+                                                                    'topics': 200},
+                                                       'statistics': {'AVG': {'cpu': 45.6494,
+                                                                              'networkInbound': 1991.9742,
+                                                                              'networkOutbound': 1991.9742,
+                                                                              'disk': 19919.7402,
+                                                                              'potentialNwOut': 3983.9485,
+                                                                              'replicas': 100.0,
+                                                                              'leaderReplicas': 50.0,
+                                                                              'topicReplicas': 0.5},
+                                                                      'MAX': {'cpu': 49.7587,
+                                                                              'networkInbound': 2504.8337,
+                                                                              'networkOutbound': 2181.2451,
+                                                                              'disk': 25048.3262,
+                                                                              'potentialNwOut': 5009.6675,
+                                                                              'replicas': 109,
+                                                                              'leaderReplicas': 72.0,
+                                                                              'topicReplicas': 3.0},
+                                                                      'MIN': {'cpu': 36.5994,
+                                                                              'networkInbound': 1802.6973,
+                                                                              'networkOutbound': 1347.7023,
+                                                                              'disk': 18026.9863,
+                                                                              'potentialNwOut': 3605.3945,
+                                                                              'replicas': 59,
+                                                                              'leaderReplicas': 18.0,
+                                                                              'topicReplicas': 0.0},
+                                                                      'STD': {'cpu': 3.4584,
+                                                                              'networkInbound': 153.7976,
+                                                                              'networkOutbound': 193.1999,
+                                                                              'disk': 1537.9761,
+                                                                              'potentialNwOut': 307.5952,
+                                                                              'replicas': 9.773432731628418,
+                                                                              'leaderReplicas': 10.7348,
+                                                                              'topicReplicas': 0.6975}}}}],
+                              'load': {'brokers': 1000, 'digest': '94b0e45fe3ce0f20'},
+                              'kafka_cluster_state': {'summary': {'Brokers': 1000,
+                                                                  'Topics': 200,
+                                                                  'Replicas': 100000,
+                                                                  'Leaders': 50000},
+                                                      'digest': '1d25f4ce7682c2e2'},
+                              'partition_load': {'records': 50, 'digest': 'f069909f88523c8f'},
+                              'pipeline': {'mode': 'threaded',
+                                           'stalled': False,
+                                           'stallCount': 0,
+                                           'releaseCount': 0,
+                                           'ingestRounds': 7,
+                                           'syncRounds': 7,
+                                           'optimizeRounds': 1,
+                                           'staleRoundsDropped': 0,
+                                           'syncedGeneration': 6,
+                                           'optimizedGeneration': 5},
+                              'round_traces': [{'mode': 'full', 'proposals': 40307, 'moves': 45997},
+                                               {'mode': 'full', 'proposals': 40307, 'moves': 45997},
+                                               {'mode': 'revalidated', 'proposals': 40307, 'moves': 45997}]},
+                  'fleet': {'bodies': {'tenant-0': {'summary': {'numReplicaMovements': 1207,
+                                                                'numLeaderMovements': 0,
+                                                                'numIntraBrokerReplicaMovements': 0,
+                                                                'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                        'CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal'],
+                                                                'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                       'ReplicaDistributionGoal',
+                                                                                       'DiskUsageDistributionGoal',
+                                                                                       'NetworkInboundUsageDistributionGoal',
+                                                                                       'NetworkOutboundUsageDistributionGoal',
+                                                                                       'CpuUsageDistributionGoal',
+                                                                                       'LeaderReplicaDistributionGoal',
+                                                                                       'LeaderBytesInDistributionGoal']},
+                                                    'sums': {'dataToMoveMB': 300659, 'intraBrokerDataToMoveMB': 0},
+                                                    'stale': False,
+                                                    'digest': '617bd0426aa83444',
+                                                    'status': 200},
+                                       'tenant-1': {'summary': {'numReplicaMovements': 1162,
+                                                                'numLeaderMovements': 0,
+                                                                'numIntraBrokerReplicaMovements': 0,
+                                                                'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                        'CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal'],
+                                                                'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                       'ReplicaDistributionGoal',
+                                                                                       'DiskUsageDistributionGoal',
+                                                                                       'NetworkInboundUsageDistributionGoal',
+                                                                                       'NetworkOutboundUsageDistributionGoal',
+                                                                                       'CpuUsageDistributionGoal',
+                                                                                       'LeaderReplicaDistributionGoal',
+                                                                                       'LeaderBytesInDistributionGoal']},
+                                                    'sums': {'dataToMoveMB': 297992, 'intraBrokerDataToMoveMB': 0},
+                                                    'stale': False,
+                                                    'digest': 'ad6525e07c16563d',
+                                                    'status': 200},
+                                       'tenant-2': {'summary': {'numReplicaMovements': 1248,
+                                                                'numLeaderMovements': 0,
+                                                                'numIntraBrokerReplicaMovements': 0,
+                                                                'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                        'CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal'],
+                                                                'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                       'ReplicaDistributionGoal',
+                                                                                       'DiskUsageDistributionGoal',
+                                                                                       'NetworkInboundUsageDistributionGoal',
+                                                                                       'NetworkOutboundUsageDistributionGoal',
+                                                                                       'CpuUsageDistributionGoal',
+                                                                                       'LeaderReplicaDistributionGoal',
+                                                                                       'LeaderBytesInDistributionGoal']},
+                                                    'sums': {'dataToMoveMB': 312411, 'intraBrokerDataToMoveMB': 0},
+                                                    'stale': False,
+                                                    'digest': '2a7e5d31483f665c',
+                                                    'status': 200},
+                                       'tenant-3': {'summary': {'numReplicaMovements': 1215,
+                                                                'numLeaderMovements': 0,
+                                                                'numIntraBrokerReplicaMovements': 0,
+                                                                'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                        'CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal'],
+                                                                'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                       'ReplicaDistributionGoal',
+                                                                                       'DiskUsageDistributionGoal',
+                                                                                       'NetworkInboundUsageDistributionGoal',
+                                                                                       'NetworkOutboundUsageDistributionGoal',
+                                                                                       'CpuUsageDistributionGoal',
+                                                                                       'LeaderReplicaDistributionGoal',
+                                                                                       'LeaderBytesInDistributionGoal']},
+                                                    'sums': {'dataToMoveMB': 312760, 'intraBrokerDataToMoveMB': 0},
+                                                    'stale': False,
+                                                    'digest': 'e6c568cbee35a386',
+                                                    'status': 200},
+                                       'tenant-4': {'summary': {'numReplicaMovements': 1197,
+                                                                'numLeaderMovements': 0,
+                                                                'numIntraBrokerReplicaMovements': 0,
+                                                                'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                        'CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal'],
+                                                                'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                       'ReplicaDistributionGoal',
+                                                                                       'DiskUsageDistributionGoal',
+                                                                                       'NetworkInboundUsageDistributionGoal',
+                                                                                       'NetworkOutboundUsageDistributionGoal',
+                                                                                       'CpuUsageDistributionGoal',
+                                                                                       'LeaderReplicaDistributionGoal',
+                                                                                       'LeaderBytesInDistributionGoal']},
+                                                    'sums': {'dataToMoveMB': 315322, 'intraBrokerDataToMoveMB': 0},
+                                                    'stale': False,
+                                                    'digest': '881b0a3772ee7aa3',
+                                                    'status': 200},
+                                       'tenant-5': {'summary': {'numReplicaMovements': 1264,
+                                                                'numLeaderMovements': 0,
+                                                                'numIntraBrokerReplicaMovements': 0,
+                                                                'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                        'CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal'],
+                                                                'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                       'ReplicaDistributionGoal',
+                                                                                       'DiskUsageDistributionGoal',
+                                                                                       'NetworkInboundUsageDistributionGoal',
+                                                                                       'NetworkOutboundUsageDistributionGoal',
+                                                                                       'CpuUsageDistributionGoal',
+                                                                                       'LeaderReplicaDistributionGoal',
+                                                                                       'LeaderBytesInDistributionGoal']},
+                                                    'sums': {'dataToMoveMB': 314259, 'intraBrokerDataToMoveMB': 0},
+                                                    'stale': False,
+                                                    'digest': '3e42f1997864a0c9',
+                                                    'status': 200},
+                                       'tenant-6': {'summary': {'numReplicaMovements': 1217,
+                                                                'numLeaderMovements': 0,
+                                                                'numIntraBrokerReplicaMovements': 0,
+                                                                'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                        'CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal'],
+                                                                'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                       'ReplicaDistributionGoal',
+                                                                                       'DiskUsageDistributionGoal',
+                                                                                       'NetworkInboundUsageDistributionGoal',
+                                                                                       'NetworkOutboundUsageDistributionGoal',
+                                                                                       'CpuUsageDistributionGoal',
+                                                                                       'LeaderReplicaDistributionGoal',
+                                                                                       'LeaderBytesInDistributionGoal']},
+                                                    'sums': {'dataToMoveMB': 315419, 'intraBrokerDataToMoveMB': 0},
+                                                    'stale': False,
+                                                    'digest': 'c6e3e1058fd0cdf0',
+                                                    'status': 200},
+                                       'tenant-7': {'summary': {'numReplicaMovements': 1231,
+                                                                'numLeaderMovements': 0,
+                                                                'numIntraBrokerReplicaMovements': 0,
+                                                                'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                        'CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal'],
+                                                                'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                       'ReplicaDistributionGoal',
+                                                                                       'DiskUsageDistributionGoal',
+                                                                                       'NetworkInboundUsageDistributionGoal',
+                                                                                       'NetworkOutboundUsageDistributionGoal',
+                                                                                       'CpuUsageDistributionGoal',
+                                                                                       'LeaderReplicaDistributionGoal',
+                                                                                       'LeaderBytesInDistributionGoal']},
+                                                    'sums': {'dataToMoveMB': 309077, 'intraBrokerDataToMoveMB': 0},
+                                                    'stale': False,
+                                                    'digest': '31063a616a511735',
+                                                    'status': 200},
+                                       'tenant-8': {'summary': {'numReplicaMovements': 1158,
+                                                                'numLeaderMovements': 0,
+                                                                'numIntraBrokerReplicaMovements': 0,
+                                                                'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                        'CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal'],
+                                                                'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                       'ReplicaDistributionGoal',
+                                                                                       'DiskUsageDistributionGoal',
+                                                                                       'NetworkInboundUsageDistributionGoal',
+                                                                                       'NetworkOutboundUsageDistributionGoal',
+                                                                                       'CpuUsageDistributionGoal',
+                                                                                       'LeaderReplicaDistributionGoal',
+                                                                                       'LeaderBytesInDistributionGoal']},
+                                                    'sums': {'dataToMoveMB': 293195, 'intraBrokerDataToMoveMB': 0},
+                                                    'stale': False,
+                                                    'digest': 'a0088549fbc48d55',
+                                                    'status': 200},
+                                       'tenant-9': {'summary': {'numReplicaMovements': 1192,
+                                                                'numLeaderMovements': 0,
+                                                                'numIntraBrokerReplicaMovements': 0,
+                                                                'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                        'CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal'],
+                                                                'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                       'ReplicaDistributionGoal',
+                                                                                       'DiskUsageDistributionGoal',
+                                                                                       'NetworkInboundUsageDistributionGoal',
+                                                                                       'NetworkOutboundUsageDistributionGoal',
+                                                                                       'CpuUsageDistributionGoal',
+                                                                                       'LeaderReplicaDistributionGoal',
+                                                                                       'LeaderBytesInDistributionGoal']},
+                                                    'sums': {'dataToMoveMB': 301167, 'intraBrokerDataToMoveMB': 0},
+                                                    'stale': False,
+                                                    'digest': '2bb37403e2e71b56',
+                                                    'status': 200},
+                                       'tenant-10': {'summary': {'numReplicaMovements': 1206,
+                                                                 'numLeaderMovements': 0,
+                                                                 'numIntraBrokerReplicaMovements': 0,
+                                                                 'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                         'CpuCapacityGoal',
+                                                                                         'ReplicaDistributionGoal',
+                                                                                         'DiskUsageDistributionGoal',
+                                                                                         'NetworkInboundUsageDistributionGoal',
+                                                                                         'NetworkOutboundUsageDistributionGoal',
+                                                                                         'CpuUsageDistributionGoal',
+                                                                                         'LeaderReplicaDistributionGoal',
+                                                                                         'LeaderBytesInDistributionGoal'],
+                                                                 'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal']},
+                                                     'sums': {'dataToMoveMB': 304460, 'intraBrokerDataToMoveMB': 0},
+                                                     'stale': False,
+                                                     'digest': 'ddbd28f7bb1c2648',
+                                                     'status': 200},
+                                       'tenant-11': {'summary': {'numReplicaMovements': 1205,
+                                                                 'numLeaderMovements': 0,
+                                                                 'numIntraBrokerReplicaMovements': 0,
+                                                                 'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                         'CpuCapacityGoal',
+                                                                                         'ReplicaDistributionGoal',
+                                                                                         'DiskUsageDistributionGoal',
+                                                                                         'NetworkInboundUsageDistributionGoal',
+                                                                                         'NetworkOutboundUsageDistributionGoal',
+                                                                                         'CpuUsageDistributionGoal',
+                                                                                         'LeaderReplicaDistributionGoal',
+                                                                                         'LeaderBytesInDistributionGoal'],
+                                                                 'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal']},
+                                                     'sums': {'dataToMoveMB': 307744, 'intraBrokerDataToMoveMB': 0},
+                                                     'stale': False,
+                                                     'digest': '1078d573a4682ca4',
+                                                     'status': 200},
+                                       'tenant-12': {'summary': {'numReplicaMovements': 1287,
+                                                                 'numLeaderMovements': 0,
+                                                                 'numIntraBrokerReplicaMovements': 0,
+                                                                 'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                         'CpuCapacityGoal',
+                                                                                         'ReplicaDistributionGoal',
+                                                                                         'DiskUsageDistributionGoal',
+                                                                                         'NetworkInboundUsageDistributionGoal',
+                                                                                         'NetworkOutboundUsageDistributionGoal',
+                                                                                         'CpuUsageDistributionGoal',
+                                                                                         'LeaderReplicaDistributionGoal',
+                                                                                         'LeaderBytesInDistributionGoal'],
+                                                                 'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal']},
+                                                     'sums': {'dataToMoveMB': 313126, 'intraBrokerDataToMoveMB': 0},
+                                                     'stale': False,
+                                                     'digest': 'a24391cb92bb2460',
+                                                     'status': 200},
+                                       'tenant-13': {'summary': {'numReplicaMovements': 1217,
+                                                                 'numLeaderMovements': 0,
+                                                                 'numIntraBrokerReplicaMovements': 0,
+                                                                 'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                         'CpuCapacityGoal',
+                                                                                         'ReplicaDistributionGoal',
+                                                                                         'DiskUsageDistributionGoal',
+                                                                                         'NetworkInboundUsageDistributionGoal',
+                                                                                         'NetworkOutboundUsageDistributionGoal',
+                                                                                         'CpuUsageDistributionGoal',
+                                                                                         'LeaderReplicaDistributionGoal',
+                                                                                         'LeaderBytesInDistributionGoal'],
+                                                                 'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal']},
+                                                     'sums': {'dataToMoveMB': 313620, 'intraBrokerDataToMoveMB': 0},
+                                                     'stale': False,
+                                                     'digest': '7f0aeb4045849796',
+                                                     'status': 200},
+                                       'tenant-14': {'summary': {'numReplicaMovements': 1232,
+                                                                 'numLeaderMovements': 0,
+                                                                 'numIntraBrokerReplicaMovements': 0,
+                                                                 'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                         'CpuCapacityGoal',
+                                                                                         'ReplicaDistributionGoal',
+                                                                                         'DiskUsageDistributionGoal',
+                                                                                         'NetworkInboundUsageDistributionGoal',
+                                                                                         'NetworkOutboundUsageDistributionGoal',
+                                                                                         'CpuUsageDistributionGoal',
+                                                                                         'LeaderReplicaDistributionGoal',
+                                                                                         'LeaderBytesInDistributionGoal'],
+                                                                 'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal']},
+                                                     'sums': {'dataToMoveMB': 306447, 'intraBrokerDataToMoveMB': 0},
+                                                     'stale': False,
+                                                     'digest': '74d40af306fac95f',
+                                                     'status': 200},
+                                       'tenant-15': {'summary': {'numReplicaMovements': 1177,
+                                                                 'numLeaderMovements': 0,
+                                                                 'numIntraBrokerReplicaMovements': 0,
+                                                                 'violatedGoalsBefore': ['RackAwareGoal',
+                                                                                         'CpuCapacityGoal',
+                                                                                         'ReplicaDistributionGoal',
+                                                                                         'DiskUsageDistributionGoal',
+                                                                                         'NetworkInboundUsageDistributionGoal',
+                                                                                         'NetworkOutboundUsageDistributionGoal',
+                                                                                         'CpuUsageDistributionGoal',
+                                                                                         'LeaderReplicaDistributionGoal',
+                                                                                         'LeaderBytesInDistributionGoal'],
+                                                                 'violatedGoalsAfter': ['CpuCapacityGoal',
+                                                                                        'ReplicaDistributionGoal',
+                                                                                        'DiskUsageDistributionGoal',
+                                                                                        'NetworkInboundUsageDistributionGoal',
+                                                                                        'NetworkOutboundUsageDistributionGoal',
+                                                                                        'CpuUsageDistributionGoal',
+                                                                                        'LeaderReplicaDistributionGoal',
+                                                                                        'LeaderBytesInDistributionGoal']},
+                                                     'sums': {'dataToMoveMB': 300286, 'intraBrokerDataToMoveMB': 0},
+                                                     'stale': False,
+                                                     'digest': '71a07960f2f6c240',
+                                                     'status': 200}},
+                            'errors': {'no-such-tenant': 404, '../etc': 400},
+                            'queued': 16,
+                            'rebalanced': {'tenant-0': {'summary': {'numReplicaMovements': None,
+                                                                    'numLeaderMovements': None,
+                                                                    'numIntraBrokerReplicaMovements': None,
+                                                                    'violatedGoalsBefore': None,
+                                                                    'violatedGoalsAfter': None},
+                                                        'sums': {'dataToMoveMB': None,
+                                                                 'intraBrokerDataToMoveMB': None},
+                                                        'stale': None,
+                                                        'digest': '33f9d5057ac4ce77',
+                                                        'status': 500},
+                                           'tenant-1': {'summary': {'numReplicaMovements': None,
+                                                                    'numLeaderMovements': None,
+                                                                    'numIntraBrokerReplicaMovements': None,
+                                                                    'violatedGoalsBefore': None,
+                                                                    'violatedGoalsAfter': None},
+                                                        'sums': {'dataToMoveMB': None,
+                                                                 'intraBrokerDataToMoveMB': None},
+                                                        'stale': None,
+                                                        'digest': '50fde14978916434',
+                                                        'status': 500},
+                                           'tenant-2': {'summary': {'numReplicaMovements': None,
+                                                                    'numLeaderMovements': None,
+                                                                    'numIntraBrokerReplicaMovements': None,
+                                                                    'violatedGoalsBefore': None,
+                                                                    'violatedGoalsAfter': None},
+                                                        'sums': {'dataToMoveMB': None,
+                                                                 'intraBrokerDataToMoveMB': None},
+                                                        'stale': None,
+                                                        'digest': 'b5ad443b58a6d333',
+                                                        'status': 500},
+                                           'tenant-3': {'summary': {'numReplicaMovements': None,
+                                                                    'numLeaderMovements': None,
+                                                                    'numIntraBrokerReplicaMovements': None,
+                                                                    'violatedGoalsBefore': None,
+                                                                    'violatedGoalsAfter': None},
+                                                        'sums': {'dataToMoveMB': None,
+                                                                 'intraBrokerDataToMoveMB': None},
+                                                        'stale': None,
+                                                        'digest': 'b7cd35c82ef9166f',
+                                                        'status': 500},
+                                           'tenant-4': {'summary': {'numReplicaMovements': None,
+                                                                    'numLeaderMovements': None,
+                                                                    'numIntraBrokerReplicaMovements': None,
+                                                                    'violatedGoalsBefore': None,
+                                                                    'violatedGoalsAfter': None},
+                                                        'sums': {'dataToMoveMB': None,
+                                                                 'intraBrokerDataToMoveMB': None},
+                                                        'stale': None,
+                                                        'digest': 'e14fccb45dd2ffdc',
+                                                        'status': 500},
+                                           'tenant-5': {'summary': {'numReplicaMovements': None,
+                                                                    'numLeaderMovements': None,
+                                                                    'numIntraBrokerReplicaMovements': None,
+                                                                    'violatedGoalsBefore': None,
+                                                                    'violatedGoalsAfter': None},
+                                                        'sums': {'dataToMoveMB': None,
+                                                                 'intraBrokerDataToMoveMB': None},
+                                                        'stale': None,
+                                                        'digest': 'fc4745cde5e823b8',
+                                                        'status': 500},
+                                           'tenant-6': {'summary': {'numReplicaMovements': None,
+                                                                    'numLeaderMovements': None,
+                                                                    'numIntraBrokerReplicaMovements': None,
+                                                                    'violatedGoalsBefore': None,
+                                                                    'violatedGoalsAfter': None},
+                                                        'sums': {'dataToMoveMB': None,
+                                                                 'intraBrokerDataToMoveMB': None},
+                                                        'stale': None,
+                                                        'digest': '54bf7bd814b2920d',
+                                                        'status': 500},
+                                           'tenant-7': {'summary': {'numReplicaMovements': None,
+                                                                    'numLeaderMovements': None,
+                                                                    'numIntraBrokerReplicaMovements': None,
+                                                                    'violatedGoalsBefore': None,
+                                                                    'violatedGoalsAfter': None},
+                                                        'sums': {'dataToMoveMB': None,
+                                                                 'intraBrokerDataToMoveMB': None},
+                                                        'stale': None,
+                                                        'digest': '6701f746cf34a459',
+                                                        'status': 500},
+                                           'tenant-8': {'summary': {'numReplicaMovements': None,
+                                                                    'numLeaderMovements': None,
+                                                                    'numIntraBrokerReplicaMovements': None,
+                                                                    'violatedGoalsBefore': None,
+                                                                    'violatedGoalsAfter': None},
+                                                        'sums': {'dataToMoveMB': None,
+                                                                 'intraBrokerDataToMoveMB': None},
+                                                        'stale': None,
+                                                        'digest': '1eac921d208432b3',
+                                                        'status': 500},
+                                           'tenant-9': {'summary': {'numReplicaMovements': None,
+                                                                    'numLeaderMovements': None,
+                                                                    'numIntraBrokerReplicaMovements': None,
+                                                                    'violatedGoalsBefore': None,
+                                                                    'violatedGoalsAfter': None},
+                                                        'sums': {'dataToMoveMB': None,
+                                                                 'intraBrokerDataToMoveMB': None},
+                                                        'stale': None,
+                                                        'digest': '08aa2b5e8b58fd7d',
+                                                        'status': 500},
+                                           'tenant-10': {'summary': {'numReplicaMovements': None,
+                                                                     'numLeaderMovements': None,
+                                                                     'numIntraBrokerReplicaMovements': None,
+                                                                     'violatedGoalsBefore': None,
+                                                                     'violatedGoalsAfter': None},
+                                                         'sums': {'dataToMoveMB': None,
+                                                                  'intraBrokerDataToMoveMB': None},
+                                                         'stale': None,
+                                                         'digest': '23a0c5e1d05f4ee9',
+                                                         'status': 500},
+                                           'tenant-11': {'summary': {'numReplicaMovements': None,
+                                                                     'numLeaderMovements': None,
+                                                                     'numIntraBrokerReplicaMovements': None,
+                                                                     'violatedGoalsBefore': None,
+                                                                     'violatedGoalsAfter': None},
+                                                         'sums': {'dataToMoveMB': None,
+                                                                  'intraBrokerDataToMoveMB': None},
+                                                         'stale': None,
+                                                         'digest': '375954db9139f0df',
+                                                         'status': 500},
+                                           'tenant-12': {'summary': {'numReplicaMovements': None,
+                                                                     'numLeaderMovements': None,
+                                                                     'numIntraBrokerReplicaMovements': None,
+                                                                     'violatedGoalsBefore': None,
+                                                                     'violatedGoalsAfter': None},
+                                                         'sums': {'dataToMoveMB': None,
+                                                                  'intraBrokerDataToMoveMB': None},
+                                                         'stale': None,
+                                                         'digest': 'bd5387ca0e94daa4',
+                                                         'status': 500},
+                                           'tenant-13': {'summary': {'numReplicaMovements': None,
+                                                                     'numLeaderMovements': None,
+                                                                     'numIntraBrokerReplicaMovements': None,
+                                                                     'violatedGoalsBefore': None,
+                                                                     'violatedGoalsAfter': None},
+                                                         'sums': {'dataToMoveMB': None,
+                                                                  'intraBrokerDataToMoveMB': None},
+                                                         'stale': None,
+                                                         'digest': 'bb852e7ba5823c7c',
+                                                         'status': 500},
+                                           'tenant-14': {'summary': {'numReplicaMovements': None,
+                                                                     'numLeaderMovements': None,
+                                                                     'numIntraBrokerReplicaMovements': None,
+                                                                     'violatedGoalsBefore': None,
+                                                                     'violatedGoalsAfter': None},
+                                                         'sums': {'dataToMoveMB': None,
+                                                                  'intraBrokerDataToMoveMB': None},
+                                                         'stale': None,
+                                                         'digest': '3796d12bee13b02d',
+                                                         'status': 500},
+                                           'tenant-15': {'summary': {'numReplicaMovements': None,
+                                                                     'numLeaderMovements': None,
+                                                                     'numIntraBrokerReplicaMovements': None,
+                                                                     'violatedGoalsBefore': None,
+                                                                     'violatedGoalsAfter': None},
+                                                         'sums': {'dataToMoveMB': None,
+                                                                  'intraBrokerDataToMoveMB': None},
+                                                         'stale': None,
+                                                         'digest': 'ca5847d541b694a2',
+                                                         'status': 500}}}}
+# the kernels the single-tenant service's path must launch: the default
+# chain's, the sync's finalize and the first chunked round's probe
+SERVICE_KERNELS = FIVE_GOAL_KERNELS + ("replica_keys", "leadership_rows", "swap_rows",
+                                       "swap_admission", "session_finalize",
+                                       "seeded_probe")
+
+
+def service_phase(torch, fleet_rows: list) -> dict:
+    """The front door on the card (``service_script``): the single-tenant
+    service at e2e-1000b-50000p through ``main.build_app`` /
+    ``build_server``, the pipelined loop in lockstep then threaded, driven
+    over HTTP through the client; then the fleet service
+    (``fleet.cluster.ids``, ``main.build_fleet``) at fleet-16x100b, a
+    cluster-scoped ``POST /rebalance`` per tenant, one dispatch of the
+    queued requests, every tenant's proposals read through
+    ``?cluster_id=``. The launch counts are zeroed just before each and read
+    just after; every row must be the JAX reference's (``SERVICE_ORACLE``;
+    the stats within ``service_script.STATS_RTOL``), the fleet's tenant rows
+    ``FLEET_ORACLE``'s round 1 and, bit for bit, phase 8's round 1
+    (``fleet_rows``: a fresh fleet gives the same rows)."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch import service_script as ss
+    ns = ss.port_service_ns("cuda")
+    out = {}
+    for tag, fn, spec, need in (
+            ("service", ss.service_e2e, ss.SERVICE_E2E, SERVICE_KERNELS),
+            ("fleet_service", ss.fleet_service_e2e, ss.FLEET_SERVICE_E2E, FLEET_KERNELS)):
+        walls = {}
+        K.reset_launches()
+        t0 = time.perf_counter()
+        # the oracle's rows came through JSON: compare like with like
+        row = json.loads(json.dumps(fn(ns, spec, walls)))
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches, shapes = K.launches(), K.launch_shapes()
+        log(f"{tag}: kernel launches {launches}")
+        want = (SERVICE_ORACLE["service"] if tag == "service" else
+                dict(SERVICE_ORACLE["fleet"], rows=FLEET_ORACLE["rounds"][0],
+                     report=FLEET_ORACLE["reports"][0]))
+        diff = ss.same_rows(row, want)
+        require(not diff, f"{tag} differs from the JAX reference: {diff[:8]}")
+        require(all(launches[n] > 0 for n in need),
+                f"a kernel of the {tag} path never launched: {launches}")
+        traces = walls.pop("round_traces", [])
+        log(f"{tag}: every row the JAX reference's; {total:.6f} s in all; host walls "
+            f"(s) {json.dumps(walls)}")
+        for i, t in enumerate(traces):
+            log(f"{tag}: round trace {i}: wall {t['wall_s']} s, overlap "
+                f"{json.dumps(t['overlap'])}")
+        out[tag] = dict(launches=launches, shapes=shapes, row=row, wall=total)
+    frow = out["fleet_service"]["row"]
+    require(frow["rows"] == FLEET_ORACLE["rounds"][0],
+            "fleet service: a tenant's row differs from FLEET_ORACLE's round 1")
+    require(frow["rows"] == json.loads(json.dumps(fleet_rows[0])),
+            "fleet service: a fresh fleet's rows differ from phase 8's round 1")
+    n = len(frow["rows"])
+    require(frow["queued"] == n and frow["report"]["launches"] == 1
+            and frow["report"]["optimized"] == sorted(frow["rows"]),
+            f"fleet service: {frow['queued']} queued, report {frow['report']}")
+    require(all(b["status"] == 200 for b in frow["bodies"].values())
+            and frow["errors"] == {"no-such-tenant": 404, "../etc": 400},
+            f"fleet service: statuses {frow['bodies']} {frow['errors']}")
+    statuses = sorted({b["status"] for b in frow["rebalanced"].values()})
+    log(f"fleet service: {n} cluster-scoped POST /rebalance answered {statuses}, the "
+        f"reference's bodies, and queued {frow['queued']} rebalance-lane requests; one "
+        f"dispatch ran them in {frow['report']['launches']} batched launch; the {n} "
+        f"tenants' rows FLEET_ORACLE's round 1 and phase 8's round 1 bit for bit, read "
+        f"through ?cluster_id=; unknown id 404, malformed 400")
+    return out
 
 
 def main() -> int:
@@ -3664,6 +4826,8 @@ def main() -> int:
     phase("phase 3: the fleet's lane kernels (K14)")
     lctx = lane_context(torch)
     lane_kernel_checks(torch, lctx, entries, args.seed)
+    phase("phase 3: the fleet's leadership, swap and probe lane kernels (K14)")
+    branch_lane_checks(torch, lctx, entries, args.seed)
     phase("phase 3: the K1 keying kernel")
     key_kernel_checks(torch, [("slice", env, st), ("jbod-1000b", jctx["env"], jctx["st"]),
                               ("rung 4", r4["env"], r4["st"]),
@@ -3832,6 +4996,9 @@ def main() -> int:
     # 8. fleet mode (fleet-16x100b)
     phase("phase 8: fleet mode (fleet-16x100b)")
     fleet = fleet_phase(torch, lctx, entries, args.seed)
+    # 9. the front door (e2e-1000b-50000p, fleet-16x100b)
+    phase("phase 9: the front door (e2e-1000b-50000p, fleet-16x100b)")
+    service = service_phase(torch, fleet["rows"])
     for en in entries.values():
         require(en.checks > 0 and en.timings, f"{en.name} was not checked")
     if args.profile is not None:
@@ -3847,7 +5014,8 @@ def main() -> int:
 
     paths = {"default": default, "full18": full, "kafka": kafka,
              **{f"jbod_{r}": v for r, v in jbod.items()}, "rung4": rung4, "rung5": rung5,
-             "session": session, "heal": heal, "fleet": fleet}
+             "session": session, "heal": heal, "fleet": fleet,
+             "service": service["service"], "fleet_service": service["fleet_service"]}
     kernels = []
     for name, k in K.KERNELS.items():
         by_path = {p: v["launches"][name] for p, v in paths.items()}
@@ -3856,7 +5024,9 @@ def main() -> int:
         # of the heal path, the lane kernels' those of the fleet path
         ran = {}
         for p, v in paths.items():
-            if KERNEL_PATH.get(name) != (p if p in ("session", "heal", "fleet") else None):
+            # the front door's paths time nothing: they rerun the earlier ones
+            if (p in ("service", "fleet_service") or KERNEL_PATH.get(name)
+                    != (p if p in ("session", "heal", "fleet") else None)):
                 continue
             for shape, c in v["shapes"][name].items():
                 ran[shape] = ran.get(shape, 0) + c

@@ -519,9 +519,18 @@ def _lead_admission_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     """Score a leadership wave over ``lcand`` (K6) and sort it by gain;
     returns (rows in score order, their destination replicas, the K3
     arguments)."""
-    KL = lcand.shape[0]
     best_val, f_all = leadership_rows(*_lead_args(env, st, goal, prev_goals, lcand,
                                                   lkv > NEG_INF, env_sw))
+    return _lead_admission_from_scores(env, st, goal, prev_goals, params, lcand,
+                                       best_val, f_all)
+
+
+def _lead_admission_from_scores(env: ClusterEnv, st: EngineState, goal: GoalKernel,
+                                prev_goals: tuple, params: EngineParams, lcand,
+                                best_val, f_all):
+    """The K6 rows of a leadership wave sorted by gain: (rows in score
+    order, their destination replicas, the K3 arguments)."""
+    KL = lcand.shape[0]
     order = _desc_order(best_val)
     posn = torch.arange(KL, device=env.device)
     r_sorted = lcand[order]
@@ -609,16 +618,24 @@ def _swap_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     pairs, tables = _swap_args(env, st, goal, prev_goals, cand_out, okv, cand_in, ikv,
                                env_sw)
     best_val, best_j, _n = swap_rows(pairs, tables, params.min_gain)
+    r_out, r_in, adm = _swap_admission_inputs(env, pairs, cand_out, cand_in, best_val,
+                                              best_j)
+    win = swap_admission(*adm, params.min_gain)
+    st = apply_swaps_batched(env, st, r_out, r_in, win, fold_legs)
+    return st, win.sum()
+
+
+def _swap_admission_inputs(env: ClusterEnv, pairs, cand_out, cand_in, best_val, best_j):
+    """The K7 rows in stable descending value order: (out replicas, in
+    replicas, the ``swap_admission`` row inputs)."""
     order = _desc_order(best_val)
     r_out = cand_out[order]
     j_s = best_j[order].contiguous()
     r_in = cand_in[j_s]
-    win = swap_admission(best_val[order].contiguous(), pairs.b_out[order].contiguous(),
+    return r_out, r_in, (best_val[order].contiguous(), pairs.b_out[order].contiguous(),
                          pairs.b_in[j_s].contiguous(), j_s,
                          env.replica_partition[r_out].contiguous(),
-                         env.replica_partition[r_in].contiguous(), params.min_gain)
-    st = apply_swaps_batched(env, st, r_out, r_in, win, fold_legs)
-    return st, win.sum()
+                         env.replica_partition[r_in].contiguous())
 
 
 def _swap_window_positives(env: ClusterEnv, st: EngineState, goal: GoalKernel,

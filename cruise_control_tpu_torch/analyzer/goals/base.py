@@ -335,17 +335,25 @@ class GoalKernel:
         key (moves or disk moves), leader key and swap-out key, the keys the
         engine masks, reduced by K13 (``kernels.seeded_probe``). False
         proves every selection pool of the goal's pass loop all -inf."""
-        sev = self.broker_severity(env, st)
-        keys = []
-        if self.uses_replica_moves or self.uses_disk_moves:
-            keys.append(self.replica_key(env, st, sev))
-        if self.uses_leadership_moves:
-            keys.append(self.leader_key(env, st, sev))
-        if self.uses_swaps:
-            keys.append(self.swap_out_key(env, st, sev))
-        if not keys:
+        methods = self.seeded_work_methods()
+        if not methods:
             return torch.zeros((), dtype=torch.bool, device=env.device)
-        return probe_k.seeded_probe(seed_mask, [k.contiguous() for k in keys])
+        sev = self.broker_severity(env, st)
+        keys = [getattr(self, m)(env, st, sev).contiguous() for m in methods]
+        return probe_k.seeded_probe(seed_mask, keys)
+
+    def seeded_work_methods(self) -> list:
+        """The key functions ``seeded_work_probe`` reads, in its order: the
+        replica key (moves or disk moves), the leader key, the swap-out
+        key, for the action kinds the goal uses."""
+        out = []
+        if self.uses_replica_moves or self.uses_disk_moves:
+            out.append("replica_key")
+        if self.uses_leadership_moves:
+            out.append("leader_key")
+        if self.uses_swaps:
+            out.append("swap_out_key")
+        return out
 
 
 def overrides(g: GoalKernel, name: str) -> bool:

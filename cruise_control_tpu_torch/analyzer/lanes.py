@@ -10,18 +10,26 @@ lane's solo ``ClusterEnv`` / ``EngineState`` is a zero-copy view of its
 slice, and the pass loop is a host loop over the stack that keeps one carry
 dict per lane:
 
-- the move branch runs for every lane that takes it in one launch per
-  stage: the K1 keying (``replica_keys_lanes``), K1 (``select_candidates_lanes``),
-  K2 (``move_score_classes_lanes``), K3 (``wave_admission_lanes``) and the
-  K4/K5 apply with the lane folded into the segment ids
-  (``state.apply_moves_lanes``);
+- the move, leadership and swap branches run for every lane that takes
+  them in one launch per stage: the K1 keying (``replica_keys_lanes``), K1
+  (``select_candidates_lanes``), then K2 (``move_score_classes_lanes``) and
+  K3 (``wave_admission_lanes``) for a move wave, K6
+  (``leadership_rows_lanes``) and K3 for a leadership wave, K7
+  (``swap_rows_lanes``, ``swap_admission_lanes``) for a swap wave, and the
+  K4/K5 applies with the lane folded into the segment ids
+  (``state.apply_moves_lanes``, ``apply_leaderships_lanes``,
+  ``apply_swaps_lanes``; a swap wave's residual fold per lane in its solo
+  order);
 - the goals' SPI (severity, keys' broker rows, move tables, rooms, budgets,
   verdicts, stats) is evaluated per lane on the lane's views, so every
   cluster-wide reduction (thresholds, averages, balance limits) is the solo
   run's, in the solo order; its [La, ...] outputs are stacked into the
   lane kernels' operands;
-- the disk, leadership and swap branches run the solo code lane by lane on
-  the views and write the lanes that ran back into the stack;
+- the disk branch runs the solo code lane by lane on the views and writes
+  the lanes that ran back into the stack;
+- the gated chain's probe (``probe_lanes``) keys every lane at once and
+  answers every lane in one K13 launch (``seeded_probe_lanes``); its
+  verdicts and stats stay the goals' torch functions, per lane;
 - a pass makes the same host reads at any L: one per branch gate and one
   [La, 6] read that closes the pass for every lane.
 
@@ -38,16 +46,22 @@ import torch
 
 from cruise_control_tpu_torch.analyzer.engine import (
     EngineParams, _admission_from_scores, _close_pass, _cond, _disk_move_branch_batched,
-    _leadership_branch_batched, _loop_scalar_init, _pass_row, _score_prep, _sweep_env,
-    _sweep_view, _swap_branch_batched,
+    _lead_admission_from_scores, _lead_args, _loop_scalar_init, _pass_row, _score_prep,
+    _swap_admission_inputs, _swap_args, _sweep_env, _sweep_view,
 )
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv, SweepEnv
-from cruise_control_tpu_torch.analyzer.goals.base import GoalKernel, KeySpec, capture_keys
-from cruise_control_tpu_torch.analyzer.state import EngineState, apply_moves_lanes
+from cruise_control_tpu_torch.analyzer.goals.base import (
+    NEG_INF, GoalKernel, KeySpec, capture_keys,
+)
+from cruise_control_tpu_torch.analyzer.state import (
+    EngineState, apply_leaderships_lanes, apply_moves_lanes, apply_swaps_lanes,
+)
 from cruise_control_tpu_torch.kernels import (
-    move_score_classes_lanes, replica_keys_lanes, select_candidates_lanes,
+    leadership_rows_lanes, move_score_classes_lanes, replica_keys_lanes,
+    seeded_probe_lanes, select_candidates_lanes, swap_admission_lanes, swap_rows_lanes,
     wave_admission_lanes,
 )
+from cruise_control_tpu_torch.kernels.build import lane_index
 from cruise_control_tpu_torch.kernels.keys import env_loads
 
 _ENV_INTS = ("num_real_racks", "num_racks", "max_rf")
@@ -124,14 +138,20 @@ class LaneStack:
             self._sweep[key] = (sw_b, views)
         return self._sweep[key]
 
-    def write(self, l: int, st: EngineState) -> None:
-        """Write lane ``l``'s new state into the stack (fields the branch
-        left as the lane's views are skipped)."""
-        view = self.sts[l]
+    def write_lanes(self, lanes: list, sts: list) -> None:
+        """Write the new states of ``lanes`` into the stack: one lane's by a
+        copy into its views, several lanes' by one indexed write per field
+        for all of them (fields every lane left as its view are skipped)."""
+        idx = lane_index(lanes, self.device) if len(lanes) > 1 else None
         for f in dataclasses.fields(EngineState):
-            src, dst = getattr(st, f.name), getattr(view, f.name)
-            if src.data_ptr() != dst.data_ptr():
-                dst.copy_(src)
+            vals = [getattr(st, f.name) for st in sts]
+            if all(v.data_ptr() == getattr(self.sts[l], f.name).data_ptr()
+                   for v, l in zip(vals, lanes)):
+                continue
+            if idx is None:
+                getattr(self.sts[lanes[0]], f.name).copy_(vals[0])
+            else:
+                getattr(self.st_b, f.name)[idx] = torch.stack(vals)
 
     def state_copy(self, l: int) -> EngineState:
         """Lane ``l``'s state as tensors of its own."""
@@ -141,14 +161,17 @@ class LaneStack:
 
 
 def lane_keys(stack: LaneStack, goal: GoalKernel, lanes: list, severity: dict,
-              params: EngineParams) -> torch.Tensor:
-    """f32[La, R] move keys of the running lanes: the goal's
-    ``replica_key`` per lane on its sweep view, the K1 keying launched once
-    for all of them (or the goal's plain torch keys stacked)."""
-    sw_b, sw = stack.sweep(params)
+              params: EngineParams | None, method: str = "replica_key") -> torch.Tensor:
+    """f32[La, R] keys of the running lanes: the goal's key function
+    ``method`` (``replica_key``, ``leader_key``, ``swap_out_key`` or
+    ``swap_in_key``) per lane on its sweep view of ``params``' precision
+    (None: the exact env), the K1 keying launched once for all of them (or
+    the goal's plain torch keys stacked)."""
+    sw_b, sw = stack.sweep(params) if params is not None else (stack.env_b, stack.envs)
+    fn = getattr(goal, method)
     with capture_keys():
-        specs = [goal.replica_key(*_sweep_view(stack.envs[l], stack.sts[l], sw[l]),
-                                  severity[l]) for l in lanes]
+        specs = [fn(*_sweep_view(stack.envs[l], stack.sts[l], sw[l]), severity[l])
+                 for l in lanes]
     if not isinstance(specs[0], KeySpec):
         return torch.stack(specs).contiguous()
     fam, col = specs[0].family, specs[0].col
@@ -179,11 +202,7 @@ def move_branch_lanes(stack: LaneStack, goal: GoalKernel, prev_goals: tuple,
     k_all = min(K * W, R)
     _sw_b, sw = stack.sweep(params)
     key = lane_keys(stack, goal, lanes, severity, params)
-    mask = None
-    if any(seed_masks.get(l) is not None for l in lanes):
-        ones = torch.ones(R, dtype=torch.bool, device=stack.device)
-        mask = torch.stack([ones if seed_masks.get(l) is None else seed_masks[l]
-                            for l in lanes]).contiguous()
+    mask = lane_masks(stack, lanes, seed_masks)
     kv_all, cand_all = select_candidates_lanes(key, k_all, [explore[l] for l in lanes],
                                                seed_mask=mask)
     waves = min(max(int(params.pass_waves), 1), W)
@@ -222,6 +241,95 @@ def move_branch_lanes(stack: LaneStack, goal: GoalKernel, prev_goals: tuple,
     return total, runs
 
 
+def lane_masks(stack: LaneStack, lanes: list, seed_masks: dict):
+    """bool[La, R] seed masks of the running lanes (all ones for a lane
+    without one), or None when no lane has one."""
+    if all(seed_masks.get(l) is None for l in lanes):
+        return None
+    ones = torch.ones(stack.num_replicas, dtype=torch.bool, device=stack.device)
+    return torch.stack([ones if seed_masks.get(l) is None else seed_masks[l]
+                        for l in lanes]).contiguous()
+
+
+def probe_lanes(stack: LaneStack, goal: GoalKernel, lanes: list,
+                masks: list) -> torch.Tensor:
+    """bool[La]: ``GoalKernel.seeded_work_probe`` of every running lane
+    against its seed mask (``masks``: bool[R] per lane), each key kind keyed
+    once for all lanes and ONE K13 launch (``seeded_probe_lanes``; engine.py
+    ``_compiled_fleet_probe`` :2377)."""
+    methods = goal.seeded_work_methods()
+    if not methods:
+        return torch.zeros(len(lanes), dtype=torch.bool, device=stack.device)
+    sev = {l: goal.broker_severity(stack.envs[l], stack.sts[l]) for l in lanes}
+    keys = [lane_keys(stack, goal, lanes, sev, None, m) for m in methods]
+    return seeded_probe_lanes(torch.stack(masks).contiguous(), keys)
+
+
+def lead_branch_lanes(stack: LaneStack, goal: GoalKernel, prev_goals: tuple,
+                      params: EngineParams, severity: dict, explore: dict,
+                      lanes: list, seed_masks: dict) -> dict:
+    """``engine._leadership_branch_batched`` for the running lanes
+    ``lanes``: the leader keys (K1 keying), K1, K6 and K3 each launched once
+    for every lane, the goals' SPI per lane on its views, and one folded
+    apply. Returns {lane: n_applied device scalar}."""
+    kl = min(params.num_leader_candidates, stack.num_replicas)
+    _sw_b, sw = stack.sweep(params)
+    key = lane_keys(stack, goal, lanes, severity, params, "leader_key")
+    lkv, lcand = select_candidates_lanes(key, kl, [explore[l] for l in lanes],
+                                         seed_mask=lane_masks(stack, lanes, seed_masks))
+    envs = [stack.envs[l] for l in lanes]
+    sts = [stack.sts[l] for l in lanes]
+    best, f_all = leadership_rows_lanes(
+        [_lead_args(envs[j], sts[j], goal, prev_goals, lcand[j], lkv[j] > NEG_INF, sw[l])
+         for j, l in enumerate(lanes)],
+        stacked=(lanes, stack.st_b.replica_broker, stack.st_b.replica_offline))
+    adm = [_lead_admission_from_scores(envs[j], sts[j], goal, prev_goals, params,
+                                       lcand[j], best[j], f_all[j])
+           for j in range(len(lanes))]
+    win = wave_admission_lanes([a[2] for a in adm])
+    new = apply_leaderships_lanes(envs, sts, torch.stack([a[0] for a in adm]),
+                                  torch.stack([a[1] for a in adm]), win)
+    stack.write_lanes(lanes, new)
+    n = win.sum(dim=1)
+    return {l: n[j] for j, l in enumerate(lanes)}
+
+
+def swap_branch_lanes(stack: LaneStack, goal: GoalKernel, prev_goals: tuple,
+                      params: EngineParams, severity: dict, explore: dict,
+                      lanes: list, seed_masks: dict, fold_legs: bool) -> dict:
+    """``engine._swap_branch_batched`` for the running lanes ``lanes``: the
+    out and in pools (K1 keying and K1, each once for every lane; the seed
+    mask on the out pool only), K7 ``swap_rows`` and ``swap_admission``
+    once each, the goals' SPI per lane on its views, and one two-leg folded
+    apply (each lane's residual fold in its solo order). Returns {lane:
+    n_applied device scalar}."""
+    k = min(params.num_swap_candidates, stack.num_replicas, 128)
+    _sw_b, sw = stack.sweep(params)
+    stalls = [explore[l] for l in lanes]
+    okv, cand_out = select_candidates_lanes(
+        lane_keys(stack, goal, lanes, severity, params, "swap_out_key"), k, stalls,
+        seed_mask=lane_masks(stack, lanes, seed_masks))
+    ikv, cand_in = select_candidates_lanes(
+        lane_keys(stack, goal, lanes, severity, params, "swap_in_key"), k, stalls,
+        salt=101)
+    envs = [stack.envs[l] for l in lanes]
+    sts = [stack.sts[l] for l in lanes]
+    args = [_swap_args(envs[j], sts[j], goal, prev_goals, cand_out[j], okv[j], cand_in[j],
+                       ikv[j], sw[l]) for j, l in enumerate(lanes)]
+    best, best_j, _n = swap_rows_lanes(
+        [a[0] for a in args], [a[1] for a in args], params.min_gain,
+        stacked=(lanes, stack.env_b.broker_rack, stack.st_b.topic_broker_count))
+    adm = [_swap_admission_inputs(envs[j], args[j][0], cand_out[j], cand_in[j], best[j],
+                                  best_j[j]) for j in range(len(lanes))]
+    win = swap_admission_lanes(*(torch.stack([a[2][i] for a in adm]) for i in range(6)),
+                               params.min_gain)
+    new = apply_swaps_lanes(envs, sts, torch.stack([a[0] for a in adm]),
+                            torch.stack([a[1] for a in adm]), win, fold_legs)
+    stack.write_lanes(lanes, new)
+    n = win.sum(dim=1)
+    return {l: n[j] for j, l in enumerate(lanes)}
+
+
 def fleet_step(stack: LaneStack, goal: GoalKernel, prev_goals: tuple, lane_params: dict,
                carries: dict, act: list, seed_masks: dict, fold_legs: bool) -> None:
     """One pass (``engine._step``) of every lane in ``act``."""
@@ -242,7 +350,7 @@ def fleet_step(stack: LaneStack, goal: GoalKernel, prev_goals: tuple, lane_param
         _sw_b, sw = stack.sweep(p)
         st, n = branch(stack.envs[l], stack.sts[l], goal, prev_goals, p, severity[l],
                        explore[l], *args, env_sw=sw[l], seed_mask=seed_masks.get(l), **kw)
-        stack.write(l, st)
+        stack.write_lanes([l], [st])
         return n
 
     if goal.uses_disk_moves:
@@ -250,8 +358,8 @@ def fleet_step(stack: LaneStack, goal: GoalKernel, prev_goals: tuple, lane_param
             n_disk[l] = solo(_disk_move_branch_batched, l)
     leads_now = {l: 0 for l in act}
     if lead_first:
-        for l in act:
-            n_leads[l] = solo(_leadership_branch_batched, l)
+        n_leads.update(lead_branch_lanes(stack, goal, prev_goals, lane_params[act[0]],
+                                         severity, explore, act, seed_masks))
         leads_now = dict(zip(act, (int(x) for x in read_values([n_leads[l] for l in act]))))
     if goal.uses_replica_moves:
         ml = [l for l in act if leads_now[l] == 0]
@@ -262,14 +370,16 @@ def fleet_step(stack: LaneStack, goal: GoalKernel, prev_goals: tuple, lane_param
             n_waves.update(runs)
     if goal.uses_leadership_moves and not lead_first:
         moved = read_values([n_moves[l] for l in act])
-        for l, m in zip(act, moved):
-            if int(m) == 0:
-                n_leads[l] = solo(_leadership_branch_batched, l)
+        ll = [l for l, m in zip(act, moved) if int(m) == 0]
+        if ll:
+            n_leads.update(lead_branch_lanes(stack, goal, prev_goals, lane_params[ll[0]],
+                                             severity, explore, ll, seed_masks))
     if goal.uses_swaps:
         landed = read_values([n_moves[l] + n_leads[l] for l in act])
-        for l, m in zip(act, landed):
-            if int(m) == 0:
-                n_swaps[l] = solo(_swap_branch_batched, l, fold_legs=fold_legs)
+        sl = [l for l, m in zip(act, landed) if int(m) == 0]
+        if sl:
+            n_swaps.update(swap_branch_lanes(stack, goal, prev_goals, lane_params[sl[0]],
+                                             severity, explore, sl, seed_masks, fold_legs))
     # the pass's closing device->host read, one [La, 6] read for every lane
     rows = torch.stack([torch.stack(_pass_row(stack.envs[l], stack.sts[l], goal,
                                               n_disk[l], n_moves[l], n_leads[l],

@@ -37,9 +37,12 @@ with dirty-set seed masks for the goals a reduced round may confine (K1's
 seed mask, ``analyzer.incremental.seed.dirty``), the chain short-circuit of
 an untouched reduced goal (K13), churn-adaptive budgets, the
 certificate-gated finisher skip and the full-R repair sweep after a seeded
-chain (``_reseed_fallback``). ``measure_goal_durations`` and the flight
-recorder (``round_trace``) are not ported yet (ROADMAP Queue 1 item 7b,
-the rest).
+chain (``_reseed_fallback``). Every round, solo, revalidated or batched,
+records its ``RoundTrace`` on the flight recorder
+(``common.tracing.FlightRecorder.record_round``; ``result.round_trace``),
+before a hard-goal failure raises. ``measure_goal_durations=True`` runs the
+per-goal dispatch (no fused prefix, no chunking, no memo) and synchronizes
+the device after each goal so ``duration_s`` is the goal's own wall.
 """
 from __future__ import annotations
 
@@ -59,7 +62,9 @@ from cruise_control_tpu_torch.analyzer.env import (
     padded_partition_table, resolve_device,
 )
 from cruise_control_tpu_torch.analyzer.goals import make_goals
-from cruise_control_tpu_torch.analyzer.lanes import LaneStack, fleet_goal_loop, read_values
+from cruise_control_tpu_torch.analyzer.lanes import (
+    LaneStack, fleet_goal_loop, probe_lanes, read_values,
+)
 from cruise_control_tpu_torch.analyzer.goals.leader_election import (
     PreferredLeaderElectionGoal,
 )
@@ -172,7 +177,7 @@ class OptimizerResult:
     final_state: EngineState | None = None
     env: ClusterEnv | None = None
     meta: ClusterMeta | None = None
-    round_trace: object = None    # the flight recorder is not ported yet
+    round_trace: object = None    # common.tracing.RoundTrace of the round
 
     @property
     def violated_goals_before(self) -> list[str]:
@@ -345,14 +350,17 @@ class GoalOptimizer:
         it is None. ``analyzer.profile.level`` and the compile cache are
         JAX-side knobs the port reads nothing from. ``sensors`` (the
         facade's ``MetricRegistry``) carries the proposal-computation-timer;
-        ``recorder`` is kept for the facade but records no round yet (the
-        flight recorder's ``round_trace``: ROADMAP Queue 1 item 7b)."""
+        ``recorder`` (a ``common.tracing.FlightRecorder``; a fresh one when
+        None) records every round's trace."""
         from cruise_control_tpu_torch.common.sensors import MetricRegistry
         self.device = resolve_device(device)
         self._config = config
         self._sensors = sensors if sensors is not None else MetricRegistry()
         # GoalOptimizer.java:125 proposal-computation-timer
         self._proposal_timer = self._sensors.timer("proposal-computation-timer")
+        if recorder is None:
+            from cruise_control_tpu_torch.common.tracing import FlightRecorder
+            recorder = FlightRecorder()
         self.recorder = recorder
         if constraint is None:
             constraint = (BalancingConstraint.from_config(config) if config is not None
@@ -611,7 +619,8 @@ class GoalOptimizer:
                 res = self._optimizations(
                     ct, meta, goal_names, options, skip_hard_goal_check,
                     raise_on_failure, measure_goal_durations,
-                    min_leader_topic_pattern, session)
+                    min_leader_topic_pattern, session,
+                    trace_id=round_span.trace_id if round_span is not None else None)
             except OptimizationFailureError as e:
                 if round_span is not None and e.result is not None:
                     self._end_round_span(round_span, e.result)
@@ -622,16 +631,21 @@ class GoalOptimizer:
 
     @staticmethod
     def _end_round_span(round_span, res) -> None:
+        trace = res.round_trace
         round_span.end(proposals=len(res.proposals),
                        moves=res.num_replica_movements,
-                       leads=res.num_leadership_movements, round=None)
+                       leads=res.num_leadership_movements,
+                       round=trace.round_id if trace is not None else None)
 
     def _optimizations(self, ct, meta, goal_names, options, skip_hard_goal_check,
                        raise_on_failure, measure_goal_durations,
-                       min_leader_topic_pattern, session) -> OptimizerResult:
-        if measure_goal_durations:
-            raise NotImplementedError("measure_goal_durations is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 7b, the rest)")
+                       min_leader_topic_pattern, session,
+                       trace_id=None) -> OptimizerResult:
+        t_round = time.monotonic()
+        # the pipelined loop's stage notes measure their overlap against
+        # [here, record_round]; the generation keys which notes are this
+        # round's
+        opt_gen = self.recorder.note_optimize_start()
         if session is not None and session.device != self.device:
             raise ValueError(f"the session lives on {session.device}, the optimizer "
                              f"on {self.device}")
@@ -649,16 +663,20 @@ class GoalOptimizer:
 
         # -- the round delta is consumed BEFORE optimizer_inputs (which lends
         # the resident state away); then the whole-round memo is tried
+        session_info = dict(session.last_sync_info) if session is not None else None
+        donated = session is not None and bool(getattr(session, "_donation", False))
         incremental = self._incremental and session is not None
         chain_key = (tuple(names), repr(options))
         rd = session.consume_round_delta() if incremental else None
         co = session.carryover if incremental else None
-        if (incremental and self._revalidate and co is not None
+        if (incremental and self._revalidate and not measure_goal_durations
+                and co is not None
                 and co.chain_key == chain_key
                 and rd["syncs"] >= 1 and rd["churn"] == 0
                 and not rd["broker_flips"] and not rd["rebuilt"]
                 and rd["load_drift"] <= self._reval_tol):
-            memo = self._revalidated_round(session, goals, raise_on_failure)
+            memo = self._revalidated_round(session, goals, raise_on_failure,
+                                           session_info, opt_gen, t_round, trace_id)
             if memo is not None:
                 return memo
         taken_gen = None
@@ -710,10 +728,11 @@ class GoalOptimizer:
             host_valid = np.asarray(ct.replica_valid, bool)
             host_part = np.asarray(ct.replica_partition, np.int32)
 
-        use_fused = (self._fused_min_replicas >= 0
+        use_fused = (not measure_goal_durations and self._fused_min_replicas >= 0
                      and num_replicas >= self._fused_min_replicas)
         use_chunked = (self._pass_chunk > 0 and params.pass_chunk > 0
-                       and num_replicas >= self._chunk_min_replicas)
+                       and num_replicas >= self._chunk_min_replicas
+                       and not measure_goal_durations)
         adaptive_params = params
         if use_chunked and self._adaptive_budgets and dirty_count > 0 and reduced_names:
             # churn-adaptive budgets for the dirty-seeded goals only: ceil(D /
@@ -791,6 +810,8 @@ class GoalOptimizer:
                 st, info = optimize_goal(env, st, g, prev, params,
                                          seed_mask=seed_masks[gi])
             actions_so_far += int(info["iterations"])
+            if measure_goal_durations:
+                self._sync_device()
             durations.append(0.0 if use_fused else time.monotonic() - t0)
             infos.append(info)
             prev = prev + (g,)
@@ -827,6 +848,8 @@ class GoalOptimizer:
                                               options=options)
             t0 = time.monotonic()
             was, st, still = ple.run(env, st)
+            if measure_goal_durations:
+                self._sync_device()
             was, still = (bool(v) for v in torch.stack([was, still]).tolist())
             goal_results.append(GoalResult(
                 name=ple.name, violated_before=was, violated_after=still,
@@ -869,7 +892,22 @@ class GoalOptimizer:
             passes_skipped=sum(r.passes_skipped for r in goal_results),
             early_exit_goals=sum(1 for r in goal_results if r.quiesce_chunk >= 0),
             skipped_goals=sum(1 for r in goal_results if r.mode == "skipped"),
+            durations_measured=measure_goal_durations,
             final_state=st, env=env, meta=meta)
+        # one RoundTrace per round, recorded before the hard-goal raise so a
+        # failed round leaves a trace too (optimizer.py:1311)
+        result.round_trace = self.recorder.record_round(
+            wall_s=time.monotonic() - t_round, goal_results=goal_results,
+            compiles=0, env=env, state=st, num_proposals=len(proposals),
+            num_replica_movements=result.num_replica_movements,
+            num_leadership_movements=result.num_leadership_movements,
+            session_info=session_info, donated=donated,
+            durations_measured=measure_goal_durations, trace_id=trace_id,
+            opt_generation=opt_gen, round_mode=result.round_mode,
+            passes_dispatched=result.passes_dispatched,
+            passes_skipped=result.passes_skipped,
+            early_exit_goals=result.early_exit_goals,
+            skipped_goals=result.skipped_goals)
         # the carryover is saved BEFORE the hard-goal raise: the consumed
         # round delta is gone either way (optimizer.py:1337-1347)
         if incremental:
@@ -897,7 +935,13 @@ class GoalOptimizer:
         return result
 
     # ------------------------------------------------ incremental round modes
-    def _revalidated_round(self, session, goals, raise_on_failure):
+    def _sync_device(self) -> None:
+        """Wait for the device (a measured goal's duration ends here)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _revalidated_round(self, session, goals, raise_on_failure, session_info,
+                           opt_gen, t_round, trace_id):
         """optimizer.py:1390, the certificate re-validation memo: one verdict
         pass over the resident state (peeked, never lent); every verdict
         equal to the carried round's start verdicts proves the deterministic
@@ -915,6 +959,15 @@ class GoalOptimizer:
             revalidate_s=time.monotonic() - t0, durations_measured=False,
             fallback_goals=0)
         session.note_revalidated()
+        result.round_trace = self.recorder.record_round(
+            wall_s=time.monotonic() - t_round,
+            goal_results=grs, compiles=0, env=env, state=st,
+            num_proposals=len(result.proposals),
+            num_replica_movements=result.num_replica_movements,
+            num_leadership_movements=result.num_leadership_movements,
+            session_info=session_info, donated=False, durations_measured=False,
+            trace_id=trace_id, opt_generation=opt_gen, round_mode="revalidated",
+            revalidate_s=result.revalidate_s)
         if raise_on_failure:
             failed = [r.name for r, g in zip(grs, goals)
                       if g.is_hard and r.violated_after]
@@ -990,8 +1043,9 @@ class GoalOptimizer:
         """optimizer.py:1625: one batched launch over K same-bucket resident
         sessions (fleet mode). The tenants' padded env and state stack along
         a lane axis (``analyzer.lanes.LaneStack``) and the goal chain runs
-        over the stack: the move wave's kernels launch once per wave for
-        every running lane, the other branches lane by lane. Per-tenant
+        over the stack: the move, leadership and swap waves' kernels and the
+        probe launch once for every running lane, the disk branch and the
+        finisher lane by lane. Per-tenant
         verdicts, certificates and proposal sets are bit-identical to K solo
         runs. Sessions must be synced by the caller and share one shape
         bucket; returns one ``OptimizerResult`` per session, in order.
@@ -1003,6 +1057,8 @@ class GoalOptimizer:
 
     def _optimizations_batched(self, sessions, goal_names, options,
                                raise_on_failure, on_result=None) -> list:
+        t_round = time.monotonic()
+        opt_gen = self.recorder.note_optimize_start()
         names = goal_names or self._default_goal_names
         known = [n for n in names if n != "PreferredLeaderElectionGoal"]
         goals = make_goals(known, self._constraint, options)
@@ -1020,7 +1076,8 @@ class GoalOptimizer:
         rds = ([s.consume_round_delta() for s in sessions]
                if self._incremental else [None] * len(sessions))
         if self._incremental and self._revalidate:
-            memo = self._revalidated_fleet(sessions, goals, rds, chain_key)
+            memo = self._revalidated_fleet(sessions, goals, rds, chain_key, t_round,
+                                           opt_gen)
             if memo is not None:
                 return memo
 
@@ -1246,6 +1303,26 @@ class GoalOptimizer:
                           "compacted_out": r.compacted_out}
                          for i, r in enumerate(results)]
         self.last_fleet_round = info
+        # ONE RoundTrace for the whole launch (optimizer.py:2019): tenant 0's
+        # goal rows, the counts summed, the lanes' gating rows
+        session_info = {k: v for k, v in info.items() if k != "lanes"}
+        trace = self.recorder.record_round(
+            wall_s=time.monotonic() - t_round, goal_results=results[0].goal_results,
+            compiles=0, env=stack.env_b, state=stack.st_b,
+            num_proposals=sum(len(r.proposals) for r in results),
+            num_replica_movements=sum(r.num_replica_movements for r in results),
+            num_leadership_movements=sum(r.num_leadership_movements for r in results),
+            session_info=session_info,
+            donated=all(bool(getattr(s, "_donation", False)) for s in sessions),
+            opt_generation=opt_gen,
+            round_mode="reduced" if any(reduced_by_tenant) else "full",
+            passes_dispatched=sum(r.passes_dispatched for r in results),
+            passes_skipped=sum(r.passes_skipped for r in results),
+            early_exit_goals=sum(r.early_exit_goals for r in results),
+            skipped_goals=sum(r.skipped_goals for r in results),
+            fleet_lanes=info["lanes"])
+        for r in results:
+            r.round_trace = trace
         return results
 
     @staticmethod
@@ -1264,7 +1341,7 @@ class GoalOptimizer:
             part = {}
             if ple is not None:
                 was, st, still = ple.run(stack.envs[l], stack.sts[l])
-                stack.write(l, st)
+                stack.write_lanes([l], [st])
                 part["ple_was"], part["ple_still"] = (
                     bool(v) for v in torch.stack([was, still]).tolist())
             part["stats_after"] = cluster_stats_state(stack.envs[l], stack.sts[l])
@@ -1284,7 +1361,7 @@ class GoalOptimizer:
             run = bool(v) and not (skip or {}).get(l, False)
             st2, fins[l] = _goal_finish(stack.envs[l], stack.sts[l], g, prev,
                                         lane_params[l], run)
-            stack.write(l, st2)
+            stack.write_lanes([l], [st2])
         after = read_values([x for l in lanes
                              for x in (g.violated(stack.envs[l], stack.sts[l]),
                                        g.stat(stack.envs[l], stack.sts[l]))])
@@ -1328,7 +1405,7 @@ class GoalOptimizer:
                            reduced_flags, cert_goal, finalize) -> dict:
         """optimizer.py:2176, ragged fleet gating: the chunked fleet launch
         with per-lane churn-clamped budgets, the per-lane chain
-        short-circuit (K13 probe, lane by lane), the per-lane certificate
+        short-circuit (the K13 probe of every lane in one launch), the per-lane certificate
         finisher skip, parking of lanes whose every remaining goal probes
         as a no-op (their final step runs and ``finalize`` fires at once:
         early landing) and the pow2 compaction policy. The stack is never
@@ -1357,14 +1434,15 @@ class GoalOptimizer:
                                                   for f in static})
 
         def probes(g, gi, lanes):
-            """{lane: (violated, has_work, stat)} of goal ``g``'s K13 probe
-            against each lane's mask, in one read."""
-            vals = read_values([x for l in lanes for x in (
-                g.violated(stack.envs[l], stack.sts[l]),
-                g.seeded_work_probe(stack.envs[l], stack.sts[l],
-                                    masks[l][gi] if masks[l][gi] is not None
-                                    else torch.ones(stack.num_replicas, dtype=torch.bool,
-                                                    device=stack.device)),
+            """{lane: (violated, has_work, stat)} of goal ``g``'s probe: the
+            K13 answer of every lane against its mask in one launch
+            (``lanes.probe_lanes``), the verdicts and stats per lane, in one
+            read."""
+            ones = torch.ones(stack.num_replicas, dtype=torch.bool, device=stack.device)
+            work = probe_lanes(stack, g, lanes, [ones if masks[l][gi] is None
+                                                 else masks[l][gi] for l in lanes])
+            vals = read_values([x for j, l in enumerate(lanes) for x in (
+                g.violated(stack.envs[l], stack.sts[l]), work[j],
                 g.stat(stack.envs[l], stack.sts[l]))])
             return {l: (bool(vals[3 * j]), bool(vals[3 * j + 1]), vals[3 * j + 2])
                     for j, l in enumerate(lanes)}
@@ -1491,7 +1569,7 @@ class GoalOptimizer:
         finalize_lanes([int(orig[r]) for r in np.flatnonzero(~done & ~pad)])
         return stats
 
-    def _revalidated_fleet(self, sessions, goals, rds, chain_key):
+    def _revalidated_fleet(self, sessions, goals, rds, chain_key, t_round, opt_gen):
         """optimizer.py:2493, the whole-fleet certificate memo: when EVERY
         tenant is eligible and every tenant's verdict re-check matches its
         carried round, the launch is skipped and each carried result returns
@@ -1523,4 +1601,15 @@ class GoalOptimizer:
             results.append(result)
         self.last_fleet_round = {"mode": "fleet", "tenants": len(sessions),
                                  "revalidated": True}
+        env0, st0 = checked[0].revalidation_view()
+        trace = self.recorder.record_round(
+            wall_s=time.monotonic() - t_round,
+            goal_results=results[0].goal_results, compiles=0, env=env0, state=st0,
+            num_proposals=sum(len(r.proposals) for r in results),
+            num_replica_movements=sum(r.num_replica_movements for r in results),
+            num_leadership_movements=sum(r.num_leadership_movements for r in results),
+            session_info=dict(self.last_fleet_round), donated=False,
+            opt_generation=opt_gen, round_mode="revalidated", revalidate_s=reval_s)
+        for r in results:
+            r.round_trace = trace
         return results

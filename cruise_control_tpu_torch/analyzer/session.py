@@ -45,8 +45,15 @@ runs, so a readmitted session is bit-identical to a never-spilled one.
 the rebuild. When a batched round stacks the session, the stack copies the
 lent state, and the next sync rematerializes it as after a solo round.
 
-Not ported yet: the pipelined service loop that syncs while a round is in
-flight (ROADMAP Queue 1 item 12) and the mesh (item 15); they raise
+The pipelined service loop (``pipeline.PipelinedServiceLoop``) syncs while
+a round is in flight: the round holds the lent state, so the sync finds
+``state`` None and takes the shadow slot (``shadow_syncs`` counts these).
+The finalize writes the next round's state into fresh tensors and the env
+writes go to copies, so the shadow never aliases what the round reads; every
+thread launches on the one current stream, so the caching allocator reuses
+a freed block only behind the work that read it.
+
+Not ported yet: the mesh (ROADMAP Queue 1 item 15); it raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -192,6 +199,8 @@ class ResidentClusterSession:
         self.donated_rounds = 0        # rounds served the resident state lent
         self.last_sync_info: dict = {}
         self.sync_generation = 0
+        # syncs that ran while the state was lent to an in-flight round
+        self.shadow_syncs = 0
         self._sync_key: tuple | None = None
         # fleet spill/readmit: the host env mirror while spilled
         self._spilled_env = None
@@ -240,6 +249,10 @@ class ResidentClusterSession:
                     "sync_s": round(time.monotonic() - t0, 4),
                     "memo": True,
                 }
+            if self.state is None:
+                # shadow slot: the resident state is lent to an in-flight
+                # round; everything below lands in fresh tensors
+                self.shadow_syncs += 1
             delta = None
             if snap.generation != self._prev_snapshot.generation:
                 delta = diff_snapshots(self._prev_snapshot, snap)
@@ -439,11 +452,11 @@ class ResidentClusterSession:
                 "rebuilt": rd["rebuilt"]}
 
     def state_json(self) -> dict:
-        """session.py:605, served under the facade's AnalyzerState. The
-        shadow slot is not ported (0)."""
+        """session.py:605, served under the facade's AnalyzerState."""
         return {"epoch": self.epoch, "rebuildRounds": self.rebuild_rounds,
                 "deltaRounds": self.delta_rounds,
-                "donatedRounds": self.donated_rounds, "shadowSyncs": 0,
+                "donatedRounds": self.donated_rounds,
+                "shadowSyncs": self.shadow_syncs,
                 "syncGeneration": self.sync_generation, "spilled": self.spilled,
                 "spills": self.spills, "readmits": self.readmits,
                 "revalidatedRounds": self.revalidated_rounds,

@@ -19,6 +19,7 @@ import torch
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.kernels import segment_count, segment_sum
+from cruise_control_tpu_torch.kernels.build import lane_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,7 +312,7 @@ def apply_moves_lanes(envs: list, sts: list, replicas: torch.Tensor,
         st_b, lanes = into
         if chained:
             raise ValueError("a lane stack's move wave is never chained")
-        idx = torch.as_tensor(lanes, device=replicas.device)
+        idx = lane_index(lanes, replicas.device)
         st_b.util[idx] = out[:, :, 0:4]
         st_b.leader_util[idx] = out[:, :, 4:8]
         st_b.potential_nw_out[idx] = out[:, :, 8]
@@ -372,18 +373,34 @@ def apply_swaps_batched(env: ClusterEnv, st: EngineState, r_out: torch.Tensor,
     by leg (the second leg ``chained``) in a program of its own or the
     per-goal pass loop, and with ``fold_legs`` as the chunked pass loop
     folds the two legs into one update (``swap_residual_inputs``)."""
-    b_out = st.replica_broker[r_out]
-    b_in = st.replica_broker[r_in]
-    st1 = apply_moves_batched(env, st, r_out, b_in, mask)
-    st2 = apply_moves_batched(env, st1, r_in, b_out, mask, chained=True)
+    return apply_swaps_lanes([env], [st], r_out[None], r_in[None], mask[None],
+                             fold_legs)[0]
+
+
+def apply_swaps_lanes(envs: list, sts: list, r_out: torch.Tensor, r_in: torch.Tensor,
+                      mask: torch.Tensor, fold_legs: bool = False) -> list:
+    """``apply_swaps_batched`` of La lanes (``r_out`` / ``r_in`` / ``mask``
+    [La, W]): each leg one ``apply_moves_lanes`` for every lane, and with
+    ``fold_legs`` one residual segment sum for every lane, each lane's rows
+    in its solo order (``swap_residual_inputs``). Returns the new states."""
+    La = len(envs)
+    b_out = torch.stack([sts[j].replica_broker[r_out[j]] for j in range(La)])
+    b_in = torch.stack([sts[j].replica_broker[r_in[j]] for j in range(La)])
+    sts1 = apply_moves_lanes(envs, sts, r_out, b_in, mask)
+    sts2 = apply_moves_lanes(envs, sts1, r_in, b_out, mask, chained=True)
     if not fold_legs:
-        return st2
-    v1, s1, _ = apply_sum_inputs(env, st, r_out, b_in, mask)
-    v2, s2, _ = apply_sum_inputs(env, st1, r_in, b_out, mask)
-    vals, seg, init = swap_residual_inputs(st, st1, st2, v1, s1, v2, s2)
-    res = segment_sum(vals, seg, env.num_brokers, init)
-    return dataclasses.replace(st2, util_residual=res[:, 0:4].contiguous(),
-                               leader_util_residual=res[:, 4:8].contiguous())
+        return sts2
+    parts = []
+    for j in range(La):
+        v1, s1, _ = apply_sum_inputs(envs[j], sts[j], r_out[j], b_in[j], mask[j])
+        v2, s2, _ = apply_sum_inputs(envs[j], sts1[j], r_in[j], b_out[j], mask[j])
+        parts.append(swap_residual_inputs(sts[j], sts1[j], sts2[j], v1, s1, v2, s2))
+    B = envs[0].num_brokers
+    vals, seg, init = _fold(parts, B)
+    res = segment_sum(vals, seg, La * B, init).view(La, B, -1)
+    return [dataclasses.replace(sts2[j], util_residual=res[j, :, 0:4].contiguous(),
+                                leader_util_residual=res[j, :, 4:8].contiguous())
+            for j in range(La)]
 
 
 def swap_residual_inputs(st: EngineState, st1: EngineState, st2: EngineState,
@@ -457,23 +474,51 @@ def apply_leaderships_batched(env: ClusterEnv, st: EngineState, src: torch.Tenso
     (segment -1); the leader
     flags clear at the sources and set at the destinations (OR-style, so a
     masked row never writes)."""
-    B, T, R = env.num_brokers, env.num_topics, env.num_replicas
-    vals, seg, init = apply_lead_sum_inputs(env, st, src, dst, mask)
-    out = segment_sum(vals, seg, B, init)
-    util, leader_util = out[:, 0:4], out[:, 4:8]
-    rv, rseg, rinit = residual_inputs(st, util, leader_util, vals, seg)
-    res = segment_sum(rv, rseg, B, rinit)
-    util_res, lead_res = res[:, 0:4].contiguous(), res[:, 4:8].contiguous()
-    lc_args, tlc_args = apply_lead_count_inputs(env, st, src, dst, mask)
-    lc = segment_count(*lc_args)
-    tlc = segment_count(*tlc_args)
-    one = mask.to(torch.int32)
-    zeros = torch.zeros(R, dtype=torch.int32, device=src.device)
-    cleared = zeros.index_add(0, src, one) > 0
-    granted = zeros.index_add(0, dst, one) > 0
-    return dataclasses.replace(
-        st, replica_is_leader=(st.replica_is_leader & ~cleared) | granted,
-        util=util.contiguous(), leader_util=leader_util.contiguous(),
-        leader_count=lc, topic_leader_count=tlc.view(T, B),
-        leadership_moved=st.leadership_moved | cleared | granted,
-        util_residual=util_res, leader_util_residual=lead_res)
+    return apply_leaderships_lanes([env], [st], src[None], dst[None], mask[None])[0]
+
+
+def apply_leaderships_lanes(envs: list, sts: list, src: torch.Tensor, dst: torch.Tensor,
+                            mask: torch.Tensor) -> list:
+    """``apply_leaderships_batched`` of La lanes (``src`` / ``dst`` /
+    ``mask`` [La, W]) with the K4/K5 launches shared: every segment sum and
+    count folds the lane into its segment ids, each lane's rows contiguous
+    and in their solo order, so every f32 sum keeps its order. Returns the
+    lanes' new states."""
+    La = len(envs)
+    env0 = envs[0]
+    B, T, R = env0.num_brokers, env0.num_topics, env0.num_replicas
+    ins = [apply_lead_sum_inputs(envs[j], sts[j], src[j], dst[j], mask[j])
+           for j in range(La)]
+    vals, seg, init = _fold(ins, B)
+    out = segment_sum(vals, seg, La * B, init).view(La, B, -1)
+    res_in = [residual_inputs(sts[j], out[j, :, 0:4], out[j, :, 4:8], ins[j][0],
+                              ins[j][1]) for j in range(La)]
+    rvals, rseg, rinit = _fold(res_in, B)
+    res = segment_sum(rvals, rseg, La * B, rinit).view(La, B, -1)
+    counts = [apply_lead_count_inputs(envs[j], sts[j], src[j], dst[j], mask[j])
+              for j in range(La)]
+    tallies = []
+    for kind in range(2):
+        per = [counts[j][kind] for j in range(La)]
+        nseg = per[0][1]
+        if La == 1:
+            tallies.append(segment_count(*per[0]).view(1, nseg))
+            continue
+        segs = torch.cat([a[0] + j * nseg for j, a in enumerate(per)])
+        tallies.append(segment_count(segs, La * nseg, torch.cat([a[2] for a in per]),
+                                     torch.cat([a[3] for a in per])).view(La, nseg))
+    one = mask.to(torch.int32).reshape(-1)
+    lane_off = (torch.arange(La, device=src.device) * R)[:, None]
+    zeros = torch.zeros(La * R, dtype=torch.int32, device=src.device)
+    cleared = (zeros.index_add(0, (src + lane_off).reshape(-1), one) > 0).view(La, R)
+    granted = (zeros.index_add(0, (dst + lane_off).reshape(-1), one) > 0).view(La, R)
+    return [dataclasses.replace(
+        sts[j],
+        replica_is_leader=(sts[j].replica_is_leader & ~cleared[j]) | granted[j],
+        util=out[j, :, 0:4].contiguous(), leader_util=out[j, :, 4:8].contiguous(),
+        leader_count=tallies[0][j].contiguous(),
+        topic_leader_count=tallies[1][j].reshape(T, B),
+        leadership_moved=sts[j].leadership_moved | cleared[j] | granted[j],
+        util_residual=res[j, :, 0:4].contiguous(),
+        leader_util_residual=res[j, :, 4:8].contiguous())
+        for j in range(La)]

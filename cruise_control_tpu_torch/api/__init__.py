@@ -1,3 +1,9 @@
-"""The REST surface (counterpart of ``cruise_control_tpu/api/``): only
-``responses.py``'s operation-result renderers are ported; the server and the
-other renderers are ROADMAP Queue 1 item 12."""
+"""The REST surface (counterpart of ``cruise_control_tpu/api/``): the
+endpoint registry, user tasks, the purgatory, security, the response
+renderers and ``CruiseControlServer``."""
+from cruise_control_tpu_torch.api.endpoints import EndPoint, EndpointType
+from cruise_control_tpu_torch.api.server import CruiseControlServer
+from cruise_control_tpu_torch.api.user_tasks import TaskState, UserTaskManager
+
+__all__ = ["CruiseControlServer", "EndPoint", "EndpointType", "TaskState",
+           "UserTaskManager"]

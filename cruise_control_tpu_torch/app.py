@@ -9,10 +9,11 @@ class-valued config keys to the port's classes (``config.configdef.
 resolve_class``). It serves one cluster, alone or as a tenant of a
 ``fleet.FleetScheduler`` (``cluster_id``; the scheduler sets
 ``fleet_request_sink``, through which the goal-violation detectors enqueue
-heal-lane requests). The REST reads (``broker_load_json``,
-``kafka_cluster_state``, ``partition_load``) and the threaded pipeline route
-raise ``NotImplementedError`` naming ROADMAP Queue 1 item 12 and an HA role
-item 14, as does a configured sample store (item 11, the rest).
+heal-lane requests). A ``pipeline.PipelinedServiceLoop`` may drive it
+(``service_pipeline``): its threaded mode takes the self-healing FIX
+executions (``service.pipeline.route.fixes``). An HA role raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 14, as does a configured
+sample store (item 11, the rest).
 
 Reference: KafkaCruiseControl.java:73 (866) — constructs AdminClient ->
 AnomalyDetectorManager -> Executor -> LoadMonitor -> GoalOptimizer
@@ -47,7 +48,7 @@ from cruise_control_tpu_torch.detector.topic_anomaly import TopicReplicationFact
 from cruise_control_tpu_torch.executor import Executor, SimClock
 from cruise_control_tpu_torch.forecast import ForecastKnobs, WorkloadForecaster
 from cruise_control_tpu_torch.monitor.load_monitor import (
-    LoadMonitor,
+    LoadMonitor, ModelCompletenessRequirements,
 )
 
 SELF_HEALING_GOALS = [
@@ -263,7 +264,11 @@ class CruiseControl:
         # the continuous pipelined service loop, when one drives this app
         # (main.py service.pipeline.enabled / the sim's lockstep mode);
         # surfaced via /state?substates=PIPELINE
-        self._service_pipeline = None
+        self.service_pipeline = None
+        # service.pipeline.route.fixes: whether self-healing FIX executions
+        # ride the THREADED pipeline's execute stage (_route_fixes_async)
+        self._route_fixes = self.config.get_boolean(
+            "service.pipeline.route.fixes")
 
     # ------------------------------------ single-tenant, single-controller
     @property
@@ -297,16 +302,6 @@ class CruiseControl:
     def ha(self, role) -> None:
         if role is not None:
             _not_ported("HA (a leader elector or standby controller)", "item 14")
-
-    @property
-    def service_pipeline(self):
-        """The pipelined service loop driving this app (None: none)."""
-        return self._service_pipeline
-
-    @service_pipeline.setter
-    def service_pipeline(self, pipe) -> None:
-        if pipe is not None:
-            _not_ported("the pipelined service loop (pipeline.py)", "item 12")
 
     # ------------------------------------------------------------- wiring
     def _wire_detectors(self):
@@ -704,11 +699,22 @@ class CruiseControl:
                 "self.healing.exclude.recently.demoted.brokers")
         return excl_removed, excl_demoted
 
+    def _route_fixes_async(self) -> bool:
+        """Whether self-healing FIX executions should ride the pipeline's
+        execute stage instead of blocking the caller (a
+        long heal must not block the detection thread). Only the THREADED
+        pipeline routes — the sim's lockstep mode keeps blocking heals so
+        (scenario, seed) timelines stay bit-identical."""
+        pipe = self.service_pipeline
+        return (pipe is not None and self._route_fixes
+                and pipe.accepts_fix_routing())
+
     def _run_optimization(self, operation: str, reason: str, ct, meta,
                           goal_names=None, options=OptimizationOptions(),
                           dry_run: bool = True, skip_hard_goal_check: bool = False,
                           execute_kw: dict | None = None,
-                          session=None, parent_span=None) -> OperationResult:
+                          session=None, parent_span=None,
+                          route_async: bool = False) -> OperationResult:
         goals = goal_names or effective_default_goals(self.config)
         # optimization.options.generator.class seam: deployments may rewrite
         # the options of any internally-triggered optimization
@@ -731,6 +737,7 @@ class CruiseControl:
             raise
         op = OperationResult(operation=operation, reason=reason,
                              optimizer_result=res)
+        routed = False
         if not dry_run and res.proposals:
             kw = dict(execute_kw or {})
             try:
@@ -742,15 +749,29 @@ class CruiseControl:
                 sizes = {}
             kw.setdefault("context", {"partition_size_mb": sizes,
                                       "operation": f"{operation}: {reason}"})
-            try:
-                self.executor.execute_proposals(res.proposals,
-                                                parent_span=op_span, **kw)
-            except Exception as e:
-                op_span.end(error=type(e).__name__,
-                            proposals=len(res.proposals))
-                raise
-            op.executed = True
-        op_span.end(executed=op.executed, routed=False,
+            if route_async and self._route_fixes_async():
+                # hand the heal to the pipeline's execute stage: the
+                # detection thread returns at once, the execution drains on
+                # the pipeline's thread, and the operation span rides into
+                # the executor as parent_span; the round is STICKY so a
+                # metadata-generation bump between submit and drain cannot
+                # silently drop a heal
+                self.service_pipeline.submit_execution(
+                    res.proposals,
+                    execute_kw={**kw, "parent_span": op_span}, sticky=True)
+                op.executed = True
+                routed = True
+                self.sensors.meter("pipeline-routed-fixes").mark()
+            else:
+                try:
+                    self.executor.execute_proposals(res.proposals,
+                                                    parent_span=op_span, **kw)
+                except Exception as e:
+                    op_span.end(error=type(e).__name__,
+                                proposals=len(res.proposals))
+                    raise
+                op.executed = True
+        op_span.end(executed=op.executed, routed=routed,
                     proposals=len(res.proposals))
         self._ops_history.append({"operation": operation, "reason": reason,
                                   "ms": self._now_ms(),
@@ -776,16 +797,15 @@ class CruiseControl:
                             self_healing: bool = False,
                             parent_span=None) -> dict:
         """Execute an already-computed :class:`OptimizerResult` through the
-        normal operation-span -> executor path, WITHOUT a fresh optimization
-        round.
+        normal operation-span -> pipeline/executor path, WITHOUT a fresh
+        optimization round.
 
         The predicted-goal-violation fix rides this: its proposals were
         optimized against the forecast-horizon model, so re-optimizing the
         current (still clean) state would discard them for a no-op. Span
         lineage matches `_run_optimization`'s execute half exactly — the
-        operation span parents the executor phases. ``self_healing`` is the
-        reference's pipeline-routing flag; the port's fixes always run on
-        the calling thread."""
+        operation span parents the executor phases (or rides the pipeline's
+        sticky execute stage when fixes route async)."""
         self._check_writable(operation)
         self.flight_recorder.note_operation(operation)
         op_span = self.tracer.span("operation", operation, parent=parent_span,
@@ -793,6 +813,7 @@ class CruiseControl:
                                    precomputed=True)
         op = OperationResult(operation=operation, reason=reason,
                              optimizer_result=res)
+        routed = False
         if res.proposals:
             try:
                 sizes = {tp: info.size_mb
@@ -801,15 +822,29 @@ class CruiseControl:
                 sizes = {}
             kw = {"context": {"partition_size_mb": sizes,
                               "operation": f"{operation}: {reason}"}}
-            try:
-                self.executor.execute_proposals(res.proposals,
-                                                parent_span=op_span, **kw)
-            except Exception as e:
-                op_span.end(error=type(e).__name__,
-                            proposals=len(res.proposals))
-                raise
-            op.executed = True
-        op_span.end(executed=op.executed, routed=False,
+            if self_healing and self._route_fixes_async():
+                # hand the heal to the pipeline's execute stage: the
+                # detection thread returns at once, the execution drains on
+                # the pipeline's thread, and the operation span rides into
+                # the executor as parent_span; the round is STICKY so a
+                # metadata-generation bump between submit and drain cannot
+                # silently drop a heal
+                self.service_pipeline.submit_execution(
+                    res.proposals,
+                    execute_kw={**kw, "parent_span": op_span}, sticky=True)
+                op.executed = True
+                routed = True
+                self.sensors.meter("pipeline-routed-fixes").mark()
+            else:
+                try:
+                    self.executor.execute_proposals(res.proposals,
+                                                    parent_span=op_span, **kw)
+                except Exception as e:
+                    op_span.end(error=type(e).__name__,
+                                proposals=len(res.proposals))
+                    raise
+                op.executed = True
+        op_span.end(executed=op.executed, routed=routed,
                     proposals=len(res.proposals))
         self._ops_history.append({"operation": operation, "reason": reason,
                                   "ms": self._now_ms(),
@@ -890,7 +925,8 @@ class CruiseControl:
                                     skip_hard_goal_check=skip_hard_goal_check
                                     or self_healing,
                                     execute_kw=execute_kw, session=session,
-                                    parent_span=parent_span)
+                                    parent_span=parent_span,
+                                    route_async=self_healing)
         return op.to_json()
 
     def remove_brokers(self, broker_ids: list, dry_run: bool = False,
@@ -929,7 +965,8 @@ class CruiseControl:
                                     self._self_healing_goals(),
                                     OptimizationOptions(),
                                     dry_run=dry_run, skip_hard_goal_check=True,
-                                    parent_span=parent_span)
+                                    parent_span=parent_span,
+                                    route_async=self_healing)
         if op.executed:
             self.executor.note_removed_brokers(broker_ids)
         return op.to_json()
@@ -1016,7 +1053,7 @@ class CruiseControl:
             "FIX_OFFLINE_REPLICAS", reason, ct, meta, self._self_healing_goals(),
             OptimizationOptions(fix_offline_replicas_only=True),
             dry_run=dry_run, skip_hard_goal_check=True, session=session,
-            parent_span=parent_span)
+            parent_span=parent_span, route_async=self_healing)
         return op.to_json()
 
     def fix_topic_replication_factor(self, bad_topics: dict,
@@ -1192,7 +1229,10 @@ class CruiseControl:
         metadata reads ride the monitor's shared circuit breaker
         (LoadMonitor._metadata_read): an outage degrades this read to a
         declared 503 + Retry-After, never a raw backend error."""
-        _not_ported("GET /load (api/responses.py)", "item 12")
+        from cruise_control_tpu_torch.api.responses import broker_stats_json
+        ct, meta = self._model()
+        return broker_stats_json(ct, meta, populate_disk_info=populate_disk_info,
+                                 capacity_only=capacity_only, device=self.device)
 
     # ------------------------------------------------------------ proposals
     def cached_proposals(self, force_refresh: bool = False,
@@ -1417,6 +1457,9 @@ class CruiseControl:
             # -> optimize round -> execution phases), nested by parent
             out["Traces"] = self.tracer.to_json()
             out["Traces"]["journal"] = self.journal.state_json()
+        if "PIPELINE" in substates and self.service_pipeline is not None:
+            # the continuous pipelined loop's stage/backpressure state
+            out["PipelineState"] = self.service_pipeline.state_json()
         if "FORECAST" in substates:
             fstate = {"enabled": self.forecaster is not None}
             if self.forecaster is not None:
@@ -1461,7 +1504,10 @@ class CruiseControl:
         rows = [detect, *heal.values(), *requests.values()]
         breached = [r for r in rows if r["ok"] is False]
         ft = self.fault_tolerance.state_json()
-        degraded = bool(ft["degraded"] or self.executor.paused)
+        pipeline = (self.service_pipeline.state_json()
+                    if self.service_pipeline is not None else None)
+        degraded = bool(ft["degraded"] or self.executor.paused
+                        or (pipeline or {}).get("stalled"))
         status = ("breach" if breached
                   else "degraded" if degraded else "ok")
 
@@ -1480,7 +1526,10 @@ class CruiseControl:
             "openCircuits": self.fault_tolerance.open_circuits(),
             "breakers": ft["breakers"],
             "executorPaused": self.executor.paused,
-            "pipeline": None,
+            "pipeline": ({"stalled": pipeline["stalled"],
+                          "stallCount": pipeline["stallCount"],
+                          "staleRoundsDropped": pipeline["staleRoundsDropped"]}
+                         if pipeline is not None else None),
             "selfHealing": {
                 "fixes": meter_count("execution-started"),
                 "failures": meter_count("self-healing-fix-failures"),
@@ -1506,7 +1555,19 @@ class CruiseControl:
         (ServiceUnavailableError) like the rest of the read family
         (``/load`` and ``/partition_load`` ride the monitor's model-build
         breaker), never a raw metadata error."""
-        _not_ported("GET /kafka_cluster_state (api/responses.py)", "item 12")
+        from cruise_control_tpu_torch.api.responses import kafka_cluster_state_json
+        from cruise_control_tpu_torch.common.retries import ServiceUnavailableError
+        ft = self.fault_tolerance
+        try:
+            brokers = ft.call("facade.read", self.backend.brokers)
+            partitions = ft.call("facade.read", self.backend.partitions)
+        except ServiceUnavailableError:
+            raise
+        except Exception as e:
+            raise ServiceUnavailableError(
+                f"cluster metadata unavailable ({type(e).__name__}: {e})",
+                retry_after_s=ft.retry_after_s()) from e
+        return kafka_cluster_state_json(brokers, partitions, verbose=verbose)
 
     def partition_load(self, sort_by: str = "DISK", limit: int = 50,
                        min_valid_partition_ratio: float | None = None) -> list:
@@ -1516,4 +1577,41 @@ class CruiseControl:
         build requires ``min_valid_partition_ratio`` valid partitions,
         defaulting to MonitorConfig min.valid.partition.ratio
         (PartitionLoadRunnable.java)."""
-        _not_ported("GET /partition_load", "item 12")
+        from cruise_control_tpu_torch.common.resources import Resource
+        ratio = (min_valid_partition_ratio if min_valid_partition_ratio
+                 is not None
+                 else self.config.get_double("min.valid.partition.ratio"))
+        ct, meta = self._model(ModelCompletenessRequirements(
+            min_monitored_partitions_percentage=ratio))
+        loads = np.asarray(ct.leader_load)
+        lead = np.asarray(ct.replica_is_leader)
+        valid = np.asarray(ct.replica_valid)
+        part_of = np.asarray(ct.replica_partition)
+        broker_of = np.asarray(ct.replica_broker)
+        res = Resource[sort_by.upper()] if sort_by.upper() in Resource.__members__ \
+            else Resource.DISK
+        # sort + truncate FIRST; followers are gathered only for the emitted
+        # rows (at 1M replicas materializing every partition's follower list
+        # would cost seconds of host time for discarded data)
+        leaders = np.flatnonzero(valid & lead)
+        order = np.argsort(-loads[leaders, res])[:limit]
+        emit = leaders[order]
+        emit_parts = np.unique(part_of[emit])
+        followers_by_part: dict[int, list] = {int(p): [] for p in emit_parts}
+        fmask = valid & ~lead & np.isin(part_of, emit_parts)
+        for j in np.flatnonzero(fmask):
+            followers_by_part[int(part_of[j])].append(
+                int(meta.broker_ids[int(broker_of[j])]))
+        rows = []
+        for j in emit:
+            pi = int(part_of[j])
+            t, p = meta.partition_ids[pi]
+            rows.append({"topic": t, "partition": p,
+                         "cpu": float(loads[j, Resource.CPU]),
+                         "networkInbound": float(loads[j, Resource.NW_IN]),
+                         "networkOutbound": float(loads[j, Resource.NW_OUT]),
+                         "disk": float(loads[j, Resource.DISK]),
+                         "msg_in": 0.0,
+                         "leader": int(meta.broker_ids[int(broker_of[j])]),
+                         "followers": followers_by_part.get(pi, [])})
+        return rows

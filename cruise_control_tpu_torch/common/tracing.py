@@ -6,9 +6,9 @@ The port's copy keeps every class the facade builds (``EventJournal``,
 out the reference's XLA compile sensors (``XlaCompileListener``,
 ``CompileCounter``, ``count_compiles``), which count JAX compiles; the
 port's kernels are built once by ``nvcc`` (``kernels/build.py``).
-``tree_device_bytes`` sums the bytes of torch tensors. The optimizer's
-``round_trace`` (``FlightRecorder.record_round``) is not wired yet (ROADMAP
-Queue 1 item 7b, the rest): the port's rounds leave no ``RoundTrace``.
+``tree_device_bytes`` sums the bytes of torch tensors. The optimizer
+records every round (``FlightRecorder.record_round``), and the pipelined
+loop notes its stages on the same recorder.
 
 - :class:`RoundTrace` / :class:`FlightRecorder` — one record per
   optimization round in a bounded thread-safe ring buffer, served by

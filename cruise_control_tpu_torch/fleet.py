@@ -14,9 +14,9 @@
   (``GoalOptimizer.optimizations_batched``: the lane stack, with the move
   wave's kernels launched once per wave for every running tenant); NEAR
   buckets under queue pressure pad-to-join (session ``bucket_floors``).
-  Results install into each tenant's proposal cache inline (the pipelined
-  loop's ``submit_install`` is ROADMAP Queue 1 item 12), parked lanes as
-  they land. A device-memory budget LRU-spills cold tenants' resident state
+  Results install through the tenant pipeline's execute stage
+  (``submit_install``) when a threaded one runs, else inline, parked lanes
+  as they land. A device-memory budget LRU-spills cold tenants' resident state
   to host mirrors (``ResidentClusterSession.spill``); a touched tenant
   re-admits bit-identically. ``fleet.admission.enabled`` off runs the static
   round sweep instead.
@@ -667,14 +667,19 @@ class FleetScheduler:
 
     def _install_tenant(self, t: FleetTenant, res, gen: int,
                         now: float) -> None:
-        """Install one tenant's batched result into its proposal cache,
-        inline (the threaded pipeline's ``submit_install`` is ROADMAP
-        Queue 1 item 12)."""
+        """Install one tenant's batched result. When the tenant runs a
+        THREADED pipeline, the install rides its execute stage
+        (``submit_install``) so the scheduler's next launch starts while
+        results land; lockstep tenants install inline (deterministic)."""
         if t.last_refresh_ms is not None:
             age_ms = max(now - t.last_refresh_ms, 0.0)
             t.staleness_ms.append(age_ms)
             self._staleness_timer.record(age_ms / 1000.0)
-        t.cc.install_proposal_cache(res, computed_ms=now)
+        pipe = getattr(t.cc, "service_pipeline", None)
+        if pipe is not None and pipe.accepts_fix_routing():
+            pipe.submit_install(res, computed_ms=now)
+        else:
+            t.cc.install_proposal_cache(res, computed_ms=now)
         t.optimized_generation = gen
         t.last_round_seq = self._round_seq
         t.last_refresh_ms = now

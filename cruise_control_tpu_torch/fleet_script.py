@@ -77,8 +77,14 @@ def port_fleet_ns(device="cuda") -> dict:
 
 def tenant_backend(ns, seed, num_brokers=10, num_partitions=60, rf=2, racks=3,
                    topics=6):
+    return seed_tenant(ns["SimulatedClusterBackend"](), seed, num_brokers,
+                       num_partitions, rf, racks, topics)
+
+
+def seed_tenant(be, seed, num_brokers=10, num_partitions=60, rf=2, racks=3, topics=6):
+    """Add a tenant's brokers and partitions, made from ``seed`` with numpy,
+    to the simulated backend ``be``; returns ``be``."""
     rng = np.random.default_rng(seed)
-    be = ns["SimulatedClusterBackend"]()
     for b in range(num_brokers):
         be.add_broker(b, f"r{b % racks}")
     for p in range(num_partitions):

@@ -13,17 +13,19 @@ from cruise_control_tpu_torch.kernels.forecast import forecast_batch
 from cruise_control_tpu_torch.kernels.keys import (
     KEY_FAMILY_LAUNCHES, replica_keys, replica_keys_lanes,
 )
-from cruise_control_tpu_torch.kernels.leadership import leadership_rows
+from cruise_control_tpu_torch.kernels.leadership import leadership_rows, leadership_rows_lanes
 from cruise_control_tpu_torch.kernels.move_score import (
     FAMILY_LAUNCHES, move_score_classes, move_score_classes_lanes,
 )
 from cruise_control_tpu_torch.kernels.ple import preferred_leader
-from cruise_control_tpu_torch.kernels.probe import seeded_probe
+from cruise_control_tpu_torch.kernels.probe import seeded_probe, seeded_probe_lanes
 from cruise_control_tpu_torch.kernels.segment import segment_count, segment_sum
 from cruise_control_tpu_torch.kernels.select import (
     compact_eligible, select_candidates, select_candidates_lanes,
 )
-from cruise_control_tpu_torch.kernels.swap import swap_admission, swap_rows
+from cruise_control_tpu_torch.kernels.swap import (
+    swap_admission, swap_admission_lanes, swap_rows, swap_rows_lanes,
+)
 
 
 def reset_launches() -> None:
@@ -46,8 +48,10 @@ def launch_shapes() -> dict:
 __all__ = [
     "FAMILY_LAUNCHES", "KEY_FAMILY_LAUNCHES", "KERNELS", "build_all", "compact_eligible",
     "disk_apply", "disk_rows", "forecast_batch", "launch_shapes", "launches", "leadership_rows",
-    "move_score_classes", "move_score_classes_lanes", "preferred_leader", "replica_keys",
-    "replica_keys_lanes", "reset_launches", "seeded_probe", "segment_count", "segment_sum",
+    "leadership_rows_lanes", "move_score_classes", "move_score_classes_lanes",
+    "preferred_leader", "replica_keys", "replica_keys_lanes", "reset_launches",
+    "seeded_probe", "seeded_probe_lanes", "segment_count", "segment_sum",
     "select_candidates", "select_candidates_lanes", "session_finalize", "swap_admission",
-    "swap_rows", "wave_admission", "wave_admission_lanes",
+    "swap_admission_lanes", "swap_rows", "swap_rows_lanes", "wave_admission",
+    "wave_admission_lanes",
 ]

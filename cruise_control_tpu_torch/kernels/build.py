@@ -6,7 +6,9 @@ takes seconds), then loaded with ``ctypes``. The hash covers the source and
 the flags, so a stale library is never loaded. Nothing is built when this
 module is imported: the first launch of a kernel builds it, and
 ``build_all`` builds every kernel at once, one ``nvcc`` per source, all
-started together.
+started together. Loading and building hold one process-wide lock, and each
+build writes a temporary file named by process and thread, so threads that
+reach a kernel's first launch together build it once.
 
 ``--fmad=false`` keeps ``a*b+c`` as two rounded operations, so the float
 bits match the plain PyTorch twins and the reference. ``-Xptxas=-v`` puts
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +34,10 @@ SOURCES = ("select_candidates", "move_score", "wave_admission", "segment_sum",
            "session_finalize", "seeded_probe", "forecast")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# one load-or-build at a time in this process: the server's handler threads,
+# the pipeline's stage threads and the fleet's precompute thread may all
+# reach a kernel's first launch together
+_build_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -53,7 +60,7 @@ def _target(name: str) -> Path:
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = _target(name)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -73,16 +80,17 @@ def build_all(names=SOURCES) -> dict:
     """Build every named kernel library that is not built yet, in parallel.
     Returns {"seconds": wall, "built": [...], "log": {name: nvcc output}}."""
     t0 = time.monotonic()
-    started = {n: _start(n) for n in names if not _target(n).exists()}
-    logs = {}
-    try:
-        for n, (proc, tmp, out) in started.items():
-            logs[n] = _finish(n, proc, tmp, out)
-    finally:
-        for proc, _tmp, _out in started.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    with _build_lock:
+        started = {n: _start(n) for n in names if not _target(n).exists()}
+        logs = {}
+        try:
+            for n, (proc, tmp, out) in started.items():
+                logs[n] = _finish(n, proc, tmp, out)
+        finally:
+            for proc, _tmp, _out in started.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     return {"seconds": time.monotonic() - t0, "built": list(started),
             "log": logs}
 
@@ -95,14 +103,18 @@ def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     ``signatures`` maps each C entry point to its argument types; every
     entry point returns its launch's ``cudaError_t`` as an int."""
     lib = _loaded.get(name)
-    if lib is None:
-        if not _target(name).exists():
-            build_all((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = I
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _build_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            if not _target(name).exists():
+                build_all((name,))
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = I
+            _loaded[name] = lib
     return lib
 
 
@@ -124,6 +136,40 @@ def stack_lanes(vals: list, what: str):
         return tuple(stack_lanes([v[i] for v in vals], what) for i in range(len(vals[0])))
     import torch
     return torch.stack(vals).contiguous()
+
+
+def lane_operand(vals: list, what: str):
+    """One operand of a launch over ``len(vals)`` lanes: a single lane's
+    value as it is (its memory is a one-lane stack's), else
+    ``stack_lanes``."""
+    if len(vals) == 1:
+        return vals[0]
+    return stack_lanes(vals, what)
+
+
+_host_ints: dict = {}
+
+
+def host_ints(values, device, dtype=None):
+    """A small host list of ints (a lane index list, the lanes' stalls) as
+    a tensor on ``device``, copied once per (device, dtype, values) and kept:
+    a copy from pageable host memory waits for the stream to drain, so the
+    pass loop must not make one per launch."""
+    import torch
+    dtype = torch.int64 if dtype is None else dtype
+    key = (str(device), dtype, tuple(int(v) for v in values))
+    t = _host_ints.get(key)
+    if t is None:
+        if len(_host_ints) >= 4096:
+            _host_ints.clear()
+        t = _host_ints[key] = torch.tensor(key[2], dtype=dtype, device=device)
+    return t
+
+
+def lane_index(lanes, device):
+    """i64[La] on ``device``: the lane index list ``lanes`` of a lane stack
+    (``host_ints``)."""
+    return host_ints(lanes, device)
 
 
 def ptr(t) -> ctypes.c_void_p:

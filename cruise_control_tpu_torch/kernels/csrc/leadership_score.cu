@@ -15,6 +15,14 @@
 // Design: one thread per candidate row, F (<= 32, in practice 3-4) member
 // scores in registers; a strict '>' scan keeps the first maximum. Bound:
 // bytes (a handful of gathers per (k, f)).
+//
+// Lane form (K14, the fleet's tenant axis of engine.py _compiled_fleet_chunk
+// :2324 over _lead_rows): cc_leadership_rows_lanes takes La lanes' operands
+// stacked [La, ...] and runs grid dimension y = lane; each lane reads its
+// own slice of every operand (its tables, vetoes and assignment; with a lane
+// index list, the assignment is row lanes[y] of a lane stack's [L, R]
+// tensors), so each lane's rows are its solo launch's bit for bit. The solo
+// launch is the L = 1 case.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -33,6 +41,7 @@ __device__ __forceinline__ float violation(float u, float lo, float up) {
 
 __global__ void leadership_rows_kernel(
     int K, int F, int B, int R, int family, int V, int S, int active, int vrow_mask,
+    int nfb, long long tab_n, const long long* __restrict__ lanes,
     const long long* __restrict__ cand, const long long* __restrict__ members,
     const unsigned char* __restrict__ row_ok, const long long* __restrict__ rb,
     const unsigned char* __restrict__ roff,
@@ -46,6 +55,33 @@ __global__ void leadership_rows_kernel(
     float* __restrict__ seg_val, long long* __restrict__ seg_f) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
+  // the lane's slice of every operand (lane 0: the solo launch)
+  const long long lane = blockIdx.y;
+  cand += lane * K;
+  members += lane * K * F;
+  row_ok += lane * K;
+  const long long row = lanes != nullptr ? lanes[lane] : lane;
+  rb += row * R;
+  roff += row * R;
+  broker_ok += lane * B;
+  fb += lane * nfb * B;
+  if (fr != nullptr) fr += lane * R;
+  fk += lane * 2 * K;
+  if (row_t != nullptr) row_t += lane * K;
+  if (tab != nullptr) tab += lane * tab_n;
+  if (V > 0) {
+    va += lane * V * B;
+    vc += lane * V * B;
+    vxr += lane * V * R;
+    vxk += lane * V * K;
+  }
+  if (color != nullptr) color += lane * B;
+  best += lane * K;
+  fbest += lane * K;
+  if (S > 0) {
+    seg_val += lane * K * S;
+    seg_f += lane * K * S;
+  }
   const long long c_k = cand[k];
   const bool rok = row_ok[k] != 0;
   const float k0 = fk[k];
@@ -115,9 +151,9 @@ __global__ void leadership_rows_kernel(
 
 }  // namespace
 
-extern "C" int cc_leadership_rows(
-    int K, int F, int B, int R, int family, int V, int S, int active, int nfb,
-    int vrow_mask,
+extern "C" int cc_leadership_rows_lanes(
+    int L, int K, int F, int B, int R, int family, int V, int S, int active, int nfb,
+    int vrow_mask, long long tab_n, const long long* lanes,
     const long long* cand, const long long* members, const unsigned char* row_ok,
     const long long* rb, const unsigned char* roff,
     const unsigned char* broker_ok, const float* fb, const float* fr,
@@ -126,7 +162,8 @@ extern "C" int cc_leadership_rows(
     const long long* color, float* best, long long* fbest, float* seg_val,
     long long* seg_f, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (K <= 0 || F <= 0 || F > kMaxF || S < 0 || S > kMaxS || nfb < 1 || V > 31)
+  if (L <= 0 || L > 65535 || K <= 0 || F <= 0 || F > kMaxF || S < 0 || S > kMaxS ||
+      nfb < 1 || V > 31)
     return (int)cudaErrorInvalidValue;
   if (family == kCapacity && (fr == nullptr || nfb < 2)) return (int)cudaErrorInvalidValue;
   if (family == kMinTopic && (tab == nullptr || row_t == nullptr))
@@ -135,10 +172,13 @@ extern "C" int cc_leadership_rows(
     return (int)cudaErrorInvalidValue;
   if (S > 0 && (color == nullptr || seg_val == nullptr || seg_f == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (V > 0 && (va == nullptr || vc == nullptr || vxr == nullptr || vxk == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int threads = 128;
-  leadership_rows_kernel<<<(K + threads - 1) / threads, threads, 0, stream>>>(
-      K, F, B, R, family, V, S, active, vrow_mask, cand, members, row_ok, rb, roff,
-      broker_ok, fb, fr, fk, row_t, tab, va, vc, vxr, vxk, color, best,
+  const dim3 grid((K + threads - 1) / threads, L);
+  leadership_rows_kernel<<<grid, threads, 0, stream>>>(
+      K, F, B, R, family, V, S, active, vrow_mask, nfb, tab_n, lanes, cand, members, row_ok,
+      rb, roff, broker_ok, fb, fr, fk, row_t, tab, va, vc, vxr, vxk, color, best,
       fbest, seg_val, seg_f);
   return (int)cudaGetLastError();
 }

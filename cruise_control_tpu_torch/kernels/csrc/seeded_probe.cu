@@ -11,6 +11,11 @@
 // zeroes. OR is order-free, so the result is deterministic. NaN keys
 // compare false, as in the reference. Bound: bytes (the mask and the keys
 // read once).
+//
+// Lane form (K14, engine.py _compiled_fleet_probe :2377, the tenant vmap of
+// the probe): cc_seeded_probe_lanes takes La lanes' masks and keys stacked
+// [La, R] and answers every lane in one launch, grid dimension y = lane,
+// one flag per lane. The solo launch is the L = 1 case.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -22,6 +27,12 @@ __global__ void probe_kernel(const uint8_t* __restrict__ mask,
                              const float* __restrict__ k1,
                              const float* __restrict__ k2, int R,
                              int* __restrict__ flag) {
+  const long long lane = blockIdx.y;
+  mask += lane * R;
+  k0 += lane * R;
+  if (k1 != nullptr) k1 += lane * R;
+  if (k2 != nullptr) k2 += lane * R;
+  flag += lane;
   __shared__ int block_hit;
   if (threadIdx.x == 0) block_hit = 0;
   __syncthreads();
@@ -42,14 +53,15 @@ __global__ void probe_kernel(const uint8_t* __restrict__ mask,
 
 }  // namespace
 
-extern "C" int cc_seeded_probe(const uint8_t* mask, const float* k0,
-                               const float* k1, const float* k2, int R,
-                               int* flag, void* stream_ptr) {
+extern "C" int cc_seeded_probe_lanes(int L, const uint8_t* mask, const float* k0,
+                                     const float* k1, const float* k2, int R,
+                                     int* flag, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (R <= 0 || k0 == nullptr) return (int)cudaErrorInvalidValue;
+  if (L <= 0 || L > 65535 || R <= 0 || k0 == nullptr) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   int blocks = (R + threads - 1) / threads;
   if (blocks > 1024) blocks = 1024;
-  probe_kernel<<<blocks, threads, 0, stream>>>(mask, k0, k1, k2, R, flag);
+  const dim3 grid(blocks, L);
+  probe_kernel<<<grid, threads, 0, stream>>>(mask, k0, k1, k2, R, flag);
   return (int)cudaGetLastError();
 }

@@ -26,6 +26,14 @@
 // thread per sorted row, each checking every earlier eligible row: O(K1^2)
 // integer compares, no atomics. Bound: latency (a few kilobytes and ~1e4
 // operations at [32, 32]).
+//
+// Lane forms (K14, the fleet's tenant axis of engine.py _compiled_fleet_chunk
+// :2324 over _swap_rows and the admission): cc_swap_rows_lanes and
+// cc_swap_admission_lanes take La lanes' operands stacked [La, ...] and run
+// grid dimension y = lane; each lane reads its own slice of every operand
+// (with a lane index list, the broker racks and the (topic, broker) counts
+// are row lanes[y] of a lane stack's tensors), so each lane's rows are its
+// solo launch's bit for bit. The solo launches are the L = 1 case.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -59,7 +67,7 @@ __device__ __forceinline__ bool band_gain(float us, float ud, float l, float los
 
 __global__ void swap_rows_kernel(
     int K1, int K2, int F, int B, int T, int Kr, int family, int V,
-    int topic_veto, int vkinds, float min_gain,
+    int topic_veto, int vkinds, float min_gain, const long long* __restrict__ lanes,
     const long long* __restrict__ b_out, const long long* __restrict__ b_in,
     const long long* __restrict__ sib_out, const long long* __restrict__ sib_in,
     const long long* __restrict__ orig_out, const long long* __restrict__ orig_in,
@@ -80,6 +88,43 @@ __global__ void swap_rows_kernel(
   __shared__ float sc[kMaxK2];
   __shared__ long long sib[kMaxF];
   const int i = blockIdx.x;
+  // the lane's slice of every operand (lane 0: the solo launch)
+  const long long lane = blockIdx.y;
+  const long long row = lanes != nullptr ? lanes[lane] : lane;
+  broker_rack += row * B;
+  tab += row * (long long)T * B;
+  if (lane > 0) {
+    b_out += lane * K1;
+    b_in += lane * K2;
+    sib_out += lane * K1 * F;
+    sib_in += lane * K2 * F;
+    orig_out += lane * K1;
+    orig_in += lane * K2;
+    row_ok_out += lane * K1;
+    row_ok_in += lane * K2;
+    new_ok += lane * B;
+    if (prow_out != nullptr) prow_out += lane * K1 * Kr;
+    if (prow_in != nullptr) prow_in += lane * K2 * Kr;
+    if (lim_out != nullptr) lim_out += lane * K1;
+    if (lim_in != nullptr) lim_in += lane * K2;
+    t_out += lane * K1;
+    t_in += lane * K2;
+    if (V > 0) {
+      va += lane * V * B;
+      vc += lane * V * B;
+      vl += lane * V * B;
+      vxo += lane * V * K1;
+      vxi += lane * V * K2;
+    }
+    if (fb != nullptr) fb += lane * 3 * B;
+    if (fo != nullptr) fo += lane * K1;
+    if (fi != nullptr) fi += lane * K2;
+    if (tl != nullptr) tl += lane * 2 * T;
+    if (topic_up != nullptr) topic_up += lane * T;
+    best += lane * K1;
+    best_j += lane * K1;
+    positives += lane * K1;
+  }
   for (int f = threadIdx.x; f < F; f += blockDim.x) sib[f] = sib_out[(long long)i * F + f];
   __syncthreads();
 
@@ -189,6 +234,14 @@ __global__ void swap_admission_kernel(int K1, float min_gain,
                                       unsigned char* __restrict__ win) {
   const int p = threadIdx.x;
   if (p >= K1) return;
+  const long long lane = blockIdx.y;
+  val += lane * K1;
+  b_out += lane * K1;
+  b_in += lane * K1;
+  jj += lane * K1;
+  p_out += lane * K1;
+  p_in += lane * K1;
+  win += lane * K1;
   const long long bo = b_out[p], bi = b_in[p], j = jj[p];
   const long long po = p_out[p], pi = p_in[p];
   bool ok = val[p] > min_gain;
@@ -205,9 +258,10 @@ __global__ void swap_admission_kernel(int K1, float min_gain,
 
 }  // namespace
 
-extern "C" int cc_swap_rows(
-    int K1, int K2, int F, int B, int T, int Kr, int family, int V,
-    int topic_veto, int vkinds, float min_gain, const long long* b_out,
+extern "C" int cc_swap_rows_lanes(
+    int L, int K1, int K2, int F, int B, int T, int Kr, int family, int V,
+    int topic_veto, int vkinds, float min_gain, const long long* lanes,
+    const long long* b_out,
     const long long* b_in, const long long* sib_out, const long long* sib_in,
     const long long* orig_out, const long long* orig_in,
     const unsigned char* row_ok_out, const unsigned char* row_ok_in,
@@ -220,7 +274,7 @@ extern "C" int cc_swap_rows(
     const float* topic_up, float* best, long long* best_j, int* positives,
     void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (K1 <= 0 || K2 <= 0 || K2 > kMaxK2 || F > kMaxF || B <= 0)
+  if (L <= 0 || L > 65535 || K1 <= 0 || K2 <= 0 || K2 > kMaxK2 || F > kMaxF || B <= 0)
     return (int)cudaErrorInvalidValue;
   if (V > 16 || (V > 0 && (va == nullptr || vc == nullptr || vl == nullptr ||
                             vxo == nullptr || vxi == nullptr)))
@@ -233,22 +287,24 @@ extern "C" int cc_swap_rows(
     return (int)cudaErrorInvalidValue;
   if (family == kTopicReplica && tl == nullptr) return (int)cudaErrorInvalidValue;
   if (family != kResourceDist && family != kTopicReplica) return (int)cudaErrorInvalidValue;
-  swap_rows_kernel<<<K1, kMaxK2, 0, stream>>>(
-      K1, K2, F, B, T, Kr, family, V, topic_veto, vkinds, min_gain, b_out,
+  const dim3 grid(K1, L);
+  swap_rows_kernel<<<grid, kMaxK2, 0, stream>>>(
+      K1, K2, F, B, T, Kr, family, V, topic_veto, vkinds, min_gain, lanes, b_out,
       b_in, sib_out, sib_in, orig_out, orig_in, row_ok_out, row_ok_in, new_ok,
       broker_rack, prow_out, prow_in, lim_out, lim_in, t_out, t_in, tab, va, vc, vl,
       vxo, vxi, fb, fo, fi, tl, topic_up, best, best_j, positives);
   return (int)cudaGetLastError();
 }
 
-extern "C" int cc_swap_admission(int K1, float min_gain, const float* val,
-                                 const long long* b_out, const long long* b_in,
-                                 const long long* jj, const long long* p_out,
-                                 const long long* p_in, unsigned char* win,
-                                 void* stream_ptr) {
+extern "C" int cc_swap_admission_lanes(int L, int K1, float min_gain, const float* val,
+                                       const long long* b_out, const long long* b_in,
+                                       const long long* jj, const long long* p_out,
+                                       const long long* p_in, unsigned char* win,
+                                       void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (K1 <= 0 || K1 > 1024) return (int)cudaErrorInvalidValue;
-  swap_admission_kernel<<<1, ((K1 + 31) / 32) * 32, 0, stream>>>(
+  if (L <= 0 || L > 65535 || K1 <= 0 || K1 > 1024) return (int)cudaErrorInvalidValue;
+  const dim3 grid(1, L);
+  swap_admission_kernel<<<grid, ((K1 + 31) / 32) * 32, 0, stream>>>(
       K1, min_gain, val, b_out, b_in, jj, p_out, p_in, win);
   return (int)cudaGetLastError();
 }

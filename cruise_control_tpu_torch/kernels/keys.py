@@ -54,7 +54,7 @@ import ctypes
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stream_ptr,
+    I, P, check, lane_index, library, ptr, register, stream_ptr,
 )
 
 KERNEL = register("replica_keys", "cruise_control_tpu_torch/kernels/csrc/replica_keys.cu",
@@ -232,8 +232,7 @@ def replica_keys_lanes(family: int, loads, col: int, rb, lead, off, valid, lanes
     D = dt.shape[3] if intra else 0
     ndt = dt.shape[1] if intra else 0
     round_out = _round_out(family, loads)
-    lanes_t = torch.tensor(list(lanes), dtype=torch.int64).to(rb.device,
-                                                              non_blocking=True)
+    lanes_t = lane_index(lanes, rb.device)
     out = torch.empty((La, R), dtype=torch.float32, device=rb.device)
     err = library("replica_keys", _SIGNATURES).cc_replica_keys_lanes(
         La, ptr(lanes_t), R, M, col, family, int(Lt.dtype == torch.bfloat16),

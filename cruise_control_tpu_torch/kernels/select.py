@@ -39,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stream_ptr,
+    I, P, check, host_ints, library, ptr, register, stream_ptr,
 )
 
 KERNEL = register("select_candidates",
@@ -167,7 +167,7 @@ def select_candidates_lanes(key: torch.Tensor, k: int, stalls, salt: int = 0,
     if not 0 < k <= MAX_K:
         raise ValueError(f"select_candidates_lanes supports 0 < k <= {MAX_K}, got {k}")
     dev = key.device
-    st = torch.tensor([int(x) for x in stalls], dtype=torch.int32).to(dev, non_blocking=True)
+    st = host_ints(stalls, dev, torch.int32)
     comp = torch.empty((L, n), dtype=torch.int64, device=dev)
     sel = torch.empty((L, k), dtype=torch.int64, device=dev)
     state = torch.empty((L, 4), dtype=torch.int64, device=dev)

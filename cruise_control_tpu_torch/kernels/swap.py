@@ -56,6 +56,13 @@ memory and one thread scans them with a strict '>' (lowest j wins ties).
 O(K1^2) pairwise check, exact in integers and free of atomics. Bound:
 latency: at [32, 32] the work is a few kilobytes and ~1e4 operations, far
 below one launch's overhead.
+
+``swap_rows_lanes`` and ``swap_admission_lanes`` are the fleet's lane forms
+(K14): La lanes' solo arguments stacked into [La, ...] tensors (the broker
+racks and topic counts read from a lane stack's rows at a lane index list),
+ONE launch each (grid dimension y = lane); each lane's result is its solo
+launch's. Their twins loop the solo twins over the lanes. ``swap_rows`` and
+``swap_admission`` are the same launches with one lane.
 """
 from __future__ import annotations
 
@@ -65,7 +72,7 @@ import dataclasses
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stream_ptr,
+    I, P, check, lane_index, lane_operand, library, ptr, register, stream_ptr,
 )
 
 KERNEL_ROWS = register("swap_rows", "cruise_control_tpu_torch/kernels/csrc/swap.cu",
@@ -73,6 +80,12 @@ KERNEL_ROWS = register("swap_rows", "cruise_control_tpu_torch/kernels/csrc/swap.
 KERNEL_ADMISSION = register("swap_admission",
                             "cruise_control_tpu_torch/kernels/csrc/swap.cu",
                             "cruise_control_tpu/analyzer/engine.py:1146")
+KERNEL_ROWS_LANES = register("swap_rows_lanes",
+                             "cruise_control_tpu_torch/kernels/csrc/swap.cu",
+                             "cruise_control_tpu/analyzer/engine.py:2324")
+KERNEL_ADMISSION_LANES = register("swap_admission_lanes",
+                                  "cruise_control_tpu_torch/kernels/csrc/swap.cu",
+                                  "cruise_control_tpu/analyzer/engine.py:2324")
 
 SWAP_RESOURCE_DIST = 0   # ResourceDistributionGoal (the four usage goals)
 SWAP_TOPIC_REPLICA = 1   # TopicReplicaDistributionGoal
@@ -286,8 +299,8 @@ def swap_admission_plain(val, b_out, b_in, j, p_out, p_in, min_gain: float):
 
 
 _SIGNATURES = {
-    "cc_swap_rows": [I] * 10 + [F32] + [P] * 31,
-    "cc_swap_admission": [I, F32] + [P] * 8,
+    "cc_swap_rows_lanes": [I] * 11 + [F32] + [P] * 32,
+    "cc_swap_admission_lanes": [I, I, F32] + [P] * 8,
 }
 
 _I64, _F32, _BOOL, _I32 = torch.int64, torch.float32, torch.bool, torch.int32
@@ -299,80 +312,194 @@ def _check_inputs(what: str, pairs):
             raise ValueError(f"{what}: wrong dtype, layout or device")
 
 
+def _check_lane(p: SwapPairs, t: SwapTables, what: str) -> None:
+    """The argument checks of one lane's (``SwapPairs``, ``SwapTables``)."""
+    K1, K2 = p.b_out.shape[0], p.b_in.shape[0]
+    F = p.sib_out.shape[1]
+    V = len(p.vetoes)
+    if not (0 < K1 <= MAX_K1 and 0 < K2 <= MAX_K2 and F <= MAX_F
+            and p.sib_in.shape[1] == F and V <= MAX_V):
+        raise ValueError(f"{what}: unsupported K1={K1} K2={K2} F={F} V={V}")
+    if any(v.kind not in (VETO_NET_CAPACITY, VETO_NET_BAND, VETO_DIRECTED,
+                          VETO_DIRECTED_EXEMPT) for v in p.vetoes):
+        raise ValueError(f"{what}: unknown veto kind")
+    rack = (p.prow_out, p.prow_in, p.lim_out, p.lim_in)
+    if any(x is None for x in rack) != all(x is None for x in rack):
+        raise ValueError(f"{what}: the rack veto needs both prow tables and limits")
+    if p.lim_out is not None and (p.lim_out.shape != (K1,) or p.lim_in.shape != (K2,)):
+        raise ValueError(f"{what}: the rack limits are one per row")
+    if t.family == SWAP_RESOURCE_DIST and (t.fb is None or t.x_out is None
+                                           or t.x_in is None):
+        raise ValueError(f"{what}: the resource family needs fb, x_out, x_in")
+    if t.family == SWAP_TOPIC_REPLICA and t.tl is None:
+        raise ValueError(f"{what}: the topic family needs tl")
+
+
+def _lane_kinds(p: SwapPairs, t: SwapTables) -> tuple:
+    """What the lanes of one launch must share: the family, the veto kinds
+    and whether the topic and rack vetoes are on."""
+    return (t.family, [v.kind for v in p.vetoes], p.topic_up is None, p.lim_out is None)
+
+
+def _lane_shapes(p: SwapPairs) -> tuple:
+    return (p.b_out.shape, p.b_in.shape, p.sib_out.shape, p.tab.shape,
+            None if p.prow_out is None else p.prow_out.shape)
+
+
+def _check_stacked(pairs: list, stacked, what: str) -> None:
+    lanes, rack, tab = stacked
+    if len(lanes) != len(pairs) or any(
+            p.broker_rack.data_ptr() != rack[l].data_ptr()
+            or p.tab.data_ptr() != tab[l].data_ptr() for p, l in zip(pairs, lanes)):
+        raise ValueError(f"{what}: a lane's racks or topic counts are not its stack row")
+
+
+def _rows_launch(pairs: list, tables: list, min_gain: float, stacked, what: str):
+    """The one ``swap_rows`` launch behind both wrappers: La =
+    ``len(pairs)`` lanes, the broker racks and (topic, broker) counts read
+    from ``stacked``'s rows at its lane index list, or (``stacked`` None)
+    one lane, the solo launch, its operands as they are. Returns (best,
+    best_j, positives), with a leading lane axis when La > 1."""
+    La = len(pairs)
+    head_p, head_t = pairs[0], tables[0]
+    shapes = _lane_shapes(head_p)
+    for p, t in zip(pairs, tables):
+        _check_lane(p, t, what)
+        if _lane_shapes(p) != shapes:
+            raise ValueError(f"{what}: lanes disagree on a shape")
+    K1, K2 = head_p.b_out.shape[0], head_p.b_in.shape[0]
+    F = head_p.sib_out.shape[1]
+    Tn, B = head_p.tab.shape
+    V = len(head_p.vetoes)
+    Kr = head_p.prow_out.shape[1] if head_p.prow_out is not None else 0
+    dev = head_p.b_out.device
+
+    def per_lane(get):
+        return lane_operand([get(p, t) for p, t in zip(pairs, tables)], what)
+
+    if stacked is None:
+        rack, tab, lanes_t = head_p.broker_rack, head_p.tab, None
+    else:
+        lanes, rack, tab = stacked
+        lanes_t = lane_index(lanes, dev)
+    va = vc = vl = vxo = vxi = None
+    vkinds = sum(v.kind << (2 * i) for i, v in enumerate(head_p.vetoes))
+    if V:
+        # one stack per field for every lane's vetoes: [La * V, ...]
+        vetoes = [v for p in pairs for v in p.vetoes]
+        va = torch.stack([v.a for v in vetoes]).contiguous()
+        vc = torch.stack([v.c for v in vetoes]).contiguous()
+        vl = torch.stack([v.a if v.lo is None else v.lo for v in vetoes]).contiguous()
+        vxo = torch.stack([v.x_out for v in vetoes]).contiguous()
+        vxi = torch.stack([v.x_in for v in vetoes]).contiguous()
+    fields = ("b_out", "b_in", "sib_out", "sib_in", "orig_out", "orig_in", "row_ok_out",
+              "row_ok_in", "new_ok")
+    tensors = ([per_lane(lambda p, t, f=f: getattr(p, f)) for f in fields] + [rack]
+               + [per_lane(lambda p, t, f=f: getattr(p, f))
+                  for f in ("prow_out", "prow_in", "lim_out", "lim_in", "t_out", "t_in")]
+               + [tab, va, vc, vl, vxo, vxi]
+               + [per_lane(lambda p, t, f=f: getattr(t, f))
+                  for f in ("fb", "x_out", "x_in", "tl")]
+               + [per_lane(lambda p, t: p.topic_up)])
+    _check_inputs(what, zip(tensors, (
+        _I64, _I64, _I64, _I64, _I64, _I64, _BOOL, _BOOL, _BOOL, _I64, _I64, _I64,
+        _I32, _I32, _I64, _I64, _I32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32,
+        _F32, _F32)))
+    lead = (La,) if La > 1 else ()
+    best = torch.empty(lead + (K1,), dtype=_F32, device=dev)
+    best_j = torch.empty(lead + (K1,), dtype=_I64, device=dev)
+    cnt = torch.empty(lead + (K1,), dtype=_I32, device=dev)
+    err = library("swap", _SIGNATURES).cc_swap_rows_lanes(
+        La, K1, K2, F, B, Tn, Kr, int(head_t.family), V,
+        int(head_p.topic_up is not None), vkinds, float(min_gain), ptr(lanes_t),
+        *(ptr(x) for x in tensors), ptr(best), ptr(best_j), ptr(cnt), stream_ptr())
+    check(err, what)
+    return best, best_j, cnt
+
+
 def swap_rows(p: SwapPairs, t: SwapTables, min_gain: float, what: str = "pass"):
     """(best f32[K1], best_j i64[K1], positives i32[K1]) of the masked
     [K1, K2] pair scores: per out row the best value, its lowest argmax j
     and the count of pairs scoring above ``min_gain``. ``what`` names the
     caller in the launch count's shape key (``pass`` for a swap pass,
-    ``window`` for the certificate's window)."""
+    ``window`` for the certificate's window). The one-lane launch of
+    ``swap_rows_lanes``' kernel."""
     if not p.b_out.is_cuda:
         return swap_rows_plain(p, t, min_gain)
-    K1, K2 = p.b_out.shape[0], p.b_in.shape[0]
-    F = p.sib_out.shape[1]
-    Tn, B = p.tab.shape
-    V = len(p.vetoes)
-    if not (0 < K1 <= MAX_K1 and 0 < K2 <= MAX_K2 and F <= MAX_F
-            and p.sib_in.shape[1] == F and V <= MAX_V):
-        raise ValueError(f"swap_rows: unsupported K1={K1} K2={K2} F={F} V={V}")
-    if any(v.kind not in (VETO_NET_CAPACITY, VETO_NET_BAND, VETO_DIRECTED,
-                          VETO_DIRECTED_EXEMPT) for v in p.vetoes):
-        raise ValueError("swap_rows: unknown veto kind")
-    rack = (p.prow_out, p.prow_in, p.lim_out, p.lim_in)
-    if any(x is None for x in rack) != all(x is None for x in rack):
-        raise ValueError("swap_rows: the rack veto needs both prow tables and limits")
-    if p.lim_out is not None and (p.lim_out.shape != (K1,) or p.lim_in.shape != (K2,)):
-        raise ValueError("swap_rows: the rack limits are one per row")
-    if t.family == SWAP_RESOURCE_DIST and (t.fb is None or t.x_out is None
-                                           or t.x_in is None):
-        raise ValueError("swap_rows: the resource family needs fb, x_out, x_in")
-    if t.family == SWAP_TOPIC_REPLICA and t.tl is None:
-        raise ValueError("swap_rows: the topic family needs tl")
-    dev = p.b_out.device
-    va = vc = vl = vxo = vxi = None
-    vkinds = sum(v.kind << (2 * i) for i, v in enumerate(p.vetoes))
-    if V:
-        va = torch.stack([v.a for v in p.vetoes]).contiguous()
-        vc = torch.stack([v.c for v in p.vetoes]).contiguous()
-        vl = torch.stack([v.a if v.lo is None else v.lo for v in p.vetoes]).contiguous()
-        vxo = torch.stack([v.x_out for v in p.vetoes]).contiguous()
-        vxi = torch.stack([v.x_in for v in p.vetoes]).contiguous()
-    Kr = p.prow_out.shape[1] if p.prow_out is not None else 0
-    tensors = [p.b_out, p.b_in, p.sib_out, p.sib_in, p.orig_out, p.orig_in,
-               p.row_ok_out, p.row_ok_in, p.new_ok, p.broker_rack, p.prow_out,
-               p.prow_in, p.lim_out, p.lim_in, p.t_out, p.t_in, p.tab, va, vc, vl,
-               vxo, vxi, t.fb, t.x_out, t.x_in, t.tl, p.topic_up]
-    _check_inputs("swap_rows", zip(tensors, (
-        _I64, _I64, _I64, _I64, _I64, _I64, _BOOL, _BOOL, _BOOL, _I64, _I64, _I64,
-        _I32, _I32, _I64, _I64, _I32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32,
-        _F32, _F32)))
-    best = torch.empty(K1, dtype=_F32, device=dev)
-    best_j = torch.empty(K1, dtype=_I64, device=dev)
-    cnt = torch.empty(K1, dtype=_I32, device=dev)
-    err = library("swap", _SIGNATURES).cc_swap_rows(
-        K1, K2, F, B, Tn, Kr, int(t.family), V, int(p.topic_up is not None), vkinds,
-        float(min_gain),
-        *(ptr(x) for x in tensors), ptr(best), ptr(best_j), ptr(cnt), stream_ptr())
-    check(err, "swap_rows")
-    KERNEL_ROWS.count(f"{what} [{K1}, {K2}]")
-    return best, best_j, cnt
+    out = _rows_launch([p], [t], min_gain, None, "swap_rows")
+    KERNEL_ROWS.count(f"{what} [{p.b_out.shape[0]}, {p.b_in.shape[0]}]")
+    return out
+
+
+def swap_rows_lanes_plain(pairs: list, tables: list, min_gain: float):
+    outs = [swap_rows_plain(p, t, min_gain) for p, t in zip(pairs, tables)]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+
+
+def swap_rows_lanes(pairs: list, tables: list, min_gain: float, stacked: tuple):
+    """(best f32[La, K1], best_j i64[La, K1], positives i32[La, K1]):
+    ``swap_rows`` of each lane's (``SwapPairs``, ``SwapTables``) in one
+    launch. The lanes must agree on the family, the veto kinds, the rack
+    and topic vetoes' presence and every shape. ``stacked`` = (the lanes'
+    indices in their lane stack, its i64[L, B] ``broker_rack``, its i32[L,
+    T, B] ``topic_broker_count``): each lane's ``broker_rack`` / ``tab``
+    must be its stack row, which the kernel reads at the index instead of a
+    new stack."""
+    _check_stacked(pairs, stacked, "swap_rows_lanes")
+    kinds = _lane_kinds(pairs[0], tables[0])
+    if any(_lane_kinds(p, t) != kinds for p, t in zip(pairs[1:], tables[1:])):
+        raise ValueError("swap_rows_lanes: lanes disagree on the family or the vetoes")
+    if not pairs[0].b_out.is_cuda:
+        return swap_rows_lanes_plain(pairs, tables, min_gain)
+    La, K1 = len(pairs), pairs[0].b_out.shape[0]
+    best, best_j, cnt = _rows_launch(pairs, tables, min_gain, stacked, "swap_rows_lanes")
+    KERNEL_ROWS_LANES.count(f"L={La} [{K1}, {pairs[0].b_in.shape[0]}]")
+    return best.view(La, K1), best_j.view(La, K1), cnt.view(La, K1)
+
+
+def _admission_launch(val, rows: list, min_gain: float, what: str):
+    """The one ``swap_admission`` launch behind both wrappers: ``val`` f32
+    and ``rows`` i64, each [K1] (one lane) or [La, K1]."""
+    La, n = (1, val.shape[0]) if val.dim() == 1 else val.shape
+    if not 0 < n <= MAX_K1:
+        raise ValueError(f"{what}: unsupported K1={n}")
+    _check_inputs(what, [(val, _F32)] + [(x, _I64) for x in rows])
+    if any(x.shape != val.shape for x in rows):
+        raise ValueError(f"{what}: every input has one value per row")
+    win = torch.empty(val.shape, dtype=_BOOL, device=val.device)
+    err = library("swap", _SIGNATURES).cc_swap_admission_lanes(
+        La, n, float(min_gain), ptr(val), *(ptr(x) for x in rows), ptr(win),
+        stream_ptr())
+    check(err, what)
+    return win
 
 
 def swap_admission(val, b_out, b_in, j, p_out, p_in, min_gain: float):
     """bool[K1] winners of one score-sorted swap wave (see the module doc).
-    Every input is per sorted row: ``val`` f32, the rest i64."""
+    Every input is per sorted row: ``val`` f32, the rest i64. The one-lane
+    launch of ``swap_admission_lanes``' kernel."""
     if not val.is_cuda:
         return swap_admission_plain(val, b_out, b_in, j, p_out, p_in, min_gain)
-    n = val.shape[0]
-    if not 0 < n <= MAX_K1:
-        raise ValueError(f"swap_admission: unsupported K1={n}")
-    rows = [b_out, b_in, j, p_out, p_in]
-    _check_inputs("swap_admission", [(val, _F32)] + [(x, _I64) for x in rows])
-    if any(x.shape != (n,) for x in rows):
-        raise ValueError("swap_admission: every input is one value per row")
-    win = torch.empty(n, dtype=_BOOL, device=val.device)
-    err = library("swap", _SIGNATURES).cc_swap_admission(
-        n, float(min_gain), ptr(val), *(ptr(x) for x in rows), ptr(win),
-        stream_ptr())
-    check(err, "swap_admission")
-    KERNEL_ADMISSION.count(f"K1={n}")
+    win = _admission_launch(val, [b_out, b_in, j, p_out, p_in], min_gain,
+                            "swap_admission")
+    KERNEL_ADMISSION.count(f"K1={val.shape[0]}")
+    return win
+
+
+def swap_admission_lanes_plain(val, b_out, b_in, j, p_out, p_in, min_gain: float):
+    return torch.stack([swap_admission_plain(val[i], b_out[i], b_in[i], j[i], p_out[i],
+                                             p_in[i], min_gain)
+                        for i in range(val.shape[0])])
+
+
+def swap_admission_lanes(val, b_out, b_in, j, p_out, p_in, min_gain: float):
+    """bool[La, K1]: ``swap_admission`` of each lane's score-sorted wave
+    (every input [La, K1]: ``val`` f32, the rest i64) in one launch."""
+    if not val.is_cuda:
+        return swap_admission_lanes_plain(val, b_out, b_in, j, p_out, p_in, min_gain)
+    if val.dim() != 2:
+        raise ValueError("swap_admission_lanes: every input is [La, K1]")
+    win = _admission_launch(val, [b_out, b_in, j, p_out, p_in], min_gain,
+                            "swap_admission_lanes")
+    KERNEL_ADMISSION_LANES.count(f"L={val.shape[0]} K1={val.shape[1]}")
     return win

@@ -121,18 +121,22 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 def test_waiting_surfaces_name_their_items():
     """What a single-tenant deployment does not use raises and names its
-    ROADMAP Queue 1 item."""
+    ROADMAP Queue 1 item (an HA role, the sample store); the REST reads, the
+    pipelined loop and measured goal durations are ported and serve."""
     from cruise_control_tpu_torch.app import CruiseControl
     from cruise_control_tpu_torch.config import cruise_control_config
+    from cruise_control_tpu_torch.pipeline import PipelinedServiceLoop
     cc = facade(PORT, facade_backend(PORT))
-    for call in (cc.broker_load_json, cc.kafka_cluster_state, cc.partition_load):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cc.service_pipeline = object()
+    assert cc.broker_load_json()["brokers"]
+    assert cc.kafka_cluster_state()["KafkaBrokerState"]["Summary"]["Brokers"] == 4
+    assert cc.partition_load()
     with pytest.raises(NotImplementedError, match="item 14"):
         cc.ha = object()
     assert cc.ha is None and cc.service_pipeline is None and cc.fleet_request_sink is None
+    pipe = PipelinedServiceLoop(cc)
+    cc.service_pipeline = pipe
+    assert cc.state_json(substates=["PIPELINE"])["PipelineState"]["mode"] == "lockstep"
+    cc.service_pipeline = None
     # fleet mode is ported: the sink takes the detectors' heal-lane requests
     seen = []
     cc.fleet_request_sink = lambda lane, reason, now_ms: seen.append((lane, reason, now_ms))
@@ -141,9 +145,9 @@ def test_waiting_surfaces_name_their_items():
     with pytest.raises(NotImplementedError, match="item 11"):
         CruiseControl(facade_backend(PORT), cruise_control_config(
             {"sample.store.path": "/nonexistent"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        cc.goal_optimizer.optimizations(None, session=cc._usable_session(None, False, False),
-                                        measure_goal_durations=True)
+    res = cc.goal_optimizer.optimizations(None, session=cc._usable_session(None, False, False),
+                                          measure_goal_durations=True)
+    assert res.durations_measured and res.round_trace is cc.flight_recorder.last()
 
 
 def test_violated_goals_and_operation_spans():

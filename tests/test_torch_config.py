@@ -156,6 +156,12 @@ def test_goal_optimizer_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="item 15"):
         GoalOptimizer(config=cruise_control_config({"tpu.mesh.axis.brokers": 2}),
                       device="cpu")
+    # measured goal durations are ported: a request for them runs
+    from cruise_control_tpu_torch.model.random_cluster import RandomClusterSpec, generate
+    ct, meta = generate(RandomClusterSpec(num_brokers=6, num_racks=2, num_topics=2,
+                                          num_partitions=24, seed=1))
     opt = GoalOptimizer(config=cruise_control_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        opt.optimizations(None, measure_goal_durations=True)
+    res = opt.optimizations(ct, meta, goal_names=["ReplicaDistributionGoal"],
+                            skip_hard_goal_check=True, raise_on_failure=False,
+                            measure_goal_durations=True)
+    assert res.durations_measured and res.goal_results[0].duration_s > 0

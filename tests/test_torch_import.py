@@ -186,7 +186,9 @@ def test_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
                                  "session_finalize", "select_candidates_masked",
                                  "seeded_probe", "forecast", "select_candidates_lanes",
                                  "replica_keys_lanes", "move_score_classes_lanes",
-                                 "wave_admission_lanes"}
+                                 "wave_admission_lanes", "leadership_rows_lanes",
+                                 "swap_rows_lanes", "swap_admission_lanes",
+                                 "seeded_probe_lanes"}
 
 
 def test_new_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
@@ -261,4 +263,43 @@ def test_fleet_cuda_by_default_and_lane_wrappers_count_no_launch_on_cpu(monkeypa
     key = torch.stack([torch.arange(8, dtype=torch.float32)] * 2)
     kv, idx = K.select_candidates_lanes(key, 3, [0, 0])
     assert idx.tolist() == [[7, 6, 5], [7, 6, 5]]
+    assert all(n == 0 for n in K.launches().values())
+
+
+FRONT_DOOR = {"cruise_control_tpu_torch.api", "cruise_control_tpu_torch.api.endpoints",
+              "cruise_control_tpu_torch.api.progress", "cruise_control_tpu_torch.api.purgatory",
+              "cruise_control_tpu_torch.api.user_tasks", "cruise_control_tpu_torch.api.security",
+              "cruise_control_tpu_torch.api.responses", "cruise_control_tpu_torch.api.server",
+              "cruise_control_tpu_torch.client", "cruise_control_tpu_torch.client.client",
+              "cruise_control_tpu_torch.client.cli", "cruise_control_tpu_torch.main",
+              "cruise_control_tpu_torch.__main__", "cruise_control_tpu_torch.pipeline",
+              "cruise_control_tpu_torch.service_script"}
+
+
+def test_front_door_modules_are_scanned_and_name_no_reference_module():
+    """The front door's modules (the REST server and its parts, the client
+    and CLI, the entry point, the pipelined loop, the service script) are
+    among the modules imported with JAX blocked and scanned above, and none
+    reaches the JAX package by a dynamic import either."""
+    assert FRONT_DOOR <= set(MODULES)
+    dynamic = re.compile(r"import_module\(\s*f?[\"']cruise_control_tpu(?!_torch)\b")
+    for mod in FRONT_DOOR:
+        path = ROOT / Path(*mod.split("."))
+        src = path.with_suffix(".py") if path.with_suffix(".py").exists() else path / "__init__.py"
+        text = src.read_text()
+        assert not FORBIDDEN.findall(text) and not dynamic.search(text), mod
+
+
+def test_branch_lane_wrappers_on_cpu_tensors_count_no_launch():
+    """The lane forms of K6, K7 and K13 dispatch on the tensors' device:
+    on the CPU they run their twins and count nothing."""
+    K.reset_launches()
+    masks = torch.tensor([[True, False, True], [False, False, False]])
+    keys = torch.tensor([[-torch.inf, 1.0, 2.0], [3.0, 3.0, 3.0]])
+    assert K.seeded_probe_lanes(masks, [keys]).tolist() == [True, False]
+    win = K.swap_admission_lanes(torch.tensor([[2.0, 1.0, 1.0]] * 2),
+                                 torch.tensor([[0, 0, 1]] * 2), torch.tensor([[2, 3, 4]] * 2),
+                                 torch.tensor([[0, 1, 2]] * 2), torch.tensor([[0, 1, 2]] * 2),
+                                 torch.tensor([[3, 4, 5]] * 2), 1e-9)
+    assert win.tolist() == [[True, False, True]] * 2
     assert all(n == 0 for n in K.launches().values())

@@ -15,8 +15,8 @@ tolerance 0. The reference runs in one fresh interpreter
 (``tests/torch_reference.py`` ``reference_incremental_cases``).
 
 The spill / readmit case (``test_carryover_survives_spill_readmit``) runs
-as the ``spill`` case; the shadow-sync race of the pipelined loop waits
-for ROADMAP Queue 1 item 12.
+as the ``spill`` case; the pipelined loop's shadow sync is held in
+``tests/test_torch_pipeline.py``.
 """
 import jax.numpy as jnp
 import numpy as np

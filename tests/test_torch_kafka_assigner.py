@@ -4,8 +4,9 @@ The library cases of the reference's tests/test_kafka_assigner.py, through
 the port on the same hand-built clusters and held to the same assertions
 (swap-only disk balancing keeps every broker's replica count; the even
 rack-aware goal spreads RF 2 over 2 racks; the goal-name substitution).
-The reference's ``test_rebalance_kafka_assigner_mode`` drives the REST app,
-which the port does not have yet (ROADMAP.md Queue 1 item 12).
+The reference's ``test_rebalance_kafka_assigner_mode`` drives the facade's
+``rebalance(kafka_assigner=True)``; its port runs over HTTP through the
+port's REST server (``/rebalance?kafka_assigner=true``).
 
 The kafka-assigner chain (``kafka_assigner_goal_names([])``) on spec-32b runs
 against the reference in a fresh interpreter (torch_reference.py): counts,
@@ -107,3 +108,39 @@ def test_kafka_assigner_chain_spec32_matches_reference(tmp_path):
         assert np.array_equal(ref["final"][name],
                               getattr(res.final_state, name).numpy()), name
     assert [dataclasses.astuple(p) for p in res.proposals] == ref["proposals"]
+
+
+def test_rebalance_kafka_assigner_mode_over_rest():
+    """``POST /rebalance?kafka_assigner=true&dryrun=true`` runs the two
+    kafka-assigner goals, in their order (the reference's
+    ``test_rebalance_kafka_assigner_mode``, through the port's server)."""
+    import json
+    import urllib.request
+
+    from cruise_control_tpu_torch.api import CruiseControlServer
+    from cruise_control_tpu_torch.app import CruiseControl
+    from cruise_control_tpu_torch.backend import SimulatedClusterBackend
+    from cruise_control_tpu_torch.config import cruise_control_config
+    be = SimulatedClusterBackend()
+    for i in range(4):
+        be.add_broker(i, f"r{i % 2}")
+    for p in range(8):
+        be.create_partition("t", p, [p % 2 * 2, p % 2 * 2 + 1], size_mb=100.0 * (1 + p % 4),
+                            bytes_in_rate=10.0, bytes_out_rate=5.0, cpu_util=1.0)
+    cc = CruiseControl(be, cruise_control_config({
+        "num.metrics.windows": 5, "min.samples.per.metrics.window": 1}), device="cpu")
+    cc.start_up()
+    for i in range(8):
+        cc.load_monitor.sample_once(now_ms=i * 300_000.0)
+    srv = CruiseControlServer(cc, port=0, max_block_ms=120_000.0)
+    srv.start()
+    try:
+        req = urllib.request.Request(
+            f"{srv.base_url}/rebalance?kafka_assigner=true&dryrun=true", method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            out = json.loads(resp.read().decode())
+    finally:
+        srv.stop()
+    assert out["operation"] == "REBALANCE"
+    assert [g["goal"] for g in out["result"]["goalSummary"]] == [
+        "KafkaAssignerEvenRackAwareGoal", "KafkaAssignerDiskUsageDistributionGoal"]

@@ -200,7 +200,6 @@ class _NoLeaderBudgetGoal(LeaderReplicaDistributionGoal):
 
 
 UNSUPPORTED = {
-    "measured goal durations": (dict(measure_goal_durations=True), None),
     "sequential leadership fallback": (
         dict(goal_names=["NoLeaderBudgetGoal"]), "seq_body"),
     "pooled candidate keying": ({}, "compact_keying"),
@@ -223,6 +222,22 @@ def test_unsupported_requests_raise(case, monkeypatch):
               if special in UNSUPPORTED_PARAMS else None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GoalOptimizer(engine_params=params, device="cpu").optimizations(ct, meta, **kw)
+
+
+def test_measured_goal_durations_give_the_unmeasured_outcome():
+    """``measure_goal_durations=True`` (formerly a NotImplementedError of
+    this module's unsupported requests) runs the per-goal dispatch with a
+    device wait after each goal: the same outcome as the default run, and
+    every goal its own wall."""
+    ct, meta = _fixture_cluster()
+    ct, meta = convert.cluster_from_arrays(convert.leaves(ct), meta)
+    plain = GoalOptimizer(device="cpu").optimizations(ct, meta, **KW)
+    measured = GoalOptimizer(device="cpu").optimizations(ct, meta, measure_goal_durations=True,
+                                                         **KW)
+    assert _counts(measured) == _counts(plain)
+    assert _proposals(measured) == _proposals(plain)
+    assert measured.durations_measured and not plain.durations_measured
+    assert all(g.duration_s > 0 for g in measured.goal_results)
 
 
 @pytest.mark.parametrize("case", sorted(FORMERLY_UNPORTED))

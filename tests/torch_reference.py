@@ -949,6 +949,49 @@ def reference_fleet_cases(tmp_path: Path, cases: tuple, spec: dict | None = None
         return pickle.load(f)
 
 
+# ---------------------------------------------------------------------------
+# The service's front door (cruise_control_tpu_torch/service_script.py)
+# ---------------------------------------------------------------------------
+def reference_service_ns() -> dict:
+    """The reference's classes for ``service_script``."""
+    from cruise_control_tpu import main
+    from cruise_control_tpu.backend.simulated import SimulatedClusterBackend
+    from cruise_control_tpu.client.client import CruiseControlClient
+    from cruise_control_tpu.config import cruise_control_config
+    from cruise_control_tpu.pipeline import PipelinedServiceLoop
+    return dict(main=main, cruise_control_config=cruise_control_config,
+                PipelinedServiceLoop=PipelinedServiceLoop,
+                CruiseControlClient=CruiseControlClient,
+                SimulatedClusterBackend=SimulatedClusterBackend)
+
+
+_SERVICE_CHILD = r"""
+import json, pickle, sys
+from cruise_control_tpu_torch import service_script
+from torch_reference import reference_service_ns
+args = json.loads(sys.argv[1])
+ns = reference_service_ns()
+out = {}
+if args["service"] is not None:
+    out["service"] = service_script.service_e2e(ns, args["service"])
+if args["fleet"] is not None:
+    out["fleet"] = service_script.fleet_service_e2e(ns, args["fleet"])
+with open(args["out"], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def reference_service(tmp_path: Path, service: dict | None, fleet: dict | None,
+                      timeout: int = 900) -> dict:
+    """The reference's rows of ``service_script.service_e2e`` over
+    ``service`` and ``fleet_service_e2e`` over ``fleet`` (either None to
+    skip), in ONE fresh interpreter: {"service": rows, "fleet": rows}."""
+    out = tmp_path / "reference_service.pkl"
+    _run_child(_SERVICE_CHILD, dict(service=service, fleet=fleet, out=str(out)), timeout)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
 if __name__ == "__main__":
     # python tests/torch_reference.py rung4 [float32|bfloat16]: the JAX
     # reference's outcome row of a rung (default "auto"), as JSON
@@ -974,6 +1017,22 @@ if __name__ == "__main__":
             rows = reference_facade(Path(tmp), cases=(), heal=(HEAL_E2E,),
                                     timeout=7200)["heal"][0]
         print(json.dumps(dict(cell="e2e-1000b-50000p", heal=rows)))
+        sys.exit(0)
+    if name == "service-e2e":
+        # python tests/torch_reference.py service-e2e [service|fleet]: the
+        # reference's rows of the front door at e2e-1000b-50000p and
+        # fleet-16x100b (chip_smoke.py phase 9), or of one of the two
+        part = sys.argv[2] if len(sys.argv) > 2 else None
+        with tempfile.TemporaryDirectory() as tmp:
+            sys.path.insert(0, str(ROOT))
+            from cruise_control_tpu_torch.service_script import (
+                FLEET_SERVICE_E2E, SERVICE_E2E,
+            )
+            rows = reference_service(Path(tmp),
+                                     SERVICE_E2E if part != "fleet" else None,
+                                     FLEET_SERVICE_E2E if part != "service" else None,
+                                     timeout=7200)
+        print(json.dumps(dict(cell="e2e-1000b-50000p, fleet-16x100b", **rows)))
         sys.exit(0)
     if name == "session-e2e":
         # python tests/torch_reference.py session-e2e: the reference's rows of
