@@ -50,7 +50,8 @@ Phases, each printing its own lines; any failure exits non-zero:
       goals, then seven goals chunked with the finisher, the five swap
       goals with the swap branch (every kernel must launch, K7 at
       [32, 32]; the JAX reference's outcome row).
-   c. runs twice and the two runs must be bit identical; every run must
+   c. runs once (phase 10's compact-keying run must give its final
+   state bit for bit, the determinism check); every run must
    keep refresh-consistent tallies and leave no partition with two
    replicas on one broker;
    c2. the 18-goal chain of the Java parity matrix (the sixteen goals,
@@ -128,8 +129,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    (``cruise_control_tpu_torch.fleet_script.fleet_e2e``): round 1 and round 2
    (one more window, delta syncs), the launch counts zeroed just before and
    read just after, every tenant's row the JAX reference's (``python
-   tests/torch_reference.py fleet-e2e``); the 16 solo rounds on the card,
-   equal to the lanes; a memory budget below the footprint: the LRU spill of
+   tests/torch_reference.py fleet-e2e``); the solo rounds of tenants 0, 5,
+   10 and 15 on the card (a cut of depth for phase 10), equal to their lanes; the
+   engine's options on the lane path (one ``optimizations_batched`` round
+   of the fleet's tenants with ``compact_keying`` and ``chain_cache=False``:
+   the pooled K1's and K2's per-goal lane forms, each lane of tenants 0, 4,
+   8 and 12 equal to its solo run; the pooled K1's lane form held against
+   its twin at every L 16 shape that round launched, on the fleet's own
+   move, leader and swap keys with a stall per lane and a seed mask; the
+   two lane kernels timed at the shapes that round launched most); a memory budget below the footprint: the LRU spill of
    the coldest tenant and its readmit, every env and state leaf
    bit-identical; the kernel launches of one move-wave pass, one
    leadership-branch pass and one swap-branch pass at L = 1 and L = 16,
@@ -158,6 +166,25 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``FLEET_ORACLE``'s round 1); the round traces' overlap fractions and
    the request walls are printed.
 
+10. the engine's options at full width (slice-1000b, the sixteen goals,
+   each run's launch counts zeroed just before and read just after):
+   ``EngineParams(compact_keying=True)`` (the pooled K1 at the move,
+   leadership and swap sites; the JAX reference's row of that setting, its
+   final state bit-identical to phase 5's sixteen-goal run; the pooled and
+   full branch counts, both above zero) and ``chain_cache=False`` (K2's
+   per-goal veto form only; the reference's row of that setting); then
+   ``NOLB_CHAIN`` on spec-32b (a goal without wave budgets: the
+   one-move-per-broker wave and the sequential leadership walk; the
+   reference's row). Phase 3 holds the pooled K1 against its twin at R
+   114,688 and 1,048,576, k 7,040, eligible shares 1%, 10% (the pool) and
+   50% (the full sweep), stalls 0 and 3, with a seed mask and in the lane
+   form at L 16; at the leader and swap pools' k 128 and 32 (pool 8,192) on
+   shares with and without pad slots; and K2's per-goal form at K 1,760,
+   B 1,024, T 16 with six term dims and planted band-edge cells (``lhs +
+   d`` on the bound and one ulp either side) and in the lane form at L 16.
+   Phase 3's rung 5 checks its per-goal kernels and logdir sums (its
+   finisher top-k and refresh sums are rung 4's shapes).
+
 Phase 3 also holds the four lane kernels of the fleet's move wave (K14:
 ``replica_keys_lanes``, ``select_candidates_lanes``,
 ``move_score_classes_lanes``, ``wave_admission_lanes``) against their lane
@@ -179,11 +206,13 @@ partitions, W 4 and 5 windows, M 10 metrics) and on adversarial histories
 The line before the last is the ``kernels`` JSON object: each kernel's
 launches are those of the counted runs of the sixteen goals, the 18 goals,
 the kafka-assigner chain, the three JBOD requests, the two rungs, the
-session scripts, the heal scripts, the fleet rounds and the front door's
-two services together (each path's under ``launches_by_path``), and its
-times those of the shape it launched
+session scripts, the heal scripts, the fleet rounds, the front door's
+two services and the options' runs together (each path's under
+``launches_by_path``), and its times those of the shape it launched
 most often there (the session kernels: on the session path; K15: on the heal
-path; the lane kernels: on the fleet path; the others: on the earlier paths), with every timed shape and its
+path; the lane kernels: on the fleet path; the pooled K1 and K2's per-goal
+form: on phase 10's runs, their lane forms on phase 8's options round; the
+others: on the earlier paths), with every timed shape and its
 launches listed beside them. The last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
@@ -233,6 +262,10 @@ FULL_CHAIN = [
     "LeaderBytesInDistributionGoal", "TopicReplicaDistributionGoal",
     "PreferredLeaderElectionGoal"]
 KAFKA_ASSIGNER = ["KafkaAssignerEvenRackAwareGoal", "KafkaAssignerDiskUsageDistributionGoal"]
+# a chain behind a goal without wave budgets (NoLeaderBudgetGoal, phase 10):
+# the one-move-per-broker wave and the sequential leadership fallback
+NOLB_CHAIN = ["RackAwareGoal", "ReplicaCapacityGoal", "NoLeaderBudgetGoal",
+              "DiskCapacityGoal", "ReplicaDistributionGoal", "LeaderBytesInDistributionGoal"]
 RACK_DIST = ["RackAwareDistributionGoal", "ReplicaCapacityGoal", "ReplicaDistributionGoal",
              "DiskUsageDistributionGoal"]
 JBOD_SPEC = dict(num_brokers=1000, num_racks=20, num_topics=200, num_partitions=50000,
@@ -445,6 +478,36 @@ ORACLE.update({
         digests=dict(disk_util="f0c73615645acc8d", util="bd6324618028f42a",
                      leader_util="1924067e9bfa289a", potential_nw_out="449f955b4861662d")),
 })
+# Phase 10's rows through the JAX reference (JAX 0.9.0, JAX_PLATFORMS=cpu, a
+# fresh interpreter): ``python tests/torch_reference.py options``, the
+# sixteen goals on slice-1000b with EngineParams(compact_keying=True) and with
+# EngineParams(chain_cache=False), and NOLB_CHAIN on spec-32b (its
+# NoLeaderBudgetGoal registered in the reference's process); digests as above.
+ORACLE.update({
+    "default_slice_compact": dict(
+        ORACLE["default_slice"], proposals=21016, swleft=[-1] * 16, disk=[0] * 16,
+        digests=dict(disk_util="81f320b375e33cd6", util="42f639b8b6b7bece",
+                     leader_util="896531098df9109e", potential_nw_out="1e7cb9686098614f")),
+    "default_slice_nocache": dict(
+        before=ORACLE["default_slice"]["before"], after=ORACLE["default_slice"]["after"],
+        actions=[3051, 0, 0, 0, 0, 0, 557, 18137, 0, 1220, 1100, 1291, 1472, 635, 823,
+                 1062],
+        passes=[7, 3, 3, 3, 3, 3, 6, 132, 3, 102, 90, 63, 97, 28, 48, 120],
+        moves=22501, leads=12661, proven=[False] * 14 + [True, True], rounds=[0] * 14 + [1, 1],
+        swaps=[0] * 9 + [151, 167, 90, 87, 69, 0, 0], swleft=[-1] * 16, disk=[0] * 16,
+        proposals=20928,
+        digests=dict(disk_util="0378ebb173888f8a", util="7e85e61fcc28a753",
+                     leader_util="912f1bb662cb3b74", potential_nw_out="c6fee9eda479d3e9")),
+    "nolb_small": dict(
+        before={"RackAwareGoal", "NoLeaderBudgetGoal", "ReplicaDistributionGoal",
+                "LeaderBytesInDistributionGoal"},
+        after={"NoLeaderBudgetGoal", "LeaderBytesInDistributionGoal"},
+        actions=[60, 0, 141, 0, 40, 19], passes=[6, 3, 71, 3, 17, 59], moves=223, leads=186,
+        proven=[False] * 6, rounds=[0] * 6, swaps=[0] * 6, swleft=[-1] * 6, disk=[0] * 6,
+        proposals=218,
+        digests=dict(disk_util="be0c94c5d323b053", util="3aad0761769aeacb",
+                     leader_util="1ff3ca632c13bc33", potential_nw_out="a54173f421334e03")),
+})
 # the kernels of the JBOD path that no earlier path launches
 JBOD_KERNELS = ("disk_rows", "disk_apply", "preferred_leader")
 # the kernels of the resident-session path (phase 6) that no earlier path
@@ -462,9 +525,17 @@ BRANCH_LANE_KERNELS = ("leadership_rows_lanes", "swap_rows_lanes", "swap_admissi
                        "seeded_probe_lanes")
 FLEET_KERNELS = MOVE_LANE_KERNELS + BRANCH_LANE_KERNELS
 # the path whose launch shapes time each later slice's kernels
+# the kernels of the engine's options (phase 10 and phase 8's options round)
+# that no other path launches: the pooled K1 and K2's per-goal veto form,
+# solo and in lanes
+OPTION_KERNELS = ("select_pooled", "move_score_terms", "select_pooled_lanes",
+                  "move_score_terms_lanes")
 KERNEL_PATH = {**{n: "session" for n in SESSION_KERNELS},
                **{n: "heal" for n in HEAL_KERNELS},
-               **{n: "fleet" for n in FLEET_KERNELS}}
+               **{n: "fleet" for n in FLEET_KERNELS},
+               "select_pooled": "options", "move_score_terms": "options",
+               "select_pooled_lanes": "options_fleet",
+               "move_score_terms_lanes": "options_fleet"}
 # The e2e-1000b-50000p cell's rounds through the JAX reference (JAX 0.9.0,
 # JAX_PLATFORMS=cpu, a fresh interpreter): ``python tests/torch_reference.py
 # session-e2e``, the rows of ``cruise_control_tpu_torch.analyzer.
@@ -841,7 +912,7 @@ def kernel_checks(torch, ctx, seed: int) -> dict:
         prev = tuple(goals[:i])
         cand, kv = cands["RackAwareGoal" if i == 0 else "ReplicaDistributionGoal"]
         rooms, rack_veto = engine._combined_move_rooms(prev, env, st)
-        d_rows = engine._move_delta_rows(env, st, cand)
+        d_rows = engine.move_delta_rows(env, st, cand)
         args = engine._score_args(env, st, goal, rooms, rack_veto, cand, kv, d_rows, T)
         score_args[goal.name] = args
         check(torch, e, lambda: K.move_score_classes(*args),
@@ -1245,7 +1316,7 @@ def chain_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
         idx = order[:chunk]
         cand = torch.clamp(idx, max=R - 1)
         rooms, custom = engine._combined_move_rooms(prev, env, st)
-        d_rows = engine._move_delta_rows(env, st, cand)
+        d_rows = engine.move_delta_rows(env, st, cand)
         args = engine._score_args(env, st, gl, rooms, custom, cand, None, d_rows, 1,
                                   row_ok=idx < R)
         t1[gl.name] = args
@@ -1258,7 +1329,7 @@ def chain_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
         gl, prev = goals[i], tuple(goals[:i])
         cand, kv = band(name)
         rooms, custom = engine._combined_move_rooms(prev, env, st)
-        d_rows = engine._move_delta_rows(env, st, cand)
+        d_rows = engine.move_delta_rows(env, st, cand)
         ob = engine._segment_broker_order(env, st, gl, prev, S)
         args = engine._score_args(env, st, gl, rooms, custom, cand, kv, d_rows, S,
                                   order_b=ob)
@@ -1456,13 +1527,13 @@ def swap_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
         kv, cand = K.select_candidates(key, Kc, 0, 0)
         rooms, custom = engine._combined_move_rooms(prev, env, st)
         args = engine._score_args(env, st, gl, rooms, custom, cand, kv,
-                                  engine._move_delta_rows(env, st, cand), T)
-        require((args[-1] is not None) == (i == i_lrd),
+                                  engine.move_delta_rows(env, st, cand), T)
+        require((args[18] is not None) == (i == i_lrd),
                 f"{gl.name}: the topic veto is {'missing' if i == i_lrd else 'present'}")
         check(torch, e, lambda: K.move_score_classes(*args),
               lambda: move_score.move_score_classes_plain(*args),
               f"{gl.name} family {args[0]}, {i} previous goals"
-              f"{', topic veto' if args[-1] is not None else ''} [{Kc}, {B}] T={T}")
+              f"{', topic veto' if args[18] is not None else ''} [{Kc}, {B}] T={T}")
         if i == swap_i[0]:
             rd_args = args
     timing(torch, e, lambda: K.move_score_classes(*rd_args),
@@ -1608,7 +1679,7 @@ def rack_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
         key = rd.replica_key(env_s, st_s, rd.broker_severity(env_s, st_s)).contiguous()
         kv, cand = K.select_candidates(key, Kc, 0, 0)
         n_rows = int((kv > -torch.inf).sum())
-        d_rows = engine._move_delta_rows(env_s, st_s, cand)
+        d_rows = engine.move_delta_rows(env_s, st_s, cand)
         for prev in ((), tuple(goals[:i_rd])):
             rooms, custom = engine._combined_move_rooms(prev, env_s, st_s)
             args = engine._score_args(env_s, st_s, rd, rooms, custom, cand, kv, d_rows, T)
@@ -1631,7 +1702,7 @@ def rack_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
                            ("RackAwareDistributionGoal", (rd,))):
             rooms, custom = engine._combined_move_rooms(prev, env_s, st_s)
             args = engine._score_args(env_s, st_s, repl, rooms, custom, cand, kv,
-                                      engine._move_delta_rows(env_s, st_s, cand), T)
+                                      engine.move_delta_rows(env_s, st_s, cand), T)
             require(args[10] is not None, f"{tag}: no rack-limit veto behind {what}")
             check(torch, e, lambda: K.move_score_classes(*args),
                   lambda: move_score.move_score_classes_plain(*args),
@@ -1639,7 +1710,7 @@ def rack_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
                   f"{sorted(set(args[10].tolist()))} [{Kc}, {B}] T={T}")
             timed[("veto", tag)] = args
             sargs = engine._score_args(env_s, st_s, repl, rooms, custom, scan, None,
-                                       engine._move_delta_rows(env_s, st_s, scan), 1,
+                                       engine.move_delta_rows(env_s, st_s, scan), 1,
                                        row_ok=idx < R)
             check(torch, e, lambda: K.move_score_classes(*sargs),
                   lambda: move_score.move_score_classes_plain(*sargs),
@@ -1936,14 +2007,19 @@ def rung_context(torch, spec: dict, tag: str) -> dict:
     return dict(ct=ct, meta=meta, env=env, st=st, params=params)
 
 
-def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str) -> None:
+def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str,
+                       sums: bool = True) -> None:
     """Phase 3 at a 7,000-broker rung's shapes (the scale faults the
     1,000-broker cells could not show), each kernel against its twin on the
     bf16 sweep view: K1 at R 1,048,576 (k 7,040 at stalls 0 and 3, and the
     finisher's 10,560), K2 at [1,760, 7,168] with T 71 (padded ``Bp``), K3,
     K4/K5's apply and refresh sums and counts at 7,168 (and 28,672 logdir)
     segments, K6 at KL 896, K7 at [128, 128]; for ReplicaDistributionGoal
-    and the usage goals after their default-chain prefixes."""
+    and the usage goals after their default-chain prefixes.
+    ``sums`` False (rung 5): the per-goal kernels on the rung's own state
+    (offline-healing keys, gain escapes), then the logdir sums checked but
+    not timed; the finisher's top-k and the refresh sums are rung 4's
+    shapes, checked there (the cut pays for phase 10)."""
     from cruise_control_tpu_torch import kernels as K
     from cruise_control_tpu_torch.analyzer import engine
     from cruise_control_tpu_torch.analyzer.goals import make_goals
@@ -1962,7 +2038,7 @@ def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str) -> None:
     W = max(1, min(params.max_pass_waves, R // max(Kc, 1)))
     T = min(params.num_dst_choices, B)
     goals = make_goals(DEFAULT)
-    for i in (7, 9, 12):                      # ReplicaDistribution, DiskUsage, CpuUsage
+    for i in (7, 9, 12):   # ReplicaDistribution, DiskUsage, CpuUsage
         goal, prev = goals[i], tuple(goals[:i])
         sev = goal.broker_severity(env, st)
         key = goal.replica_key(env_k, st_k, sev).contiguous()
@@ -1974,7 +2050,7 @@ def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str) -> None:
         kv, cand = K.select_candidates(key, Kc * W, 0, 0)
         cand, kv = cand[:Kc].contiguous(), kv[:Kc].contiguous()
         rooms, custom = engine._combined_move_rooms(prev, env, st)
-        d_rows = engine._move_delta_rows(env, st, cand)
+        d_rows = engine.move_delta_rows(env, st, cand)
         sargs = engine._score_args(env, st, goal, rooms, custom, cand, kv, d_rows, T,
                                    env_sw=env_sw)
         check(torch, entries["move_score_classes"], lambda: K.move_score_classes(*sargs),
@@ -2025,6 +2101,15 @@ def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str) -> None:
                   f"{tag} {goal.name} [{co.shape[0]}, {ci.shape[0]}]")
     kf = min(params.finisher_candidates, R) * max(1, min(params.finisher_waves,
                                                            R // params.finisher_candidates))
+    D = env.broker_disk_capacity.shape[1]
+    if not sums:
+        vals, seg, _nseg = refresh_disk_inputs(env, st)
+        check(torch, entries["segment_sum"], lambda: K.segment_sum(vals, seg, B * D),
+              lambda: segment.segment_sum_plain(vals, seg, B * D),
+              f"{tag} logdir sums R={R} nseg={B * D}")
+        log(f"  {tag}: K1-K7 and the logdir sums bit-identical to their twins on this "
+            f"rung's state (its finisher top-k and refresh sums: rung 4's shapes, above)")
+        return
     gain = torch.where(torch.rand(R, device=env.device) < 0.3,
                        torch.rand(R, device=env.device), torch.full((R,), -torch.inf,
                                                                     device=env.device))
@@ -2145,6 +2230,486 @@ def key_kernel_checks(torch, states: list, entries: dict, seed: int) -> None:
                lambda: keys.replica_keys_plain(*args),
                lambda: keys.replica_keys_plain(*args), need, 20 * R,
                f"{tag} {dtype}, ResourceDistributionGoal.replica_key")
+
+
+# ---------------------------------------------------------------------------
+# phase 3 and phase 10: the engine's options (the pooled K1, K2's per-goal
+# veto form) and the non-budget fallbacks
+# ---------------------------------------------------------------------------
+# eligible shares of the pooled K1's checks: the pool (14,080 rows at the
+# slice's k 7,040) holds 1% and 10% of R 114,688; 50% overflows it
+POOL_SHARES = (0.01, 0.10, 0.50)
+RUNG_R = 1 << 20
+# the sixteen goals' previous goals and active goal of K2's per-goal checks:
+# the active goal behind every interval-form goal of the chain, the rack and
+# min-topic-leaders goals on K2's custom path
+TERMS_GOAL = "DiskUsageDistributionGoal"
+
+
+def register_no_leader_budget_goal():
+    """``NoLeaderBudgetGoal``: LeaderReplicaDistributionGoal without its wave
+    budgets (the reference's chains with such a goal take the one-move-per-
+    broker wave and ``seq_body``; the tier-1 tests' ``_NoLeaderBudgetGoal``
+    and the reference's twin in ``tests/torch_reference.py``)."""
+    from cruise_control_tpu_torch.analyzer.goals import GOAL_CLASSES, GoalKernel
+    from cruise_control_tpu_torch.analyzer.goals.distribution import (
+        LeaderReplicaDistributionGoal,
+    )
+
+    @dataclasses.dataclass(frozen=True)
+    class NoLeaderBudgetGoal(LeaderReplicaDistributionGoal):
+        wave_budgets = GoalKernel.wave_budgets
+
+        def __post_init__(self):
+            super().__post_init__()
+            object.__setattr__(self, "name", "NoLeaderBudgetGoal")
+
+    GOAL_CLASSES["NoLeaderBudgetGoal"] = NoLeaderBudgetGoal
+
+
+def pool_keys(torch, R: int, share: float, g, dev):
+    """f32[R] keys with ``share`` of the rows eligible (the others -inf),
+    planted ties among them and a few offline-healing keys (>= 5e11)."""
+    key = torch.rand(R, generator=g)
+    key[(torch.rand(R, generator=g) >= share)] = -torch.inf
+    live = torch.nonzero(key > -torch.inf).flatten()
+    key[live[::5]] = 0.5
+    key[live[3::97]] = 6e11
+    return key.to(dev).contiguous()
+
+
+def pool_library(torch, key, mask, k: int, pool: int):
+    """The library call of the pooled K1: ``torch.topk`` over the gathered
+    pool (the eligible rows, compacted beforehand) when they fit it, else
+    over every row."""
+    elig = key > -torch.inf if mask is None else (key > -torch.inf) & mask
+    idx = torch.nonzero(elig).flatten()
+    if idx.shape[0] > pool:
+        return lambda: torch.topk(key, k)
+    gathered = torch.full((pool,), -torch.inf, device=key.device)
+    gathered[:idx.shape[0]] = key[idx]
+    return lambda: torch.topk(gathered, k)
+
+
+def terms_args(torch, ctx, goals: list, cand, kv, T: int):
+    """K2's per-goal form at the slice state: ``TERMS_GOAL`` behind its
+    previous goals of the sixteen, their terms folded by dim."""
+    from cruise_control_tpu_torch.analyzer import engine
+    env, st = ctx["env"], ctx["st"]
+    i = next(j for j, gl in enumerate(goals) if gl.name == TERMS_GOAL)
+    rooms, custom, terms = engine._chain_move_vetoes(tuple(goals[:i]), env, st,
+                                                     chain_cache=False)
+    d_rows = engine.move_delta_rows(env, st, cand)
+    return engine._score_args(env, st, goals[i], rooms, custom, cand, kv, d_rows, T,
+                              terms=terms)
+
+
+def plant_band_edges(torch, args, g) -> tuple:
+    """The K2 arguments with band-edge bounds planted: for every term dim,
+    three (row, broker) cells whose bound is set to ``lhs[b] + d[k]``
+    exactly, one ulp below it (the row fails by one ulp) and one above."""
+    args = list(args)
+    bound = args[7].clone()
+    lhs, d = args[19], args[6]
+    K, B = d.shape[0], bound.shape[1]
+    mask = args[8]
+    n = 0
+    for c in range(8):
+        if not mask >> c & 1:
+            continue
+        ks = torch.randint(0, K, (3,), generator=g).tolist()
+        bs = torch.randperm(B, generator=g)[:3].tolist()
+        for (k, b), way in zip(zip(ks, bs), (0, -1, 1)):
+            edge = (lhs[c, b] + d[k, c]).reshape(1)
+            if way:
+                edge = torch.nextafter(edge, torch.full_like(edge, way * torch.inf))
+            bound[c, b] = edge[0]
+            n += 1
+    args[7] = bound.contiguous()
+    return tuple(args), n
+
+
+def option_kernel_checks(torch, ctx, lctx, entries: dict, seed: int) -> None:
+    """The pooled K1 (``select_pooled``) against its twin at the slice's R
+    114,688 and at R 1,048,576, k 7,040, eligible shares 1% and 10% (the
+    pool) and 50% (the full sweep), stalls 0 and 3, with a seed mask, and
+    in the lane form at L 16 (a branch per lane); K2's per-goal form
+    (``move_score_terms``) at K 1,760, B 1,024, T 16 on the slice state with
+    the sixteen goals' terms and planted band-edge rows, and its lane form
+    at L 16 on the fleet cell's lanes. Bit for bit; each timed with its
+    twin, the library call (``torch.topk`` over the gathered pool for K1)
+    and its bound. The branch counters must show both branches."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import engine
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    from cruise_control_tpu_torch.kernels import move_score, select
+    env, st, params = ctx["env"], ctx["st"], ctx["params"]
+    dev = env.device
+    g = torch.Generator().manual_seed(seed + 13)
+    R, B = env.num_replicas, env.num_brokers
+    Kc = min(params.num_candidates, R)
+    W = max(1, min(params.max_pass_waves, R // max(Kc, 1)))
+    k_all = min(Kc * W, R)
+    T = min(params.num_dst_choices, B)
+    K.reset_pool_branches()
+
+    # --- the pooled K1 ----------------------------------------------------
+    e = entries["select_pooled"]
+    for Rn in (R, RUNG_R):
+        pool = select.pool_size(Rn, k_all, params.compact_pool)
+        for share in POOL_SHARES:
+            key = pool_keys(torch, Rn, share, g, dev)
+            for stall in (0, 3):
+                check(torch, e, lambda: K.select_pooled(key, k_all, stall, 0, pool=pool),
+                      lambda: select.select_pooled_plain(key, k_all, stall, 0, pool=pool),
+                      f"R={Rn} share {share} stall={stall}", quiet=True)
+                kv, idx = K.select_pooled(key, k_all, stall, 0, pool=pool)
+                kvf, idxf = K.select_candidates(key, k_all, stall, 0)
+                live = kvf > -torch.inf
+                require(torch.equal(kv.view(torch.int32), kvf.view(torch.int32))
+                        and torch.equal(idx[live], idxf[live]),
+                        f"select_pooled R={Rn} share {share}: not the full sweep's live rows")
+            mask = (torch.rand(Rn, generator=g) < 0.3).to(dev)
+            check(torch, e, lambda: K.select_pooled(key, k_all, 3, 101, seed_mask=mask,
+                                                    pool=pool),
+                  lambda: select.select_pooled_plain(key, k_all, 3, 101, mask, pool),
+                  f"R={Rn} share {share} seed mask", quiet=True)
+        log(f"  select_pooled R={Rn} k={k_all} pool={pool}: shares {POOL_SHARES} x "
+            f"stalls 0, 3 and a seed mask bit-identical to the twin; the live rows the "
+            f"full sweep's")
+    # the leader and swap pools' k (pool 8,192): 1% eligible, and fewer
+    # eligible rows than k (the pool's pad slots reach the output)
+    leader_k = min(params.num_leader_candidates, R)
+    swap_k = min(params.num_swap_candidates, R, 128)
+    for k in (leader_k, swap_k):
+        pk = select.pool_size(R, k, params.compact_pool)
+        for share in (0.01, k / (2 * R)):
+            key = pool_keys(torch, R, share, g, dev)
+            n = int((key > -torch.inf).sum())
+            for stall in (0, 3):
+                check(torch, e, lambda: K.select_pooled(key, k, stall, 0, pool=pk),
+                      lambda: select.select_pooled_plain(key, k, stall, 0, pool=pk),
+                      f"R={R} k={k} {n} eligible stall={stall}", quiet=True)
+            mask = (torch.rand(R, generator=g) < 0.5).to(dev)
+            check(torch, e, lambda: K.select_pooled(key, k, 3, 101, seed_mask=mask, pool=pk),
+                  lambda: select.select_pooled_plain(key, k, 3, 101, mask, pk),
+                  f"R={R} k={k} {n} eligible seed mask", quiet=True)
+            pads = int((K.select_pooled(key, k, 0, 0, pool=pk)[1] == R - 1).sum())
+            require(n >= k or pads > 0, f"select_pooled k={k}: no pad slot with {n} eligible")
+        log(f"  select_pooled R={R} k={k} pool={pk}: 1% eligible and fewer eligible rows "
+            f"than k (pad slots) x stalls 0, 3 and a seed mask bit-identical to the twin")
+    branches = K.pool_branch_counts()
+    require(branches["pooled"] > 0 and branches["full"] > 0,
+            f"select_pooled: a branch never ran {branches}")
+    log(f"  select_pooled branches taken {branches}")
+    pool = select.pool_size(R, k_all, params.compact_pool)
+    for k in (k_all, leader_k, swap_k):
+        pk = select.pool_size(R, k, params.compact_pool)
+        key = pool_keys(torch, R, 0.01, g, dev)
+        timing(torch, e, lambda: K.select_pooled(key, k, 0, 0, pool=pk),
+               lambda: select.select_pooled_plain(key, k, 0, 0, pool=pk),
+               pool_library(torch, key, None, k, pk), nbytes(key) + k * (4 + 8), 2 * R,
+               f"R={R} k={k} pool={pk}, share 0.01")
+    # lanes: every lane its own share (so its own branch), stall and mask
+    e = entries["select_pooled_lanes"]
+    shares = [POOL_SHARES[j % 3] for j in range(LANES)]
+    keys = torch.stack([pool_keys(torch, R, s, g, dev) for s in shares]).contiguous()
+    stalls = [j % 4 for j in range(LANES)]
+    masks = (torch.rand((LANES, R), generator=g) < 0.6).to(dev)
+    masks[::2] = True
+    masks = masks.contiguous()
+    for salt, m in ((0, None), (101, masks)):
+        check(torch, e, lambda: K.select_pooled_lanes(keys, k_all, stalls, salt, m, pool),
+              lambda: select.select_pooled_lanes_plain(keys, k_all, stalls, salt, m, pool),
+              f"L={LANES} R={R} k={k_all} salt={salt} mask={m is not None}")
+        got = K.select_pooled_lanes(keys, k_all, stalls, salt, m, pool)
+        for j in range(LANES):
+            solo = K.select_pooled(keys[j], k_all, stalls[j], salt,
+                                   seed_mask=None if m is None else m[j], pool=pool)
+            require(torch.equal(got[0][j].view(torch.int32), solo[0].view(torch.int32))
+                    and torch.equal(got[1][j], solo[1]),
+                    f"select_pooled_lanes: lane {j} is not its solo launch")
+    log(f"  select_pooled_lanes: every lane its solo launch")
+    timing(torch, e, lambda: K.select_pooled_lanes(keys, k_all, stalls, 0, None, pool),
+           lambda: select.select_pooled_lanes_plain(keys, k_all, stalls, 0, None, pool),
+           lambda: torch.topk(keys, k_all, dim=1), nbytes(keys) + LANES * k_all * (4 + 8),
+           2 * LANES * R, f"L={LANES} R={R} k={k_all} pool={pool}")
+
+    # --- K2's per-goal veto form --------------------------------------------
+    e = entries["move_score_terms"]
+    goals = make_goals(DEFAULT)
+    goal = next(gl for gl in goals if gl.name == TERMS_GOAL)
+    key = goal.replica_key(env, st, goal.broker_severity(env, st)).contiguous()
+    kv, cand = K.select_candidates(key, k_all, 0, 0)
+    cand, kv = cand[:Kc].contiguous(), kv[:Kc].contiguous()
+    args = terms_args(torch, ctx, goals, cand, kv, T)
+    dims = bin(args[8]).count("1")
+    require(dims >= 3, f"move_score_terms: {dims} term dims")
+    check(torch, e, lambda: K.move_score_classes(*args),
+          lambda: move_score.move_score_classes_plain(*args),
+          f"{TERMS_GOAL} behind its previous goals, {dims} term dims, T={T}")
+    planted, n = plant_band_edges(torch, args, g)
+    for t in (T, B):
+        pa = planted[:1] + (t,) + planted[2:]
+        check(torch, e, lambda: K.move_score_classes(*pa),
+              lambda: move_score.move_score_classes_plain(*pa),
+              f"{n} planted band-edge cells, T={t}")
+    # the planted cells where the folded room (bound - lhs) and the goals'
+    # own expression part (so the form matters there)
+    lhs, d, bound = planted[19], planted[6], planted[7]
+    rooms_ok = d.t()[:, :, None] <= (bound - lhs)[:, None, :]
+    terms_ok = (lhs[:, None, :] + d.t()[:, :, None]) <= bound[:, None, :]
+    log(f"  move_score_terms: the folded rooms and the terms part on "
+        f"{int((rooms_ok != terms_ok).sum())} (dim, row, broker) cells of the planted state")
+    timing(torch, e, lambda: K.move_score_classes(*args),
+           lambda: move_score.move_score_classes_plain(*args), None,
+           nbytes(*(a for a in args if isinstance(a, torch.Tensor))) + Kc * T * (4 + 8),
+           Kc * B * (3 * dims + 12), f"K={Kc} B={B} T={T}")
+    # lanes at the fleet cell's shape: the stack's lanes, TERMS_GOAL's terms
+    e = entries["move_score_terms_lanes"]
+    stack, lp = lctx["stack"], lctx["params"]
+    lgoals = make_goals(DEFAULT)
+    i = next(j for j, gl in enumerate(lgoals) if gl.name == TERMS_GOAL)
+    Kl = min(lp.num_candidates, stack.num_replicas)
+    Tl = min(lp.num_dst_choices, stack.env_b.num_brokers)
+    lane_args = []
+    for l in range(LANES):
+        envl, stl = stack.envs[l], stack.sts[l]
+        gl = lgoals[i]
+        kvl, cl = K.select_candidates(
+            gl.replica_key(envl, stl, gl.broker_severity(envl, stl)).contiguous(), Kl, l % 4)
+        rooms, custom, terms = engine._chain_move_vetoes(tuple(lgoals[:i]), envl, stl, False)
+        lane_args.append(engine._score_args(envl, stl, gl, rooms, custom, cl, kvl,
+                                            engine.move_delta_rows(envl, stl, cl), Tl,
+                                            terms=terms))
+    mask_u = 0
+    for a in lane_args:
+        mask_u |= a[8]
+    lane_args = [a[:8] + (mask_u,) + a[9:] for a in lane_args]
+    check(torch, e, lambda: K.move_score_classes_lanes(lane_args),
+          lambda: move_score.move_score_classes_lanes_plain(lane_args),
+          f"L={LANES} K={Kl} T={Tl}, {bin(mask_u).count('1')} term dims")
+    got = K.move_score_classes_lanes(lane_args)
+    for j, a in enumerate(lane_args):
+        solo = K.move_score_classes(*a)
+        require(torch.equal(got[0][j].view(torch.int32), solo[0].view(torch.int32))
+                and torch.equal(got[1][j], solo[1]),
+                f"move_score_terms_lanes: lane {j} is not its solo launch")
+    log("  move_score_terms_lanes: every lane its solo launch")
+    dims_l = bin(mask_u).count("1")
+    Bl = stack.env_b.num_brokers
+    timing(torch, e, lambda: K.move_score_classes_lanes(lane_args),
+           lambda: move_score.move_score_classes_lanes_plain(lane_args), None,
+           sum(nbytes(*(t for t in a if isinstance(t, torch.Tensor))) for a in lane_args)
+           + LANES * Kl * Tl * 12, LANES * Kl * Bl * (3 * dims_l + 12),
+           f"L={LANES} K={Kl} T={Tl}")
+
+
+def option_lane_checks(torch, entries: dict, stack, params, shapes: dict,
+                       seed: int) -> None:
+    """The pooled K1's lane form against its twin at every L 16 shape the
+    fleet's options round launched (``shapes``: that run's launch shapes),
+    on the fleet's own lanes: the move keys of ``TERMS_GOAL``, the leader
+    keys of LeaderReplicaDistributionGoal and the swap out (with a seed
+    mask) and in (salt 101) keys of ``TERMS_GOAL``, a stall per lane."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import lanes as lanes_mod
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    from cruise_control_tpu_torch.kernels import select
+    g = torch.Generator().manual_seed(seed + 19)
+    lanes = list(range(LANES))
+    goals = {gl.name: gl for gl in make_goals(DEFAULT)}
+    keys = {}
+    for name, method in ((TERMS_GOAL, "replica_key"),
+                         ("LeaderReplicaDistributionGoal", "leader_key"),
+                         (TERMS_GOAL, "swap_out_key"), (TERMS_GOAL, "swap_in_key")):
+        gl = goals[name]
+        sev = {l: gl.broker_severity(stack.envs[l], stack.sts[l]) for l in lanes}
+        keys[f"{name}.{method}"] = lanes_mod.lane_keys(stack, gl, lanes, sev, params, method)
+    stalls = [j % 4 for j in lanes]
+    mask = (torch.rand((LANES, stack.num_replicas), generator=g) < 0.5).to(stack.device)
+    checked = []
+    for shape in shapes["select_pooled_lanes"]:
+        f = dict(x.split("=") for x in shape.split())
+        if int(f["L"]) != LANES:
+            continue
+        k, pool = int(f["k"]), int(f["pool"])
+        for what, key in keys.items():
+            for salt, m in ((0, None), (101, mask)):
+                check(torch, entries["select_pooled_lanes"],
+                      lambda: K.select_pooled_lanes(key, k, stalls, salt, m, pool),
+                      lambda: select.select_pooled_lanes_plain(key, k, stalls, salt, m, pool),
+                      f"{shape} {what} salt={salt} mask={m is not None}", quiet=True)
+        checked.append(shape)
+    require(checked, f"fleet options: no L={LANES} launch of the pooled K1's lane form")
+    log(f"  select_pooled_lanes at the options round's shapes {checked}: the fleet's "
+        f"move, leader and swap keys, a stall per lane, with and without a seed mask, "
+        f"bit-identical to the twin")
+
+
+def option_lane_timings(torch, entries: dict, stack, params, shapes: dict,
+                        seed: int) -> None:
+    """Time the two option lane kernels at the shapes the fleet's option
+    round launched most (``shapes``: that run's launch shapes), on the
+    fleet's own lanes: keys of the lanes' goals for the pooled K1, K2's
+    per-goal form of ``TERMS_GOAL``; beside 16 solo launches."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer import engine
+    from cruise_control_tpu_torch.analyzer.goals import make_goals
+    from cruise_control_tpu_torch.kernels import move_score, select
+    g = torch.Generator().manual_seed(seed + 17)
+    dev = stack.device
+    R = stack.num_replicas
+    for name in ("select_pooled_lanes", "move_score_terms_lanes"):
+        ran = shapes[name]
+        top = max(ran, key=ran.get)
+        if any(t["shape"] == top for t in entries[name].timings):
+            continue
+        f = dict(x.split("=") for x in top.split())
+        La = int(f["L"])
+        e = entries[name]
+        if name == "select_pooled_lanes":
+            k, pool = int(f["k"]), int(f["pool"])
+            keys = torch.stack([pool_keys(torch, R, 0.05, g, dev) for _ in range(La)])
+            stalls = [0] * La
+            timing(torch, e, lambda: K.select_pooled_lanes(keys, k, stalls, 0, None, pool),
+                   lambda: select.select_pooled_lanes_plain(keys, k, stalls, 0, None, pool),
+                   lambda: torch.topk(keys[:, :pool], k, dim=1),
+                   nbytes(keys) + La * k * (4 + 8), 2 * La * R, top)
+            ms = time_ms(torch, lambda: [K.select_pooled(keys[j], k, 0, 0, pool=pool)
+                                         for j in range(La)])
+        else:
+            Tl = int(f["T"])
+            goals = make_goals(DEFAULT)
+            i = next(j for j, gl in enumerate(goals) if gl.name == TERMS_GOAL)
+            Kl = min(params.num_candidates, R)
+            la = []
+            for l in range(La):
+                envl, stl = stack.envs[l], stack.sts[l]
+                gl = goals[i]
+                kvl, cl = K.select_candidates(
+                    gl.replica_key(envl, stl, gl.broker_severity(envl, stl)).contiguous(),
+                    Kl, 0)
+                rooms, custom, terms = engine._chain_move_vetoes(tuple(goals[:i]), envl,
+                                                                 stl, False)
+                la.append(engine._score_args(envl, stl, gl, rooms, custom, cl, kvl,
+                                             engine.move_delta_rows(envl, stl, cl), Tl,
+                                             terms=terms))
+            dims = bin(la[0][8]).count("1")
+            B = stack.env_b.num_brokers
+            timing(torch, e, lambda: K.move_score_classes_lanes(la),
+                   lambda: move_score.move_score_classes_lanes_plain(la), None,
+                   sum(nbytes(*(t for t in a if isinstance(t, torch.Tensor))) for a in la)
+                   + La * Kl * Tl * 12, La * Kl * B * (3 * dims + 12), top)
+            ms = time_ms(torch, lambda: [K.move_score_classes(*a) for a in la])
+        e.timings[-1]["solo_ms"] = ms
+        log(f"  {name} at {top}: {La} solo launches {ms:.6f} ms")
+
+
+def options_fleet_run(torch, fleet) -> dict:
+    """The fleet's tenants (phase 8's, after its rounds) through
+    ``GoalOptimizer(engine_params=EngineParams(compact_keying=True,
+    chain_cache=False)).optimizations_batched``: the pooled K1's and K2's
+    per-goal lane forms on the lane path, the launch counts zeroed just
+    before and read just after; four tenants' solo runs must equal their
+    lanes."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer.engine import EngineParams
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    sessions = [fleet.tenants[cid].session for cid in fleet.cluster_ids]
+    from cruise_control_tpu_torch.config import cruise_control_config
+    # the incremental memo off: these sessions carry phase 8's certificates
+    opt = GoalOptimizer(device="cuda",
+                        config=cruise_control_config({"analyzer.incremental.enabled": False}),
+                        engine_params=EngineParams(compact_keying=True, chain_cache=False))
+    K.reset_launches()
+    t0 = time.perf_counter()
+    lanes = opt.optimizations_batched(sessions)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = K.launches(), K.launch_shapes()
+    branches = K.pool_branch_counts()
+    log(f"fleet options: one batched round of {len(sessions)} tenants with compact "
+        f"keying and the per-goal accept masks {wall:.6f} s; kernel launches {launches}")
+    log(f"fleet options: launches by shape {json.dumps(shapes)}; pooled K1 branches "
+        f"{branches}")
+    require(all(launches[n] > 0 for n in ("select_pooled_lanes", "move_score_terms_lanes")),
+            f"fleet options: a lane kernel of the options never launched: {launches}")
+    require(branches["pooled"] > 0, f"fleet options: the pool was never taken {branches}")
+    walls = []
+    for j in range(0, len(sessions), 4):
+        t0 = time.perf_counter()
+        solo = opt.optimizations(None, session=sessions[j], raise_on_failure=False)
+        walls.append(time.perf_counter() - t0)
+        require(same_bits(torch, solo.final_state, lanes[j].final_state)
+                and goal_rows(solo) == goal_rows(lanes[j])
+                and len(solo.proposals) == len(lanes[j].proposals),
+                f"fleet options: tenant {j}'s lane differs from its solo run")
+    log(f"fleet options: tenants 0, 4, 8, 12 solo equal to their lanes; solo walls (s) "
+        f"{walls}")
+    return dict(launches=launches, shapes=shapes, branches=branches, wall=wall)
+
+
+def goal_rows(res) -> list:
+    return [(g.name, g.iterations, g.passes, g.fixpoint_proven, g.move_actions,
+             g.lead_actions, g.swap_actions) for g in res.goal_results]
+
+
+def options_phase(torch, ctx, default: dict, entries: dict) -> dict:
+    """Phase 10 at full width (slice-1000b, the sixteen goals): the run
+    with ``EngineParams(compact_keying=True)`` (the pooled K1; its row the
+    reference's own run of that setting, which is the default run's, and
+    its final state bit-identical to phase 5's sixteen-goal run) and the
+    run with ``chain_cache=False`` (K2's per-goal veto form, the reference's
+    row of that setting); then the non-budget chain at spec-32b (the
+    one-move-per-broker wave and ``seq_body``). Each run's launch counts
+    are zeroed just before and read just after; the pooled and full branch
+    counts are printed."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer.engine import EngineParams
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.model.random_cluster import (
+        RandomClusterSpec, generate_scale,
+    )
+    ct, meta = ctx["ct"], ctx["meta"]
+    runs = {}
+    opt = GoalOptimizer(device="cuda", engine_params=EngineParams(compact_keying=True))
+    runs["compact"] = run_slice(torch, opt, ct, meta, DEFAULT,
+                                "slice (16 goals, compact keying)",
+                                ORACLE["default_slice_compact"], twice=False)
+    branches = K.pool_branch_counts()
+    log(f"slice (16 goals, compact keying): pooled K1 branches {branches}")
+    require(branches["pooled"] > 0 and branches["full"] > 0,
+            f"compact keying: a branch of the pooled K1 never ran {branches}")
+    require(runs["compact"]["launches"]["select_pooled"] > 0,
+            "compact keying: the pooled K1 never launched")
+    require(same_bits(torch, runs["compact"]["final"], default["final"]),
+            "compact keying: the final state differs from the default run's")
+    log("slice (16 goals, compact keying): final state bit-identical to phase 5's "
+        "sixteen-goal run (every leaf same_bits reads)")
+    runs["compact"]["branches"] = branches
+    opt = GoalOptimizer(device="cuda", engine_params=EngineParams(chain_cache=False))
+    runs["nocache"] = run_slice(torch, opt, ct, meta, DEFAULT,
+                                "slice (16 goals, per-goal accept masks)",
+                                ORACLE["default_slice_nocache"], twice=False)
+    require(runs["nocache"]["launches"]["move_score_terms"] > 0
+            and runs["nocache"]["launches"]["move_score_classes"] == 0,
+            f"per-goal masks: K2 did not run its per-goal form only "
+            f"{runs['nocache']['launches']}")
+    register_no_leader_budget_goal()
+    ct32, meta32 = generate_scale(RandomClusterSpec(**SMALL_SPEC))
+    runs["nolb"] = run_slice(torch, GoalOptimizer(device="cuda"), ct32, meta32, NOLB_CHAIN,
+                             "spec-32b (a goal without wave budgets)", ORACLE["nolb_small"],
+                             twice=False)
+    launches = {n: sum(r["launches"][n] for r in runs.values()) for n in K.KERNELS}
+    shapes = {n: {} for n in K.KERNELS}
+    for r in runs.values():
+        for n, sh in r["shapes"].items():
+            for s, c in sh.items():
+                shapes[n][s] = shapes[n].get(s, 0) + c
+    require(all(launches[n] > 0 for n in ("select_pooled", "move_score_terms")),
+            f"a kernel of the options path never launched: {launches}")
+    return dict(launches=launches, shapes=shapes, runs=runs)
 
 
 # ---------------------------------------------------------------------------
@@ -2382,7 +2947,7 @@ def run_slice(torch, opt, ct, meta, goals, tag: str, oracle: dict,
     slice_checks(torch, res1, tag, oracle.get("digests"))
     return dict(launches=launches, shapes=shapes, families=families,
                 key_families=key_families, walls=(wall1, wall2),
-                run=(ct, meta, goals, tag))
+                run=(ct, meta, goals, tag), final=res1.final_state)
 
 
 def profile_run(torch, opt, ct, meta, goals, tag: str) -> None:
@@ -2519,7 +3084,7 @@ def session_phase(torch, entries: dict, profile: bool, seed: int) -> dict:
     log(f"session: the reduced R3 against the full R3, the one-sided contract: {got_v} "
         f"(the JAX reference's own verdict on this cell, equal)")
     require(all(n > 0 for name, n in launches.items()
-                if name not in JBOD_KERNELS + HEAL_KERNELS + FLEET_KERNELS),
+                if name not in JBOD_KERNELS + HEAL_KERNELS + FLEET_KERNELS + OPTION_KERNELS),
             f"a kernel of the session path never launched: {launches}")
     log(f"session: both scripts {total:.6f} s")
 
@@ -2843,6 +3408,8 @@ def heal_phase(torch, profile: bool = False) -> dict:
 # a lane stack at the fleet-16x100b shape: 16 tenants of 100 brokers on 4
 # racks with 5,000 RF-2 partitions (10,000 replicas each, padded R 10,240)
 LANES = 16
+# the tenants whose solo rounds phase 8 holds against their lanes
+SOLO_TENANTS = (0, 5, 10, 15)
 LANE_SPEC = dict(num_brokers=100, num_racks=4, num_topics=12, num_partitions=5000,
                  max_replication=2, skew=1.0, target_cpu_util=0.45)
 LANE_GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
@@ -3754,12 +4321,15 @@ def fleet_phase(torch, lctx, entries: dict, seed: int) -> dict:
             f"a kernel of the fleet path never launched: {launches}")
     fleet = run["fleet"]
 
-    # the 16 solo rounds on the card: each equal to its lane
-    solo = solo_e2e(ns, FLEET_E2E)
-    require(solo["rows"] == run["rounds"][0], "fleet: a lane differs from its solo round")
-    log(f"fleet: the {len(solo['rows'])} solo rounds equal the lanes; solo walls (s) "
-        f"{solo['walls']}, sum {sum(solo['walls']):.6f} s against the fleet's round 1 "
-        f"{run['walls'][0]:.6f} s")
+    # four solo rounds on the card (tenants 0, 5, 10, 15; a cut of depth
+    # that pays for phase 10): each equal to its lane
+    solo = solo_e2e(ns, FLEET_E2E, tenants=SOLO_TENANTS)
+    require(solo["rows"] == {cid: run["rounds"][0][cid] for cid in solo["rows"]},
+            "fleet: a lane differs from its solo round")
+    log(f"fleet: the {len(solo['rows'])} solo rounds of tenants {SOLO_TENANTS} equal "
+        f"their lanes; solo walls (s) {solo['walls']}, x {LANES / len(SOLO_TENANTS):g} "
+        f"{sum(solo['walls']) * LANES / len(SOLO_TENANTS):.6f} s against the fleet's "
+        f"round 1 {run['walls'][0]:.6f} s")
 
     # the memory budget: LRU spill, readmit bit-identical
     ids = fleet.cluster_ids
@@ -3794,6 +4364,13 @@ def fleet_phase(torch, lctx, entries: dict, seed: int) -> dict:
         *zip(*(fleet.tenants[cid].session.revalidation_view() for cid in ids))))
     fctx["params"] = fleet.optimizer.scaled_params(fctx["stack"].num_replicas,
                                                    fctx["stack"].env_b.num_brokers)
+    # the engine's options on the lane path: one batched round of the
+    # fleet's tenants, the option lane kernels timed at its shapes
+    options = options_fleet_run(torch, fleet)
+    option_lane_checks(torch, entries, fctx["stack"], fctx["params"], options["shapes"],
+                       seed)
+    option_lane_timings(torch, entries, fctx["stack"], fctx["params"], options["shapes"],
+                        seed)
     fleet.shutdown()
 
     # the move wave's launches in one pass at L = 1 and L = 16
@@ -3847,7 +4424,7 @@ def fleet_phase(torch, lctx, entries: dict, seed: int) -> dict:
                                 wv, f"L={La}")
     return dict(launches=launches, shapes=shapes, walls=run["walls"],
                 solo_walls=solo["walls"], util=util, branch_pass=branch_pass,
-                rows=run["rounds"])
+                rows=run["rounds"], options=options)
 
 
 def branch_launches_per_pass(torch, lctx) -> dict:
@@ -4820,7 +5397,7 @@ def main() -> int:
     r5 = rung_context(torch, RUNG5_SPEC, "rung 5")
     phase("phase 3: K1-K7 at the 7,000-broker shapes")
     rung_kernel_checks(torch, r4, entries, "rung 4")
-    rung_kernel_checks(torch, r5, entries, "rung 5")
+    rung_kernel_checks(torch, r5, entries, "rung 5", sums=False)
     phase("phase 3: K15, the forecaster's kernel")
     forecast_kernel_checks(torch, entries, args.seed)
     phase("phase 3: the fleet's lane kernels (K14)")
@@ -4828,6 +5405,8 @@ def main() -> int:
     lane_kernel_checks(torch, lctx, entries, args.seed)
     phase("phase 3: the fleet's leadership, swap and probe lane kernels (K14)")
     branch_lane_checks(torch, lctx, entries, args.seed)
+    phase("phase 3: the engine's options, the pooled K1 and K2's per-goal form")
+    option_kernel_checks(torch, ctx, lctx, entries, args.seed)
     phase("phase 3: the K1 keying kernel")
     key_kernel_checks(torch, [("slice", env, st), ("jbod-1000b", jctx["env"], jctx["st"]),
                               ("rung 4", r4["env"], r4["st"]),
@@ -4872,7 +5451,8 @@ def main() -> int:
 
     # 5. the slices: each path counted on its first run; the five- and
     # eleven-goal slices of the earlier slices run once each (the smoke's
-    # time limit), the sixteen goals twice
+    # time limit), the sixteen goals once too (phase 10's compact-keying
+    # run holds its final state bit for bit)
     phase("phase 5: the 1,000-broker slices")
     log(f"slice: R={pct.num_replicas} B={pct.num_brokers} K={params.num_candidates} "
         f"KL={params.num_leader_candidates} T={params.num_dst_choices} "
@@ -4888,7 +5468,7 @@ def main() -> int:
     require(all(n > 0 for name, n in launches.items()
                 if not name.startswith("swap_")
                 and name not in JBOD_KERNELS + SESSION_KERNELS + HEAL_KERNELS
-                + FLEET_KERNELS),
+                + FLEET_KERNELS + OPTION_KERNELS),
             f"a kernel of the eleven-goal path never launched: {launches}")
     Kf = min(params.finisher_candidates, pct.num_replicas)
     W = max(1, min(params.finisher_waves, pct.num_replicas // max(Kf, 1)))
@@ -4907,11 +5487,11 @@ def main() -> int:
         f"{mid_shapes['move_score_classes'].get('T=1', 0)} times in the 64-broker "
         f"run")
     default = run_slice(torch, opt, ct, meta, DEFAULT, "slice (16 goals)",
-                        ORACLE["default_slice"])
+                        ORACLE["default_slice"], twice=False)
     launches, shapes = default["launches"], default["shapes"]
     require(all(n > 0 for name, n in launches.items()
                 if name not in JBOD_KERNELS + SESSION_KERNELS + HEAL_KERNELS
-                + FLEET_KERNELS),
+                + FLEET_KERNELS + OPTION_KERNELS),
             f"a kernel of the sixteen-goal path never launched: {launches}")
     k = min(params.num_swap_candidates, pct.num_replicas, 128)
     for name, shape in (("swap_rows", f"pass [{k}, {k}]"), ("swap_admission", f"K1={k}")):
@@ -4923,7 +5503,7 @@ def main() -> int:
     launches = full["launches"]
     require(all(n > 0 for name, n in launches.items()
                 if name not in ("disk_rows", "disk_apply") + SESSION_KERNELS
-                + HEAL_KERNELS + FLEET_KERNELS),
+                + HEAL_KERNELS + FLEET_KERNELS + OPTION_KERNELS),
             f"a kernel of the 18-goal path never launched: {launches}")
     require(launches["preferred_leader"] == 2,
             "the 18-goal chain's preferred-leader pass is one apply and one check")
@@ -4975,7 +5555,7 @@ def main() -> int:
     for run, ctx_r, tag, need in (
             (rung4, r4, "rung 4 bf16", [n for n in K.KERNELS
                                         if n not in JBOD_KERNELS + SESSION_KERNELS
-                                        + HEAL_KERNELS + FLEET_KERNELS]),
+                                        + HEAL_KERNELS + FLEET_KERNELS + OPTION_KERNELS]),
             (rung5, r5, "rung 5 bf16", rung5_kernels)):
         R = ctx_r["env"].num_replicas
         require(run["shapes"]["replica_keys"].get(f"R={R} bf16", 0) > 0,
@@ -4999,6 +5579,9 @@ def main() -> int:
     # 9. the front door (e2e-1000b-50000p, fleet-16x100b)
     phase("phase 9: the front door (e2e-1000b-50000p, fleet-16x100b)")
     service = service_phase(torch, fleet["rows"])
+    # 10. the engine's options at full width and the non-budget fallbacks
+    phase("phase 10: the engine's options (slice-1000b) and the non-budget fallbacks")
+    options = options_phase(torch, ctx, default, entries)
     for en in entries.values():
         require(en.checks > 0 and en.timings, f"{en.name} was not checked")
     if args.profile is not None:
@@ -5015,7 +5598,8 @@ def main() -> int:
     paths = {"default": default, "full18": full, "kafka": kafka,
              **{f"jbod_{r}": v for r, v in jbod.items()}, "rung4": rung4, "rung5": rung5,
              "session": session, "heal": heal, "fleet": fleet,
-             "service": service["service"], "fleet_service": service["fleet_service"]}
+             "service": service["service"], "fleet_service": service["fleet_service"],
+             "options": options, "options_fleet": fleet["options"]}
     kernels = []
     for name, k in K.KERNELS.items():
         by_path = {p: v["launches"][name] for p, v in paths.items()}
@@ -5026,7 +5610,8 @@ def main() -> int:
         for p, v in paths.items():
             # the front door's paths time nothing: they rerun the earlier ones
             if (p in ("service", "fleet_service") or KERNEL_PATH.get(name)
-                    != (p if p in ("session", "heal", "fleet") else None)):
+                    != (p if p in ("session", "heal", "fleet", "options", "options_fleet")
+                        else None)):
                 continue
             for shape, c in v["shapes"][name].items():
                 ran[shape] = ran.get(shape, 0) + c

@@ -23,6 +23,19 @@ One goal runs as a budgeted loop of PASSES; a pass is
          [K1, K2] pair score and per-row best; a stable sort by value; K7
          first-use admission; the two-leg batched apply on K4/K5).
 
+The engine's options, as the reference's: ``compact_keying`` selects at the
+move, leadership and swap sites through the pooled K1 (``select_pooled``:
+the eligible rows compacted and counted on the device, the pool or the full
+sweep chosen there); ``chain_cache=False`` scores moves against the previous
+goals' own ``accept_move`` terms (K2's per-goal veto form) instead of the
+folded rooms, in the waves, the exhaustive move scan and the segment waves.
+A chain with a goal that vetoes an action kind without a cumulative wave
+form (``wave_budgets``, ``wave_topic_budgets`` or ``wave_safe``) takes the
+reference's fallbacks for that kind: the one-move-per-broker move wave
+(``first_touch_win``, plain torch) and the sequential leadership walk
+(``_seq_leads``: K6 at one row, ``state.apply_leadership``); its finisher
+then runs its legacy waves through them.
+
 A goal still violated when its loop exits gets the exhaustive FINISHER:
 rounds of full-R scans (K1 compaction of the eligible rows, K2 with T = 1
 over [chunk, B], K6 over [chunk, F]) whose top true-gain actions apply in
@@ -50,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,10 +72,11 @@ from cruise_control_tpu_torch.analyzer.env import ClusterEnv, SweepEnv, capacity
 from cruise_control_tpu_torch.analyzer.goals.base import (
     NEG_INF, WAVE_DIMS, WAVE_ZERO_EXEMPT_DIMS, GoalKernel, disk_state, overrides,
     lead_member_rows, legit_lead_rows, legit_move_rows, legit_swap_rows, min_limit,
-    swap_pairs,
+    move_delta_rows, swap_pairs,
 )
 from cruise_control_tpu_torch.analyzer.state import (
-    EngineState, apply_leaderships_batched, apply_moves_batched, apply_swaps_batched,
+    EngineState, apply_leadership, apply_leaderships_batched, apply_moves_batched,
+    apply_swaps_batched,
 )
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.kernels import (
@@ -74,7 +89,10 @@ from cruise_control_tpu_torch.kernels.move_score import RACK_FAMILIES
 @dataclasses.dataclass(frozen=True)
 class EngineParams:
     """Engine knobs, every field and default as in the reference (see its
-    docstrings). Options of paths the port has not ported raise in
+    docstrings). ``compact_keying`` runs the pooled K1 at the reference's
+    ``_select_candidates`` sites; ``chain_cache=False`` scores moves against
+    the previous goals' own ``accept_move`` terms (K2's per-goal veto form)
+    instead of the folded rooms. The sharded engine (``mesh``) raises in
     ``check_supported``."""
     max_iters: int = 4096
     num_candidates: int = 64          # K: replica-move candidates per iteration
@@ -109,16 +127,9 @@ class EngineParams:
 
 
 def check_supported(params: EngineParams) -> None:
-    """Raise for the engine options whose paths are not ported yet."""
+    """Raise for the engine option whose path is not ported yet, the mesh."""
     if params.compute_dtype not in ("auto", "float32", "bfloat16"):
         raise ValueError(f"unknown compute_dtype {params.compute_dtype!r}")
-    if params.compact_keying:
-        raise NotImplementedError("compact_keying (the pooled candidate "
-                                  "selection) is not ported yet (ROADMAP.md "
-                                  "Queue 1 item 5b)")
-    if not params.chain_cache:
-        raise NotImplementedError("chain_cache=False (per-goal accept masks) is "
-                                  "not ported yet (ROADMAP.md Queue 1 item 5b)")
     if params.mesh is not None:
         raise NotImplementedError("the sharded engine is not ported yet "
                                   "(ROADMAP.md Queue 1 item 15)")
@@ -198,26 +209,19 @@ def _wave_budget_capable(g: GoalKernel, leadership: bool = False) -> bool:
     return not _vetoes_moves(g)
 
 
-def _require_capable(goals, leadership: bool) -> None:
-    bad = [g.name for g in goals if not _wave_budget_capable(g, leadership)]
-    if bad:
-        what = ("the sequential leadership fallback (seq_body)" if leadership
-                else "the one-move-per-broker wave")
-        raise NotImplementedError(
-            f"{bad}: {what} is not ported yet (ROADMAP.md Queue 1 item 5b)")
+def _chain_capable(goals, leadership: bool = False) -> bool:
+    """Does every goal of ``goals`` keep its acceptance under a budgeted
+    wave of this action kind? Else the chain takes the reference's fallback:
+    the one-move-per-broker wave for moves (engine.py:862-867), ``seq_body``
+    for leadership transfers (:1023-1045)."""
+    return all(_wave_budget_capable(g, leadership) for g in goals)
 
 
-def _move_delta_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor) -> torch.Tensor:
-    """f32[K, WAVE_DIMS] wave-delta rows of candidate MOVES."""
-    K = cand.shape[0]
-    lead = st.replica_is_leader[cand]
-    eff = torch.where(lead[:, None], env.leader_load[cand], env.follower_load[cand])
-    one = torch.ones((K, 1), dtype=eff.dtype, device=eff.device)
-    return torch.cat([
-        eff, one, lead[:, None].to(eff.dtype),
-        env.leader_load[cand, Resource.NW_OUT][:, None],
-        torch.zeros((K, 1), dtype=eff.dtype, device=eff.device),
-    ], dim=1).contiguous()
+def compact_pool(params: EngineParams) -> int | None:
+    """K1's ``compact_pool`` argument: the pooled keying's pool floor under
+    ``compact_keying`` (engine.py ``_select_candidates`` :179-225), None for
+    the full sweep."""
+    return params.compact_pool if params.compact_keying else None
 
 
 def _lead_delta_rows(env: ClusterEnv, rep: torch.Tensor) -> torch.Tensor:
@@ -261,15 +265,53 @@ def _combined_move_rooms(prev_goals: tuple, env: ClusterEnv, st: EngineState):
     return rooms, tuple(custom)
 
 
+def _fold_move_terms(prev_goals: tuple, env: ClusterEnv, st: EngineState):
+    """(goals with a source side, {dim: (lhs f32[B], bound f32[B])}): the
+    chain's per-goal ``accept_move`` terms for K2's per-goal veto form.
+    Terms of one dim read the same state column, so their bounds fold by
+    ``min`` exactly (``x <= a and x <= b`` iff ``x <= min(a, b)``)."""
+    src_goals, dims = [], {}
+    for g in prev_goals:
+        terms = g.accept_move_terms(env, st)
+        if terms is None:
+            if overrides(g, "accept_move_rooms"):
+                raise NotImplementedError(f"{g.name}: rooms without accept_move terms")
+            continue
+        if overrides(g, "accept_move_source"):
+            src_goals.append(g)
+        for t in terms:
+            if t.exempt != (t.dim in WAVE_ZERO_EXEMPT_DIMS):
+                raise ValueError(f"{g.name}: a dim-{t.dim} term's exemption is not "
+                                 f"K2's")
+            cur = dims.get(t.dim)
+            dims[t.dim] = (t.lhs, t.bound if cur is None else torch.minimum(cur[1], t.bound))
+    return tuple(src_goals), dims
+
+
+def _chain_move_vetoes(prev_goals: tuple, env: ClusterEnv, st: EngineState,
+                       chain_cache: bool = True):
+    """(rooms, custom, terms): the chain's move vetoes as K2 takes them,
+    folded into rooms (``chain_cache``, ``_combined_move_rooms``; terms
+    None) or as the goals' own terms (``_fold_move_terms``; rooms {}). The
+    rack, row and topic vetoes (``custom``) have no interval form and take
+    K2's custom path either way (engine.py:754-765)."""
+    if chain_cache:
+        return (*_combined_move_rooms(prev_goals, env, st), None)
+    custom = tuple(g for g in prev_goals if _custom_move_veto(g))
+    return {}, custom, _fold_move_terms(prev_goals, env, st)
+
+
 def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
                 custom, cand, kv, d_rows, T: int, order_b=None,
-                row_ok=None, env_sw: ClusterEnv | None = None) -> tuple:
+                row_ok=None, env_sw: ClusterEnv | None = None, terms=None) -> tuple:
     """Positional arguments of the K2 launch (``kernels.move_score_classes``)
     for the [K, B] stage: the per-row legitimacy (``kv > -inf``, or
     ``row_ok`` when given), source rooms, row vetoes and goal rows, the
-    per-broker destination rooms and goal columns. Legitimacy, rooms and
-    vetoes read (env, st); the goal's score tables read the sweep view of
-    ``env_sw`` (engine.py:776-786)."""
+    per-broker destination rooms and goal columns; with ``terms``
+    (``_fold_move_terms``) the per-goal form instead of ``rooms``: each
+    goal's source rows and the terms' left-hand columns and bounds.
+    Legitimacy, rooms and vetoes read (env, st); the goal's score tables
+    read the sweep view of ``env_sw`` (engine.py:776-786)."""
     B = env.num_brokers
     src_b = st.replica_broker[cand]
     part = env.replica_partition[cand]
@@ -290,6 +332,15 @@ def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
     dst_room = torch.full((WAVE_DIMS, B), torch.inf, dtype=torch.float32,
                           device=env.device)
     room_mask = 0
+    dst_lhs = None
+    if terms is not None:
+        src_goals, dims = terms
+        for g in src_goals:
+            row_ok = row_ok & g.accept_move_source(env, st, cand)
+        dst_lhs = torch.zeros_like(dst_room)
+        for dim in sorted(dims):
+            dst_lhs[dim], dst_room[dim] = dims[dim]
+            room_mask |= 1 << dim
     for dim in sorted(rooms):
         s, dstr = rooms[dim]
         dd = d_rows[:, dim]
@@ -312,7 +363,7 @@ def _score_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, rooms: dict,
             env.replica_original_broker[cand].contiguous(), sib_b,
             row_ok.contiguous(), d_rows, dst_room, room_mask, prow, rack_lim,
             row_f.contiguous(), col_f.contiguous(), dst_ok, new_ok, env.broker_rack,
-            order_b, goal.move_topic_table(env_k, st_k, cand), tveto)
+            order_b, goal.move_topic_table(env_k, st_k, cand), tveto, dst_lhs)
 
 
 def chain_slack(env: ClusterEnv, st: EngineState, goals: tuple):
@@ -346,13 +397,57 @@ def topic_budget_args(env: ClusterEnv, st: EngineState, goals: tuple, topics,
             torch.stack([c[2] for c in cols], 1).contiguous())
 
 
+class FirstTouchWave(NamedTuple):
+    """A score-sorted MOVE wave of a chain with a non-budget goal: the
+    reference's one-move-per-broker admission (``first_touch_win``)."""
+    num_brokers: int
+    num_partitions: int
+    part: torch.Tensor
+    src: torch.Tensor
+    dst: torch.Tensor
+    wave_ok: torch.Tensor
+
+
+def first_touch_win(w: FirstTouchWave) -> torch.Tensor:
+    """bool[N] engine.py:855-867: in score order, a positive row is admitted
+    when it is the first positive row to touch its partition and the first
+    to touch its source and its destination broker (either role): each
+    first touch is a scatter-min of the guarded positions, int32 and
+    deterministic."""
+    N = w.part.shape[0]
+    dev = w.part.device
+    posn = torch.arange(N, dtype=torch.int32, device=dev)
+    guarded = torch.where(w.wave_ok, posn, torch.full_like(posn, N + 1))
+    first_part = torch.full((w.num_partitions,), N + 1, dtype=torch.int32, device=dev)
+    first_part = first_part.scatter_reduce(0, w.part, guarded, reduce="amin")
+    first_b = torch.full((w.num_brokers,), N + 1, dtype=torch.int32, device=dev)
+    first_b = (first_b.scatter_reduce(0, w.src, guarded, reduce="amin")
+               .scatter_reduce(0, w.dst, guarded, reduce="amin"))
+    return (w.wave_ok & (first_b[w.src] == posn) & (first_b[w.dst] == posn)
+            & (first_part[w.part] == posn))
+
+
+def admit(args) -> torch.Tensor:
+    """bool[N] winners of a move or leadership wave: K3 on its arguments,
+    or the one-move-per-broker wave (``FirstTouchWave``)."""
+    if isinstance(args, FirstTouchWave):
+        return first_touch_win(args)
+    return wave_admission(*args)
+
+
 def _admit_moves(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                  prev_goals: tuple, r_sorted, src_s, dst_s, d, wave_ok,
-                 kgroup=None) -> tuple:
-    """Positional K3 arguments of a score-sorted MOVE wave (partition
-    first-touch, budgets with d_count = 1 and d_leader = is_leader)."""
+                 kgroup=None):
+    """Admission of a score-sorted MOVE wave: the positional K3 arguments
+    (partition first-touch, budgets with d_count = 1 and d_leader =
+    is_leader), or, when a chain goal has no wave budget, the
+    one-move-per-broker wave (``FirstTouchWave``)."""
     chain = (goal, *prev_goals)
-    _require_capable(chain, leadership=False)
+    if not _chain_capable(chain):
+        if kgroup is not None:
+            raise ValueError("a segment wave needs a budget-capable chain")
+        return FirstTouchWave(env.num_brokers, env.num_partitions,
+                              env.replica_partition[r_sorted], src_s, dst_s, wave_ok)
     src_slack, dst_slack = chain_slack(env, st, chain)
     lead = st.replica_is_leader[r_sorted].to(torch.float32)
     topics = env.replica_topic[r_sorted]
@@ -372,7 +467,6 @@ def _admit_leads(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     source / destination deltas, d_count = 0, d_leader = 1, no gain
     escape, no partition first-touch)."""
     chain = (goal, *prev_goals)
-    _require_capable(chain, leadership=True)
     src_slack, dst_slack = chain_slack(env, st, chain)
     n = r_sorted.shape[0]
     zeros = torch.zeros(n, dtype=torch.float32, device=env.device)
@@ -388,11 +482,11 @@ def _score_prep(env: ClusterEnv, st: EngineState, goal: GoalKernel,
                 prev_goals: tuple, params: EngineParams, cand, kv,
                 env_sw: ClusterEnv | None = None):
     """(wave-delta rows, K2 arguments) of a move wave over ``cand``."""
-    d_rows = _move_delta_rows(env, st, cand)
-    rooms, custom = _combined_move_rooms(prev_goals, env, st)
+    d_rows = move_delta_rows(env, st, cand)
+    rooms, custom, terms = _chain_move_vetoes(prev_goals, env, st, params.chain_cache)
     T = min(params.num_dst_choices, env.num_brokers)
     return d_rows, _score_args(env, st, goal, rooms, custom, cand, kv, d_rows, T,
-                               env_sw=env_sw)
+                               env_sw=env_sw, terms=terms)
 
 
 def _admission_from_scores(env: ClusterEnv, st: EngineState, goal: GoalKernel,
@@ -448,11 +542,12 @@ def _move_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     """ONE scored admission wave over ``cand``: re-score against the live
     state (K2, its tables from the sweep view of ``env_sw``; None is exact
     mode), fan rows across destination classes, admit under the chain's
-    cumulative budgets (K3) and apply the winners in one batch (K4).
+    cumulative budgets (K3; a chain with a non-budget goal: one move per
+    broker) and apply the winners in one batch (K4).
     Returns (state, n_applied as a device scalar)."""
     r_sorted, dst_s, args = _admission_args(env, st, goal, prev_goals, params,
                                             cand, kv, env_sw)
-    win = wave_admission(*args)
+    win = admit(args)
     st = apply_moves_batched(env, st, r_sorted, dst_s, win)
     return st, win.sum()
 
@@ -477,7 +572,8 @@ def _move_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     key = goal.replica_key(env_k, st_k, severity)
     k_all = min(K * W, R)
     kv_all, cand_all = select_candidates(key.contiguous(), k_all, stall,
-                                         seed_mask=seed_mask)
+                                         seed_mask=seed_mask,
+                                         compact_pool=compact_pool(params))
     waves = min(max(int(params.pass_waves), 1), W)
     total = torch.zeros((), dtype=torch.int64, device=env.device)
     run = 0
@@ -551,21 +647,50 @@ def _leadership_branch_batched(env: ClusterEnv, st: EngineState, goal: GoalKerne
                                seed_mask: torch.Tensor | None = None):
     """engine.py:968: one [KL, F] scoring pass (K6), then budgeted wave
     admission (K3; each candidate leads a distinct partition) and one
-    batched transfer apply; the keying and the score tables read the sweep
-    view of ``env_sw`` (None: exact mode). Returns (state, n_applied device
-    scalar)."""
+    batched transfer apply, or, when a chain goal has no leadership budget,
+    the sequential walk (``_seq_leads``); the keying and the score tables
+    read the sweep view of ``env_sw`` (None: exact mode). Returns (state,
+    n_applied device scalar)."""
     if cand is None:
         kl = min(params.num_leader_candidates, env.num_replicas)
         lkey = goal.leader_key(*_sweep_view(env, st, env_sw), severity)
-        lkv, lcand = select_candidates(lkey.contiguous(), kl, stall,
-                                       seed_mask=seed_mask)
+        lkv, lcand = select_candidates(lkey.contiguous(), kl, stall, seed_mask=seed_mask,
+                                       compact_pool=compact_pool(params))
     else:
         lkv, lcand = kv, cand
+    if not _chain_capable((goal, *prev_goals), leadership=True):
+        best_val, _f = leadership_rows(*_lead_args(env, st, goal, prev_goals, lcand,
+                                                   lkv > NEG_INF, env_sw))
+        return _seq_leads(env, st, goal, prev_goals, params, lcand, best_val)
     r_sorted, dst_rep, args = _lead_admission_args(env, st, goal, prev_goals, params,
                                                    lcand, lkv, env_sw)
     win = wave_admission(*args)
     st = apply_leaderships_batched(env, st, r_sorted, dst_rep, win)
     return st, win.sum()
+
+
+def _seq_leads(env: ClusterEnv, st: EngineState, goal: GoalKernel, prev_goals: tuple,
+               params: EngineParams, lcand, best_val):
+    """engine.py:1023-1045 ``seq_body``, the leadership fallback of a chain
+    with a non-budget goal: walk the first ``min(n_pos, KL)`` rows in score
+    order (``n_pos`` the rows scoring above ``min_gain``, one host read),
+    re-score each against the live state with K6 at one row (exact f32, the
+    chain's leadership vetoes folded), and apply it with
+    ``apply_leadership(enabled=ok)``. Each row reads the state the previous
+    one wrote, so the rows run one by one; the count stays on the device.
+    Returns (state, n_applied device scalar)."""
+    idx = lcand[_desc_order(best_val)]
+    n_pos = min(int((best_val > params.min_gain).sum()), lcand.shape[0])
+    n = torch.zeros((), dtype=torch.int64, device=env.device)
+    every = torch.ones(1, dtype=torch.bool, device=env.device)
+    for i in range(n_pos):
+        r = idx[i:i + 1]
+        v, f = leadership_rows(*_lead_args(env, st, goal, prev_goals, r, every))
+        dst = torch.clamp(lead_member_rows(env, r)[0, f[0]], min=0)
+        ok = env.replica_valid[r[0]] & (v[0] > params.min_gain)
+        st = apply_leadership(env, st, r[0], dst, ok)
+        n = n + ok.to(torch.int64)
+    return st, n
 
 
 def _swap_args(env: ClusterEnv, st: EngineState, goal: GoalKernel, prev_goals: tuple,
@@ -590,11 +715,11 @@ def _swap_pools(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     on (env, st) as given (the sweep view in the pass loop). ``seed_mask`` masks the out pool
     only: swap counterparties can live anywhere (engine.py:158-160)."""
     k = min(params.num_swap_candidates, env.num_replicas, 128)
-    okv, cand_out = select_candidates(
-        goal.swap_out_key(env, st, severity).contiguous(), k, stall,
-        seed_mask=seed_mask)
-    ikv, cand_in = select_candidates(
-        goal.swap_in_key(env, st, severity).contiguous(), k, stall, salt=101)
+    pool = compact_pool(params)
+    okv, cand_out = select_candidates(goal.swap_out_key(env, st, severity).contiguous(), k,
+                                      stall, seed_mask=seed_mask, compact_pool=pool)
+    ikv, cand_in = select_candidates(goal.swap_in_key(env, st, severity).contiguous(), k,
+                                     stall, salt=101, compact_pool=pool)
     return okv, cand_out, ikv, cand_in
 
 
@@ -644,7 +769,11 @@ def _swap_window_positives(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     unsalted top-K swap window at this state (the certificate's swap
     clause), from K7's per-row positive counts."""
     severity = goal.broker_severity(env, st)
-    okv, cand_out, ikv, cand_in = _swap_pools(env, st, goal, params, severity, 0)
+    # the reference keys this window with a direct top-k, never the pooled K1
+    k = min(params.num_swap_candidates, env.num_replicas, 128)
+    okv, cand_out = select_candidates(goal.swap_out_key(env, st, severity).contiguous(), k, 0)
+    ikv, cand_in = select_candidates(goal.swap_in_key(env, st, severity).contiguous(), k, 0,
+                                     salt=101)
     pairs, tables = _swap_args(env, st, goal, prev_goals, cand_out, okv, cand_in, ikv)
     _best, _j, positives = swap_rows(pairs, tables, params.min_gain, what="window")
     return int(positives.sum())
@@ -702,24 +831,26 @@ def _scatter_rows(R: int, idx, v, d, gain, dst):
 
 
 def _exhaustive_move_scan(env: ClusterEnv, st: EngineState, goal: GoalKernel,
-                          prev_goals: tuple, chunk: int):
+                          prev_goals: tuple, chunk: int, chain_cache: bool = True):
     """(gain f32[R], dst i64[R]) — engine.py:1270: every eligible replica's
     best single-move gain over ALL destinations under legitimacy and chain
-    acceptance (-inf where none exists), swept over the compacted eligible
-    rows in [chunk, B] launches of K2 with T = 1."""
+    acceptance (-inf where none exists; the folded rooms, or the goals' own
+    terms without ``chain_cache``), swept over the compacted eligible rows
+    in [chunk, B] launches of K2 with T = 1."""
     R = env.num_replicas
     chunk = min(chunk, R)
     eligible = goal.replica_key(env, st, goal.broker_severity(env, st)) > NEG_INF
     order, n = _compact_eligible(eligible, -(-R // chunk) * chunk)
-    rooms, custom = _combined_move_rooms(prev_goals, env, st)
+    rooms, custom, terms = _chain_move_vetoes(prev_goals, env, st, chain_cache)
     gain = torch.full((R,), NEG_INF, dtype=torch.float32, device=env.device)
     dst = torch.zeros(R, dtype=torch.int64, device=env.device)
     for i in range(-(-n // chunk)):
         idx = order[i * chunk:(i + 1) * chunk]
         cand = torch.clamp(idx, max=R - 1)
-        d_rows = _move_delta_rows(env, st, cand)
+        d_rows = move_delta_rows(env, st, cand)
         cls_val, cls_q = move_score_classes(*_score_args(
-            env, st, goal, rooms, custom, cand, None, d_rows, 1, row_ok=idx < R))
+            env, st, goal, rooms, custom, cand, None, d_rows, 1, row_ok=idx < R,
+            terms=terms))
         gain, dst = _scatter_rows(R, idx, cls_val[:, 0], cls_q[:, 0], gain, dst)
     return gain, dst
 
@@ -795,12 +926,12 @@ def _segment_move_args(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     their sources, their destinations, the K3 arguments)."""
     K = cand.shape[0]
     S, active = _segments(params, env)
-    d_rows = _move_delta_rows(env, st, cand)
+    d_rows = move_delta_rows(env, st, cand)
     src_b = st.replica_broker[cand]
-    rooms, custom = _combined_move_rooms(prev_goals, env, st)
+    rooms, custom, terms = _chain_move_vetoes(prev_goals, env, st, params.chain_cache)
     order_b = _segment_broker_order(env, st, goal, prev_goals, S)
     vals, q_best = move_score_classes(*_score_args(
-        env, st, goal, rooms, custom, cand, kv, d_rows, S, order_b=order_b))
+        env, st, goal, rooms, custom, cand, kv, d_rows, S, order_b=order_b, terms=terms))
     seg = torch.arange(S, device=env.device)
     dsts = order_b[q_best * S + seg[None, :]]
     vals = torch.where(seg[None, :] < active, vals, torch.full_like(vals, NEG_INF))
@@ -889,8 +1020,7 @@ def _finisher_wave(env: ClusterEnv, st: EngineState, goal: GoalKernel,
     kv_all, cand_all = select_candidates(gain[:R].contiguous(), K * W, 0)
     severity = goal.broker_severity(env, st)
     chain = (goal, *prev_goals)
-    use_seg = (params.max_finisher_segments >= 2
-               and all(_wave_budget_capable(g, leadership) for g in chain))
+    use_seg = params.max_finisher_segments >= 2 and _chain_capable(chain, leadership)
     total = boundary = 0
     for w in range(W):
         cand = cand_all[w * K:(w + 1) * K]
@@ -950,7 +1080,7 @@ def _finisher(env: ClusterEnv, st: EngineState, goal: GoalKernel,
         mleft = lleft = applied = 0
         if use_moves:
             gain, _ = _exhaustive_move_scan(env, st, goal, prev_goals,
-                                            params.scan_chunk)
+                                            params.scan_chunk, params.chain_cache)
             mleft = int((gain > params.min_gain).sum())
             st, n, nb = _finisher_wave(env, st, goal, prev_goals, params, gain,
                                        leadership=False)
@@ -992,8 +1122,7 @@ def _finisher(env: ClusterEnv, st: EngineState, goal: GoalKernel,
               and (swleft == 0 or not goal.uses_swaps))
     chain = (goal, *prev_goals)
     seg_capable = params.max_finisher_segments >= 2 and (
-        (use_moves and all(_wave_budget_capable(g) for g in chain))
-        or (use_leads and all(_wave_budget_capable(g, True) for g in chain)))
+        (use_moves and _chain_capable(chain)) or (use_leads and _chain_capable(chain, True)))
     segments = _segments(params, env)[1] if (seg_capable and ran) else 0
     return st, proven, mleft, lleft, swleft, rounds, total, bnd, segments
 

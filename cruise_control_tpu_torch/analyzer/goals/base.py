@@ -12,6 +12,10 @@ EngineState):
   computed with the reference's own arithmetic (``kernels.move_score``);
 - ``accept_move_rooms`` / ``wave_budgets`` / ``wave_gain_budgets``: the
   interval forms of acceptance and the cumulative wave budgets;
+- ``accept_move_terms`` / ``accept_move_source`` / ``accept_move``: the
+  interval-form ``accept_move`` in the goal's own arithmetic (destination
+  terms ``lhs[b] + d <= bound[b]`` for K2's per-goal veto form, the source
+  rows, and their [K, B] composition);
 - ``leader_key`` / ``lead_tables`` / ``lead_vetoes``: the leadership
   counterparts (``leader_key`` f32[R] feeds K1; ``lead_tables`` is the
   goal's ``leadership_score`` in the K6 kernel's family form and
@@ -76,6 +80,21 @@ WAVE_ZERO_EXEMPT_DIMS = (WAVE_LEADER_COUNT,)
 
 
 XLA_SUM_WINDOW = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class MoveTerm:
+    """One destination-side term of a goal's ``accept_move``: a move row k
+    to broker b passes iff ``lhs[b] + d[k, dim] <= bound[b]`` in f32 (add,
+    then compare), or ``exempt`` and ``d[k, dim] == 0``. ``lhs`` is the
+    state's column of ``dim`` (``util[:, dim]`` for dims 0-3,
+    ``replica_count``, ``leader_count``, ``potential_nw_out``) as the goal
+    reads it; ``bound`` the goal's own (``upper + eps``, not ``upper - util
+    + eps``)."""
+    dim: int
+    lhs: torch.Tensor
+    bound: torch.Tensor
+    exempt: bool = False
 
 
 def _seq_sum_rows(x: torch.Tensor) -> torch.Tensor:
@@ -196,6 +215,42 @@ class GoalKernel:
     def accept_move_rooms(self, env: ClusterEnv, st: EngineState):
         """Optional ``{dim: (src_room[B] | None, dst_room[B] | None)}``."""
         return None
+
+    def accept_move_terms(self, env: ClusterEnv, st: EngineState):
+        """Optional [MoveTerm, ...]: the destination side of this goal's
+        interval-form ``accept_move`` in the goal's own arithmetic (K2's
+        per-goal veto form, ``chain_cache=False``). None: no interval form."""
+        return None
+
+    def accept_move_source(self, env: ClusterEnv, st: EngineState,
+                           cand: torch.Tensor):
+        """Optional bool[K]: the source side of the interval-form
+        ``accept_move``, one comparison per row in the reference's form."""
+        return None
+
+    def accept_move(self, env: ClusterEnv, st: EngineState, cand: torch.Tensor):
+        """bool[K, B] veto as a previously optimized goal (base.py:129): the
+        source rows AND every term, ``lhs[b] + d[k, dim] <= bound[b]`` (zero
+        deltas pass an exempt term). The plain twin of K2's per-goal form;
+        accepts everything without terms. The rack, row and topic vetoes
+        have no [K, B] form here: K2 evaluates them from ``rack_limit``,
+        ``move_row_veto`` and ``move_topic_veto``."""
+        if (overrides(self, "rack_limit") or overrides(self, "move_row_veto")
+                or overrides(self, "move_topic_veto")):
+            raise NotImplementedError(f"{self.name}: a custom veto has no [K, B] form")
+        K, B = cand.shape[0], env.num_brokers
+        ok = torch.ones((K, B), dtype=torch.bool, device=env.device)
+        src = self.accept_move_source(env, st, cand)
+        if src is not None:
+            ok = ok & src[:, None]
+        d = move_delta_rows(env, st, cand)
+        for t in self.accept_move_terms(env, st) or ():
+            dd = d[:, t.dim:t.dim + 1]
+            okt = (t.lhs[None, :] + dd) <= t.bound[None, :]
+            if t.exempt:
+                okt = okt | (dd == 0)
+            ok = ok & okt
+        return ok
 
     def wave_budgets(self, env: ClusterEnv, st: EngineState):
         """Optional ``(src_slack[B, WAVE_DIMS], dst_slack[B, WAVE_DIMS])``."""
@@ -379,6 +434,21 @@ def candidate_load(env: ClusterEnv, st: EngineState, cand: torch.Tensor) -> torc
     """f32[K, M] current effective load rows of the candidate replicas."""
     lead = st.replica_is_leader[cand][:, None]
     return torch.where(lead, env.leader_load[cand], env.follower_load[cand])
+
+
+def move_delta_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor) -> torch.Tensor:
+    """f32[K, WAVE_DIMS] wave-delta rows of candidate MOVES (engine.py
+    ``_move_delta_rows``): the effective load, one replica, the leader flag,
+    the leader NW_OUT, no leader NW_IN."""
+    K = cand.shape[0]
+    lead = st.replica_is_leader[cand]
+    eff = torch.where(lead[:, None], env.leader_load[cand], env.follower_load[cand])
+    one = torch.ones((K, 1), dtype=eff.dtype, device=eff.device)
+    return torch.cat([
+        eff, one, lead[:, None].to(eff.dtype),
+        env.leader_load[cand, Resource.NW_OUT][:, None],
+        torch.zeros((K, 1), dtype=eff.dtype, device=eff.device),
+    ], dim=1).contiguous()
 
 
 def partition_rack_rows(env: ClusterEnv, st: EngineState, cand: torch.Tensor):

@@ -16,8 +16,8 @@ import torch
 
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv
 from cruise_control_tpu_torch.analyzer.goals.base import (
-    NEG_INF, WAVE_COUNT, WAVE_DIMS, GoalKernel, candidate_load, load_sum, offline_bump,
-    sweep_keys, sweep_round,
+    NEG_INF, WAVE_COUNT, WAVE_DIMS, GoalKernel, MoveTerm, candidate_load, load_sum,
+    offline_bump, sweep_keys, sweep_round,
 )
 from cruise_control_tpu_torch.analyzer.state import EngineState
 from cruise_control_tpu_torch.common.resources import EPSILON_ABS, RESOURCES
@@ -91,6 +91,11 @@ class CapacityGoal(GoalKernel):
     def accept_move_rooms(self, env: ClusterEnv, st: EngineState):
         limit = self._limit(env) + self._eps(env)
         return {int(self.resource): (None, limit - st.util[:, self.resource])}
+
+    def accept_move_terms(self, env: ClusterEnv, st: EngineState):
+        """capacity.py:70: ``util[b] + l <= limit + eps``."""
+        return [MoveTerm(int(self.resource), st.util[:, self.resource],
+                         self._limit(env) + self._eps(env))]
 
     def wave_budgets(self, env: ClusterEnv, st: EngineState):
         util = st.util[:, self.resource]
@@ -227,6 +232,11 @@ class ReplicaCapacityGoal(GoalKernel):
     def accept_move_rooms(self, env: ClusterEnv, st: EngineState):
         c = st.replica_count.to(torch.float32)
         return {WAVE_COUNT: (None, float(self._max()) - c)}
+
+    def accept_move_terms(self, env: ClusterEnv, st: EngineState):
+        """capacity.py:217: ``count[b] + 1 <= max`` (counts are f32-exact)."""
+        c = st.replica_count.to(torch.float32)
+        return [MoveTerm(WAVE_COUNT, c, torch.full_like(c, float(self._max())))]
 
     def wave_budgets(self, env: ClusterEnv, st: EngineState):
         c = st.replica_count.to(torch.float32)

@@ -23,7 +23,7 @@ from cruise_control_tpu_torch.analyzer.env import (
     BALANCE_MARGIN, ClusterEnv, resource_balance_limits,
 )
 from cruise_control_tpu_torch.analyzer.goals.base import (
-    NEG_INF, WAVE_COUNT, WAVE_DIMS, WAVE_LEADER_COUNT, GoalKernel, broker_lookup,
+    NEG_INF, WAVE_COUNT, WAVE_DIMS, WAVE_LEADER_COUNT, GoalKernel, MoveTerm, broker_lookup,
     candidate_load, load_sum, row_sum4, spread_jitter, sweep_keys, sweep_round, xla_sum,
 )
 from cruise_control_tpu_torch.analyzer.goals.capacity import resource_eps
@@ -126,6 +126,21 @@ class ResourceDistributionGoal(GoalKernel):
         src = torch.where(util > upper, torch.full_like(util, torch.inf),
                           util - lower + eps)
         return {int(self.resource): (src, upper - util + eps)}
+
+    def accept_move_terms(self, env: ClusterEnv, st: EngineState):
+        """distribution.py:161: ``util[b] + l <= upper + eps``."""
+        _lower, upper = self._limits(env, st)
+        return [MoveTerm(int(self.resource), st.util[:, self.resource],
+                         upper + self._eps(env))]
+
+    def accept_move_source(self, env: ClusterEnv, st: EngineState, cand):
+        """distribution.py:170-173: ``util[src] - l >= lower[src] - eps``, or
+        the source already above ``upper``."""
+        l = candidate_load(env, st, cand)[:, self.resource]
+        lower, upper = self._limits(env, st)
+        util = st.util[:, self.resource]
+        src = st.replica_broker[cand]
+        return (util[src] - l >= lower[src] - self._eps(env)) | (util[src] > upper[src])
 
     def wave_budgets(self, env: ClusterEnv, st: EngineState):
         lower, upper = self._limits(env, st)
@@ -330,6 +345,19 @@ class ReplicaDistributionGoal(GoalKernel):
         src = torch.where(c > upper, torch.full_like(c, torch.inf), c - lower)
         return {WAVE_COUNT: (src, upper - c)}
 
+    def accept_move_terms(self, env: ClusterEnv, st: EngineState):
+        """distribution.py:381: ``count[b] + 1 <= upper``."""
+        _lower, upper = self._limits(env, st)
+        return [MoveTerm(WAVE_COUNT, st.replica_count.to(torch.float32), upper)]
+
+    def accept_move_source(self, env: ClusterEnv, st: EngineState, cand):
+        """distribution.py:386: ``count[src] - 1 >= lower[src]``, or the
+        source above ``upper``."""
+        lower, upper = self._limits(env, st)
+        c = st.replica_count.to(torch.float32)
+        src = st.replica_broker[cand]
+        return (c[src] - 1 >= lower[src]) | (c[src] > upper[src])
+
     def wave_budgets(self, env: ClusterEnv, st: EngineState):
         lower, upper = self._limits(env, st)
         c = st.replica_count.to(torch.float32)
@@ -407,6 +435,22 @@ class LeaderReplicaDistributionGoal(GoalKernel):
         c = st.leader_count.to(torch.float32)
         src = torch.where(c > upper, torch.full_like(c, torch.inf), c - lower)
         return {WAVE_LEADER_COUNT: (src, upper - c)}
+
+    def accept_move_terms(self, env: ClusterEnv, st: EngineState):
+        """distribution.py:474: ``leaders[b] + 1 <= upper`` for rows that
+        move a leader (a follower row's zero delta is exempt)."""
+        _lower, upper = self._limits(env, st)
+        return [MoveTerm(WAVE_LEADER_COUNT, st.leader_count.to(torch.float32), upper,
+                         exempt=True)]
+
+    def accept_move_source(self, env: ClusterEnv, st: EngineState, cand):
+        """distribution.py:479-482: a leader row needs ``leaders[src] - 1 >=
+        lower[src]`` or its source above ``upper``; a follower row passes."""
+        lower, upper = self._limits(env, st)
+        c = st.leader_count.to(torch.float32)
+        src = st.replica_broker[cand]
+        src_ok = (c[src] - 1 >= lower[src]) | (c[src] > upper[src])
+        return ~st.replica_is_leader[cand] | src_ok
 
     def wave_budgets(self, env: ClusterEnv, st: EngineState):
         lower, upper = self._limits(env, st)

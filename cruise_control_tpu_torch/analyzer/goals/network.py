@@ -14,7 +14,7 @@ import torch
 
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv, resource_balance_limits
 from cruise_control_tpu_torch.analyzer.goals.base import (
-    WAVE_DIMS, WAVE_LEADER_NW_IN, WAVE_POT_NW_OUT, GoalKernel, sweep_keys, xla_sum,
+    WAVE_DIMS, WAVE_LEADER_NW_IN, WAVE_POT_NW_OUT, GoalKernel, MoveTerm, sweep_keys, xla_sum,
 )
 from cruise_control_tpu_torch.analyzer.goals.capacity import resource_eps
 from cruise_control_tpu_torch.analyzer.state import EngineState
@@ -65,6 +65,11 @@ class PotentialNwOutGoal(GoalKernel):
     def accept_move_rooms(self, env: ClusterEnv, st: EngineState):
         limit = self._limit(env) + self._eps(env)
         return {WAVE_POT_NW_OUT: (None, limit - st.potential_nw_out)}
+
+    def accept_move_terms(self, env: ClusterEnv, st: EngineState):
+        """network.py:59: ``pnw[b] + leader NW_OUT <= limit + eps``."""
+        return [MoveTerm(WAVE_POT_NW_OUT, st.potential_nw_out,
+                         self._limit(env) + self._eps(env))]
 
     def wave_budgets(self, env: ClusterEnv, st: EngineState):
         limit = self._limit(env) + self._eps(env)

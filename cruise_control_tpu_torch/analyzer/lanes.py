@@ -26,7 +26,14 @@ dict per lane:
   run's, in the solo order; its [La, ...] outputs are stacked into the
   lane kernels' operands;
 - the disk branch runs the solo code lane by lane on the views and writes
-  the lanes that ran back into the stack;
+  the lanes that ran back into the stack; so do the move branch of a chain
+  with a goal that has no move-wave budget (the one-move-per-broker wave)
+  and the leadership branch of a chain with a goal that has no leadership
+  budget (``seq_body``);
+- ``compact_keying`` keys every lane through the pooled K1's lane form
+  (``select_pooled_lanes``: each lane takes its branch on the device) and
+  ``chain_cache=False`` scores every lane through K2's per-goal veto form,
+  as the reference vmaps one goal program with the shared params;
 - the gated chain's probe (``probe_lanes``) keys every lane at once and
   answers every lane in one K13 launch (``seeded_probe_lanes``); its
   verdicts and stats stay the goals' torch functions, per lane;
@@ -45,9 +52,10 @@ import math
 import torch
 
 from cruise_control_tpu_torch.analyzer.engine import (
-    EngineParams, _admission_from_scores, _close_pass, _cond, _disk_move_branch_batched,
-    _lead_admission_from_scores, _lead_args, _loop_scalar_init, _pass_row, _score_prep,
-    _swap_admission_inputs, _swap_args, _sweep_env, _sweep_view,
+    EngineParams, _admission_from_scores, _chain_capable, _close_pass, _cond,
+    _disk_move_branch_batched, _lead_admission_from_scores, _lead_args,
+    _leadership_branch_batched, _loop_scalar_init, _move_branch_batched, _pass_row,
+    _score_prep, _swap_admission_inputs, _swap_args, _sweep_env, _sweep_view, compact_pool,
 )
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv, SweepEnv
 from cruise_control_tpu_torch.analyzer.goals.base import (
@@ -58,8 +66,8 @@ from cruise_control_tpu_torch.analyzer.state import (
 )
 from cruise_control_tpu_torch.kernels import (
     leadership_rows_lanes, move_score_classes_lanes, replica_keys_lanes,
-    seeded_probe_lanes, select_candidates_lanes, swap_admission_lanes, swap_rows_lanes,
-    wave_admission_lanes,
+    seeded_probe_lanes, select_candidates_lanes, swap_admission_lanes,
+    swap_rows_lanes, wave_admission_lanes,
 )
 from cruise_control_tpu_torch.kernels.build import lane_index
 from cruise_control_tpu_torch.kernels.keys import env_loads
@@ -204,7 +212,8 @@ def move_branch_lanes(stack: LaneStack, goal: GoalKernel, prev_goals: tuple,
     key = lane_keys(stack, goal, lanes, severity, params)
     mask = lane_masks(stack, lanes, seed_masks)
     kv_all, cand_all = select_candidates_lanes(key, k_all, [explore[l] for l in lanes],
-                                               seed_mask=mask)
+                                               seed_mask=mask,
+                                               compact_pool=compact_pool(params))
     waves = min(max(int(params.pass_waves), 1), W)
     total = {l: torch.zeros((), dtype=torch.int64, device=stack.device) for l in lanes}
     runs = {l: 0 for l in lanes}
@@ -276,7 +285,8 @@ def lead_branch_lanes(stack: LaneStack, goal: GoalKernel, prev_goals: tuple,
     _sw_b, sw = stack.sweep(params)
     key = lane_keys(stack, goal, lanes, severity, params, "leader_key")
     lkv, lcand = select_candidates_lanes(key, kl, [explore[l] for l in lanes],
-                                         seed_mask=lane_masks(stack, lanes, seed_masks))
+                                         seed_mask=lane_masks(stack, lanes, seed_masks),
+                                         compact_pool=compact_pool(params))
     envs = [stack.envs[l] for l in lanes]
     sts = [stack.sts[l] for l in lanes]
     best, f_all = leadership_rows_lanes(
@@ -306,12 +316,13 @@ def swap_branch_lanes(stack: LaneStack, goal: GoalKernel, prev_goals: tuple,
     k = min(params.num_swap_candidates, stack.num_replicas, 128)
     _sw_b, sw = stack.sweep(params)
     stalls = [explore[l] for l in lanes]
+    pool = compact_pool(params)
     okv, cand_out = select_candidates_lanes(
         lane_keys(stack, goal, lanes, severity, params, "swap_out_key"), k, stalls,
-        seed_mask=lane_masks(stack, lanes, seed_masks))
+        seed_mask=lane_masks(stack, lanes, seed_masks), compact_pool=pool)
     ikv, cand_in = select_candidates_lanes(
         lane_keys(stack, goal, lanes, severity, params, "swap_in_key"), k, stalls,
-        salt=101)
+        salt=101, compact_pool=pool)
     envs = [stack.envs[l] for l in lanes]
     sts = [stack.sts[l] for l in lanes]
     args = [_swap_args(envs[j], sts[j], goal, prev_goals, cand_out[j], okv[j], cand_in[j],
@@ -345,25 +356,37 @@ def fleet_step(stack: LaneStack, goal: GoalKernel, prev_goals: tuple, lane_param
     n_disk, n_moves, n_leads, n_swaps = ({l: zero for l in act} for _ in range(4))
     n_waves = {l: 0 for l in act}
 
-    def solo(branch, l, *args, **kw):
+    def solo(branch, l):
+        """One lane's branch on its views (the solo code), written back."""
         p = lane_params[l]
         _sw_b, sw = stack.sweep(p)
-        st, n = branch(stack.envs[l], stack.sts[l], goal, prev_goals, p, severity[l],
-                       explore[l], *args, env_sw=sw[l], seed_mask=seed_masks.get(l), **kw)
+        st, *rest = branch(stack.envs[l], stack.sts[l], goal, prev_goals, p, severity[l],
+                           explore[l], env_sw=sw[l], seed_mask=seed_masks.get(l))
         stack.write_lanes([l], [st])
-        return n
+        return rest
+
+    def leads(lanes_now):
+        if _chain_capable((goal, *prev_goals), leadership=True):
+            n_leads.update(lead_branch_lanes(stack, goal, prev_goals,
+                                             lane_params[lanes_now[0]], severity, explore,
+                                             lanes_now, seed_masks))
+        else:
+            for l in lanes_now:
+                n_leads[l], = solo(_leadership_branch_batched, l)
 
     if goal.uses_disk_moves:
         for l in act:
-            n_disk[l] = solo(_disk_move_branch_batched, l)
+            n_disk[l], = solo(_disk_move_branch_batched, l)
     leads_now = {l: 0 for l in act}
     if lead_first:
-        n_leads.update(lead_branch_lanes(stack, goal, prev_goals, lane_params[act[0]],
-                                         severity, explore, act, seed_masks))
+        leads(act)
         leads_now = dict(zip(act, (int(x) for x in read_values([n_leads[l] for l in act]))))
     if goal.uses_replica_moves:
         ml = [l for l in act if leads_now[l] == 0]
-        if ml:
+        if not _chain_capable((goal, *prev_goals)):
+            for l in ml:
+                n_moves[l], n_waves[l] = solo(_move_branch_batched, l)
+        elif ml:
             totals, runs = move_branch_lanes(stack, goal, prev_goals, lane_params[ml[0]],
                                              severity, explore, ml, seed_masks)
             n_moves.update(totals)
@@ -372,8 +395,7 @@ def fleet_step(stack: LaneStack, goal: GoalKernel, prev_goals: tuple, lane_param
         moved = read_values([n_moves[l] for l in act])
         ll = [l for l, m in zip(act, moved) if int(m) == 0]
         if ll:
-            n_leads.update(lead_branch_lanes(stack, goal, prev_goals, lane_params[ll[0]],
-                                             severity, explore, ll, seed_masks))
+            leads(ll)
     if goal.uses_swaps:
         landed = read_values([n_moves[l] + n_leads[l] for l in act])
         sl = [l for l, m in zip(act, landed) if int(m) == 0]

@@ -522,3 +522,146 @@ def apply_leaderships_lanes(envs: list, sts: list, src: torch.Tensor, dst: torch
         util_residual=res[j, :, 0:4].contiguous(),
         leader_util_residual=res[j, :, 4:8].contiguous())
         for j in range(La)]
+
+
+# ---------------------------------------------------------------------------
+# Single actions (state.py:26, :190-457): the sequential fallbacks' applies
+# ---------------------------------------------------------------------------
+def state_index_dtypes(env: ClusterEnv):
+    """(broker_dt, disk_dt, count_dt) of this env's engine state
+    (state.py:26). The port keeps no compact tables (see ``env``): index
+    columns are int64, counts int32, whatever the env."""
+    return torch.int64, torch.int64, torch.int32
+
+
+def _pair_rows(acc: torch.Tensor, a, d_a, b, d_b) -> torch.Tensor:
+    """``acc.at[a].add(d_a).at[b].add(d_b)`` for one row index each: row a
+    first, then row b (the same row twice adds twice, in that order)."""
+    new = acc.clone()
+    new[a] = new[a] + d_a
+    new[b] = new[b] + d_b
+    return new
+
+
+def _kahan_pair(acc: torch.Tensor, res: torch.Tensor, a, d_a, b, d_b):
+    """``_kahan_scatter2`` of one action (state.py:83) as the reference's
+    loop programs evaluate it (``residual_inputs``): the accumulator
+    chained row a then row b; the residual ``res + (acc - new)``, then the
+    two deltas added in that order."""
+    new = _pair_rows(acc, a, d_a, b, d_b)
+    return new, _pair_rows(res + (acc - new), a, d_a, b, d_b)
+
+
+def _gate(en: torch.Tensor, new: EngineState, old: EngineState) -> EngineState:
+    """``new`` where ``en``, else ``old`` field by field, so a disabled
+    action leaves every bit of the state as it was (a masked +0.0 would
+    turn a -0.0 tally into +0.0)."""
+    return EngineState(**{f.name: torch.where(en, getattr(new, f.name), getattr(old, f.name))
+                          for f in dataclasses.fields(EngineState)})
+
+
+def apply_move(env: ClusterEnv, st: EngineState, replica, dst,
+               enabled=True) -> EngineState:
+    """Relocate ``replica`` to broker ``dst`` (state.py:190) with the
+    reference's bookkeeping, in plain torch on the device: no float atomics,
+    no read back to the host. The destination logdir is the alive one with
+    the most free space (first maximum). ``enabled`` (bool or 0-d bool
+    tensor) masks the whole update: disabled, the state is unchanged bit for
+    bit."""
+    dev = st.replica_broker.device
+    en = torch.as_tensor(enabled, dtype=torch.bool, device=dev)
+    replica = torch.as_tensor(replica, dtype=torch.int64, device=dev)
+    dst = torch.as_tensor(dst, dtype=torch.int64, device=dev)
+    src = st.replica_broker[replica]
+    is_leader = st.replica_is_leader[replica]
+    zero = torch.zeros_like(env.leader_load[replica])
+    load = torch.where(en, torch.where(is_leader, env.leader_load[replica],
+                                       env.follower_load[replica]), zero)
+    util, util_res = _kahan_pair(st.util, st.util_residual, src, -load, dst, load)
+    lead_load = torch.where(en & is_leader, env.leader_load[replica], zero)
+    leader_util, lead_res = _kahan_pair(st.leader_util, st.leader_util_residual,
+                                        src, -lead_load, dst, lead_load)
+    pot_delta = torch.where(en, env.leader_load[replica, Resource.NW_OUT], zero[0])
+    pot = _pair_rows(st.potential_nw_out, src, -pot_delta, dst, pot_delta)
+    one = en.to(torch.int32)
+    lone = (en & is_leader).to(torch.int32)
+    rc = _pair_rows(st.replica_count, src, -one, dst, one)
+    lc = _pair_rows(st.leader_count, src, -lone, dst, lone)
+    p = env.replica_partition[replica]
+    prc = _pair_rows(st.part_rack_count, (p, env.broker_rack[src]), -one,
+                     (p, env.broker_rack[dst]), one)
+    t = env.replica_topic[replica]
+    tbc = _pair_rows(st.topic_broker_count, (t, src), -one, (t, dst), one)
+    tlc = _pair_rows(st.topic_leader_count, (t, src), -lone, (t, dst), lone)
+    free = torch.where(env.broker_disk_alive[dst],
+                       env.broker_disk_capacity[dst] - st.disk_util[dst],
+                       torch.full_like(st.disk_util[dst], -torch.inf))
+    dst_disk = torch.argmax(free)
+    src_disk = st.replica_disk[replica]
+    disk_load = load[Resource.DISK]
+    du = _pair_rows(st.disk_util, (src, src_disk), -disk_load, (dst, dst_disk), disk_load)
+
+    def put(col, v):
+        out = col.clone()
+        out[replica] = v
+        return out
+
+    new = dataclasses.replace(
+        st, replica_broker=put(st.replica_broker, dst),
+        replica_offline=put(st.replica_offline, False), replica_disk=put(st.replica_disk,
+                                                                         dst_disk),
+        util=util, leader_util=leader_util, potential_nw_out=pot, replica_count=rc,
+        leader_count=lc, part_rack_count=prc, topic_broker_count=tbc,
+        topic_leader_count=tlc, disk_util=du, util_residual=util_res,
+        leader_util_residual=lead_res, moved=put(st.moved, True))
+    return _gate(en, new, st)
+
+
+def apply_leadership(env: ClusterEnv, st: EngineState, src_replica, dst_replica,
+                     enabled=True) -> EngineState:
+    """Transfer leadership ``src_replica -> dst_replica`` (same partition;
+    state.py:255) in plain torch on the device. ``enabled`` masks the update
+    to a no-op that leaves the state unchanged bit for bit."""
+    dev = st.replica_broker.device
+    en = torch.as_tensor(enabled, dtype=torch.bool, device=dev)
+    s = torch.as_tensor(src_replica, dtype=torch.int64, device=dev)
+    d = torch.as_tensor(dst_replica, dtype=torch.int64, device=dev)
+    enf = en.to(st.util.dtype)
+    bs = st.replica_broker[s]
+    bd = st.replica_broker[d]
+    delta_s = (env.leader_load[s] - env.follower_load[s]) * enf
+    delta_d = (env.leader_load[d] - env.follower_load[d]) * enf
+    util, util_res = _kahan_pair(st.util, st.util_residual, bs, -delta_s, bd, delta_d)
+    leader_util, lead_res = _kahan_pair(st.leader_util, st.leader_util_residual,
+                                        bs, -env.leader_load[s] * enf,
+                                        bd, env.leader_load[d] * enf)
+    one = en.to(torch.int32)
+    lc = _pair_rows(st.leader_count, bs, -one, bd, one)
+    t = env.replica_topic[s]
+    tlc = _pair_rows(st.topic_leader_count, (t, bs), -one, (t, bd), one)
+    lead = st.replica_is_leader.clone()
+    lead[s] = lead[s] & ~en
+    lead[d] = lead[d] | en
+    lmoved = st.leadership_moved.clone()
+    lmoved[s] = lmoved[s] | en
+    lmoved[d] = lmoved[d] | en
+    new = dataclasses.replace(st, replica_is_leader=lead, util=util,
+                              leader_util=leader_util, leader_count=lc,
+                              topic_leader_count=tlc, util_residual=util_res,
+                              leader_util_residual=lead_res, leadership_moved=lmoved)
+    return _gate(en, new, st)
+
+
+def apply_swap(env: ClusterEnv, st: EngineState, replica_a, replica_b,
+               enabled=True) -> EngineState:
+    """Exchange the brokers of two replicas (state.py:432): two
+    ``apply_move``s, both brokers read before the first."""
+    b_a = st.replica_broker[replica_a]
+    b_b = st.replica_broker[replica_b]
+    st = apply_move(env, st, replica_a, b_b, enabled)
+    return apply_move(env, st, replica_b, b_a, enabled)
+
+
+def no_op_move(st: EngineState) -> EngineState:
+    """state.py:455: the state itself."""
+    return st

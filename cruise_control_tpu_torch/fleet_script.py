@@ -609,12 +609,13 @@ def fleet_e2e(ns, spec: dict, rounds: int = 2, fleet=None) -> dict:
     return dict(rounds=rows, walls=walls, reports=reports, fleet=fleet)
 
 
-def solo_e2e(ns, spec: dict) -> dict:
-    """Round 1 of the cell as solo rounds, one tenant at a time: {tenant:
-    row}, and the walls of the optimizations."""
+def solo_e2e(ns, spec: dict, tenants=None) -> dict:
+    """Round 1 of the cell as solo rounds, one tenant at a time (every
+    tenant, or the indices in ``tenants``): {tenant: row}, and the walls of
+    the optimizations."""
     kw = ns.get("kw", {})
     rows, walls = {}, []
-    for k in range(spec["tenants"]):
+    for k in (range(spec["tenants"]) if tenants is None else tenants):
         be = tenant_backend(ns, spec["seed0"] + k, num_brokers=spec["brokers"],
                             num_partitions=spec["partitions"], rf=spec["rf"],
                             racks=spec["racks"], topics=spec["topics"])

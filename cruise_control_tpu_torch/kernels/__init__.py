@@ -21,7 +21,8 @@ from cruise_control_tpu_torch.kernels.ple import preferred_leader
 from cruise_control_tpu_torch.kernels.probe import seeded_probe, seeded_probe_lanes
 from cruise_control_tpu_torch.kernels.segment import segment_count, segment_sum
 from cruise_control_tpu_torch.kernels.select import (
-    compact_eligible, select_candidates, select_candidates_lanes,
+    compact_eligible, pool_branch_counts, reset_pool_branches, select_candidates,
+    select_candidates_lanes, select_pooled, select_pooled_lanes,
 )
 from cruise_control_tpu_torch.kernels.swap import (
     swap_admission, swap_admission_lanes, swap_rows, swap_rows_lanes,
@@ -34,6 +35,7 @@ def reset_launches() -> None:
         k.shapes = {}
     FAMILY_LAUNCHES.clear()
     KEY_FAMILY_LAUNCHES.clear()
+    reset_pool_branches()
 
 
 def launches() -> dict:
@@ -49,9 +51,10 @@ __all__ = [
     "FAMILY_LAUNCHES", "KEY_FAMILY_LAUNCHES", "KERNELS", "build_all", "compact_eligible",
     "disk_apply", "disk_rows", "forecast_batch", "launch_shapes", "launches", "leadership_rows",
     "leadership_rows_lanes", "move_score_classes", "move_score_classes_lanes",
-    "preferred_leader", "replica_keys", "replica_keys_lanes", "reset_launches",
-    "seeded_probe", "seeded_probe_lanes", "segment_count", "segment_sum",
-    "select_candidates", "select_candidates_lanes", "session_finalize", "swap_admission",
+    "pool_branch_counts", "preferred_leader", "replica_keys", "replica_keys_lanes",
+    "reset_launches", "reset_pool_branches", "seeded_probe", "seeded_probe_lanes",
+    "segment_count", "segment_sum", "select_candidates", "select_candidates_lanes",
+    "select_pooled", "select_pooled_lanes", "session_finalize", "swap_admission",
     "swap_admission_lanes", "swap_rows", "swap_rows_lanes", "wave_admission",
     "wave_admission_lanes",
 ]

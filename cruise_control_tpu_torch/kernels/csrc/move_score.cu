@@ -21,6 +21,14 @@
 // values (row_f) arrive precomputed with the reference's arithmetic; every
 // float operation here is one IEEE add/sub/compare (built with --fmad=false).
 //
+// Per-goal veto form (chain_cache=False, engine.py _score_class_rows
+// :767-792 with the prev goals' own accept_move masks): with dst_lhs given,
+// dst_room holds each dim's BOUND and the column test is the goals' own
+// expression lhs[b] + d[k][c] <= bound[b] (add, then compare) instead of
+// the folded room d[k][c] <= bound[b] - lhs[b], which can differ by one ulp
+// at a band edge. Terms of one dim read the same lhs column, so the host
+// folds their bounds by min, which is exact.
+//
 // Lanes (K14, the fleet's tenant axis): grid dimension y = lane. Every
 // input and output is the [L, ...] stack of L solo launches' arguments
 // (row tables [L, K, ...], broker tables [L, ..., B], topic tables
@@ -58,7 +66,8 @@ __global__ void move_score_kernel(
     int Bp, const long long* __restrict__ cur_b,
     const long long* __restrict__ orig_b, const long long* __restrict__ sib_b,
     const unsigned char* __restrict__ row_ok, const float* __restrict__ d_rows,
-    const float* __restrict__ dst_room, const long long* __restrict__ prow,
+    const float* __restrict__ dst_room, const float* __restrict__ dst_lhs,
+    const long long* __restrict__ prow,
     const int* __restrict__ rack_lim, const float* __restrict__ row_f,
     const float* __restrict__ col_f,
     const unsigned char* __restrict__ dst_ok,
@@ -80,6 +89,7 @@ __global__ void move_score_kernel(
     row_ok += yK;
     d_rows += yK * kDims;
     dst_room += yB * kDims;
+    if (dst_lhs != nullptr) dst_lhs += yB * kDims;
     if (prow != nullptr) prow += yK * Kr;
     if (rack_lim != nullptr) rack_lim += yK;
     row_f += yK * 4;
@@ -128,7 +138,9 @@ __global__ void move_score_kernel(
 #pragma unroll
       for (int c = 0; c < kDims; ++c) {
         if ((room_mask >> c) & 1) {
-          bool okc = d[c] <= dst_room[(long long)c * B + b];
+          const long long cb_ = (long long)c * B + b;
+          bool okc = dst_lhs != nullptr ? __fadd_rn(dst_lhs[cb_], d[c]) <= dst_room[cb_]
+                                        : d[c] <= dst_room[cb_];
           if ((exempt_mask >> c) & 1) okc = okc || (d[c] == 0.0f);
           ok = ok && okc;
         }
@@ -221,8 +233,8 @@ extern "C" int cc_move_score_classes_lanes(
     int exempt_mask, int Bp, long long tab_n, long long vtab_n,
     const long long* cur_b, const long long* orig_b, const long long* sib_b,
     const unsigned char* row_ok, const float* d_rows, const float* dst_room,
-    const long long* prow, const int* rack_lim, const float* row_f, const float* col_f,
-    const unsigned char* dst_ok, const unsigned char* new_ok,
+    const float* dst_lhs, const long long* prow, const int* rack_lim, const float* row_f,
+    const float* col_f, const unsigned char* dst_ok, const unsigned char* new_ok,
     const long long* broker_rack, const long long* order_b, const long long* row_t,
     const int* tab, const int* vtab, const float* vup, float* cls_val,
     long long* cls_q, void* stream_ptr) {
@@ -242,7 +254,7 @@ extern "C" int cc_move_score_classes_lanes(
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   move_score_kernel<<<dim3(K, L), 256, smem, stream>>>(
       B, T, F, Kr, goal_kind, room_mask, exempt_mask, Bp, cur_b,
-      orig_b, sib_b, row_ok, d_rows, dst_room, prow, rack_lim, row_f, col_f,
+      orig_b, sib_b, row_ok, d_rows, dst_room, dst_lhs, prow, rack_lim, row_f, col_f,
       dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup, cls_val, cls_q, K,
       tab_n, vtab_n);
   return (int)cudaGetLastError();
@@ -252,8 +264,8 @@ extern "C" int cc_move_score_classes(
     int K, int B, int T, int F, int Kr, int goal_kind, int room_mask,
     int exempt_mask, int Bp, const long long* cur_b,
     const long long* orig_b, const long long* sib_b, const unsigned char* row_ok,
-    const float* d_rows, const float* dst_room, const long long* prow,
-    const int* rack_lim, const float* row_f, const float* col_f,
+    const float* d_rows, const float* dst_room, const float* dst_lhs,
+    const long long* prow, const int* rack_lim, const float* row_f, const float* col_f,
     const unsigned char* dst_ok,
     const unsigned char* new_ok, const long long* broker_rack,
     const long long* order_b, const long long* row_t, const int* tab,
@@ -261,6 +273,7 @@ extern "C" int cc_move_score_classes(
     void* stream_ptr) {
   return cc_move_score_classes_lanes(
       1, K, B, T, F, Kr, goal_kind, room_mask, exempt_mask, Bp, 0, 0, cur_b, orig_b,
-      sib_b, row_ok, d_rows, dst_room, prow, rack_lim, row_f, col_f, dst_ok, new_ok,
+      sib_b, row_ok, d_rows, dst_room, dst_lhs, prow, rack_lim, row_f, col_f, dst_ok,
+      new_ok,
       broker_rack, order_b, row_t, tab, vtab, vup, cls_val, cls_q, stream_ptr);
 }

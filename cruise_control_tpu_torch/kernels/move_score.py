@@ -27,6 +27,14 @@ Goal families (``GOAL_*``): the goal precomputes its [B]-level columns
 (``col_f`` f32[4, B]) and per-row values (``row_f`` f32[K, 4]) with the
 reference's own arithmetic; the kernel does only the [K, B] part.
 
+The per-goal veto form (``chain_cache=False``: ``_score_class_rows`` with
+the previous goals' own ``accept_move`` masks, engine.py :754-765): with
+``dst_lhs`` f32[8, B] given, ``dst_room`` holds each constrained dim's
+bound and the column test is the goals' expression ``lhs[b] + d[k, c] <=
+bound[b]`` (add, then compare) rather than the folded room ``d[k, c] <=
+bound[b] - lhs[b]``, which can differ by one ulp at a band edge; its
+launches count on ``move_score_terms`` (``move_score_terms_lanes``).
+
 ``move_score_classes_lanes`` is the fleet's lane form (K14): the solo
 arguments of La lanes, stacked into [La, ...] tensors, in ONE launch (grid
 dimension y = lane); each lane's result is its solo launch's. Its twin
@@ -54,6 +62,12 @@ KERNEL = register("move_score_classes",
 KERNEL_LANES = register("move_score_classes_lanes",
                         "cruise_control_tpu_torch/kernels/csrc/move_score.cu",
                         "cruise_control_tpu/analyzer/optimizer.py:2563")
+KERNEL_TERMS = register("move_score_terms",
+                        "cruise_control_tpu_torch/kernels/csrc/move_score.cu",
+                        "cruise_control_tpu/analyzer/engine.py:754")
+KERNEL_TERMS_LANES = register("move_score_terms_lanes",
+                              "cruise_control_tpu_torch/kernels/csrc/move_score.cu",
+                              "cruise_control_tpu/analyzer/engine.py:754")
 
 GOAL_RACK = 0              # RackAwareGoal
 GOAL_CAPACITY = 1          # CapacityGoal (Disk / NetworkInbound / ...)
@@ -160,7 +174,7 @@ def rack_others(prow, cur_b, broker_rack):
 def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
                              dst_room, room_mask, prow, rack_lim, row_f, col_f,
                              dst_ok, new_ok, broker_rack, order_b=None, topic=None,
-                             tveto=None):
+                             tveto=None, dst_lhs=None):
     K, B = cur_b.shape[0], dst_ok.shape[0]
     bidx = torch.arange(B, device=cur_b.device)
     ok = (dst_ok[None, :] & (new_ok[None, :] | (bidx[None, :] == orig_b[:, None]))
@@ -168,7 +182,10 @@ def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
     ok = ok & ~(sib_b[:, :, None] == bidx[None, None, :]).any(dim=1)
     for c in range(WAVE_DIMS):
         if room_mask >> c & 1:
-            okc = d_rows[:, c:c + 1] <= dst_room[c][None, :]
+            if dst_lhs is None:
+                okc = d_rows[:, c:c + 1] <= dst_room[c][None, :]
+            else:
+                okc = (dst_lhs[c][None, :] + d_rows[:, c:c + 1]) <= dst_room[c][None, :]
             if EXEMPT_MASK >> c & 1:
                 okc = okc | (d_rows[:, c] == 0)[:, None]
             ok = ok & okc
@@ -196,15 +213,22 @@ def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
     return best, q
 
 
-_SIGNATURES = {"cc_move_score_classes": [I] * 9 + [P] * 21,
+_SIGNATURES = {"cc_move_score_classes": [I] * 9 + [P] * 22,
                "cc_move_score_classes_lanes": [I] * 10 + [ctypes.c_longlong] * 2
-               + [P] * 21}
+               + [P] * 22}
+
+
+# dtypes of the launch's tensor operands, in their C order
+_DTYPES = (torch.int64, torch.int64, torch.int64, torch.bool, torch.float32, torch.float32,
+           torch.float32, torch.int64, torch.int32, torch.float32, torch.float32,
+           torch.bool, torch.bool, torch.int64, torch.int64, torch.int64, torch.int32,
+           torch.int32, torch.float32)
 
 
 def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
                        d_rows, dst_room, room_mask: int, prow, rack_lim,
                        row_f, col_f, dst_ok, new_ok, broker_rack, order_b=None,
-                       topic=None, tveto=None):
+                       topic=None, tveto=None, dst_lhs=None):
     """(cls_val f32[K, T], cls_q i64[K, T]): per row, the best score and its
     lowest strided index q over each destination class ``b % T`` (or, with
     ``order_b`` i64[Bp], over each class ``j % T`` of the ordered columns).
@@ -222,12 +246,13 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
     f32[K, 4]. Broker inputs [B]:
     ``dst_room`` f32[8, B] (combined destination rooms; dims in
     ``room_mask``), ``col_f`` f32[4, B], ``dst_ok``/``new_ok`` bool,
-    ``broker_rack`` i64."""
+    ``broker_rack`` i64. ``dst_lhs`` f32[8, B]: the per-goal veto form's
+    left-hand columns (``dst_room`` then holds the bounds); None: rooms."""
     if not cur_b.is_cuda:
         return move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok,
                                         d_rows, dst_room, room_mask, prow,
                                         rack_lim, row_f, col_f, dst_ok, new_ok,
-                                        broker_rack, order_b, topic, tveto)
+                                        broker_rack, order_b, topic, tveto, dst_lhs)
     K, F = sib_b.shape
     B = dst_ok.shape[0]
     Bp = -(-B // T) * T if order_b is None else order_b.shape[0]
@@ -246,13 +271,9 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
     if tveto is not None:
         vrow_t, vtab, vup = tveto
         row_t = vrow_t if row_t is None else row_t   # both are the rows' topics
-    tensors = [cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, prow, rack_lim, row_f,
-               col_f, dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup]
-    for t, dt in zip(tensors, (torch.int64, torch.int64, torch.int64, torch.bool,
-                               torch.float32, torch.float32, torch.int64, torch.int32,
-                               torch.float32, torch.float32, torch.bool,
-                               torch.bool, torch.int64, torch.int64, torch.int64,
-                               torch.int32, torch.int32, torch.float32)):
+    tensors = [cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, dst_lhs, prow, rack_lim,
+               row_f, col_f, dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup]
+    for t, dt in zip(tensors, _DTYPES):
         if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
             raise ValueError("move_score_classes: wrong dtype, layout or device")
     Kr = prow.shape[1] if prow is not None else 0
@@ -262,7 +283,8 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
         K, B, T, F, Kr, int(goal_kind), int(room_mask), EXEMPT_MASK, Bp,
         *(ptr(t) for t in tensors), ptr(cls_val), ptr(cls_q), stream_ptr())
     check(err, "move_score_classes")
-    KERNEL.count("ordered" if order_b is not None else f"T={T}")
+    (KERNEL if dst_lhs is None else KERNEL_TERMS).count(
+        "ordered" if order_b is not None else f"T={T}")
     FAMILY_LAUNCHES[goal_kind] = FAMILY_LAUNCHES.get(goal_kind, 0) + 1
     return cls_val, cls_q
 
@@ -286,9 +308,10 @@ def move_score_classes_lanes(lane_args: list):
         return move_score_classes_lanes_plain(lane_args)
     La = len(lane_args)
     (cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, prow, rack_lim, row_f, col_f,
-     dst_ok, new_ok, broker_rack, order_b, topic, tveto) = (
-        stack_lanes([a[i] for a in lane_args], "move_score_classes_lanes")
-        for i in (2, 3, 4, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18))
+     dst_ok, new_ok, broker_rack, order_b, topic, tveto, dst_lhs) = (
+        stack_lanes([a[i] if i < len(a) else None for a in lane_args],
+                    "move_score_classes_lanes")
+        for i in (2, 3, 4, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19))
     _La, K, F = sib_b.shape
     B = dst_ok.shape[1]
     Bp = -(-B // T) * T if order_b is None else order_b.shape[1]
@@ -305,13 +328,9 @@ def move_score_classes_lanes(lane_args: list):
     if tveto is not None:
         vrow_t, vtab, vup = tveto
         row_t = vrow_t if row_t is None else row_t
-    tensors = [cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, prow, rack_lim, row_f,
-               col_f, dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup]
-    for t, dt in zip(tensors, (torch.int64, torch.int64, torch.int64, torch.bool,
-                               torch.float32, torch.float32, torch.int64, torch.int32,
-                               torch.float32, torch.float32, torch.bool,
-                               torch.bool, torch.int64, torch.int64, torch.int64,
-                               torch.int32, torch.int32, torch.float32)):
+    tensors = [cur_b, orig_b, sib_b, row_ok, d_rows, dst_room, dst_lhs, prow, rack_lim,
+               row_f, col_f, dst_ok, new_ok, broker_rack, order_b, row_t, tab, vtab, vup]
+    for t, dt in zip(tensors, _DTYPES):
         if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
             raise ValueError("move_score_classes_lanes: wrong dtype, layout or device")
     Kr = prow.shape[2] if prow is not None else 0
@@ -323,6 +342,6 @@ def move_score_classes_lanes(lane_args: list):
         La, K, B, T, F, Kr, int(goal_kind), int(room_mask), EXEMPT_MASK, Bp, tab_n,
         vtab_n, *(ptr(t) for t in tensors), ptr(cls_val), ptr(cls_q), stream_ptr())
     check(err, "move_score_classes_lanes")
-    KERNEL_LANES.count(f"L={La} T={T}")
+    (KERNEL_LANES if dst_lhs is None else KERNEL_TERMS_LANES).count(f"L={La} T={T}")
     FAMILY_LAUNCHES[goal_kind] = FAMILY_LAUNCHES.get(goal_kind, 0) + 1
     return cls_val, cls_q

@@ -30,6 +30,21 @@ seed-mask row per lane, in ONE launch sequence (grid dimension y = lane);
 each lane's output is its solo launch's, bit for bit. Its twin is a loop of
 the solo twin over the lanes.
 
+``select_pooled`` is the pooled keying (``compact_keying``: engine.py
+``_select_candidates`` :179-225); ``select_candidates`` and its lane form
+take it when given ``compact_pool`` and the pool is below R, the one place
+that decides. With ``pool = min(R, max(compact_pool, 2k)) < R`` the same
+library compacts the eligible rows (key > -inf after
+the seed mask) and counts them on the device, and the selection chooses
+its branch there from the count, as the reference's ``lax.cond`` does: the
+pool when the count fits it (the salt hashes each row's original id, so
+every live row comes out as the full sweep orders it; pad slots come out
+as kv -inf and id R - 1, the reference's ``min(order, R - 1)``), else the
+full sweep. No host read: each lane of ``select_pooled_lanes`` chooses for
+itself. A device counter per branch (``pool_branch_counts``) records what
+each selection chose; read it once, at the end of a run. The twin is the
+reference's pooled body in plain torch, its branch chosen on the host.
+
 ``compact_eligible`` (engine.py ``_compact_eligible`` :1257) compacts the
 true entries of a bool[R] into index order for the exhaustive scans, in
 the same library (``csrc/select_candidates.cu``).
@@ -51,6 +66,12 @@ KERNEL_MASKED = register("select_candidates_masked",
 KERNEL_LANES = register("select_candidates_lanes",
                         "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
                         "cruise_control_tpu/analyzer/optimizer.py:2563")
+KERNEL_POOLED = register("select_pooled",
+                         "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
+                         "cruise_control_tpu/analyzer/engine.py:179")
+KERNEL_POOLED_LANES = register("select_pooled_lanes",
+                               "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
+                               "cruise_control_tpu/analyzer/optimizer.py:2563")
 KERNEL_COMPACT = register("compact_eligible",
                           "cruise_control_tpu_torch/kernels/csrc/select_candidates.cu",
                           "cruise_control_tpu/analyzer/engine.py:1257")
@@ -64,13 +85,16 @@ def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
 
 
-def stall_salt_plain(key: torch.Tensor, stall: int, salt: int = 0) -> torch.Tensor:
+def stall_salt_plain(key: torch.Tensor, stall: int, salt: int = 0,
+                     idx: torch.Tensor | None = None) -> torch.Tensor:
     """``_stall_explore``: on a stalled pass (``stall > 0``) re-key eligible
     rows by a (replica, stall, salt) hash in [0, 1), +2.0 for offline-healing
-    keys (>= 5e11); ineligible rows stay -inf."""
+    keys (>= 5e11); ineligible rows stay -inf. ``idx``: the rows' original
+    replica ids (a compacted pool's), None: their positions."""
     if stall <= 0:
         return key
-    idx = torch.arange(key.shape[0], dtype=torch.int64, device=key.device)
+    if idx is None:
+        idx = torch.arange(key.shape[0], dtype=torch.int64, device=key.device)
     h = (mul32(idx, 2246822519)
          + ((((stall + salt) & _M32) * 3266489917) & _M32)) & _M32
     h = mul32(h ^ (h >> 15), 2654435761)
@@ -101,14 +125,21 @@ def select_candidates_plain(key, k, stall, salt=0, seed_mask=None):
 
 _SIGNATURES = {"cc_select_candidates": [P, P, I, I, I, I, P, P, P, P, P, P, P],
                "cc_select_candidates_lanes": [P, P, I, I, I, P, I] + [P] * 7,
+               "cc_select_pooled": [P, P, I, I, I, I, I, P, I] + [P] * 11,
                "cc_compact_eligible": [P, I, I, P, P, P, P]}
 
 
 def select_candidates(key: torch.Tensor, k: int, stall: int, salt: int = 0,
-                      seed_mask: torch.Tensor | None = None):
+                      seed_mask: torch.Tensor | None = None,
+                      compact_pool: int | None = None):
     """(kv f32[k], cand i64[k]) of the stall-salted key, k = min(k, R); rows
-    outside ``seed_mask`` (bool[R], None: every row) read -inf."""
+    outside ``seed_mask`` (bool[R], None: every row) read -inf.
+    ``compact_pool``: the pooled keying's pool floor (``compact_keying``
+    on): ``select_pooled`` when its pool is below R; None: the full sweep."""
     k = min(int(k), key.shape[0])
+    pool = _pool_below(key.shape[0], k, compact_pool)
+    if pool is not None:
+        return select_pooled(key, k, stall, salt, seed_mask, pool)
     if not key.is_cuda:
         return select_candidates_plain(key, k, stall, salt, seed_mask)
     if key.dtype != torch.float32 or not key.is_contiguous() or key.dim() != 1:
@@ -146,12 +177,17 @@ def select_candidates_lanes_plain(key, k, stalls, salt=0, seed_mask=None):
 
 
 def select_candidates_lanes(key: torch.Tensor, k: int, stalls, salt: int = 0,
-                            seed_mask: torch.Tensor | None = None):
+                            seed_mask: torch.Tensor | None = None,
+                            compact_pool: int | None = None):
     """(kv f32[L, k], cand i64[L, k]): ``select_candidates`` of every row of
     ``key`` f32[L, R] with lane j's stall ``stalls[j]`` and seed-mask row j
-    (``seed_mask`` bool[L, R], None: every row of every lane)."""
+    (``seed_mask`` bool[L, R], None: every row of every lane); with
+    ``compact_pool``, ``select_pooled_lanes`` when its pool is below R."""
     L, n = key.shape
     k = min(int(k), n)
+    pool = _pool_below(n, k, compact_pool)
+    if pool is not None:
+        return select_pooled_lanes(key, k, stalls, salt, seed_mask, pool)
     if len(stalls) != L:
         raise ValueError("select_candidates_lanes takes one stall per lane")
     if not key.is_cuda:
@@ -179,6 +215,154 @@ def select_candidates_lanes(key: torch.Tensor, k: int, stalls, salt: int = 0,
         ptr(state), ptr(hist), ptr(kv), ptr(idx), stream_ptr())
     check(err, "select_candidates_lanes")
     KERNEL_LANES.count(f"L={L} k={k}")
+    return kv, idx
+
+
+# selections per branch (pooled, full) since the last reset: a device
+# counter per CUDA device, a host tally for the plain twin on the CPU
+_BRANCH: dict = {}
+_HOST_BRANCH = [0, 0]
+
+
+def _branch_counter(dev) -> torch.Tensor:
+    t = _BRANCH.get(dev)
+    if t is None:
+        t = _BRANCH[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return t
+
+
+def reset_pool_branches() -> None:
+    """Zero the branch counters (no host read)."""
+    for t in _BRANCH.values():
+        t.zero_()
+    _HOST_BRANCH[0] = _HOST_BRANCH[1] = 0
+
+
+def pool_branch_counts() -> dict:
+    """{"pooled": n, "full": n}: the pooled selections since the last
+    reset, by the branch each took (one device read per CUDA device)."""
+    pooled, full = _HOST_BRANCH
+    for t in _BRANCH.values():
+        p, f = t.tolist()
+        pooled, full = pooled + p, full + f
+    return {"pooled": pooled, "full": full}
+
+
+def pool_size(R: int, k: int, compact_pool: int) -> int:
+    """engine.py:199: the pooled keying's pool, ``min(R, max(compact_pool,
+    2k))`` with ``k = min(k, R)``; the pool is used only below R."""
+    return min(R, max(int(compact_pool), 2 * min(int(k), R)))
+
+
+def _pool_below(R: int, k: int, compact_pool: int | None) -> int | None:
+    """The pooled keying's pool when ``compact_pool`` is set and the pool is
+    below R (engine.py:199-200), else None (the full sweep)."""
+    if compact_pool is None:
+        return None
+    pool = pool_size(R, k, compact_pool)
+    return pool if pool < R else None
+
+
+def _tally_plain(key, seed_mask, pool) -> None:
+    """The host tally of the branch a selection on the CPU takes."""
+    n = int((mask_key_plain(key, seed_mask) > -torch.inf).sum())
+    _HOST_BRANCH[0 if n <= pool else 1] += 1
+
+
+def select_pooled_plain(key, k, stall, salt=0, seed_mask=None, pool=8192):
+    """The reference's pooled branch (engine.py:205-214) when the eligible
+    count fits ``pool``, else its full sweep."""
+    R = key.shape[0]
+    key = mask_key_plain(key, seed_mask)
+    elig = key > -torch.inf
+    n = int(elig.sum())
+    if n > pool:
+        return select_candidates_plain(key, k, stall, salt)
+    order = torch.full((pool,), R, dtype=torch.int64, device=key.device)
+    order[:n] = torch.nonzero(elig).flatten()
+    idx = torch.clamp(order, max=R - 1)
+    kcol = torch.where(order < R, key[idx], torch.full_like(key[idx], -torch.inf))
+    salted = stall_salt_plain(kcol, stall, salt, idx)
+    pos = torch.sort(sortable_key(salted), descending=True, stable=True)[1][:k]
+    return salted[pos], idx[pos]
+
+
+def _pooled_launch(key, mask, L, n, k, pool, stall0, stalls, salt, what):
+    dev = key.device
+    if not 0 < 2 * k <= pool < n or k > MAX_K:
+        raise ValueError(f"{what}: needs 0 < 2k <= pool < R and k <= {MAX_K}, got "
+                         f"k={k} pool={pool} R={n}")
+    nb = -(-n // 1024)
+    counts = torch.empty((L, nb), dtype=torch.int32, device=dev)
+    order = torch.empty((L, n), dtype=torch.int64, device=dev)
+    elig_n = torch.empty(L, dtype=torch.int64, device=dev)
+    comp = torch.empty((L, n), dtype=torch.int64, device=dev)
+    sel = torch.empty((L, k), dtype=torch.int64, device=dev)
+    state = torch.empty((L, 4), dtype=torch.int64, device=dev)
+    hist = torch.empty((L, 256), dtype=torch.int32, device=dev)
+    kv = torch.empty((L, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((L, k), dtype=torch.int64, device=dev)
+    err = library("select_candidates", _SIGNATURES).cc_select_pooled(
+        ptr(key), ptr(mask), L, n, k, int(pool), int(stall0), ptr(stalls), int(salt),
+        ptr(counts), ptr(order), ptr(elig_n), ptr(comp), ptr(sel), ptr(state), ptr(hist),
+        ptr(kv), ptr(idx), ptr(_branch_counter(dev)), stream_ptr())
+    check(err, what)
+    return kv, idx
+
+
+def select_pooled(key: torch.Tensor, k: int, stall: int, salt: int = 0,
+                  seed_mask: torch.Tensor | None = None, pool: int = 8192):
+    """(kv f32[k], cand i64[k]): the pooled keying of the stall-salted key
+    (``pool`` < R, ``2k <= pool``): bit for bit ``select_candidates`` on
+    every live row, pad slots (-inf, R - 1) when the pool was taken."""
+    k = min(int(k), key.shape[0])
+    if not key.is_cuda:
+        _tally_plain(key, seed_mask, pool)
+        return select_pooled_plain(key, k, stall, salt, seed_mask, pool)
+    if key.dtype != torch.float32 or not key.is_contiguous() or key.dim() != 1:
+        raise ValueError("select_pooled takes a contiguous f32[R] key")
+    if seed_mask is not None and (seed_mask.dtype != torch.bool
+                                  or tuple(seed_mask.shape) != tuple(key.shape)
+                                  or not seed_mask.is_contiguous()
+                                  or seed_mask.device != key.device):
+        raise ValueError("select_pooled takes a contiguous bool[R] seed mask")
+    kv, idx = _pooled_launch(key, seed_mask, 1, key.shape[0], k, pool, stall, None, salt,
+                             "select_pooled")
+    KERNEL_POOLED.count(f"k={k} pool={pool}")
+    return kv[0], idx[0]
+
+
+def select_pooled_lanes_plain(key, k, stalls, salt=0, seed_mask=None, pool=8192):
+    outs = [select_pooled_plain(key[j], k, int(stalls[j]), salt,
+                                None if seed_mask is None else seed_mask[j], pool)
+            for j in range(key.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def select_pooled_lanes(key: torch.Tensor, k: int, stalls, salt: int = 0,
+                        seed_mask: torch.Tensor | None = None, pool: int = 8192):
+    """(kv f32[L, k], cand i64[L, k]): ``select_pooled`` of every row of
+    ``key`` f32[L, R], lane j with stall ``stalls[j]`` and seed-mask row j;
+    each lane takes its own branch on the device."""
+    L, n = key.shape
+    k = min(int(k), n)
+    if len(stalls) != L:
+        raise ValueError("select_pooled_lanes takes one stall per lane")
+    if not key.is_cuda:
+        for j in range(L):
+            _tally_plain(key[j], None if seed_mask is None else seed_mask[j], pool)
+        return select_pooled_lanes_plain(key, k, stalls, salt, seed_mask, pool)
+    if key.dtype != torch.float32 or not key.is_contiguous():
+        raise ValueError("select_pooled_lanes takes a contiguous f32[L, R] key")
+    if seed_mask is not None and (seed_mask.dtype != torch.bool
+                                  or tuple(seed_mask.shape) != (L, n)
+                                  or not seed_mask.is_contiguous()
+                                  or seed_mask.device != key.device):
+        raise ValueError("select_pooled_lanes takes a contiguous bool[L, R] seed mask")
+    st = host_ints(stalls, key.device, torch.int32)
+    kv, idx = _pooled_launch(key, seed_mask, L, n, k, pool, 0, st, salt,
+                             "select_pooled_lanes")
+    KERNEL_POOLED_LANES.count(f"L={L} k={k} pool={pool}")
     return kv, idx
 
 

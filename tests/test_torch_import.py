@@ -188,7 +188,9 @@ def test_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
                                  "replica_keys_lanes", "move_score_classes_lanes",
                                  "wave_admission_lanes", "leadership_rows_lanes",
                                  "swap_rows_lanes", "swap_admission_lanes",
-                                 "seeded_probe_lanes"}
+                                 "seeded_probe_lanes", "select_pooled",
+                                 "select_pooled_lanes", "move_score_terms",
+                                 "move_score_terms_lanes"}
 
 
 def test_new_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
@@ -303,3 +305,32 @@ def test_branch_lane_wrappers_on_cpu_tensors_count_no_launch():
                                  torch.tensor([[3, 4, 5]] * 2), 1e-9)
     assert win.tolist() == [[True, False, True]] * 2
     assert all(n == 0 for n in K.launches().values())
+
+
+def test_option_wrappers_on_cpu_tensors_count_no_launch():
+    """The pooled K1 (solo and lanes, and through K1's ``compact_pool``)
+    dispatches on the tensors' device: on the CPU its twin takes the pool
+    when the eligible rows fit it (pads: -inf, id R - 1), else the full
+    sweep, and counts no launch; only the branch tally moves. The engine module keeps the mesh as its one
+    unported option."""
+    from cruise_control_tpu_torch.analyzer.engine import EngineParams, check_supported
+    K.reset_launches()
+    key = torch.full((64,), -torch.inf)
+    key[[3, 9, 40]] = torch.tensor([1.0, 3.0, 2.0])
+    kv, idx = K.select_pooled(key, 4, 0, pool=16)
+    assert idx.tolist() == [9, 40, 3, 63] and kv[3] == -torch.inf
+    kv, idx = K.select_pooled_lanes(torch.stack([key, torch.ones(64)]), 4, [0, 0], pool=16)
+    assert idx.tolist() == [[9, 40, 3, 63], [0, 1, 2, 3]]
+    assert K.pool_branch_counts() == {"pooled": 2, "full": 1}
+    # K1's ``compact_pool`` takes the pooled keying only below R
+    assert K.select_candidates(key, 4, 0, compact_pool=16)[1].tolist() == [9, 40, 3, 63]
+    assert K.select_candidates(key, 4, 0, compact_pool=64)[1].tolist() == [9, 40, 3, 0]
+    assert K.select_candidates_lanes(key[None], 4, [0], compact_pool=16)[1].tolist() == [
+        [9, 40, 3, 63]]
+    assert K.pool_branch_counts() == {"pooled": 4, "full": 1}
+    assert all(n == 0 for n in K.launches().values())
+    K.reset_launches()
+    assert K.pool_branch_counts() == {"pooled": 0, "full": 0}
+    check_supported(EngineParams(compact_keying=True, chain_cache=False))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_supported(EngineParams(mesh=object()))

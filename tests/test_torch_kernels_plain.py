@@ -121,7 +121,7 @@ def test_move_score_classes_twin(ctx, i):
     goal, prev = ctx["pgoals"][i], tuple(ctx["pgoals"][:i])
     cand_p, kv_p = torch.tensor(cand).long(), torch.tensor(kv)
     rooms, rack_veto = engine._combined_move_rooms(prev, penv, pst)
-    d_rows = engine._move_delta_rows(penv, pst, cand_p)
+    d_rows = engine.move_delta_rows(penv, pst, cand_p)
     val_p, q_p = move_score_classes(*engine._score_args(
         penv, pst, goal, rooms, rack_veto, cand_p, kv_p, d_rows, T))
     assert np.array_equal(bits(val_r), bits(val_p))
@@ -172,7 +172,7 @@ def test_wave_admission_twin(ctx, i, seed):
     pg = ctx["pgoals"]
     ct_ = torch.as_tensor(cand).long()
     win_p = wave_admission(
-        engine._move_delta_rows(penv, pst, ct_), pst.replica_broker[ct_],
+        engine.move_delta_rows(penv, pst, ct_), pst.replica_broker[ct_],
         torch.as_tensor(dst).long(), torch.as_tensor(wave_ok),
         penv.replica_partition[ct_],
         *engine.chain_slack(penv, pst, (pg[i], *pg[:i])),
@@ -296,7 +296,7 @@ def test_wave_admission_segment_rows_with_topic_budgets(chain_ctx):
     rt = torch.as_tensor(r_sorted).long()
     args = engine._admit_moves(
         penv, pst, pg[i], tuple(pg[:i]), rt, pst.replica_broker[rt],
-        torch.as_tensor(dst).long(), engine._move_delta_rows(penv, pst, rt),
+        torch.as_tensor(dst).long(), engine.move_delta_rows(penv, pst, rt),
         torch.as_tensor(wave_ok), kgroup=(torch.as_tensor(k_s).long(), R))
     assert args[11] is not None                   # the topic budgets are in
     win_p = wave_admission(*args)
@@ -326,7 +326,7 @@ def test_move_score_scan_and_column_order(chain_ctx, i):
     seg = sc[:, order_b].reshape(512, -1, S)
     ct_ = torch.as_tensor(cand).long()
     prooms, pcustom = engine._combined_move_rooms(tuple(pg[:i]), penv, pst)
-    d_rows = engine._move_delta_rows(penv, pst, ct_)
+    d_rows = engine.move_delta_rows(penv, pst, ct_)
     ones = torch.ones(512, dtype=torch.bool)
     v1, q1 = move_score_classes(*engine._score_args(
         penv, pst, pg[i], prooms, pcustom, ct_, None, d_rows, 1, row_ok=ones))
@@ -400,9 +400,9 @@ def test_move_score_default_families(default_ctx, i):
     ct_ = torch.as_tensor(cand).long()
     prooms, pcustom = engine._combined_move_rooms(tuple(pg[:i]), penv, pst)
     args = engine._score_args(penv, pst, pg[i], prooms, pcustom, ct_, None,
-                              engine._move_delta_rows(penv, pst, ct_), T,
+                              engine.move_delta_rows(penv, pst, ct_), T,
                               row_ok=torch.ones(256, dtype=torch.bool))
-    assert (args[-1] is not None) == (i > DEFAULT.index("TopicReplicaDistributionGoal"))
+    assert (args[18] is not None) == (i > DEFAULT.index("TopicReplicaDistributionGoal"))
     val, q = move_score_classes(*args)
     assert np.array_equal(bits(jnp.max(sv, axis=1)), bits(val))
     assert np.array_equal(np.asarray(jnp.argmax(sv, axis=1)), q.numpy())

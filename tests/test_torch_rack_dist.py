@@ -141,7 +141,7 @@ def test_k2_twin_active(ctx, prev):
                                                 penv, pst)
     val_p, q_p = move_score_classes(*engine._score_args(
         penv, pst, make_goal(RD), rooms, custom, cand_p, kv_p,
-        engine._move_delta_rows(penv, pst, cand_p), T))
+        engine.move_delta_rows(penv, pst, cand_p), T))
     assert np.array_equal(bits(val_r), bits(val_p))
     assert np.array_equal(q_r, q_p.numpy())
     assert np.isfinite(val_r).any()
@@ -175,7 +175,7 @@ def test_k2_veto_masks(ctx, prev):
     B = penv.num_brokers
     val, _ = move_score_classes(*engine._score_args(
         penv, pst, _ScoresEverywhere(), rooms, custom, cand_p,
-        torch.zeros(cand.shape[0]), engine._move_delta_rows(penv, pst, cand_p), B))
+        torch.zeros(cand.shape[0]), engine.move_delta_rows(penv, pst, cand_p), B))
     got = (val > -torch.inf).numpy()
     assert np.array_equal(want, got)
     assert want.any() and not want.all()

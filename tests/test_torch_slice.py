@@ -10,9 +10,12 @@ The five move-branch goals of the first slice (``GOALS``):
   not integers, but every float the slice adds up follows the reference's
   order (see test_torch_kernels_plain.py), so counts and the assignment are
   equal as well.
-- Requests the port cannot serve raise ``NotImplementedError``; the goals
-  that used to raise (RackAwareDistributionGoal and the two kafka-assigner
-  goals) now run and match the reference on fixture16.
+- The goals that used to raise (RackAwareDistributionGoal and the two
+  kafka-assigner goals) run and match the reference on fixture16; so do the
+  requests that used to raise for their engine paths: a goal without wave
+  budgets alone and in front of LeaderReplicaDistributionGoal (the
+  one-move-per-broker wave and the sequential leadership fallback), the
+  pooled candidate keying and the per-goal accept masks.
 - The full 1,000-broker slice (``slow``) compares outcomes at size.
 
 Every reference outcome comes from a fresh interpreter (torch_reference.py).
@@ -57,6 +60,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from __graft_entry__ import _fixture_cluster
 from cruise_control_tpu.model import random_cluster as ref_rc
@@ -68,7 +72,9 @@ from cruise_control_tpu_torch.analyzer.goals.distribution import (
 )
 from cruise_control_tpu_torch.analyzer.optimizer import DEFAULT_GOALS, GoalOptimizer
 from cruise_control_tpu_torch.model import random_cluster as port_rc
-from torch_reference import reference_chain, reference_chains
+from torch_reference import (
+    background_reference, chains_job, reference_chain, start_background_reference,
+)
 
 GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
          "NetworkInboundCapacityGoal", "ReplicaDistributionGoal"]
@@ -101,25 +107,69 @@ FORMERLY_UNPORTED = {
 }
 
 
-def _port_run(spec, goals=GOALS):
+@dataclasses.dataclass(frozen=True)
+class _NoLeaderBudgetGoal(LeaderReplicaDistributionGoal):
+    """A leadership goal whose acceptance has no cumulative (wave) form:
+    its chain needs the reference's sequential leadership fallback and its
+    one-move-per-broker wave (the reference's child registers its twin)."""
+    wave_budgets = GoalKernel.wave_budgets
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "name", "NoLeaderBudgetGoal")
+
+
+# the requests that raised until their engine paths were ported, on
+# fixture16: (goals, EngineParams fields); the pooled keying with a pool
+# below fixture16's R (the default pool covers it), so both branches run
+FORMERLY_RAISING = {
+    "sequential leadership fallback": (["NoLeaderBudgetGoal"], None),
+    "fallbacks behind a non-budget goal": (
+        ["NoLeaderBudgetGoal", "LeaderReplicaDistributionGoal"], None),
+    "pooled candidate keying": (GOALS, dict(compact_keying=True, compact_pool=64,
+                                            num_candidates=16)),
+    "per-goal accept masks": (GOALS, dict(chain_cache=False)),
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """This module's tensors are small: one intra-op thread per test
+    worker (under xdist the pool's idle threads spin against the other
+    workers'), restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _port_run(spec, goals=GOALS, params=None):
     """The port's run of ``goals`` on the reference's cluster (``spec`` None:
-    fixture16)."""
+    fixture16), with ``params`` (EngineParams fields) when given."""
     ct, meta = (_fixture_cluster() if spec is None
                 else ref_rc.generate_scale(ref_rc.RandomClusterSpec(**spec)))
     pct, pmeta = convert.cluster_from_arrays(convert.leaves(ct), meta)
-    return GoalOptimizer(device="cpu").optimizations(
-        pct, pmeta, **{**KW, "goal_names": goals})
+    opt = GoalOptimizer(device="cpu",
+                        engine_params=EngineParams(**params) if params else None)
+    return opt.optimizations(pct, pmeta, **{**KW, "goal_names": goals})
+
+
+# the reference's fixture16 runs of ``GOALS``, ``FORMERLY_UNPORTED`` and
+# ``FORMERLY_RAISING`` in one fresh interpreter (the chains share their
+# programs at this shape), started when the module is imported (under
+# xdist, once per session, in the background)
+_FIXTURE16_JOBS = {"runs": chains_job(
+    [dict(spec=None, goals=GOALS)]
+    + [dict(spec=None, goals=g) for g in FORMERLY_UNPORTED.values()]
+    + [dict(spec=None, goals=g, params=p) for g, p in FORMERLY_RAISING.values()])}
+start_background_reference("slice_fixture16", _FIXTURE16_JOBS)
 
 
 @pytest.fixture(scope="module")
 def fixture16_refs(tmp_path_factory):
-    """The reference's fixture16 runs of ``GOALS`` and of
-    ``FORMERLY_UNPORTED``, from one fresh interpreter (the chains share
-    their programs at this shape)."""
-    runs = [GOALS, *FORMERLY_UNPORTED.values()]
-    out = reference_chains(tmp_path_factory.mktemp("fixture16"),
-                           [dict(spec=None, goals=g) for g in runs])
-    return dict(zip(["GOALS", *FORMERLY_UNPORTED], out))
+    """The reference's fixture16 runs, once per test session."""
+    out = background_reference(tmp_path_factory, "slice_fixture16", _FIXTURE16_JOBS)["runs"]
+    return dict(zip(["GOALS", *FORMERLY_UNPORTED, *FORMERLY_RAISING], out))
 
 
 @pytest.fixture(scope="module")
@@ -188,40 +238,35 @@ def test_port_generator_feeds_the_same_run(spec32):
                           port.final_state.replica_broker.numpy())
 
 
-@dataclasses.dataclass(frozen=True)
-class _NoLeaderBudgetGoal(LeaderReplicaDistributionGoal):
-    """A leadership goal whose acceptance has no cumulative (wave) form:
-    its chain needs the reference's sequential leadership fallback."""
-    wave_budgets = GoalKernel.wave_budgets
-
-    def __post_init__(self):
-        super().__post_init__()
-        object.__setattr__(self, "name", "NoLeaderBudgetGoal")
-
-
-UNSUPPORTED = {
-    "sequential leadership fallback": (
-        dict(goal_names=["NoLeaderBudgetGoal"]), "seq_body"),
-    "pooled candidate keying": ({}, "compact_keying"),
-    "per-goal accept masks": ({}, "chain_cache"),
-}
-# engine options of the cases above that are still to port (item 5b)
-UNSUPPORTED_PARAMS = {"compact_keying": dict(compact_keying=True),
-                      "chain_cache": dict(chain_cache=False)}
-
-
-@pytest.mark.parametrize("case", sorted(UNSUPPORTED))
-def test_unsupported_requests_raise(case, monkeypatch):
-    extra, special = UNSUPPORTED[case]
-    kw = {**KW, **extra}
-    ct, meta = _fixture_cluster()
-    ct, meta = convert.cluster_from_arrays(convert.leaves(ct), meta)
-    if special == "seq_body":
-        monkeypatch.setitem(GOAL_CLASSES, "NoLeaderBudgetGoal", _NoLeaderBudgetGoal)
-    params = (EngineParams(**UNSUPPORTED_PARAMS[special])
-              if special in UNSUPPORTED_PARAMS else None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GoalOptimizer(engine_params=params, device="cpu").optimizations(ct, meta, **kw)
+@pytest.mark.parametrize("case", sorted(FORMERLY_RAISING))
+def test_formerly_raising_requests_run(fixture16_refs, case, monkeypatch):
+    """A goal without wave budgets (alone, and in front of
+    LeaderReplicaDistributionGoal: the one-move-per-broker wave and
+    ``seq_body``), ``compact_keying`` and ``chain_cache=False`` (formerly
+    ``NotImplementedError``s of item 5b): the request runs and gives the
+    reference's own run of the same settings bit for bit (counts, swap
+    actions, certificate fields, assignment, proposals). The pooled case
+    takes the pool and the full sweep both."""
+    from cruise_control_tpu_torch.kernels import pool_branch_counts, reset_pool_branches
+    monkeypatch.setitem(GOAL_CLASSES, "NoLeaderBudgetGoal", _NoLeaderBudgetGoal)
+    goals, params = FORMERLY_RAISING[case]
+    reset_pool_branches()
+    ref, port = fixture16_refs[case], _port_run(None, goals, params)
+    assert _counts(port) == ref["counts"]
+    assert [g.swap_actions for g in port.goal_results] == ref["swaps"]
+    assert ([g.fixpoint_proven for g in port.goal_results],
+            [g.finisher_rounds for g in port.goal_results],
+            [g.swap_window_remaining for g in port.goal_results]) == (
+        ref["finisher"]["proven"], ref["finisher"]["rounds"], ref["finisher"]["swleft"])
+    for name in ("replica_broker", "replica_is_leader", "replica_disk"):
+        assert np.array_equal(ref["final"][name],
+                              getattr(port.final_state, name).numpy()), name
+    assert _proposals(port) == ref["proposals"]
+    branches = pool_branch_counts()
+    if params and params.get("compact_keying"):
+        assert branches["pooled"] > 0 and branches["full"] > 0, branches
+    else:
+        assert branches == {"pooled": 0, "full": 0}
 
 
 def test_measured_goal_durations_give_the_unmeasured_outcome():

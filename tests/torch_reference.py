@@ -22,7 +22,23 @@ replica_broker / replica_is_leader / replica_disk / util / disk_util).
     refs = reference_chains(tmp_path, [dict(spec=..., goals=...), ...])
 
 runs several chains in ONE fresh interpreter (one JAX import, programs of
-one shape compiled once) and returns their dicts in order.
+one shape compiled once) and returns their dicts in order. A run's
+``params`` sets ``EngineParams`` fields; its goals may name
+``NoLeaderBudgetGoal`` (LeaderReplicaDistributionGoal without wave budgets,
+registered in the child's process only).
+
+    out = shared_reference(tmp_path_factory, name, compute)
+
+computes ``compute(tmp_dir)`` once per test session and hands every
+``pytest-xdist`` worker the first one's pickled result.
+
+    start_background_reference(name, {part: cases_job(module, function, part), ...})
+    out = background_reference(tmp_path_factory, name, jobs)
+
+start a module's reference interpreters when its module is imported (under
+``pytest-xdist``: once per session, in the background, while the earlier
+tests run; ``chains_job`` runs ``reference_chains``' runs) and hand each
+test the pickled results, computing them there and then without xdist.
 
     rows = reference_matrix_rows(tmp_path, [0, 1, ...])
 
@@ -72,6 +88,29 @@ from cruise_control_tpu.analyzer.engine import EngineParams
 from cruise_control_tpu.analyzer.optimizer import GoalOptimizer
 from cruise_control_tpu.model import fixtures
 from cruise_control_tpu.model import random_cluster as rc
+
+
+def register_no_leader_budget_goal():
+    # the reference's twin of the port tests' NoLeaderBudgetGoal: a leader
+    # goal without wave budgets, whose chains take the sequential fallbacks;
+    # registered in this process only
+    from cruise_control_tpu.analyzer.goals import GOAL_CLASSES, GoalKernel
+    from cruise_control_tpu.analyzer.goals.distribution import (
+        LeaderReplicaDistributionGoal)
+
+    @dataclasses.dataclass(frozen=True)
+    class NoLeaderBudgetGoal(LeaderReplicaDistributionGoal):
+        wave_budgets = GoalKernel.wave_budgets
+
+        def __post_init__(self):
+            super().__post_init__()
+            object.__setattr__(self, "name", "NoLeaderBudgetGoal")
+
+    GOAL_CLASSES["NoLeaderBudgetGoal"] = NoLeaderBudgetGoal
+
+
+register_no_leader_budget_goal()
+
 
 def run(args):
     if args["spec"] is None:
@@ -208,16 +247,49 @@ def swap_tail_cluster(num_brokers: int = 12, per_broker: int = 6):
     return b.build()
 
 
-def _run_child(code: str, arg: dict, timeout: int) -> None:
+def _child_env() -> dict:
     env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_ENABLE_COMPILATION_CACHE="false",
                PYTHONPATH=os.pathsep.join(
                    p for p in (str(ROOT), str(ROOT / "tests"),
                                os.environ.get("PYTHONPATH")) if p))
+    # a child is no test worker: the test modules it imports start nothing
+    env.pop("PYTEST_XDIST_TESTRUNUID", None)
+    return env
+
+
+def _run_child(code: str, arg: dict, timeout: int) -> None:
     proc = subprocess.run([sys.executable, "-c", code, json.dumps(arg)], cwd=ROOT,
-                          env=env, capture_output=True, text=True, timeout=timeout)
+                          env=_child_env(), capture_output=True, text=True,
+                          timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"reference run failed (rc {proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
+
+
+def _run_children(jobs: list, timeout: int) -> None:
+    """``_run_child`` of every (code, arg) of ``jobs`` at once: the
+    interpreters run side by side and all are waited for (each killed at
+    ``timeout``)."""
+    import tempfile
+    procs = []
+    try:
+        for code, arg in jobs:
+            err = tempfile.TemporaryFile()
+            procs.append((subprocess.Popen([sys.executable, "-c", code, json.dumps(arg)],
+                                           cwd=ROOT, env=_child_env(),
+                                           stdout=subprocess.DEVNULL, stderr=err), err))
+        for proc, err in procs:
+            rc = proc.wait(timeout=timeout)
+            if rc != 0:
+                err.seek(0)
+                raise RuntimeError(f"reference run failed (rc {rc}):\n"
+                                   f"{err.read()[-4000:].decode(errors='replace')}")
+    finally:
+        for proc, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
 
 
 def reference_chains(tmp_path: Path, runs: list[dict], timeout: int = 900) -> list:
@@ -890,6 +962,98 @@ with open(args["out"], "wb") as f:
 """
 
 
+def shared_reference(tmp_path_factory, name: str, compute):
+    """``compute(tmp_dir)``, pickled under ``name`` and computed once per test
+    session: under ``pytest-xdist`` every worker reads the first worker's
+    result (a file lock in the directory the workers share), so a module's
+    reference interpreter runs once however its tests are spread."""
+    import fcntl
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    path = base / f"{name}.pkl"
+    with open(base / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not path.exists():
+                tmp = base / f"{name}.d"
+                tmp.mkdir(exist_ok=True)
+                out = compute(tmp)
+                with open(path.with_suffix(".part"), "wb") as f:
+                    pickle.dump(out, f)
+                os.replace(path.with_suffix(".part"), path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _background_dir() -> Path | None:
+    """The directory the xdist workers of this test session share for the
+    background reference runs (None outside xdist)."""
+    import tempfile
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    return Path(tempfile.gettempdir()) / f"cc_torch_reference_{uid}" if uid else None
+
+
+def start_background_reference(name: str, jobs: dict) -> None:
+    """Under ``pytest-xdist``, start ``jobs`` ({part: (child code, arg)}),
+    one fresh interpreter each, in the background, once per test session:
+    the first worker to import the test module starts them, so they run
+    while the suite's earlier tests do and no worker waits for them later.
+    Outside xdist it starts nothing (``background_reference`` computes)."""
+    import fcntl
+    d = _background_dir()
+    if d is None:
+        return
+    d.mkdir(exist_ok=True)
+    with open(d / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (d / f"{name}.started").exists():
+            return
+        for part, (code, arg) in jobs.items():
+            stem = d / f"{name}_{part}"
+            with open(f"{stem}.err", "w") as err:
+                # the rc file tells the waiting workers a child ended
+                subprocess.Popen(["sh", "-c", '"$0" -c "$1" "$2"; echo $? > "$3"',
+                                  sys.executable, code,
+                                  json.dumps(dict(arg, out=f"{stem}.pkl")), f"{stem}.rc"],
+                                 cwd=ROOT, env=_child_env(), stdout=subprocess.DEVNULL,
+                                 stderr=err, start_new_session=True)
+        (d / f"{name}.started").touch()
+
+
+def background_reference(tmp_path_factory, name: str, jobs: dict,
+                         timeout: int = 900) -> dict:
+    """{part: result} of ``jobs``: waited for when
+    ``start_background_reference`` started them, else computed now (every
+    job in its own interpreter, side by side) once per test session."""
+    import time
+    d = _background_dir()
+    if d is None or not (d / f"{name}.started").exists():
+        def compute(tmp):
+            outs = {part: tmp / f"{name}_{part}.pkl" for part in jobs}
+            _run_children([(code, dict(arg, out=str(outs[part])))
+                           for part, (code, arg) in jobs.items()], timeout)
+            return {part: pickle.loads(out.read_bytes()) for part, out in outs.items()}
+        return shared_reference(tmp_path_factory, name, compute)
+    res = {}
+    t_end = time.monotonic() + timeout
+    for part in jobs:
+        stem = d / f"{name}_{part}"
+        rc_file = Path(f"{stem}.rc")
+        while not rc_file.exists() or not rc_file.read_text().strip():
+            if time.monotonic() > t_end:
+                raise RuntimeError(f"reference run {name} {part}: no result in {timeout} s")
+            time.sleep(0.5)
+        rc = int(rc_file.read_text())
+        if rc != 0:
+            raise RuntimeError(f"reference run failed (rc {rc}):\n"
+                               f"{Path(f'{stem}.err').read_text()[-4000:]}")
+        res[part] = pickle.loads(Path(f"{stem}.pkl").read_bytes())
+    return res
+
+
 def reference_cases(tmp_path: Path, module: str, function: str, *args,
                     timeout: int = 600):
     """``tests/<module>.py``'s ``function(*args)`` run in a fresh interpreter
@@ -900,6 +1064,18 @@ def reference_cases(tmp_path: Path, module: str, function: str, *args,
                                   args=list(args), out=str(out)), timeout)
     with open(out, "rb") as f:
         return pickle.load(f)
+
+
+def cases_job(module: str, function: str, *args) -> tuple:
+    """A job of ``start_background_reference`` / ``background_reference``:
+    ``tests/<module>.py``'s ``function(*args)`` in a fresh interpreter."""
+    return _CASES_CHILD, dict(module=module, function=function, args=list(args))
+
+
+def chains_job(runs: list) -> tuple:
+    """A job of ``start_background_reference`` / ``background_reference``:
+    ``reference_chains``' runs in one fresh interpreter."""
+    return _CHILD, dict(runs=runs)
 
 
 # ---------------------------------------------------------------------------
@@ -997,6 +1173,23 @@ if __name__ == "__main__":
     # reference's outcome row of a rung (default "auto"), as JSON
     import tempfile
     name = sys.argv[1]
+    if name == "options":
+        # python tests/torch_reference.py options: the reference's rows of
+        # chip_smoke.py phase 10 (slice-1000b's sixteen goals with
+        # compact_keying and with chain_cache=False; the NoLeaderBudgetGoal
+        # chain on spec-32b), one interpreter each
+        sys.path.insert(0, str(ROOT))
+        from chip_smoke import DEFAULT, NOLB_CHAIN, SLICE_SPEC, SMALL_SPEC
+        runs = {"default_slice_compact": dict(spec=SLICE_SPEC, goals=DEFAULT,
+                                              params=dict(compact_keying=True)),
+                "default_slice_nocache": dict(spec=SLICE_SPEC, goals=DEFAULT,
+                                              params=dict(chain_cache=False)),
+                "nolb_small": dict(spec=SMALL_SPEC, goals=NOLB_CHAIN)}
+        for tag, run in runs.items():
+            with tempfile.TemporaryDirectory() as tmp:
+                ref = reference_chains(Path(tmp), [run], timeout=7200)[0]
+            print(json.dumps(dict(row=tag, **oracle_row(ref))))
+        sys.exit(0)
     if name == "fleet-e2e":
         # python tests/torch_reference.py fleet-e2e: the reference's rows of
         # the fleet-16x100b cell's two rounds (chip_smoke.py phase 8)
