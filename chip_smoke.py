@@ -808,27 +808,71 @@ def check(torch, entry: Entry, kernel_fn, plain_fn, what: str,
         log(f"  {entry.name} {what}: bit-identical")
 
 
+# the kernels redesigned for Hopper after their port (K4/K5 segment_sum and
+# every form of K1): their timings add one call's device time and CUDA
+# launches beside the event window, and the library call's device time
+REDESIGNED = ("segment_sum", "select_candidates", "select_candidates_masked",
+              "select_candidates_lanes", "select_pooled", "select_pooled_lanes")
+
+
+def device_ms(torch, fn, reps: int = REPS) -> float:
+    """One call's time on the device alone: ``reps`` calls enqueued behind a
+    sleep kernel run back to back, with no host gap between them; the CUDA-
+    event window around them over ``reps`` (warm). The sleep grows until it
+    outlasts the host's enqueueing. (torch.profiler drops a random share of
+    short kernels' events on this machine, so its sums are not used.)"""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    while True:
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        if s.elapsed_time(a) > host_ms or cycles >= 1 << 30:
+            return a.elapsed_time(b) / reps
+        cycles *= 4
+
+
 def timing(torch, entry: Entry, kernel_fn, plain_fn, library_fn, nb, nops,
            shape: str, plain_reps: int = REPS) -> None:
     """Time the kernel, its twin and the library call at one shape; one
     counted launch first tells the shape key the wrapper counts it under.
-    ``plain_reps`` cuts the windows of a twin that takes seconds."""
+    ``plain_reps`` cuts the windows of a twin that takes seconds (0: the
+    twin is not timed). A redesigned kernel adds its device time and CUDA
+    launches per call, and the library call's."""
     from cruise_control_tpu_torch import kernels as K
     K.reset_launches()
     kernel_fn()
     keys = K.launch_shapes()[entry.name]
     require(list(keys.values()) == [1],
             f"{entry.name} at {shape}: one timed call launched {keys}")
+    cuda_launches = K.KERNELS[entry.name].cuda_launches
     ms = time_ms(torch, kernel_fn)
-    plain_ms = time_ms(torch, plain_fn, plain_reps)
+    plain_ms = time_ms(torch, plain_fn, plain_reps) if plain_reps else None
     lib_ms = time_ms(torch, library_fn) if library_fn is not None else None
     b_ms, by = bound(nb, nops)
-    entry.timings.append(dict(shape=next(iter(keys)), at=shape, ms=ms,
-                              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                              bound_by=by))
-    log(f"  {entry.name} time at {shape}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+    t = dict(shape=next(iter(keys)), at=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=b_ms, bound_by=by)
+    extra = ""
+    if entry.name in REDESIGNED:
+        t["device_ms"], t["cuda_launches"] = device_ms(torch, kernel_fn), cuda_launches
+        if library_fn is not None:
+            t["library_device_ms"] = device_ms(torch, library_fn)
+        extra = (f", device {t['device_ms']:.6f} ms in {cuda_launches} CUDA launches"
+                 + (f", library device {t['library_device_ms']:.6f} ms"
+                    if library_fn is not None else ""))
+    entry.timings.append(t)
+    log(f"  {entry.name} time at {shape}: kernel {ms:.6f} ms, plain "
+        f"{'-' if plain_ms is None else f'{plain_ms:.6f} ms'}, "
         f"library {'-' if lib_ms is None else f'{lib_ms:.6f} ms'}, "
-        f"bound {b_ms:.6f} ms ({by})")
+        f"bound {b_ms:.6f} ms ({by}){extra}")
 
 
 def kernel_entry(name: str, k, e: Entry, launches: int, ran: dict,
@@ -2107,6 +2151,14 @@ def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str,
         check(torch, entries["segment_sum"], lambda: K.segment_sum(vals, seg, B * D),
               lambda: segment.segment_sum_plain(vals, seg, B * D),
               f"{tag} logdir sums R={R} nseg={B * D}")
+        # timed without its twin, which takes seconds here (7E: 3.46 s)
+        lib_seg = torch.where(seg >= 0, seg, torch.full_like(seg, B * D))
+        zeros_d = torch.zeros((B * D + 1, 1), dtype=torch.float32, device=env.device)
+        timing(torch, entries["segment_sum"], lambda: K.segment_sum(vals, seg, B * D),
+               lambda: segment.segment_sum_plain(vals, seg, B * D),
+               lambda: torch.index_add(zeros_d, 0, lib_seg, vals),
+               nbytes(vals, seg) + B * D * 4, vals.numel(),
+               f"{tag} logdir refresh N={R} C=1 nseg={B * D}", plain_reps=0)
         log(f"  {tag}: K1-K7 and the logdir sums bit-identical to their twins on this "
             f"rung's state (its finisher top-k and refresh sums: rung 4's shapes, above)")
         return
@@ -2141,6 +2193,191 @@ def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str,
                nbytes(vals, seg) + B * D * 4, vals.numel(),
                f"{tag} logdir refresh N={R} C=1 nseg={B * D}", plain_reps=3)
     log(f"  {tag}: K1-K7 bit-identical to their twins at this rung's shapes")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the redesigned segment_sum and K1 at their edges
+# ---------------------------------------------------------------------------
+# (what, N, C, nseg) of the forms' timings: the main path's apply shapes
+# (move, residual, leadership, swap leg, logdir update, the fleet's lane
+# applies at L 16 x B 100), products on both sides of the cut-over, and
+# refresh's shapes
+FORM_SHAPES = (("move apply", 3520, 9, 1024), ("residual", 3520, 8, 1024),
+               ("leadership apply", 256, 16, 1024), ("swap leg", 64, 17, 1024),
+               ("logdir update", 3520, 1, 4096), ("lane apply", 5120, 9, 1600),
+               ("lane residual", 5120, 8, 1600), ("lane disk", 5120, 1, 1600),
+               ("segment wave", 14080, 9, 1024), ("mid", 20000, 9, 1024),
+               ("mid", 40000, 9, 1024), ("refresh", 114688, 9, 1024),
+               ("disk tallies", 114688, 1, 4096))
+
+
+def seg_inputs(torch, g, dev, N: int, C: int, nseg: int, masked: float = 0.5,
+               init: bool = True) -> tuple:
+    """(values f32[N, C], seg i64[N], nseg, init f32[nseg, C] or None) of a
+    synthetic apply: ``masked`` of the rows at seg -1, the rest uniform."""
+    vals = (torch.randn((N, C), generator=g) * 100).to(dev).contiguous()
+    seg = torch.randint(0, nseg, (N,), generator=g)
+    seg[torch.rand(N, generator=g) < masked] = -1
+    ini = (torch.randn((nseg, C), generator=g) * 1e4).to(dev).contiguous() if init else None
+    return vals, seg.to(dev).contiguous(), nseg, ini
+
+
+def seg_edge_cases(torch, g, dev) -> list:
+    """(what, args) of segment_sum's edge cases, each run in both forms."""
+    from cruise_control_tpu_torch.kernels import segment
+    cases = []
+    v, _s, _n, ini = seg_inputs(torch, g, dev, 20000, 9, 1)
+    cases.append(("one segment holds every row N=20000 C=9",
+                  (v, torch.zeros(20000, dtype=torch.int64, device=dev), 1, ini)))
+    v, _s, _n, ini = seg_inputs(torch, g, dev, 20000, 9, 7)
+    cases.append(("all rows in segment 3 of 7, the others empty",
+                  (v, torch.full((20000,), 3, dtype=torch.int64, device=dev), 7, ini)))
+    v, s, _n, _i = seg_inputs(torch, g, dev, 50000, 4, 1667, masked=0.0, init=False)
+    cases.append(("empty segments (every third of 5,000 holds rows), no init",
+                  (v, (3 * s).contiguous(), 5000, None)))
+    v, _s, _n, ini = seg_inputs(torch, g, dev, 50000, 9, 2000)
+    s = torch.randint(-3, 2003, (50000,), generator=g).to(dev)
+    cases.append(("rows with seg < 0 and seg >= nseg", (v, s, 2000, ini)))
+    for C in (1, 32):
+        for with_init in (True, False):
+            cases.append((f"C={C} init={'given' if with_init else 'none'}",
+                          seg_inputs(torch, g, dev, 30000, C, 1500, init=with_init)))
+    for with_init in (True, False):
+        v, s, _n, ini = seg_inputs(torch, g, dev, 0, 9, 1024, init=with_init)
+        cases.append((f"N=0 init={'given' if with_init else 'none'}", (v, s, 1024, ini)))
+    La, B, D, Wr = 16, 100, 4, 320
+    lane = torch.arange(La).repeat_interleave(Wr)
+    s = lane * B * D + torch.randint(0, B * D, (La * Wr,), generator=g)
+    s[torch.rand(La * Wr, generator=g) < 0.4] = -1
+    v, _s, _n, ini = seg_inputs(torch, g, dev, La * Wr, 1, La * B * D)
+    cases.append((f"lane ids at La*B*D={La * B * D}", (v, s.to(dev), La * B * D, ini)))
+    for N in (segment.SCAN_FORM_MAX // 1024, segment.SCAN_FORM_MAX // 1024 + 1):
+        cases.append((f"cut-over side N={N} nseg=1024 ({'scan' if segment.form_for(N, 1024) == segment.SCAN else 'list'} form by default)",
+                      seg_inputs(torch, g, dev, N, 9, 1024)))
+    # long segments beside short ones: ten of 10,000 rows, then a padding
+    # block in segment 0 (the list form's CTA path)
+    s = torch.randint(0, 3000, (200000,), generator=g)
+    skew = torch.rand(200000, generator=g) < 0.5
+    s[skew] = torch.randint(0, 10, (int(skew.sum()),), generator=g)
+    s[-30000:] = 0
+    v, _s, _n, ini = seg_inputs(torch, g, dev, 200000, 17, 3000)
+    cases.append(("long segments and a padding block N=200000 C=17", (v, s.to(dev), 3000, ini)))
+    return cases
+
+
+def redesign_checks(torch, entries: dict, seed: int, r4: dict, r5: dict, lctx) -> None:
+    """segment_sum (both forms) and K1 (solo and lanes) bit for bit against
+    their twins at the edges (segment_sum: one segment holding every row,
+    empty segments, rows outside [0, nseg), C 1 and 32, N 0, init given and
+    not, lane ids at La*B*D, both sides of the cut-over, long segments;
+    K1: every key equal so ties straddle k, k 1, k = n and 16,384, signed
+    zeros, every key -inf, lanes with k = R); the same bits twice at the
+    1,048,576-row shapes; and both segment_sum forms timed (event window and
+    device time, ``device_ms``) at the main path's shapes, which set the
+    cut-over."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer.state import refresh_disk_inputs, refresh_sum_inputs
+    from cruise_control_tpu_torch.kernels import segment, select
+    dev = r4["env"].device
+    g = torch.Generator().manual_seed(seed + 14)
+
+    def against(e: Entry, got, want, what: str) -> None:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        e.max_abs_err = max(e.max_abs_err, compare(torch, got, want))
+        e.checks += 1
+
+    e = entries["segment_sum"]
+    for what, a in seg_edge_cases(torch, g, dev):
+        want = segment.segment_sum_plain(*a)
+        for form in (None, segment.SCAN, segment.LIST):
+            against(e, K.segment_sum(*a, form=form), want, f"{what} form {form}")
+        log(f"  segment_sum {what}: bit-identical in both forms")
+
+    e = entries["select_candidates"]
+    R = r4["env"].num_replicas // 8    # 131,072
+    kinds = {"every key equal": torch.full((R,), 0.5),
+             "signed zeros": torch.where(torch.rand(R, generator=g) < 0.5,
+                                         torch.tensor(-0.0), torch.tensor(0.0)),
+             "every key -inf": torch.full((R,), -torch.inf),
+             "integers with -inf": torch.where(torch.rand(R, generator=g) < 0.2,
+                                               torch.tensor(-torch.inf),
+                                               torch.randint(0, 4, (R,), generator=g).float())}
+    kinds["signed zeros"][::97] = 1.0
+    kinds["signed zeros"][1::89] = -1.0
+    for name, key in kinds.items():
+        key = key.to(dev).contiguous()
+        for k in (1, 7040, select.MAX_K):
+            for stall in (0, 3):
+                against(e, K.select_candidates(key, k, stall, 0),
+                        select.select_candidates_plain(key, k, stall, 0),
+                        f"{name} k={k} stall={stall}")
+        for n in (5000, select.MAX_K):
+            sub = key[:n].contiguous()
+            against(e, K.select_candidates(sub, n, 0, 0),
+                    select.select_candidates_plain(sub, n, 0, 0), f"{name} k=n={n}")
+        log(f"  select_candidates {name} R={R}: k 1, 7,040, 16,384 (stalls 0, 3) and "
+            f"k = n at 5,000 and 16,384 bit-identical")
+    e = entries["select_candidates_lanes"]
+    Rl = lctx["stack"].num_replicas
+    lk = torch.stack([kinds[list(kinds)[j % 4]][:Rl] for j in range(LANES)]).to(dev).contiguous()
+    stalls = [j % 3 for j in range(LANES)]
+    for k in (1, 640, Rl):
+        against(e, K.select_candidates_lanes(lk, k, stalls),
+                select.select_candidates_lanes_plain(lk, k, stalls), f"lanes k={k}")
+    log(f"  select_candidates_lanes L={LANES} R={Rl}: the four kinds by lane, k 1, 640 "
+        f"and k = R bit-identical")
+
+    # the same bits twice at the 1,048,576-row shapes
+    vr, sr = refresh_sum_inputs(r4["env"], r4["st"])
+    B4 = r4["env"].num_brokers
+    vd, sd, nd = refresh_disk_inputs(r5["env"], r5["st"])
+    key = torch.randn(r4["env"].num_replicas, generator=g).to(dev)
+    mask = (torch.rand(r4["env"].num_replicas, generator=g) < 0.3).to(dev)
+    for what, fn in (("segment_sum refresh 1,048,576 x 9 -> 7,168",
+                      lambda: K.segment_sum(vr, sr, B4)),
+                     (f"segment_sum logdir 1,048,576 x 1 -> {nd}",
+                      lambda: K.segment_sum(vd, sd, nd)),
+                     ("select_candidates R 1,048,576 k 7,040",
+                      lambda: K.select_candidates(key, 7040, 3, 0)),
+                     ("select_candidates R 1,048,576 k 16,384, seed mask",
+                      lambda: K.select_candidates(key, select.MAX_K, 0, 0, seed_mask=mask))):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        compare(torch, a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,))
+        log(f"  {what}: the same bits twice")
+    against(entries["select_candidates_masked"],
+            K.select_candidates(key, select.MAX_K, 0, 0, seed_mask=mask),
+            select.select_candidates_plain(key, select.MAX_K, 0, 0, mask),
+            "R 1,048,576 k 16,384 seed mask")
+
+    # both forms at the main path's shapes: the cut-over's evidence
+    rows = []
+    for what, N, C, nseg in FORM_SHAPES:
+        v, sg, _n, ini = seg_inputs(torch, g, dev, N, C, nseg)
+        lib_seg = torch.where(sg >= 0, sg, torch.full_like(sg, nseg))
+        lib_init = torch.cat([ini, torch.zeros_like(ini[:1])])
+        row = dict(what=what, N=N, C=C, nseg=nseg, default=segment.form_for(N, nseg),
+                   bound_ms=bound(nbytes(v, sg, ini) + nseg * C * 4, v.numel())[0])
+        for name, form in (("scan", segment.SCAN), ("list", segment.LIST)):
+            fn = lambda: K.segment_sum(v, sg, nseg, ini, form=form)
+            K.reset_launches()
+            fn()
+            row[f"{name}_launches"] = K.KERNELS["segment_sum"].cuda_launches
+            row[f"{name}_ms"] = time_ms(torch, fn)
+            row[f"{name}_device_ms"] = device_ms(torch, fn)
+        lib = lambda: torch.index_add(lib_init, 0, lib_seg, v)
+        row["index_add_ms"] = time_ms(torch, lib)
+        row["index_add_device_ms"] = device_ms(torch, lib)
+        rows.append(row)
+        log(f"  segment_sum forms at {what} {N} x {C} -> {nseg}: scan {row['scan_ms']:.6f} "
+            f"ms (device {row['scan_device_ms']:.6f}), list {row['list_ms']:.6f} ms (device "
+            f"{row['list_device_ms']:.6f}, {row['list_launches']} launches), index_add "
+            f"{row['index_add_ms']:.6f} ms (device {row['index_add_device_ms']:.6f}), bound "
+            f"{row['bound_ms']:.6f} ms; default "
+            f"{'scan' if row['default'] == segment.SCAN else 'list'}")
+    log(f"segment_sum forms: {json.dumps(rows)}")
 
 
 TIMED_KEYS = {("slice", "f32"), ("rung 4", "f32"), ("rung 4", "bf16")}
@@ -2898,10 +3135,11 @@ PROFILE_PATHS = ("five", "eleven", "sixteen", "eighteen", "kafka", "jbod_intra",
                  "heal")
 # device function names of the hand kernels, as the profiler lists them
 HAND_KERNEL_NAMES = (
-    "salt_pack", "radix_hist", "radix_choose", "gather_top", "bitonic_top",
-    "init_state", "tile_counts", "scan_counts", "tile_write", "pad_tail",
+    "sel_pass_a", "sel_pass_next", "sel_gather", "sel_sort", "sel_merge",
+    "tile_counts", "scan_counts", "tile_write", "pad_tail",
     "move_score_kernel", "ft_init", "ft_cand", "ft_part", "side_scan", "finish(",
-    "segment_sum_kernel", "segment_count_kernel", "leadership_rows_kernel",
+    "segment_sum_scan", "radix_hist", "scan_excl", "radix_scatter", "seg_sum_short",
+    "seg_sum_long", "segment_count_kernel", "leadership_rows_kernel",
     "swap_rows_kernel", "swap_admission_kernel", "disk_rows_kernel",
     "disk_apply_kernel", "preferred_leader_kernel", "replica_keys_kernel",
     "finalize_kernel", "probe_kernel", "forecast_kernel")
@@ -5403,6 +5641,8 @@ def main() -> int:
     phase("phase 3: the fleet's lane kernels (K14)")
     lctx = lane_context(torch)
     lane_kernel_checks(torch, lctx, entries, args.seed)
+    phase("phase 3: segment_sum and K1 redesigned: edges, determinism, both forms")
+    redesign_checks(torch, entries, args.seed, r4, r5, lctx)
     phase("phase 3: the fleet's leadership, swap and probe lane kernels (K14)")
     branch_lane_checks(torch, lctx, entries, args.seed)
     phase("phase 3: the engine's options, the pooled K1 and K2's per-goal form")

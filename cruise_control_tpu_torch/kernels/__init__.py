@@ -32,6 +32,7 @@ from cruise_control_tpu_torch.kernels.swap import (
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.cuda_launches = 0
         k.shapes = {}
     FAMILY_LAUNCHES.clear()
     KEY_FAMILY_LAUNCHES.clear()

@@ -96,6 +96,8 @@ def build_all(names=SOURCES) -> dict:
 
 
 P, I = ctypes.c_void_p, ctypes.c_int    # pointer / int argument types
+LL = ctypes.c_longlong
+IP = ctypes.POINTER(ctypes.c_int)       # an int the entry point writes (host memory)
 
 
 def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
@@ -185,19 +187,24 @@ def stream_ptr() -> ctypes.c_void_p:
 class Kernel:
     """One hand-written kernel: where it lives, which reference function it
     replaces, and how often its wrapper launched it (``launches`` counts
-    CUDA launches only, ``shapes`` splits them by launch shape; the plain
-    twin on the CPU counts nothing)."""
+    calls on the card only, ``shapes`` splits them by launch shape; the
+    plain twin on the CPU counts nothing). ``cuda_launches`` sums the CUDA
+    launches the calls made, for the wrappers whose entry point reports
+    them (K1 and ``segment_sum``)."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.cuda_launches = 0
         self.shapes: dict[str, int] = {}
 
-    def count(self, shape: str = "") -> None:
-        """Record one launch of the kernel (called right after it)."""
+    def count(self, shape: str = "", cuda_launches: int = 0) -> None:
+        """Record one launch of the kernel (called right after it) and the
+        CUDA launches it took."""
         self.launches += 1
+        self.cuda_launches += cuda_launches
         self.shapes[shape] = self.shapes.get(shape, 0) + 1
 
 

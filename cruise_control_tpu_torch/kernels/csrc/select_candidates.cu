@@ -3,19 +3,33 @@
 // Replaces cruise_control_tpu/analyzer/engine.py _stall_explore (:123),
 // _top_candidates (:166) and _select_candidates (:179). The CPU oracle's
 // lax.top_k (and approx_max_k, which falls back to it) orders by value in
-// total order (-0.0 < +0.0) and breaks ties toward the lowest index; the
-// 64-bit composite below sorts exactly so.
+// total order (-0.0 < +0.0) and breaks ties toward the lowest index: rows
+// rank by the 64-bit composite (sortable_bits(key) << 32) | ~slot, unique
+// per row, larger first.
 //
-// Design: one pass salts each key and packs
-//   comp[i] = (sortable_bits(key) << 32) | ~i
-// (unique per row, larger composite = earlier in the output). An 8-pass,
-// 8-bit radix select finds the k-th largest composite T (histogram kernel +
-// one-thread bucket choice per pass, all on the stream: no host sync). The k
-// rows with comp >= T are gathered and ordered by a single-CTA bitonic sort
-// in shared memory (k <= 16384: 128 KB of dynamic shared memory, opted into
-// with cudaFuncSetAttribute; the finisher's top-k takes k = K * W = 10,560).
-// Bound: bytes — the keys are read once, but the radix passes re-read the
-// 8-byte composites eight times.
+// Design (at most 7 launches a call, one workspace):
+//   memset   the lane's histograms and counters;
+//   pass A   salts each key (the uint32 hash of engine.py:143-149), stores
+//            its 32 sortable bits u and builds the histogram of u's top 12
+//            bits; the lane's last block to finish (an atomic ticket)
+//            chooses the digit that holds the k-th largest u;
+//   pass B   the same over bits 19..8 of the rows with that prefix;
+//   pass C   over bits 7..0, keeping each tile's histogram: the k-th u, T,
+//            is now known, with `need`, the rows of u == T that go in;
+//   gather   every row with u > T goes in (an atomic slot), and the first
+//            `need` rows with u == T in slot order: the tie rows of the
+//            earlier tiles come from pass C's tile histograms, the rank
+//            inside the tile from a block scan, so ties go lowest index
+//            first with no further pass;
+//   sort     each chunk of 512 composites is sorted in shared memory
+//            (bitonic, one CTA per chunk, so k = 7,040 spreads over 14 SMs
+//            where one CTA of 1,024 threads bound the sort by its issue
+//            rate); with more than one chunk
+//   merge    places each composite at its index in its chunk plus the
+//            composites above it in the other chunks: binary searches in
+//            shared memory, which holds the lane's k sorted composites (up
+//            to 128 KB at k = 16,384, the attribute set once a process).
+// The selection reads the keys once and the 4-byte u twice. Bound: bytes.
 //
 // The optional seed mask (engine.py _mask_key :153, dirty-set seeding of a
 // reduced round) sends every row outside it to -inf BEFORE salting; the
@@ -25,39 +39,40 @@
 // Lanes (K14, the fleet's tenant axis): cc_select_candidates_lanes runs L
 // independent selections in the same launches, grid dimension y = lane.
 // Lane j reads key / mask row j of [L, n], salts with its own stall and
-// keeps its own composites, radix state and histogram, so each lane's
-// output is bit for bit a solo launch on its row (ties lowest index first
-// within the lane). The solo entry point is the L = 1 case.
+// keeps its own histograms, counters and composites, so each lane's output
+// is bit for bit a solo launch on its row. The solo entry point is L = 1.
 //
 // Pooled keying (engine.py _select_candidates with compact_keying, :179-225):
 // cc_select_pooled first compacts each lane's eligible rows (key > -inf
 // after the seed mask) with the compaction launches below and leaves the
-// eligible count on the device. The selection then chooses its branch ON
-// THE DEVICE from that count, as the reference's lax.cond does: the pool
-// (its first `pool` compacted slots, padded with the sentinel n) when the
-// count is at most `pool`, else the full n rows. Grids are sized for n and
-// threads past the lane's live length return, so there is no host read and
-// each lane of a fleet launch chooses for itself. In the pooled branch
-// salt_pack reads key[order[j]] and hashes order[j], the ORIGINAL replica
-// id (_stall_explore(..., idx=idx)), so every live row's composite is the
-// full sweep's and the live rows come out bit for bit as the full path
-// orders them. Pad slots (-inf, below every live row) carry their position
-// in the low word to stay unique and come out with kv -inf and id n - 1,
-// the reference's min(order, R - 1). init_state adds one to the branch
-// counter (pooled, full) of each lane it initialises, on the device.
+// eligible count on the device. Each lane then chooses its branch ON THE
+// DEVICE from that count, as the reference's lax.cond does: the pool (its
+// first `pool` compacted slots, padded with the sentinel n) when the count
+// is at most `pool`, else the full n rows. Every block past its lane's live
+// length (pool or n) returns at once, so a pooled lane costs the pool's
+// rows; there is no host read and each lane of a fleet launch chooses for
+// itself. In the pooled branch pass A reads key[order[j]] and hashes
+// order[j], the ORIGINAL replica id (_stall_explore(..., idx=idx)), so every
+// live row's value is the full sweep's; slots keep the ids' order, so ties
+// still go lowest id first, and every live row comes out as the full path
+// orders it. Pad slots (-inf, below every live row) come out with kv -inf
+// and id n - 1, the reference's min(order, R - 1). Pass A's choosing block
+// adds one to the branch counter (pooled, full) of its lane, on the device.
 //
 // compact_eligible replaces engine.py _compact_eligible (:1257): the indices
 // of the true entries of bool[n] in index order, the tail padded with the
-// sentinel n, and their count. Three launches: per-tile counts, one scan of
-// the tile counts, then each tile writes its rows at its offset plus the
-// row's rank among the tile's true rows (warp ballots + a block scan of the
-// warp counts). No atomics: the order is the index order by construction.
+// sentinel n, and their count. Four launches: per-tile counts, one scan of
+// the tile counts, each tile writing its rows at its offset plus the row's
+// rank among the tile's true rows (warp ballots + a block scan of the warp
+// counts), then the pads. No atomics: the order is the index order by
+// construction.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 typedef unsigned long long u64;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ uint32_t sortable_bits(float v) {
   uint32_t u = __float_as_uint(v);
@@ -76,33 +91,42 @@ __device__ __forceinline__ bool pooled_lane(const long long* elig_n, long long l
   return elig_n != nullptr && elig_n[lane] <= (long long)pool;
 }
 
-__device__ __forceinline__ int live_len(const long long* elig_n, long long lane, int n,
-                                        int pool) {
-  return pooled_lane(elig_n, lane, pool) ? pool : n;
+constexpr int kSelThreads = 512;
+constexpr int kSelTile = 2048;                      // slots of one block
+constexpr int kSelRounds = kSelTile / kSelThreads;
+constexpr int kBinsWide = 4096;                     // 12-bit digits: passes A, B
+constexpr int kBinsLast = 256;                      // 8-bit digit: pass C
+constexpr int kChunk = 512;                         // composites a sort CTA holds
+constexpr int kSortThreads = 256;
+constexpr int kMaxK = 16384;
+// per lane, zeroed each call: the three histograms and the counters
+constexpr long long kZeroWords = 2 * kBinsWide + kBinsLast + 8;
+enum { kTicket = 0, kPrefix = 3, kKrem = 4, kGt = 5 };
+
+struct LaneWs {
+  unsigned* hist[3];
+  unsigned* ctl;
+};
+
+__device__ __forceinline__ LaneWs lane_ws(unsigned* ws, long long lane) {
+  unsigned* b = ws + lane * kZeroWords;
+  return {{b, b + kBinsWide, b + 2 * kBinsWide}, b + 2 * kBinsWide + kBinsLast};
 }
 
-__global__ void salt_pack(const float* __restrict__ key,
-                          const unsigned char* __restrict__ mask, int n,
-                          int stall0, const int* __restrict__ stalls, int salt,
-                          const long long* __restrict__ elig_n,
-                          const long long* __restrict__ order, int pool,
-                          u64* __restrict__ comp) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const long long lane = blockIdx.y;
-  if (i >= live_len(elig_n, lane, n, pool)) return;
-  key += lane * n;
-  if (mask != nullptr) mask += lane * n;
-  comp += lane * n;
-  const int stall = stalls != nullptr ? stalls[lane] : stall0;
-  uint32_t id = (uint32_t)i, low = ~(uint32_t)i;
+// the sortable bits of slot i's salted key (key, mask, order: the lane's)
+__device__ __forceinline__ uint32_t slot_bits(const float* __restrict__ key,
+                                              const unsigned char* __restrict__ mask,
+                                              const long long* __restrict__ order,
+                                              bool pooled, int n, int stall, int salt,
+                                              int i) {
+  uint32_t id = (uint32_t)i;
   float v;
-  if (pooled_lane(elig_n, lane, pool)) {
+  if (pooled) {
     // slot i of the compacted pool: an eligible row (it passed the mask)
-    // or the sentinel n (a pad, -inf, its position keeps it unique)
-    const long long p = order[lane * n + i];
+    // or the sentinel n (a pad, -inf)
+    const long long p = order[i];
     const bool real = p < n;
     id = real ? (uint32_t)p : (uint32_t)(n - 1);
-    low = real ? ~id : ~(uint32_t)i;
     v = real ? key[p] : -INFINITY;
   } else {
     v = (mask == nullptr || mask[i]) ? key[i] : -INFINITY;
@@ -115,106 +139,231 @@ __global__ void salt_pack(const float* __restrict__ key,
     v = (v > -INFINITY) ? __fadd_rn(r01, (v >= 5e11f) ? 2.0f : 0.0f)
                         : -INFINITY;
   }
-  comp[i] = ((u64)sortable_bits(v) << 32) | (u64)low;
+  return sortable_bits(v);
 }
 
-// state[0] = prefix of the k-th composite found so far, state[1] = rank of
-// the k-th within the current prefix, state[2] = gather counter.
-__global__ void init_state(u64* state, unsigned int* hist, int k,
-                           const long long* __restrict__ elig_n, int pool,
-                           u64* __restrict__ branch) {
-  const long long lane = blockIdx.x;
-  state += 4 * lane;
-  hist += 256 * lane;
-  if (threadIdx.x == 0) {
-    state[0] = 0ull;
-    state[1] = (u64)k;
-    state[2] = 0ull;
-    if (branch != nullptr) atomicAdd(&branch[pooled_lane(elig_n, lane, pool) ? 0 : 1], 1ull);
+// one shared-memory histogram add per group of lanes with the same digit
+// (d < 0: no row); every lane of the warp calls it
+__device__ __forceinline__ void hist_add(unsigned* h, int d) {
+  const unsigned peers = __match_any_sync(kFull, d);
+  if (d >= 0 && __ffs(peers) - 1 == (int)(threadIdx.x & 31))
+    atomicAdd(&h[d], (unsigned)__popc(peers));
+}
+
+// exclusive prefix sum of v over the block (blockDim a multiple of 32);
+// ``sums`` is shared scratch of 32 ints; *total gets the block's sum
+__device__ __forceinline__ int block_excl_scan(int v, int* sums, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
   }
-  for (int b = threadIdx.x; b < 256; b += blockDim.x) hist[b] = 0u;
-}
-
-__global__ void radix_hist(const u64* __restrict__ comp, int n,
-                           const u64* __restrict__ state, int shift,
-                           unsigned int* __restrict__ hist,
-                           const long long* __restrict__ elig_n, int pool) {
-  __shared__ unsigned int sh[256];
-  const long long lane = blockIdx.y;
-  const int n_live = live_len(elig_n, lane, n, pool);
-  comp += lane * n;
-  state += 4 * lane;
-  hist += 256 * lane;
-  for (int b = threadIdx.x; b < 256; b += blockDim.x) sh[b] = 0u;
+  if (lane == 31) sums[warp] = x;
   __syncthreads();
-  const u64 prefix = state[0];
-  const u64 mask = (shift >= 56) ? 0ull : ~((1ull << (shift + 8)) - 1ull);
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_live;
-       i += gridDim.x * blockDim.x) {
-    u64 c = comp[i];
-    if ((c & mask) == (prefix & mask)) {
-      atomicAdd(&sh[(unsigned)((c >> shift) & 255ull)], 1u);
+  if (warp == 0) {
+    int w = lane < nw ? sums[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += y;
     }
+    if (lane < nw) sums[lane] = w;
   }
   __syncthreads();
-  for (int b = threadIdx.x; b < 256; b += blockDim.x) {
-    if (sh[b]) atomicAdd(&hist[b], sh[b]);
-  }
+  const int before = warp > 0 ? sums[warp - 1] : 0;
+  *total = sums[nw - 1];
+  __syncthreads();
+  return before + x - v;
 }
 
-__global__ void radix_choose(u64* state, unsigned int* hist, int shift) {
-  state += 4 * blockIdx.x;
-  hist += 256 * blockIdx.x;
-  if (threadIdx.x == 0) {
-    const u64 k_rem = state[1];
-    u64 cum = 0ull;
-    for (int b = 255; b >= 0; --b) {
-      const u64 h = (u64)hist[b];
-      if (cum + h >= k_rem) {
-        state[0] |= ((u64)b << shift);
-        state[1] = k_rem - cum;
+// adds the block's histogram into the lane's; true in the lane's last block
+// to do so (an atomic ticket), which then sees every block's adds
+__device__ bool flush_and_last(const unsigned* h, int nbins, unsigned* gh,
+                               unsigned* ticket) {
+  __shared__ bool last;
+  __syncthreads();
+  for (int b = threadIdx.x; b < nbins; b += blockDim.x) {
+    const unsigned c = h[b];
+    if (c != 0u) atomicAdd(&gh[b], c);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// in the lane's last block: the digit b of the rows with the current prefix
+// such that those with a digit above b are fewer than krem and those with a
+// digit >= b are not; prefix |= b << shift, krem -= the rows above b
+__device__ void choose_digit(const unsigned* gh, int nbins, int shift, unsigned krem,
+                             unsigned* ctl) {
+  __shared__ int sums[32];
+  const int per = (nbins + (int)blockDim.x - 1) / (int)blockDim.x;
+  const int top = nbins - (int)threadIdx.x * per;   // bins [top - per, top), highest first
+  unsigned s = 0u;
+  for (int j = 1; j <= per; ++j) {
+    if (top - j >= 0) s += __ldcg(&gh[top - j]);
+  }
+  int total;
+  const unsigned above = (unsigned)block_excl_scan((int)s, sums, &total);
+  if (above < krem && krem <= above + s) {
+    unsigned cum = above;
+    for (int j = 1; j <= per; ++j) {
+      const unsigned c = __ldcg(&gh[top - j]);
+      if (cum + c >= krem) {
+        ctl[kPrefix] |= (unsigned)(top - j) << shift;
+        ctl[kKrem] = krem - cum;
         break;
       }
-      cum += h;
+      cum += c;
     }
   }
-  __syncthreads();
-  for (int b = threadIdx.x; b < 256; b += blockDim.x) hist[b] = 0u;
 }
 
-__global__ void gather_top(const u64* __restrict__ comp, int n, int k, u64* state,
-                           u64* __restrict__ sel, const long long* __restrict__ elig_n,
-                           int pool) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void sel_pass_a(const float* __restrict__ key,
+                           const unsigned char* __restrict__ mask, int n, int k,
+                           int stall0, const int* __restrict__ stalls, int salt,
+                           const long long* __restrict__ elig_n,
+                           const long long* __restrict__ order, int pool,
+                           unsigned* __restrict__ ubuf, unsigned* ws, u64* branch) {
+  __shared__ unsigned h[kBinsWide];
   const long long lane = blockIdx.y;
-  if (i >= live_len(elig_n, lane, n, pool)) return;
-  comp += lane * n;
-  state += 4 * lane;
-  sel += lane * k;
-  const u64 c = comp[i];
-  if (c >= state[0]) {
-    const u64 p = atomicAdd(&state[2], 1ull);
-    sel[p] = c;
+  const bool pooled = pooled_lane(elig_n, lane, pool);
+  const int live = pooled ? pool : n;
+  key += lane * n;
+  if (mask != nullptr) mask += lane * n;
+  if (order != nullptr) order += lane * n;
+  ubuf += lane * n;
+  const int stall = stalls != nullptr ? stalls[lane] : stall0;
+  for (int b = threadIdx.x; b < kBinsWide; b += kSelThreads) h[b] = 0u;
+  __syncthreads();
+  const int base = blockIdx.x * kSelTile;
+  for (int r = 0; r < kSelRounds; ++r) {
+    const int i = base + r * kSelThreads + threadIdx.x;
+    int d = -1;
+    if (i < live) {
+      const uint32_t u = slot_bits(key, mask, order, pooled, n, stall, salt, i);
+      ubuf[i] = u;
+      d = (int)(u >> 20);
+    }
+    hist_add(h, d);
+  }
+  const LaneWs w = lane_ws(ws, lane);
+  if (flush_and_last(h, kBinsWide, w.hist[0], &w.ctl[kTicket])) {
+    choose_digit(w.hist[0], kBinsWide, 20, (unsigned)k, w.ctl);
+    if (branch != nullptr && threadIdx.x == 0) atomicAdd(&branch[pooled ? 0 : 1], 1ull);
   }
 }
 
-__global__ void bitonic_top(const u64* __restrict__ sel, int k, int kpad,
-                            float* __restrict__ out_kv,
-                            long long* __restrict__ out_idx,
-                            const long long* __restrict__ elig_n, int pool, int n) {
-  extern __shared__ u64 s[];
-  const long long lane = blockIdx.x;
-  const bool pooled = pooled_lane(elig_n, lane, pool);
-  sel += lane * k;
-  out_kv += lane * k;
-  out_idx += lane * k;
-  for (int i = threadIdx.x; i < kpad; i += blockDim.x) {
-    s[i] = (i < k) ? sel[i] : 0ull;   // pads sort below every real row
-  }
+// pass B (which 1: bits 19..8) and pass C (which 2: bits 7..0, with each
+// tile's histogram kept in tilehist [L, ntiles, 256]) over the rows whose
+// higher bits are the prefix chosen so far
+__global__ void sel_pass_next(const long long* __restrict__ elig_n, int n, int pool,
+                              const unsigned* __restrict__ ubuf, unsigned* ws, int which,
+                              unsigned* __restrict__ tilehist) {
+  __shared__ unsigned h[kBinsWide];
+  const long long lane = blockIdx.y;
+  const int live = pooled_lane(elig_n, lane, pool) ? pool : n;
+  ubuf += lane * n;
+  const LaneWs w = lane_ws(ws, lane);
+  const unsigned prefix = w.ctl[kPrefix], krem = w.ctl[kKrem];
+  const int shift = which == 1 ? 8 : 0, nbins = which == 1 ? kBinsWide : kBinsLast;
+  const int above = which == 1 ? 20 : 8;
+  for (int b = threadIdx.x; b < nbins; b += kSelThreads) h[b] = 0u;
   __syncthreads();
-  for (int size = 2; size <= kpad; size <<= 1) {
+  const int base = blockIdx.x * kSelTile;
+  for (int r = 0; r < kSelRounds; ++r) {
+    const int i = base + r * kSelThreads + threadIdx.x;
+    int d = -1;
+    if (i < live) {
+      const uint32_t u = ubuf[i];
+      if ((u >> above) == (prefix >> above)) d = (int)((u >> shift) & (unsigned)(nbins - 1));
+    }
+    hist_add(h, d);
+  }
+  if (tilehist != nullptr) {
+    __syncthreads();
+    unsigned* th = tilehist + (lane * gridDim.x + blockIdx.x) * kBinsLast;
+    for (int b = threadIdx.x; b < kBinsLast; b += kSelThreads) th[b] = h[b];
+  }
+  if (flush_and_last(h, nbins, w.hist[which], &w.ctl[kTicket + which]))
+    choose_digit(w.hist[which], nbins, shift, krem, w.ctl);
+}
+
+__device__ __forceinline__ u64 composite(uint32_t u, int slot) {
+  return ((u64)u << 32) | (u64)(~(uint32_t)slot);
+}
+
+// every slot with u > T (an atomic position below k - need) and the first
+// `need` slots with u == T in slot order (positions k - need ...)
+__global__ void sel_gather(const long long* __restrict__ elig_n, int n, int k, int pool,
+                           const unsigned* __restrict__ ubuf, unsigned* ws,
+                           const unsigned* __restrict__ tilehist, u64* __restrict__ sel) {
+  __shared__ int sums[32];
+  const long long lane = blockIdx.y;
+  const int live = pooled_lane(elig_n, lane, pool) ? pool : n;
+  ubuf += lane * n;
+  sel += lane * k;
+  const LaneWs w = lane_ws(ws, lane);
+  const unsigned T = w.ctl[kPrefix];
+  const int need = (int)w.ctl[kKrem];
+  const unsigned* th = tilehist + lane * gridDim.x * kBinsLast + (T & 255u);
+  int part = 0;
+  for (int t = threadIdx.x; t < (int)blockIdx.x; t += kSelThreads) part += (int)th[t * kBinsLast];
+  int tie;
+  block_excl_scan(part, sums, &tie);   // the tie rows of the earlier tiles
+  const int base = blockIdx.x * kSelTile;
+  if (base >= live) return;   // whole blocks only: the scans below are block-wide
+  for (int r = 0; r < kSelRounds; ++r) {
+    const int i = base + r * kSelThreads + threadIdx.x;
+    const bool ok = i < live;
+    const uint32_t u = ok ? ubuf[i] : 0u;
+    const bool eq = ok && u == T;
+    int ties;
+    const int rank = tie + block_excl_scan(eq ? 1 : 0, sums, &ties);
+    if (ok && u > T) sel[atomicAdd(&w.ctl[kGt], 1u)] = composite(u, i);
+    if (eq && rank < need) sel[k - need + rank] = composite(u, i);
+    tie += ties;
+  }
+}
+
+// the output of the composite of rank `rank` in its lane
+__device__ __forceinline__ void write_out(u64 c, int rank, float* out_kv,
+                                          long long* out_idx, const long long* order,
+                                          bool pooled, int n) {
+  const uint32_t slot = ~(uint32_t)(c & 0xFFFFFFFFull);
+  out_kv[rank] = from_sortable((uint32_t)(c >> 32));
+  long long id = (long long)slot;
+  if (pooled) {
+    // a pooled lane's pad slots: id n - 1, as min(order, R - 1)
+    const long long p = order[slot];
+    id = p < n ? p : (long long)(n - 1);
+  }
+  out_idx[rank] = id;
+}
+
+// bitonic sort (descending) of one chunk of kChunk composites in shared
+// memory, one CTA per chunk; with one chunk it writes the outputs, else the
+// sorted chunk for sel_merge
+__global__ void sel_sort(const u64* __restrict__ sel, int k, u64* __restrict__ sorted,
+                         float* __restrict__ out_kv, long long* __restrict__ out_idx,
+                         const long long* __restrict__ elig_n,
+                         const long long* __restrict__ order, int pool, int n) {
+  __shared__ u64 s[kChunk];
+  const long long lane = blockIdx.y;
+  const int c0 = blockIdx.x * kChunk;
+  const int len = min(kChunk, k - c0);
+  int cp = 2;
+  while (cp < len) cp <<= 1;
+  sel += lane * k + c0;
+  for (int i = threadIdx.x; i < cp; i += kSortThreads) s[i] = i < len ? sel[i] : 0ull;
+  __syncthreads();
+  for (int size = 2; size <= cp; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < kpad; i += blockDim.x) {
+      for (int i = threadIdx.x; i < cp; i += kSortThreads) {
         const int j = i ^ stride;
         if (j > i) {
           const bool desc = (i & size) == 0;
@@ -228,19 +377,61 @@ __global__ void bitonic_top(const u64* __restrict__ sel, int k, int kpad,
       __syncthreads();
     }
   }
-  const uint32_t neg_inf = sortable_bits(-INFINITY);
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    const u64 c = s[i];
-    const uint32_t hi = (uint32_t)(c >> 32);
-    out_kv[i] = from_sortable(hi);
-    // a pooled lane's -inf slots are pads: id n - 1, as min(order, R - 1)
-    out_idx[i] = (pooled && hi == neg_inf)
-                     ? (long long)(n - 1)
-                     : (long long)(~(uint32_t)(c & 0xFFFFFFFFull));
+  if (gridDim.x == 1) {
+    const bool pooled = pooled_lane(elig_n, lane, pool);
+    for (int i = threadIdx.x; i < len; i += kSortThreads)
+      write_out(s[i], i, out_kv + lane * k, out_idx + lane * k,
+                order != nullptr ? order + lane * n : nullptr, pooled, n);
+  } else {
+    for (int i = threadIdx.x; i < len; i += kSortThreads) sorted[lane * k + c0 + i] = s[i];
   }
 }
 
-constexpr int kTile = 1024;
+// each composite's rank: its index in its chunk plus, in every other chunk,
+// the composites above it (binary searches in shared memory, which holds
+// the lane's k sorted composites; they are unique)
+__global__ void sel_merge(const u64* __restrict__ sorted, int k, float* __restrict__ out_kv,
+                          long long* __restrict__ out_idx,
+                          const long long* __restrict__ elig_n,
+                          const long long* __restrict__ order, int pool, int n) {
+  extern __shared__ u64 all[];
+  const long long lane = blockIdx.y;
+  const bool pooled = pooled_lane(elig_n, lane, pool);
+  sorted += lane * k;
+  for (int i = threadIdx.x; i < k; i += blockDim.x) all[i] = sorted[i];
+  __syncthreads();
+  const int c0 = blockIdx.x * kChunk;
+  const int len = min(kChunk, k - c0);
+  for (int j = threadIdx.x; j < len; j += blockDim.x) {
+    const u64 e = all[c0 + j];
+    int rank = j;
+    for (int c = 0; c < (int)gridDim.x; ++c) {
+      if (c == (int)blockIdx.x) continue;
+      const u64* a = all + c * kChunk;
+      int lo = 0, hi = min(kChunk, k - c * kChunk);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (a[mid] > e) lo = mid + 1;
+        else hi = mid;
+      }
+      rank += lo;
+    }
+    write_out(e, rank, out_kv + lane * k, out_idx + lane * k,
+              order != nullptr ? order + lane * n : nullptr, pooled, n);
+  }
+}
+
+// 32-bit words of a selection's workspace (kernels/select.py sizes it the
+// same way; a smaller one is refused): per lane the zeroed histograms and
+// counters, the salted bits of every slot, pass C's tile histograms, the k
+// selected and the k sorted composites
+long long ws_words(int L, int n, int k) {
+  const long long ntiles = (n + kSelTile - 1) / kSelTile;
+  const long long ub = ((long long)L * n + 1) & ~1LL;
+  return L * kZeroWords + ub + L * ntiles * kBinsLast + 4LL * L * k;
+}
+
+constexpr int kTile = 1024;   // rows of one compaction tile
 
 // row i of lane `lane` is eligible: elig[i] when given (compact_eligible),
 // else key > -inf after the seed mask (the pooled selection's prefix)
@@ -330,6 +521,7 @@ static void launch_compact(const unsigned char* elig, const float* key,
                                                               stride);
 }
 
+
 }  // namespace
 
 extern "C" int cc_compact_eligible(const unsigned char* elig, int n, int pad_len,
@@ -341,60 +533,65 @@ extern "C" int cc_compact_eligible(const unsigned char* elig, int n, int pad_len
   return (int)cudaGetLastError();
 }
 
+// *launches (host memory) gets the number of CUDA launches (the memset
+// included) each entry point made
 static int launch_select(const float* key, const unsigned char* mask, int L, int n,
-                         int k, int stall, const int* stalls, int salt, u64* comp,
-                         u64* sel, u64* state, unsigned int* hist, float* out_kv,
-                         long long* out_idx, cudaStream_t stream,
-                         const long long* elig_n = nullptr,
+                         int k, int stall, const int* stalls, int salt, unsigned* ws,
+                         long long words, float* out_kv, long long* out_idx, int* launches,
+                         cudaStream_t stream, const long long* elig_n = nullptr,
                          const long long* order = nullptr, int pool = 0,
                          u64* branch = nullptr) {
-  if (L <= 0 || L > 65535 || n <= 0 || k <= 0 || k > n || k > 16384)
+  if (L <= 0 || L > 65535 || n <= 0 || k <= 0 || k > n || k > kMaxK || ws == nullptr ||
+      words < ws_words(L, n, k))
     return (int)cudaErrorInvalidValue;
-  int kpad = 1;
-  while (kpad < k) kpad <<= 1;
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  const int hist_blocks = blocks < 1024 ? blocks : 1024;
-  init_state<<<L, 256, 0, stream>>>(state, hist, k, elig_n, pool, branch);
-  salt_pack<<<dim3(blocks, L), threads, 0, stream>>>(key, mask, n, stall, stalls, salt,
-                                                     elig_n, order, pool, comp);
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    radix_hist<<<dim3(hist_blocks, L), threads, 0, stream>>>(comp, n, state, shift,
-                                                            hist, elig_n, pool);
-    radix_choose<<<L, 256, 0, stream>>>(state, hist, shift);
+  const long long ntiles = (n + kSelTile - 1) / kSelTile;
+  unsigned* ubuf = ws + L * kZeroWords;
+  unsigned* tilehist = ubuf + (((long long)L * n + 1) & ~1LL);
+  u64* sel = (u64*)(tilehist + L * ntiles * kBinsLast);
+  u64* sorted = sel + (long long)L * k;
+  cudaMemsetAsync(ws, 0, L * kZeroWords * sizeof(unsigned), stream);
+  const dim3 grid((unsigned)ntiles, L);
+  sel_pass_a<<<grid, kSelThreads, 0, stream>>>(key, mask, n, k, stall, stalls, salt, elig_n,
+                                               order, pool, ubuf, ws, branch);
+  sel_pass_next<<<grid, kSelThreads, 0, stream>>>(elig_n, n, pool, ubuf, ws, 1, nullptr);
+  sel_pass_next<<<grid, kSelThreads, 0, stream>>>(elig_n, n, pool, ubuf, ws, 2, tilehist);
+  sel_gather<<<grid, kSelThreads, 0, stream>>>(elig_n, n, k, pool, ubuf, ws, tilehist, sel);
+  const dim3 chunks((k + kChunk - 1) / kChunk, L);
+  sel_sort<<<chunks, kSortThreads, 0, stream>>>(sel, k, sorted, out_kv, out_idx, elig_n,
+                                                order, pool, n);
+  if (chunks.x > 1) {
+    static bool smem_set = false;   // once per process (a repeat is harmless)
+    if (!smem_set) {
+      cudaFuncSetAttribute(sel_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxK * (int)sizeof(u64));
+      smem_set = true;
+    }
+    sel_merge<<<chunks, kChunk, k * sizeof(u64), stream>>>(sorted, k, out_kv, out_idx,
+                                                           elig_n, order, pool, n);
   }
-  gather_top<<<dim3(blocks, L), threads, 0, stream>>>(comp, n, k, state, sel, elig_n,
-                                                      pool);
-  const int smem = kpad * (int)sizeof(u64);
-  cudaFuncSetAttribute(bitonic_top, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
-  bitonic_top<<<L, 1024, smem, stream>>>(sel, k, kpad, out_kv, out_idx, elig_n, pool, n);
+  *launches += chunks.x > 1 ? 7 : 6;
   return (int)cudaGetLastError();
 }
 
-extern "C" int cc_select_candidates(const float* key,
-                                    const unsigned char* mask, int n, int k,
-                                    int stall,
-                                    int salt, u64* comp, u64* sel,
-                                    u64* state, unsigned int* hist,
-                                    float* out_kv, long long* out_idx,
-                                    void* stream_ptr) {
-  return launch_select(key, mask, 1, n, k, stall, nullptr, salt, comp, sel, state,
-                       hist, out_kv, out_idx, (cudaStream_t)stream_ptr);
+extern "C" int cc_select_candidates(const float* key, const unsigned char* mask, int n,
+                                    int k, int stall, int salt, unsigned* ws,
+                                    long long words, float* out_kv, long long* out_idx,
+                                    int* launches, void* stream_ptr) {
+  *launches = 0;
+  return launch_select(key, mask, 1, n, k, stall, nullptr, salt, ws, words, out_kv,
+                       out_idx, launches, (cudaStream_t)stream_ptr);
 }
 
-// L lanes: key / mask [L, n], stalls int32[L] on the device, scratch and
-// outputs with one row per lane (comp [L, n], sel [L, k], state [L, 4],
-// hist [L, 256], out [L, k]).
-extern "C" int cc_select_candidates_lanes(const float* key,
-                                          const unsigned char* mask, int L, int n,
-                                          int k, const int* stalls, int salt,
-                                          u64* comp, u64* sel, u64* state,
-                                          unsigned int* hist, float* out_kv,
-                                          long long* out_idx, void* stream_ptr) {
+// L lanes: key / mask [L, n], stalls int32[L] on the device, outputs [L, k]
+extern "C" int cc_select_candidates_lanes(const float* key, const unsigned char* mask,
+                                          int L, int n, int k, const int* stalls, int salt,
+                                          unsigned* ws, long long words, float* out_kv,
+                                          long long* out_idx, int* launches,
+                                          void* stream_ptr) {
+  *launches = 0;
   if (stalls == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_select(key, mask, L, n, k, 0, stalls, salt, comp, sel, state, hist,
-                       out_kv, out_idx, (cudaStream_t)stream_ptr);
+  return launch_select(key, mask, L, n, k, 0, stalls, salt, ws, words, out_kv, out_idx,
+                       launches, (cudaStream_t)stream_ptr);
 }
 
 // Pooled keying of L lanes (L = 1 and stalls null: the solo launch with
@@ -405,14 +602,16 @@ extern "C" int cc_select_candidates_lanes(const float* key,
 extern "C" int cc_select_pooled(const float* key, const unsigned char* mask, int L,
                                 int n, int k, int pool, int stall0, const int* stalls,
                                 int salt, int* counts, long long* order,
-                                long long* elig_n, u64* comp, u64* sel, u64* state,
-                                unsigned int* hist, float* out_kv, long long* out_idx,
-                                u64* branch, void* stream_ptr) {
+                                long long* elig_n, unsigned* ws, long long words,
+                                float* out_kv, long long* out_idx, u64* branch,
+                                int* launches, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  *launches = 0;
   if (L <= 0 || L > 65535 || n <= 0 || pool <= 0 || pool >= n || k <= 0 ||
       2 * k > pool || (L > 1 && stalls == nullptr))
     return (int)cudaErrorInvalidValue;
   launch_compact(nullptr, key, mask, L, n, pool, counts, order, n, elig_n, stream);
-  return launch_select(key, mask, L, n, k, stall0, stalls, salt, comp, sel, state, hist,
-                       out_kv, out_idx, stream, elig_n, order, pool, branch);
+  *launches = 4;
+  return launch_select(key, mask, L, n, k, stall0, stalls, salt, ws, words, out_kv,
+                       out_idx, launches, stream, elig_n, order, pool, branch);
 }

@@ -9,12 +9,18 @@ reference; on the CPU oracle it falls back to the same exact order (total
 order included, checked with planted signed-zero ties at k > 8,192), so
 hard and soft goals select alike.
 
-CUDA kernel (``csrc/select_candidates.cu``): one pass salts the keys (the
-uint32 hash of engine.py:143-149) and packs the order-preserving 64-bit
-composite ``(sortable(key) << 32) | ~idx``; an 8-pass radix select finds the
-k-th largest composite; the k survivors are gathered and ordered by a
-single-CTA bitonic sort in shared memory. Bound: bytes (it reads the f32[R]
-keys once and writes k results; the radix passes re-read the composites).
+CUDA kernel (``csrc/select_candidates.cu``), at most 7 CUDA launches a call
+(the pooled form adds its 4 compaction launches): a memset of the lane's
+counters; three histogram passes over the 32 sortable bits of the salted key
+(12, 12 and 8 bits; the first salts each key, the uint32 hash of
+engine.py:143-149, and keeps its bits; the last block of each pass to finish
+chooses the digit, so no launch of its own), which find the k-th largest
+value T; a gather of every row above T and of the first rows equal to T in
+index order (each tile's count of them from the last pass); and a sort of the
+k composites ``(sortable(key) << 32) | ~idx`` across many CTAs (chunks of 512
+sorted in shared memory, then each composite placed by binary searches of
+the other chunks). Bound: bytes (it reads the f32[R] keys once, its 4-byte
+bits twice, and writes k results).
 
 The plain twin sorts the same order-preserving integers with a stable
 ``torch.sort``; the hash runs in int64 masked to 32 bits.
@@ -51,10 +57,12 @@ the same library (``csrc/select_candidates.cu``).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, host_ints, library, ptr, register, stream_ptr,
+    IP, LL, I, P, check, host_ints, library, ptr, register, stream_ptr,
 )
 
 KERNEL = register("select_candidates",
@@ -123,10 +131,29 @@ def select_candidates_plain(key, k, stall, salt=0, seed_mask=None):
     return salted[order], order
 
 
-_SIGNATURES = {"cc_select_candidates": [P, P, I, I, I, I, P, P, P, P, P, P, P],
-               "cc_select_candidates_lanes": [P, P, I, I, I, P, I] + [P] * 7,
-               "cc_select_pooled": [P, P, I, I, I, I, I, P, I] + [P] * 11,
+_SIGNATURES = {"cc_select_candidates": [P, P, I, I, I, I, P, LL, P, P, IP, P],
+               "cc_select_candidates_lanes": [P, P, I, I, I, P, I, P, LL, P, P, IP, P],
+               "cc_select_pooled": [P, P, I, I, I, I, I, P, I, P, P, P, P, LL, P, P, P, IP,
+                                    P],
                "cc_compact_eligible": [P, I, I, P, P, P, P]}
+
+
+def ws_words(L: int, n: int, k: int) -> int:
+    """int32 words of a selection's workspace (``csrc/select_candidates.cu``
+    ``ws_words``, which refuses a smaller one): per lane the three
+    histograms and the counters, the salted bits of every row, the last
+    pass's 256-bin histogram of each 2,048-row tile, and the k selected and
+    k sorted 64-bit composites."""
+    return (L * (2 * 4096 + 256 + 8) + ((L * n + 1) & ~1) + L * -(-n // 2048) * 256
+            + 4 * L * k)
+
+
+def _selection(L: int, n: int, k: int, dev):
+    """(workspace, kv f32[L, k], idx i64[L, k], the CUDA launch count the
+    entry point writes) of one launch."""
+    return (torch.empty(ws_words(L, n, k), dtype=torch.int32, device=dev),
+            torch.empty((L, k), dtype=torch.float32, device=dev),
+            torch.empty((L, k), dtype=torch.int64, device=dev), ctypes.c_int(0))
 
 
 def select_candidates(key: torch.Tensor, k: int, stall: int, salt: int = 0,
@@ -152,21 +179,15 @@ def select_candidates(key: torch.Tensor, k: int, stall: int, salt: int = 0,
     if not 0 < k <= MAX_K:
         raise ValueError(f"select_candidates supports 0 < k <= {MAX_K}, got {k}")
     n = key.shape[0]
-    dev = key.device
-    comp = torch.empty(n, dtype=torch.int64, device=dev)
-    sel = torch.empty(k, dtype=torch.int64, device=dev)
-    state = torch.empty(4, dtype=torch.int64, device=dev)
-    hist = torch.empty(256, dtype=torch.int32, device=dev)
-    kv = torch.empty(k, dtype=torch.float32, device=dev)
-    idx = torch.empty(k, dtype=torch.int64, device=dev)
+    ws, kv, idx, launches = _selection(1, n, k, key.device)
     err = library("select_candidates", _SIGNATURES).cc_select_candidates(
-        ptr(key), ptr(seed_mask), n, k, int(stall), int(salt), ptr(comp),
-        ptr(sel), ptr(state), ptr(hist), ptr(kv), ptr(idx), stream_ptr())
+        ptr(key), ptr(seed_mask), n, k, int(stall), int(salt), ptr(ws), ws.numel(),
+        ptr(kv), ptr(idx), ctypes.byref(launches), stream_ptr())
     check(err, "select_candidates")
-    KERNEL.count(f"k={k}")
+    KERNEL.count(f"k={k}", launches.value)
     if seed_mask is not None:
-        KERNEL_MASKED.count(f"k={k}")
-    return kv, idx
+        KERNEL_MASKED.count(f"k={k}", launches.value)
+    return kv[0], idx[0]
 
 
 def select_candidates_lanes_plain(key, k, stalls, salt=0, seed_mask=None):
@@ -202,19 +223,13 @@ def select_candidates_lanes(key: torch.Tensor, k: int, stalls, salt: int = 0,
                          "seed mask")
     if not 0 < k <= MAX_K:
         raise ValueError(f"select_candidates_lanes supports 0 < k <= {MAX_K}, got {k}")
-    dev = key.device
-    st = host_ints(stalls, dev, torch.int32)
-    comp = torch.empty((L, n), dtype=torch.int64, device=dev)
-    sel = torch.empty((L, k), dtype=torch.int64, device=dev)
-    state = torch.empty((L, 4), dtype=torch.int64, device=dev)
-    hist = torch.empty((L, 256), dtype=torch.int32, device=dev)
-    kv = torch.empty((L, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((L, k), dtype=torch.int64, device=dev)
+    st = host_ints(stalls, key.device, torch.int32)
+    ws, kv, idx, launches = _selection(L, n, k, key.device)
     err = library("select_candidates", _SIGNATURES).cc_select_candidates_lanes(
-        ptr(key), ptr(seed_mask), L, n, k, ptr(st), int(salt), ptr(comp), ptr(sel),
-        ptr(state), ptr(hist), ptr(kv), ptr(idx), stream_ptr())
+        ptr(key), ptr(seed_mask), L, n, k, ptr(st), int(salt), ptr(ws), ws.numel(),
+        ptr(kv), ptr(idx), ctypes.byref(launches), stream_ptr())
     check(err, "select_candidates_lanes")
-    KERNEL_LANES.count(f"L={L} k={k}")
+    KERNEL_LANES.count(f"L={L} k={k}", launches.value)
     return kv, idx
 
 
@@ -296,18 +311,13 @@ def _pooled_launch(key, mask, L, n, k, pool, stall0, stalls, salt, what):
     counts = torch.empty((L, nb), dtype=torch.int32, device=dev)
     order = torch.empty((L, n), dtype=torch.int64, device=dev)
     elig_n = torch.empty(L, dtype=torch.int64, device=dev)
-    comp = torch.empty((L, n), dtype=torch.int64, device=dev)
-    sel = torch.empty((L, k), dtype=torch.int64, device=dev)
-    state = torch.empty((L, 4), dtype=torch.int64, device=dev)
-    hist = torch.empty((L, 256), dtype=torch.int32, device=dev)
-    kv = torch.empty((L, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((L, k), dtype=torch.int64, device=dev)
+    ws, kv, idx, launches = _selection(L, n, k, dev)
     err = library("select_candidates", _SIGNATURES).cc_select_pooled(
         ptr(key), ptr(mask), L, n, k, int(pool), int(stall0), ptr(stalls), int(salt),
-        ptr(counts), ptr(order), ptr(elig_n), ptr(comp), ptr(sel), ptr(state), ptr(hist),
-        ptr(kv), ptr(idx), ptr(_branch_counter(dev)), stream_ptr())
+        ptr(counts), ptr(order), ptr(elig_n), ptr(ws), ws.numel(), ptr(kv), ptr(idx),
+        ptr(_branch_counter(dev)), ctypes.byref(launches), stream_ptr())
     check(err, what)
-    return kv, idx
+    return kv, idx, launches.value
 
 
 def select_pooled(key: torch.Tensor, k: int, stall: int, salt: int = 0,
@@ -326,9 +336,9 @@ def select_pooled(key: torch.Tensor, k: int, stall: int, salt: int = 0,
                                   or not seed_mask.is_contiguous()
                                   or seed_mask.device != key.device):
         raise ValueError("select_pooled takes a contiguous bool[R] seed mask")
-    kv, idx = _pooled_launch(key, seed_mask, 1, key.shape[0], k, pool, stall, None, salt,
-                             "select_pooled")
-    KERNEL_POOLED.count(f"k={k} pool={pool}")
+    kv, idx, launches = _pooled_launch(key, seed_mask, 1, key.shape[0], k, pool, stall,
+                                       None, salt, "select_pooled")
+    KERNEL_POOLED.count(f"k={k} pool={pool}", launches)
     return kv[0], idx[0]
 
 
@@ -360,9 +370,9 @@ def select_pooled_lanes(key: torch.Tensor, k: int, stalls, salt: int = 0,
                                   or seed_mask.device != key.device):
         raise ValueError("select_pooled_lanes takes a contiguous bool[L, R] seed mask")
     st = host_ints(stalls, key.device, torch.int32)
-    kv, idx = _pooled_launch(key, seed_mask, L, n, k, pool, 0, st, salt,
-                             "select_pooled_lanes")
-    KERNEL_POOLED_LANES.count(f"L={L} k={k} pool={pool}")
+    kv, idx, launches = _pooled_launch(key, seed_mask, L, n, k, pool, 0, st, salt,
+                                       "select_pooled_lanes")
+    KERNEL_POOLED_LANES.count(f"L={L} k={k} pool={pool}", launches)
     return kv, idx
 
 

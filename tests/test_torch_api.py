@@ -22,6 +22,10 @@ from cruise_control_tpu_torch.api.user_tasks import USER_TASK_HEADER_NAME
 from cruise_control_tpu_torch.app import CruiseControl
 from cruise_control_tpu_torch.backend import SimulatedClusterBackend
 from cruise_control_tpu_torch.config import cruise_control_config
+from torch_reference import one_torch_thread
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 def _backend(n_brokers=4, rf=2, n_parts=12):

@@ -1,10 +1,12 @@
 """The ``CruiseControl`` facade of the port against the JAX reference.
 
 The reference's facade compiles its goal chains, so each reference run
-here happens in a fresh interpreter (``torch_reference.reference_facade``),
-never inside a test worker: one interpreter for the facade cases and the
-heal script, inside the one test that compares them, so no other worker
-waits on it. The port runs in process on the CPU (``device="cpu"``). No test
+here happens in a fresh interpreter (``torch_reference.facade_job``), never
+inside a test worker: one interpreter for the facade cases and the heal
+script, started when the module is imported (under xdist, once per session,
+in the background, ``torch_reference.start_background_reference``), so no
+worker waits on it. The port runs in process on the CPU (``device="cpu"``),
+on one torch intra-op thread (``torch_reference.one_torch_thread``). No test
 starts a thread or sleeps on the wall clock: the anomaly manager and the
 executor run synchronously on the simulated backend's clock.
 
@@ -24,10 +26,23 @@ from cruise_control_tpu_torch.analyzer.heal_script import (
     HEAL_SMALL, heal_script, port_heal_ns,
 )
 from torch_reference import (
-    FACADE_CASES, facade, facade_backend, facade_case, reference_facade,
+    FACADE_CASES, background_reference, facade, facade_backend, facade_case, facade_job,
+    one_torch_thread, start_background_reference,
 )
 
 PORT = port_heal_ns("cpu")
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
+# the reference's interpreter starts when the module is imported (under
+# xdist, once per session, in the background)
+_REFERENCE_JOBS = {"facade": facade_job(FACADE_CASES, (HEAL_SMALL,))}
+start_background_reference("app_facade", _REFERENCE_JOBS)
+
+
+@pytest.fixture(scope="module")
+def ref_facade(tmp_path_factory):
+    """The reference's facade cases and heal script rows (one interpreter,
+    once for the whole test session)."""
+    return background_reference(tmp_path_factory, "app_facade", _REFERENCE_JOBS)["facade"]
 
 
 @pytest.fixture(scope="module")
@@ -35,12 +50,13 @@ def port_heal_rows():
     return heal_script(PORT, HEAL_SMALL)
 
 
-def test_facade_cases_and_heal_script_match_reference(port_heal_rows, tmp_path):
+def test_facade_cases_and_heal_script_match_reference(port_heal_rows, ref_facade,
+                                                       tmp_path):
     """One fresh reference interpreter runs every facade case, then the heal
     script (they share its compiled chains); the port's runs equal its
     rows."""
     (tmp_path / "port").mkdir()
-    want = reference_facade(tmp_path, cases=FACADE_CASES, heal=(HEAL_SMALL,))
+    want = ref_facade
     got = {name: facade_case(PORT, name, str(tmp_path / "port")) for name in FACADE_CASES}
     assert [n for n in FACADE_CASES if got[n] != want[n]] == []
     heal = want["heal"][0]

@@ -14,6 +14,10 @@ from cruise_control_tpu_torch.backend import SimulatedClusterBackend
 from cruise_control_tpu_torch.client import CruiseControlClient, CruiseControlClientError
 from cruise_control_tpu_torch.client.cli import build_parser, main
 from cruise_control_tpu_torch.config import cruise_control_config
+from torch_reference import one_torch_thread
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 @pytest.fixture

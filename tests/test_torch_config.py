@@ -21,6 +21,10 @@ from cruise_control_tpu_torch.config import (
     ConfigException, Type, cruise_control_config,
 )
 from cruise_control_tpu_torch.config.defaults import ENDPOINT_PATHS, endpoint_config_stem
+from torch_reference import one_torch_thread
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 def test_every_key_type_default_alias_and_doc_equal_the_reference():

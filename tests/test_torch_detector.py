@@ -8,8 +8,8 @@ slow-broker finder, the percentile metric-anomaly finder, the topic
 replication-factor finder, the topic maintenance-event reader with its
 idempotence cache, and the manager's queue, schedule and deferral; the
 port's in process, the reference's in one fresh interpreter per module
-(``torch_reference.reference_cases``), so the test worker imports nothing
-of JAX. The facade's cases (a broker failure healed end to end, the deferred re-fire,
+(``torch_reference.cases_job``, started in the background when the module
+is imported), so the test worker imports nothing of JAX. The facade's cases (a broker failure healed end to end, the deferred re-fire,
 the goal-violation detector, the maintenance flow) are in
 ``tests/test_torch_app.py``, whose reference runs in a fresh interpreter.
 """
@@ -18,7 +18,11 @@ from pathlib import Path
 
 import pytest
 
-from torch_reference import reference_cases
+from torch_reference import (
+    background_reference, cases_job, one_torch_thread, start_background_reference,
+)
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 def _ns(ref: bool) -> dict:
@@ -185,23 +189,30 @@ def detector_case(ns, name: str, tmp) -> dict:
     raise ValueError(name)
 
 
-def reference_detector_cases(tmp: str) -> dict:
+def reference_detector_cases() -> dict:
     """Every case through the reference's classes (run by
-    ``torch_reference.reference_cases`` in a fresh interpreter)."""
+    ``torch_reference.cases_job`` in a fresh interpreter), each in its own
+    directory under one temporary directory."""
+    import tempfile
     ns = _ns(True)
     out = {}
-    for name in CASES:
-        case_dir = Path(tmp) / name
-        case_dir.mkdir(parents=True)
-        out[name] = detector_case(ns, name, case_dir)
+    with tempfile.TemporaryDirectory(prefix="detector_reference_") as tmp:
+        for name in CASES:
+            case_dir = Path(tmp) / name
+            case_dir.mkdir(parents=True)
+            out[name] = detector_case(ns, name, case_dir)
     return out
+
+
+# the reference's interpreter starts when the module is imported (under
+# xdist, once per session, in the background)
+_REFERENCE_JOBS = {"cases": cases_job("test_torch_detector", "reference_detector_cases")}
+start_background_reference("detector", _REFERENCE_JOBS)
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("detector_reference")
-    return reference_cases(tmp, "test_torch_detector", "reference_detector_cases",
-                           str(tmp / "cases"))
+    return background_reference(tmp_path_factory, "detector", _REFERENCE_JOBS)["cases"]
 
 
 @pytest.mark.parametrize("name", CASES)

@@ -3,8 +3,9 @@
 Every case of ``tests/test_executor.py`` runs as one script through both
 packages' classes (the executor, planner, strategies and tasks, and the
 simulated backend): the port's in process, the reference's in one fresh
-interpreter per module (``torch_reference.reference_cases``), so the test
-worker imports nothing of JAX. The two runs compare with ``==`` on what the
+interpreter per module (``torch_reference.cases_job``, started in the
+background when the module is imported), so the test worker imports
+nothing of JAX. The two runs compare with ``==`` on what the
 case observes: the task census by state, the throttles and per-topic
 throttled-replica lists, the adjuster's caps, the final assignment. No case starts a thread or
 sleeps on the wall clock: ``execute_proposals`` runs to its end on the
@@ -14,7 +15,11 @@ progress sleep.
 """
 import pytest
 
-from torch_reference import reference_cases
+from torch_reference import (
+    background_reference, cases_job, one_torch_thread, start_background_reference,
+)
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 CASES = ("inter_broker_move", "movement_takes_time", "leadership_phase",
          "per_broker_cap", "cluster_cap", "large_first", "force_stop",
@@ -303,15 +308,20 @@ def executor_case(ns, name: str) -> dict:
 
 def reference_executor_cases() -> dict:
     """Every case through the reference's classes (run by
-    ``torch_reference.reference_cases`` in a fresh interpreter)."""
+    ``torch_reference.cases_job`` in a fresh interpreter)."""
     ns = _ns(True)
     return {name: executor_case(ns, name) for name in CASES}
 
 
+# the reference's interpreter starts when the module is imported (under
+# xdist, once per session, in the background)
+_REFERENCE_JOBS = {"cases": cases_job("test_torch_executor", "reference_executor_cases")}
+start_background_reference("executor", _REFERENCE_JOBS)
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    return reference_cases(tmp_path_factory.mktemp("executor_reference"),
-                           "test_torch_executor", "reference_executor_cases")
+    return background_reference(tmp_path_factory, "executor", _REFERENCE_JOBS)["cases"]
 
 
 @pytest.mark.parametrize("name", CASES)

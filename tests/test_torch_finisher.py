@@ -37,7 +37,10 @@ from cruise_control_tpu_torch.analyzer import engine
 from cruise_control_tpu_torch.analyzer import optimizer
 from cruise_control_tpu_torch.analyzer.goals import make_goals
 from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
-from torch_reference import reference_cases
+from torch_reference import one_torch_thread, reference_cases
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 CHAIN = ["RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
          "DiskCapacityGoal", "NetworkInboundCapacityGoal",

@@ -5,8 +5,10 @@
 ``cruise_control_tpu_torch/fleet_script.py``).
 
 The reference's side runs in ONE fresh interpreter for this module
-(``torch_reference.reference_fleet_cases``): its vmapped fleet programs
-never compile inside a test worker. The port's side runs here on the CPU.
+(``torch_reference.fleet_job``), started when the module is imported (under
+xdist, once per session, in the background): its vmapped fleet programs
+never compile inside a test worker. The port's side runs here on the CPU,
+on one torch intra-op thread.
 Every comparison is exact: verdict sets, certificates, proposals, final
 assignment arrays, lane counters, round and dispatch reports.
 
@@ -21,7 +23,13 @@ import torch
 
 from cruise_control_tpu_torch import fleet_script as fs
 from cruise_control_tpu_torch.fleet import FleetScheduler, valid_cluster_id
-from torch_reference import reference_fleet_cases
+from torch_reference import (
+    background_reference, fleet_job, one_torch_thread, start_background_reference,
+)
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
+_REFERENCE_JOBS = {"fleet": fleet_job(("fleet_cases", "serving_cases"))}
+start_background_reference("fleet", _REFERENCE_JOBS)
 
 
 def same(a, b) -> bool:
@@ -38,8 +46,7 @@ def same(a, b) -> bool:
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    return reference_fleet_cases(tmp_path_factory.mktemp("fleet"),
-                                 ("fleet_cases", "serving_cases"))
+    return background_reference(tmp_path_factory, "fleet", _REFERENCE_JOBS)["fleet"]
 
 
 @pytest.fixture(scope="module")

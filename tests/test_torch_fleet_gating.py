@@ -6,7 +6,9 @@ drive of ``tests/test_fleet_gating.py``, scripted once in
 dirty-seed budget beside idle tenants under it, gated and ungated fleets).
 
 The reference's side runs in ONE fresh interpreter for this module
-(``torch_reference.reference_fleet_cases``). Every comparison is exact.
+(``torch_reference.fleet_job``), started when the module is imported (under
+xdist, once per session, in the background); the port's side runs on one
+torch intra-op thread. Every comparison is exact.
 The reference's ``test_budget_value_toggle_compiles_nothing`` counts XLA
 compiles and has no counterpart in the port, which compiles nothing at run
 time; the toggle's dispatches run here all the same, and their results
@@ -16,13 +18,19 @@ import pytest
 
 from cruise_control_tpu_torch import fleet_script as fs
 from test_torch_fleet import same
-from torch_reference import reference_fleet_cases
+from torch_reference import (
+    background_reference, fleet_job, one_torch_thread, start_background_reference,
+)
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
+_REFERENCE_JOBS = {"gating": fleet_job(("gating_cases",))}
+start_background_reference("fleet_gating", _REFERENCE_JOBS)
 
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    return reference_fleet_cases(tmp_path_factory.mktemp("gating"),
-                                 ("gating_cases",))["gating_cases"]
+    return background_reference(tmp_path_factory, "fleet_gating",
+                                _REFERENCE_JOBS)["gating"]["gating_cases"]
 
 
 @pytest.fixture(scope="module")

@@ -37,6 +37,10 @@ from cruise_control_tpu_torch.kernels.admission import wave_admission_lanes
 from cruise_control_tpu_torch.kernels.move_score import move_score_classes_lanes
 from cruise_control_tpu_torch.model import random_cluster as rc
 from cruise_control_tpu_torch.model.cluster_tensor import pad_cluster
+from torch_reference import one_torch_thread
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 SPEC = dict(num_brokers=24, num_partitions=400, num_racks=4, num_topics=6,
             max_replication=3, skew=1.5, target_cpu_util=0.45)

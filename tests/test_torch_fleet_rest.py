@@ -16,6 +16,10 @@ import pytest
 from cruise_control_tpu_torch import fleet_script as fs
 from cruise_control_tpu_torch.api.server import CruiseControlServer
 from cruise_control_tpu_torch.fleet import valid_cluster_id
+from torch_reference import one_torch_thread
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 SEEDS = (11, 12, 13)
 

@@ -4,8 +4,8 @@
   ``forecast_batch`` bit for bit, on random histories with holes in the
   mask (leading, trailing, interior, all-holes series), at window counts
   1..8. The reference's outputs come from one fresh interpreter per module
-  (``torch_reference.reference_cases``), so the test worker compiles
-  nothing of JAX.
+  (``torch_reference.cases_job``, started in the background when the
+  module is imported), so the test worker compiles nothing of JAX.
 - ``WorkloadForecaster`` of both packages over the same monitored backend:
   the same forecast bits, scales, rising flag and generation; the memo per
   generation and knob set; the device contract.
@@ -19,7 +19,11 @@ from cruise_control_tpu_torch.forecast import (
     ForecastKnobs, WorkloadForecaster, forecast_reference,
 )
 from cruise_control_tpu_torch.kernels import forecast as K15
-from torch_reference import reference_cases
+from torch_reference import (
+    background_reference, cases_job, one_torch_thread, start_background_reference,
+)
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 def _history(seed=0, E=7, W=5, M=4, holes=True, scale=100.0, signed=False):
@@ -55,7 +59,7 @@ HORIZONS = (300_000, 600_000, 900_000)
 
 def reference_forecasts() -> dict:
     """The reference's side of this module, run by
-    ``torch_reference.reference_cases`` in a fresh interpreter: its
+    ``torch_reference.cases_job`` in a fresh interpreter: its
     ``forecast_batch`` on every (case, knobs) and its ``WorkloadForecaster``
     at every horizon."""
     from cruise_control_tpu.forecast import ForecastKnobs as RefKnobs
@@ -75,10 +79,15 @@ def reference_forecasts() -> dict:
     return out
 
 
+# the reference's interpreter starts when the module is imported (under
+# xdist, once per session, in the background)
+_REFERENCE_JOBS = {"cases": cases_job("test_torch_forecast", "reference_forecasts")}
+start_background_reference("forecast", _REFERENCE_JOBS)
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    return reference_cases(tmp_path_factory.mktemp("forecast_reference"),
-                           "test_torch_forecast", "reference_forecasts")
+    return background_reference(tmp_path_factory, "forecast", _REFERENCE_JOBS)["cases"]
 
 
 @pytest.mark.parametrize("i", range(len(CASES)),

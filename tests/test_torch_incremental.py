@@ -36,8 +36,11 @@ from cruise_control_tpu_torch.analyzer.optimizer import DEFAULT_GOALS
 from cruise_control_tpu_torch.analyzer.session_script import port_ns
 from cruise_control_tpu_torch.kernels import probe, select
 from torch_reference import (
-    INCREMENTAL_CASES, INCREMENTAL_GOALS, incremental_case, reference_incremental_cases,
+    INCREMENTAL_CASES, INCREMENTAL_GOALS, incremental_case, one_torch_thread, reference_incremental_cases,
 )
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 NS = port_ns("cpu")
 

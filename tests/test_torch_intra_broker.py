@@ -42,7 +42,10 @@ from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
 from cruise_control_tpu_torch.analyzer.state import init_state
 from cruise_control_tpu_torch.model import fixtures
 from cruise_control_tpu_torch.model.builder import ClusterModelBuilder
-from torch_reference import reference_chain
+from torch_reference import one_torch_thread, reference_chain
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 JBOD32 = dict(num_brokers=32, num_racks=4, num_topics=8, num_partitions=1000,
               max_replication=3, skew=1.0, seed=3143, logdirs_per_broker=4,

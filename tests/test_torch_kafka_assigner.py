@@ -15,6 +15,7 @@ swap actions, assignment and proposals bit for bit.
 import dataclasses
 
 import numpy as np
+import pytest
 
 from cruise_control_tpu_torch.analyzer import init_state, make_env
 from cruise_control_tpu_torch.analyzer.engine import EngineParams, optimize_goal
@@ -22,7 +23,10 @@ from cruise_control_tpu_torch.analyzer.goals import kafka_assigner_goal_names, m
 from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
 from cruise_control_tpu_torch.model import random_cluster as port_rc
 from cruise_control_tpu_torch.model.builder import ClusterModelBuilder
-from torch_reference import reference_chain
+from torch_reference import one_torch_thread, reference_chain
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 SMALL = dict(num_brokers=32, num_partitions=1000, num_racks=4, num_topics=8,
              max_replication=3, skew=1.5, seed=3141, target_cpu_util=0.45)

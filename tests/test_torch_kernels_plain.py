@@ -23,6 +23,10 @@ from cruise_control_tpu_torch.kernels import (
     move_score_classes, segment_count, segment_sum, select_candidates, wave_admission,
 )
 from cruise_control_tpu_torch.kernels.admission import group_cumsum
+from torch_reference import one_torch_thread
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
          "NetworkInboundCapacityGoal", "ReplicaDistributionGoal"]
@@ -70,6 +74,14 @@ def _key(ctx, kind):
         return ref_key(ctx, 4)
     rng = np.random.default_rng(5)
     R = ctx["penv"].num_replicas
+    if kind == "equal":        # every key equal: the ties straddle k
+        return np.full(R, 0.5, np.float32)
+    if kind == "signed zeros":
+        key = np.where(rng.random(R) < 0.5, np.float32(-0.0), np.float32(0.0))
+        key[::97], key[1::89] = 1.0, -1.0
+        return key.astype(np.float32)
+    if kind == "all -inf":
+        return np.full(R, -np.inf, np.float32)
     key = rng.standard_normal(R).astype(np.float32)
     key[::7] = -np.inf
     key[::11] = 0.5            # ties
@@ -81,7 +93,8 @@ def _key(ctx, kind):
 
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("stall", [0, 3])
-@pytest.mark.parametrize("kind", ["rack", "distribution", "ties"])
+@pytest.mark.parametrize("kind", ["rack", "distribution", "ties", "equal", "signed zeros",
+                                  "all -inf"])
 def test_select_candidates_twin(ctx, kind, stall, exact):
     key = _key(ctx, kind)
     kv_r, cand_r = ref_engine._select_candidates(
@@ -206,14 +219,70 @@ def test_refresh_twin_bitwise(ctx, seed):
             assert np.array_equal(a.astype(np.int64), b.astype(np.int64)), name
 
 
-def test_segment_twins_skip_masked_rows_and_keep_row_order():
-    vals = torch.tensor([[1e8], [1.0], [-1e8], [1.0], [5.0]], dtype=torch.float32)
-    seg = torch.tensor([0, 0, 0, -1, 1])
-    out = segment_sum(vals, seg, 3, torch.tensor([[0.5], [0.0], [7.0]]))
-    # ((0.5 + 1e8) + 1) - 1e8 in f32 row order is 0.0, not the exact 1.5
-    assert out[:, 0].tolist() == [0.0, 5.0, 7.0]
-    w = torch.tensor([2, -1, 3, 9, 1], dtype=torch.int32)
-    assert segment_count(seg, 3, w).tolist() == [4, 1, 0]
+def _seg_case(kind: str):
+    """(values f32[N, C], seg i64[N], nseg, init) of the segment-sum edges
+    that ``chip_smoke.py`` phase 3 holds the kernel to, at small shapes."""
+    rng = np.random.default_rng(14)
+
+    def vals(n, c):
+        return (rng.standard_normal((n, c)) * 100).astype(np.float32)
+
+    def init(nseg, c):
+        return (rng.standard_normal((nseg, c)) * 1e4).astype(np.float32)
+
+    if kind == "one segment":            # one segment holds every row
+        return vals(3000, 3), np.zeros(3000, np.int64), 1, init(1, 3)
+    if kind == "empty segments":         # two of every three segments empty
+        return vals(600, 4), 3 * rng.integers(0, 22, 600), 64, None
+    if kind == "outside":                # rows with seg < 0 and seg >= nseg
+        return vals(800, 9), rng.integers(-3, 53, 800), 50, init(50, 9)
+    if kind in ("C=1", "C=32"):
+        c = int(kind[2:])
+        return vals(700, c), rng.integers(-1, 40, 700), 40, init(40, c)
+    if kind == "N=0":
+        return vals(0, 9), np.zeros(0, np.int64), 16, init(16, 9)
+    if kind == "lanes":                  # lane ids at La * B * D
+        La, B, D, W = 4, 5, 3, 40
+        seg = np.repeat(np.arange(La), W) * B * D + rng.integers(0, B * D, La * W)
+        seg[rng.random(La * W) < 0.3] = -1
+        return vals(La * W, 1), seg, La * B * D, init(La * B * D, 1)
+    # long segments beside short ones, then a padding block in segment 0
+    seg = rng.integers(0, 300, 4000)
+    skew = rng.random(4000) < 0.5
+    seg[skew] = rng.integers(0, 3, int(skew.sum()))
+    seg[-500:] = 0
+    return vals(4000, 17), seg, 300, init(300, 17)
+
+
+SEG_CASES = ["planted", "one segment", "empty segments", "outside", "C=1", "C=32", "N=0",
+             "lanes", "long and short"]
+
+
+@pytest.mark.parametrize("kind", SEG_CASES)
+def test_segment_twins_skip_masked_rows_and_keep_row_order(kind):
+    """The twin adds each segment's rows in row order onto ``init`` and
+    skips rows outside [0, nseg): the reference's chained scatter-add
+    (``state._kahan_scatter2``'s accumulator, rows outside dropped), bit for
+    bit, at every edge the kernel is held to."""
+    if kind == "planted":
+        vals = torch.tensor([[1e8], [1.0], [-1e8], [1.0], [5.0]], dtype=torch.float32)
+        seg = torch.tensor([0, 0, 0, -1, 1])
+        out = segment_sum(vals, seg, 3, torch.tensor([[0.5], [0.0], [7.0]]))
+        # ((0.5 + 1e8) + 1) - 1e8 in f32 row order is 0.0, not the exact 1.5
+        assert out[:, 0].tolist() == [0.0, 5.0, 7.0]
+        w = torch.tensor([2, -1, 3, 9, 1], dtype=torch.int32)
+        assert segment_count(seg, 3, w).tolist() == [4, 1, 0]
+        return
+    vals, seg, nseg, init = _seg_case(kind)
+    acc = np.zeros((nseg, vals.shape[1]), np.float32) if init is None else init
+    idx = np.where((seg >= 0) & (seg < nseg), seg, nseg)     # out of range: dropped
+    h = len(idx) // 2
+    want, _res = ref_state_mod._kahan_scatter2(
+        jnp.asarray(acc), jnp.zeros_like(jnp.asarray(acc)), jnp.asarray(idx[:h]),
+        jnp.asarray(vals[:h]), jnp.asarray(idx[h:]), jnp.asarray(vals[h:]))
+    got = segment_sum(torch.tensor(vals), torch.tensor(seg), nseg,
+                      None if init is None else torch.tensor(init))
+    assert np.array_equal(bits(want), bits(got))
 
 
 # --- the second slice's launch shapes -------------------------------------
@@ -240,18 +309,21 @@ def chain_ctx():
                 rgoals=ref_make_goals(CHAIN), pgoals=make_goals(CHAIN))
 
 
-@pytest.mark.parametrize("exact", [True, False])
-def test_select_candidates_k_above_8192(exact):
+@pytest.mark.parametrize("exact, k", [
+    pytest.param(True, 10560, id="True"), pytest.param(False, 10560, id="False"),
+    pytest.param(True, 16384, id="k=n-True"), pytest.param(False, 16384, id="k=n-False"),
+    pytest.param(True, 1, id="k=1-True"), pytest.param(False, 1, id="k=1-False")])
+def test_select_candidates_k_above_8192(exact, k):
     """k = 10,560 (the finisher's K * W) with planted ties and signed zeros
     inside the top k: the soft path (approx_max_k) orders them exactly as
-    the exact one (total order, lowest index first)."""
+    the exact one (total order, lowest index first); and the kernel's edges
+    k = n = 16,384 and k = 1 on the same keys."""
     rng = np.random.default_rng(11)
     key = rng.standard_normal(16384).astype(np.float32)
     key[::5] = -np.inf
     key[::7] = 0.25
     key[3::11] = -0.0
     key[4::11] = 0.0
-    k = 10560
     kv_r, cand_r = ref_engine._select_candidates(
         jnp.asarray(key), k, jnp.int32(0), exact, ref_engine.EngineParams())
     kv_p, cand_p = select_candidates(torch.tensor(key), k, 0, 0)

@@ -30,6 +30,10 @@ from cruise_control_tpu_torch.analyzer import state as state_mod
 from cruise_control_tpu_torch.analyzer.goals import make_goals
 from cruise_control_tpu_torch.analyzer.goals.base import legit_leadership_mask
 from cruise_control_tpu_torch.kernels import leadership_rows
+from torch_reference import one_torch_thread
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 CHAIN = ["RackAwareGoal", "MinTopicLeadersPerBrokerGoal", "ReplicaCapacityGoal",
          "DiskCapacityGoal", "NetworkInboundCapacityGoal",

@@ -10,7 +10,8 @@ props --cluster-spec c.json --device cpu`` that serves ``GET /state``; and
 the front door's rows (``service_script``: the single-tenant service with
 the pipelined loop and the fleet service, driven over HTTP) against the
 reference's, computed in ONE fresh interpreter (``torch_reference.
-reference_service``). Those rows compare the JSON bodies as digests after
+service_job``) started when the module is imported (under xdist, once per
+session, in the background). Those rows compare the JSON bodies as digests after
 dropping the fields ``service_script.SCRUBBED`` names (wall-clock times,
 task and trace ids, timestamps, stage lanes, error stack traces); the final
 state's
@@ -33,9 +34,15 @@ from cruise_control_tpu_torch.main import (
     build_app, build_fleet, build_server, build_ssl_context, load_properties,
     seed_backend_from_spec, split_fleet_overlays,
 )
-from torch_reference import reference_service
+from cruise_control_tpu_torch import service_script as ss
+from torch_reference import (
+    background_reference, one_torch_thread, service_job, start_background_reference,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
+_REFERENCE_JOBS = {"service": service_job(ss.SERVICE_TEST, ss.FLEET_SERVICE_TEST)}
+start_background_reference("main_service", _REFERENCE_JOBS)
 SPEC = {
     "brokers": [{"id": b, "rack": f"r{b % 2}"} for b in range(4)],
     "partitions": [
@@ -222,15 +229,14 @@ def test_module_entry_point_serves_state(tmp_path):
             proc.wait(30)
 
 
-def test_front_door_rows_match_reference(tmp_path):
+def test_front_door_rows_match_reference(tmp_path_factory):
     """The single-tenant service (pipelined round, rebalance, proposals,
     load, cluster state, partition load, pipeline state, round traces) and
     the fleet service (a cluster-scoped rebalance per tenant, one dispatch
     of the queued requests as a batched round, the tenants' proposals
     through ?cluster_id=, the declared errors) on fleet_script's tier-1
     chain: the port's rows are the reference's."""
-    from cruise_control_tpu_torch import service_script as ss
-    ref = reference_service(tmp_path, ss.SERVICE_TEST, ss.FLEET_SERVICE_TEST)
+    ref = background_reference(tmp_path_factory, "main_service", _REFERENCE_JOBS)["service"]
     ns = ss.port_service_ns("cpu")
     port = json.loads(json.dumps({"service": ss.service_e2e(ns, ss.SERVICE_TEST),
                                   "fleet": ss.fleet_service_e2e(ns, ss.FLEET_SERVICE_TEST)}))

@@ -21,6 +21,10 @@ from cruise_control_tpu_torch.analyzer import state as state_mod
 from cruise_control_tpu_torch.model import builder as port_builder
 from cruise_control_tpu_torch.model import cluster_tensor as port_ct_mod
 from cruise_control_tpu_torch.model import random_cluster as port_rc
+from torch_reference import one_torch_thread
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 SPECS = {
     "plain-12b": dict(num_brokers=12, num_racks=3, num_topics=5, num_partitions=60,

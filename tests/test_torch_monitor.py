@@ -29,8 +29,11 @@ from cruise_control_tpu_torch.monitor.load_monitor import (
     LoadMonitor, ServiceUnavailableError,
 )
 from torch_reference import (
-    monitored, reference_session_ns, scripted_delta_stream, session_test_backend,
+    monitored, one_torch_thread, reference_session_ns, scripted_delta_stream, session_test_backend,
 )
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 PORT, REF = port_ns("cpu"), reference_session_ns()
 

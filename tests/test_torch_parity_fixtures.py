@@ -21,6 +21,10 @@ from cruise_control_tpu_torch.detector.provisioner import ProvisionStatus
 from cruise_control_tpu_torch.model import fixtures
 from cruise_control_tpu_torch.model.builder import ClusterModelBuilder
 from optimization_verifier import verify
+from torch_reference import one_torch_thread
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 DEFAULT_CHAIN = [
     "RackAwareGoal", "RackAwareDistributionGoal", "MinTopicLeadersPerBrokerGoal",

@@ -35,7 +35,10 @@ from cruise_control_tpu_torch.analyzer.verifier import verify_no_regression
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.detector.provisioner import ProvisionStatus
 from cruise_control_tpu_torch.model import fixtures
-from torch_reference import reference_matrix_rows
+from torch_reference import one_torch_thread, reference_matrix_rows
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -19,7 +19,12 @@ reference's, which runs in one fresh interpreter
 import pytest
 
 from cruise_control_tpu_torch.analyzer.session_script import port_ns
-from torch_reference import GATING_CONFIGS, gating_case, reference_gating_cases
+from torch_reference import (
+    GATING_CONFIGS, gating_case, one_torch_thread, reference_gating_cases,
+)
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 NS = port_ns("cpu")
 

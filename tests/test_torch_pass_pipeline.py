@@ -34,7 +34,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_reference import background_reference, cases_job, start_background_reference
+from torch_reference import (
+    background_reference, cases_job, one_torch_thread, start_background_reference,
+)
 
 CHAIN = ["RackAwareGoal", "DiskCapacityGoal", "CpuCapacityGoal",
          "ReplicaDistributionGoal", "DiskUsageDistributionGoal",
@@ -71,15 +73,8 @@ SELECT_R = 4096
 SELECT_SHARES = (0.01, 0.1, 0.5, 1.0)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """This module's tensors are small: one intra-op thread per test
-    worker (under xdist the pool's idle threads spin against the other
-    workers'), restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# this module's tensors are small: one intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 def _spec(seed: int) -> dict:

@@ -27,6 +27,10 @@ from cruise_control_tpu_torch.app import CruiseControl
 from cruise_control_tpu_torch.backend.simulated import SimulatedClusterBackend
 from cruise_control_tpu_torch.config import cruise_control_config
 from cruise_control_tpu_torch.pipeline import PipelinedServiceLoop, SampleRingBuffer
+from torch_reference import one_torch_thread
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 WINDOW_MS = 60_000.0
 

@@ -34,7 +34,10 @@ from cruise_control_tpu_torch.analyzer.optimizer import (
 from cruise_control_tpu_torch.model import cluster_tensor as port_ct_mod
 from cruise_control_tpu_torch.model import fixtures
 from cruise_control_tpu_torch.model import random_cluster as port_rc
-from torch_reference import reference_cases, reference_chain
+from torch_reference import one_torch_thread, reference_cases, reference_chain
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 JBOD32 = dict(num_brokers=32, num_racks=4, num_topics=8, num_partitions=1000,
               max_replication=3, skew=1.0, seed=3143, logdirs_per_broker=4,

@@ -69,7 +69,10 @@ from cruise_control_tpu_torch.analyzer.optimizer import (
 )
 from cruise_control_tpu_torch.kernels import leadership as lead_k
 from cruise_control_tpu_torch.model import random_cluster as port_rc
-from torch_reference import reference_chain
+from torch_reference import (
+    background_reference, chains_job, one_torch_thread, reference_chain,
+    start_background_reference,
+)
 
 JBOD_SMALL = dict(num_brokers=32, num_racks=4, num_topics=8, num_partitions=1000,
                   max_replication=3, skew=1.0, seed=3143, logdirs_per_broker=4,
@@ -97,6 +100,9 @@ LEAD_VALUES = np.array([2.015625, 3.0, 1.0, 0.0, -0.0, 517.25, 0.3], np.float32)
 FOLL_VALUES = np.array([0.0078125, 0.00390625, 0.0, -0.0, 2.015625, 0.1], np.float32)
 BF16 = EngineParams(compute_dtype="bfloat16")
 REF_BF16 = ref_engine.EngineParams(compute_dtype="bfloat16")
+
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 def bits(a) -> np.ndarray:
@@ -411,15 +417,47 @@ CHAINS = {"spec-32b sixteen goals": (SMALL, list(DEFAULT_GOALS)),
           "slice-1000b sixteen goals": (SLICE_1000B, list(DEFAULT_GOALS)),
           "jbod-1000b ten goals": (JBOD_1000B, JBOD_CHAIN)}
 SLOW_CHAINS = {"slice-1000b sixteen goals", "jbod-1000b ten goals"}
+RUNG4_PARAMS = [dict(pass_waves=4), dict(num_dst_choices=5)]
+
+
+def _rung4_key(params: dict) -> str:
+    return f"rung4 {sorted(params.items())}"
+
+
+# the reference's tier-1 chains start when the module is imported (under
+# xdist, once per session, in the background): one interpreter for mid-64b,
+# one for the two 32-broker chains, one for the two rung-4 paths
+_REFERENCE_RUNS = {
+    "mid": {"mid-64b sixteen goals": dict(spec=MID, goals=list(DEFAULT_GOALS),
+                                          dtype="bfloat16")},
+    "small": {c: dict(spec=CHAINS[c][0], goals=CHAINS[c][1], dtype="bfloat16")
+              for c in ("spec-32b sixteen goals", "jbod-32b ten goals")},
+    "rung4": {_rung4_key(p): dict(spec=SMALL, goals=list(DEFAULT_GOALS), params=p)
+              for p in RUNG4_PARAMS},
+}
+_REFERENCE_JOBS = {part: chains_job([{**dict(demoted=None, dtype=None, params=None), **r}
+                                     for r in runs.values()])
+                   for part, runs in _REFERENCE_RUNS.items()}
+start_background_reference("precision", _REFERENCE_JOBS)
+
+
+@pytest.fixture(scope="module")
+def ref_chains(tmp_path_factory):
+    """{case: the reference's chain} of the tier-1 chains (three
+    interpreters side by side, once for the whole test session)."""
+    parts = background_reference(tmp_path_factory, "precision", _REFERENCE_JOBS)
+    return {name: parts[part][i] for part, runs in _REFERENCE_RUNS.items()
+            for i, name in enumerate(runs)}
 
 
 @pytest.mark.parametrize("case", [pytest.param(c, marks=pytest.mark.slow)
                                   if c in SLOW_CHAINS else c for c in sorted(CHAINS)])
-def test_bf16_chain_matches_reference(tmp_path, case):
+def test_bf16_chain_matches_reference(tmp_path, request, case):
     """Counts, certificates, swap and disk actions, final assignment,
     leadership and logdirs: the reference's, both pinned to bf16."""
     spec, goals = CHAINS[case]
-    ref = reference_chain(tmp_path, spec, goals, dtype="bfloat16")
+    ref = (reference_chain(tmp_path, spec, goals, dtype="bfloat16") if case in SLOW_CHAINS
+           else request.getfixturevalue("ref_chains")[case])
     port = _port_chain(spec, goals, BF16)
     assert _outcome(port) == _ref_outcome(ref)
     for name in ("replica_broker", "replica_is_leader", "replica_disk"):
@@ -465,12 +503,11 @@ def test_f32_policy_bit_identical_to_default():
     assert _outcome(ra) == _outcome(rb)
 
 
-@pytest.mark.parametrize("params", [dict(pass_waves=4), dict(num_dst_choices=5)],
-                         ids=["four waves", "T 5 does not divide B"])
-def test_rung4_paths_match_reference(tmp_path, params):
+@pytest.mark.parametrize("params", RUNG4_PARAMS, ids=["four waves", "T 5 does not divide B"])
+def test_rung4_paths_match_reference(ref_chains, params):
     """The sixteen goals on spec-32b with the multi-wave pass and with K2's
     padded Bp path, against the reference with the same parameters."""
-    ref = reference_chain(tmp_path, SMALL, list(DEFAULT_GOALS), params=params)
+    ref = ref_chains[_rung4_key(params)]
     port = _port_chain(SMALL, list(DEFAULT_GOALS), EngineParams(**params))
     assert _outcome(port) == _ref_outcome(ref)
     assert np.array_equal(ref["final"]["replica_broker"],

@@ -45,7 +45,10 @@ from cruise_control_tpu_torch.kernels import move_score as move_k
 from cruise_control_tpu_torch.kernels import move_score_classes
 from cruise_control_tpu_torch.kernels import swap as swap_k
 from cruise_control_tpu_torch.model import random_cluster as port_rc
-from torch_reference import reference_chain
+from torch_reference import one_torch_thread, reference_chain
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 SMALL = dict(num_brokers=32, num_partitions=1000, num_racks=4, num_topics=8,
              max_replication=3, skew=1.5, seed=3141, target_cpu_util=0.45)

@@ -34,9 +34,11 @@ from cruise_control_tpu_torch.analyzer.state import init_state
 from cruise_control_tpu_torch.kernels.finalize import session_finalize_plain
 from cruise_control_tpu_torch.model.cluster_tensor import pad_cluster
 from torch_reference import (
-    _fields, monitored, reference_session_case, scripted_delta_stream, session_case,
-    session_test_backend,
+    _fields, monitored, one_torch_thread, reference_session_case, scripted_delta_stream, session_case, session_test_backend,
 )
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 NS = port_ns("cpu")
 

@@ -60,7 +60,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from __graft_entry__ import _fixture_cluster
 from cruise_control_tpu.model import random_cluster as ref_rc
@@ -73,7 +72,8 @@ from cruise_control_tpu_torch.analyzer.goals.distribution import (
 from cruise_control_tpu_torch.analyzer.optimizer import DEFAULT_GOALS, GoalOptimizer
 from cruise_control_tpu_torch.model import random_cluster as port_rc
 from torch_reference import (
-    background_reference, chains_job, reference_chain, start_background_reference,
+    background_reference, chains_job, one_torch_thread, reference_chain,
+    start_background_reference,
 )
 
 GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
@@ -132,15 +132,8 @@ FORMERLY_RAISING = {
 }
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """This module's tensors are small: one intra-op thread per test
-    worker (under xdist the pool's idle threads spin against the other
-    workers'), restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# this module's tensors are small: one intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 def _port_run(spec, goals=GOALS, params=None):

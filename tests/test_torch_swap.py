@@ -45,7 +45,10 @@ from cruise_control_tpu_torch.analyzer.optimizer import DEFAULT_GOALS, GoalOptim
 from cruise_control_tpu_torch.analyzer.state import init_state
 from cruise_control_tpu_torch.kernels import swap as swap_k
 from cruise_control_tpu_torch.kernels import swap_admission, swap_rows
-from torch_reference import reference_goal, swap_tail_cluster
+from torch_reference import one_torch_thread, reference_goal, swap_tail_cluster
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 SPEC = dict(num_brokers=32, num_partitions=1000, num_racks=4, num_topics=8,
             max_replication=3, skew=1.5, seed=3141, target_cpu_util=0.45)

@@ -40,6 +40,10 @@ from cruise_control_tpu_torch.model import (
     SanityCheckError, cluster_stats, fixtures, sanity_check,
 )
 from cruise_control_tpu_torch.model.builder import ClusterModelBuilder
+from torch_reference import one_torch_thread
+
+# the port's small tensors: one torch intra-op thread per test worker
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 def _run(ct, meta, goals, constraint=None):

@@ -920,13 +920,15 @@ def hashlib_digest(a) -> str:
 
 
 _FACADE_CHILD = r"""
-import json, pickle, sys
+import json, os, pickle, sys
 from cruise_control_tpu_torch.analyzer.heal_script import heal_script
 from torch_reference import facade_case, reference_heal_ns
 args = json.loads(sys.argv[1])
+tmp = args.get("tmp") or args["out"] + ".d"
+os.makedirs(tmp, exist_ok=True)
 ns = reference_heal_ns()
 out = {"heal": [heal_script(ns, spec) for spec in args["heal"]]}
-out.update({name: facade_case(ns, name, args["tmp"]) for name in args["cases"]})
+out.update({name: facade_case(ns, name, tmp) for name in args["cases"]})
 with open(args["out"], "wb") as f:
     pickle.dump(out, f)
 """
@@ -1001,6 +1003,8 @@ def start_background_reference(name: str, jobs: dict) -> None:
     one fresh interpreter each, in the background, once per test session:
     the first worker to import the test module starts them, so they run
     while the suite's earlier tests do and no worker waits for them later.
+    They run at nice 10: the test workers and the processes their tests
+    start (a sidecar that must answer within seconds) keep the cores.
     Outside xdist it starts nothing (``background_reference`` computes)."""
     import fcntl
     d = _background_dir()
@@ -1019,7 +1023,8 @@ def start_background_reference(name: str, jobs: dict) -> None:
                                   sys.executable, code,
                                   json.dumps(dict(arg, out=f"{stem}.pkl")), f"{stem}.rc"],
                                  cwd=ROOT, env=_child_env(), stdout=subprocess.DEVNULL,
-                                 stderr=err, start_new_session=True)
+                                 stderr=err, start_new_session=True,
+                                 preexec_fn=lambda: os.nice(10))
         (d / f"{name}.started").touch()
 
 
@@ -1076,6 +1081,31 @@ def chains_job(runs: list) -> tuple:
     """A job of ``start_background_reference`` / ``background_reference``:
     ``reference_chains``' runs in one fresh interpreter."""
     return _CHILD, dict(runs=runs)
+
+
+def facade_job(cases=FACADE_CASES, heal=()) -> tuple:
+    """A job of ``start_background_reference`` / ``background_reference``:
+    ``reference_facade``'s cases and heal scripts in one fresh interpreter."""
+    return _FACADE_CHILD, dict(cases=list(cases), heal=list(heal))
+
+
+def fleet_job(cases: tuple, spec: dict | None = None) -> tuple:
+    """A job of ``start_background_reference`` / ``background_reference``:
+    ``reference_fleet_cases``' cases in one fresh interpreter."""
+    return _FLEET_CHILD, dict(cases=list(cases), spec=spec)
+
+
+def one_torch_thread():
+    """The body of a test module's autouse module fixture
+    (``pytest.fixture(autouse=True, scope="module")(one_torch_thread)``):
+    the module's port runs on one torch intra-op thread per test worker
+    (under xdist the pool's idle threads spin against the other workers'),
+    restored after the module."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -1155,6 +1185,12 @@ if args["fleet"] is not None:
 with open(args["out"], "wb") as f:
     pickle.dump(out, f)
 """
+
+
+def service_job(service: dict | None, fleet: dict | None) -> tuple:
+    """A job of ``start_background_reference`` / ``background_reference``:
+    ``reference_service``'s rows in one fresh interpreter."""
+    return _SERVICE_CHILD, dict(service=service, fleet=fleet)
 
 
 def reference_service(tmp_path: Path, service: dict | None, fleet: dict | None,
