@@ -77,10 +77,12 @@ Phases, each printing its own lines; any failure exits non-zero:
       defaults, where "auto" resolves to bf16: the sixteen default goals
       (rung 4) and the ten-goal JBOD self-heal with 20 dead brokers and 50
       dead-disk brokers (rung 5), rung 4 once and rung 5 twice and bit
-      identical, and rung 4 once more pinned to f32. Each must give the JAX
-      reference's row exactly, with its final float tallies' digests (the
-      18-goal chain and rung 4 bf16 run once since fleet mode joined the
-      smoke: phase 4 holds the card's bits against the CPU's).
+      identical. Each must give the JAX reference's row exactly, with its
+      final float tallies' digests (the 18-goal chain and rung 4 bf16 run
+      once since fleet mode joined the smoke: phase 4 holds the card's bits
+      against the CPU's; rung 4 pinned to f32 is left out, a cut of depth
+      that keeps the smoke inside its time limit on a slow host, and
+      ``python tests/torch_reference.py rung4 float32`` prints its row).
 
 6. the resident-session service rounds of the e2e-1000b-50000p cell
    (``bench.py`` ``run_e2e_rung``'s service cluster: 1,000 brokers on 20
@@ -460,16 +462,6 @@ ORACLE.update({
         disk=[0] * 16, proposals=155734,
         digests=dict(disk_util="9b29a51824e2401a", util="7a1647b39da23a10",
                      leader_util="81c587cf26af977a", potential_nw_out="3c1cc249b40fbf99")),
-    "rung4_f32": dict(
-        before=_R4_BEFORE, after=_R4_AFTER,
-        actions=[16714, 0, 0, 0, 0, 0, 826, 117145, 0, 12093, 11049, 11910, 11401, 692,
-                 5445, 6758],
-        passes=[8, 3, 3, 3, 3, 3, 4, 40, 3, 61, 80, 99, 112, 11, 63, 103],
-        moves=156133, leads=91677, proven=_R4_PROVEN, rounds=_R4_ROUNDS,
-        swaps=[0] * 9 + [130, 265, 257, 54, 26, 0, 0], swleft=_R4_SWLEFT,
-        disk=[0] * 16, proposals=157085,
-        digests=dict(disk_util="936391a989597ee3", util="691ae3bae0112cdd",
-                     leader_util="b8b213304649cf14", potential_nw_out="49f31a764cb396b0")),
     "rung5_bf16": dict(
         before=_HEAL, after=set(), actions=[20431, 0, 0, 0, 0, 0, 860, 110704, 0, 16682],
         passes=[9, 3, 3, 3, 3, 3, 4, 38, 3, 22], moves=121897, leads=54475,
@@ -660,7 +652,7 @@ PEAK_F32_OPS_PER_S = 67e12
 REPS = 20
 # the kernels of the first slice's path (the five move-branch goals)
 FIVE_GOAL_KERNELS = ("select_candidates", "move_score_classes", "wave_admission",
-                     "segment_sum", "segment_count")
+                     "segment_sum", "segment_count", "segment_counts")
 
 
 class SmokeFailure(Exception):
@@ -808,11 +800,15 @@ def check(torch, entry: Entry, kernel_fn, plain_fn, what: str,
         log(f"  {entry.name} {what}: bit-identical")
 
 
-# the kernels redesigned for Hopper after their port (K4/K5 segment_sum and
-# every form of K1): their timings add one call's device time and CUDA
-# launches beside the event window, and the library call's device time
+# the kernels redesigned for Hopper after their port: K4/K5 segment_sum and
+# segment_count (with its grouped form), and every form of K1 and of K2.
+# Every timing reports one call's device time and CUDA launches beside the
+# event window, and the library call's device time; a timing says whether
+# its kernel is one of these
 REDESIGNED = ("segment_sum", "select_candidates", "select_candidates_masked",
-              "select_candidates_lanes", "select_pooled", "select_pooled_lanes")
+              "select_candidates_lanes", "select_pooled", "select_pooled_lanes",
+              "segment_count", "segment_counts", "move_score_classes",
+              "move_score_classes_lanes", "move_score_terms", "move_score_terms_lanes")
 
 
 def device_ms(torch, fn, reps: int = REPS) -> float:
@@ -843,10 +839,12 @@ def device_ms(torch, fn, reps: int = REPS) -> float:
 def timing(torch, entry: Entry, kernel_fn, plain_fn, library_fn, nb, nops,
            shape: str, plain_reps: int = REPS) -> None:
     """Time the kernel, its twin and the library call at one shape; one
-    counted launch first tells the shape key the wrapper counts it under.
+    counted launch first tells the shape key the wrapper counts it under
+    and the CUDA launches of one call (``Kernel.cuda_launches``).
     ``plain_reps`` cuts the windows of a twin that takes seconds (0: the
-    twin is not timed). A redesigned kernel adds its device time and CUDA
-    launches per call, and the library call's."""
+    twin is not timed). Every kernel reports its device time and CUDA
+    launches per call beside the event window, and the library call's
+    device time (``device_ms``)."""
     from cruise_control_tpu_torch import kernels as K
     K.reset_launches()
     kernel_fn()
@@ -860,14 +858,13 @@ def timing(torch, entry: Entry, kernel_fn, plain_fn, library_fn, nb, nops,
     b_ms, by = bound(nb, nops)
     t = dict(shape=next(iter(keys)), at=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
              bound_ms=b_ms, bound_by=by)
-    extra = ""
-    if entry.name in REDESIGNED:
-        t["device_ms"], t["cuda_launches"] = device_ms(torch, kernel_fn), cuda_launches
-        if library_fn is not None:
-            t["library_device_ms"] = device_ms(torch, library_fn)
-        extra = (f", device {t['device_ms']:.6f} ms in {cuda_launches} CUDA launches"
-                 + (f", library device {t['library_device_ms']:.6f} ms"
-                    if library_fn is not None else ""))
+    t["device_ms"], t["cuda_launches"] = device_ms(torch, kernel_fn), cuda_launches
+    t["redesigned"] = entry.name in REDESIGNED
+    if library_fn is not None:
+        t["library_device_ms"] = device_ms(torch, library_fn)
+    extra = (f", device {t['device_ms']:.6f} ms in {cuda_launches} CUDA launches"
+             + (f", library device {t['library_device_ms']:.6f} ms"
+                if library_fn is not None else ""))
     entry.timings.append(t)
     log(f"  {entry.name} time at {shape}: kernel {ms:.6f} ms, plain "
         f"{'-' if plain_ms is None else f'{plain_ms:.6f} ms'}, "
@@ -904,7 +901,7 @@ def kernel_checks(torch, ctx, seed: int) -> dict:
     from cruise_control_tpu_torch import kernels as K
     from cruise_control_tpu_torch.analyzer import engine
     from cruise_control_tpu_torch.analyzer.state import (
-        apply_move_count_inputs, apply_sum_inputs, refresh_sum_inputs,
+        apply_move_count_inputs, apply_sum_inputs, refresh_count_inputs, refresh_sum_inputs,
     )
     from cruise_control_tpu_torch.kernels import admission, move_score, segment, select
 
@@ -1094,6 +1091,8 @@ def kernel_checks(torch, ctx, seed: int) -> dict:
            lambda: segment.segment_count_plain(rb, B, viol),
            lambda: torch.index_add(zeros_b, 0, rb, viol),
            nbytes(rb, viol) + B * 4, R, f"N={R} nseg={B}")
+    histogram_ab(torch, e, [(rb, B, viol, None)], lambda: K.segment_count(rb, B, viol),
+                 f"N={R} nseg={B} (the rack goal's violating replicas)")
     counts = apply_move_count_inputs(env, st, r_sorted, dst_s, win)
     for what, a in zip(("replica", "leader", "partition x rack", "topic x broker",
                         "topic leader"), counts):
@@ -1107,6 +1106,11 @@ def kernel_checks(torch, ctx, seed: int) -> dict:
                lambda: torch.index_add(init_c, 0, seg_c, w_c),
                nbytes(*a) + nseg_c * 4, seg_c.shape[0],
                f"apply N={seg_c.shape[0]} nseg={nseg_c}")
+    # the grouped form: refresh's five tallies and the apply's five
+    grouped_counts(torch, entries, refresh_count_inputs(env, st), f"refresh N={R}",
+                   timed=True)
+    grouped_counts(torch, entries, counts, f"move apply N={counts[0][0].shape[0]}",
+                   timed=True)
     return entries
 
 
@@ -1266,6 +1270,7 @@ def chain_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
             check(torch, entries["segment_count"], lambda: K.segment_count(*a),
                   lambda: segment.segment_count_plain(*a),
                   f"{gl.name} transfer apply {what} counts nseg={a[1]}")
+        grouped_counts(torch, entries, counts, f"{gl.name} transfer apply counts")
         lead_pass[gl.name] = (lkey, adm_args, sum_args, counts)
     order, _n = K.compact_eligible(elig["LBI leaders"], pad)
     idx = order[:chunk]
@@ -1350,6 +1355,8 @@ def chain_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
                lambda: torch.index_add(a[3], 0, a[0], a[2]),
                nbytes(*a) + a[1] * 4, a[0].shape[0],
                f"transfer apply N={a[0].shape[0]} nseg={a[1]}")
+    grouped_counts(torch, entries, counts, f"transfer apply N={counts[0][0].shape[0]}",
+                   timed=True)
 
     # --- K2 move_score_classes: T = 1 and the room-ordered columns -----------
     e = entries["move_score_classes"]
@@ -1520,15 +1527,17 @@ def swap_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
               lambda: segment.segment_sum_plain(*sum_args),
               f"swap apply leg {leg + 1} of {n_win} swaps N={vals.shape[0]} "
               f"C={vals.shape[1]}")
+        leg_counts = apply_move_count_inputs(env, st1, reps, dsts, win)
         for what, a in zip(("replica", "leader", "partition x rack", "topic x broker",
-                            "topic leader"),
-                           apply_move_count_inputs(env, st1, reps, dsts, win)):
+                            "topic leader"), leg_counts):
             check(torch, entries["segment_count"], lambda: K.segment_count(*a),
                   lambda: segment.segment_count_plain(*a),
                   f"swap apply leg {leg + 1} {what} counts N={a[0].shape[0]} nseg={a[1]}")
+        grouped_counts(torch, entries, leg_counts, f"swap apply leg {leg + 1} counts")
         if leg == 0:
             swap_sum_args = sum_args
-            swap_count_args = apply_move_count_inputs(env, st1, reps, dsts, win)[0]
+            swap_legs = leg_counts
+            swap_count_args = leg_counts[0]
             st1 = apply_moves_batched(env, st1, reps, dsts, win)
     timing(torch, e_rows, lambda: K.swap_rows(pairs, tables, mg),
            lambda: swap.swap_rows_plain(pairs, tables, mg), None,
@@ -1549,6 +1558,8 @@ def swap_kernel_checks(torch, ctx, entries: dict, seed: int) -> None:
            lambda: segment.segment_count_plain(*a),
            lambda: torch.index_add(a[3], 0, a[0], a[2]), nbytes(*a) + a[1] * 4,
            a[0].shape[0], f"swap apply leg N={a[0].shape[0]} nseg={a[1]}")
+    grouped_counts(torch, entries, swap_legs, f"swap apply leg N={a[0].shape[0]}",
+                   timed=True)
     gl = goals[swap_i[0]]
     okey = gl.swap_out_key(env, st, gl.broker_severity(env, st)).contiguous()
     check(torch, entries["select_candidates"], lambda: K.select_candidates(okey, k, 3, 0),
@@ -2017,8 +2028,20 @@ def disk_kernel_checks(torch, jctx, entries: dict, seed: int) -> None:
     key = goal.replica_key(env, st, goal.broker_severity(env, st)).contiguous()
     kv, cand = K.select_candidates(key, Kd, 0, 0)
     r_sorted, dst_s, aargs = engine._admission_args(env, st, goal, (), params, cand, kv)
-    disk_sum_checks(torch, entries["segment_sum"], env, st,
-                    (r_sorted, dst_s, K.wave_admission(*aargs)), timed=True)
+    win = K.wave_admission(*aargs)
+    disk_sum_checks(torch, entries["segment_sum"], env, st, (r_sorted, dst_s, win),
+                    timed=True)
+    # K4/K5 segment_count on the JBOD cluster: the severity shape, refresh's
+    # and the first wave's grouped tallies
+    from cruise_control_tpu_torch.analyzer.state import (
+        apply_move_count_inputs, refresh_count_inputs,
+    )
+    single_count_timing(torch, entries, env, st, "jbod")
+    grouped_counts(torch, entries, refresh_count_inputs(env, st),
+                   f"jbod refresh N={env.num_replicas}", timed=True)
+    counts = apply_move_count_inputs(env, st, r_sorted, dst_s, win)
+    grouped_counts(torch, entries, counts, f"jbod move apply N={counts[0][0].shape[0]}",
+                   timed=True)
 
 
 def rung_context(torch, spec: dict, tag: str) -> dict:
@@ -2068,7 +2091,7 @@ def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str,
     from cruise_control_tpu_torch.analyzer import engine
     from cruise_control_tpu_torch.analyzer.goals import make_goals
     from cruise_control_tpu_torch.analyzer.state import (
-        apply_move_count_inputs, apply_sum_inputs, refresh_disk_inputs,
+        apply_move_count_inputs, apply_sum_inputs, refresh_count_inputs, refresh_disk_inputs,
         refresh_sum_inputs,
     )
     from cruise_control_tpu_torch.kernels import (
@@ -2123,10 +2146,14 @@ def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str,
         check(torch, entries["segment_sum"], lambda: K.segment_sum(va, sa, B, ia),
               lambda: segment.segment_sum_plain(va, sa, B, ia),
               f"{tag} {goal.name} apply of {int(win.sum())} moves")
-        for a in apply_move_count_inputs(env, st, r_sorted, dst_s, win):
+        acounts = apply_move_count_inputs(env, st, r_sorted, dst_s, win)
+        for a in acounts:
             check(torch, entries["segment_count"], lambda: K.segment_count(*a),
                   lambda: segment.segment_count_plain(*a),
                   f"{tag} {goal.name} apply counts nseg={a[1]}", quiet=True)
+        grouped_counts(torch, entries, acounts,
+                       f"{tag} move apply N={acounts[0][0].shape[0]}",
+                       timed=tag == "rung 4" and i == 9)
         if goal.uses_leadership_moves:
             lkey = goal.leader_key(env_k, st_k, sev).contiguous()
             KL = min(params.num_leader_candidates, R)
@@ -2159,6 +2186,7 @@ def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str,
                lambda: torch.index_add(zeros_d, 0, lib_seg, vals),
                nbytes(vals, seg) + B * D * 4, vals.numel(),
                f"{tag} logdir refresh N={R} C=1 nseg={B * D}", plain_reps=0)
+        single_count_timing(torch, entries, env, st, tag)
         log(f"  {tag}: K1-K7 and the logdir sums bit-identical to their twins on this "
             f"rung's state (its finisher top-k and refresh sums: rung 4's shapes, above)")
         return
@@ -2192,6 +2220,9 @@ def rung_kernel_checks(torch, rctx: dict, entries: dict, tag: str,
                lambda: torch.index_add(zeros_d, 0, lib_seg, vals),
                nbytes(vals, seg) + B * D * 4, vals.numel(),
                f"{tag} logdir refresh N={R} C=1 nseg={B * D}", plain_reps=3)
+    single_count_timing(torch, entries, env, st, tag)
+    grouped_counts(torch, entries, refresh_count_inputs(env, st), f"{tag} refresh N={R}",
+                   timed=True)
     log(f"  {tag}: K1-K7 bit-identical to their twins at this rung's shapes")
 
 
@@ -2378,6 +2409,304 @@ def redesign_checks(torch, entries: dict, seed: int, r4: dict, r5: dict, lctx) -
             f"{row['bound_ms']:.6f} ms; default "
             f"{'scan' if row['default'] == segment.SCAN else 'list'}")
     log(f"segment_sum forms: {json.dumps(rows)}")
+
+
+def grouped_counts(torch, entries: dict, tallies, what: str, timed: bool = False) -> None:
+    """``segment_counts`` of ``tallies`` bit for bit against the twins of
+    their single calls; ``timed``: its timing, with the device time of the
+    chain of ``index_add`` calls that computes the same tallies beside it
+    (no single PyTorch call does)."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.kernels import segment
+    tallies = list(tallies)
+    e = entries["segment_counts"]
+    check(torch, e, lambda: tuple(K.segment_counts(tallies)),
+          lambda: tuple(segment.segment_counts_plain(tallies)), what, quiet=not timed)
+    if not timed:
+        return
+    libs = []
+    for seg, nseg, w, init in tallies:
+        base = init if init is not None else torch.zeros(nseg, dtype=torch.int32,
+                                                         device=seg.device)
+        libs.append((torch.cat([base, base[:1]]),
+                     torch.where((seg >= 0) & (seg < nseg), seg, torch.full_like(seg, nseg)),
+                     w if w is not None else torch.ones_like(seg, dtype=torch.int32)))
+    timing(torch, e, lambda: K.segment_counts(tallies),
+           lambda: segment.segment_counts_plain(tallies), None,
+           nbytes(*tallies) + sum(t[1] for t in tallies) * 4,
+           sum(t[0].shape[0] for t in tallies), what)
+    chain = device_ms(torch, lambda: [torch.index_add(*a[:1], 0, *a[1:]) for a in libs])
+    e.timings[-1]["index_add_chain_device_ms"] = chain
+    log(f"  segment_counts at {what}: device {e.timings[-1]['device_ms']:.6f} ms in one "
+        f"launch, the {len(libs)} index_add calls' device time {chain:.6f} ms")
+    histogram_ab(torch, e, tallies, lambda: K.segment_counts(tallies), what)
+
+
+def histogram_ab(torch, e, tallies, plan_fn, what: str) -> None:
+    """Where the plan puts a tally on a shared-memory histogram: the
+    device time of the plan's launch against the grid form with every tally
+    on global atomics (``segment.GLOBAL``), timed plan, global, global,
+    plan in one process; kept on the entry's last timing."""
+    from cruise_control_tpu_torch.kernels import segment
+    if segment.count_plan(tallies) != segment.GRID or not any(
+            segment.count_chunk(t[0].shape[0], t[1], segment.GRID) for t in tallies):
+        return
+    glob = lambda: segment._segment_counts(tallies, segment.GLOBAL)
+    a1, b1, b2, a2 = (device_ms(torch, f) for f in (plan_fn, glob, glob, plan_fn))
+    e.timings[-1]["histogram_ab_device_ms"] = dict(histograms=[a1, a2], global_atomics=[b1, b2])
+    log(f"  {e.name} at {what}, histograms against global atomics (plan, global, global, "
+        f"plan): device {a1:.6f}, {b1:.6f}, {b2:.6f}, {a2:.6f} ms")
+
+
+def single_count_timing(torch, entries: dict, env, st, tag: str) -> None:
+    """``segment_count`` at a cluster's severity / stats shape (N = R rows
+    into B brokers, the rack goal's violating replicas), checked and timed
+    beside ``index_add``."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.kernels import segment
+    rb = st.replica_broker
+    w = env.replica_valid.to(torch.int32)
+    B = env.num_brokers
+    zeros_b = torch.zeros(B, dtype=torch.int32, device=rb.device)
+    e = entries["segment_count"]
+    check(torch, e, lambda: K.segment_count(rb, B, w),
+          lambda: segment.segment_count_plain(rb, B, w), f"{tag} N={rb.shape[0]} nseg={B}")
+    timing(torch, e, lambda: K.segment_count(rb, B, w),
+           lambda: segment.segment_count_plain(rb, B, w),
+           lambda: torch.index_add(zeros_b, 0, rb, w), nbytes(rb, w) + B * 4, rb.shape[0],
+           f"{tag} N={rb.shape[0]} nseg={B}", plain_reps=3)
+    histogram_ab(torch, e, [(rb, B, w, None)], lambda: K.segment_count(rb, B, w),
+                 f"{tag} N={rb.shape[0]} nseg={B}")
+
+
+def count_redesign_checks(torch, ctx: dict, r4: dict, entries: dict, seed: int) -> None:
+    """segment_count and its grouped form at their edges (zero and negative
+    weights, every row in one segment at rung 5's 71,023 padding rows, an
+    nseg beyond shared memory, N 0, init given and not, the grouped form
+    against five single calls), in each form (``segment.OWNED``, ``GRID``,
+    ``SMEM``, ``GLOBAL`` and the plan's), bit for bit against the twins;
+    the same bits twice at the 1,048,576-row refresh tallies; and the CUDA
+    launches of a refresh's and each apply's tallies."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.analyzer.state import (
+        apply_leaderships_batched, apply_moves_batched, apply_swaps_batched, refresh,
+        refresh_count_inputs,
+    )
+    from cruise_control_tpu_torch.kernels import segment
+    env, st = ctx["env"], ctx["st"]
+    dev = env.device
+    g = torch.Generator().manual_seed(seed + 15)
+
+    def tally(N, nseg, weights="signed", init=True, lo=0):
+        seg = torch.randint(lo, nseg, (N,), generator=g)
+        w = {"signed": lambda: torch.randint(-2, 3, (N,), generator=g),
+             "zero": lambda: torch.zeros(N, dtype=torch.int64),
+             "ones": lambda: None}[weights]()
+        ini = torch.randint(-9, 99, (nseg,), generator=g).to(torch.int32) if init else None
+        return (seg.to(dev), nseg, None if w is None else w.to(torch.int32).to(dev),
+                None if ini is None else ini.to(dev))
+
+    pad = 71023
+    cases = {"zero and negative weights": tally(3520, 1024),
+             "every weight zero": tally(50000, 1024, "zero"),
+             f"every row in one segment ({pad:,} rows)":
+                 (torch.zeros(pad, dtype=torch.int64, device=dev), 7,
+                  torch.ones(pad, dtype=torch.int32, device=dev), None),
+             f"nseg {segment.SMEM_BINS + 1:,} beyond shared memory":
+                 tally(200000, segment.SMEM_BINS + 1),
+             "N=0 init given": tally(0, 1024),
+             "N=0 no init": tally(0, 1024, init=False),
+             "rows outside [0, nseg), no weights": tally(60000, 3000, "ones", lo=-5),
+             "no init": tally(30000, 4096, init=False)}
+    e = entries["segment_count"]
+    for what, t in cases.items():
+        want = segment.segment_count_plain(*t)
+        for form in (None, segment.OWNED, segment.GRID, segment.SMEM, segment.GLOBAL):
+            if form == segment.SMEM and t[1] > segment.SMEM_BINS:
+                continue
+            check(torch, e, lambda: segment._segment_counts([t], form)[0], lambda: want,
+                  f"{what} form {form}", quiet=True)
+        log(f"  segment_count {what}: bit-identical in every form")
+    five = list(cases.values())[:5]
+    e = entries["segment_counts"]
+    for form in (None, segment.OWNED, segment.GRID, segment.GLOBAL):
+        check(torch, e, lambda: tuple(segment._segment_counts(five, form)),
+              lambda: tuple(K.segment_count(*t) for t in five),
+              f"grouped form {form} against five single calls")
+    log("  segment_counts: five tallies in one launch equal to five single calls in each form")
+    for tag, c in (("slice", ctx), ("rung 4", r4)):
+        tallies = list(refresh_count_inputs(c["env"], c["st"]))
+        for form in (None, segment.GRID, segment.GLOBAL):
+            check(torch, e, lambda: tuple(segment._segment_counts(tallies, form)),
+                  lambda: tuple(segment.segment_counts_plain(tallies)),
+                  f"{tag} refresh tallies form {form}")
+        a, b = K.segment_counts(tallies), K.segment_counts(tallies)
+        torch.cuda.synchronize()
+        compare(torch, tuple(a), tuple(b))
+        log(f"  segment_counts {tag} refresh tallies N={tallies[0][0].shape[0]:,}: "
+            f"bit-identical, the same bits twice")
+
+    # the CUDA launches of a refresh's and each apply's integer tallies
+    R = env.num_replicas
+    W = 1760
+    reps = torch.randperm(R, generator=g)[:W].to(dev)
+    dsts = torch.randint(0, env.num_brokers, (W,), generator=g).to(dev)
+    mask = (torch.rand(W, generator=g) < 0.5).to(dev)
+    launches = {}
+    for name, fn in (("refresh", lambda: refresh(env, st)),
+                     ("move apply", lambda: apply_moves_batched(env, st, reps, dsts, mask)),
+                     ("leadership apply", lambda: apply_leaderships_batched(
+                         env, st, reps[:128], reps[128:256], mask[:128])),
+                     ("swap apply (two legs)", lambda: apply_swaps_batched(
+                         env, st, reps[:32], reps[32:64], mask[:32]))):
+        K.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        n = K.KERNELS["segment_counts"].cuda_launches + K.KERNELS["segment_count"].cuda_launches
+        launches[name] = n
+        require(n <= (2 if name.startswith("swap") else 1),
+                f"{name}: its integer tallies took {n} CUDA launches")
+    log(f"  integer tallies, CUDA launches a call: {launches} (two wrapper calls a tally "
+        f"before: a zeros / clone of init, then the count)")
+
+
+def k2_synthetic(torch, g, dev, K_: int, B: int, T: int, kind: int, rack_lim=False,
+                 vtab=False, order=False, lhs=False, ties=False, nan=False, pads=0,
+                 F=3, Kr=3, mask=0b10111, topics=7):
+    """Positional ``move_score_classes`` arguments of a synthetic wave of
+    family ``kind``: random rows and columns (small integer tables with
+    ``ties``, so equal scores recur across q), the rack-limit veto, the
+    topic veto, a shuffled column order with ``pads`` padding classes, the
+    per-goal form's left-hand table, NaN scores."""
+    from cruise_control_tpu_torch.kernels import move_score as ms
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g)
+
+    def rf(*shape):
+        return torch.rand(shape, generator=g)
+
+    cur_b = ri(0, B, (K_,))
+    orig_b = torch.where(rf(K_) < 0.7, cur_b, ri(0, B, (K_,)))
+    d_rows = ri(0, 3, (K_, 8)).float()
+    d_rows[::5] = 0.0
+    dst_room = ri(-1, 5, (8, B)).float()
+    dl = rf(8, B) * 3 if lhs else None
+    if lhs:
+        dst_room = dst_room + dl
+    if kind in (ms.GOAL_REPLICA_DIST, ms.GOAL_LEADER_DIST):
+        row_f = torch.stack([ri(90, 110, (K_,)).float(), torch.full((K_,), 95.0),
+                             torch.full((K_,), 105.0), (rf(K_) > 0.95).float()], 1)
+        col_f = torch.stack([ri(90, 110, (B,)).float(), torch.full((B,), 95.0),
+                             torch.full((B,), 105.0), rf(B) + 1], 0)
+    elif kind == ms.GOAL_RESOURCE_DIST:
+        row_f = torch.stack([rf(K_), rf(K_) * 0.5, rf(K_) * 10, (rf(K_) > 0.9).float()], 1)
+        col_f = torch.stack([(ri(0, 100, (B,)) if ties else rf(B) * 100).float(),
+                             torch.full((B,), 40.0), torch.full((B,), 60.0), rf(B) * 100 + 50], 0)
+    elif kind == ms.GOAL_TOPIC_REPLICA:
+        row_f = torch.stack([ri(0, 3, (K_,)).float(), ri(2, 5, (K_,)).float(), rf(K_),
+                             (rf(K_) > 0.9).float()], 1)
+        col_f = rf(4, B)
+    else:
+        row_f = ri(0, 3, (K_, 4)).float()
+        col_f = ri(0, 4, (4, B)).float() if ties else rf(4, B) * 10
+        if kind != ms.GOAL_CAPACITY:
+            col_f[0] = ri(0, 3, (B,)).float()
+    if kind == ms.GOAL_RACK_DIST:
+        row_f[:, 1] = ri(1, 4, (K_,)).float()
+    if nan:
+        col_f[1, ::37] = float("nan")
+    order_b = None
+    if order:
+        Bp = -(-B // T) * T + T * pads
+        order_b = torch.cat([torch.randperm(B, generator=g), torch.arange(B, Bp)])
+    row_t = ri(0, topics, (K_,))
+    topic = ((row_t, ri(0, 5, (topics, B)).to(torch.int32))
+             if kind in (ms.GOAL_MIN_TOPIC, ms.GOAL_TOPIC_REPLICA) else None)
+    tv = (row_t, ri(0, 5, (topics, B)).to(torch.int32), ri(1, 6, (K_,)).float()) if vtab else None
+
+    def dv(t):
+        if t is None:
+            return None
+        if isinstance(t, tuple):
+            return tuple(dv(x) for x in t)
+        return t.to(dev).contiguous()
+
+    prow = ri(0, 3, (K_, Kr)) if kind in ms.RACK_FAMILIES or rack_lim else None
+    lim = ri(1, 3, (K_,)).to(torch.int32) if rack_lim else None
+    return (kind, T, dv(cur_b), dv(orig_b), dv(ri(-1, B, (K_, F))), dv(rf(K_) > 0.1),
+            dv(d_rows), dv(dst_room), mask, dv(prow), dv(lim), dv(row_f), dv(col_f),
+            dv(rf(B) > 0.05), dv(rf(B) > 0.3), dv(torch.arange(B) % Kr), dv(order_b),
+            dv(topic), dv(tv), dv(dl))
+
+
+def k2_redesign_checks(torch, entries: dict, seed: int, dev: str = "cuda") -> None:
+    """Every K2 form bit for bit against its twin at the redesign's edges:
+    every family with and without the rack-limit veto, the topic veto and a
+    column order with pad columns, solo and per-goal; equal scores at many
+    q of one class; rows and classes of -inf; NaN scores; T 1, 16, 71 with
+    Bp 7,171 (B 7,168), T 300 (more classes than a CTA's threads), B not a
+    multiple of the CTA's columns, B 16,384 (beyond the earlier design's
+    48 KB staging); 16 lanes each equal to its solo launch; the same bits
+    twice at rung 4's shape."""
+    from cruise_control_tpu_torch import kernels as K
+    from cruise_control_tpu_torch.kernels import move_score as ms
+    g = torch.Generator().manual_seed(seed + 150)
+    n = 0
+    for kind in range(9):
+        for T, B, Kk in ((16, 1024, 300), (71, 7168, 64), (1, 1000, 40)):
+            for flags in ({}, dict(rack_lim=True, vtab=True), dict(order=True, pads=2),
+                          dict(ties=True, rack_lim=True, order=True, pads=1)):
+                for lhs in (False, True):
+                    a = k2_synthetic(torch, g, dev, Kk, B, T, kind, lhs=lhs, **flags)
+                    check(torch, entries["move_score_terms" if lhs else "move_score_classes"],
+                          lambda: K.move_score_classes(*a),
+                          lambda: ms.move_score_classes_plain(*a),
+                          f"family {kind} T={T} B={B} {flags} lhs={lhs}", quiet=True)
+                    n += 1
+    log(f"  move_score_classes: {n} synthetic waves, every family, with and without "
+        f"the rack-limit and topic vetoes, column orders with pad columns, solo and "
+        f"per-goal: bit-identical")
+    e = entries["move_score_classes"]
+    edges = {"ties across q (integer tables)": dict(K_=200, B=1024, T=16, ties=True),
+             "T=71, Bp 7,171": dict(K_=100, B=7168, T=71, ties=True),
+             "T=1": dict(K_=64, B=7168, T=1, ties=True),
+             "T=300 (more classes than threads)": dict(K_=50, B=1024, T=300, ties=True),
+             "B 1,000, T 7 (B not a multiple of T)": dict(K_=90, B=1000, T=7, ties=True),
+             "B 16,384": dict(K_=64, B=16384, T=71),
+             "B 16,384, T=1": dict(K_=32, B=16384, T=1),
+             "NaN scores": dict(K_=64, B=1024, T=16, nan=True)}
+    for what, kw in edges.items():
+        kind = ms.GOAL_REPLICA_CAPACITY if "NaN" in what else ms.GOAL_CAPACITY
+        a = k2_synthetic(torch, g, dev, kw.pop("K_"), kw.pop("B"), kw.pop("T"), kind, **kw)
+        for tile in (None, 1, 8):
+            check(torch, e, lambda: ms._move_score_classes(tile, *a),
+                  lambda: ms.move_score_classes_plain(*a), f"{what} tile {tile}", quiet=True)
+        log(f"  move_score_classes {what}: bit-identical at row tiles 1, 8 and the plan's")
+    a = k2_synthetic(torch, g, dev, 64, 1024, 16, ms.GOAL_CAPACITY)
+    none_ok = a[:5] + (torch.zeros_like(a[5]),) + a[6:]
+    check(torch, e, lambda: K.move_score_classes(*none_ok),
+          lambda: ms.move_score_classes_plain(*none_ok), "every row -inf")
+    no_dst = a[:13] + (torch.zeros_like(a[13]),) + a[14:]
+    check(torch, e, lambda: K.move_score_classes(*no_dst),
+          lambda: ms.move_score_classes_plain(*no_dst), "every class -inf")
+    log("  move_score_classes: rows and classes of -inf give q 0, bit-identical")
+    for lhs, name in ((False, "move_score_classes_lanes"), (True, "move_score_terms_lanes")):
+        lanes = [k2_synthetic(torch, g, dev, 160, 100, 16, ms.GOAL_RESOURCE_DIST,
+                              rack_lim=True, lhs=lhs) for _ in range(LANES)]
+        v, q = K.move_score_classes_lanes(lanes)
+        for j, la in enumerate(lanes):
+            check(torch, entries[name], lambda: (v[j], q[j]),
+                  lambda: K.move_score_classes(*la), f"lane {j} against its solo launch",
+                  quiet=True)
+        check(torch, entries[name], lambda: K.move_score_classes_lanes(lanes),
+              lambda: ms.move_score_classes_lanes_plain(lanes), "lanes against the twin")
+        log(f"  {name} L={LANES}: each lane equal to its solo launch, bit-identical")
+    a = k2_synthetic(torch, g, dev, 1760, 7168, 71, ms.GOAL_RESOURCE_DIST)
+    x, y = K.move_score_classes(*a), K.move_score_classes(*a)
+    torch.cuda.synchronize()
+    compare(torch, x, y)
+    log("  move_score_classes K 1,760 x B 7,168, T 71: the same bits twice")
 
 
 TIMED_KEYS = {("slice", "f32"), ("rung 4", "f32"), ("rung 4", "bf16")}
@@ -3412,12 +3741,14 @@ def session_phase(torch, entries: dict, profile: bool, seed: int) -> dict:
                       f"one eligible row {row} of {n} keys, mask {mname}", quiet=True)
     log(f"  seeded_probe: {e.checks} checks bit-identical (every default goal's keys, "
         f"masks {list(masks)}, one eligible row at the ends and the middle)")
+    # no library yardstick: no single PyTorch call computes the masked any
+    # over one to three keys (torch.any of one key's precomputed comparison
+    # is not the same function)
     for shape in shapes["seeded_probe"]:
         n = int(shape.split("keys=")[1])
         ks = by_count[n]
-        cmp = mask & (ks[0] > -torch.inf)
         timing(torch, e, lambda: K.seeded_probe(mask, ks),
-               lambda: probe.seeded_probe_plain(mask, ks), lambda: torch.any(cmp),
+               lambda: probe.seeded_probe_plain(mask, ks), None,
                nbytes(mask, ks) + 4, 2 * n * R, f"R={R} keys={n}")
     return dict(launches=launches, shapes=shapes, walls=walls, syncs=syncs)
 
@@ -5643,6 +5974,9 @@ def main() -> int:
     lane_kernel_checks(torch, lctx, entries, args.seed)
     phase("phase 3: segment_sum and K1 redesigned: edges, determinism, both forms")
     redesign_checks(torch, entries, args.seed, r4, r5, lctx)
+    phase("phase 3: segment_count and K2 redesigned: edges, determinism, launches")
+    count_redesign_checks(torch, ctx, r4, entries, args.seed)
+    k2_redesign_checks(torch, entries, args.seed)
     phase("phase 3: the fleet's leadership, swap and probe lane kernels (K14)")
     branch_lane_checks(torch, lctx, entries, args.seed)
     phase("phase 3: the engine's options, the pooled K1 and K2's per-goal form")
@@ -5751,7 +6085,8 @@ def main() -> int:
                       ORACLE["kafka_slice"])
     launches = kafka["launches"]
     ka_kernels = ("select_candidates", "move_score_classes", "wave_admission",
-                  "segment_sum", "segment_count", "swap_rows", "swap_admission")
+                  "segment_sum", "segment_count", "segment_counts", "swap_rows",
+                  "swap_admission")
     require(all(launches[n] > 0 for n in ka_kernels),
             f"a kernel of the kafka-assigner path never launched: {launches}")
     jbod = {}
@@ -5774,9 +6109,8 @@ def main() -> int:
         require(all(jbod[req]["launches"][n] > 0 for n in ("disk_rows", "disk_apply")),
                 f"jbod ({req}): the disk branch never launched")
     # 5e. BASELINE configs 4 and 5 at full size through GoalOptimizer()'s
-    # defaults ("auto" resolves to bf16), and rung 4 pinned to f32
+    # defaults ("auto" resolves to bf16)
     phase("phase 5e: BASELINE configs 4 and 5 (7,000 brokers)")
-    from cruise_control_tpu_torch.analyzer.engine import EngineParams
     for ctx_r, tag in ((r4, "rung 4"), (r5, "rung 5")):
         require(ctx_r["params"].compute_dtype == "bfloat16",
                 f"{tag}: auto resolved to {ctx_r['params'].compute_dtype}, not bfloat16")
@@ -5785,12 +6119,8 @@ def main() -> int:
                       "rung 4 (16 goals, bf16)", ORACLE["rung4_bf16"], twice=False)
     rung5 = run_slice(torch, opt, r5["ct"], r5["meta"], JBOD_CHAIN,
                       "rung 5 (10 goals, bf16)", ORACLE["rung5_bf16"])
-    opt32 = GoalOptimizer(device="cuda", engine_params=EngineParams(compute_dtype="float32"))
-    rung4_f32 = run_slice(torch, opt32, r4["ct"], r4["meta"], DEFAULT,
-                          "rung 4 (16 goals, pinned f32)", ORACLE["rung4_f32"],
-                          twice=False)
     rung5_kernels = ("select_candidates", "move_score_classes", "wave_admission",
-                     "segment_sum", "segment_count", "leadership_rows", "disk_rows",
+                     "segment_sum", "segment_counts", "leadership_rows", "disk_rows",
                      "disk_apply", "replica_keys")
     for run, ctx_r, tag, need in (
             (rung4, r4, "rung 4 bf16", [n for n in K.KERNELS
@@ -5803,7 +6133,7 @@ def main() -> int:
         require(all(run["launches"][n] > 0 for n in need),
                 f"{tag}: a kernel of the path never launched: {run['launches']}")
     log(f"phase 5e: walls (s) rung 4 bf16 {rung4['walls']}, rung 5 bf16 "
-        f"{rung5['walls']}, rung 4 f32 {rung4_f32['walls'][0]}")
+        f"{rung5['walls']}")
     # 6. the resident-session service rounds (e2e-1000b-50000p)
     phase("phase 6: resident-session rounds (e2e-1000b-50000p)")
     profile_session = args.profile is not None and (not args.profile

@@ -18,7 +18,7 @@ import torch
 
 from cruise_control_tpu_torch.analyzer.env import ClusterEnv
 from cruise_control_tpu_torch.common.resources import Resource
-from cruise_control_tpu_torch.kernels import segment_count, segment_sum
+from cruise_control_tpu_torch.kernels import segment_counts, segment_sum
 from cruise_control_tpu_torch.kernels.build import lane_index
 
 
@@ -121,29 +121,35 @@ def refresh_disk_inputs(env: ClusterEnv, st: EngineState):
             st.replica_broker * D + st.replica_disk, B * D)
 
 
+def refresh_count_inputs(env: ClusterEnv, st: EngineState):
+    """The ``segment_count`` arguments (seg, nseg, weights, init) of
+    refresh's replica_count, leader_count, part_rack_count,
+    topic_broker_count and topic_leader_count: one row per replica slot,
+    weighing 1 where the slot is valid (and leads); padding slots weigh 0."""
+    B, P, T, Kr = env.num_brokers, env.num_partitions, env.num_topics, env.num_racks
+    rb = st.replica_broker
+    vw = env.replica_valid.to(torch.int32)
+    lw = (st.replica_is_leader & env.replica_valid).to(torch.int32)
+    flat = env.replica_partition * Kr + env.broker_rack[rb]
+    tflat = env.replica_topic * B + rb
+    return ((rb, B, vw, None), (rb, B, lw, None), (flat, P * Kr, vw, None),
+            (tflat, T * B, vw, None), (tflat, T * B, lw, None))
+
+
 def refresh(env: ClusterEnv, st: EngineState) -> EngineState:
     """Recompute all derived state from the assignment (ground truth)."""
     B, P, T = env.num_brokers, env.num_partitions, env.num_topics
     Kr = env.num_racks
     D = env.broker_disk_capacity.shape[1]
-    rb = st.replica_broker
-    valid = env.replica_valid
-    lead = st.replica_is_leader & valid
     sums = segment_sum(*refresh_sum_inputs(env, st), B)
-    vw = valid.to(torch.int32)
-    lw = lead.to(torch.int32)
-    flat = env.replica_partition * Kr + env.broker_rack[rb]
-    tflat = env.replica_topic * B + rb
     du = segment_sum(*refresh_disk_inputs(env, st))
     util = sums[:, 0:4].contiguous()
+    rc, lc, prc, tbc, tlc = segment_counts(list(refresh_count_inputs(env, st)))
     return dataclasses.replace(
         st, util=util, leader_util=sums[:, 4:8].contiguous(),
         potential_nw_out=sums[:, 8].contiguous(),
-        replica_count=segment_count(rb, B, vw),
-        leader_count=segment_count(rb, B, lw),
-        part_rack_count=segment_count(flat, P * Kr, vw).view(P, Kr),
-        topic_broker_count=segment_count(tflat, T * B, vw).view(T, B),
-        topic_leader_count=segment_count(tflat, T * B, lw).view(T, B),
+        replica_count=rc, leader_count=lc, part_rack_count=prc.view(P, Kr),
+        topic_broker_count=tbc.view(T, B), topic_leader_count=tlc.view(T, B),
         disk_util=du.view(B, D),
         util_residual=torch.zeros_like(util),
         leader_util_residual=torch.zeros_like(util))
@@ -267,6 +273,22 @@ def _fold(parts: list, width: int, index: int = 1) -> tuple:
                  else c[0] for i, c in enumerate(cols))
 
 
+def _lane_counts(counts: list) -> list:
+    """The [La, nseg] tallies of La lanes' ``segment_count`` arguments
+    (``counts[j]``: lane j's tuple of (seg, nseg, weights, init)) in ONE
+    ``segment_counts`` launch, lane j's segment ids offset by ``j * nseg``."""
+    La = len(counts)
+    folded = []
+    for per in zip(*counts):
+        nseg = per[0][1]
+        if La == 1:
+            folded.append(per[0])
+            continue
+        folded.append((torch.cat([a[0] + j * nseg for j, a in enumerate(per)]), La * nseg,
+                       torch.cat([a[2] for a in per]), torch.cat([a[3] for a in per])))
+    return [t.view(La, -1) for t in segment_counts(folded)]
+
+
 def apply_moves_lanes(envs: list, sts: list, replicas: torch.Tensor,
                       dsts: torch.Tensor, mask: torch.Tensor,
                       chained: bool = False, into: tuple | None = None):
@@ -292,18 +314,8 @@ def apply_moves_lanes(envs: list, sts: list, replicas: torch.Tensor,
                               ins[j][1], chained) for j in range(La)]
     rvals, rseg, rinit = _fold(res_in, B)
     res = segment_sum(rvals, rseg, La * B, rinit).view(La, B, -1)
-    counts = [apply_move_count_inputs(envs[j], sts[j], replicas[j], dsts[j], mask[j])
-              for j in range(La)]
-    tallies = []
-    for kind in range(5):
-        per = [counts[j][kind] for j in range(La)]
-        nseg = per[0][1]
-        if La == 1:
-            tallies.append(segment_count(*per[0]).view(1, nseg))
-            continue
-        segs = torch.cat([a[0] + j * nseg for j, a in enumerate(per)])
-        tallies.append(segment_count(segs, La * nseg, torch.cat([a[2] for a in per]),
-                                     torch.cat([a[3] for a in per])).view(La, nseg))
+    tallies = _lane_counts([apply_move_count_inputs(envs[j], sts[j], replicas[j], dsts[j],
+                                                    mask[j]) for j in range(La)])
     disk_in = [apply_disk_sum_inputs(envs[j], sts[j], replicas[j], dsts[j], mask[j],
                                      ins[j][0][W:, Resource.DISK]) for j in range(La)]
     dvals, dseg, _n, dinit, _dd = _fold(disk_in, B * D)
@@ -495,18 +507,8 @@ def apply_leaderships_lanes(envs: list, sts: list, src: torch.Tensor, dst: torch
                               ins[j][1]) for j in range(La)]
     rvals, rseg, rinit = _fold(res_in, B)
     res = segment_sum(rvals, rseg, La * B, rinit).view(La, B, -1)
-    counts = [apply_lead_count_inputs(envs[j], sts[j], src[j], dst[j], mask[j])
-              for j in range(La)]
-    tallies = []
-    for kind in range(2):
-        per = [counts[j][kind] for j in range(La)]
-        nseg = per[0][1]
-        if La == 1:
-            tallies.append(segment_count(*per[0]).view(1, nseg))
-            continue
-        segs = torch.cat([a[0] + j * nseg for j, a in enumerate(per)])
-        tallies.append(segment_count(segs, La * nseg, torch.cat([a[2] for a in per]),
-                                     torch.cat([a[3] for a in per])).view(La, nseg))
+    tallies = _lane_counts([apply_lead_count_inputs(envs[j], sts[j], src[j], dst[j], mask[j])
+                            for j in range(La)])
     one = mask.to(torch.int32).reshape(-1)
     lane_off = (torch.arange(La, device=src.device) * R)[:, None]
     zeros = torch.zeros(La * R, dtype=torch.int32, device=src.device)

@@ -19,7 +19,7 @@ from cruise_control_tpu_torch.kernels.move_score import (
 )
 from cruise_control_tpu_torch.kernels.ple import preferred_leader
 from cruise_control_tpu_torch.kernels.probe import seeded_probe, seeded_probe_lanes
-from cruise_control_tpu_torch.kernels.segment import segment_count, segment_sum
+from cruise_control_tpu_torch.kernels.segment import segment_count, segment_counts, segment_sum
 from cruise_control_tpu_torch.kernels.select import (
     compact_eligible, pool_branch_counts, reset_pool_branches, select_candidates,
     select_candidates_lanes, select_pooled, select_pooled_lanes,
@@ -54,8 +54,9 @@ __all__ = [
     "leadership_rows_lanes", "move_score_classes", "move_score_classes_lanes",
     "pool_branch_counts", "preferred_leader", "replica_keys", "replica_keys_lanes",
     "reset_launches", "reset_pool_branches", "seeded_probe", "seeded_probe_lanes",
-    "segment_count", "segment_sum", "select_candidates", "select_candidates_lanes",
-    "select_pooled", "select_pooled_lanes", "session_finalize", "swap_admission",
+    "segment_count", "segment_counts", "segment_sum", "select_candidates",
+    "select_candidates_lanes", "select_pooled", "select_pooled_lanes", "session_finalize",
+    "swap_admission",
     "swap_admission_lanes", "swap_rows", "swap_rows_lanes", "wave_admission",
     "wave_admission_lanes",
 ]

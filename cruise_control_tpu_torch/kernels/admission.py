@@ -35,10 +35,12 @@ per row decides. Bound: latency (one CTA per side).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stack_lanes, stream_ptr,
+    IP, I, P, check, library, ptr, register, stack_lanes, stream_ptr,
 )
 
 KERNEL = register("wave_admission",
@@ -164,8 +166,8 @@ def wave_admission_plain(d, src_b, dst_b, wave_ok, part, src_slack, dst_slack,
     return win
 
 
-_SIGNATURES = {"cc_wave_admission": [I] * 7 + [P] * 23,
-               "cc_wave_admission_lanes": [I] * 8 + [P] * 23}
+_SIGNATURES = {"cc_wave_admission": [I] * 7 + [P] * 22 + [IP, P],
+               "cc_wave_admission_lanes": [I] * 8 + [P] * 22 + [IP, P]}
 
 
 def wave_admission(d, src_b, dst_b, wave_ok, part, src_slack, dst_slack,
@@ -225,14 +227,16 @@ def wave_admission(d, src_b, dst_b, wave_ok, part, src_slack, dst_slack,
     first = torch.empty(max(1, nk + np_), dtype=torch.int32, device=dev)
     ok = torch.empty(N, dtype=torch.bool, device=dev)
     win = torch.empty(N, dtype=torch.bool, device=dev)
+    launches = ctypes.c_int(0)
     err = library("wave_admission", _SIGNATURES).cc_wave_admission(
         N, B, int(nT), int(G), int(dim), int(nk), int(np_), ptr(d), ptr(d_dst),
         ptr(src_b), ptr(dst_b), ptr(wave_ok), ptr(kg), ptr(part), ptr(topics),
         ptr(tdelta), ptr(ts_slack), ptr(td_slack), ptr(src_slack), ptr(dst_slack),
         ptr(src_gain), ptr(dst_gain), ptr(gain_escape), ptr(first), ptr(ok),
-        ptr(fscratch), ptr(cum), ptr(rank), ptr(win), stream_ptr())
+        ptr(fscratch), ptr(cum), ptr(rank), ptr(win), ctypes.byref(launches),
+        stream_ptr())
     check(err, "wave_admission")
-    KERNEL.count(f"N={N}")
+    KERNEL.count(f"N={N}", launches.value)
     return win
 
 
@@ -320,12 +324,14 @@ def wave_admission_lanes(lane_args: list) -> torch.Tensor:
     first = torch.empty(La * max(1, nk + np_), dtype=torch.int32, device=dev)
     ok = torch.empty((La, N), dtype=torch.bool, device=dev)
     win = torch.empty((La, N), dtype=torch.bool, device=dev)
+    launches = ctypes.c_int(0)
     err = library("wave_admission", _SIGNATURES).cc_wave_admission_lanes(
         La, N, B, int(nT), int(G), int(dim), int(nk), int(np_), ptr(d), ptr(d_dst),
         ptr(src_b), ptr(dst_b), ptr(wave_ok), ptr(kg), ptr(part), ptr(topics),
         ptr(tdelta), ptr(ts_slack), ptr(td_slack), ptr(src_slack), ptr(dst_slack),
         ptr(src_gain), ptr(dst_gain), ptr(gain_escape), ptr(first), ptr(ok),
-        ptr(fscratch), ptr(cum), ptr(rank), ptr(win), stream_ptr())
+        ptr(fscratch), ptr(cum), ptr(rank), ptr(win), ctypes.byref(launches),
+        stream_ptr())
     check(err, "wave_admission_lanes")
-    KERNEL_LANES.count(f"L={La} N={N}")
+    KERNEL_LANES.count(f"L={La} N={N}", launches.value)
     return win

@@ -103,7 +103,9 @@ IP = ctypes.POINTER(ctypes.c_int)       # an int the entry point writes (host me
 def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built on first use.
     ``signatures`` maps each C entry point to its argument types; every
-    entry point returns its launch's ``cudaError_t`` as an int."""
+    entry point returns its launch's ``cudaError_t`` as an int and writes
+    the CUDA launches it made into its ``launches`` argument (an ``IP``
+    into host memory, the one before the stream)."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
@@ -189,8 +191,7 @@ class Kernel:
     replaces, and how often its wrapper launched it (``launches`` counts
     calls on the card only, ``shapes`` splits them by launch shape; the
     plain twin on the CPU counts nothing). ``cuda_launches`` sums the CUDA
-    launches the calls made, for the wrappers whose entry point reports
-    them (K1 and ``segment_sum``)."""
+    kernel launches the calls' entry points reported making."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name = name
@@ -200,9 +201,9 @@ class Kernel:
         self.cuda_launches = 0
         self.shapes: dict[str, int] = {}
 
-    def count(self, shape: str = "", cuda_launches: int = 0) -> None:
+    def count(self, shape: str, cuda_launches: int) -> None:
         """Record one launch of the kernel (called right after it) and the
-        CUDA launches it took."""
+        CUDA launches its entry point reported."""
         self.launches += 1
         self.cuda_launches += cuda_launches
         self.shapes[shape] = self.shapes.get(shape, 0) + 1

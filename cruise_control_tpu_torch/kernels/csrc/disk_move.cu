@@ -212,7 +212,8 @@ extern "C" int cc_disk_rows(
     const unsigned char* rtexcl, const unsigned char* balive,
     const unsigned char* dalive, const float* dcap, const long long* rdisk,
     const float* dutil, const long long* cand, const float* kv, float* best,
-    void* stream_ptr) {
+    int* launches, void* stream_ptr) {
+  *launches = 0;
   if (K <= 0 || D <= 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Disk s = make_disk(B, D, family, vflags, a, b, vcap, vup, rb, rlead, lead_disk,
@@ -221,6 +222,7 @@ extern "C" int cc_disk_rows(
   const int rows = kRowsThreads / D;
   const int grid = (K + rows - 1) / rows;
   disk_rows_kernel<<<grid, rows * D, 0, stream>>>(s, K, cand, kv, best);
+  *launches = 1;
   return (int)cudaGetLastError();
 }
 
@@ -232,7 +234,8 @@ extern "C" int cc_disk_apply(
     const unsigned char* dalive, const float* dcap, const long long* cand,
     const float* best, const long long* order, long long* rdisk,
     unsigned char* roff, unsigned char* moved, float* dutil, long long* n_applied,
-    void* stream_ptr) {
+    int* launches, void* stream_ptr) {
+  *launches = 0;
   if (K <= 0 || D <= 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Disk s = make_disk(B, D, family, vflags, a, b, vcap, vup, rb, rlead, lead_disk,
@@ -240,5 +243,6 @@ extern "C" int cc_disk_apply(
                      dcap, rdisk, dutil);
   disk_apply_kernel<<<1, 32, 0, stream>>>(s, K, min_gain, cand, best, order, rdisk,
                                           roff, moved, dutil, n_applied);
+  *launches = 1;
   return (int)cudaGetLastError();
 }

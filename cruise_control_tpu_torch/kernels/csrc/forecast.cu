@@ -70,8 +70,10 @@ __global__ void forecast_kernel(const float* __restrict__ values,
 
 extern "C" int cc_forecast(const float* values, const uint8_t* mask, int E,
                            int W, int M, float alpha, float beta, float blend,
-                           float horizon_w, float* out, void* stream_ptr) {
+                           float horizon_w, float* out, int* launches,
+                           void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  *launches = 0;
   if (E < 0 || W <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
   const long long n = (long long)E * M;
   if (n == 0) return (int)cudaSuccess;
@@ -79,5 +81,6 @@ extern "C" int cc_forecast(const float* values, const uint8_t* mask, int E,
   const long long blocks = (n + threads - 1) / threads;
   forecast_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
       values, mask, E, W, M, alpha, beta, blend, horizon_w, out);
+  *launches = 1;
   return (int)cudaGetLastError();
 }

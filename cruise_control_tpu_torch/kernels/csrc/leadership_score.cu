@@ -160,8 +160,9 @@ extern "C" int cc_leadership_rows_lanes(
     const float* fk, const long long* row_t, const int* tab,
     const float* va, const float* vc, const float* vxr, const float* vxk,
     const long long* color, float* best, long long* fbest, float* seg_val,
-    long long* seg_f, void* stream_ptr) {
+    long long* seg_f, int* launches, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  *launches = 0;
   if (L <= 0 || L > 65535 || K <= 0 || F <= 0 || F > kMaxF || S < 0 || S > kMaxS ||
       nfb < 1 || V > 31)
     return (int)cudaErrorInvalidValue;
@@ -180,5 +181,6 @@ extern "C" int cc_leadership_rows_lanes(
       K, F, B, R, family, V, S, active, vrow_mask, nfb, tab_n, lanes, cand, members, row_ok,
       rb, roff, broker_ok, fb, fr, fk, row_t, tab, va, vc, vxr, vxk, color, best,
       fbest, seg_val, seg_f);
+  *launches = 1;
   return (int)cudaGetLastError();
 }

@@ -95,13 +95,15 @@ extern "C" int cc_preferred_leader(
     const long long* rb, const unsigned char* roff, const unsigned char* alive,
     const unsigned char* excl, const unsigned char* demoted,
     const unsigned char* rlead_in, unsigned char* rlead, unsigned char* moved,
-    int* n_violated, void* stream_ptr) {
+    int* n_violated, int* launches, void* stream_ptr) {
   (void)R;
+  *launches = 0;
   if (Pn <= 0 || F <= 0 || F > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int grid = (Pn + kThreads - 1) / kThreads;
   preferred_leader_kernel<<<grid, kThreads, 0, stream>>>(
       Pn, F, B, apply, members, rb, roff, alive, excl, demoted, rlead_in, rlead,
       moved, n_violated);
+  *launches = 1;
   return (int)cudaGetLastError();
 }

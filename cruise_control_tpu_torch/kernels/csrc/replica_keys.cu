@@ -167,7 +167,9 @@ static int launch_keys(int La, const long long* lanes, int R, int M, int col,
                        const long long* rb, const unsigned char* lead,
                        const unsigned char* off, const unsigned char* valid,
                        const float* bt, const float* sc, const long long* rdisk,
-                       const float* dt, float* out, cudaStream_t stream) {
+                       const float* dt, float* out, int* launches,
+                       cudaStream_t stream) {
+  *launches = 0;
   if (La <= 0 || La > 65535 || R <= 0 || M <= 0 || col < 0 || col >= M ||
       family < kCapacity || family > kIntraUsage || B <= 0 || nbt <= 0 || nsc < 3)
     return (int)cudaErrorInvalidValue;
@@ -189,6 +191,7 @@ static int launch_keys(int La, const long long* lanes, int R, int M, int col,
     replica_keys_kernel<float><<<g, kThreads, 0, stream>>>(
         a, (const float*)L, (const float*)F, out);
   }
+  *launches = 1;
   return (int)cudaGetLastError();
 }
 
@@ -197,9 +200,9 @@ extern "C" int cc_replica_keys(
     float bump, const void* L, const void* F, const long long* rb,
     const unsigned char* lead, const unsigned char* off, const unsigned char* valid,
     const float* bt, const float* sc, const long long* rdisk, const float* dt,
-    float* out, void* stream_ptr) {
+    float* out, int* launches, void* stream_ptr) {
   return launch_keys(1, nullptr, R, M, col, family, is_bf16, round_out, B, D, 1, 3, 0,
-                     bump, L, F, rb, lead, off, valid, bt, sc, rdisk, dt, out,
+                     bump, L, F, rb, lead, off, valid, bt, sc, rdisk, dt, out, launches,
                      (cudaStream_t)stream_ptr);
 }
 
@@ -212,9 +215,10 @@ extern "C" int cc_replica_keys_lanes(
     const void* F, const long long* rb, const unsigned char* lead,
     const unsigned char* off, const unsigned char* valid, const float* bt,
     const float* sc, const long long* rdisk, const float* dt, float* out,
-    void* stream_ptr) {
+    int* launches, void* stream_ptr) {
+  *launches = 0;
   if (lanes == nullptr) return (int)cudaErrorInvalidValue;
   return launch_keys(La, lanes, R, M, col, family, is_bf16, round_out, B, D, nbt, nsc,
-                     ndt, bump, L, F, rb, lead, off, valid, bt, sc, rdisk, dt, out,
+                     ndt, bump, L, F, rb, lead, off, valid, bt, sc, rdisk, dt, out, launches,
                      (cudaStream_t)stream_ptr);
 }

@@ -55,13 +55,15 @@ __global__ void probe_kernel(const uint8_t* __restrict__ mask,
 
 extern "C" int cc_seeded_probe_lanes(int L, const uint8_t* mask, const float* k0,
                                      const float* k1, const float* k2, int R,
-                                     int* flag, void* stream_ptr) {
+                                     int* flag, int* launches, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  *launches = 0;
   if (L <= 0 || L > 65535 || R <= 0 || k0 == nullptr) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   int blocks = (R + threads - 1) / threads;
   if (blocks > 1024) blocks = 1024;
   const dim3 grid(blocks, L);
   probe_kernel<<<grid, threads, 0, stream>>>(mask, k0, k1, k2, R, flag);
+  *launches = 1;
   return (int)cudaGetLastError();
 }

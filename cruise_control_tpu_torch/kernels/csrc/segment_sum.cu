@@ -38,11 +38,56 @@
 // of dependent f32 adds. No float atomics: the bits are the twin's, every
 // run.
 //
-// segment_count adds integer weights with atomics (exact in any order).
+// segment_count: integer tallies, out[s] = init[s] + sum of w[i] over the
+// rows with seg[i] == s, for up to five tallies in ONE launch (refresh's
+// five, a move apply's five, a leadership apply's two; the single call is
+// the one-tally case), in one of two forms (kernels/segment.py count_plan):
+// - owned (small N, the applies): each block owns kOwnedSegs segments of
+//   one tally, starts them from init in shared memory, streams all the
+//   tally's rows and counts those in its range with shared atomics, then
+//   writes its range: no grid barrier and no global atomic.
+// - grid (refresh, the severities): one cooperative launch. Phase 1 writes
+//   init (or zeros) into every output, grid-stride; a grid barrier
+//   (cooperative groups, the launch sized to the blocks the card holds at
+//   once, queried once per process, device and shared-memory size); phase 2
+//   counts. A tally whose host plan gives it a chunk counts each chunk of
+//   rows into a shared-memory histogram, one block a chunk, and flushes
+//   each non-zero bin with one global atomic; the others use
+//   warp-aggregated global atomics (__match_any_sync on the segment id, one
+//   atomic per distinct segment of a warp's 32 rows).
+// Rows of weight 0 add nothing and are skipped (refresh's padding rows all
+// sit in segment 0 with weight 0). Integer atomics, exact in any order.
+// Bound: bytes (each id and weight read once, each output written once).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
+// one tally of the grouped count; the host builds the array (ctypes
+// mirrors this layout: kernels/segment.py _Tally)
+struct Tally {
+  const long long* seg;
+  const int* w;        // nullptr: every row weighs 1
+  const int* init;     // nullptr: zeros
+  int* out;
+  long long n;
+  long long nseg;
+  long long chunk;     // rows per shared-memory chunk; 0: global atomics
+};
+
 namespace {
+
+constexpr int kMaxTallies = 5;
+constexpr int kCountThreads = 256;
+constexpr long long kSmemBins = 12288;   // 48 KB of int bins
+constexpr int kSmemStep = 4096;          // the histograms' shared memory, rounded up to this
+constexpr int kMaxDevices = 64;
+
+struct Tallies {
+  Tally t[kMaxTallies];
+  int count;
+};
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kThreads = 256;
@@ -371,13 +416,122 @@ __global__ void seg_sum_long(const float* __restrict__ vals, int C,
   }
 }
 
-__global__ void segment_count_kernel(const long long* __restrict__ seg,
-                                     const int* __restrict__ w, int N, int nseg,
-                                     int* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const long long s = seg[i];
-  if (s >= 0 && s < nseg) atomicAdd(&out[s], w != nullptr ? w[i] : 1);
+__global__ void __launch_bounds__(kCountThreads) segment_counts_kernel(Tallies g) {
+  extern __shared__ int hist[];
+  const long long nthreads = (long long)gridDim.x * blockDim.x;
+  const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < kMaxTallies; ++j) {
+    if (j >= g.count) break;
+    const Tally t = g.t[j];
+    // 16 bytes a thread where both ends are aligned (a large tally's copy
+    // of init is the launch's bound), then the tail
+    long long head = 0;
+    if ((((uintptr_t)t.out | (uintptr_t)t.init) & 15) == 0) {
+      head = t.nseg & ~3LL;
+      int4* o4 = reinterpret_cast<int4*>(t.out);
+      const int4* i4 = reinterpret_cast<const int4*>(t.init);
+      for (long long s = gtid; s < head / 4; s += nthreads)
+        o4[s] = t.init != nullptr ? i4[s] : make_int4(0, 0, 0, 0);
+    }
+    for (long long s = head + gtid; s < t.nseg; s += nthreads)
+      t.out[s] = t.init != nullptr ? t.init[s] : 0;
+  }
+  cg::this_grid().sync();
+#pragma unroll
+  for (int j = 0; j < kMaxTallies; ++j) {
+    if (j >= g.count) break;
+    const Tally t = g.t[j];
+    if (t.chunk > 0) {
+      const int nseg = (int)t.nseg;
+      for (long long c0 = (long long)blockIdx.x * t.chunk; c0 < t.n;
+           c0 += (long long)gridDim.x * t.chunk) {
+        for (int s = threadIdx.x; s < nseg; s += blockDim.x) hist[s] = 0;
+        __syncthreads();
+        const long long c1 = c0 + t.chunk < t.n ? c0 + t.chunk : t.n;
+        for (long long i = c0 + threadIdx.x; i < c1; i += blockDim.x) {
+          const long long s = t.seg[i];
+          const int w = t.w != nullptr ? t.w[i] : 1;
+          if (w != 0 && s >= 0 && s < nseg) atomicAdd(&hist[s], w);
+        }
+        __syncthreads();
+        for (int s = threadIdx.x; s < nseg; s += blockDim.x) {
+          const int h = hist[s];
+          if (h != 0) atomicAdd(&t.out[s], h);
+        }
+        __syncthreads();
+      }
+    } else {
+      // whole warps walk the rows (the base is warp-uniform), so every
+      // lane takes part in the match
+      for (long long base = gtid - lane; base < t.n; base += nthreads) {
+        const long long i = base + lane;
+        long long key = -1;
+        int w = 0;
+        if (i < t.n) {
+          const long long s = t.seg[i];
+          w = t.w != nullptr ? t.w[i] : 1;
+          if (w != 0 && s >= 0 && s < t.nseg) key = s;
+        }
+        const unsigned peers = __match_any_sync(kFull, key);
+        if (key >= 0) {
+          const int total = __reduce_add_sync(peers, w);
+          if (__ffs(peers) - 1 == lane) atomicAdd(&t.out[key], total);
+        }
+      }
+    }
+  }
+}
+
+// the owned form: each block owns kOwnedSegs segments of one tally (the
+// tally's blocks start at first[j]), starts them from init in shared
+// memory, streams all the tally's rows and counts those in its range, then
+// writes its range. No atomic leaves the block and no barrier crosses
+// blocks; every block reads all N rows, so it serves small N only.
+constexpr int kOwnedSegs = 2048;
+constexpr int kOwnedThreads = 512;
+constexpr int kOwnedUnroll = 4;   // rows a thread loads before it counts them
+
+struct OwnedPlan {
+  long long first[kMaxTallies + 1];
+};
+
+__global__ void __launch_bounds__(kOwnedThreads) segment_counts_owned(Tallies g, OwnedPlan p) {
+  __shared__ int hist[kOwnedSegs];
+  int j = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxTallies; ++i)
+    if (i < g.count && (long long)blockIdx.x >= p.first[i]) j = i;
+  Tally t = g.t[0];
+  long long first = p.first[0];
+#pragma unroll
+  for (int i = 1; i < kMaxTallies; ++i)
+    if (i == j) {
+      t = g.t[i];
+      first = p.first[i];
+    }
+  const long long lo = ((long long)blockIdx.x - first) * kOwnedSegs;
+  const int m = (int)(t.nseg - lo < kOwnedSegs ? t.nseg - lo : kOwnedSegs);
+  for (int s = threadIdx.x; s < m; s += blockDim.x) hist[s] = t.init != nullptr ? t.init[lo + s] : 0;
+  __syncthreads();
+  // kOwnedUnroll rows a thread in flight: the rows' loads are independent,
+  // so one latency serves them all
+  for (long long base = threadIdx.x; base < t.n; base += kOwnedUnroll * blockDim.x) {
+    long long s[kOwnedUnroll];
+    int w[kOwnedUnroll];
+#pragma unroll
+    for (int u = 0; u < kOwnedUnroll; ++u) {
+      const long long i = base + (long long)u * blockDim.x;
+      s[u] = i < t.n ? t.seg[i] - lo : -1;
+      w[u] = i < t.n ? (t.w != nullptr ? t.w[i] : 1) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kOwnedUnroll; ++u)
+      if (s[u] >= 0 && s[u] < m && w[u] != 0) atomicAdd(&hist[s[u]], w[u]);
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < m; s += blockDim.x) t.out[lo + s] = hist[s];
 }
 
 int radix_passes(int nseg) {
@@ -452,11 +606,78 @@ extern "C" int cc_segment_sum(const float* vals, const long long* seg, int N,
   return (int)cudaGetLastError();
 }
 
-extern "C" int cc_segment_count(const long long* seg, const int* w, int N,
-                                int nseg, int* out, void* stream_ptr) {
+// the blocks of segment_counts_kernel the current device holds at once
+// with smem bytes of dynamic shared memory (a multiple of kSmemStep): its
+// cooperative launch's grid at most; queried once per process, device and
+// size (13 sizes occur); 0 when the query fails (*err gets why)
+static int count_residency(size_t smem, cudaError_t* err) {
+  constexpr int kSizes = (int)(kSmemBins * sizeof(int) / kSmemStep) + 1;
+  static int resident[kMaxDevices][kSizes] = {};   // 0: not queried yet (a repeat is harmless)
+  const int k = (int)(smem / kSmemStep);
+  int dev = 0, sms = 0, per_sm = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  const bool kept = dev >= 0 && dev < kMaxDevices && k < kSizes;
+  if (kept && resident[dev][k] > 0) return resident[dev][k];
+  *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, segment_counts_kernel,
+                                                         kCountThreads, smem);
+  if (*err != cudaSuccess) return 0;
+  if (per_sm <= 0) {
+    *err = cudaErrorInvalidConfiguration;
+    return 0;
+  }
+  if (kept) resident[dev][k] = per_sm * sms;
+  return per_sm * sms;
+}
+
+// the grouped count: tallies[0..count) (host memory) in one launch, of
+// the owned form (owned != 0) or the grid form (one cooperative launch);
+// *launches (host memory) gets the number of CUDA launches made, or on an
+// error minus the step that failed (1 the arguments, 2 the residency
+// query, 3 the launch)
+extern "C" int cc_segment_counts(const Tally* tallies, int count, int owned, int* launches,
+                                 void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (nseg <= 0 || N < 0) return (int)cudaErrorInvalidValue;
-  if (N == 0) return (int)cudaGetLastError();
-  segment_count_kernel<<<(N + 255) / 256, 256, 0, stream>>>(seg, w, N, nseg, out);
+  *launches = -1;
+  if (count <= 0 || count > kMaxTallies) return (int)cudaErrorInvalidValue;
+  Tallies g{};
+  g.count = count;
+  OwnedPlan plan{};
+  long long need = 1, bins = 0;
+  for (int j = 0; j < count; ++j) {
+    const Tally& t = tallies[j];
+    if (t.n < 0 || t.nseg <= 0 || t.chunk < 0 || (t.seg == nullptr && t.n > 0) ||
+        t.out == nullptr || (t.chunk > 0 && (t.nseg > kSmemBins || owned)))
+      return (int)cudaErrorInvalidValue;
+    g.t[j] = t;
+    const long long work = t.n > t.nseg ? t.n : t.nseg;
+    const long long blocks = (work + kCountThreads - 1) / kCountThreads;
+    if (blocks > need) need = blocks;
+    if (t.chunk > 0 && t.nseg > bins) bins = t.nseg;
+    plan.first[j + 1] = plan.first[j] + (t.nseg + kOwnedSegs - 1) / kOwnedSegs;
+  }
+  for (int j = count + 1; j <= kMaxTallies; ++j) plan.first[j] = plan.first[count];
+  if (owned) {
+    if (plan.first[count] > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    *launches = -3;
+    segment_counts_owned<<<(unsigned)plan.first[count], kOwnedThreads, 0, stream>>>(g, plan);
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) *launches = 1;
+    return (int)err;
+  }
+  const size_t smem = (size_t)((bins * sizeof(int) + kSmemStep - 1) / kSmemStep) * kSmemStep;
+  *launches = -2;
+  cudaError_t err = cudaSuccess;
+  const long long resident = count_residency(smem, &err);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (int)(need < resident ? need : resident);
+  void* args[] = {&g};
+  *launches = -3;
+  err = cudaLaunchCooperativeKernel((const void*)segment_counts_kernel, dim3(grid),
+                                    dim3(kCountThreads), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  *launches = 1;
   return (int)cudaGetLastError();
 }

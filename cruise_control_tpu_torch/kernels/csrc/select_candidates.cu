@@ -508,8 +508,9 @@ __global__ void pad_tail(long long* __restrict__ order, int pad_len, int n,
 }
 
 // the compaction of L lanes (grid y = lane): per-tile counts, one scan per
-// lane, the writes, the pads up to pad_len; elig given (L = 1) or key/mask
-static void launch_compact(const unsigned char* elig, const float* key,
+// lane, the writes, the pads up to pad_len; elig given (L = 1) or key/mask.
+// Returns the CUDA launches it made.
+static int launch_compact(const unsigned char* elig, const float* key,
                            const unsigned char* mask, int L, int n, int pad_len,
                            int* counts, long long* order, long long stride,
                            long long* total, cudaStream_t stream) {
@@ -519,6 +520,7 @@ static void launch_compact(const unsigned char* elig, const float* key,
   tile_write<<<dim3(nb, L), kTile, 0, stream>>>(elig, key, mask, n, counts, order, stride);
   pad_tail<<<dim3((pad_len + 255) / 256, L), 256, 0, stream>>>(order, pad_len, n, total,
                                                               stride);
+  return 4;
 }
 
 
@@ -526,10 +528,12 @@ static void launch_compact(const unsigned char* elig, const float* key,
 
 extern "C" int cc_compact_eligible(const unsigned char* elig, int n, int pad_len,
                                    int* counts, long long* order,
-                                   long long* total, void* stream_ptr) {
+                                   long long* total, int* launches, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  *launches = 0;
   if (n <= 0 || pad_len < n) return (int)cudaErrorInvalidValue;
-  launch_compact(elig, nullptr, nullptr, 1, n, pad_len, counts, order, 0, total, stream);
+  *launches = launch_compact(elig, nullptr, nullptr, 1, n, pad_len, counts, order, 0, total,
+                             stream);
   return (int)cudaGetLastError();
 }
 
@@ -610,8 +614,7 @@ extern "C" int cc_select_pooled(const float* key, const unsigned char* mask, int
   if (L <= 0 || L > 65535 || n <= 0 || pool <= 0 || pool >= n || k <= 0 ||
       2 * k > pool || (L > 1 && stalls == nullptr))
     return (int)cudaErrorInvalidValue;
-  launch_compact(nullptr, key, mask, L, n, pool, counts, order, n, elig_n, stream);
-  *launches = 4;
+  *launches = launch_compact(nullptr, key, mask, L, n, pool, counts, order, n, elig_n, stream);
   return launch_select(key, mask, L, n, k, stall0, stalls, salt, ws, words, out_kv,
                        out_idx, launches, stream, elig_n, order, pool, branch);
 }

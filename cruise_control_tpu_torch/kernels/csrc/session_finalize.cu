@@ -57,8 +57,9 @@ extern "C" int cc_session_finalize(const uint8_t* lead_packed,
                                    const bool* excl_move, int R, int B, int D,
                                    int T, bool* is_leader, bool* offline,
                                    bool* rtexcl, bool* dst_candidate,
-                                   void* stream_ptr) {
+                                   int* launches, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  *launches = 0;
   if (R <= 0 || B <= 0 || D <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   const int n = R > B ? R : B;
   const int threads = 256;
@@ -66,5 +67,6 @@ extern "C" int cc_session_finalize(const uint8_t* lead_packed,
       lead_packed, broker, disk, topic, valid, alive, disk_alive,
       topic_excluded, excl_move, R, B, D, T, is_leader, offline, rtexcl,
       dst_candidate);
+  *launches = 1;
   return (int)cudaGetLastError();
 }

@@ -272,8 +272,9 @@ extern "C" int cc_swap_rows_lanes(
     const float* vc, const float* vl, const float* vxo, const float* vxi,
     const float* fb, const float* fo, const float* fi, const float* tl,
     const float* topic_up, float* best, long long* best_j, int* positives,
-    void* stream_ptr) {
+    int* launches, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  *launches = 0;
   if (L <= 0 || L > 65535 || K1 <= 0 || K2 <= 0 || K2 > kMaxK2 || F > kMaxF || B <= 0)
     return (int)cudaErrorInvalidValue;
   if (V > 16 || (V > 0 && (va == nullptr || vc == nullptr || vl == nullptr ||
@@ -293,6 +294,7 @@ extern "C" int cc_swap_rows_lanes(
       b_in, sib_out, sib_in, orig_out, orig_in, row_ok_out, row_ok_in, new_ok,
       broker_rack, prow_out, prow_in, lim_out, lim_in, t_out, t_in, tab, va, vc, vl,
       vxo, vxi, fb, fo, fi, tl, topic_up, best, best_j, positives);
+  *launches = 1;
   return (int)cudaGetLastError();
 }
 
@@ -300,11 +302,13 @@ extern "C" int cc_swap_admission_lanes(int L, int K1, float min_gain, const floa
                                        const long long* b_out, const long long* b_in,
                                        const long long* jj, const long long* p_out,
                                        const long long* p_in, unsigned char* win,
-                                       void* stream_ptr) {
+                                       int* launches, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  *launches = 0;
   if (L <= 0 || L > 65535 || K1 <= 0 || K1 > 1024) return (int)cudaErrorInvalidValue;
   const dim3 grid(1, L);
   swap_admission_kernel<<<grid, ((K1 + 31) / 32) * 32, 0, stream>>>(
       K1, min_gain, val, b_out, b_in, jj, p_out, p_in, win);
+  *launches = 1;
   return (int)cudaGetLastError();
 }

@@ -344,8 +344,10 @@ extern "C" int cc_wave_admission_lanes(
     const float* ts_slack, const float* td_slack, const float* src_slack,
     const float* dst_slack, const float* src_gain, const float* dst_gain,
     const unsigned char* gain_escape, int* first, unsigned char* ok,
-    float* fscratch, float* cum, int* rank, unsigned char* win, void* stream_ptr) {
+    float* fscratch, float* cum, int* rank, unsigned char* win, int* launches,
+    void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  *launches = 0;
   if (L <= 0 || L > 65535 || N <= 0 || N > kMaxN || G < 0 || G > kDims ||
       gain_dim >= kDims)
     return (int)cudaErrorInvalidValue;
@@ -358,10 +360,14 @@ extern "C" int cc_wave_admission_lanes(
   int* first_p = first + (nk > 0 ? nk : 0);
   const int nfirst = (nk > 0 ? nk : 0) + (np > 0 ? np : 0);
   const int nf = nfirst > 0 ? nfirst : 1;   // the per-lane stride of `first`
-  if (nfirst > 0)
+  if (nfirst > 0) {
     ft_init<<<dim3((nfirst + tpb - 1) / tpb, L), tpb, 0, stream>>>(first, nf);
-  if (kgroup != nullptr)
+    ++*launches;
+  }
+  if (kgroup != nullptr) {
     ft_cand<<<dim3(nb, L), tpb, 0, stream>>>(N, wave_ok, kgroup, first_k, nf);
+    ++*launches;
+  }
   ft_part<<<dim3(nb, L), tpb, 0, stream>>>(N, wave_ok, kgroup, first_k, part, first_p,
                                             ok, nf);
   int kpad = 1;
@@ -379,6 +385,7 @@ extern "C" int cc_wave_admission_lanes(
                                           tdelta, ts_slack, td_slack, src_gain,
                                           dst_gain, gain_escape, cum, rank, win, B,
                                           sides, nf);
+  *launches += 3;   // ft_part, side_scan, finish
   return (int)cudaGetLastError();
 }
 
@@ -390,10 +397,11 @@ extern "C" int cc_wave_admission(
     const float* ts_slack, const float* td_slack, const float* src_slack,
     const float* dst_slack, const float* src_gain, const float* dst_gain,
     const unsigned char* gain_escape, int* first, unsigned char* ok,
-    float* fscratch, float* cum, int* rank, unsigned char* win, void* stream_ptr) {
+    float* fscratch, float* cum, int* rank, unsigned char* win, int* launches,
+    void* stream_ptr) {
   return cc_wave_admission_lanes(1, N, B, nT, G, gain_dim, nk, np, d_src, d_dst, src_b,
                                  dst_b, wave_ok, kgroup, part, topics, tdelta,
                                  ts_slack, td_slack, src_slack, dst_slack, src_gain,
                                  dst_gain, gain_escape, first, ok, fscratch, cum, rank,
-                                 win, stream_ptr);
+                                 win, launches, stream_ptr);
 }

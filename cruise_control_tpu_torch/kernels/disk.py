@@ -59,7 +59,7 @@ import torch
 
 from cruise_control_tpu_torch.common.resources import EPSILON_ABS, Resource
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stream_ptr,
+    IP, I, P, check, library, ptr, register, stream_ptr,
 )
 
 KERNEL_ROWS = register("disk_rows", "cruise_control_tpu_torch/kernels/csrc/disk_move.cu",
@@ -281,8 +281,8 @@ def disk_apply_plain(ds: DiskState, cand, best, order, rule: DiskRule, vetoes,
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 _SIGNATURES = {
-    "cc_disk_rows": [I] * 5 + [F32] * 4 + [P] * 17,
-    "cc_disk_apply": [I] * 5 + [F32] * 5 + [P] * 18,
+    "cc_disk_rows": [I] * 5 + [F32] * 4 + [P] * 16 + [IP, P],
+    "cc_disk_apply": [I] * 5 + [F32] * 5 + [P] * 17 + [IP, P],
 }
 _F32, _I64, _BOOL = torch.float32, torch.int64, torch.bool
 
@@ -332,11 +332,12 @@ def disk_rows(ds: DiskState, cand, kv, rule: DiskRule, vetoes) -> torch.Tensor:
     _check_inputs("disk_rows", tensors, st_dt + [_I64, _F32, _I64, _F32])
     family, vflags, a, b, vcap, vup = _rule_args(rule, vetoes)
     best = torch.empty(K, dtype=_F32, device=cand.device)
+    launches = ctypes.c_int(0)
     err = library("disk_move", _SIGNATURES).cc_disk_rows(
         K, B, D, family, vflags, a, b, vcap, vup,
-        *(ptr(t) for t in tensors), ptr(best), stream_ptr())
+        *(ptr(t) for t in tensors), ptr(best), ctypes.byref(launches), stream_ptr())
     check(err, "disk_rows")
-    KERNEL_ROWS.count(f"K={K} D={D}")
+    KERNEL_ROWS.count(f"K={K} D={D}", launches.value)
     return best
 
 
@@ -358,10 +359,12 @@ def disk_apply(ds: DiskState, cand, best, order, rule: DiskRule, vetoes,
     dutil, rdisk = ds.dutil.clone(), ds.rdisk.clone()
     roff, moved = ds.roff.clone(), ds.moved.clone()
     n = torch.empty((), dtype=_I64, device=cand.device)
+    launches = ctypes.c_int(0)
     err = library("disk_move", _SIGNATURES).cc_disk_apply(
         K, B, D, family, vflags, a, b, vcap, vup, float(min_gain),
         *(ptr(t) for t in st_t), ptr(cand), ptr(best), ptr(order),
-        ptr(rdisk), ptr(roff), ptr(moved), ptr(dutil), ptr(n), stream_ptr())
+        ptr(rdisk), ptr(roff), ptr(moved), ptr(dutil), ptr(n), ctypes.byref(launches),
+        stream_ptr())
     check(err, "disk_apply")
-    KERNEL_APPLY.count(f"K={K} D={D}")
+    KERNEL_APPLY.count(f"K={K} D={D}", launches.value)
     return dutil, rdisk, roff, moved, n

@@ -14,10 +14,12 @@ the first B threads also write ``dst_candidate``. Bound: bytes.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stream_ptr,
+    IP, I, P, check, library, ptr, register, stream_ptr,
 )
 
 KERNEL = register("session_finalize",
@@ -25,7 +27,7 @@ KERNEL = register("session_finalize",
                   "cruise_control_tpu/analyzer/session.py:102")
 
 _SIGNATURES = {"cc_session_finalize": [P, P, P, P, P, P, P, P, P, I, I, I, I,
-                                       P, P, P, P, P]}
+                                       P, P, P, P, IP, P]}
 
 
 def unpack_leaders(lead_packed: torch.Tensor, R: int) -> torch.Tensor:
@@ -75,10 +77,12 @@ def session_finalize(lead_packed: torch.Tensor, broker: torch.Tensor,
     offline = torch.empty(R, dtype=torch.bool, device=dev)
     rtexcl = torch.empty(R, dtype=torch.bool, device=dev)
     dst = torch.empty(B, dtype=torch.bool, device=dev)
+    launches = ctypes.c_int(0)
     err = library("session_finalize", _SIGNATURES).cc_session_finalize(
         ptr(lead_packed), ptr(broker), ptr(disk), ptr(topic), ptr(valid), ptr(alive),
         ptr(disk_alive), ptr(topic_excluded), ptr(excl_move), R, B, D, T,
-        ptr(is_leader), ptr(offline), ptr(rtexcl), ptr(dst), stream_ptr())
+        ptr(is_leader), ptr(offline), ptr(rtexcl), ptr(dst), ctypes.byref(launches),
+        stream_ptr())
     check(err, "session_finalize")
-    KERNEL.count(f"R={R} B={B}")
+    KERNEL.count(f"R={R} B={B}", launches.value)
     return is_leader, offline, rtexcl, dst

@@ -19,14 +19,14 @@ import numpy as np
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stream_ptr,
+    IP, I, P, check, library, ptr, register, stream_ptr,
 )
 
 KERNEL = register("forecast", "cruise_control_tpu_torch/kernels/csrc/forecast.cu",
                   "cruise_control_tpu/forecast/forecaster.py:59")
 
 F = ctypes.c_float
-_SIGNATURES = {"cc_forecast": [P, P, I, I, I, F, F, F, F, P, P]}
+_SIGNATURES = {"cc_forecast": [P, P, I, I, I, F, F, F, F, P, IP, P]}
 
 
 def _knob(v) -> torch.Tensor:
@@ -107,9 +107,11 @@ def forecast_batch(values: torch.Tensor, wmask: torch.Tensor, alpha, beta, blend
             or not wmask.is_contiguous() or not wmask.is_cuda):
         raise ValueError("forecast: wrong dtype, shape, layout or device")
     out = torch.empty((E, M), dtype=torch.float32, device=values.device)
+    launches = ctypes.c_int(0)
     err = library("forecast", _SIGNATURES).cc_forecast(
         ptr(values), ptr(wmask), E, W, M, F(np.float32(alpha)), F(np.float32(beta)),
-        F(np.float32(blend)), F(np.float32(horizon_w)), ptr(out), stream_ptr())
+        F(np.float32(blend)), F(np.float32(horizon_w)), ptr(out), ctypes.byref(launches),
+        stream_ptr())
     check(err, "forecast")
-    KERNEL.count(f"E={E} W={W} M={M}")
+    KERNEL.count(f"E={E} W={W} M={M}", launches.value)
     return out

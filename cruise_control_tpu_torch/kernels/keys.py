@@ -54,7 +54,7 @@ import ctypes
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, lane_index, library, ptr, register, stream_ptr,
+    IP, I, P, check, lane_index, library, ptr, register, stream_ptr,
 )
 
 KERNEL = register("replica_keys", "cruise_control_tpu_torch/kernels/csrc/replica_keys.cu",
@@ -146,8 +146,9 @@ def replica_keys_plain(family: int, loads, col: int, rb, lead, off, valid, bt, s
     return key.to(torch.bfloat16).float() if round_out else key
 
 
-_SIGNATURES = {"cc_replica_keys": [I] * 8 + [ctypes.c_float] + [P] * 12,
-               "cc_replica_keys_lanes": [I, P] + [I] * 11 + [ctypes.c_float] + [P] * 12}
+_SIGNATURES = {"cc_replica_keys": [I] * 8 + [ctypes.c_float] + [P] * 11 + [IP, P],
+               "cc_replica_keys_lanes": [I, P] + [I] * 11 + [ctypes.c_float] + [P] * 11
+               + [IP, P]}
 
 
 def replica_keys(family: int, loads, col: int, rb, lead, off, valid, bt, sc,
@@ -179,15 +180,16 @@ def replica_keys(family: int, loads, col: int, rb, lead, off, valid, bt, sc,
     D = dt.shape[2] if intra else 0
     round_out = _round_out(family, loads)
     out = torch.empty(R, dtype=torch.float32, device=rb.device)
+    launches = ctypes.c_int(0)
     err = library("replica_keys", _SIGNATURES).cc_replica_keys(
         R, M, col, family, int(L.dtype == torch.bfloat16), int(round_out), B, D,
         OFFLINE_BUMP_BF16 if round_out else OFFLINE_BUMP_F32,
         ptr(L), ptr(F), ptr(rb), ptr(lead), ptr(off), ptr(valid), ptr(bt), ptr(sc),
         ptr(rdisk if intra else None), ptr(dt if intra else None), ptr(out),
-        stream_ptr())
+        ctypes.byref(launches), stream_ptr())
     check(err, "replica_keys")
     dtype = "bf16" if L.dtype == torch.bfloat16 else "f32"
-    KERNEL.count(f"R={R} {dtype}")
+    KERNEL.count(f"R={R} {dtype}", launches.value)
     fam = f"{FAMILY_NAMES[family]} {dtype}"
     KEY_FAMILY_LAUNCHES[fam] = KEY_FAMILY_LAUNCHES.get(fam, 0) + 1
     return out
@@ -234,14 +236,15 @@ def replica_keys_lanes(family: int, loads, col: int, rb, lead, off, valid, lanes
     round_out = _round_out(family, loads)
     lanes_t = lane_index(lanes, rb.device)
     out = torch.empty((La, R), dtype=torch.float32, device=rb.device)
+    launches = ctypes.c_int(0)
     err = library("replica_keys", _SIGNATURES).cc_replica_keys_lanes(
         La, ptr(lanes_t), R, M, col, family, int(Lt.dtype == torch.bfloat16),
         int(round_out), B, D, nbt, sc.shape[1], ndt,
         OFFLINE_BUMP_BF16 if round_out else OFFLINE_BUMP_F32,
         ptr(Lt), ptr(Ft), ptr(rb), ptr(lead), ptr(off), ptr(valid), ptr(bt), ptr(sc),
         ptr(rdisk if intra else None), ptr(dt if intra else None), ptr(out),
-        stream_ptr())
+        ctypes.byref(launches), stream_ptr())
     check(err, "replica_keys_lanes")
     dtype = "bf16" if Lt.dtype == torch.bfloat16 else "f32"
-    KERNEL_LANES.count(f"L={La} R={R} {dtype}")
+    KERNEL_LANES.count(f"L={La} R={R} {dtype}", launches.value)
     return out

@@ -43,7 +43,7 @@ import dataclasses
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, lane_index, lane_operand, library, ptr, register, stream_ptr,
+    IP, I, P, check, lane_index, lane_operand, library, ptr, register, stream_ptr,
 )
 
 KERNEL = register("leadership_rows",
@@ -156,7 +156,8 @@ def leadership_rows_plain(cand, members, row_ok, broker_ok, rb, roff, tables,
     return best, f, torch.stack(vals, 1), torch.stack(fs, 1)
 
 
-_SIGNATURES = {"cc_leadership_rows_lanes": [I] * 11 + [ctypes.c_longlong] + [P] * 22}
+_SIGNATURES = {"cc_leadership_rows_lanes": [I] * 11 + [ctypes.c_longlong] + [P] * 21
+               + [IP, P]}
 
 _DTYPES = (torch.int64, torch.int64, torch.bool, torch.int64, torch.bool, torch.bool,
            torch.float32, torch.float32, torch.float32, torch.int64, torch.int32,
@@ -189,7 +190,8 @@ def _check_stacked(lane_args: list, stacked, what: str) -> None:
         raise ValueError(f"{what}: a lane's assignment is not its stack row")
 
 
-def _launch(lane_args: list, stacked, color, S: int, active: int, what: str):
+def _launch(lane_args: list, stacked, color, S: int, active: int, what: str, kernel,
+            shape: str):
     """The one launch behind both wrappers: La = ``len(lane_args)`` lanes,
     the assignment read from ``stacked``'s rows at its lane index list, or
     (``stacked`` None) one lane, the solo launch, its operands as they are.
@@ -226,12 +228,14 @@ def _launch(lane_args: list, stacked, color, S: int, active: int, what: str):
     seg_val = torch.empty((K, S), dtype=torch.float32, device=dev) if S else None
     seg_f = torch.empty((K, S), dtype=torch.int64, device=dev) if S else None
     tab_n = head[6].tab.numel() if tab is not None else 0
+    launches = ctypes.c_int(0)
     err = library("leadership_score", _SIGNATURES).cc_leadership_rows_lanes(
         La, K, F, B, R, int(head[6].family), V, int(S), int(active),
         int(head[6].fb.shape[0]), vrow_mask, tab_n, ptr(lanes_t),
         *(ptr(t) for t in tensors), ptr(best), ptr(fbest), ptr(seg_val), ptr(seg_f),
-        stream_ptr())
+        ctypes.byref(launches), stream_ptr())
     check(err, what)
+    kernel.count(shape, launches.value)
     if not S:
         return best, fbest
     return best, fbest, seg_val, seg_f
@@ -250,10 +254,9 @@ def leadership_rows(cand, members, row_ok, broker_ok, rb, roff, tables: LeadTabl
         return leadership_rows_plain(cand, members, row_ok, broker_ok, rb, roff,
                                      tables, vetoes, color, S, active)
     K = members.shape[0]
-    out = _launch([(cand, members, row_ok, broker_ok, rb, roff, tables, vetoes)], None,
-                  color, S, active, "leadership_rows")
-    KERNEL.count(f"segments S={S}" if S else f"K={K}")
-    return out
+    return _launch([(cand, members, row_ok, broker_ok, rb, roff, tables, vetoes)], None,
+                   color, S, active, "leadership_rows", KERNEL,
+                   f"segments S={S}" if S else f"K={K}")
 
 
 def leadership_rows_lanes_plain(lane_args: list):
@@ -281,6 +284,6 @@ def leadership_rows_lanes(lane_args: list, stacked: tuple):
     if not head[0].is_cuda:
         return leadership_rows_lanes_plain(lane_args)
     La, K = len(lane_args), head[1].shape[0]
-    best, fbest = _launch(lane_args, stacked, None, 0, 0, "leadership_rows_lanes")
-    KERNEL_LANES.count(f"L={La} K={K}")
+    best, fbest = _launch(lane_args, stacked, None, 0, 0, "leadership_rows_lanes",
+                          KERNEL_LANES, f"L={La} K={K}")
     return best.view(La, K), fbest.view(La, K)

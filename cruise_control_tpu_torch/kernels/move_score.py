@@ -40,10 +40,17 @@ arguments of La lanes, stacked into [La, ...] tensors, in ONE launch (grid
 dimension y = lane); each lane's result is its solo launch's. Its twin
 loops the solo twin over the lanes.
 
-CUDA kernel (``csrc/move_score.cu``): one CTA per candidate row, threads
-over B, scores staged in shared memory, one thread per class for the
-reduction. Bound: bytes (the [B]-level tables are read once per row from
-L2; the work is a few dozen operations per (k, b)).
+CUDA kernel (``csrc/move_score.cu``), one per goal family (a template
+argument, so the family's branch is resolved at compile time): a CTA takes
+a tile of rows (``launch_plan``) with their constants in shared memory;
+each thread walks the columns of one class, or every S-th of them, in
+ascending q, reads each column's tables once into registers, scores them
+against every row of the tile and keeps each row's running best (value,
+lowest q) in registers; the S sub-streams of a class meet in a shuffle
+tree. The tie rule is a total order (a NaN beats every number, else the
+larger value, else the lower q), so any order of combining gives the
+twin's bits. Bound: operations (a few dozen per (k, b)); the [B]-level
+tables are read once per tile of rows, from L2.
 """
 from __future__ import annotations
 
@@ -52,7 +59,7 @@ import ctypes
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stack_lanes, stream_ptr,
+    IP, I, P, check, library, ptr, register, stack_lanes, stream_ptr,
 )
 
 KERNEL = register("move_score_classes",
@@ -82,7 +89,14 @@ RACK_FAMILIES = (GOAL_RACK, GOAL_RACK_DIST)
 WAVE_DIMS = 8
 EXEMPT_MASK = 1 << 5       # WAVE_LEADER_COUNT: zero-delta rows pass its rooms
 MAX_F = 64
-MAX_SMEM = 48 * 1024
+# the launch plan (launch_plan): the row tiles, the threads a launch should
+# give the card before a tile grows (about 600 on each of the H100's 132
+# SMs), a CTA's threads, and the columns each sub-stream walks at least
+TILES = (16, 8, 4, 2, 1)
+MIN_THREADS = 80_000
+THREADS = 512
+MIN_Q = 4
+BESTS_BYTES = 32 * 1024   # the running bests' shared memory: 8 bytes a (row, thread)
 # launches by goal family since the last ``kernels.reset_launches()``
 FAMILY_LAUNCHES: dict[int, int] = {}
 
@@ -213,9 +227,30 @@ def move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
     return best, q
 
 
-_SIGNATURES = {"cc_move_score_classes": [I] * 9 + [P] * 22,
-               "cc_move_score_classes_lanes": [I] * 10 + [ctypes.c_longlong] * 2
-               + [P] * 22}
+_SIGNATURES = {"cc_move_score_classes_lanes": [I] * 14 + [ctypes.c_longlong] * 2
+               + [P] * 21 + [IP, P]}
+
+
+def launch_plan(K: int, L: int, T: int, Bq: int, tile: int | None = None) -> tuple:
+    """(tile, S, G, threads) of a launch over L lanes of K rows with T
+    classes of Bq columns each: S sub-streams per class (every S-th q), so
+    that the T * S units fill up to ``THREADS`` threads while each walks at
+    least ``MIN_Q`` columns; G lanes per (row, class) in the partials'
+    reduction; the CTA's threads (a multiple of 32); and the largest row
+    tile whose launch still has ``MIN_THREADS`` threads (``tile``
+    overrides it, for the timings that set it)."""
+    S = max(1, min(THREADS // T, -(-Bq // MIN_Q), Bq))
+    threads = min(THREADS, -(-(T * S) // 32) * 32)
+    G = 1
+    while S > 1 and G < min(S, 32):
+        G *= 2
+    most = min(TILES[0], BESTS_BYTES // (8 * threads))   # the bests' shared memory
+    if tile is None:
+        tile = next((t for t in TILES if t <= most and -(-K // t) * L * threads >= MIN_THREADS),
+                    TILES[-1])
+    if not 1 <= tile <= most:
+        raise ValueError(f"move_score_classes: tile {tile} outside 1..{most}")
+    return tile, S, G, threads
 
 
 # dtypes of the launch's tensor operands, in their C order
@@ -248,6 +283,16 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
     ``room_mask``), ``col_f`` f32[4, B], ``dst_ok``/``new_ok`` bool,
     ``broker_rack`` i64. ``dst_lhs`` f32[8, B]: the per-goal veto form's
     left-hand columns (``dst_room`` then holds the bounds); None: rooms."""
+    return _move_score_classes(None, goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows,
+                               dst_room, room_mask, prow, rack_lim, row_f, col_f, dst_ok,
+                               new_ok, broker_rack, order_b, topic, tveto, dst_lhs)
+
+
+def _move_score_classes(tile, goal_kind, T, cur_b, orig_b, sib_b, row_ok, d_rows, dst_room,
+                        room_mask, prow, rack_lim, row_f, col_f, dst_ok, new_ok, broker_rack,
+                        order_b=None, topic=None, tveto=None, dst_lhs=None):
+    """``move_score_classes`` with ``tile`` (None: ``launch_plan``'s) rows
+    a CTA, for the checks and timings that hold each tile to the twin."""
     if not cur_b.is_cuda:
         return move_score_classes_plain(goal_kind, T, cur_b, orig_b, sib_b, row_ok,
                                         d_rows, dst_room, room_mask, prow,
@@ -256,8 +301,7 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
     K, F = sib_b.shape
     B = dst_ok.shape[0]
     Bp = -(-B // T) * T if order_b is None else order_b.shape[0]
-    if (F > MAX_F or Bp * 4 > MAX_SMEM or not 0 < T <= 1024 or Bp % T
-            or Bp < B):
+    if F > MAX_F or not 0 < T <= Bp or Bp % T or Bp < B:
         raise ValueError(f"move_score_classes: unsupported F={F}, B={B}, T={T}, "
                          f"Bp={Bp}")
     if (goal_kind in RACK_FAMILIES or rack_lim is not None) and prow is None:
@@ -279,12 +323,15 @@ def move_score_classes(goal_kind: int, T: int, cur_b, orig_b, sib_b, row_ok,
     Kr = prow.shape[1] if prow is not None else 0
     cls_val = torch.empty((K, T), dtype=torch.float32, device=cur_b.device)
     cls_q = torch.empty((K, T), dtype=torch.int64, device=cur_b.device)
-    err = library("move_score", _SIGNATURES).cc_move_score_classes(
-        K, B, T, F, Kr, int(goal_kind), int(room_mask), EXEMPT_MASK, Bp,
-        *(ptr(t) for t in tensors), ptr(cls_val), ptr(cls_q), stream_ptr())
+    launches = ctypes.c_int(0)
+    err = library("move_score", _SIGNATURES).cc_move_score_classes_lanes(
+        1, K, B, T, F, Kr, int(goal_kind), int(room_mask), EXEMPT_MASK, Bp,
+        *launch_plan(K, 1, T, Bp // T, tile), 0 if tab is None else tab.numel(),
+        0 if vtab is None else vtab.numel(), *(ptr(t) for t in tensors), ptr(cls_val),
+        ptr(cls_q), ctypes.byref(launches), stream_ptr())
     check(err, "move_score_classes")
     (KERNEL if dst_lhs is None else KERNEL_TERMS).count(
-        "ordered" if order_b is not None else f"T={T}")
+        "ordered" if order_b is not None else f"T={T}", launches.value)
     FAMILY_LAUNCHES[goal_kind] = FAMILY_LAUNCHES.get(goal_kind, 0) + 1
     return cls_val, cls_q
 
@@ -315,8 +362,7 @@ def move_score_classes_lanes(lane_args: list):
     _La, K, F = sib_b.shape
     B = dst_ok.shape[1]
     Bp = -(-B // T) * T if order_b is None else order_b.shape[1]
-    if (F > MAX_F or Bp * 4 > MAX_SMEM or not 0 < T <= 1024 or Bp % T
-            or Bp < B):
+    if F > MAX_F or not 0 < T <= Bp or Bp % T or Bp < B:
         raise ValueError(f"move_score_classes_lanes: unsupported F={F}, B={B}, "
                          f"T={T}, Bp={Bp}")
     if (goal_kind in RACK_FAMILIES or rack_lim is not None) and prow is None:
@@ -338,10 +384,13 @@ def move_score_classes_lanes(lane_args: list):
     vtab_n = vtab[0].numel() if vtab is not None else 0
     cls_val = torch.empty((La, K, T), dtype=torch.float32, device=cur_b.device)
     cls_q = torch.empty((La, K, T), dtype=torch.int64, device=cur_b.device)
+    launches = ctypes.c_int(0)
     err = library("move_score", _SIGNATURES).cc_move_score_classes_lanes(
-        La, K, B, T, F, Kr, int(goal_kind), int(room_mask), EXEMPT_MASK, Bp, tab_n,
-        vtab_n, *(ptr(t) for t in tensors), ptr(cls_val), ptr(cls_q), stream_ptr())
+        La, K, B, T, F, Kr, int(goal_kind), int(room_mask), EXEMPT_MASK, Bp,
+        *launch_plan(K, La, T, Bp // T), tab_n, vtab_n, *(ptr(t) for t in tensors),
+        ptr(cls_val), ptr(cls_q), ctypes.byref(launches), stream_ptr())
     check(err, "move_score_classes_lanes")
-    (KERNEL_LANES if dst_lhs is None else KERNEL_TERMS_LANES).count(f"L={La} T={T}")
+    (KERNEL_LANES if dst_lhs is None else KERNEL_TERMS_LANES).count(f"L={La} T={T}",
+                                                                    launches.value)
     FAMILY_LAUNCHES[goal_kind] = FAMILY_LAUNCHES.get(goal_kind, 0) + 1
     return cls_val, cls_q

@@ -30,10 +30,12 @@ shared memory first. Bound: bytes (F gathers per partition).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stream_ptr,
+    IP, I, P, check, library, ptr, register, stream_ptr,
 )
 
 KERNEL = register("preferred_leader",
@@ -85,7 +87,7 @@ def preferred_leader_apply_plain(members, rb, rlead, roff, alive, excl, demoted,
     return lead[:R], mv[:R], n
 
 
-_SIGNATURES = {"cc_preferred_leader": [I] * 5 + [P] * 11}
+_SIGNATURES = {"cc_preferred_leader": [I] * 5 + [P] * 10 + [IP, P]}
 
 
 def preferred_leader(members, rb, rlead, roff, alive, excl, demoted, moved,
@@ -109,10 +111,11 @@ def preferred_leader(members, rb, rlead, roff, alive, excl, demoted, moved,
             raise ValueError("preferred_leader: wrong dtype, layout or device")
     lead, mv = (rlead.clone(), moved.clone()) if apply else (rlead, moved)
     n = torch.zeros((), dtype=torch.int32, device=members.device)
+    launches = ctypes.c_int(0)
     err = library("preferred_leader", _SIGNATURES).cc_preferred_leader(
         Pn, F, B, R, int(apply), ptr(members), ptr(rb), ptr(roff), ptr(alive),
         ptr(excl), ptr(demoted), ptr(rlead), ptr(lead), ptr(mv), ptr(n),
-        stream_ptr())
+        ctypes.byref(launches), stream_ptr())
     check(err, "preferred_leader")
-    KERNEL.count(f"P={Pn} F={F} {'apply' if apply else 'check'}")
+    KERNEL.count(f"P={Pn} F={F} {'apply' if apply else 'check'}", launches.value)
     return lead, mv, n

@@ -18,10 +18,12 @@ order-free: deterministic). Bound: bytes.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, library, ptr, register, stream_ptr,
+    IP, I, P, check, library, ptr, register, stream_ptr,
 )
 
 KERNEL = register("seeded_probe",
@@ -31,7 +33,7 @@ KERNEL_LANES = register("seeded_probe_lanes",
                         "cruise_control_tpu_torch/kernels/csrc/seeded_probe.cu",
                         "cruise_control_tpu/analyzer/engine.py:2377")
 
-_SIGNATURES = {"cc_seeded_probe_lanes": [I, P, P, P, P, I, P, P]}
+_SIGNATURES = {"cc_seeded_probe_lanes": [I, P, P, P, P, I, P, IP, P]}
 
 
 def seeded_probe_plain(mask: torch.Tensor, keys) -> torch.Tensor:
@@ -41,7 +43,7 @@ def seeded_probe_plain(mask: torch.Tensor, keys) -> torch.Tensor:
     return out
 
 
-def _launch(masks: torch.Tensor, keys: list, what: str) -> torch.Tensor:
+def _launch(masks: torch.Tensor, keys: list, what: str, kernel, shape: str) -> torch.Tensor:
     """The one launch behind both wrappers: ``masks`` bool[R] (one lane) or
     [La, R], each key of the same shape. Returns i32 flags, one per lane."""
     La, R = (1, masks.shape[0]) if masks.dim() == 1 else masks.shape
@@ -53,9 +55,12 @@ def _launch(masks: torch.Tensor, keys: list, what: str) -> torch.Tensor:
             raise ValueError(f"{what}: wrong dtype, shape, layout or device")
     flag = torch.zeros(La, dtype=torch.int32, device=masks.device)
     k0, k1, k2 = keys + [None] * (3 - len(keys))
+    launches = ctypes.c_int(0)
     err = library("seeded_probe", _SIGNATURES).cc_seeded_probe_lanes(
-        La, ptr(masks), ptr(k0), ptr(k1), ptr(k2), R, ptr(flag), stream_ptr())
+        La, ptr(masks), ptr(k0), ptr(k1), ptr(k2), R, ptr(flag), ctypes.byref(launches),
+        stream_ptr())
     check(err, what)
+    kernel.count(shape, launches.value)
     return flag
 
 
@@ -66,8 +71,7 @@ def seeded_probe(mask: torch.Tensor, keys) -> torch.Tensor:
     keys = list(keys)
     if not mask.is_cuda:
         return seeded_probe_plain(mask, keys)
-    flag = _launch(mask, keys, "seeded_probe")
-    KERNEL.count(f"R={mask.shape[0]} keys={len(keys)}")
+    flag = _launch(mask, keys, "seeded_probe", KERNEL, f"R={mask.shape[0]} keys={len(keys)}")
     return flag[0] != 0
 
 
@@ -84,7 +88,7 @@ def seeded_probe_lanes(masks: torch.Tensor, keys) -> torch.Tensor:
         return seeded_probe_lanes_plain(masks, keys)
     if masks.dim() != 2:
         raise ValueError("seeded_probe_lanes: the masks are [La, R]")
-    flag = _launch(masks, keys, "seeded_probe_lanes")
     La, R = masks.shape
-    KERNEL_LANES.count(f"L={La} R={R} keys={len(keys)}")
+    flag = _launch(masks, keys, "seeded_probe_lanes", KERNEL_LANES,
+                   f"L={La} R={R} keys={len(keys)}")
     return flag != 0

@@ -12,7 +12,12 @@ scatter-add, which applies updates one by one. A chained
 Rows with ``seg < 0`` or ``seg >= nseg`` are skipped (a masked apply row
 adds zero). No float atomics: runs are bit-identical run to run.
 
-``segment_count`` (integer tallies): integer atomics, exact in any order.
+``segment_count`` (integer tallies): ``out[s] = init[s] + sum(w[i])`` over
+the rows with ``seg == s``; exact in any order. ``segment_counts`` takes up
+to ``MAX_TALLIES`` of them in one launch: refresh's five tallies, a move
+apply's five and a leadership apply's two are one CUDA launch each, where
+they were two per tally (a ``zeros`` / ``clone`` of ``init``, then the
+count). ``segment_count`` is its one-tally case.
 
 CUDA kernels (``csrc/segment_sum.cu``), two forms of ``segment_sum``, one
 counted launch of the wrapper either way:
@@ -39,8 +44,42 @@ path's shapes (device time per call, NVIDIA H100 80GB HBM3 at 700 W, PERF.md
 and at every apply (0.003-0.028 ms against the list form's 0.026-0.046 ms,
 whose 8 launches cost about 0.03 ms whatever the size); the list form from
 40,000 x 1,024 (0.050 against 0.078 ms) up (refresh's 114,688 x 9 -> 1,024:
-0.056 against 0.236 ms). ``segment_count`` is one atomicAdd per row. Bound:
-bytes for both.
+0.056 against 0.236 ms). Bound: bytes.
+
+``segment_counts``: one launch (``csrc/segment_sum.cu``), in one of two
+forms that ``count_plan`` picks per call:
+
+- the owned form (tallies of at most ``OWNED_ROWS`` rows and at most
+  ``OWNED_READS`` row reads in all: the applies at 1,000 brokers): each
+  block owns ``OWNED_SEGS`` segments of one tally, starts them from
+  ``init`` in shared memory, streams all the tally's rows, counts those in
+  its range and writes its range. No grid barrier, no global atomic; every
+  block reads all N rows, so it serves small N over few segments only.
+- the grid form (refresh, the severities): a cooperative launch that
+  writes ``init`` (or zeros) into every output, synchronises the grid, then
+  counts. A cooperative launch rather than a last-block ticket: the ticket
+  needs a zeroed scratch and a counter that outlive the call (a second
+  launch, or a persistent buffer shared by every caller), and its last
+  block would add the whole of ``init`` alone. ``count_chunk`` plans each
+  tally: a shared-memory histogram per chunk of ``SMEM_ROWS_PER_BIN *
+  nseg`` rows (one block a chunk, one global atomic per non-zero bin) where
+  that chunk is at most ``SMEM_AUTO_ROWS`` rows and the tally has one;
+  warp-aggregated global atomics (one per distinct segment of a warp's 32
+  rows) otherwise.
+
+Rows of weight 0 are skipped in both. The cut-overs are the card's
+(device time, NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6): a slice
+apply's five tallies (3,520
+rows) 0.0093 ms owned, 0.0192 ms on the grid; rung 4's (3,520 rows into 20
+million partition x rack and 14.7 million topic x broker segments) 0.2665
+ms owned, 0.1579 ms on the grid (the copy of ``init`` is its bound, 0.12
+ms); a refresh's five at 114,688 rows 0.0236 ms on the grid, 0.0609 ms
+owned. The histograms against global atomics for every tally, in one
+process (``chip_smoke.py``'s A/B): a refresh's five tallies at 114,688
+rows 0.034 against 0.048 ms, 114,688 rows of weight 1 into 1,024 brokers
+0.008 against 0.020 ms; the same shape with mostly zero weights (the rack
+goal's violating replicas) 0.008 against 0.005 ms (PERF.md section 6).
+Bound: bytes (each id and weight read once, each output written once).
 """
 from __future__ import annotations
 
@@ -58,6 +97,9 @@ KERNEL_SUM = register("segment_sum",
 KERNEL_COUNT = register("segment_count",
                         "cruise_control_tpu_torch/kernels/csrc/segment_sum.cu",
                         "cruise_control_tpu/analyzer/state.py:142")
+KERNEL_COUNTS = register("segment_counts",
+                         "cruise_control_tpu_torch/kernels/csrc/segment_sum.cu",
+                         "cruise_control_tpu/analyzer/state.py:158")
 MAX_COLS = 32
 # the cut-over (the module docstring): the scan form at most these
 SCAN_FORM_MAX = 1 << 25
@@ -101,8 +143,78 @@ def segment_count_plain(seg, nseg, weights=None, init=None):
     return out.index_add_(0, seg[keep], w[keep])
 
 
+def segment_counts_plain(tallies):
+    """``segment_count_plain`` of each (seg, nseg, weights, init)."""
+    return [segment_count_plain(*t) for t in tallies]
+
+
+class _Tally(ctypes.Structure):
+    """One tally of ``cc_segment_counts`` (``csrc/segment_sum.cu`` Tally)."""
+    _fields_ = [("seg", ctypes.c_void_p), ("w", ctypes.c_void_p),
+                ("init", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("nseg", ctypes.c_longlong),
+                ("chunk", ctypes.c_longlong)]
+
+
 _SIGNATURES = {"cc_segment_sum": [P, P, I, I, I, P, P, P, LL, I, IP, P],
-               "cc_segment_count": [P, P, I, I, P, P]}
+               "cc_segment_counts": [ctypes.POINTER(_Tally), I, I, IP, P]}
+MAX_TALLIES = 5
+# the forms of segment_counts: OWNED (the C entry point's ``owned`` flag:
+# blocks own segment ranges and stream every row; at most OWNED_ROWS rows a
+# tally) and GRID (the cooperative launch, each tally on a shared-memory
+# histogram or on global atomics as ``count_chunk`` plans), which
+# ``count_plan`` picks between; SMEM and GLOBAL are the grid form with
+# every tally forced onto one of the two, for the checks and timings that
+# hold each to the twin
+OWNED, GRID, SMEM, GLOBAL = 0, 1, 2, 3
+OWNED_ROWS = 16384
+OWNED_SEGS = 2048          # segments a block of the owned form owns (csrc kOwnedSegs)
+OWNED_READS = 1 << 22      # row reads of the owned form (its blocks x N) at most
+SMEM_BINS = 12288          # csrc kSmemBins: 48 KB of int bins
+SMEM_ROWS_PER_BIN = 4
+SMEM_AUTO_ROWS = 4096
+
+
+def count_chunk(n: int, nseg: int, form: int) -> int:
+    """Rows per shared-memory chunk of a tally of ``n`` rows into ``nseg``
+    segments in ``form``, 0 for global atomics (and in the owned form):
+    GRID takes a chunk of ``SMEM_ROWS_PER_BIN * nseg`` rows where that is
+    at most ``SMEM_AUTO_ROWS`` and the tally has that many rows; SMEM
+    forces one (``nseg <= SMEM_BINS``), GLOBAL none."""
+    chunk = SMEM_ROWS_PER_BIN * nseg
+    if form in (OWNED, GLOBAL):
+        return 0
+    if form == SMEM:
+        if nseg > SMEM_BINS:
+            raise ValueError(f"segment_counts: nseg {nseg} exceeds {SMEM_BINS} "
+                             f"shared-memory bins")
+        return chunk
+    return chunk if chunk <= SMEM_AUTO_ROWS and n >= chunk else 0
+
+
+def count_plan(tallies) -> int:
+    """The form of one ``segment_counts`` launch: OWNED while every tally
+    has at most OWNED_ROWS rows and its blocks read at most OWNED_READS
+    rows in all (every block streams its tally's rows: the applies at
+    1,000 brokers); GRID otherwise (refresh, the severities, and the
+    applies at 7,000 brokers, whose partition x rack and topic x broker
+    tallies span millions of segments, so copying init is the work)."""
+    if max(t[0].shape[0] for t in tallies) > OWNED_ROWS:
+        return GRID
+    reads = sum(-(-nseg // OWNED_SEGS) * seg.shape[0] for seg, nseg, _w, _i in tallies)
+    return OWNED if reads <= OWNED_READS else GRID
+
+
+def pack_tallies(tallies, outs, form: int):
+    """The ``cc_segment_counts`` descriptor array of ``tallies`` ((seg,
+    nseg, weights, init) each) writing into ``outs``, for ``form``."""
+    arr = (_Tally * len(tallies))()
+    for d, (seg, nseg, w, init), out in zip(arr, tallies, outs):
+        n = seg.shape[0]
+        d.seg, d.w, d.init, d.out = (0 if t is None else t.data_ptr()
+                                     for t in (seg, w, init, out))
+        d.n, d.nseg, d.chunk = n, nseg, count_chunk(n, nseg, form)
+    return arr
 
 
 def scratch_words(N: int) -> int:
@@ -148,19 +260,55 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor, nseg: int,
     return out
 
 
+def _counts(tallies, kernel, shape: str, form: int | None):
+    if not 0 < len(tallies) <= MAX_TALLIES:
+        raise ValueError(f"segment_counts takes 1..{MAX_TALLIES} tallies, got {len(tallies)}")
+    for seg, nseg, w, init in tallies:
+        for t, dt in ((seg, torch.int64), (w, torch.int32), (init, torch.int32)):
+            if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
+                raise ValueError("segment_count: wrong dtype, layout or device")
+        if seg.dim() != 1 or nseg <= 0:
+            raise ValueError(f"segment_count: seg must be 1-D and nseg > 0, got {nseg}")
+        if w is not None and w.shape != seg.shape:
+            raise ValueError("segment_count: weights must match seg")
+        if init is not None and tuple(init.shape) != (nseg,):
+            raise ValueError("segment_count: init must be [nseg]")
+    dev = tallies[0][0].device
+    outs = [torch.empty(nseg, dtype=torch.int32, device=dev) for _s, nseg, _w, _i in tallies]
+    form = count_plan(tallies) if form is None else form
+    arr = pack_tallies(tallies, outs, form)
+    launches = ctypes.c_int(0)
+    err = library("segment_sum", _SIGNATURES).cc_segment_counts(
+        arr, len(tallies), int(form == OWNED), ctypes.byref(launches), stream_ptr())
+    check(err, f"segment_count (step {-launches.value})" if err else "segment_count")
+    kernel.count(shape, launches.value)
+    return outs
+
+
+def segment_counts(tallies) -> list:
+    """[i32[nseg]] of each (seg i64[N], nseg, weights i32[N] or None, init
+    i32[nseg] or None) in ``tallies`` (at most ``MAX_TALLIES``), in one
+    launch: ``init`` (or zeros) plus the weights (or ones) per segment; rows
+    outside [0, nseg) are skipped."""
+    return _segment_counts(tallies, None)
+
+
+def _segment_counts(tallies, form: int | None) -> list:
+    """``segment_counts`` in ``form`` (OWNED, GRID, SMEM or GLOBAL; None:
+    ``count_plan``'s), for the checks and timings that hold each form to the
+    twin."""
+    if not tallies[0][0].is_cuda:
+        return segment_counts_plain(tallies)
+    return _counts(tallies, KERNEL_COUNTS,
+                   f"tallies={len(tallies)} N={tallies[0][0].shape[0]}", form)
+
+
 def segment_count(seg: torch.Tensor, nseg: int, weights: torch.Tensor | None = None,
                   init: torch.Tensor | None = None) -> torch.Tensor:
     """i32[nseg]: ``init`` (or zeros) plus ``weights`` (or ones) i32[N] per
-    segment ``seg`` i64[N]; rows outside [0, nseg) are skipped."""
+    segment ``seg`` i64[N]; rows outside [0, nseg) are skipped. The
+    one-tally case of ``segment_counts``."""
     if not seg.is_cuda:
         return segment_count_plain(seg, nseg, weights, init)
-    for t, dt in ((seg, torch.int64), (weights, torch.int32), (init, torch.int32)):
-        if t is not None and (t.dtype != dt or not t.is_contiguous() or not t.is_cuda):
-            raise ValueError("segment_count: wrong dtype, layout or device")
-    out = (torch.zeros(nseg, dtype=torch.int32, device=seg.device)
-           if init is None else init.clone())
-    err = library("segment_sum", _SIGNATURES).cc_segment_count(
-        ptr(seg), ptr(weights), seg.shape[0], nseg, ptr(out), stream_ptr())
-    check(err, "segment_count")
-    KERNEL_COUNT.count(f"N={seg.shape[0]} nseg={nseg}")
-    return out
+    return _counts([(seg, nseg, weights, init)], KERNEL_COUNT,
+                   f"N={seg.shape[0]} nseg={nseg}", None)[0]

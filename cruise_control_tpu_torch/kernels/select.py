@@ -135,7 +135,7 @@ _SIGNATURES = {"cc_select_candidates": [P, P, I, I, I, I, P, LL, P, P, IP, P],
                "cc_select_candidates_lanes": [P, P, I, I, I, P, I, P, LL, P, P, IP, P],
                "cc_select_pooled": [P, P, I, I, I, I, I, P, I, P, P, P, P, LL, P, P, P, IP,
                                     P],
-               "cc_compact_eligible": [P, I, I, P, P, P, P]}
+               "cc_compact_eligible": [P, I, I, P, P, P, IP, P]}
 
 
 def ws_words(L: int, n: int, k: int) -> int:
@@ -397,9 +397,10 @@ def compact_eligible(eligible: torch.Tensor, pad_len: int):
     counts = torch.empty(-(-n // 1024), dtype=torch.int32, device=dev)
     order = torch.empty(pad_len, dtype=torch.int64, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
+    launches = ctypes.c_int(0)
     err = library("select_candidates", _SIGNATURES).cc_compact_eligible(
         ptr(eligible), n, int(pad_len), ptr(counts), ptr(order), ptr(total),
-        stream_ptr())
+        ctypes.byref(launches), stream_ptr())
     check(err, "compact_eligible")
-    KERNEL_COMPACT.count(f"n={n}")
+    KERNEL_COMPACT.count(f"n={n}", launches.value)
     return order, total

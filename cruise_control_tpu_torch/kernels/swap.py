@@ -72,7 +72,7 @@ import dataclasses
 import torch
 
 from cruise_control_tpu_torch.kernels.build import (
-    I, P, check, lane_index, lane_operand, library, ptr, register, stream_ptr,
+    IP, I, P, check, lane_index, lane_operand, library, ptr, register, stream_ptr,
 )
 
 KERNEL_ROWS = register("swap_rows", "cruise_control_tpu_torch/kernels/csrc/swap.cu",
@@ -299,8 +299,8 @@ def swap_admission_plain(val, b_out, b_in, j, p_out, p_in, min_gain: float):
 
 
 _SIGNATURES = {
-    "cc_swap_rows_lanes": [I] * 11 + [F32] + [P] * 32,
-    "cc_swap_admission_lanes": [I, I, F32] + [P] * 8,
+    "cc_swap_rows_lanes": [I] * 11 + [F32] + [P] * 31 + [IP, P],
+    "cc_swap_admission_lanes": [I, I, F32] + [P] * 7 + [IP, P],
 }
 
 _I64, _F32, _BOOL, _I32 = torch.int64, torch.float32, torch.bool, torch.int32
@@ -354,7 +354,8 @@ def _check_stacked(pairs: list, stacked, what: str) -> None:
         raise ValueError(f"{what}: a lane's racks or topic counts are not its stack row")
 
 
-def _rows_launch(pairs: list, tables: list, min_gain: float, stacked, what: str):
+def _rows_launch(pairs: list, tables: list, min_gain: float, stacked, what: str, kernel,
+                 shape: str):
     """The one ``swap_rows`` launch behind both wrappers: La =
     ``len(pairs)`` lanes, the broker racks and (topic, broker) counts read
     from ``stacked``'s rows at its lane index list, or (``stacked`` None)
@@ -409,11 +410,14 @@ def _rows_launch(pairs: list, tables: list, min_gain: float, stacked, what: str)
     best = torch.empty(lead + (K1,), dtype=_F32, device=dev)
     best_j = torch.empty(lead + (K1,), dtype=_I64, device=dev)
     cnt = torch.empty(lead + (K1,), dtype=_I32, device=dev)
+    launches = ctypes.c_int(0)
     err = library("swap", _SIGNATURES).cc_swap_rows_lanes(
         La, K1, K2, F, B, Tn, Kr, int(head_t.family), V,
         int(head_p.topic_up is not None), vkinds, float(min_gain), ptr(lanes_t),
-        *(ptr(x) for x in tensors), ptr(best), ptr(best_j), ptr(cnt), stream_ptr())
+        *(ptr(x) for x in tensors), ptr(best), ptr(best_j), ptr(cnt), ctypes.byref(launches),
+        stream_ptr())
     check(err, what)
+    kernel.count(shape, launches.value)
     return best, best_j, cnt
 
 
@@ -426,9 +430,8 @@ def swap_rows(p: SwapPairs, t: SwapTables, min_gain: float, what: str = "pass"):
     ``swap_rows_lanes``' kernel."""
     if not p.b_out.is_cuda:
         return swap_rows_plain(p, t, min_gain)
-    out = _rows_launch([p], [t], min_gain, None, "swap_rows")
-    KERNEL_ROWS.count(f"{what} [{p.b_out.shape[0]}, {p.b_in.shape[0]}]")
-    return out
+    return _rows_launch([p], [t], min_gain, None, "swap_rows", KERNEL_ROWS,
+                        f"{what} [{p.b_out.shape[0]}, {p.b_in.shape[0]}]")
 
 
 def swap_rows_lanes_plain(pairs: list, tables: list, min_gain: float):
@@ -452,12 +455,13 @@ def swap_rows_lanes(pairs: list, tables: list, min_gain: float, stacked: tuple):
     if not pairs[0].b_out.is_cuda:
         return swap_rows_lanes_plain(pairs, tables, min_gain)
     La, K1 = len(pairs), pairs[0].b_out.shape[0]
-    best, best_j, cnt = _rows_launch(pairs, tables, min_gain, stacked, "swap_rows_lanes")
-    KERNEL_ROWS_LANES.count(f"L={La} [{K1}, {pairs[0].b_in.shape[0]}]")
+    best, best_j, cnt = _rows_launch(pairs, tables, min_gain, stacked, "swap_rows_lanes",
+                                     KERNEL_ROWS_LANES,
+                                     f"L={La} [{K1}, {pairs[0].b_in.shape[0]}]")
     return best.view(La, K1), best_j.view(La, K1), cnt.view(La, K1)
 
 
-def _admission_launch(val, rows: list, min_gain: float, what: str):
+def _admission_launch(val, rows: list, min_gain: float, what: str, kernel, shape: str):
     """The one ``swap_admission`` launch behind both wrappers: ``val`` f32
     and ``rows`` i64, each [K1] (one lane) or [La, K1]."""
     La, n = (1, val.shape[0]) if val.dim() == 1 else val.shape
@@ -467,10 +471,12 @@ def _admission_launch(val, rows: list, min_gain: float, what: str):
     if any(x.shape != val.shape for x in rows):
         raise ValueError(f"{what}: every input has one value per row")
     win = torch.empty(val.shape, dtype=_BOOL, device=val.device)
+    launches = ctypes.c_int(0)
     err = library("swap", _SIGNATURES).cc_swap_admission_lanes(
         La, n, float(min_gain), ptr(val), *(ptr(x) for x in rows), ptr(win),
-        stream_ptr())
+        ctypes.byref(launches), stream_ptr())
     check(err, what)
+    kernel.count(shape, launches.value)
     return win
 
 
@@ -480,10 +486,8 @@ def swap_admission(val, b_out, b_in, j, p_out, p_in, min_gain: float):
     launch of ``swap_admission_lanes``' kernel."""
     if not val.is_cuda:
         return swap_admission_plain(val, b_out, b_in, j, p_out, p_in, min_gain)
-    win = _admission_launch(val, [b_out, b_in, j, p_out, p_in], min_gain,
-                            "swap_admission")
-    KERNEL_ADMISSION.count(f"K1={val.shape[0]}")
-    return win
+    return _admission_launch(val, [b_out, b_in, j, p_out, p_in], min_gain,
+                             "swap_admission", KERNEL_ADMISSION, f"K1={val.shape[0]}")
 
 
 def swap_admission_lanes_plain(val, b_out, b_in, j, p_out, p_in, min_gain: float):
@@ -499,7 +503,6 @@ def swap_admission_lanes(val, b_out, b_in, j, p_out, p_in, min_gain: float):
         return swap_admission_lanes_plain(val, b_out, b_in, j, p_out, p_in, min_gain)
     if val.dim() != 2:
         raise ValueError("swap_admission_lanes: every input is [La, K1]")
-    win = _admission_launch(val, [b_out, b_in, j, p_out, p_in], min_gain,
-                            "swap_admission_lanes")
-    KERNEL_ADMISSION_LANES.count(f"L={val.shape[0]} K1={val.shape[1]}")
-    return win
+    return _admission_launch(val, [b_out, b_in, j, p_out, p_in], min_gain,
+                             "swap_admission_lanes", KERNEL_ADMISSION_LANES,
+                             f"L={val.shape[0]} K1={val.shape[1]}")

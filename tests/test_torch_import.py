@@ -181,6 +181,7 @@ def test_wrappers_on_cpu_tensors_run_the_twin_and_count_no_launch():
     assert set(K.launches()) == {"select_candidates", "compact_eligible",
                                  "move_score_classes", "wave_admission",
                                  "leadership_rows", "segment_sum", "segment_count",
+                                 "segment_counts",
                                  "swap_rows", "swap_admission", "disk_rows",
                                  "disk_apply", "preferred_leader", "replica_keys",
                                  "session_finalize", "select_candidates_masked",
